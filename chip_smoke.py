@@ -1,30 +1,50 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's Glow serving path once on one CUDA card.
+"""Drive the PyTorch port's serving paths once on one CUDA card.
 
     python3 chip_smoke.py
 
-Runs nfdpm_tpu_torch (never JAX, never nfdpm_tpu) at the width of the
-repo's default model: Glow L3/K4, coupling width 512, 32x32x3, batch 64,
-5 bits, with seeded random weights. Phases, one JSON line each:
+Runs nfdpm_tpu_torch (never JAX, never nfdpm_tpu) with seeded random
+weights at the width of the repo's models: the Glow of configs/nf_base.yaml
+and configs/nf_diffusion.yaml (L3/K4, coupling width 512, 32x32x3, batch
+64, 5 bits) and, for stage 2, that flow with the diffusion prior of
+configs/nf_diffusion.yaml (IdentityFormater: three UNets of dim 64,
+dim_mults [1, 2], 8 groups, over the latent parts (16,16,6), (8,8,12),
+(4,4,48); cosine schedule, T = 1000, DDIM-100 with eta 1). Phases, one JSON
+line each:
 
   1. environment: card name and power limit, torch and CUDA versions; both
      TF32 switches must be off;
-  2. build: nvcc compiles csrc/flow_kernels.cu for sm_90a;
+  2. build: nvcc compiles every csrc/*.cu for sm_90a, all at once;
   3. kernels: each CUDA kernel against its plain PyTorch version at every
-     shape the path gives it, plus a ragged case. Times per call: "ms" from
+     shape the paths give it, plus a ragged case. Times per call: "ms" from
      CUDA events around back-to-back calls as the path makes them (Python
      wrapper included), "device_ms" from replays of a CUDA graph of the
      calls (host taken out); the same for the plain version and, where one
      PyTorch call computes the function, for that call; and the bound;
+  Glow path (launch counters zeroed before 4, read after 6):
   4. scoring: bits/dim through inference.make_eval_step, kernel route
      against the plain route (use_kernels=False), within 1e-4;
   5. round trip: inverse(forward(x)) == x within 2e-3;
   6. serving: nfdpm_tpu_torch.serve on 127.0.0.1 answers /health and three
      /generate requests; the launch counters rise by 12 channel_mix and 12
-     coupling_tail_inverse launches per 64-image chunk.
+     coupling_tail_inverse launches per 64-image chunk;
+  stage-2 path (launch counters zeroed before 7, read after 9):
+  7. stage-2 scoring: variational-bound bits/dim of a seeded batch of
+     VLB_BATCH at full T through inference.make_vlb_eval_step, kernel route
+     against plain route, within 1e-3;
+  8. stage-2 sampling: one 64-image DDIM chunk through
+     inference.make_diffusion_sample_fn, kernel route against plain route
+     from the same generator seed: latent gap and share of differing pixels;
+  9. stage-2 serving: the diffusion kind of nfdpm_tpu_torch.serve answers
+     /health and three /generate requests; per 64-image chunk the counters
+     rise by 1200 fused_linear_attention, 12 channel_mix and 12
+     coupling_tail_inverse launches;
+ 10. profile: torch.profiler over a stage-2 sampling chunk and a VLB batch,
+     each cut to 30 UNet calls at the full chains' shapes, on each route:
+     wall and device ms, device busy share, device ms by kernel group and by
+     kernel (nfdpm_tpu_torch.profiling).
 
-The launch counters are zeroed just before phase 4 and read just after
-phase 6. Then come the kernel summary line, the nvidia-smi line and, last,
+Then come the kernel summary line, the nvidia-smi line and, last,
 {"ok": true, "device": {...}}. Any failed check raises and exits non-zero
 before that line. All records are also written to chiprun_out/chip_smoke.json.
 """
@@ -49,6 +69,25 @@ FP32_FLOPS_PER_S = 67e12   # H100 SXM, fp32 outside the tensor cores
 # inverse: add, exp, add, reciprocal, add, div, sub = 7.
 TAIL_OPS, TAIL_INV_OPS = 9, 7
 RECORDS = []
+
+# Stage 2, configs/nf_diffusion.yaml; the keys of a stage-2 run's
+# diffusion_architecture.json (nfdpm_tpu/training/runload.py)
+FORMATER = "IdentityFormater"
+UNET_KWARGS = {"dim": 64, "dim_mults": [1, 2], "resnet_block_groups": 8,
+               "learned_sinusoidal_cond": False, "random_fourier_features": False,
+               "learned_sinusoidal_dim": 16}
+DIFFUSION_KWARGS = {"timesteps": 1000, "sampling_timesteps": 100, "loss_type": "l1",
+                    "beta_schedule": "cosine", "ddim_sampling_eta": 1.0, "scan_unroll": 1,
+                    "sampling_method": "auto", "vlb_time_chunk": 4}
+VLB_BATCH = 8      # images per stage-2 scoring batch: 4 * 8 = 32 rows per UNet call
+FLA_TOL = 1e-4     # kernel vs plain, rtol and atol (tests/test_torch_kernels_cuda.py)
+VLB_TOL = 1e-3     # bits/dim, kernel route vs plain route (ROADMAP's gate)
+# Stage-2 sampling, kernel route vs plain route, same draws: 100 DDIM steps
+# carry the kernels' rounding (sum order) through the chain and the flow's
+# inverse. Measured on an H100 (PERF.md, Findings): latents 3.6e-4 apart,
+# 9.2e-5 of the uint8 pixels differ; the bounds leave about 10x for spread.
+LATENT_TOL = 5e-3
+PIXEL_SHARE_TOL = 1e-3
 
 
 def emit(record: dict) -> None:
@@ -117,6 +156,17 @@ def bound_ms(nbytes: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def host_ms(torch, fn, iters: int = 10) -> float:
+    """Wall ms of one call (host clock around synchronised calls)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
 def level_shapes():
     """(H, W, C) the Glow steps of each level see: [(16,16,12), (8,8,24), (4,4,48)]."""
     shapes, c, s = [], 3, IMG
@@ -143,10 +193,15 @@ def phase_environment(torch, port):
 
 def phase_build(build):
     seconds = build.build()
-    log = build.BUILD_LOG.read_text() if build.BUILD_LOG.exists() else ""
-    ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-    emit({"phase": "build", "seconds": seconds, "library": str(build.LIBRARY.relative_to(ROOT)),
-          "ptxas": ptxas})
+    libraries = {}
+    for name in build.SOURCES:
+        log = build.build_log(name)
+        text = log.read_text() if log.exists() else ""
+        libraries[name] = {
+            "library": str(build.library_path(name).relative_to(ROOT)),
+            "ptxas": [ln.strip() for ln in text.splitlines()
+                      if "registers" in ln or "spill" in ln]}
+    emit({"phase": "build", "seconds": seconds, "libraries": libraries})
 
 
 def phase_kernels(torch, cm, ct):
@@ -226,6 +281,86 @@ def phase_kernels(torch, cm, ct):
     return totals
 
 
+def attention_shapes(torch, dp, device):
+    """(part, block, H, W, C) of every linear-attention call of one UNet
+    evaluation of each part, in call order, read by forward hooks from one
+    batch-1 evaluation."""
+    from nfdpm_tpu_torch.models.unet import LinearAttention
+
+    shapes = []
+    for part, (h, w, c) in enumerate(dp.formater.input_shapes):
+        unet = dp.place(dp.build_unet(part), device)
+        seen = []
+        hooks = [m.register_forward_hook(lambda _m, args, _out: seen.append(args[0].shape))
+                 for m in unet.modules() if isinstance(m, LinearAttention)]
+        with torch.inference_mode():
+            unet(torch.zeros((1, h, w, c), device=device),
+                 torch.zeros((1,), dtype=torch.int64, device=device), use_kernels=False)
+        for hook in hooks:
+            hook.remove()
+        shapes += [(part, block, s[1], s[2], s[3]) for block, s in enumerate(seen)]
+    return shapes
+
+
+def fla_bytes_ops(b: int, n: int, c: int):
+    """Bytes each input read once and the output written once, and the
+    multiply-adds of the block's five contractions (2 flops each):
+    qkv projection, per-head k^T v and q ctx, out-projection."""
+    hidden, dh = 128, 32
+    nbytes = 4 * (2 * b * n * c + 3 * hidden * c + hidden * c + 2 * c)
+    ops = 2 * b * n * (3 * c * hidden + 2 * hidden * dh + hidden * c)
+    return nbytes, ops
+
+
+def phase_attention_kernel(torch, fla, sampling_shapes):
+    """fused_linear_attention against its plain version at the 12 shapes of
+    one sampling step (B = 64), at the VLB shapes (B = 4 * VLB_BATCH) and at
+    a ragged case; returns the summary over one sampling step."""
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    rows_vlb = 4 * VLB_BATCH
+    cases = [("sampling", f"part {p} block {k}", BATCH, h, w, c)
+             for p, k, h, w, c in sampling_shapes]
+    cases += [("vlb", f"part {p} block {k}", rows_vlb, h, w, c)
+              for p, k, h, w, c in sampling_shapes]
+    cases.append(("ragged", "C 20, N 3x5, B 5", 5, 3, 5, 20))
+    timed = ("ms", "plain_ms", "device_ms", "plain_device_ms")
+    tot = dict({t: 0.0 for t in timed}, bytes=0.0, ops=0.0, max_abs_err=0.0)
+    for use, label, b, h, w, c in cases:
+        x = randn(b, h, w, c)
+        w_qkv, w_out = randn(c, 384, scale=c ** -0.5), randn(128, c, scale=128 ** -0.5)
+        b_out, g = randn(c, scale=0.1), 1.0 + randn(c, scale=0.1)
+        args = (x, w_qkv, w_out, b_out, g)
+        y_k, y_p = fla.fused_linear_attention(*args), fla.fused_linear_attention_plain(*args)
+        torch.cuda.synchronize()
+        err = float((y_k - y_p).abs().max())
+        check(torch.allclose(y_k, y_p, rtol=FLA_TOL, atol=FLA_TOL),
+              f"fused_linear_attention differs from its plain version at "
+              f"{tuple(x.shape)}: {err}")
+        times = {"ms": cuda_ms(lambda: fla.fused_linear_attention(*args)),
+                 "plain_ms": cuda_ms(lambda: fla.fused_linear_attention_plain(*args)),
+                 "device_ms": graph_ms(lambda: fla.fused_linear_attention(*args)),
+                 "plain_device_ms": graph_ms(lambda: fla.fused_linear_attention_plain(*args))}
+        nbytes, ops = fla_bytes_ops(b, h * w, c)
+        b_ms, b_by = bound_ms(nbytes, ops)
+        emit({"phase": "kernel", "name": "fused_linear_attention", "use": use,
+              "call": label, "x": [b, h, w, c], "max_abs_err": err, "tolerance": FLA_TOL,
+              **times, "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+              "bytes": nbytes, "ops": ops})
+        tot["max_abs_err"] = max(tot["max_abs_err"], err)
+        if use == "sampling":
+            tot["bytes"] += nbytes
+            tot["ops"] += ops
+            for key in timed:
+                tot[key] += times[key]
+    tot["bound_ms"], tot["bound_by"] = bound_ms(tot["bytes"], tot["ops"])
+    tot["library_ms"] = tot["library_device_ms"] = None
+    return tot
+
+
 ZERO_INIT = ("actnorm", "an1", "an2", "zconv", "conv", "prior")
 ZERO_INIT_SCALES = {"scale": 0.05, "bias": 0.1, "w": 0.02, "b": 0.05, "logs": 0.05}
 
@@ -252,41 +387,95 @@ def randomize_zero_leaves(torch, params, seed: int):
     walk(params, False)
 
 
-def main() -> int:
-    import torch
+def randomize_unet_vectors(torch, unets, seed: int):
+    """Move the UNets' biases and norm gains (init: zeros and ones) by small
+    seeded amounts, so the attention kernel's b_out and g are not trivial."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        for unet in unets:
+            for p in unet.parameters():
+                if p.dim() == 1:
+                    p.add_(torch.randn(p.shape, generator=gen, device=p.device) * 0.05)
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False; this check needs "
-              "one CUDA card", file=sys.stderr)
-        return 1
-    sys.path.insert(0, str(ROOT))
-    import nfdpm_tpu_torch as port
-    from nfdpm_tpu_torch import convert, inference, serve
-    from nfdpm_tpu_torch.models import glow as glow_m
-    from nfdpm_tpu_torch.models import prior as prior_m
-    from nfdpm_tpu_torch.ops.kernels import _build as build
-    from nfdpm_tpu_torch.ops.kernels import channel_mix as cm
-    from nfdpm_tpu_torch.ops.kernels import coupling_tail as ct
 
+def counts(counters) -> dict:
+    return {fn.__name__: fn.launches for fn in counters}
+
+
+def http_request(port_no, method, path, body=None):
+    conn = http.client.HTTPConnection("127.0.0.1", port_no, timeout=600)
+    try:
+        conn.request(method, path, body=None if body is None else json.dumps(body))
+        resp = conn.getresponse()
+        return resp.status, dict(resp.getheaders()), resp.read()
+    finally:
+        conn.close()
+
+
+def serve_and_check(serve, argv, counters, per_chunk: dict, kind: str):
+    """Start the server of `argv` on 127.0.0.1, check /health and three
+    /generate requests (64 with seed 7, the same again, 100 with seed 3):
+    uint8 samples of the right shape, launches of exactly `per_chunk` per
+    64-image chunk, the same bytes for the same seed, other samples for
+    another seed. Returns (warm-up seconds, per-request records)."""
     import numpy as np
 
-    smi = phase_environment(torch, port)
-    phase_build(build)
-    totals = phase_kernels(torch, cm, ct)
+    server = serve.make_server(argv + ["--batch", str(BATCH), "--port", "0"])
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        port_no = server.server_address[1]
+        status, _, body = http_request(port_no, "GET", "/health")
+        health = json.loads(body)
+        check(status == 200 and health["status"] == "ok" and health["kind"] == kind,
+              f"/health failed: {status} {health}")
+        results = []
+        for req in ({"n": 64, "seed": 7}, {"n": 64, "seed": 7}, {"n": 100, "seed": 3}):
+            before = counts(counters)
+            t0 = time.perf_counter()
+            status, headers, body = http_request(port_no, "POST", "/generate", req)
+            wall = time.perf_counter() - t0
+            check(status == 200, f"/generate {req} answered {status}")
+            with np.load(io.BytesIO(body)) as data:
+                samples = data["samples"]
+            check(samples.dtype == np.uint8 and samples.shape == (req["n"], IMG, IMG, 3),
+                  f"/generate {req} gave {samples.dtype} {samples.shape}")
+            chunks = -(-req["n"] // BATCH)
+            after = counts(counters)
+            delta = {k: after[k] - before[k] for k in before}
+            check(delta == {k: v * chunks for k, v in per_chunk.items()},
+                  f"/generate {req}: launch counts {delta} for {chunks} chunk(s)")
+            results.append({"request": req, "wall_s": wall,
+                            "generation_s": float(headers["X-Generation-Seconds"]),
+                            "samples_per_s": req["n"] / float(headers["X-Generation-Seconds"]),
+                            "launches": delta, "samples": samples})
+        check(np.array_equal(results[0]["samples"], results[1]["samples"]),
+              "the same seed gave different samples")
+        check(not np.array_equal(results[0]["samples"][:64], results[2]["samples"][:64]),
+              "different seeds gave the same samples")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    for r in results:
+        r.pop("samples")
+    return server.info["warmup_seconds"], results
+
+
+def glow_path(torch, np, params, counters):
+    """Phases 4-6; returns the launches of the path."""
+    from nfdpm_tpu_torch import convert, inference, serve
+    from nfdpm_tpu_torch.models import glow as glow_m
 
     device = torch.device("cuda")
     cfg = glow_m.GlowConfig(levels=LEVELS, steps=STEPS, coupling_width=WIDTH)
     plain_cfg = glow_m.GlowConfig(levels=LEVELS, steps=STEPS, coupling_width=WIDTH,
                                   use_kernels=False)
-    params = {"flow": glow_m.init_glow(0, cfg, device),
-              "prior": prior_m.init_gaussian_prior(glow_m.final_channels(cfg), True, device)}
-    randomize_zero_leaves(torch, params, seed=1)
     imgs = np.random.default_rng(2).integers(0, 256, (BATCH, IMG, IMG, 3), dtype=np.uint8)
     batch = torch.from_numpy(imgs.astype(np.float32) / 255.0).to(device)
     noise = torch.rand(batch.shape, generator=torch.Generator(device="cuda").manual_seed(3),
                        device=device)
 
-    counters = (cm.channel_mix, ct.coupling_tail, ct.coupling_tail_inverse)
     for fn in counters:
         fn.launches = 0
 
@@ -298,22 +487,12 @@ def main() -> int:
           "bits/dim not finite or of the wrong shape")
     gap = float((bpd_k - bpd_p).abs().max())
     check(gap <= 1e-4, f"kernel and plain bits/dim differ by {gap}")
-    launches_fwd = {fn.__name__: fn.launches for fn in counters}
+    launches_fwd = counts(counters)
     check(launches_fwd == {"channel_mix": 3 * STEPS, "coupling_tail": 3 * STEPS,
-                           "coupling_tail_inverse": 0},
+                           "coupling_tail_inverse": 0, "fused_linear_attention": 0},
           f"one forward launched {launches_fwd}")
-
-    def host_ms(fn, iters=10):
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) / iters * 1e3
-
-    ms_k = host_ms(lambda: eval_k(params, batch, noise=noise))
-    ms_p = host_ms(lambda: eval_p(params, batch, noise=noise))
+    ms_k = host_ms(torch, lambda: eval_k(params, batch, noise=noise))
+    ms_p = host_ms(torch, lambda: eval_p(params, batch, noise=noise))
     emit({"phase": "scoring", "bpd_mean": float(bpd_k.mean()), "max_bpd_gap": gap,
           "tolerance": 1e-4, "ms_per_batch": ms_k, "plain_ms_per_batch": ms_p,
           "batch": BATCH, "launches_one_forward": launches_fwd})
@@ -332,76 +511,245 @@ def main() -> int:
     weights = ROOT / "build" / "chip_smoke" / "glow.npz"
     weights.parent.mkdir(parents=True, exist_ok=True)
     convert.save_npz(weights, convert.to_jax_params(params))
-    server = serve.make_server(["--weights", str(weights), "--levels", str(LEVELS),
-                                "--steps", str(STEPS), "--width", str(WIDTH),
-                                "--img-size", str(IMG), "--n-bits", str(N_BITS),
-                                "--batch", str(BATCH), "--port", "0"])
-    thread = threading.Thread(target=server.serve_forever, daemon=True)
-    thread.start()
-    try:
-        port_no = server.server_address[1]
+    warmup, results = serve_and_check(
+        serve, ["--weights", str(weights), "--levels", str(LEVELS), "--steps", str(STEPS),
+                "--width", str(WIDTH), "--img-size", str(IMG), "--n-bits", str(N_BITS)],
+        counters, {"channel_mix": 12, "coupling_tail": 0, "coupling_tail_inverse": 12,
+                   "fused_linear_attention": 0}, "gaussian")
+    launches = counts(counters)
+    emit({"phase": "serving", "warmup_s": warmup, "requests": results,
+          "main_path_launches": launches})
+    for name in ("channel_mix", "coupling_tail", "coupling_tail_inverse"):
+        check(launches[name] > 0, f"{name} was never launched on the Glow path")
+    return launches
 
-        def request(method, path, body=None):
-            conn = http.client.HTTPConnection("127.0.0.1", port_no, timeout=300)
-            try:
-                conn.request(method, path, body=None if body is None else json.dumps(body))
-                resp = conn.getresponse()
-                return resp.status, dict(resp.getheaders()), resp.read()
-            finally:
-                conn.close()
 
-        status, _, body = request("GET", "/health")
-        check(status == 200 and json.loads(body)["status"] == "ok", "/health failed")
-        results = []
-        for req in ({"n": 64, "seed": 7}, {"n": 64, "seed": 7}, {"n": 100, "seed": 3}):
-            before = {fn.__name__: fn.launches for fn in counters}
-            t0 = time.perf_counter()
-            status, headers, body = request("POST", "/generate", req)
-            wall = time.perf_counter() - t0
-            check(status == 200, f"/generate {req} answered {status}")
-            with np.load(io.BytesIO(body)) as data:
-                samples = data["samples"]
-            check(samples.dtype == np.uint8 and samples.shape == (req["n"], IMG, IMG, 3),
-                  f"/generate {req} gave {samples.dtype} {samples.shape}")
-            chunks = -(-req["n"] // BATCH)
-            delta = {k: fn.launches - before[k] for k, fn in
-                     zip(before, counters)}
-            check(delta == {"channel_mix": 12 * chunks, "coupling_tail": 0,
-                            "coupling_tail_inverse": 12 * chunks},
-                  f"/generate {req}: launch counts {delta} for {chunks} chunk(s)")
-            results.append({"request": req, "wall_s": wall,
-                            "generation_s": float(headers["X-Generation-Seconds"]),
-                            "samples_per_s": req["n"] / float(headers["X-Generation-Seconds"]),
-                            "launches": delta, "samples": samples})
-        check(np.array_equal(results[0]["samples"], results[1]["samples"]),
-              "the same seed gave different samples")
-        check(not np.array_equal(results[0]["samples"][:64], results[2]["samples"][:64]),
-              "different seeds gave the same samples")
-    finally:
-        server.shutdown()
-        server.server_close()
-        thread.join(timeout=30)
-    launches = {fn.__name__: fn.launches for fn in counters}
-    for r in results:
-        r.pop("samples")
-    emit({"phase": "serving", "warmup_s": server.info["warmup_seconds"],
-          "requests": results, "main_path_launches": launches})
-    for name, n in launches.items():
-        check(n > 0, f"{name} was never launched on the main path")
+def stage2_prior(use_kernels: bool = True, **diffusion_overrides):
+    from nfdpm_tpu_torch.models import formaters
+    from nfdpm_tpu_torch.models.diffusion_prior import DiffusionPrior
 
-    sources = {"channel_mix": "nfdpm_tpu/ops/pallas/channel_mix.py:70",
-               "coupling_tail": "nfdpm_tpu/ops/pallas/coupling_tail.py:75",
-               "coupling_tail_inverse": "nfdpm_tpu/ops/pallas/coupling_tail.py:127"}
-    kernels = [{"name": name, "route": "cuda",
-                "source": "nfdpm_tpu_torch/ops/kernels/csrc/flow_kernels.cu",
-                "replaces": sources[name], "launches": launches[name],
-                "max_abs_err": tot["max_abs_err"], "ms": tot["ms"],
-                "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
-                "bound_by": tot["bound_by"], "library_ms": tot["library_ms"],
-                "device_ms": tot["device_ms"], "plain_device_ms": tot["plain_device_ms"],
-                "library_device_ms": tot["library_device_ms"],
-                "per": "one pass: 4 launches at each of the 3 level shapes"}
-               for name, tot in totals.items()]
+    formater = formaters.get_formater(FORMATER)(L=LEVELS, in_channels=3, size=IMG)
+    ukw = dict(UNET_KWARGS, dim_mults=tuple(UNET_KWARGS["dim_mults"]))
+    return DiffusionPrior(formater, ukw, dict(DIFFUSION_KWARGS, **diffusion_overrides),
+                          use_kernels=use_kernels)
+
+
+def stage2_model(torch, flow):
+    """(backbone, prior, plain backbone, plain prior, params): the stage-2
+    model over `flow`, its UNets seeded, both routes sharing the weights."""
+    from nfdpm_tpu_torch.models import glow as glow_m
+    from nfdpm_tpu_torch.models.nf_backbone import NFBackbone
+
+    routes = []
+    for use_kernels in (True, False):
+        cfg = glow_m.GlowConfig(levels=LEVELS, steps=STEPS, coupling_width=WIDTH,
+                                use_kernels=use_kernels)
+        routes += [NFBackbone(cfg=cfg, img_size=IMG), stage2_prior(use_kernels)]
+    diffusion = routes[1].init_params(seed=5, device="cuda")
+    randomize_unet_vectors(torch, diffusion["parts"], seed=6)
+    return (*routes, {"flow": flow, "prior": {}, "diffusion": diffusion})
+
+
+def stage2_path(torch, np, flow, counters):
+    """Phases 7-9; returns (the launches of the path, the stage-2 model)."""
+    from nfdpm_tpu_torch import convert, inference, serve
+
+    device = torch.device("cuda")
+    backbone, dp, backbone_p, dp_p, params = stage2_model(torch, flow)
+    blocks = 2 * len(UNET_KWARGS["dim_mults"])  # linear-attention blocks per UNet
+    parts, steps = dp.num_parts, DIFFUSION_KWARGS["sampling_timesteps"]
+    chunk = DIFFUSION_KWARGS["vlb_time_chunk"]
+    vlb_calls = -(-DIFFUSION_KWARGS["timesteps"] // chunk)
+    imgs = np.random.default_rng(8).integers(0, 256, (VLB_BATCH, IMG, IMG, 3), dtype=np.uint8)
+    batch = torch.from_numpy(imgs.astype(np.float32) / 255.0).to(device)
+
+    for fn in counters:
+        fn.launches = 0
+
+    # 7. stage-2 scoring
+    vlb_k = inference.make_vlb_eval_step(backbone, dp, N_BITS, device=device)
+    vlb_p = inference.make_vlb_eval_step(backbone_p, dp_p, N_BITS, device=device)
+    out = {}
+    for route, step in (("kernels", vlb_k), ("plain", vlb_p)):
+        before = counts(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bpd = step(params, batch, generator=torch.Generator(device="cuda").manual_seed(9))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        after = counts(counters)
+        out[route] = (bpd, ms, {k: after[k] - before[k] for k in before})
+    (bpd_k, ms_k, launches_k), (bpd_p, ms_p, launches_p) = out["kernels"], out["plain"]
+    check(bool(torch.isfinite(bpd_k).all()) and tuple(bpd_k.shape) == (VLB_BATCH,),
+          "stage-2 bits/dim not finite or of the wrong shape")
+    gap = float((bpd_k - bpd_p).abs().max())
+    check(gap <= VLB_TOL, f"kernel and plain stage-2 bits/dim differ by {gap}")
+    check(launches_k == {"channel_mix": 3 * STEPS, "coupling_tail": 3 * STEPS,
+                         "coupling_tail_inverse": 0,
+                         "fused_linear_attention": parts * vlb_calls * blocks},
+          f"one VLB batch launched {launches_k}")
+    check(not any(launches_p.values()), f"the plain route launched {launches_p}")
+    emit({"phase": "stage2_scoring", "batch": VLB_BATCH, "timesteps":
+          DIFFUSION_KWARGS["timesteps"], "vlb_time_chunk": chunk,
+          "bpd": bpd_k.tolist(), "bpd_plain": bpd_p.tolist(), "max_bpd_gap": gap,
+          "tolerance": VLB_TOL, "ms_per_batch": ms_k, "plain_ms_per_batch": ms_p,
+          "launches_per_batch": launches_k})
+
+    # 8. stage-2 sampling
+    sample_k = inference.make_diffusion_sample_fn(backbone, dp, N_BITS, device)
+    sample_p = inference.make_diffusion_sample_fn(backbone_p, dp_p, N_BITS, device)
+    out = {}
+    for route, sample in (("kernels", sample_k), ("plain", sample_p)):
+        before = counts(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        images, latents = sample(params, BATCH, return_latents=True,
+                                 generator=torch.Generator(device="cuda").manual_seed(10))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        after = counts(counters)
+        out[route] = (images, latents, ms, {k: after[k] - before[k] for k in before})
+    (img_k, lat_k, ms_k, launches_k), (img_p, lat_p, ms_p, _) = out["kernels"], out["plain"]
+    check(img_k.dtype == torch.uint8 and tuple(img_k.shape) == (BATCH, IMG, IMG, 3),
+          f"stage-2 samples are {img_k.dtype} {tuple(img_k.shape)}")
+    check([tuple(z.shape[1:]) for z in lat_k] == list(dp.formater.input_shapes)
+          and all(bool(torch.isfinite(z).all()) for z in lat_k),
+          "stage-2 latents not finite or of the wrong shapes")
+    per_chunk = {"channel_mix": 3 * STEPS, "coupling_tail": 0,
+                 "coupling_tail_inverse": 3 * STEPS,
+                 "fused_linear_attention": parts * steps * blocks}
+    check(launches_k == per_chunk, f"one 64-image chunk launched {launches_k}")
+    latent_gap = max(float((a - b).abs().max()) for a, b in zip(lat_k, lat_p))
+    pixels = img_k.to(torch.int16) - img_p.to(torch.int16)
+    pixel_share = float((pixels != 0).float().mean())
+    check(latent_gap <= LATENT_TOL, f"kernel and plain latents differ by {latent_gap}")
+    check(pixel_share <= PIXEL_SHARE_TOL,
+          f"{pixel_share} of the kernel and plain pixels differ")
+    emit({"phase": "stage2_sampling", "batch": BATCH, "sampler": "ddim",
+          "sampling_timesteps": steps, "max_latent_gap": latent_gap,
+          "latent_tolerance": LATENT_TOL, "differing_pixel_share": pixel_share,
+          "max_pixel_diff": int(pixels.abs().max()), "pixel_share_tolerance": PIXEL_SHARE_TOL,
+          "latent_abs_max": [float(z.abs().max()) for z in lat_k],
+          "ms_per_chunk": ms_k, "plain_ms_per_chunk": ms_p,
+          "images_per_s": BATCH / ms_k * 1e3, "plain_images_per_s": BATCH / ms_p * 1e3,
+          "launches_per_chunk": launches_k})
+
+    # 9. stage-2 serving
+    weights = ROOT / "build" / "chip_smoke" / "diffusion.npz"
+    arch = weights.with_name("diffusion_architecture.json")
+    weights.parent.mkdir(parents=True, exist_ok=True)
+    convert.save_npz(weights, convert.diffusion_to_jax_params(params))
+    arch.write_text(json.dumps({
+        "kind": "diffusion_prior",
+        "flow": {"L": LEVELS, "K": STEPS, "in_channels": 3, "coupling_width": WIDTH,
+                 "learn_prior": True, "invconv_param": "plu", "img_size": IMG},
+        "formater": FORMATER, "formater_stats": None, "unet_kwargs": UNET_KWARGS,
+        "diffusion_kwargs": DIFFUSION_KWARGS, "frozen": True, "n_bits": N_BITS,
+        "temperature": 1.0}, indent=1))
+    warmup, results = serve_and_check(serve, ["--weights", str(weights), "--arch", str(arch)],
+                                      counters, per_chunk, "diffusion")
+    launches = counts(counters)
+    emit({"phase": "stage2_serving", "warmup_s": warmup, "requests": results,
+          "main_path_launches": launches})
+    check(launches["fused_linear_attention"] > 0,
+          "fused_linear_attention was never launched on the stage-2 path")
+    return launches, (backbone, dp, backbone_p, dp_p, params, batch)
+
+
+PROFILE_SAMPLING_STEPS = 10  # DDIM-10 chunk: 30 UNet calls at batch 64
+PROFILE_TIMESTEPS = 40       # VLB at T = 40: 30 UNet calls at 4 * VLB_BATCH rows
+
+
+def phase_profile(torch, model):
+    """Where the time goes in stage-2 sampling and scoring, on each route.
+    The chains are cut to 30 UNet calls each (PROFILE_*), every call at the
+    shapes of the full chains, so that the profiler's event list stays
+    small; per UNet call the work is that of the full chains."""
+    from nfdpm_tpu_torch import inference
+    from nfdpm_tpu_torch.profiling import profile_call
+
+    backbone, _, backbone_p, _, params, batch = model
+    device = torch.device("cuda")
+    for route, bb in (("kernels", backbone), ("plain", backbone_p)):
+        use_kernels = route == "kernels"
+        sample = inference.make_diffusion_sample_fn(
+            bb, stage2_prior(use_kernels, sampling_timesteps=PROFILE_SAMPLING_STEPS),
+            N_BITS, device)
+        vlb = inference.make_vlb_eval_step(
+            bb, stage2_prior(use_kernels, timesteps=PROFILE_TIMESTEPS,
+                             sampling_timesteps=PROFILE_TIMESTEPS), N_BITS, device=device)
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        chunk = DIFFUSION_KWARGS["vlb_time_chunk"]
+        work = {"sample": (lambda: sample(params, BATCH, generator=gen), BATCH,
+                           f"DDIM-{PROFILE_SAMPLING_STEPS} chunk",
+                           LEVELS * PROFILE_SAMPLING_STEPS),
+                "score": (lambda: vlb(params, batch, generator=gen), VLB_BATCH,
+                          f"VLB batch at T = {PROFILE_TIMESTEPS}",
+                          LEVELS * -(-PROFILE_TIMESTEPS // chunk))}
+        for path, (fn, n, what, unet_calls) in work.items():
+            rec = profile_call(fn, iters=1, warmup=1)
+            emit({"phase": "profile", "path": path, "route": route, "batch": n,
+                  "what": what, "unet_calls": unet_calls, **rec})
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this check needs "
+              "one CUDA card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    import nfdpm_tpu_torch as port
+    from nfdpm_tpu_torch.models import glow as glow_m
+    from nfdpm_tpu_torch.models import prior as prior_m
+    from nfdpm_tpu_torch.ops.kernels import _build as build
+    from nfdpm_tpu_torch.ops.kernels import channel_mix as cm
+    from nfdpm_tpu_torch.ops.kernels import coupling_tail as ct
+    from nfdpm_tpu_torch.ops.kernels import fused_linear_attention as fla
+
+    import numpy as np
+
+    smi = phase_environment(torch, port)
+    phase_build(build)
+    totals = phase_kernels(torch, cm, ct)
+
+    device = torch.device("cuda")
+    cfg = glow_m.GlowConfig(levels=LEVELS, steps=STEPS, coupling_width=WIDTH)
+    params = {"flow": glow_m.init_glow(0, cfg, device),
+              "prior": prior_m.init_gaussian_prior(glow_m.final_channels(cfg), True, device)}
+    randomize_zero_leaves(torch, params, seed=1)
+    totals["fused_linear_attention"] = phase_attention_kernel(
+        torch, fla, attention_shapes(torch, stage2_prior(), device))
+
+    counters = (cm.channel_mix, ct.coupling_tail, ct.coupling_tail_inverse,
+                fla.fused_linear_attention)
+    launches = {"glow": glow_path(torch, np, params, counters)}
+    launches["stage2"], model = stage2_path(torch, np, params["flow"], counters)
+    phase_profile(torch, model)
+
+    per = {"fused_linear_attention": "one UNet evaluation of each of the three parts at "
+                                     "batch 64 (one DDIM step): 12 launches"}
+    sources = {"channel_mix": ("flow_kernels.cu", "nfdpm_tpu/ops/pallas/channel_mix.py:70"),
+               "coupling_tail": ("flow_kernels.cu", "nfdpm_tpu/ops/pallas/coupling_tail.py:75"),
+               "coupling_tail_inverse": ("flow_kernels.cu",
+                                         "nfdpm_tpu/ops/pallas/coupling_tail.py:127"),
+               "fused_linear_attention": (
+                   "linear_attention.cu", "nfdpm_tpu/ops/pallas/fused_linear_attention.py:164")}
+    kernels = []
+    for name, tot in totals.items():
+        by_path = {path: n[name] for path, n in launches.items()}
+        source, replaces = sources[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"nfdpm_tpu_torch/ops/kernels/csrc/{source}", "replaces": replaces,
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": tot["max_abs_err"], "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+            "bound_ms": tot["bound_ms"], "bound_by": tot["bound_by"],
+            "library_ms": tot["library_ms"], "device_ms": tot["device_ms"],
+            "plain_device_ms": tot["plain_device_ms"],
+            "library_device_ms": tot["library_device_ms"],
+            "per": per.get(name, "one pass: 4 launches at each of the 3 level shapes")})
     summary = {"kernels": kernels}
     RECORDS.append(summary)
     out = ROOT / "chiprun_out" / "chip_smoke.json"

@@ -10,11 +10,15 @@ Subpackages and modules
 -----------------------
 ops        : quantization, zeroconv, the coupling CNN, Glow bijectors and
              the CUDA kernels (ops/kernels/).
-models     : Glow and its Gaussian prior.
-convert    : weight bridge from the JAX package's parameter trees, and the
-             .npz weight format.
-inference  : bits/dim scoring and sampling (the serving path).
-serve      : HTTP generation server for a Glow model.
+models     : Glow and its Gaussian prior; the stage-2 diffusion prior (UNet,
+             Gaussian diffusion, formaters, the per-part prior, the flow as
+             its backbone).
+convert    : weight bridge from the JAX package's parameter trees (Glow and
+             flax UNet), and the .npz weight format.
+inference  : bits/dim scoring and sampling of both kinds (the serving path).
+serve      : HTTP generation server for a Glow model or a Glow with a
+             diffusion prior.
+profiling  : device time by kernel of a call, through torch.profiler.
 """
 
 from __future__ import annotations

@@ -160,14 +160,171 @@ def save_npz(path, tree: Dict[str, Any]) -> None:
     np.savez(path, **flat)
 
 
+def _unflatten(flat: Dict[str, Any]) -> Dict[str, Any]:
+    """{"a/b/c": leaf} -> {"a": {"b": {"c": leaf}}}."""
+    root: Dict[str, Any] = {}
+    for key, value in flat.items():
+        node = root
+        *parents, leaf = key.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = value
+    return root
+
+
 def load_npz(path) -> Dict[str, Any]:
     """Read a tree written by `save_npz` (numpy leaves, tuples for indices)."""
-    root: Dict[str, Any] = {}
     with np.load(path) as data:
-        for key in data.files:
-            node = root
-            *parents, leaf = key.split("/")
-            for p in parents:
-                node = node.setdefault(p, {})
-            node[leaf] = data[key]
-    return _as_sequences(root)
+        return _as_sequences(_unflatten({key: data[key] for key in data.files}))
+
+
+# ---------------------------------------------------------------------------
+# UNet: flax parameter tree <-> models/unet.py modules
+# ---------------------------------------------------------------------------
+
+def _unet_layout(unet) -> Dict[str, tuple]:
+    """flax path -> (the port's parameter name, kind) for every leaf of the
+    JAX package's Unet (nfdpm_tpu/models/unet.py) with `unet`'s structure.
+
+    flax names submodules by class and call order within the scope that
+    calls them. `PreNormResidual(LinearAttention(...))` is built in the Unet
+    scope, so the attention's parameters sit beside the pre-norm, not under
+    it: PreNormResidual_k counts every pre-normed block (the mid attention
+    too), LinearAttention_j only the linear ones. The Unet's own convs are
+    Conv_0 (init), then the last down level's and the last up level's 3x3,
+    then the final 1x1. Kinds: "conv" HWIO <-> OIHW, "dense" [in, out] <->
+    [out, in], "mat" (1, 1, in, out) <-> [in, out], "vec" as is."""
+    layout: Dict[str, tuple] = {}
+    convs = iter(range(4))
+
+    def conv(flax, name):
+        layout[f"{flax}/kernel"] = (f"{name}.weight", "conv")
+        layout[f"{flax}/bias"] = (f"{name}.bias", "vec")
+
+    def dense(flax, name):
+        layout[f"{flax}/kernel"] = (f"{name}.weight", "dense")
+        layout[f"{flax}/bias"] = (f"{name}.bias", "vec")
+
+    def res(flax, name, block):
+        dense(f"{flax}/Dense_0", f"{name}.time_dense")
+        for j in (0, 1):
+            conv(f"{flax}/Block_{j}/WeightStandardizedConv_0", f"{name}.block{j}.conv")
+            layout[f"{flax}/Block_{j}/GroupNorm_0/scale"] = (f"{name}.block{j}.norm.weight", "vec")
+            layout[f"{flax}/Block_{j}/GroupNorm_0/bias"] = (f"{name}.block{j}.norm.bias", "vec")
+        if block.res_conv is not None:
+            conv(f"{flax}/Conv_0", f"{name}.res_conv")
+
+    def attention(flax, name, linear):
+        layout[f"{flax}/Conv_0/kernel"] = (f"{name}.w_qkv", "mat")
+        layout[f"{flax}/Conv_1/kernel"] = (f"{name}.w_out", "mat")
+        layout[f"{flax}/Conv_1/bias"] = (f"{name}.b_out", "vec")
+        if linear:
+            layout[f"{flax}/ChannelLayerNorm_0/g"] = (f"{name}.g", "vec")
+
+    prenorms, linears = iter(range(2 * len(unet.downs) + 1)), iter(range(2 * len(unet.downs)))
+
+    def prenorm_attention(name, linear):
+        layout[f"PreNormResidual_{next(prenorms)}/ChannelLayerNorm_0/g"] = (f"{name}.norm.g", "vec")
+        attention(f"LinearAttention_{next(linears)}" if linear else "Attention_0",
+                  f"{name}.fn", linear)
+
+    conv(f"Conv_{next(convs)}", "init_conv")
+    if hasattr(unet.time_pos, "weights"):
+        layout["RandomOrLearnedSinusoidalPosEmb_0/weights"] = ("time_pos.weights", "vec")
+    dense("Dense_0", "time_dense0")
+    dense("Dense_1", "time_dense1")
+    for sides, side in ((unet.downs, "down"), (unet.ups, "up")):
+        for i, level in enumerate(sides):
+            if side == "up" and i == 0:  # the middle comes between the two paths
+                res("mid_res1", "mid_res1", unet.mid_res1)
+                prenorm_attention("mid_attn", linear=False)
+                res("mid_res2", "mid_res2", unet.mid_res2)
+            for r in ("res1", "res2"):
+                res(f"{side}_{i}_{r}", f"{side}s.{i}.{r}", level[r])
+            prenorm_attention(f"{side}s.{i}.attn", linear=True)
+            if i == len(sides) - 1:
+                conv(f"Conv_{next(convs)}", f"{side}s.{i}.{side}")
+            else:
+                sampler = "Downsample" if side == "down" else "Upsample"
+                conv(f"{sampler}_{i}/Conv_0", f"{side}s.{i}.{side}.conv")
+    res("final_res", "final_res", unet.final_res)
+    conv(f"Conv_{next(convs)}", "final_conv")
+    return layout
+
+
+def _leaf_from_flax(a: np.ndarray, kind: str) -> np.ndarray:
+    if kind == "conv":
+        return _hwio_to_oihw(a)
+    if kind == "dense":
+        return np.ascontiguousarray(a.T)
+    if kind == "mat":
+        return np.ascontiguousarray(a.reshape(a.shape[-2], a.shape[-1]))
+    return a
+
+
+def _leaf_to_flax(a: np.ndarray, kind: str) -> np.ndarray:
+    if kind == "conv":
+        return _oihw_to_hwio(a)
+    if kind == "dense":
+        return np.ascontiguousarray(a.T)
+    if kind == "mat":
+        return a.reshape(1, 1, *a.shape)
+    return a
+
+
+def unet_from_flax(unet, tree: Dict[str, Any]):
+    """Fill `unet` (models/unet.py) from a flax Unet parameter tree, in
+    place. Strict: raises KeyError when the tree has a leaf the module
+    structure does not, or lacks one it has, and ValueError on a shape
+    mismatch; every module parameter is assigned. Returns `unet`."""
+    flat: Dict[str, np.ndarray] = {}
+    _flatten(tree, "", flat)
+    layout = _unet_layout(unet)
+    params = dict(unet.named_parameters())
+    extra, missing = sorted(set(flat) - set(layout)), sorted(set(layout) - set(flat))
+    if extra or missing:
+        raise KeyError(f"flax UNet tree does not match the module: extra leaves "
+                       f"{extra}, missing leaves {missing}")
+    unassigned = sorted(set(params) - {name for name, _ in layout.values()})
+    if unassigned:
+        raise KeyError(f"module parameters with no flax leaf: {unassigned}")
+    with torch.no_grad():
+        for path, (name, kind) in layout.items():
+            a = _leaf_from_flax(flat[path], kind)
+            p = params[name]
+            if tuple(a.shape) != tuple(p.shape):
+                raise ValueError(f"{path} {tuple(a.shape)} does not fit {name} "
+                                 f"{tuple(p.shape)}")
+            p.copy_(torch.from_numpy(np.asarray(a, np.float32)))
+    return unet
+
+
+def unet_to_flax(unet) -> Dict[str, Any]:
+    """The module's parameters as the flax Unet tree (numpy, host)."""
+    params = dict(unet.named_parameters())
+    return _unflatten({path: _leaf_to_flax(_to_numpy(params[name]), kind)
+                       for path, (name, kind) in _unet_layout(unet).items()})
+
+
+def diffusion_from_jax_params(tree: Dict[str, Any], dp, device=None) -> Dict[str, Any]:
+    """A stage-2 tree {"flow", "prior" (optional), "diffusion": {"parts":
+    (p_0, ...)}} of numpy arrays -> {"flow", "prior", "diffusion": {"parts":
+    [Unet, ...]}} on `device` (CUDA unless named); `dp` is the
+    models/diffusion_prior.DiffusionPrior the UNets belong to."""
+    device = resolve_device(device)
+    parts = tree["diffusion"]["parts"]
+    if len(parts) != dp.num_parts:
+        raise ValueError(f"{len(parts)} UNet trees for a prior of {dp.num_parts} parts")
+    unets = [dp.place(unet_from_flax(dp.build_unet(i), p), device)
+             for i, p in enumerate(parts)]
+    params = from_jax_params({"flow": tree["flow"], "prior": tree.get("prior")}, device)
+    params["diffusion"] = {"parts": unets}
+    return params
+
+
+def diffusion_to_jax_params(params: Dict[str, Any]) -> Dict[str, Any]:
+    """The inverse of `diffusion_from_jax_params`: numpy, JAX layout, ready
+    for `save_npz`."""
+    tree = to_jax_params(params)
+    tree["diffusion"] = {"parts": tuple(unet_to_flax(u) for u in params["diffusion"]["parts"])}
+    return tree

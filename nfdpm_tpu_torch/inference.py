@@ -1,15 +1,22 @@
-"""Scoring and sampling for a Glow model: the serving path.
+"""Scoring and sampling: the serving path of a Glow model and of a Glow
+with a diffusion prior (stage 2).
 
 Counterparts of nfdpm_tpu/training/nf_trainer.py:make_eval_step and
-make_sample_fn, and of tools/generate_samples.py:generate_batched.
+make_sample_fn, of diffusion_trainer.py:make_sample_fn and the per-batch
+step of calculate_bpd_with_diff_prior, and of
+tools/generate_samples.py:generate_batched.
 
     score : quantize -> dequantize -> glow.forward -> prior logp -> bits/dim
     sample: prior sample -> glow.inverse (split parts from their priors)
             -> postprocess to uint8
+    stage-2 score : quantize -> dequantize -> glow.forward (no split priors)
+            -> diffusion VLB of the latent parts -> bits/dim
+    stage-2 sample: per-part diffusion chains -> formater.postprocess
+            -> glow.inverse with every part given -> postprocess to uint8
 
-Both make_* functions resolve their device (CUDA unless the caller names another)
-and turn TF32 off, so that the coupling CNN's cuDNN convolutions run in
-full fp32 as the JAX reference does.
+Every make_* function resolves its device (CUDA unless the caller names
+another) and turns TF32 off, so that the cuDNN convolutions (the coupling
+CNN, the UNet) run in full fp32 as the JAX reference does.
 """
 
 from __future__ import annotations
@@ -22,6 +29,8 @@ import torch
 from . import disable_tf32, resolve_device
 from .models import glow as glow_m
 from .models import prior as prior_m
+from .models.diffusion_prior import DiffusionPrior
+from .models.nf_backbone import NFBackbone
 from .ops import quantize as q
 
 
@@ -90,6 +99,72 @@ def make_sample_fn(cfg: glow_m.GlowConfig, img_size: int, n_bits: int = 5,
 
     sample.device = device
     return sample
+
+
+def make_diffusion_sample_fn(backbone: NFBackbone, dp: DiffusionPrior, n_bits: int = 5,
+                             device=None):
+    """Stage-2 sampler: returns sample(params, n, temperature=1.0,
+    generator=None, noise=None, return_latents=False) -> uint8 [n, H, W, C]
+    on the device (and the latent parts, when asked). `params` is
+    {"flow", "diffusion": {"parts": [Unet, ...]}}; `noise[i]` is part i's
+    injected chain noise (models/diffusion.py), otherwise every draw comes
+    from `generator`. The flow inverse gets every latent part, so
+    `temperature` changes nothing, as in the JAX package."""
+    device = resolve_device(device)
+    disable_tf32()
+
+    @torch.inference_mode()
+    def sample(params, n: int, temperature: float = 1.0,
+               generator: Optional[torch.Generator] = None,
+               noise: Optional[Sequence[Sequence[torch.Tensor]]] = None,
+               return_latents: bool = False):
+        if noise is not None:
+            noise = [[_on(device, e) for e in part] for part in noise]
+        elif generator is None:
+            raise ValueError("sample needs a generator or noise")
+        latents = dp.sample_latents(params["diffusion"], n, generator, noise)
+        x = backbone.invert(params["flow"], latents, temperature=temperature)
+        images = q.postprocess(x, n_bits)
+        return (images, latents) if return_latents else images
+
+    sample.device = device
+    return sample
+
+
+def make_vlb_eval_step(backbone: NFBackbone, dp: DiffusionPrior, n_bits: int = 5,
+                       compat_three_channel_bpd: bool = True, device=None):
+    """Per-example variational-bound bits/dim of flow + diffusion prior:
+    [log(n_bins) n_pixel - (ldj - prior VLB nats)] log2(e) / n_pixel.
+
+    Returns eval_step(params, batch, generator=None, noise=None,
+    vlb_noise=None) -> bpd [B] for images `batch` in [0, 1], [B, H, W, C].
+    `noise` is the U(0, 1) dequantization draw and `vlb_noise[i][t]` part
+    i's N(0, 1) draw at timestep t; what is not given comes from
+    `generator`."""
+    device = resolve_device(device)
+    disable_tf32()
+    n_bins = q.n_bins_of(n_bits)
+    n_pixel = prior_m.n_pixels(backbone.img_size, backbone.cfg.in_channels,
+                               compat_three_channel_bpd)
+
+    @torch.inference_mode()
+    def eval_step(params, batch, generator: Optional[torch.Generator] = None,
+                  noise=None, vlb_noise=None):
+        if generator is None and (noise is None or vlb_noise is None):
+            raise ValueError("eval_step needs a generator or all of its noise")
+        batch = _on(device, batch)
+        if noise is not None:
+            noise = _on(device, noise)
+        if vlb_noise is not None:
+            vlb_noise = [[_on(device, e) for e in part] for part in vlb_noise]
+        x = q.preprocess(batch, n_bits)
+        x = q.dequantize(generator, x, n_bits, noise)
+        latents, ldj = backbone.transform(params["flow"], x)
+        ll = ldj - dp.neg_log_likelihood_nats(params["diffusion"], latents, generator,
+                                              vlb_noise)
+        return (np.log(n_bins) * n_pixel - ll) * (np.log2(np.e) / n_pixel)
+
+    return eval_step
 
 
 def chunk_generator(seed: int, chunk: int, device: torch.device) -> torch.Generator:

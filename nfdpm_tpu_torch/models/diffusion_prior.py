@@ -1,0 +1,89 @@
+"""DiffusionPrior: one UNet + GaussianDiffusion per formater-defined latent part.
+
+Counterpart of nfdpm_tpu/models/diffusion_prior.py for sampling and
+scoring (`losses` belongs to the training slice). As in the JAX package, a
+part's weights live in the params tree {"parts": (unet_0, ..., unet_{n-1})},
+here one models/unet.Unet module per part, and every method takes that tree
+first. `use_kernels=False` takes the plain PyTorch version of the
+linear-attention blocks instead of the CUDA kernel, for comparison.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from .diffusion import DiffusionConfig, GaussianDiffusion
+from .formaters import BaseFormater
+from .unet import Unet, init_unet_, to_device
+
+
+@dataclasses.dataclass
+class DiffusionPrior:
+    """Per-part (Unet, GaussianDiffusion) from a formater and the shared
+    unet and diffusion kwargs of a run's architecture."""
+
+    formater: BaseFormater
+    unet_kwargs: Dict[str, Any]
+    diffusion_kwargs: Dict[str, Any]
+    use_kernels: bool = True
+
+    def __post_init__(self):
+        self.parts: List[GaussianDiffusion] = []
+        for (h, _w, c) in self.formater.input_shapes:
+            cfg = DiffusionConfig(image_size=h, channels=c, auto_normalize=False,
+                                  **self.diffusion_kwargs)
+            self.parts.append(GaussianDiffusion(self._apply, cfg))
+
+    def _apply(self, unet: Unet, x, t, x_self_cond):
+        return unet(x, t, x_self_cond, use_kernels=self.use_kernels)
+
+    @property
+    def num_parts(self) -> int:
+        return self.formater.num_parts
+
+    def build_unet(self, i: int) -> Unet:
+        """Part i's Unet on the CPU, its parameters not yet set."""
+        c = self.formater.input_shapes[i][-1]
+        return Unet(channels=c, **self.unet_kwargs)
+
+    @staticmethod
+    def place(unet: Unet, device) -> Unet:
+        return to_device(unet, device)
+
+    def init_params(self, seed: int = 0, device=None) -> Dict[str, Any]:
+        """Seeded random UNets (seed + i for part i) on `device`."""
+        device = resolve_device(device)
+        return {"parts": [self.place(init_unet_(self.build_unet(i), seed + i), device)
+                          for i in range(self.num_parts)]}
+
+    # -- sampling ------------------------------------------------------------
+    def sample_latents(self, params, n: int, generator: Optional[torch.Generator] = None,
+                       noise: Optional[Sequence[Sequence[torch.Tensor]]] = None
+                       ) -> List[torch.Tensor]:
+        """Each part's chain, then formater.postprocess. `noise[i]` is part
+        i's injected chain noise (see models/diffusion.py); otherwise the
+        parts draw from `generator` one after the other."""
+        samples = [diff.sample(params["parts"][i], n, generator,
+                               None if noise is None else noise[i])
+                   for i, diff in enumerate(self.parts)]
+        return self.formater.postprocess(samples)
+
+    # -- evaluation ----------------------------------------------------------
+    def neg_log_likelihood_nats(self, params, latents: Sequence[torch.Tensor],
+                                generator: Optional[torch.Generator] = None,
+                                noise: Optional[Sequence[Sequence[torch.Tensor]]] = None):
+        """Total VLB nats per batch element over the formater-processed
+        parts: each part's per-dim VLB times its dim count, plus the
+        formater's sum(log std) when it standardizes. `noise[i][t]` is part
+        i's draw at t."""
+        processed = self.formater.process_latents(latents)
+        return sum(diff.neg_log_likelihood(params["parts"][i], z, generator,
+                                           None if noise is None else noise[i])
+                   * float(np.prod(z.shape[1:]))
+                   for i, (diff, z) in enumerate(zip(self.parts, processed))
+                   ) + self.formater.stats_log_sigma_total()

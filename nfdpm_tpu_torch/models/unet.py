@@ -1,0 +1,352 @@
+"""DDPM UNet over NHWC tensors, as torch.nn.Modules.
+
+Counterpart of nfdpm_tpu/models/unet.py: 7x7 init conv, sinusoidal or
+random/learned Fourier time embedding, a down path of [ResnetBlock x2 +
+linear attention + Downsample], full softmax attention in the middle, the
+mirrored up path with skip concatenations, a final res-block and 1x1 conv.
+Blocks are weight-standardized convs + GroupNorm + SiLU with FiLM time
+conditioning.
+
+Activations are NHWC at every module, as in the JAX package; convolutions
+run on the NCHW view of an NHWC tensor (channels-last memory), so cuDNN
+takes them without a layout copy. Conv weights are OIHW, Dense weights
+[out, in] (nn.Linear), and the attention 1x1 convs are plain matrices
+w_qkv [C, 3*hidden] and w_out [hidden, C], the layout the fused kernel
+takes. `convert.unet_from_flax` fills a Unet from the JAX package's flax
+parameter tree.
+
+The linear-attention blocks go through ops/kernels/fused_linear_attention
+(the CUDA kernel on CUDA tensors, its plain version on CPU tensors) unless
+`use_kernels=False` is passed to the forward, which takes the plain
+version everywhere. The mid-block attention is plain PyTorch, as it was
+XLA outside Pallas in the JAX package. Float32 only.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops.bijectors import squeeze_forward
+from ..ops.kernels.fused_linear_attention import (fused_linear_attention,
+                                                  fused_linear_attention_plain)
+
+EPS = 1e-5
+
+
+def _conv_nhwc(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
+               padding: int) -> torch.Tensor:
+    y = F.conv2d(x.permute(0, 3, 1, 2), weight, bias, padding=padding)
+    return y.permute(0, 2, 3, 1)
+
+
+class Conv(nn.Module):
+    """flax nn.Conv counterpart: stride 1, symmetric padding, OIHW weight."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 padding: int = 0):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels,
+                                               kernel_size, kernel_size))
+        self.bias = nn.Parameter(torch.zeros(out_channels))
+        self.padding = padding
+
+    def forward(self, x):
+        return _conv_nhwc(x, self.weight, self.bias, self.padding)
+
+
+class WeightStandardizedConv(Conv):
+    """Conv whose kernel is standardized per output channel over
+    (kh, kw, in), biased variance, eps 1e-5."""
+
+    def forward(self, x):
+        w = self.weight
+        mean = w.mean(dim=(1, 2, 3), keepdim=True)
+        var = ((w - mean) ** 2).mean(dim=(1, 2, 3), keepdim=True)
+        return _conv_nhwc(x, (w - mean) * torch.rsqrt(var + EPS), self.bias, self.padding)
+
+
+class ChannelLayerNorm(nn.Module):
+    """Biasless LayerNorm over channels with a learned gain (biased variance)."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.g = nn.Parameter(torch.ones(dim))
+
+    def forward(self, x):
+        mean = x.mean(dim=-1, keepdim=True)
+        var = ((x - mean) ** 2).mean(dim=-1, keepdim=True)
+        return (x - mean) * torch.rsqrt(var + EPS) * self.g
+
+
+class SinusoidalPosEmb(nn.Module):
+    """[T] time steps -> [T, dim] (sin | cos)."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.dim = dim
+
+    def forward(self, t):
+        half = self.dim // 2
+        emb = math.log(10000.0) / (half - 1)
+        emb = torch.exp(torch.arange(half, dtype=torch.float32, device=t.device) * -emb)
+        emb = t[:, None].float() * emb[None, :]
+        return torch.cat([torch.sin(emb), torch.cos(emb)], dim=-1)
+
+
+class RandomOrLearnedSinusoidalPosEmb(nn.Module):
+    """Fourier features of t, [T] -> [T, dim + 1] (t | sin | cos); random
+    and learned frequencies differ only in training."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.weights = nn.Parameter(torch.empty(dim // 2))
+
+    def forward(self, t):
+        t = t[:, None].float()
+        freqs = t * self.weights[None, :] * 2 * math.pi
+        return torch.cat([t, torch.sin(freqs), torch.cos(freqs)], dim=-1)
+
+
+class Block(nn.Module):
+    """WSConv 3x3 -> GroupNorm -> (FiLM) -> SiLU."""
+
+    def __init__(self, dim_in: int, dim_out: int, groups: int = 8):
+        super().__init__()
+        self.conv = WeightStandardizedConv(dim_in, dim_out, 3, padding=1)
+        self.norm = nn.GroupNorm(groups, dim_out, eps=EPS)
+
+    def forward(self, x, scale_shift=None):
+        x = self.conv(x)
+        x = self.norm(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        if scale_shift is not None:
+            scale, shift = scale_shift
+            x = x * (scale + 1.0) + shift
+        return F.silu(x)
+
+
+class ResnetBlock(nn.Module):
+    """Two Blocks with FiLM from the time embedding, plus a (1x1-conv)
+    residual."""
+
+    def __init__(self, dim_in: int, dim_out: int, time_emb_dim: int, groups: int = 8):
+        super().__init__()
+        self.time_dense = nn.Linear(time_emb_dim, dim_out * 2)
+        self.block0 = Block(dim_in, dim_out, groups)
+        self.block1 = Block(dim_out, dim_out, groups)
+        self.res_conv = Conv(dim_in, dim_out, 1) if dim_in != dim_out else None
+
+    def forward(self, x, time_emb):
+        h_t = self.time_dense(F.silu(time_emb))[:, None, None, :]
+        scale, shift = h_t.chunk(2, dim=-1)
+        h = self.block0(x, (scale, shift))
+        h = self.block1(h)
+        return h + (x if self.res_conv is None else self.res_conv(x))
+
+
+class LinearAttention(nn.Module):
+    """Softmax-kernel linear attention, post-normed: q softmax over each
+    head's dims, k softmax over tokens, O(N d^2); one fused_linear_attention
+    call."""
+
+    def __init__(self, dim: int, heads: int = 4, dim_head: int = 32):
+        super().__init__()
+        hidden = heads * dim_head
+        self.heads, self.dim_head = heads, dim_head
+        self.w_qkv = nn.Parameter(torch.empty(dim, hidden * 3))
+        self.w_out = nn.Parameter(torch.empty(hidden, dim))
+        self.b_out = nn.Parameter(torch.zeros(dim))
+        self.g = nn.Parameter(torch.ones(dim))
+
+    def forward(self, x, use_kernels: bool = True):
+        fn = fused_linear_attention if use_kernels else fused_linear_attention_plain
+        return fn(x.contiguous(), self.w_qkv, self.w_out, self.b_out, self.g,
+                  self.heads, self.dim_head)
+
+
+class Attention(nn.Module):
+    """Full softmax attention over the tokens, per head (mid block)."""
+
+    def __init__(self, dim: int, heads: int = 4, dim_head: int = 32):
+        super().__init__()
+        hidden = heads * dim_head
+        self.heads, self.dim_head = heads, dim_head
+        self.w_qkv = nn.Parameter(torch.empty(dim, hidden * 3))
+        self.w_out = nn.Parameter(torch.empty(hidden, dim))
+        self.b_out = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x, use_kernels: bool = True):  # no kernel: the flag is unused
+        b, h, w, c = x.shape
+        n, hidden = h * w, self.heads * self.dim_head
+        q, k, v = torch.matmul(x.reshape(b, n, c), self.w_qkv).split(hidden, dim=-1)
+        q, k, v = (u.reshape(b, n, self.heads, self.dim_head).transpose(1, 2)
+                   for u in (q, k, v))
+        sim = torch.matmul(q * (self.dim_head ** -0.5), k.transpose(-1, -2))
+        out = torch.matmul(torch.softmax(sim, dim=-1), v)
+        out = out.transpose(1, 2).reshape(b, n, hidden)
+        return (torch.matmul(out, self.w_out) + self.b_out).reshape(b, h, w, c)
+
+
+class PreNormResidual(nn.Module):
+    """x + fn(ChannelLayerNorm(x))."""
+
+    def __init__(self, dim: int, fn: nn.Module):
+        super().__init__()
+        self.norm = ChannelLayerNorm(dim)
+        self.fn = fn
+
+    def forward(self, x, use_kernels: bool = True):
+        return x + self.fn(self.norm(x), use_kernels)
+
+
+class Downsample(nn.Module):
+    """Space-to-depth (the flow's squeeze, channel order (c, h2, w2)) and a
+    1x1 conv."""
+
+    def __init__(self, dim_in: int, dim_out: int):
+        super().__init__()
+        self.conv = Conv(dim_in * 4, dim_out, 1)
+
+    def forward(self, x):
+        return self.conv(squeeze_forward(x))
+
+
+class Upsample(nn.Module):
+    """Nearest 2x and a 3x3 conv."""
+
+    def __init__(self, dim_in: int, dim_out: int):
+        super().__init__()
+        self.conv = Conv(dim_in, dim_out, 3, padding=1)
+
+    def forward(self, x):
+        x = F.interpolate(x.permute(0, 3, 1, 2), scale_factor=2, mode="nearest")
+        return self.conv(x.permute(0, 2, 3, 1))
+
+
+class Unet(nn.Module):
+    """Input and output [B, H, W, C]; `time` is [B] or a length-1 vector
+    that broadcasts over the batch (the samplers' batch-uniform t)."""
+
+    def __init__(self, dim: int, init_dim: Optional[int] = None,
+                 out_dim: Optional[int] = None, dim_mults: Sequence[int] = (1, 2, 4, 8),
+                 channels: int = 3, self_condition: bool = False,
+                 resnet_block_groups: int = 8, learned_variance: bool = False,
+                 learned_sinusoidal_cond: bool = False,
+                 random_fourier_features: bool = False,
+                 learned_sinusoidal_dim: int = 16, dtype="float32"):
+        super().__init__()
+        if str(dtype) != "float32":
+            raise NotImplementedError(
+                f"Unet dtype={dtype!r} is not ported; the port runs the UNet in "
+                "float32 only")
+        self.self_condition = self_condition
+        init_dim = init_dim or dim
+        self.out_dim = out_dim or channels * (2 if learned_variance else 1)
+        groups = resnet_block_groups
+
+        self.init_conv = Conv(channels * (2 if self_condition else 1), init_dim, 7, padding=3)
+        time_dim = dim * 4
+        if learned_sinusoidal_cond or random_fourier_features:
+            self.time_pos = RandomOrLearnedSinusoidalPosEmb(learned_sinusoidal_dim)
+            fourier_dim = learned_sinusoidal_dim + 1
+        else:
+            self.time_pos = SinusoidalPosEmb(dim)
+            fourier_dim = dim
+        self.time_dense0 = nn.Linear(fourier_dim, time_dim)
+        self.time_dense1 = nn.Linear(time_dim, time_dim)
+
+        dims = [init_dim] + [dim * m for m in dim_mults]
+        in_out = list(zip(dims[:-1], dims[1:]))
+        self.downs = nn.ModuleList()
+        for ind, (d_in, d_out) in enumerate(in_out):
+            is_last = ind == len(in_out) - 1
+            self.downs.append(nn.ModuleDict({
+                "res1": ResnetBlock(d_in, d_in, time_dim, groups),
+                "res2": ResnetBlock(d_in, d_in, time_dim, groups),
+                "attn": PreNormResidual(d_in, LinearAttention(d_in)),
+                "down": Conv(d_in, d_out, 3, padding=1) if is_last else Downsample(d_in, d_out),
+            }))
+        mid_dim = dims[-1]
+        self.mid_res1 = ResnetBlock(mid_dim, mid_dim, time_dim, groups)
+        self.mid_attn = PreNormResidual(mid_dim, Attention(mid_dim))
+        self.mid_res2 = ResnetBlock(mid_dim, mid_dim, time_dim, groups)
+        self.ups = nn.ModuleList()
+        for ind, (d_in, d_out) in enumerate(reversed(in_out)):
+            is_last = ind == len(in_out) - 1
+            self.ups.append(nn.ModuleDict({
+                "res1": ResnetBlock(d_out + d_in, d_out, time_dim, groups),
+                "res2": ResnetBlock(d_out + d_in, d_out, time_dim, groups),
+                "attn": PreNormResidual(d_out, LinearAttention(d_out)),
+                "up": Conv(d_out, d_in, 3, padding=1) if is_last else Upsample(d_out, d_in),
+            }))
+        self.final_res = ResnetBlock(init_dim * 2, dim, time_dim, groups)
+        self.final_conv = Conv(dim, self.out_dim, 1)
+
+    def forward(self, x, time, x_self_cond=None, use_kernels: bool = True):
+        if self.self_condition:
+            if x_self_cond is None:
+                x_self_cond = torch.zeros_like(x)
+            x = torch.cat([x_self_cond, x], dim=-1)
+        x = self.init_conv(x)
+        r = x
+        t = self.time_dense0(self.time_pos(time))
+        t = self.time_dense1(F.gelu(t, approximate="tanh"))
+
+        hs = []
+        for level in self.downs:
+            x = level["res1"](x, t)
+            hs.append(x)
+            x = level["res2"](x, t)
+            x = level["attn"](x, use_kernels)
+            hs.append(x)
+            x = level["down"](x)
+
+        x = self.mid_res1(x, t)
+        x = self.mid_attn(x)
+        x = self.mid_res2(x, t)
+
+        for level in self.ups:
+            x = level["res1"](torch.cat([x, hs.pop()], dim=-1), t)
+            x = level["res2"](torch.cat([x, hs.pop()], dim=-1), t)
+            x = level["attn"](x, use_kernels)
+            x = level["up"](x)
+
+        x = self.final_res(torch.cat([x, r], dim=-1), t)
+        return self.final_conv(x)
+
+
+@torch.no_grad()
+def init_unet_(unet: Unet, seed: int) -> Unet:
+    """Seeded init in place, the JAX package's distributions: conv and dense
+    weights N(0, 1/fan_in) (lecun normal without the truncation), Fourier
+    frequencies N(0, 1), biases zero, norm gains one."""
+    gen = torch.Generator().manual_seed(int(seed))
+    for name, p in unet.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf in ("bias", "b_out"):
+            p.zero_()
+            continue
+        if leaf == "g" or (leaf == "weight" and p.dim() == 1):  # norm gains
+            p.fill_(1.0)
+            continue
+        if leaf in ("w_qkv", "w_out"):  # [in, out]
+            std = p.shape[0] ** -0.5
+        elif leaf == "weight" and p.dim() == 4:  # OIHW
+            std = (p.shape[1] * p.shape[2] * p.shape[3]) ** -0.5
+        elif leaf == "weight" and p.dim() == 2:  # nn.Linear [out, in]
+            std = p.shape[1] ** -0.5
+        else:  # the Fourier frequencies
+            std = 1.0
+        p.copy_(torch.randn(p.shape, generator=gen) * std)
+    return unet
+
+
+def to_device(unet: Unet, device) -> Unet:
+    """Move to `device` for inference: 4-D conv weights in channels-last
+    memory, no gradients."""
+    unet = unet.to(device=device).to(memory_format=torch.channels_last)
+    return unet.requires_grad_(False).eval()

@@ -1,10 +1,12 @@
-"""Build and load the hand-written CUDA kernels (csrc/flow_kernels.cu).
+"""Build and load the hand-written CUDA kernels (csrc/*.cu).
 
-The source has a plain C interface. At first use, `nvcc` compiles it for
-Hopper (`sm_90a`) into `build/kernels/libflow_kernels.so` at the root of
-the checkout, and `ctypes` loads it. The library is rebuilt when it is
-missing or older than its source. Nothing here runs at import time: the
-CPU tests import every module, and the CPU has no `nvcc`.
+Each source has a plain C interface and becomes one shared library: at
+first use, `nvcc` compiles it for Hopper (`sm_90a`) into
+`build/kernels/lib<name>.so` at the root of the checkout, and `ctypes`
+loads it. A library is rebuilt when it is missing or older than its source.
+`build()` starts one `nvcc` per stale source, all at once, and waits for
+them together. Nothing here runs at import time: the CPU tests import every
+module, and the CPU has no `nvcc`.
 """
 
 from __future__ import annotations
@@ -16,29 +18,48 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+from typing import Dict, Iterable, Optional
 
 import torch
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "flow_kernels.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-LIBRARY = BUILD_DIR / "libflow_kernels.so"
-BUILD_LOG = BUILD_DIR / "build.log"
+# library name -> its source under csrc/
+SOURCES = {"flow_kernels": "flow_kernels.cu",
+           "attention_kernels": "linear_attention.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
+_I = ctypes.c_int
 _SIGNATURES = {
-    "channel_mix_smem_bytes": ([ctypes.c_int, ctypes.c_int], ctypes.c_longlong),
-    "channel_mix_f32": ([_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
-                         ctypes.c_int, _P], ctypes.c_int),
-    "coupling_tail_f32": ([_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong,
-                           _P], ctypes.c_int),
-    "coupling_tail_inverse_f32": ([_P, _P, _P, _P, ctypes.c_longlong, _P],
-                                  ctypes.c_int),
+    "flow_kernels": {
+        "channel_mix_smem_bytes": ([_I, _I], ctypes.c_longlong),
+        "channel_mix_f32": ([_P, _P, _P, _P, ctypes.c_longlong, _I, _I, _P], _I),
+        "coupling_tail_f32": ([_P, _P, _P, _P, _P, _I, ctypes.c_longlong, _P], _I),
+        "coupling_tail_inverse_f32": ([_P, _P, _P, _P, ctypes.c_longlong, _P], _I),
+    },
+    "attention_kernels": {
+        "fused_linear_attention_smem_bytes": ([_I], ctypes.c_longlong),
+        "fused_linear_attention_f32": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+                                       _I),
+    },
 }
 
 _lock = threading.Lock()
-_library: ctypes.CDLL | None = None
+_libraries: Dict[str, ctypes.CDLL] = {}
+
+
+def source(name: str) -> Path:
+    return CSRC / SOURCES[name]
+
+
+def library_path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}.so"
+
+
+def build_log(name: str) -> Path:
+    return BUILD_DIR / f"{name}.build.log"
 
 
 def _nvcc() -> str:
@@ -48,35 +69,52 @@ def _nvcc() -> str:
     return found
 
 
-def build() -> float:
-    """Compile the library if it is missing or stale; returns the seconds
-    spent compiling (0.0 when the built library was current)."""
-    if LIBRARY.exists() and LIBRARY.stat().st_mtime >= SOURCE.stat().st_mtime:
+def _stale(name: str) -> bool:
+    lib = library_path(name)
+    return not lib.exists() or lib.stat().st_mtime < source(name).stat().st_mtime
+
+
+def build(names: Optional[Iterable[str]] = None) -> float:
+    """Compile the named libraries (default: all) that are missing or stale,
+    one nvcc process per source, started together; returns the seconds
+    spent compiling (0.0 when every library was current)."""
+    stale = [n for n in (SOURCES if names is None else names) if _stale(n)]
+    if not stale:
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = LIBRARY.with_name(f"{LIBRARY.name}.{os.getpid()}.tmp")
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    BUILD_LOG.write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, LIBRARY)
+    procs = {}
+    for name in stale:
+        lib = library_path(name)
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        procs[name] = (tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source(name))],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        out, err = proc.communicate()
+        build_log(name).write_text(out + err)
+        if proc.returncode != 0:
+            failed.append(f"{SOURCES[name]} ({proc.returncode}):\n{err}")
+        else:
+            os.replace(tmp, library_path(name))
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     return time.perf_counter() - t0
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built first if needed."""
-    global _library
+def library(name: str) -> ctypes.CDLL:
+    """The loaded kernel library `name`, built first if needed."""
     with _lock:
-        if _library is None:
-            build()
-            lib = ctypes.CDLL(str(LIBRARY))
-            for name, (argtypes, restype) in _SIGNATURES.items():
-                fn = getattr(lib, name)
+        if name not in _libraries:
+            build([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+            for fn_name, (argtypes, restype) in _SIGNATURES[name].items():
+                fn = getattr(lib, fn_name)
                 fn.argtypes, fn.restype = argtypes, restype
-            _library = lib
-    return _library
+            _libraries[name] = lib
+    return _libraries[name]
 
 
 def check_cuda_f32(name: str, *tensors: torch.Tensor) -> torch.device:

@@ -40,7 +40,7 @@ def channel_mix(x: torch.Tensor, w_fold: torch.Tensor,
     o = w_fold.shape[0]
     if tuple(b_fold.shape) != (o,):
         raise ValueError(f"channel_mix: b_fold {tuple(b_fold.shape)} != ({o},)")
-    lib = _build.library()
+    lib = _build.library("flow_kernels")
     if lib.channel_mix_smem_bytes(c, o) > _MAX_SMEM:
         raise ValueError(f"channel_mix: C={c}, O={o} exceed the shared memory "
                          "of one block")

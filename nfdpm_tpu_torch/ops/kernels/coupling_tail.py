@@ -57,7 +57,7 @@ def coupling_tail(log_scale: torch.Tensor, bias: torch.Tensor,
     d = x_b.numel() // rows if rows else 0
     y_b = torch.empty_like(x_b)
     ldj = torch.empty((rows,), dtype=torch.float32, device=device)
-    lib = _build.library()
+    lib = _build.library("flow_kernels")
     with torch.cuda.device(device):
         err = lib.coupling_tail_f32(log_scale.data_ptr(), bias.data_ptr(),
                                     x_b.data_ptr(), y_b.data_ptr(),
@@ -79,7 +79,7 @@ def coupling_tail_inverse(log_scale: torch.Tensor, bias: torch.Tensor,
     device = _build.check_cuda_f32("coupling_tail_inverse", log_scale, bias, y_b)
     _check_shapes("coupling_tail_inverse", log_scale, bias, y_b)
     x_b = torch.empty_like(y_b)
-    lib = _build.library()
+    lib = _build.library("flow_kernels")
     with torch.cuda.device(device):
         err = lib.coupling_tail_inverse_f32(log_scale.data_ptr(), bias.data_ptr(),
                                             y_b.data_ptr(), x_b.data_ptr(),

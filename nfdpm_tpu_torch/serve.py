@@ -1,10 +1,12 @@
-"""Generation server for a Glow model: keep the sampler warm, serve samples
-over HTTP.
+"""Generation server for a Glow model or a Glow with a diffusion prior: keep
+the sampler warm, serve samples over HTTP.
 
-Counterpart of tools/serve.py for the Glow kind, with the same contract:
+Counterpart of tools/serve.py, with the same contract, for both kinds:
 
     python -m nfdpm_tpu_torch.serve --weights glow.npz --levels 3 --steps 4 \\
         --width 512 --img-size 32 --batch 64 --port 8400
+    python -m nfdpm_tpu_torch.serve --weights diffusion.npz \\
+        --arch diffusion_architecture.json [--ddim 100] [--sampler ddim] --port 8400
     curl localhost:8400/health
     curl -X POST localhost:8400/generate -d '{"n": 16, "seed": 7}' -o out.npz
 
@@ -16,8 +18,14 @@ generator, and answered with the X-Generation-Seconds and
 X-Samples-Per-Sec headers.
 
 Weights are a .npz written by nfdpm_tpu_torch.convert.save_npz (the JAX
-package's parameter tree). The server runs on CUDA unless --device names
-another device.
+package's parameter tree). With --arch the server is of the diffusion kind:
+the .npz holds {"flow", "diffusion": {"parts": ...}} and the JSON has the
+keys of a stage-2 run's diffusion_architecture.json: "flow" (L, K,
+in_channels, coupling_width, learn_prior, invconv_param, img_size),
+"formater", "formater_stats", "unet_kwargs", "diffusion_kwargs", "n_bits"
+and "temperature"; --ddim overrides sampling_timesteps and --sampler the
+sampling method. The server runs on CUDA unless --device names another
+device.
 """
 
 from __future__ import annotations
@@ -32,9 +40,12 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 
 from . import resolve_device
-from .convert import from_jax_params, load_npz
-from .inference import generate_batched, make_sample_fn
+from .convert import diffusion_from_jax_params, from_jax_params, load_npz
+from .inference import generate_batched, make_diffusion_sample_fn, make_sample_fn
+from .models import formaters
 from .models import glow as glow_m
+from .models.diffusion_prior import DiffusionPrior
+from .models.nf_backbone import NFBackbone
 
 
 def image_grid(images: np.ndarray, nrow: int = 8, pad: int = 1) -> np.ndarray:
@@ -59,19 +70,70 @@ def _png_bytes(images: np.ndarray) -> bytes:
     return buf.getvalue()
 
 
-def build_sampler(args):
-    """(sample_images(n, temperature, seed) -> uint8 NHWC numpy, info dict)."""
-    device = resolve_device(args.device)
+def _check_flow(flow, cfg: glow_m.GlowConfig, weights) -> None:
+    if len(flow["blocks"]) != cfg.levels - 1 or len(flow["final_steps"]) != cfg.steps:
+        raise ValueError(f"{weights} does not hold a Glow with "
+                         f"L={cfg.levels}, K={cfg.steps}")
+
+
+def _glow_model(args, device):
+    """(sample_fn, params, info) of the Glow kind."""
     params = from_jax_params(load_npz(args.weights), device)
-    flow = params["flow"]
     cfg = glow_m.GlowConfig(
         in_channels=args.in_channels, levels=args.levels, steps=args.steps,
         coupling_width=args.width, learn_prior=bool(params["prior"]),
         invconv_param=args.invconv_param)
-    if len(flow["blocks"]) != cfg.levels - 1 or len(flow["final_steps"]) != cfg.steps:
-        raise ValueError(f"{args.weights} does not hold a Glow with "
-                         f"L={cfg.levels}, K={cfg.steps}")
-    sample_fn = make_sample_fn(cfg, args.img_size, args.n_bits, device)
+    _check_flow(params["flow"], cfg, args.weights)
+    temperature = 1.0 if args.temperature is None else args.temperature
+    info = {"kind": "gaussian", "temperature": float(temperature),
+            "levels": cfg.levels, "steps": cfg.steps, "width": cfg.coupling_width,
+            "img_size": args.img_size, "n_bits": args.n_bits}
+    return make_sample_fn(cfg, args.img_size, args.n_bits, device), params, info
+
+
+def _diffusion_model(args, device):
+    """(sample_fn, params, info) of the diffusion kind, from --arch."""
+    with open(args.arch) as f:
+        arch = json.load(f)
+    fl = arch["flow"]
+    cfg = glow_m.GlowConfig(
+        in_channels=int(fl["in_channels"]), levels=int(fl["L"]), steps=int(fl["K"]),
+        coupling_width=int(fl["coupling_width"]),
+        learn_prior=bool(fl.get("learn_prior", True)),
+        invconv_param=str(fl.get("invconv_param", "plu")))
+    img_size = int(fl["img_size"])
+    formater = formaters.get_formater(arch["formater"])(
+        L=cfg.levels, in_channels=cfg.in_channels, size=img_size,
+        stats=formaters.stats_from_json(arch.get("formater_stats")))
+    dkw = dict(arch["diffusion_kwargs"])
+    if args.ddim is not None:
+        dkw["sampling_timesteps"] = args.ddim
+    if args.sampler is not None:
+        dkw["sampling_method"] = args.sampler
+    ukw = dict(arch["unet_kwargs"])
+    if "dim_mults" in ukw:
+        ukw["dim_mults"] = tuple(ukw["dim_mults"])
+    dp = DiffusionPrior(formater=formater, unet_kwargs=ukw, diffusion_kwargs=dkw)
+    params = diffusion_from_jax_params(load_npz(args.weights), dp, device)
+    _check_flow(params["flow"], cfg, args.weights)
+    n_bits = int(arch.get("n_bits", 5))
+    temperature = (float(arch.get("temperature", 1.0)) if args.temperature is None
+                   else args.temperature)
+    backbone = NFBackbone(cfg=cfg, img_size=img_size)
+    info = {"kind": "diffusion", "arch": str(args.arch), "temperature": temperature,
+            "levels": cfg.levels, "steps": cfg.steps, "width": cfg.coupling_width,
+            "img_size": img_size, "n_bits": n_bits, "formater": arch["formater"],
+            "sampling_method": dkw.get("sampling_method", "auto"),
+            "sampling_timesteps": dkw.get("sampling_timesteps"),
+            "timesteps": dkw.get("timesteps", 1000)}
+    return make_diffusion_sample_fn(backbone, dp, n_bits, device), params, info
+
+
+def build_sampler(args):
+    """(sample_images(n, temperature, seed) -> uint8 NHWC numpy, info dict)."""
+    device = resolve_device(args.device)
+    model = _diffusion_model if args.arch else _glow_model
+    sample_fn, params, kind_info = model(args, device)
 
     batch = args.batch
     lock = threading.Lock()
@@ -80,12 +142,10 @@ def build_sampler(args):
         with lock:  # one sampler, one stream of work on the card
             return generate_batched(sample_fn, params, n, batch, temperature, seed)
 
-    info = {"weights": str(args.weights), "kind": "gaussian", "batch": batch,
-            "temperature": float(args.temperature), "device": str(device),
-            "levels": cfg.levels, "steps": cfg.steps, "width": cfg.coupling_width,
-            "img_size": args.img_size, "n_bits": args.n_bits}
+    info = {"weights": str(args.weights), "batch": batch, "device": str(device),
+            **kind_info}
     t0 = time.perf_counter()
-    sample_images(min(2, batch), args.temperature, 0)  # build kernels + warm
+    sample_images(min(2, batch), info["temperature"], 0)  # build kernels + warm
     info["warmup_seconds"] = round(time.perf_counter() - t0, 2)
     return sample_images, info
 
@@ -155,14 +215,24 @@ def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--weights", required=True,
                     help=".npz written by nfdpm_tpu_torch.convert.save_npz")
-    ap.add_argument("--levels", type=int, default=3)
+    ap.add_argument("--levels", type=int, default=3, help="Glow kind (also --steps "
+                    "... --invconv-param); the diffusion kind reads them from --arch")
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--width", type=int, default=512, help="coupling width")
     ap.add_argument("--img-size", type=int, default=32)
     ap.add_argument("--in-channels", type=int, default=3)
     ap.add_argument("--n-bits", type=int, default=5)
     ap.add_argument("--invconv-param", default="plu", choices=["plu", "full"])
-    ap.add_argument("--temperature", type=float, default=1.0)
+    ap.add_argument("--temperature", type=float, default=None,
+                    help="default sampling temperature (default: the "
+                         "architecture's, else 1.0)")
+    ap.add_argument("--arch", default=None,
+                    help="diffusion kind: the stage-2 architecture JSON")
+    ap.add_argument("--ddim", type=int, default=None,
+                    help="diffusion kind: override sampling_timesteps")
+    ap.add_argument("--sampler", default=None,
+                    choices=["auto", "ancestral", "ddim", "dpm++"],
+                    help="diffusion kind: override the sampling method")
     ap.add_argument("--batch", type=int, default=64, help="sampler batch size")
     ap.add_argument("--device", default=None,
                     help="torch device (default: CUDA, and fail without it)")

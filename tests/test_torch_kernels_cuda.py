@@ -6,7 +6,9 @@ skip. On the card, run them without the JAX test bootstrap:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
 Tolerances: elementwise rtol 1e-5 and atol 1e-5; the coupling logdet, a sum
-of up to D log terms taken in another order, rtol 1e-5 and atol 1e-4.
+of up to D log terms taken in another order, rtol 1e-5 and atol 1e-4; the
+linear-attention block, whose LayerNorm divides sums of up to C + 128 + N
+products taken in another order by the row's spread, rtol 1e-4 and atol 1e-4.
 """
 
 import pytest
@@ -14,6 +16,7 @@ import torch
 
 from nfdpm_tpu_torch.ops.kernels import channel_mix as cm
 from nfdpm_tpu_torch.ops.kernels import coupling_tail as ct
+from nfdpm_tpu_torch.ops.kernels import fused_linear_attention as fla
 
 pytestmark = pytest.mark.cuda
 
@@ -54,6 +57,24 @@ def test_coupling_tail_and_inverse_match_plain(gen, shape):
                                rtol=1e-5, atol=1e-5)
 
 
+# the served UNet's shapes (C 64 and 128 at N 256, 64, 16, 4), a ragged C, an
+# odd N and B, one token, and C past one staged chunk of the out-projection
+@pytest.mark.parametrize("shape", [(64, 16, 16, 64), (64, 8, 8, 128), (64, 2, 2, 128),
+                                   (5, 3, 5, 20), (3, 1, 1, 7), (2, 4, 4, 200)])
+def test_fused_linear_attention_matches_plain(gen, shape):
+    c = shape[-1]
+    x = _randn(gen, *shape)
+    w_qkv, w_out = _randn(gen, c, 384, scale=c ** -0.5), _randn(gen, 128, c, scale=128 ** -0.5)
+    b_out, g = _randn(gen, c, scale=0.1), 1.0 + _randn(gen, c, scale=0.1)
+    before = fla.fused_linear_attention.launches
+    y = fla.fused_linear_attention(x, w_qkv, w_out, b_out, g)
+    torch.cuda.synchronize()
+    assert fla.fused_linear_attention.launches == before + 1
+    torch.testing.assert_close(y, fla.fused_linear_attention_plain(x, w_qkv, w_out, b_out, g),
+                               rtol=1e-4, atol=1e-4)
+    assert torch.equal(y, fla.fused_linear_attention(x, w_qkv, w_out, b_out, g))
+
+
 def test_wrappers_raise_on_bad_inputs(gen):
     x = _randn(gen, 4, 8)
     with pytest.raises(TypeError):
@@ -64,3 +85,9 @@ def test_wrappers_raise_on_bad_inputs(gen):
         cm.channel_mix(x, _randn(gen, 8, 8).cpu(), _randn(gen, 8))
     with pytest.raises(ValueError, match="shape"):
         ct.coupling_tail(x, x, _randn(gen, 4, 9))
+    x4 = _randn(gen, 2, 4, 4, 16)
+    w_qkv, w_out, v = _randn(gen, 16, 384), _randn(gen, 128, 16), _randn(gen, 16)
+    with pytest.raises(ValueError, match="w_qkv"):
+        fla.fused_linear_attention(x4, _randn(gen, 16, 96), w_out, v, v)
+    with pytest.raises(ValueError, match="heads"):
+        fla.fused_linear_attention(x4, w_qkv, w_out, v, v, heads=2, dim_head=64)

@@ -3,7 +3,8 @@
 - nfdpm_tpu_torch/ and chip_smoke.py import neither JAX nor nfdpm_tpu.
 - Entry points run on CUDA unless the caller names the CPU; without CUDA
   they raise instead of running on the CPU.
-- nfdpm_tpu_torch.serve answers /health and /generate.
+- nfdpm_tpu_torch.serve answers /health and /generate, for a Glow and for a
+  Glow with a diffusion prior.
 """
 
 import ast
@@ -21,8 +22,11 @@ import torch
 
 import nfdpm_tpu_torch
 from nfdpm_tpu_torch import convert, inference, serve
+from nfdpm_tpu_torch.models import formaters as tfmt
 from nfdpm_tpu_torch.models import glow as tglow
 from nfdpm_tpu_torch.models import prior as tprior
+from nfdpm_tpu_torch.models.diffusion_prior import DiffusionPrior
+from nfdpm_tpu_torch.models.nf_backbone import NFBackbone
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "nfdpm_tpu_torch").rglob("*.py")) + [
@@ -64,8 +68,13 @@ def _modules_after(code: str) -> set:
 
 def test_fresh_interpreter_loads_no_jax_or_reference_modules():
     bare = _modules_after("")
-    loaded = _modules_after("import nfdpm_tpu_torch.serve, nfdpm_tpu_torch.inference")
-    assert "nfdpm_tpu_torch.serve" in loaded and "torch" in loaded
+    modules = ("nfdpm_tpu_torch.serve", "nfdpm_tpu_torch.inference",
+               "nfdpm_tpu_torch.profiling", "nfdpm_tpu_torch.models.unet",
+               "nfdpm_tpu_torch.models.diffusion", "nfdpm_tpu_torch.models.diffusion_prior",
+               "nfdpm_tpu_torch.models.formaters", "nfdpm_tpu_torch.models.nf_backbone",
+               "nfdpm_tpu_torch.ops.kernels.fused_linear_attention")
+    loaded = _modules_after("import " + ", ".join(modules))
+    assert set(modules) <= loaded and "torch" in loaded
     new_bad = sorted(m for m in loaded - bare if _forbidden(m))
     assert not new_bad, new_bad
 
@@ -83,6 +92,46 @@ def test_resolve_device_never_falls_back_to_cpu(monkeypatch):
                   lambda: tglow.init_glow(0, cfg)):
         with pytest.raises(RuntimeError, match="CUDA"):
             entry()
+
+
+# a small stage-2 model: Glow L2/K1/w16 at 8x8x3, UNets of dim 8 over the
+# latent parts (4,4,6) and (2,2,24), T = 10, DDIM-5
+STAGE2_FLOW = dict(L=2, K=1, in_channels=3, coupling_width=16, learn_prior=True,
+                   invconv_param="plu", img_size=8)
+STAGE2_UNET = dict(dim=8, dim_mults=[1, 2], resnet_block_groups=2)
+STAGE2_DIFFUSION = dict(timesteps=10, sampling_timesteps=5, beta_schedule="cosine",
+                        ddim_sampling_eta=1.0, vlb_time_chunk=4)
+
+
+def _stage2(formater="IdentityFormater"):
+    cfg = tglow.GlowConfig(levels=2, steps=1, coupling_width=16)
+    fmt = tfmt.get_formater(formater)(L=2, in_channels=3, size=8)
+    dp = DiffusionPrior(fmt, dict(STAGE2_UNET, dim_mults=(1, 2)), dict(STAGE2_DIFFUSION))
+    return cfg, NFBackbone(cfg=cfg, img_size=8), dp
+
+
+def test_stage2_entry_points_never_fall_back_to_cpu(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _, backbone, dp = _stage2()
+    for entry in (lambda: inference.make_diffusion_sample_fn(backbone, dp),
+                  lambda: inference.make_vlb_eval_step(backbone, dp),
+                  lambda: dp.init_params(0),
+                  lambda: serve.make_server(["--weights", str(tmp_path / "none.npz"),
+                                             "--arch", str(tmp_path / "none.json")])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            entry()
+
+
+@pytest.mark.parametrize("entry", ["sample", "vlb"])
+def test_stage2_entry_points_turn_tf32_off(entry):
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    _, backbone, dp = _stage2()
+    make = (inference.make_diffusion_sample_fn if entry == "sample"
+            else inference.make_vlb_eval_step)
+    make(backbone, dp, device="cpu")
+    assert not torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_tf32
 
 
 def test_entry_points_turn_tf32_off():
@@ -104,6 +153,38 @@ def cpu_server(tmp_path):
     server = serve.make_server(["--weights", str(weights), "--device", "cpu",
                                 "--levels", "2", "--steps", "1", "--width", "16",
                                 "--img-size", "8", "--batch", "4", "--port", "0"])
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield server
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+        assert not thread.is_alive()
+
+
+@pytest.fixture(scope="module")
+def stage2_files(tmp_path_factory):
+    """(weights .npz, architecture JSON) of a seeded small stage-2 model."""
+    tmp = tmp_path_factory.mktemp("stage2")
+    cfg, _, dp = _stage2()
+    params = {"flow": tglow.init_glow(0, cfg, "cpu"), "prior": {},
+              "diffusion": dp.init_params(0, "cpu")}
+    weights, arch = tmp / "diffusion.npz", tmp / "diffusion_architecture.json"
+    convert.save_npz(weights, convert.diffusion_to_jax_params(params))
+    arch.write_text(json.dumps({
+        "kind": "diffusion_prior", "flow": STAGE2_FLOW, "formater": "IdentityFormater",
+        "formater_stats": None, "unet_kwargs": STAGE2_UNET,
+        "diffusion_kwargs": STAGE2_DIFFUSION, "frozen": True, "n_bits": 5,
+        "temperature": 1.0}))
+    return ["--weights", str(weights), "--arch", str(arch), "--device", "cpu",
+            "--batch", "4", "--port", "0"]
+
+
+@pytest.fixture(scope="module")
+def cpu_diffusion_server(stage2_files):
+    server = serve.make_server(stage2_files)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     try:
@@ -168,3 +249,46 @@ def test_serve_png_grid(cpu_server):
     assert body[:8] == b"\x89PNG\r\n\x1a\n"
     grid = serve.image_grid(np.zeros((3, 8, 8, 3), np.uint8))
     assert grid.shape == (10, 28, 3)
+
+
+def test_diffusion_serve_health_and_generate_on_cpu(cpu_diffusion_server):
+    status, _, body = _request(cpu_diffusion_server, "GET", "/health")
+    info = json.loads(body)
+    assert status == 200 and info["status"] == "ok" and info["device"] == "cpu"
+    assert info["kind"] == "diffusion" and info["levels"] == 2 and info["batch"] == 4
+    assert info["sampling_method"] == "auto" and info["sampling_timesteps"] == 5
+
+    status, headers, body = _request(cpu_diffusion_server, "POST", "/generate",
+                                     {"n": 6, "seed": 7})
+    assert status == 200
+    assert float(headers["X-Samples-Per-Sec"]) > 0
+    first = _samples(body)
+    assert first.shape == (6, 8, 8, 3) and first.dtype == np.uint8
+    _, _, again = _request(cpu_diffusion_server, "POST", "/generate", {"n": 6, "seed": 7})
+    np.testing.assert_array_equal(_samples(again), first)
+    _, _, other = _request(cpu_diffusion_server, "POST", "/generate", {"n": 6, "seed": 8})
+    assert not np.array_equal(_samples(other), first)
+
+
+@pytest.mark.parametrize("path,body,code", [
+    ("/generate", {"seed": 1}, 400),
+    ("/generate", {"n": 0}, 400),
+    ("/generate", {"n": 2, "seed": -1}, 400),
+    ("/generate", {"n": 2, "format": "gif"}, 400),
+    ("/nowhere", {"n": 2}, 404),
+])
+def test_diffusion_serve_rejects_bad_requests(cpu_diffusion_server, path, body, code):
+    status, _, _ = _request(cpu_diffusion_server, "POST", path, body)
+    assert status == code
+
+
+def test_diffusion_serve_sampler_overrides(stage2_files):
+    """--ddim and --sampler reach the prior, as in tools/serve.py."""
+    sample_images, info = serve.build_sampler(serve.parse_args(
+        stage2_files + ["--ddim", "3", "--sampler", "dpm++"]))
+    assert info["sampling_method"] == "dpm++" and info["sampling_timesteps"] == 3
+    a, b = sample_images(3, 1.0, 5), sample_images(3, 1.0, 5)
+    assert a.shape == (3, 8, 8, 3) and a.dtype == np.uint8
+    np.testing.assert_array_equal(a, b)
+    with pytest.raises(SystemExit):
+        serve.parse_args(stage2_files + ["--sampler", "euler"])
