@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving paths once on one CUDA card.
+"""Drive the PyTorch port's serving and training paths once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -43,6 +43,32 @@ line each:
      each cut to 30 UNet calls at the full chains' shapes, on each route:
      wall and device ms, device busy share, device ms by kernel group and by
      kernel (nfdpm_tpu_torch.profiling).
+  training path (launch counters zeroed before 12, read after it):
+ 11. kernels, backward: coupling_tail_bwd against its plain version, and the
+     gradients of the channel_mix and coupling_tail autograd Functions
+     against autograd through their plain versions, at the three level
+     shapes and a ragged case; times as in 3, the dx call of channel_mix
+     beside torch.matmul for the same product;
+ 12. training: nfdpm_tpu_torch.training.nf_trainer.train, the function the
+     entry point calls, at the full width of configs/nf_base.yaml (L3/K4,
+     width 512, 32x32x3, 5 bits, batch 64, Adam 1e-3, fp32) on TRAIN_STEPS
+     batches of the port's synthetic data: ddinit, one epoch, a checkpoint
+     with a sample grid, final bits/dim. Bits/dim finite and falling, the
+     exact launch counts of the run, frozen leaves bit-identical;
+ 13. training steps: TIMED_STEPS more steps driven one by one: per step
+     exactly 23 channel_mix (12 forward and 11 backward: the first step's
+     input is the data, whose gradient nobody needs), 12 coupling_tail and
+     12 coupling_tail_bwd launches; wall ms per step (median and spread of the
+     last 16), images/s, peak memory, and a torch.profiler breakdown of one
+     step;
+ 14. training, kernel route against plain route from one ddinit'ed state
+     with the same injected noise: bits/dim and gradients of step 1 leaf by
+     leaf, no missing or all-zero gradient, bits/dim of steps 1-8;
+ 15. resume: the checkpoint restored into a fresh state scores the test set
+     exactly as training logged; the same through restore_params (the
+     phase=eval path); and, where PyYAML is installed, the command line
+     `python -m nfdpm_tpu_torch.run_baseline` trains a few steps at full
+     width and `phase=eval` reproduces its final bits/dim.
 
 Then come the kernel summary line, the nvidia-smi line and, last,
 {"ok": true, "device": {...}}. Any failed check raises and exits non-zero
@@ -54,6 +80,11 @@ from __future__ import annotations
 import http.client
 import io
 import json
+import logging
+import math
+import os
+import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -68,6 +99,9 @@ FP32_FLOPS_PER_S = 67e12   # H100 SXM, fp32 outside the tensor cores
 # forward: add, exp, add, reciprocal, add, mul, add, log, add = 9;
 # inverse: add, exp, add, reciprocal, add, div, sub = 7.
 TAIL_OPS, TAIL_INV_OPS = 9, 7
+# the tail's backward: sigmoid 4, 1 - s, s ds, x_b + bias, two products with
+# g_y, s + eps, the quotient, its product with g_ldj, the sum, g_y s = 15
+TAIL_BWD_OPS = 15
 RECORDS = []
 
 # Stage 2, configs/nf_diffusion.yaml; the keys of a stage-2 run's
@@ -88,6 +122,14 @@ VLB_TOL = 1e-3     # bits/dim, kernel route vs plain route (ROADMAP's gate)
 # 9.2e-5 of the uint8 pixels differ; the bounds leave about 10x for spread.
 LATENT_TOL = 5e-3
 PIXEL_SHARE_TOL = 1e-3
+
+# Training, configs/nf_base.yaml: Adam 1e-3, 5 bits, batch 64
+TRAIN_STEPS = 24   # one epoch of the training phase: synthetic_n = 64 * 24
+TIMED_STEPS = 20   # steps driven one by one after it; the last 16 are timed
+TRAIN_SEED = 42
+TRAIN_BPD_TOL = 1e-4     # step 1, kernel route vs plain route (fp32, sum order)
+TRAIN_TRAJ_TOL = 1e-3    # steps 1-8, the repository's gate for trajectories
+GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6  # step-1 gradients, leaf by leaf
 
 
 def emit(record: dict) -> None:
@@ -489,7 +531,8 @@ def glow_path(torch, np, params, counters):
     check(gap <= 1e-4, f"kernel and plain bits/dim differ by {gap}")
     launches_fwd = counts(counters)
     check(launches_fwd == {"channel_mix": 3 * STEPS, "coupling_tail": 3 * STEPS,
-                           "coupling_tail_inverse": 0, "fused_linear_attention": 0},
+                           "coupling_tail_bwd": 0, "coupling_tail_inverse": 0,
+                           "fused_linear_attention": 0},
           f"one forward launched {launches_fwd}")
     ms_k = host_ms(torch, lambda: eval_k(params, batch, noise=noise))
     ms_p = host_ms(torch, lambda: eval_p(params, batch, noise=noise))
@@ -514,8 +557,8 @@ def glow_path(torch, np, params, counters):
     warmup, results = serve_and_check(
         serve, ["--weights", str(weights), "--levels", str(LEVELS), "--steps", str(STEPS),
                 "--width", str(WIDTH), "--img-size", str(IMG), "--n-bits", str(N_BITS)],
-        counters, {"channel_mix": 12, "coupling_tail": 0, "coupling_tail_inverse": 12,
-                   "fused_linear_attention": 0}, "gaussian")
+        counters, {"channel_mix": 12, "coupling_tail": 0, "coupling_tail_bwd": 0,
+                   "coupling_tail_inverse": 12, "fused_linear_attention": 0}, "gaussian")
     launches = counts(counters)
     emit({"phase": "serving", "warmup_s": warmup, "requests": results,
           "main_path_launches": launches})
@@ -585,7 +628,7 @@ def stage2_path(torch, np, flow, counters):
     gap = float((bpd_k - bpd_p).abs().max())
     check(gap <= VLB_TOL, f"kernel and plain stage-2 bits/dim differ by {gap}")
     check(launches_k == {"channel_mix": 3 * STEPS, "coupling_tail": 3 * STEPS,
-                         "coupling_tail_inverse": 0,
+                         "coupling_tail_bwd": 0, "coupling_tail_inverse": 0,
                          "fused_linear_attention": parts * vlb_calls * blocks},
           f"one VLB batch launched {launches_k}")
     check(not any(launches_p.values()), f"the plain route launched {launches_p}")
@@ -615,7 +658,7 @@ def stage2_path(torch, np, flow, counters):
     check([tuple(z.shape[1:]) for z in lat_k] == list(dp.formater.input_shapes)
           and all(bool(torch.isfinite(z).all()) for z in lat_k),
           "stage-2 latents not finite or of the wrong shapes")
-    per_chunk = {"channel_mix": 3 * STEPS, "coupling_tail": 0,
+    per_chunk = {"channel_mix": 3 * STEPS, "coupling_tail": 0, "coupling_tail_bwd": 0,
                  "coupling_tail_inverse": 3 * STEPS,
                  "fused_linear_attention": parts * steps * blocks}
     check(launches_k == per_chunk, f"one 64-image chunk launched {launches_k}")
@@ -692,6 +735,436 @@ def phase_profile(torch, model):
                   "what": what, "unet_calls": unet_calls, **rec})
 
 
+def time_rows(rows, timed):
+    """{key: time} of one case: `rows` maps a prefix ("", "plain_", "library_")
+    to a callable or None; each is timed by CUDA events and by graph replay."""
+    out = {}
+    for prefix, fn in rows.items():
+        out[f"{prefix}ms"] = cuda_ms(fn) if fn else None
+        out[f"{prefix}device_ms"] = graph_ms(fn) if fn else None
+    return {k: out[k] for k in timed}
+
+
+def phase_backward_kernels(torch, cm, ct, totals):
+    """coupling_tail_bwd against its plain version, the dx call of
+    channel_mix timed beside torch.matmul, and the gradients of the two
+    autograd Functions against autograd through the plain versions. Adds
+    the coupling_tail_bwd summary of one backward pass (4 launches at each
+    of the 3 level shapes) and channel_mix's dx times to `totals`."""
+    gen = torch.Generator(device="cuda").manual_seed(2345)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    cases = [(BATCH, h, w, c, STEPS, True) for (h, w, c) in level_shapes()]
+    cases.append((37, 3, 5, 14, 0, False))  # ragged: N = 555, D = 105
+    timed = ("ms", "plain_ms", "library_ms", "device_ms", "plain_device_ms",
+             "library_device_ms")
+    tot = dict({t: 0.0 for t in timed}, bytes=0.0, ops=0.0, max_abs_err=0.0)
+    dx = {f"dx_{t}": 0.0 for t in timed}
+    grad_gap = 0.0
+    for b, h, w, c, per_pass, on_path in cases:
+        o = c if on_path else c + 6
+        half = (b, h, w, c // 2)
+        d = h * w * (c // 2)
+        ls, tb, xb = randn(*half, scale=0.5), randn(*half), randn(*half)
+        g_y, g_ldj = randn(*half), randn(b)
+
+        # the VJP kernel against its plain version
+        k_ls, k_xb = ct.coupling_tail_bwd(ls, tb, xb, g_y, g_ldj)
+        p_ls, p_xb = ct.coupling_tail_bwd_plain(ls, tb, xb, g_y, g_ldj)
+        torch.cuda.synchronize()
+        err = max(float((k_ls - p_ls).abs().max()), float((k_xb - p_xb).abs().max()))
+        check(torch.allclose(k_ls, p_ls, rtol=1e-5, atol=1e-5)
+              and torch.allclose(k_xb, p_xb, rtol=1e-5, atol=1e-5),
+              f"coupling_tail_bwd differs from its plain version at {half}: {err}")
+        times = time_rows({"": lambda: ct.coupling_tail_bwd(ls, tb, xb, g_y, g_ldj),
+                           "plain_": lambda: ct.coupling_tail_bwd_plain(ls, tb, xb, g_y, g_ldj),
+                           "library_": None}, timed)
+        nbytes, ops = 4 * (6 * b * d + b), TAIL_BWD_OPS * b * d
+        b_ms, b_by = bound_ms(nbytes, ops)
+        emit({"phase": "kernel", "name": "coupling_tail_bwd", "x": list(half),
+              "on_path": on_path, "launches_per_pass": per_pass, "max_abs_err": err,
+              **times, "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "ops": ops})
+        tot["max_abs_err"] = max(tot["max_abs_err"], err)
+        if on_path:
+            tot["bytes"] += per_pass * nbytes
+            tot["ops"] += per_pass * ops
+            for key in timed:
+                tot[key] += per_pass * (times[key] or 0.0)
+
+        # the dx call of channel_mix's backward: the same kernel with W^T and
+        # a zero bias; torch.matmul computes the same product in one call
+        g, wt = randn(b, h, w, o), randn(o, c, scale=c ** -0.5)
+        wt_t, zero = wt.T.contiguous(), torch.zeros((c,), device="cuda")
+        g2d = g.view(-1, o)
+        times = time_rows({"": lambda: cm.channel_mix(g, wt_t, zero),
+                           "plain_": lambda: cm.channel_mix_plain(g, wt_t, zero),
+                           "library_": lambda: torch.matmul(g2d, wt)}, timed)
+        n = b * h * w
+        nbytes, ops = 4 * (n * o + n * c + o * c + c), 2 * n * c * o
+        b_ms, b_by = bound_ms(nbytes, ops)
+        emit({"phase": "kernel", "name": "channel_mix", "use": "backward dx", "x": [b, h, w, o],
+              "on_path": on_path, "launches_per_pass": per_pass, **times,
+              "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "ops": ops})
+        if on_path:
+            for key in timed:
+                dx[f"dx_{key}"] += per_pass * (times[key] or 0.0)
+
+        # gradients of the two Functions against autograd through the plain
+        # versions, both cotangents of the tail non-zero
+        x = randn(b, h, w, c).requires_grad_(True)
+        wl, bl = wt.clone().requires_grad_(True), randn(o).requires_grad_(True)
+        before = (cm.channel_mix.launches, cm.channel_mix.backward_launches)
+        y = cm.channel_mix(x, wl, bl)
+        check(y.grad_fn is not None, "channel_mix returned a result without a grad_fn")
+        got = torch.autograd.grad(y, (x, wl, bl), g)
+        want = torch.autograd.grad(cm.channel_mix_plain(x, wl, bl), (x, wl, bl), g)
+        check((cm.channel_mix.launches - before[0],
+               cm.channel_mix.backward_launches - before[1]) == (2, 1),
+              "channel_mix forward + backward did not launch the kernel twice")
+        leaves = [t.clone().requires_grad_(True) for t in (ls, tb, xb)]
+        before = ct.coupling_tail_bwd.launches
+        y_b, ldj = ct.coupling_tail(*leaves)
+        check(y_b.grad_fn is not None and ldj.grad_fn is not None,
+              "coupling_tail returned a result without a grad_fn")
+        got += torch.autograd.grad((y_b, ldj), leaves, (g_y, g_ldj))
+        want += torch.autograd.grad(ct.coupling_tail_plain(*leaves), leaves, (g_y, g_ldj))
+        check(ct.coupling_tail_bwd.launches == before + 1,
+              "coupling_tail's backward did not launch coupling_tail_bwd once")
+        torch.cuda.synchronize()
+        # dW and db sum over up to 16384 rows in another order: 1e-4
+        names = ("dx", "dW", "db", "d_ls", "d_bias", "d_xb")
+        tols = (1e-5, 1e-4, 1e-4, 1e-5, 1e-5, 1e-5)
+        gaps = {}
+        for name, tol, a, e in zip(names, tols, got, want):
+            gaps[name] = float((a - e).abs().max())
+            check(torch.allclose(a, e, rtol=tol, atol=tol),
+                  f"{name} differs from autograd through the plain version at "
+                  f"{(b, h, w, c)}: {gaps[name]}")
+        grad_gap = max(grad_gap, *gaps.values())
+        emit({"phase": "kernel_gradients", "x": [b, h, w, c], "o": o, "max_abs_gap": gaps,
+              "tolerance": dict(zip(names, tols))})
+    tot["bound_ms"], tot["bound_by"] = bound_ms(tot["bytes"], tot["ops"])
+    tot["library_ms"] = tot["library_device_ms"] = None
+    tot["max_gradient_gap"] = grad_gap
+    totals["coupling_tail_bwd"] = tot
+    totals["channel_mix"].update(dx)
+
+
+def train_configs(use_kernels: bool = True, epochs: int = 1):
+    """(GlowConfig, NFTrainConfig) of configs/nf_base.yaml."""
+    from nfdpm_tpu_torch.models import glow as glow_m
+    from nfdpm_tpu_torch.training import nf_trainer as nft
+
+    cfg = glow_m.GlowConfig(levels=LEVELS, steps=STEPS, coupling_width=WIDTH,
+                            use_kernels=use_kernels)
+    tcfg = nft.NFTrainConfig(epochs=epochs, lr=1e-3, optimizer="adam", n_bits=N_BITS,
+                             print_freq=1, save_checkpoint_freq=1)
+    return cfg, tcfg
+
+
+def train_loaders():
+    from nfdpm_tpu_torch.data.pipeline import read_dataset
+
+    return read_dataset("synthetic", "", batch_size=BATCH, img_size=IMG, seed=TRAIN_SEED,
+                        synthetic_n=BATCH * TRAIN_STEPS)
+
+
+def frozen_leaves(params):
+    """{path: tensor} of what training must leave bit-identical under the
+    fixed prior: p_mat, sign and the final prior's leaves."""
+    from nfdpm_tpu_torch.convert import is_frozen_path, named_leaves
+
+    return {path: leaf.detach().clone() for path, leaf in named_leaves(params)
+            if is_frozen_path(path) or path.startswith("prior/")}
+
+
+def phase_training(torch, counters):
+    """Phases 12 and 13; returns (the launches of train(), the run
+    directory, train()'s output, the loaders)."""
+    from nfdpm_tpu_torch.models import glow as glow_m
+    from nfdpm_tpu_torch.models import prior as prior_m
+    from nfdpm_tpu_torch.profiling import profile_call
+    from nfdpm_tpu_torch.training import nf_trainer as nft
+
+    device = torch.device("cuda")
+    cfg, tcfg = train_configs()
+    loaders = train_loaders()
+    run_dir = ROOT / "build" / "chip_smoke" / "train_run"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    run_dir.mkdir(parents=True)
+    logger = logging.getLogger("chip_smoke.train")
+    logger.setLevel(logging.INFO)
+    logger.addHandler(logging.FileHandler(run_dir / "train.log"))
+    logger.propagate = False
+    # what init gives the frozen leaves, before any training
+    init = {"flow": glow_m.init_glow(TRAIN_SEED, cfg, device),
+            "prior": prior_m.init_gaussian_prior(glow_m.final_channels(cfg), True, device)}
+    frozen_before = frozen_leaves(init)
+    del init
+
+    # 12. the training loop, counters zeroed just before and read just after
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters:
+        fn.launches = 0
+    backward_before = counters[0].backward_launches
+    t0 = time.perf_counter()
+    out = nft.train(cfg=cfg, tcfg=tcfg, loaders=loaders, run_dir=str(run_dir), logger=logger,
+                    seed=TRAIN_SEED, img_size=IMG, device=device)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = counts(counters)
+    backward = counters[0].backward_launches - backward_before
+    peak = torch.cuda.max_memory_allocated()
+
+    records = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    bpds = [r["value"] for r in records
+            if r["name"] == "bpd" and r["context"] == {"subset": "train"}]
+    check(len(bpds) == TRAIN_STEPS and all(map(math.isfinite, bpds)),
+          f"training logged {len(bpds)} bits/dim values, or a value that is not finite: {bpds}")
+    first, last = sum(bpds[:4]) / 4, sum(bpds[-4:]) / 4
+    check(last < first, f"bits/dim did not fall: first 4 steps {first}, last 4 {last}")
+    results = out["results"]
+    check(all(math.isfinite(v) for v in results.values()), f"final bits/dim {results}")
+    evals = len(loaders.test) + len(loaders.eval)  # forward passes of the final scoring
+    per_pass = LEVELS * STEPS
+    # the flow's first channel mix takes the data, which needs no gradient:
+    # its backward computes dW and db and launches no dx
+    bwd_mix = per_pass - 1
+    expected = {"channel_mix": TRAIN_STEPS * (per_pass + bwd_mix) + per_pass + evals * per_pass,
+                "coupling_tail": TRAIN_STEPS * per_pass + evals * per_pass,
+                "coupling_tail_bwd": TRAIN_STEPS * per_pass,
+                "coupling_tail_inverse": per_pass,  # the checkpoint's sample grid
+                "fused_linear_attention": 0}
+    check(launches == expected and backward == TRAIN_STEPS * bwd_mix,
+          f"train() launched {launches} ({backward} backward), expected {expected}")
+    frozen_after = frozen_leaves(out["state"]["params"])
+    check(frozen_before.keys() == frozen_after.keys()
+          and all(torch.equal(frozen_before[k], frozen_after[k]) for k in frozen_before),
+          "training changed p_mat, sign or the fixed prior")
+    check((run_dir / "checkpoints" / "model_gaussian_001.pt").exists()
+          and (run_dir / "architecture.json").exists()
+          and list((run_dir / "results").glob("checkpoint_samples_e1_*.png")),
+          "train() did not write its checkpoint, architecture file and sample grid")
+    emit({"phase": "training", "steps": TRAIN_STEPS, "batch": BATCH, "seconds": seconds,
+          "bpd_per_step": bpds, "bpd_first4": first, "bpd_last4": last,
+          "final": results, "launches": launches, "backward_channel_mix_launches": backward,
+          "frozen_leaves_checked": len(frozen_before),
+          "max_memory_allocated_bytes": peak})
+
+    # 13. steps driven one by one: counts and wall time of each
+    train_step = nft.make_train_step(cfg, tcfg, nft.optimizer_of(tcfg), device=device)
+    state = out["state"]
+    batches = [torch.from_numpy(imgs).to(device) for imgs, _ in loaders.train.iter_epoch(1)]
+    per_step = {"channel_mix": per_pass + bwd_mix, "coupling_tail": per_pass,
+                "coupling_tail_bwd": per_pass, "coupling_tail_inverse": 0,
+                "fused_linear_attention": 0}
+    walls, step_bpds = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(TIMED_STEPS):
+        before, back = counts(counters), counters[0].backward_launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, batches[i % len(batches)], TRAIN_SEED)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        after = counts(counters)
+        delta = {k: after[k] - before[k] for k in before}
+        check(delta == per_step and counters[0].backward_launches - back == bwd_mix,
+              f"train step {i} launched {delta}")
+        step_bpds.append(float(metrics["bpd"]))
+    check(all(map(math.isfinite, step_bpds)), f"bits/dim not finite: {step_bpds}")
+    step_peak = torch.cuda.max_memory_allocated()
+    last16 = sorted(walls[-16:])
+    median = (last16[7] + last16[8]) / 2
+    prof = profile_call(lambda: train_step(state, batches[0], TRAIN_SEED), iters=1,
+                        warmup=1, top=25)
+
+    # the parts of a step on the host's clock, a synchronisation after each:
+    # forward (loss), backward, clips and Adam update
+    from nfdpm_tpu_torch.convert import named_leaves
+    from nfdpm_tpu_torch.training.optim import grads_of
+
+    loss_fn, tx = nft.make_loss_fn(cfg, tcfg), nft.optimizer_of(tcfg)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    parts = {"forward_ms": [], "backward_ms": [], "optimizer_ms": []}
+    opt_state = state["opt_state"]
+    for i in range(8):
+        for _, leaf in named_leaves(state["params"]):
+            leaf.grad = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bpd, _ = loss_fn(state["params"], batches[i], gen)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        bpd.backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        opt_state = tx.apply(state["params"], grads_of(state["params"]), opt_state)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for key, ms in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
+            parts[key].append(ms * 1e3)
+    parts = {key: sorted(v)[len(v) // 2] for key, v in parts.items()}
+    emit({"phase": "training_steps", "steps": TIMED_STEPS, "batch": BATCH,
+          "launches_per_step": per_step, "backward_channel_mix_launches_per_step": bwd_mix,
+          "step_wall_ms": walls, "step_wall_ms_median_last16": median,
+          "step_wall_ms_min_last16": last16[0], "step_wall_ms_max_last16": last16[-1],
+          "step_wall_ms_quartiles_last16": [last16[3], last16[11]],
+          "images_per_s": BATCH / median * 1e3, "bpd_per_step": step_bpds,
+          "max_memory_allocated_bytes": step_peak, "step_parts_wall_ms_median_of_8": parts,
+          "profile_one_step": prof})
+    return launches, run_dir, out, loaders
+
+
+def phase_training_routes(torch, loaders, counters):
+    """Phase 14: the kernel route against the plain route, from one
+    ddinit'ed state, on the same batches with the same injected noise."""
+    from nfdpm_tpu_torch.convert import named_leaves, trainable
+    from nfdpm_tpu_torch.training import nf_trainer as nft
+
+    device = torch.device("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(77)
+    batches = [torch.from_numpy(imgs).to(device)
+               for imgs, _ in list(loaders.train.iter_epoch(0))[:8]]
+    noises = [torch.rand(b.shape, generator=gen, device=device) for b in batches]
+    (cfg_k, tcfg), (cfg_p, _) = train_configs(True), train_configs(False)
+    tx = nft.optimizer_of(tcfg)
+    state_k = nft.ddinit_train_state(nft.init_train_state(TRAIN_SEED, cfg_k, tcfg, tx, device),
+                                     cfg_k, tcfg, tx, batches[0], noise=noises[0])
+
+    def clone(tree):
+        if isinstance(tree, dict):
+            return {k: clone(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [clone(v) for v in tree]
+        return tree.detach().clone() if isinstance(tree, torch.Tensor) else tree
+
+    state_p = clone(state_k)
+    state_p["params"] = trainable(state_p["params"])
+    step_k = nft.make_train_step(cfg_k, tcfg, tx, inject_noise=True, device=device)
+    step_p = nft.make_train_step(cfg_p, tcfg, tx, inject_noise=True, device=device)
+
+    bpds_k, bpds_p, grad_report, zero_report = [], [], {}, {}
+    for i, (batch, noise) in enumerate(zip(batches, noises)):
+        before = counts(counters)
+        state_p, m_p = step_p(state_p, batch, noise)
+        check(counts(counters) == before, "the plain route launched a kernel")
+        state_k, m_k = step_k(state_k, batch, noise)
+        bpds_k.append(float(m_k["bpd"]))
+        bpds_p.append(float(m_p["bpd"]))
+        if i > 1:
+            continue
+        # the gradients both routes have just applied are still in .grad
+        worst = (0.0, "", 0.0)
+        all_zero, missing = [], []
+        leaves_p = dict(named_leaves(state_p["params"]))
+        for path, leaf in named_leaves(state_k["params"]):
+            if not leaf.requires_grad:
+                continue
+            if leaf.grad is None or leaves_p[path].grad is None:
+                missing.append(path)
+                continue
+            if not bool(leaf.grad.any()):
+                all_zero.append(path)
+            gap = (leaf.grad - leaves_p[path].grad).abs()
+            excess = float((gap - GRAD_RTOL * leaves_p[path].grad.abs()).max())
+            if excess > worst[0] or not worst[1]:
+                worst = (excess, path, float(gap.max()))
+        check(not missing, f"step {i + 1}: no gradient for {missing}")
+        if i == 0:
+            # a zero-initialised zeroconv gives no gradient to its own
+            # log-scale nor to what feeds it (the coupling CNN's first two
+            # convs and actnorms) until its weight has moved; the fixed
+            # prior's log-scale never gets one (its bias stays zero)
+            upstream = ("/net/conv1/", "/net/an1/", "/net/conv2/", "/net/an2/")
+            unexpected = [p for p in all_zero if not p.endswith("/logs")
+                          and not any(u in p for u in upstream)]
+            check(not unexpected, f"step 1: all-zero gradient for {unexpected}")
+            check(worst[0] <= GRAD_ATOL,
+                  f"step-1 gradients differ between the routes: {worst[1]} is "
+                  f"{worst[0]} beyond rtol {GRAD_RTOL} (max gap {worst[2]})")
+            grad_report = {"largest_gap_beyond_rtol": worst[0], "leaf": worst[1],
+                           "max_abs_gap_of_that_leaf": worst[2]}
+        else:
+            unexpected = [p for p in all_zero if p != "prior/logs"]
+            check(not unexpected, f"step 2: all-zero gradient for {unexpected}")
+        zero_report[f"step_{i + 1}"] = {"count": len(all_zero), "examples": all_zero[:3]}
+    gaps = [abs(a - b) for a, b in zip(bpds_k, bpds_p)]
+    check(gaps[0] <= TRAIN_BPD_TOL, f"step-1 bits/dim differ by {gaps[0]}")
+    check(max(gaps) <= TRAIN_TRAJ_TOL, f"bits/dim of steps 1-8 differ by {gaps}")
+    emit({"phase": "training_routes", "steps": len(batches), "bpd_kernels": bpds_k,
+          "bpd_plain": bpds_p, "bpd_gap_per_step": gaps, "step1_tolerance": TRAIN_BPD_TOL,
+          "trajectory_tolerance": TRAIN_TRAJ_TOL, "step1_gradients": grad_report,
+          "gradient_rtol": GRAD_RTOL, "gradient_atol": GRAD_ATOL,
+          "all_zero_gradients": zero_report})
+
+
+def phase_resume(torch, run_dir, out, loaders):
+    """Phase 15: the checkpoint read back, by both restore functions and,
+    where PyYAML is installed, through the command line."""
+    from nfdpm_tpu_torch.training import checkpoint as ckpt
+    from nfdpm_tpu_torch.training import nf_trainer as nft
+
+    device = torch.device("cuda")
+    cfg, tcfg = train_configs()
+    eval_step = nft.make_eval_step(cfg, tcfg, device)
+    state = ckpt.restore_state(str(run_dir), "gaussian", 1, device)
+    check(state["step"] == TRAIN_STEPS and state["opt_state"]["count"] == TRAIN_STEPS,
+          f"the restored state is at step {state['step']}")
+    # loaders as a new process makes them: the shuffled eval loader draws
+    # another order each time it is walked
+    loaders = train_loaders()
+    again = nft.final_bpd(eval_step, state["params"], loaders, TRAIN_SEED)
+    check(again == out["results"],
+          f"the restored state scores {again}, training logged {out['results']}")
+    params = ckpt.restore_params(str(run_dir), "gaussian", 1, device)
+    eval_phase = nft.final_bpd(eval_step, params, train_loaders(), TRAIN_SEED)
+    check(eval_phase == out["results"], f"restore_params scores {eval_phase}")
+    record = {"phase": "resume", "restored_step": state["step"], "bpd": again,
+              "logged": out["results"], "equal": True}
+
+    try:
+        import yaml  # noqa: F401  (only to know whether the entry point can run)
+    except ImportError:
+        record["command_line"] = "not run: PyYAML is not installed"
+        emit(record)
+        return
+    cwd = ROOT / "build" / "chip_smoke" / "cli"
+    shutil.rmtree(cwd, ignore_errors=True)
+    cwd.mkdir(parents=True)
+    common = ["data.name=synthetic", f"data.batch_size={BATCH}", f"data.img_size={IMG}",
+              f"data.synthetic_n={BATCH * 4}", f"model.architecture.L={LEVELS}",
+              f"model.architecture.K={STEPS}", f"model.architecture.coupling_width={WIDTH}",
+              "model.training.epochs=1", "model.training.print_freq=1",
+              "model.training.save_checkpoint_freq=1"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT), NFDPM_NO_TENSORBOARD="1")
+
+    def cli(*extra):
+        done = subprocess.run([sys.executable, "-m", "nfdpm_tpu_torch.run_baseline", *common,
+                               *extra], cwd=cwd, env=env, capture_output=True, text=True,
+                              timeout=600)
+        check(done.returncode == 0, f"run_baseline {extra} failed:\n{done.stdout[-1500:]}"
+              f"\n{done.stderr[-1500:]}")
+        return done.stdout
+
+    t0 = time.perf_counter()
+    trained_out = cli("experiment_name=smoke")
+    (run,) = (cwd / "outputs").iterdir()
+    eval_out = cli("phase=eval", f"load.load_exp_dir={run.name}", "load.load_epoch=1")
+    final = dict(re.findall(r"final (test|train) bpd: ([0-9.]+)", trained_out))
+    evaluated = dict(re.findall(r"\] (test|train) bpd: ([0-9.]+)", eval_out))
+    check(len(final) == 2 and final == evaluated,
+          f"phase=eval gave {evaluated}, training logged {final}")
+    check("NVIDIA" in trained_out or "Device: cuda" in trained_out,
+          "the command line did not report a CUDA device")
+    record["command_line"] = {"ran": True, "steps": 4, "seconds": time.perf_counter() - t0,
+                              "final_bpd": final, "eval_bpd": evaluated}
+    emit(record)
+
+
 def main() -> int:
     import torch
 
@@ -722,11 +1195,18 @@ def main() -> int:
     totals["fused_linear_attention"] = phase_attention_kernel(
         torch, fla, attention_shapes(torch, stage2_prior(), device))
 
-    counters = (cm.channel_mix, ct.coupling_tail, ct.coupling_tail_inverse,
-                fla.fused_linear_attention)
+    counters = (cm.channel_mix, ct.coupling_tail, ct.coupling_tail_bwd,
+                ct.coupling_tail_inverse, fla.fused_linear_attention)
     launches = {"glow": glow_path(torch, np, params, counters)}
     launches["stage2"], model = stage2_path(torch, np, params["flow"], counters)
     phase_profile(torch, model)
+    del model, params
+    torch.cuda.empty_cache()
+
+    phase_backward_kernels(torch, cm, ct, totals)
+    launches["training"], run_dir, out, loaders = phase_training(torch, counters)
+    phase_training_routes(torch, loaders, counters)
+    phase_resume(torch, run_dir, out, loaders)
 
     per = {"fused_linear_attention": "one UNet evaluation of each of the three parts at "
                                      "batch 64 (one DDIM step): 12 launches"}
@@ -734,6 +1214,9 @@ def main() -> int:
                "coupling_tail": ("flow_kernels.cu", "nfdpm_tpu/ops/pallas/coupling_tail.py:75"),
                "coupling_tail_inverse": ("flow_kernels.cu",
                                          "nfdpm_tpu/ops/pallas/coupling_tail.py:127"),
+               # the VJP of coupling_tail, which the JAX package leaves to XLA
+               "coupling_tail_bwd": ("flow_kernels.cu",
+                                     "nfdpm_tpu/ops/pallas/coupling_tail.py:148"),
                "fused_linear_attention": (
                    "linear_attention.cu", "nfdpm_tpu/ops/pallas/fused_linear_attention.py:164")}
     kernels = []
@@ -749,7 +1232,11 @@ def main() -> int:
             "library_ms": tot["library_ms"], "device_ms": tot["device_ms"],
             "plain_device_ms": tot["plain_device_ms"],
             "library_device_ms": tot["library_device_ms"],
-            "per": per.get(name, "one pass: 4 launches at each of the 3 level shapes")})
+            "per": per.get(name, "one pass: 4 launches at each of the 3 level shapes"),
+            **{k: v for k, v in tot.items() if k.startswith("dx_") or k == "max_gradient_gap"}})
+    order = ["channel_mix", "coupling_tail", "coupling_tail_bwd", "coupling_tail_inverse",
+             "fused_linear_attention"]
+    kernels.sort(key=lambda k: order.index(k["name"]))
     summary = {"kernels": kernels}
     RECORDS.append(summary)
     out = ROOT / "chiprun_out" / "chip_smoke.json"

@@ -13,6 +13,11 @@ list of K steps and every conv weight "w" turned from HWIO into OIHW. The
 1x1-conv leaves (PLU p_mat/lower/upper/log_s/sign, or full-W "weight")
 pass through unchanged.
 
+`trainable` marks a tree's leaves for autograd (all but the PLU constants),
+and `opt_state_from_jax`/`opt_state_to_jax` carry Adam's moments and step
+count across in the same layouts, so that a train state of the JAX package
+and one of the port compute the same next step.
+
 `save_npz`/`load_npz` store the JAX-layout tree flattened under "/"-joined
 keys; that is the weight format nfdpm_tpu_torch/serve.py reads.
 """
@@ -30,15 +35,16 @@ Tree = Any
 
 
 def tree_to_device(tree: Tree, device: torch.device) -> Tree:
-    """numpy leaves -> fp32 tensors on `device`; 4-D conv weights are kept in
-    channels-last memory. Dicts, lists and None pass through."""
+    """numpy leaves -> fp32 tensors on `device`, always copies (training
+    updates them in place); 4-D conv weights are kept in channels-last
+    memory. Dicts, lists and None pass through."""
     if isinstance(tree, dict):
         return {k: tree_to_device(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [tree_to_device(v, device) for v in tree]
     if tree is None:
         return None
-    t = torch.as_tensor(np.asarray(tree, np.float32)).to(device)
+    t = torch.from_numpy(np.array(tree, np.float32)).to(device)
     return t.contiguous(memory_format=torch.channels_last) if t.dim() == 4 else t
 
 
@@ -125,6 +131,60 @@ def to_jax_params(params: Dict[str, Any]) -> Dict[str, Any]:
     return {"flow": {"blocks": tuple(blocks),
                      "final_steps": steps_to_jax(flow["final_steps"])},
             "prior": dict(host.get("prior") or {})}
+
+
+# Leaves of a PLU 1x1 conv that are constants, not parameters
+# (nfdpm_tpu/training/optim.py:FROZEN_LEAF_NAMES).
+FROZEN_LEAF_NAMES = ("p_mat", "sign")
+
+
+def named_leaves(tree: Tree, prefix: str = "", keep_none: bool = False):
+    """(path, leaf) for every leaf, paths joined by "/", in the tree's own
+    order (dict insertion order, list index). None leaves are left out
+    unless `keep_none`, which lets two trees of one structure be walked side
+    by side when one of them has None where the other has a tensor."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        if tree is not None or keep_none:
+            yield prefix, tree
+        return
+    for k, v in items:
+        yield from named_leaves(v, f"{prefix}/{k}" if prefix else str(k), keep_none)
+
+
+def is_frozen_path(path: str) -> bool:
+    return path.rsplit("/", 1)[-1] in FROZEN_LEAF_NAMES
+
+
+def trainable(params: Tree, _name: str = "") -> Tree:
+    """A tree over the same storage whose leaves are autograd leaves: every
+    one requires grad except the PLU constants p_mat and sign."""
+    if isinstance(params, dict):
+        return {k: trainable(v, k) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [trainable(v, _name) for v in params]
+    if params is None:
+        return None
+    return params.detach().requires_grad_(_name not in FROZEN_LEAF_NAMES)
+
+
+def opt_state_from_jax(mu: Dict[str, Any], nu: Dict[str, Any], count: int,
+                       device=None) -> Dict[str, Any]:
+    """Adam's moments as JAX-layout {"flow", "prior"} trees of numpy arrays
+    (the `mu` and `nu` of optax's ScaleByAdamState, with zeros where optax
+    masks a leaf out) and its step count -> the state of
+    training/optim.py:Optimizer."""
+    return {"mu": from_jax_params(mu, device), "nu": from_jax_params(nu, device),
+            "count": int(count)}
+
+
+def opt_state_to_jax(opt_state: Dict[str, Any]):
+    """The inverse: (mu, nu, count) with the moments in the JAX layout."""
+    return (to_jax_params(opt_state["mu"]), to_jax_params(opt_state["nu"]),
+            int(opt_state["count"]))
 
 
 def _flatten(tree: Tree, prefix: str, out: Dict[str, np.ndarray]) -> None:

@@ -47,7 +47,9 @@ def make_eval_step(cfg: glow_m.GlowConfig, n_bits: int = 5,
 
     Returns eval_step(params, batch, generator=None, noise=None) -> bpd [B],
     for images `batch` in [0, 1], [B, H, W, C]. `noise` is the U(0, 1)
-    dequantization draw, else it comes from `generator`."""
+    dequantization draw, else it comes from `generator`. The log-likelihood
+    behind it is `eval_step.ll` (same arguments), for combining several
+    draws (training/nf_trainer.py:calculate_bpd)."""
     device = resolve_device(device)
     disable_tf32()
     n_bins = q.n_bins_of(n_bits)
@@ -70,6 +72,10 @@ def make_eval_step(cfg: glow_m.GlowConfig, n_bits: int = 5,
                                    compat_three_channel_bpd)
         return (np.log(n_bins) * n_pixel - ll) * (np.log2(np.e) / n_pixel)
 
+    eval_step.ll = ll_step
+    eval_step.n_bins = n_bins
+    eval_step.compat = compat_three_channel_bpd
+    eval_step.device = device
     return eval_step
 
 
@@ -167,13 +173,18 @@ def make_vlb_eval_step(backbone: NFBackbone, dp: DiffusionPrior, n_bits: int = 5
     return eval_step
 
 
+def reseed(generator: torch.Generator, *words: int) -> torch.Generator:
+    """Seed `generator` from the non-negative integers `words`, so that what
+    it draws next is a pure function of them; returns it."""
+    state = np.random.SeedSequence([int(w) for w in words]).generate_state(1, np.uint64)
+    generator.manual_seed(int(state[0]))
+    return generator
+
+
 def chunk_generator(seed: int, chunk: int, device: torch.device) -> torch.Generator:
     """A fresh generator for chunk `chunk` of a request with `seed`, so that
     no two chunks repeat samples and one seed always gives the same bytes."""
-    state = np.random.SeedSequence([int(seed), int(chunk)]).generate_state(1, np.uint64)
-    g = torch.Generator(device=device)
-    g.manual_seed(int(state[0]))
-    return g
+    return reseed(torch.Generator(device=device), seed, chunk)
 
 
 def generate_batched(sample_fn, params, n: int, batch: int, temperature: float,

@@ -18,6 +18,7 @@ import dataclasses
 from typing import List, Optional, Sequence, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..convert import tree_to_device
@@ -38,6 +39,11 @@ class GlowConfig:
     # through ops/kernels (CUDA kernels on CUDA tensors, their plain versions
     # on CPU tensors); False takes the plain PyTorch step.
     invconv_param: str = "plu"  # "plu" or "full" (one trainable [C, C] matrix)
+    remat: bool = False  # recompute each step's activations in the backward
+    # pass (torch.utils.checkpoint) instead of keeping them: the same values
+    # and gradients for less activation memory and one more forward
+    scan_unroll: int = 1  # accepted for the JAX package's configs and
+    # ignored: a block's steps are a Python loop here, there is no scan
 
     def __post_init__(self):
         if self.coupling_dtype != "float32":
@@ -104,20 +110,51 @@ def forward(params: Params, cfg: GlowConfig, x: torch.Tensor,
     elif logp is None:
         logp = torch.zeros((b,), dtype=torch.float32, device=x.device)
 
+    def step(sp, y, ldj):
+        if cfg.remat and torch.is_grad_enabled():
+            return checkpoint(bj.step_forward, sp, y, ldj, cfg.use_kernels,
+                              use_reentrant=False)
+        return bj.step_forward(sp, y, ldj, cfg.use_kernels)
+
     latents = []
     y = x
     for block in params["blocks"]:
         y = bj.squeeze_forward(y)
         for sp in block["steps"]:
-            y, ldj = bj.step_forward(sp, y, ldj, cfg.use_kernels)
+            y, ldj = step(sp, y, ldj)
         y, ldj, z, logp = bj.split_forward(block["split"], y, ldj, logp)
         latents.append(z)
 
     y = bj.squeeze_forward(y)
     for sp in params["final_steps"]:
-        y, ldj = bj.step_forward(sp, y, ldj, cfg.use_kernels)
+        y, ldj = step(sp, y, ldj)
     latents.append(y)
     return latents, ldj, logp
+
+
+@torch.no_grad()
+def ddinit(params: Params, cfg: GlowConfig, x: torch.Tensor) -> Params:
+    """One-batch data-dependent initialization of every actnorm in the flow
+    (the steps' and the coupling CNNs'), level by level on the batch as the
+    flow transforms it. Returns a new tree; `params` is not changed, and
+    the leaves that are not re-initialized are shared with it."""
+    zeros = torch.zeros((x.shape[0],), dtype=torch.float32, device=x.device)
+
+    def init_steps(steps, y):
+        new_steps = []
+        for sp in steps:
+            new_sp, y = bj.step_ddinit(sp, y)
+            new_steps.append(new_sp)
+        return new_steps, y
+
+    new_blocks = []
+    y = x
+    for block in params["blocks"]:
+        new_steps, y = init_steps(block["steps"], bj.squeeze_forward(y))
+        new_blocks.append({"steps": new_steps, "split": block["split"]})
+        y = bj.split_forward(block["split"], y, zeros, None)[0]
+    new_final, _ = init_steps(params["final_steps"], bj.squeeze_forward(y))
+    return {"blocks": new_blocks, "final_steps": new_final}
 
 
 def inverse(params: Params, cfg: GlowConfig, latents: Sequence[torch.Tensor],

@@ -6,6 +6,8 @@ functions over a parameter dict of tensors:
     init_<name>(rng, ...)            -> params (host-side numpy)
     <name>_forward(params, x, ldj)   -> (y, ldj)     # ldj: [B] fp32
     <name>_inverse(params, y)        -> x
+    <name>_ddinit(params, x)         -> (new params, y)   # data-dependent init
+                                     # (actnorm_ddinit takes x alone)
 
 Parameter init is host-side numpy from the same generator calls as the JAX
 package, so one integer seed gives the same weights in both;
@@ -26,7 +28,8 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from .coupling import coupling_net_apply, init_coupling_net
+from .coupling import (actnorm_stats_init, coupling_net_apply,
+                       coupling_net_ddinit, init_coupling_net)
 from .kernels.channel_mix import channel_mix
 from .kernels.coupling_tail import coupling_tail, coupling_tail_inverse
 from .zeroconv import init_zeroconv, zeroconv_apply
@@ -53,6 +56,15 @@ def init_actnorm(channels: int) -> Params:
     """Zero init (log-scale and bias); a trained or imported model fills them."""
     return {"scale": np.zeros((channels,), np.float32),
             "bias": np.zeros((channels,), np.float32)}
+
+
+@torch.no_grad()
+def actnorm_ddinit(x: torch.Tensor) -> Tuple[Params, torch.Tensor]:
+    """Data-dependent init from one batch x [B, H, W, C]: new leaves that
+    give exp(scale) * (x + bias) zero mean and unit variance per channel,
+    and that output."""
+    new = actnorm_stats_init(x)
+    return new, torch.exp(new["scale"]) * (x + new["bias"])
 
 
 # ---------------------------------------------------------------------------
@@ -156,6 +168,15 @@ def coupling_inverse(params: Params, y: torch.Tensor) -> torch.Tensor:
     log_scale, bias = _halves(coupling_net_apply(params["net"], y_a))
     scale = torch.sigmoid(log_scale + 2.0)
     return torch.cat([y_a, y_b / (scale + _EPS_COUPLING) - bias], dim=-1)
+
+
+@torch.no_grad()
+def coupling_ddinit(params: Params, x: torch.Tensor) -> Tuple[Params, torch.Tensor]:
+    """Data-dependent init of the actnorms inside the coupling CNN, then a
+    normal forward (the coupling output itself needs no init)."""
+    new = {"net": coupling_net_ddinit(params["net"], _halves(x)[0])[0]}
+    zeros = torch.zeros((x.shape[0],), dtype=torch.float32, device=x.device)
+    return new, coupling_forward(new, x, zeros)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -309,6 +330,17 @@ def step_forward_kernels(params: Params, x: torch.Tensor,
     y_b, ldj_part = coupling_tail(log_scale.contiguous(), bias.contiguous(),
                                   x_b.contiguous())
     return torch.cat([y_a, y_b], dim=-1), ldj + ldj_part
+
+
+@torch.no_grad()
+def step_ddinit(params: Params, x: torch.Tensor) -> Tuple[Params, torch.Tensor]:
+    """Data-dependent init through one step: init the step's actnorm on its
+    input, run the 1x1 conv, then init the coupling CNN's actnorms. Returns
+    (new step, output); `params` is not changed."""
+    an, y = actnorm_ddinit(x)
+    y = torch.matmul(y, invconv_weight(params["invconv"]).T)
+    cp, y = coupling_ddinit(params["coupling"], y)
+    return {"actnorm": an, "invconv": params["invconv"], "coupling": cp}, y
 
 
 def step_inverse(params: Params, y: torch.Tensor,

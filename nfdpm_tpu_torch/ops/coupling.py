@@ -1,7 +1,7 @@
 """The affine-coupling CNN: Conv3x3+ActNorm -> ReLU -> Conv1x1+ActNorm ->
 ReLU -> ZeroConv3x3.
 
-Counterpart of nfdpm_tpu/ops/coupling.py:31-78, fp32 only. The
+Counterpart of nfdpm_tpu/ops/coupling.py, fp32 only. The
 convolutions are library calls (cuDNN), as the JAX package left them to
 XLA outside any Pallas kernel; the entry points turn TF32 off
 (nfdpm_tpu_torch.disable_tf32) to keep fp32 parity.
@@ -9,7 +9,7 @@ XLA outside any Pallas kernel; the entry points turn TF32 off
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
@@ -50,3 +50,28 @@ def coupling_net_apply(params: Params, x: torch.Tensor) -> torch.Tensor:
     h = _conv_actnorm_relu(x, params["conv1"], params["an1"], padding=1)
     h = _conv_actnorm_relu(h, params["conv2"], params["an2"], padding=0)
     return zeroconv_apply(params["zconv"], h)
+
+
+def actnorm_stats_init(h: torch.Tensor, eps: float = 1e-6) -> Params:
+    """Data-dependent actnorm leaves from one batch h [B, H, W, C]: per
+    channel, scale = -log(std + eps) with the Bessel-corrected std (ddof=1,
+    torch.std's default) and bias = -mean, so that exp(scale) * (h + bias)
+    has zero mean and unit variance."""
+    return {"scale": -torch.log(torch.std(h, dim=(0, 1, 2)) + eps),
+            "bias": -torch.mean(h, dim=(0, 1, 2))}
+
+
+@torch.no_grad()
+def coupling_net_ddinit(params: Params, x: torch.Tensor) -> Tuple[Params, torch.Tensor]:
+    """Initialize the two inner actnorms from the batch's statistics after
+    each conv, then apply. Returns (new params, output); `params` is not
+    changed, and the new tree shares every other leaf with it."""
+    h1 = conv2d_nhwc(x, params["conv1"]["w"], padding=1)
+    an1 = actnorm_stats_init(h1)
+    y1 = torch.relu(torch.exp(an1["scale"]) * (h1 + an1["bias"]))
+    h2 = conv2d_nhwc(y1, params["conv2"]["w"], padding=0)
+    an2 = actnorm_stats_init(h2)
+    y2 = torch.relu(torch.exp(an2["scale"]) * (h2 + an2["bias"]))
+    new = dict(params)
+    new["an1"], new["an2"] = an1, an2
+    return new, zeroconv_apply(params["zconv"], y2)

@@ -38,6 +38,8 @@ _SIGNATURES = {
         "channel_mix_f32": ([_P, _P, _P, _P, ctypes.c_longlong, _I, _I, _P], _I),
         "coupling_tail_f32": ([_P, _P, _P, _P, _P, _I, ctypes.c_longlong, _P], _I),
         "coupling_tail_inverse_f32": ([_P, _P, _P, _P, ctypes.c_longlong, _P], _I),
+        "coupling_tail_bwd_f32": ([_P, _P, _P, _P, _P, _P, _P, _I, ctypes.c_longlong, _P],
+                                  _I),
     },
     "attention_kernels": {
         "fused_linear_attention_smem_bytes": ([_I], ctypes.c_longlong),
@@ -129,6 +131,16 @@ def check_cuda_f32(name: str, *tensors: torch.Tensor) -> torch.device:
         if not t.is_contiguous():
             raise ValueError(f"{name}: expects contiguous inputs")
     return device
+
+
+def refuse_gradient(name: str, roadmap_item: str, *tensors: torch.Tensor) -> None:
+    """Raise when a gradient would be wanted through a wrapper that has none:
+    its output would come back detached and the gradient silently missing."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no gradient (ROADMAP {roadmap_item}): call it under "
+            "torch.no_grad() or torch.inference_mode(), or on tensors that do "
+            "not require grad")
 
 
 def raise_on_error(name: str, err: int) -> None:

@@ -26,6 +26,9 @@
 //    artefact. No tensor cores: TF32 would break the fp32 parity that the
 //    TPU kernel holds with Precision.HIGHEST. At these sizes launch overhead,
 //    not bandwidth, dominates; that is left to a later change.
+//    The backward pass (_channel_mix_bwd there) sends dx = g W through this
+//    same kernel with W^T and a zero bias, as the TPU kernel does; dW and db
+//    are a matmul and a sum outside any kernel on both sides.
 //
 // 2. coupling_tail_f32 replaces nfdpm_tpu/ops/pallas/coupling_tail.py
 //    (coupling_tail -> _forward -> pl.pallas_call):
@@ -43,6 +46,18 @@
 //    nfdpm_tpu/ops/pallas/coupling_tail.py (coupling_tail_inverse):
 //        x_b = y_b / (sigmoid(ls + 2) + 1e-6) - bias
 //    Bound: bytes. A grid-stride elementwise pass, no reduction.
+//
+// 4. coupling_tail_bwd_f32 is the vector-Jacobian product of coupling_tail
+//    (nfdpm_tpu/ops/pallas/coupling_tail.py:_bwd, which the JAX package
+//    leaves to XLA to fuse into one pass; eager PyTorch would run it as about
+//    ten elementwise kernels over four tensors):
+//        s = sigmoid(ls + 2); ds = s (1 - s)
+//        d_ls = g_y (x_b + bias) ds + g_ldj[r] ds / (s + 1e-6)
+//        d_xb = d_bias = g_y s                      (one tensor, written once)
+//    Bound: bytes (four reads and two writes per element, plus g_ldj[rows]).
+//    A grid-stride elementwise pass; the row of an element is i / d. g_y or
+//    g_ldj may be null (that output of the forward pass was not used) and
+//    then counts as zeros. No reduction, so nothing depends on block order.
 
 #include <cuda_runtime.h>
 
@@ -136,6 +151,26 @@ coupling_tail_inverse_kernel(const float* __restrict__ ls,
   }
 }
 
+__global__ void __launch_bounds__(EW_THREADS)
+coupling_tail_bwd_kernel(const float* __restrict__ ls,
+                         const float* __restrict__ bias,
+                         const float* __restrict__ xb,
+                         const float* __restrict__ gy,    // null: zeros
+                         const float* __restrict__ gldj,  // [rows]; null: zeros
+                         float* __restrict__ d_ls, float* __restrict__ d_xb,
+                         long long d, long long total) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < total; i += stride) {
+    const float s = sigmoid_shift2(ls[i]);
+    const float ds = s * (1.0f - s);
+    const float g = gy != nullptr ? gy[i] : 0.0f;
+    const float gl = gldj != nullptr ? gldj[i / d] : 0.0f;
+    d_ls[i] = g * (xb[i] + bias[i]) * ds + gl * ds / (s + COUPLING_EPS);
+    d_xb[i] = g * s;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -185,6 +220,19 @@ int coupling_tail_inverse_f32(const float* ls, const float* bias,
   coupling_tail_inverse_kernel<<<static_cast<unsigned>(blocks), EW_THREADS, 0,
                                  static_cast<cudaStream_t>(stream)>>>(
       ls, bias, yb, xb, total);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int coupling_tail_bwd_f32(const float* ls, const float* bias, const float* xb,
+                          const float* gy, const float* gldj, float* d_ls,
+                          float* d_xb, int rows, long long d, void* stream) {
+  const long long total = static_cast<long long>(rows) * d;
+  if (total <= 0) return static_cast<int>(cudaSuccess);
+  long long blocks = (total + EW_THREADS - 1) / EW_THREADS;
+  if (blocks > SM_COUNT * 16) blocks = SM_COUNT * 16;  // grid-stride beyond that
+  coupling_tail_bwd_kernel<<<static_cast<unsigned>(blocks), EW_THREADS, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      ls, bias, xb, gy, gldj, d_ls, d_xb, d, total);
   return static_cast<int>(cudaGetLastError());
 }
 

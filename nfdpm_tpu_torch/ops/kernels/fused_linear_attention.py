@@ -7,7 +7,8 @@ is `fused_linear_attention_f32` in csrc/linear_attention.cu (its note says
 what bounds it and how it is laid out). Weights are the 1x1 convs as
 matrices: w_qkv [C, 3*hidden] (columns [q | k | v], head-major within
 each), w_out [hidden, C], b_out [C], and the LayerNorm gain g [C]. Forward
-only: the gradient belongs to the training slice of the port.
+only: the gradient belongs to the stage-2 training slice of the port, and
+until then the wrapper raises where a gradient is asked for.
 """
 
 from __future__ import annotations
@@ -54,7 +55,11 @@ def fused_linear_attention(x: torch.Tensor, w_qkv: torch.Tensor,
     """x [B, H, W, C] pre-normed, fp32 -> [B, H, W, C].
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (two CUDA kernels behind one call, counted as one launch) or raises."""
+    (two CUDA kernels behind one call, counted as one launch) or raises.
+    Not differentiable yet: raises where a gradient is asked for."""
+    _build.refuse_gradient("fused_linear_attention",
+                           "§1.10: its backward comes with the stage-2 trainer; use "
+                           "fused_linear_attention_plain", x, w_qkv, w_out, b_out, g)
     if x.device.type == "cpu":
         return fused_linear_attention_plain(x, w_qkv, w_out, b_out, g, heads, dim_head)
     device = _build.check_cuda_f32("fused_linear_attention", x, w_qkv, w_out, b_out, g)

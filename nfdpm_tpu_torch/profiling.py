@@ -21,6 +21,9 @@ import torch
 GROUPS = (
     ("fused_linear_attention", ("fla_context_kernel", "fla_output_kernel")),
     ("channel_mix + coupling tails", ("channel_mix_kernel", "coupling_tail")),
+    ("convolution backward (cuDNN)", ("wgrad", "dgrad", "bwd_data", "bwd_filter",
+                                      "backward_data", "backward_filter")),
+    ("optimizer and clips (foreach)", ("multi_tensor_apply",)),
     ("convolution (cuDNN)", ("conv", "xmma", "implicit_gemm", "winograd", "fft",
                              "nchwToNhwc", "nhwcToNchw", "cudnn")),
     ("matmul (cuBLAS)", ("gemm", "gemv", "cublas", "trsm", "splitKreduce")),

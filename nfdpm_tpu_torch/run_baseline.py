@@ -1,0 +1,163 @@
+"""Baseline flow experiment entry point (Glow + Gaussian prior), PyTorch port.
+
+    python -m nfdpm_tpu_torch.run_baseline data.name=synthetic model.architecture.L=3 ...
+
+Counterpart of run_baseline_experiment.py over the same configs/nf_base.yaml
+and the same dotted overrides. It runs on the CUDA device; `device=cpu` is
+the only way onto the CPU. Phases:
+
+  train: (optionally resumed) training with checkpoints, sample grids and
+         final test/train bits/dim;
+  eval:  restore a checkpoint's parameters (load.load_exp_dir, load_epoch)
+         and compute test/train bits/dim, with
+         model.evaluation.bpd_dequant_samples draws per image and, with
+         bpd_iwae, the importance-weighted bound.
+
+`model.architecture.use_pallas` chooses the kernel route (the hand-written
+CUDA kernels on the card). It is true here unless an override names it: the
+file's own `false` is the JAX package's default, not the port's. What is
+not ported raises NotImplementedError instead of being skipped: configured
+FID/KID/SSIM metrics, `parallel.*` other than the defaults,
+`load.load_batch`, the watchdog and profiler hooks, and
+coupling_dtype=bfloat16.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+import time
+
+CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                      "configs", "nf_base.yaml")
+PARALLEL_DEFAULTS = {"n_model": 1, "n_slices": 1, "fsdp": False, "pipeline": False,
+                     "pipeline_microbatches": 0, "spatial": False}
+
+
+def refuse_unported(cfg) -> None:
+    """Raise for every configured option the port does not have yet."""
+    from .utils.config import parse_metric
+
+    metrics = cfg.select("model.evaluation.metrics")
+    if (parse_metric(cfg.select("model.evaluation.metrics.FID"))
+            or parse_metric(cfg.select("model.evaluation.metrics.KID"))
+            or (metrics or {}).get("SSIM_and_PSNR")):
+        raise NotImplementedError(
+            "FID/KID/SSIM/PSNR evaluation is not ported (ROADMAP §1.11): leave "
+            "model.evaluation.metrics empty")
+    for key, default in PARALLEL_DEFAULTS.items():
+        value = cfg.select(f"parallel.{key}", default)
+        if value != default:
+            raise NotImplementedError(
+                f"parallel.{key}={value!r} is not ported (ROADMAP §1.13: multi-GPU); "
+                "the port trains on one device")
+    if cfg.select("load.load_batch") is not None:
+        raise NotImplementedError(
+            "load.load_batch (mid-epoch resume) is not ported (ROADMAP §1.12)")
+
+
+def main(argv) -> None:
+    import nfdpm_tpu_torch as port
+    from .data.pipeline import read_dataset
+    from .models import glow as glow_m
+    from .training import nf_trainer as nft
+    from .training.checkpoint import restore_params
+    from .utils.config import load_config, make_run_dir
+    from .utils.env import log_environment, parse_train_eval_mode, set_seeds, setup_logger
+
+    overrides = [a for a in argv if "=" in a]
+    cfg = load_config(CONFIG, overrides)
+    use_kernels = (bool(cfg.model.architecture.use_pallas) if any(
+        o.lstrip("+").startswith("model.architecture.use_pallas=") for o in overrides)
+        else True)
+    device = port.resolve_device(cfg.select("device"))
+    port.disable_tf32()
+    train_phase = parse_train_eval_mode(cfg.phase)
+    refuse_unported(cfg)
+
+    arch = cfg.model.architecture
+    gcfg = glow_m.GlowConfig(
+        in_channels=1 if cfg.data.name == "MNIST" else 3,
+        levels=int(arch.L),
+        steps=int(arch.K),
+        coupling_width=int(arch.get("coupling_width", 512)),
+        learn_prior=bool(arch.learn_prior_mean_logs),
+        scan_unroll=int(arch.get("scan_unroll", 4)),
+        coupling_dtype=str(arch.get("coupling_dtype", "float32")),
+        remat=bool(arch.get("remat", False)),
+        use_kernels=use_kernels,
+    )
+    tr = cfg.model.training
+    tcfg = nft.NFTrainConfig(
+        epochs=int(tr.epochs),
+        lr=float(cfg.model.optimizer.lr),
+        optimizer=cfg.model.optimizer.type,
+        n_bits=int(tr.n_bits),
+        temperature=float(tr.temperature),
+        print_freq=int(tr.print_freq),
+        save_checkpoint_freq=int(tr.save_checkpoint_freq),
+        log_gen_images_per_iter=int(cfg.model.logging.log_gen_images_per_iter),
+        log_param_distribution=bool(cfg.model.logging.get("log_param_distribution", False)),
+        compat_three_channel_bpd=bool(cfg.select("compat.three_channel_bpd", True)),
+        compat_fixed_prior=bool(cfg.select("compat.fixed_prior", True)),
+        grad_accum=int(cfg.select("model.training.grad_accum", 1)),
+        watchdog_timeout_s=(float(w) if (w := cfg.select(
+            "model.training.watchdog_timeout_s")) else None),
+        profile_epoch=(int(p) if (p := cfg.select(
+            "model.training.profile_epoch")) else None),
+        profile_steps=int(cfg.select("model.training.profile_steps", 50)),
+        lr_schedule=str(cfg.select("model.optimizer.schedule", "constant")),
+        lr_warmup_steps=int(cfg.select("model.optimizer.warmup_steps", 0)),
+        lr_decay_steps=(int(d) if (d := cfg.select(
+            "model.optimizer.decay_steps")) else None),
+        lr_end_factor=float(cfg.select("model.optimizer.end_lr_factor", 0.0)),
+    )
+
+    run_dir = make_run_dir(cfg)
+    logger = setup_logger("base", os.path.join(run_dir, "train.log"))
+    logger.info("Configuration:\n" + cfg.to_yaml())
+    log_environment(logger, device)
+    set_seeds(int(cfg.seed))
+
+    loaders = read_dataset(
+        cfg.data.name,
+        cfg.data.root,
+        digits=cfg.data.digits,
+        batch_size=int(cfg.data.batch_size),
+        img_size=int(cfg.data.img_size),
+        transformations=list(cfg.data.transformations or []),
+        seed=int(cfg.seed),
+        synthetic_fallback=bool(cfg.data.get("synthetic_fallback", False)),
+        synthetic_n=int(cfg.data.get("synthetic_n", 512)),
+    )
+
+    resume_dir = cfg.load.load_exp_dir
+    resume_epoch = int(cfg.load.load_epoch) if resume_dir else None
+    if resume_dir:
+        resume_dir = os.path.join("outputs", resume_dir)
+
+    if train_phase:
+        out = nft.train(
+            cfg=gcfg, tcfg=tcfg, loaders=loaders, run_dir=run_dir, logger=logger,
+            seed=int(cfg.seed), img_size=int(cfg.data.img_size),
+            resume_dir=resume_dir, resume_epoch=resume_epoch, device=device)
+        logger.info(f"Training done: {out['results']}")
+    else:
+        if not resume_dir:
+            raise ValueError("phase=eval requires load.load_exp_dir/load_epoch")
+        # params-only restore: needs no optimizer, so runs trained with any
+        # optimizer and schedule evaluate
+        params = restore_params(resume_dir, "gaussian", resume_epoch, device)
+        k_deq = int(cfg.select("model.evaluation.bpd_dequant_samples", 1))
+        iwae = bool(cfg.select("model.evaluation.bpd_iwae", False))
+        results = nft.final_bpd(nft.make_eval_step(gcfg, tcfg, device), params, loaders,
+                                int(cfg.seed), n_dequant_samples=k_deq, iwae=iwae)
+        tag = f" (K={k_deq}{', iwae' if iwae else ''})" if k_deq > 1 else ""
+        for name, bpd in results.items():
+            logger.info(f"{name.split('_', 1)[1]} bpd{tag}: {bpd:.4f}")
+
+
+if __name__ == "__main__":
+    t0 = time.time()
+    main(sys.argv[1:])
+    print(f"Experiment duration: {time.time() - t0:.1f}s")

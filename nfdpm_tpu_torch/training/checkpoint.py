@@ -1,0 +1,104 @@
+"""Checkpoints of train states, and the run directory's architecture file.
+
+Counterpart of nfdpm_tpu/training/checkpoint.py with torch.save in place of
+orbax: a state {"params", "opt_state", "step"} of plain tensors (on the
+host), ints and nested dicts and lists goes to
+
+    <run_dir>/checkpoints/model_{prefix}_{epoch:03d}.pt
+
+written under a temporary name and renamed, so an interrupted write never
+leaves a truncated checkpoint. `architecture.json` beside it holds the
+hyperparameters a later run needs to rebuild the flow. Writes are
+synchronous.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+from typing import Any, Dict, Optional
+
+import torch
+
+from .. import resolve_device
+from ..convert import trainable
+
+
+def checkpoint_path(run_dir: str, prefix: str, epoch: int) -> str:
+    return os.path.abspath(os.path.join(run_dir, "checkpoints",
+                                        f"model_{prefix}_{epoch:03d}.pt"))
+
+
+def save_architecture(run_dir: str, arch: Dict[str, Any],
+                      filename: str = "architecture.json") -> None:
+    with open(os.path.join(run_dir, filename), "w") as f:
+        json.dump(arch, f, indent=2)
+
+
+def load_architecture(run_dir: str,
+                      filename: str = "architecture.json") -> Dict[str, Any]:
+    with open(os.path.join(run_dir, filename)) as f:
+        return json.load(f)
+
+
+def _map_tensors(tree: Any, fn) -> Any:
+    if isinstance(tree, dict):
+        return {k: _map_tensors(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map_tensors(v, fn) for v in tree]
+    return fn(tree) if isinstance(tree, torch.Tensor) else tree
+
+
+def _place(tree: Any, device: torch.device) -> Any:
+    """Tensors onto `device`, 4-D conv weights in channels-last memory (as
+    convert.tree_to_device keeps them)."""
+    def place(t):
+        t = t.to(device)
+        return t.contiguous(memory_format=torch.channels_last) if t.dim() == 4 else t
+
+    return _map_tensors(tree, place)
+
+
+def save_state(run_dir: str, prefix: str, epoch: int, state: Any) -> str:
+    """Write the state's checkpoint for `epoch`; returns its path."""
+    path = checkpoint_path(run_dir, prefix, epoch)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    host = _map_tensors(state, lambda t: t.detach().cpu())
+    tmp = f"{path}.{os.getpid()}.tmp"
+    try:
+        torch.save(host, tmp)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return path
+
+
+def _load(run_dir: str, prefix: str, epoch: int) -> Any:
+    return torch.load(checkpoint_path(run_dir, prefix, epoch), map_location="cpu",
+                      weights_only=True)
+
+
+def restore_state(run_dir: str, prefix: str, epoch: int, device=None) -> Any:
+    """The whole train state on `device` (CUDA unless named), its parameters
+    as autograd leaves again."""
+    device = resolve_device(device)
+    state = _place(_load(run_dir, prefix, epoch), device)
+    state["params"] = trainable(state["params"])
+    return state
+
+
+def restore_params(run_dir: str, prefix: str, epoch: int, device=None) -> Any:
+    """Only the `params` subtree, on `device`: needs no optimizer, so a run
+    trained with any optimizer or schedule restores for scoring and sampling."""
+    device = resolve_device(device)
+    return _place(_load(run_dir, prefix, epoch)["params"], device)
+
+
+def latest_epoch(run_dir: str, prefix: str) -> Optional[int]:
+    pat = re.compile(rf"model_{prefix}_(\d+)\.pt$")
+    d = os.path.join(run_dir, "checkpoints")
+    names = os.listdir(d) if os.path.isdir(d) else []
+    epochs = [int(m.group(1)) for f in names if (m := pat.match(f))]
+    return max(epochs) if epochs else None

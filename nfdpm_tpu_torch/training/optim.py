@@ -1,0 +1,168 @@
+"""Optimizer: adam/adamw behind the flow trainer's double gradient clipping.
+
+Counterpart of nfdpm_tpu/training/optim.py, which chains optax transforms:
+
+    clip by value 1 -> clip by global norm 1 -> adam | adamw
+
+over the trainable leaves only: the PLU constants p_mat and sign never
+update, and with `fixed_prior=True` neither do the final Gaussian prior's
+leaves; what never updates does not enter the global norm either. Written
+out here to match optax, not torch.optim:
+
+  * the norm clip leaves g alone when norm < max and else gives
+    g / norm * max (torch's clip_grad_norm_ divides by norm + 1e-6);
+  * adamw's weight decay is optax's default 1e-4 (torch's is 1e-2), added to
+    the Adam direction before the learning rate scales both;
+  * the learning rate is a schedule of the optimizer's own step count, which
+    is part of the state, so a resumed run continues the schedule.
+
+State: {"mu": tree, "nu": tree, "count": int}, the moments shaped like the
+parameter tree (zeros where a leaf never updates). `apply` updates the
+parameters and the moments in place and makes no host synchronisation.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Dict, List, Optional
+
+import torch
+
+from ..convert import is_frozen_path, named_leaves
+
+Tree = Any
+Schedule = Callable[[int], float]
+
+
+def make_lr_schedule(lr: float, schedule: str = "constant", warmup_steps: int = 0,
+                     decay_steps: Optional[int] = None,
+                     end_lr_factor: float = 0.0) -> Schedule:
+    """step count -> learning rate.
+
+      * "constant": `lr`, after an optional linear warmup from 0 over
+        `warmup_steps` (so the first update of a warmed-up run is zero).
+      * "cosine": that warmup, then a cosine decay to `lr * end_lr_factor`
+        at `decay_steps` (total steps including the warmup), held after."""
+    if schedule not in ("constant", "cosine"):
+        raise ValueError(f"Unknown lr schedule: {schedule!r} "
+                         "(one of 'constant', 'cosine')")
+    if schedule == "cosine" and decay_steps is None:
+        raise ValueError("cosine schedule needs decay_steps "
+                         "(total steps including warmup)")
+
+    def warmup(count: int) -> float:
+        return lr * min(count, warmup_steps) / warmup_steps
+
+    if schedule == "constant":
+        return warmup if warmup_steps > 0 else (lambda count: lr)
+
+    span = max(decay_steps - warmup_steps, 1)
+    alpha = end_lr_factor if lr != 0.0 else 0.0
+
+    def cosine(count: int) -> float:
+        if count < warmup_steps:
+            return warmup(count)
+        frac = min(count - warmup_steps, span) / span
+        return lr * ((1.0 - alpha) * 0.5 * (1.0 + math.cos(math.pi * frac)) + alpha)
+
+    return cosine
+
+
+@dataclasses.dataclass(frozen=True)
+class Optimizer:
+    name: str = "adam"
+    lr_schedule: Schedule = lambda count: 1e-3
+    clip_value: Optional[float] = 1.0
+    clip_norm: Optional[float] = 1.0
+    fixed_prior: bool = False
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+    weight_decay: float = 1e-4  # adamw only
+
+    def updates(self, path: str) -> bool:
+        """Whether the leaf at `path` ("flow/...", "prior/...") is updated."""
+        if is_frozen_path(path):
+            return False
+        return not (self.fixed_prior and path.split("/", 1)[0] == "prior")
+
+    def init(self, params: Tree) -> Dict[str, Any]:
+        def zeros(node):
+            if isinstance(node, dict):
+                return {k: zeros(v) for k, v in node.items()}
+            if isinstance(node, (list, tuple)):
+                return [zeros(v) for v in node]
+            return None if node is None else torch.zeros_like(node, requires_grad=False)
+
+        return {"mu": zeros(params), "nu": zeros(params), "count": 0}
+
+    def clipped(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
+        """The gradients after both clips, as new tensors."""
+        if self.clip_value is not None:
+            grads = torch._foreach_clamp_min(grads, -self.clip_value)
+            grads = torch._foreach_clamp_max(grads, self.clip_value)
+        if self.clip_norm is not None:
+            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+            denom = torch.where(norm < self.clip_norm, torch.ones_like(norm),
+                                norm / self.clip_norm)
+            grads = torch._foreach_div(grads, denom)
+        return grads
+
+    @torch.no_grad()
+    def apply(self, params: Tree, grads: Tree, state: Dict[str, Any]) -> Dict[str, Any]:
+        """One update, in place: `params`' leaves and the moments in `state`
+        change, and the returned state is `state` with its count raised.
+        `grads` has `params`' structure; a leaf that is updated needs its
+        gradient."""
+        rows = []
+        for (path, p), (_, g), (_, m), (_, v) in zip(
+                *(named_leaves(t, keep_none=True)
+                  for t in (params, grads, state["mu"], state["nu"]))):
+            if p is not None and self.updates(path):
+                if g is None:
+                    raise ValueError(f"no gradient for the trainable leaf {path}")
+                rows.append((p, g, m, v))
+        if not rows:
+            return dict(state, count=state["count"] + 1)
+        ps, gs, mus, nus = (list(col) for col in zip(*rows))
+        gs = self.clipped(gs)
+
+        count = state["count"] + 1
+        torch._foreach_mul_(mus, self.b1)
+        torch._foreach_add_(mus, gs, alpha=1.0 - self.b1)
+        torch._foreach_mul_(nus, self.b2)
+        torch._foreach_addcmul_(nus, gs, gs, value=1.0 - self.b2)
+        denom = torch._foreach_div(nus, 1.0 - self.b2 ** count)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self.eps)
+        step = torch._foreach_div(mus, 1.0 - self.b1 ** count)
+        torch._foreach_div_(step, denom)
+        if self.name == "adamw":
+            torch._foreach_add_(step, ps, alpha=self.weight_decay)
+        # the rate of this update is the schedule at the count before it
+        torch._foreach_add_(ps, step, alpha=-self.lr_schedule(count - 1))
+        return dict(state, count=count)
+
+
+def grads_of(params: Tree) -> Tree:
+    """The tree of the leaves' accumulated `.grad`s (None where there is none)."""
+    if isinstance(params, dict):
+        return {k: grads_of(v) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [grads_of(v) for v in params]
+    return None if params is None else params.grad
+
+
+def make_optimizer(name: str = "adam", lr: float = 1e-3,
+                   clip_value: Optional[float] = 1.0, clip_norm: Optional[float] = 1.0,
+                   fixed_prior: bool = False,
+                   lr_schedule: Optional[Schedule] = None) -> Optimizer:
+    """`fixed_prior=True` keeps the final Gaussian prior at its init and out
+    of the norm clip, as the flow trainer's default does; False trains it
+    too. `lr_schedule` (make_lr_schedule) takes the place of the flat `lr`."""
+    if name not in ("adam", "adamw"):
+        raise ValueError(f"Unknown optimizer: {name}")
+    schedule = lr_schedule if lr_schedule is not None else (lambda count: lr)
+    return Optimizer(name=name, lr_schedule=schedule, clip_value=clip_value,
+                     clip_norm=clip_norm, fixed_prior=fixed_prior)

@@ -59,3 +59,41 @@ def t(a) -> torch.Tensor:
 def close(actual, expected, atol=1e-5, rtol=0.0):
     a = actual.detach().cpu().numpy() if isinstance(actual, torch.Tensor) else np.asarray(actual)
     np.testing.assert_allclose(a, np.asarray(expected), atol=atol, rtol=rtol)
+
+
+def adam_moments(opt_state, params):
+    """(mu, nu, count) of the optax state of nfdpm_tpu's make_optimizer, as
+    numpy trees shaped like `params`, with zeros where optax masks a leaf
+    out (p_mat, sign and, under fixed_prior, the prior)."""
+    import optax
+
+    found = []
+
+    def visit(node):
+        if isinstance(node, optax.ScaleByAdamState):
+            found.append(node)
+        elif isinstance(node, dict):
+            for v in node.values():
+                visit(v)
+        elif isinstance(node, (tuple, list)):  # named tuples of optax included
+            for v in node:
+                visit(v)
+
+    visit(opt_state)
+    (state,) = found
+
+    def fill(moment, like):
+        if isinstance(like, dict):
+            return {k: fill(moment[k] if isinstance(moment, dict) and k in moment else None, v)
+                    for k, v in like.items()}
+        if isinstance(like, (tuple, list)):
+            given = isinstance(moment, (tuple, list))
+            return type(like)(fill(moment[i] if given else None, v)
+                              for i, v in enumerate(like))
+        if like is None:
+            return None
+        if moment is None or isinstance(moment, optax.MaskedNode):
+            return np.zeros(np.shape(like), np.float32)
+        return np.asarray(moment)
+
+    return fill(state.mu, params), fill(state.nu, params), int(state.count)

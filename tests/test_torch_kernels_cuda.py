@@ -9,6 +9,7 @@ Tolerances: elementwise rtol 1e-5 and atol 1e-5; the coupling logdet, a sum
 of up to D log terms taken in another order, rtol 1e-5 and atol 1e-4; the
 linear-attention block, whose LayerNorm divides sums of up to C + 128 + N
 products taken in another order by the row's spread, rtol 1e-4 and atol 1e-4.
+Gradients: dW and db sum over up to N = 16384 rows (rtol 1e-4, atol 1e-4).
 """
 
 import pytest
@@ -73,6 +74,91 @@ def test_fused_linear_attention_matches_plain(gen, shape):
     torch.testing.assert_close(y, fla.fused_linear_attention_plain(x, w_qkv, w_out, b_out, g),
                                rtol=1e-4, atol=1e-4)
     assert torch.equal(y, fla.fused_linear_attention(x, w_qkv, w_out, b_out, g))
+
+
+# the three level shapes of the L3 flow at batch 64, and a ragged case
+@pytest.mark.parametrize("shape", [(64, 16, 16, 6), (64, 8, 8, 12), (64, 4, 4, 24),
+                                   (37, 3, 5, 7)])
+@pytest.mark.parametrize("given", ["both", "g_y", "g_ldj"])
+def test_coupling_tail_bwd_matches_plain(gen, shape, given):
+    ls, b, xb = _randn(gen, *shape, scale=0.5), _randn(gen, *shape), _randn(gen, *shape)
+    g_y = _randn(gen, *shape) if given != "g_ldj" else None
+    g_ldj = _randn(gen, shape[0]) if given != "g_y" else None
+    before = ct.coupling_tail_bwd.launches
+    d_ls, d_xb = ct.coupling_tail_bwd(ls, b, xb, g_y, g_ldj)
+    torch.cuda.synchronize()
+    assert ct.coupling_tail_bwd.launches == before + 1
+    d_ls_p, d_xb_p = ct.coupling_tail_bwd_plain(ls, b, xb, g_y, g_ldj)
+    torch.testing.assert_close(d_ls, d_ls_p, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(d_xb, d_xb_p, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(64, 16, 16, 6), (64, 4, 4, 24), (37, 3, 5, 7)])
+def test_coupling_tail_gradient_matches_autograd_of_plain(gen, shape):
+    leaves = [(_randn(gen, *shape, scale=s)).requires_grad_(True) for s in (0.5, 1.0, 1.0)]
+    g_y, g_ldj = _randn(gen, *shape), _randn(gen, shape[0])
+    y, ldj = ct.coupling_tail(*leaves)
+    assert y.grad_fn is not None and ldj.grad_fn is not None
+    # cotangents as autograd hands them over: a slice and an expanded scalar
+    wide = torch.cat([g_y, g_y], dim=-1)[..., : shape[-1]]
+    fwd, bwd = ct.coupling_tail.launches, ct.coupling_tail_bwd.launches
+    got = torch.autograd.grad((y, ldj), leaves, (wide, g_ldj[:1].expand(shape[0])))
+    assert (ct.coupling_tail.launches, ct.coupling_tail_bwd.launches) == (fwd, bwd + 1)
+    want = torch.autograd.grad(ct.coupling_tail_plain(*leaves), leaves,
+                               (g_y, g_ldj[:1].expand(shape[0])))
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    # only one output used: the other's cotangent is None
+    only_ldj = torch.autograd.grad(ct.coupling_tail(*leaves)[1].sum(), leaves)
+    want_ldj = torch.autograd.grad(ct.coupling_tail_plain(*leaves)[1].sum(), leaves,
+                                   allow_unused=True)
+    torch.testing.assert_close(only_ldj[0], want_ldj[0], rtol=1e-5, atol=1e-5)
+    assert not only_ldj[1].any() and not only_ldj[2].any()
+
+
+@pytest.mark.parametrize("shape,o", [((64, 16, 16, 12), 12), ((64, 8, 8, 24), 24),
+                                     ((64, 4, 4, 48), 48), ((37, 3, 5, 14), 20)])
+def test_channel_mix_gradient_goes_through_the_kernel(gen, shape, o):
+    x = _randn(gen, *shape).requires_grad_(True)
+    w = _randn(gen, o, shape[-1], scale=0.3).requires_grad_(True)
+    b = _randn(gen, o).requires_grad_(True)
+    g = torch.cat([_randn(gen, *shape[:-1], o)] * 2, dim=-1)[..., o // 2: o // 2 + o]
+    assert not g.is_contiguous()
+    y = cm.channel_mix(x, w, b)
+    assert y.grad_fn is not None
+    launches, backward = cm.channel_mix.launches, cm.channel_mix.backward_launches
+    got = torch.autograd.grad(y, (x, w, b), g)
+    torch.cuda.synchronize()
+    assert cm.channel_mix.launches == launches + 1
+    assert cm.channel_mix.backward_launches == backward + 1
+    want = torch.autograd.grad(cm.channel_mix_plain(x, w, b), (x, w, b), g)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got[2], want[2], rtol=1e-4, atol=1e-4)
+    # only dW and db wanted (the input is data): no second launch
+    y = cm.channel_mix(x.detach(), w, b)
+    launches = cm.channel_mix.launches
+    torch.autograd.grad(y, (w, b), g)
+    assert cm.channel_mix.launches == launches
+
+
+def test_kernel_outputs_carry_no_graph_where_none_is_asked_for(gen):
+    x, w, b = _randn(gen, 4, 2, 2, 8), _randn(gen, 8, 8).requires_grad_(True), _randn(gen, 8)
+    with torch.no_grad():
+        assert cm.channel_mix(x, w, b).grad_fn is None
+    with torch.inference_mode():
+        assert ct.coupling_tail(x, x, x)[0].grad_fn is None
+
+
+def test_wrappers_without_a_gradient_raise_under_grad(gen):
+    x = _randn(gen, 2, 4, 4, 16).requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        ct.coupling_tail_inverse(x, x, x)
+    w_qkv, w_out, v = _randn(gen, 16, 384), _randn(gen, 128, 16), _randn(gen, 16)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        fla.fused_linear_attention(x, w_qkv, w_out, v, v)
+    with torch.no_grad():
+        assert ct.coupling_tail_inverse(x, x, x).shape == x.shape
 
 
 def test_wrappers_raise_on_bad_inputs(gen):

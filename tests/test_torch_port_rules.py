@@ -21,12 +21,14 @@ import pytest
 import torch
 
 import nfdpm_tpu_torch
-from nfdpm_tpu_torch import convert, inference, serve
+from nfdpm_tpu_torch import convert, inference, run_baseline, serve
 from nfdpm_tpu_torch.models import formaters as tfmt
 from nfdpm_tpu_torch.models import glow as tglow
 from nfdpm_tpu_torch.models import prior as tprior
 from nfdpm_tpu_torch.models.diffusion_prior import DiffusionPrior
 from nfdpm_tpu_torch.models.nf_backbone import NFBackbone
+from nfdpm_tpu_torch.training import checkpoint as tckpt
+from nfdpm_tpu_torch.training import nf_trainer as tnft
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "nfdpm_tpu_torch").rglob("*.py")) + [
@@ -72,7 +74,12 @@ def test_fresh_interpreter_loads_no_jax_or_reference_modules():
                "nfdpm_tpu_torch.profiling", "nfdpm_tpu_torch.models.unet",
                "nfdpm_tpu_torch.models.diffusion", "nfdpm_tpu_torch.models.diffusion_prior",
                "nfdpm_tpu_torch.models.formaters", "nfdpm_tpu_torch.models.nf_backbone",
-               "nfdpm_tpu_torch.ops.kernels.fused_linear_attention")
+               "nfdpm_tpu_torch.ops.kernels.fused_linear_attention",
+               "nfdpm_tpu_torch.run_baseline", "nfdpm_tpu_torch.training.nf_trainer",
+               "nfdpm_tpu_torch.training.optim", "nfdpm_tpu_torch.training.checkpoint",
+               "nfdpm_tpu_torch.training.tracking", "nfdpm_tpu_torch.data.datasets",
+               "nfdpm_tpu_torch.data.pipeline", "nfdpm_tpu_torch.utils.config",
+               "nfdpm_tpu_torch.utils.env")
     loaded = _modules_after("import " + ", ".join(modules))
     assert set(modules) <= loaded and "torch" in loaded
     new_bad = sorted(m for m in loaded - bare if _forbidden(m))
@@ -87,9 +94,18 @@ def test_resolve_device_never_falls_back_to_cpu(monkeypatch):
         nfdpm_tpu_torch.resolve_device("cuda")
     assert nfdpm_tpu_torch.resolve_device("cpu") == torch.device("cpu")
     cfg = tglow.GlowConfig(levels=2, steps=1, coupling_width=8)
+    tcfg = tnft.NFTrainConfig()
+    tx = tnft.optimizer_of(tcfg)
     for entry in (lambda: inference.make_eval_step(cfg),
                   lambda: inference.make_sample_fn(cfg, 8),
-                  lambda: tglow.init_glow(0, cfg)):
+                  lambda: tglow.init_glow(0, cfg),
+                  lambda: tnft.init_train_state(0, cfg, tcfg, tx),
+                  lambda: tnft.make_train_step(cfg, tcfg, tx),
+                  lambda: tnft.make_eval_step(cfg, tcfg),
+                  lambda: tnft.train(cfg=cfg, tcfg=tcfg, loaders=None, run_dir="unused",
+                                     logger=None),
+                  lambda: tckpt.restore_params("unused", "gaussian", 1),
+                  lambda: run_baseline.main(["data.name=synthetic"])):
         with pytest.raises(RuntimeError, match="CUDA"):
             entry()
 
@@ -139,6 +155,16 @@ def test_entry_points_turn_tf32_off():
     torch.backends.cuda.matmul.allow_tf32 = True
     inference.make_sample_fn(tglow.GlowConfig(levels=2, steps=1, coupling_width=8), 8,
                              device="cpu")
+    assert not torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_tf32
+
+
+def test_training_entry_points_turn_tf32_off():
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    tcfg = tnft.NFTrainConfig()
+    tnft.make_train_step(tglow.GlowConfig(levels=2, steps=1, coupling_width=8), tcfg,
+                         tnft.optimizer_of(tcfg), device="cpu")
     assert not torch.backends.cudnn.allow_tf32
     assert not torch.backends.cuda.matmul.allow_tf32
 
