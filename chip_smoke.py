@@ -69,8 +69,40 @@ line each:
      phase=eval path); and, where PyYAML is installed, the command line
      `python -m nfdpm_tpu_torch.run_baseline` trains a few steps at full
      width and `phase=eval` reproduces its final bits/dim.
+ 16. attention backward (run right after 11): the gradient of
+     fused_linear_attention, kernel route (the autograd Function over the forward and backward
+     kernels) against fused_linear_attention_bwd_plain at the 12 calls of a
+     stage-2 train step (B = 64) and a ragged case: each of the five
+     gradients within its tolerance, the same bits on a second call; times
+     of the whole gradient as in 3, and its bound;
+  stage-2 training path (launch counters zeroed before 17, read after it):
+ 17. stage-2 training: nfdpm_tpu_torch.run_diffusion_prior's main (the
+     function `python -m nfdpm_tpu_torch.run_diffusion_prior` runs), in this
+     process, at the full width of configs/nf_diffusion.yaml (three UNets
+     of dim 64, cosine schedule, T = 1000, l1, Adam 1e-3, batch 64) from the
+     stage-1 run of 12, frozen, one epoch of 24 steps on synthetic data, two
+     sample grids, a checkpoint and the VLB of one test batch: the exact
+     launch count of the run (per step 12 fused_linear_attention, 12 of its
+     backward, 12 channel_mix, 12 coupling_tail, no coupling_tail_bwd), a
+     finite and falling loss, the checkpoint and diffusion_architecture.json;
+     `phase=eval` through the command line reproduces the VLB; then 16 steps
+     timed one by one (median and spread, images/s, peak memory) and a
+     torch.profiler breakdown of one;
+ 18. stage-2 routes: the kernel route against use_kernels=False from that
+     checkpoint with the same injected draws: the step-1 loss within 1e-5
+     relative and every step-1 gradient within 1e-4 of its leaf's largest
+     entry (l2 loss), the l1 losses of steps 1-8 within 1e-4 relative;
+  stage-2 co-training path (launch counters zeroed before 19, read after it):
+ 19. stage-2 co-training: run_diffusion_prior's main again, in this process,
+     with model.normalizing_flow.freeze=false and
+     model.normalizing_flow.lr=1e-4, one epoch of 4 steps: the exact launch
+     count of the run (per step 23 channel_mix, 11 of them dx, and 12
+     coupling_tail_bwd besides the attention's 12 and 12), the l1_plus_bpd
+     loss, flow leaves of its checkpoint moved from the stage-1 run, p_mat
+     and sign not; `phase=eval` of that run, in-process, reads the trained
+     flow back and prints the same VLB.
 
-Then come the kernel summary line, the nvidia-smi line and, last,
+Then come the kernel summary line (six kernels), the nvidia-smi line and, last,
 {"ok": true, "device": {...}}. Any failed check raises and exits non-zero
 before that line. All records are also written to chiprun_out/chip_smoke.json.
 """
@@ -354,6 +386,20 @@ def fla_bytes_ops(b: int, n: int, c: int):
     return nbytes, ops
 
 
+def fla_bwd_bytes_ops(b: int, n: int, c: int):
+    """Bytes and operations of the whole gradient at x [b, n, c]: every
+    input (x, the four weights, the saved contexts and softmax statistics,
+    the cotangent) read once, the five gradients written once; the
+    multiply-adds (2 operations each) of the recomputed forward (q
+    projection, q ctx, out-projection, k and v projections) and of the
+    backward (do, dq, dctx, dk, dv, dx, dW_qkv, dW_out)."""
+    hidden, dh = 128, 32
+    weights = 3 * hidden * c + hidden * c + 2 * c
+    nbytes = 4 * (3 * b * n * c + 2 * weights + b * 4 * dh * (dh + 2))
+    macs = b * n * (12 * hidden * c + 5 * hidden * dh)
+    return nbytes, 2 * macs
+
+
 def phase_attention_kernel(torch, fla, sampling_shapes):
     """fused_linear_attention against its plain version at the 12 shapes of
     one sampling step (B = 64), at the VLB shapes (B = 4 * VLB_BATCH) and at
@@ -532,7 +578,7 @@ def glow_path(torch, np, params, counters):
     launches_fwd = counts(counters)
     check(launches_fwd == {"channel_mix": 3 * STEPS, "coupling_tail": 3 * STEPS,
                            "coupling_tail_bwd": 0, "coupling_tail_inverse": 0,
-                           "fused_linear_attention": 0},
+                           "fused_linear_attention": 0, "fused_linear_attention_bwd": 0},
           f"one forward launched {launches_fwd}")
     ms_k = host_ms(torch, lambda: eval_k(params, batch, noise=noise))
     ms_p = host_ms(torch, lambda: eval_p(params, batch, noise=noise))
@@ -558,7 +604,8 @@ def glow_path(torch, np, params, counters):
         serve, ["--weights", str(weights), "--levels", str(LEVELS), "--steps", str(STEPS),
                 "--width", str(WIDTH), "--img-size", str(IMG), "--n-bits", str(N_BITS)],
         counters, {"channel_mix": 12, "coupling_tail": 0, "coupling_tail_bwd": 0,
-                   "coupling_tail_inverse": 12, "fused_linear_attention": 0}, "gaussian")
+                   "coupling_tail_inverse": 12, "fused_linear_attention": 0,
+                   "fused_linear_attention_bwd": 0}, "gaussian")
     launches = counts(counters)
     emit({"phase": "serving", "warmup_s": warmup, "requests": results,
           "main_path_launches": launches})
@@ -629,7 +676,8 @@ def stage2_path(torch, np, flow, counters):
     check(gap <= VLB_TOL, f"kernel and plain stage-2 bits/dim differ by {gap}")
     check(launches_k == {"channel_mix": 3 * STEPS, "coupling_tail": 3 * STEPS,
                          "coupling_tail_bwd": 0, "coupling_tail_inverse": 0,
-                         "fused_linear_attention": parts * vlb_calls * blocks},
+                         "fused_linear_attention": parts * vlb_calls * blocks,
+                         "fused_linear_attention_bwd": 0},
           f"one VLB batch launched {launches_k}")
     check(not any(launches_p.values()), f"the plain route launched {launches_p}")
     emit({"phase": "stage2_scoring", "batch": VLB_BATCH, "timesteps":
@@ -660,7 +708,8 @@ def stage2_path(torch, np, flow, counters):
           "stage-2 latents not finite or of the wrong shapes")
     per_chunk = {"channel_mix": 3 * STEPS, "coupling_tail": 0, "coupling_tail_bwd": 0,
                  "coupling_tail_inverse": 3 * STEPS,
-                 "fused_linear_attention": parts * steps * blocks}
+                 "fused_linear_attention": parts * steps * blocks,
+                 "fused_linear_attention_bwd": 0}
     check(launches_k == per_chunk, f"one 64-image chunk launched {launches_k}")
     latent_gap = max(float((a - b).abs().max()) for a, b in zip(lat_k, lat_p))
     pixels = img_k.to(torch.int16) - img_p.to(torch.int16)
@@ -864,11 +913,11 @@ def train_configs(use_kernels: bool = True, epochs: int = 1):
     return cfg, tcfg
 
 
-def train_loaders():
+def train_loaders(steps: int = TRAIN_STEPS):
     from nfdpm_tpu_torch.data.pipeline import read_dataset
 
     return read_dataset("synthetic", "", batch_size=BATCH, img_size=IMG, seed=TRAIN_SEED,
-                        synthetic_n=BATCH * TRAIN_STEPS)
+                        synthetic_n=BATCH * steps)
 
 
 def frozen_leaves(params):
@@ -937,7 +986,7 @@ def phase_training(torch, counters):
                 "coupling_tail": TRAIN_STEPS * per_pass + evals * per_pass,
                 "coupling_tail_bwd": TRAIN_STEPS * per_pass,
                 "coupling_tail_inverse": per_pass,  # the checkpoint's sample grid
-                "fused_linear_attention": 0}
+                "fused_linear_attention": 0, "fused_linear_attention_bwd": 0}
     check(launches == expected and backward == TRAIN_STEPS * bwd_mix,
           f"train() launched {launches} ({backward} backward), expected {expected}")
     frozen_after = frozen_leaves(out["state"]["params"])
@@ -960,7 +1009,7 @@ def phase_training(torch, counters):
     batches = [torch.from_numpy(imgs).to(device) for imgs, _ in loaders.train.iter_epoch(1)]
     per_step = {"channel_mix": per_pass + bwd_mix, "coupling_tail": per_pass,
                 "coupling_tail_bwd": per_pass, "coupling_tail_inverse": 0,
-                "fused_linear_attention": 0}
+                "fused_linear_attention": 0, "fused_linear_attention_bwd": 0}
     walls, step_bpds = [], []
     torch.cuda.reset_peak_memory_stats()
     for i in range(TIMED_STEPS):
@@ -1165,6 +1214,389 @@ def phase_resume(torch, run_dir, out, loaders):
     emit(record)
 
 
+def phase_attention_backward(torch, fla, train_shapes, totals):
+    """fused_linear_attention's gradient, kernel route (the autograd Function
+    over both kernels) against fused_linear_attention_bwd_plain, at the 12
+    calls of one stage-2 train step (B = 64) and a ragged case. Times of the
+    whole gradient (the backward kernels and the plain products behind
+    them) as in phase 3; bound from fla_bwd_bytes_ops. Adds the
+    summary of one train step (12 launches) to `totals`."""
+    gen = torch.Generator(device="cuda").manual_seed(5432)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    cases = [("training", f"part {p} block {k}", BATCH, h, w, c)
+             for p, k, h, w, c in train_shapes]
+    cases.append(("ragged", "C 20, N 3x5, B 5", 5, 3, 5, 20))
+    names = ("dx", "dW_qkv", "dW_out", "db_out", "dg")
+    timed = ("ms", "plain_ms", "device_ms", "plain_device_ms")
+    tot = dict({t: 0.0 for t in timed}, bytes=0.0, ops=0.0, max_abs_err=0.0)
+    gaps_all = {n: 0.0 for n in names}
+    for use, label, b, h, w, c in cases:
+        x = randn(b, h, w, c)
+        w_qkv, w_out = randn(c, 384, scale=c ** -0.5), randn(128, c, scale=128 ** -0.5)
+        b_out, g = randn(c, scale=0.1), 1.0 + randn(c, scale=0.1)
+        dout = randn(b, h, w, c)
+        args = (x, w_qkv, w_out, b_out, g)
+        leaves = [t.clone().requires_grad_(True) for t in args]
+        y = fla.fused_linear_attention(*leaves)
+        check(y.grad_fn is not None, "fused_linear_attention returned no grad_fn under grad")
+        before = fla.fused_linear_attention_bwd.launches
+        got = torch.autograd.grad(y, leaves, dout)
+        check(fla.fused_linear_attention_bwd.launches == before + 1,
+              "the Function's backward did not launch the backward kernel once")
+        want = fla.fused_linear_attention_bwd_plain(*args, dout)
+        again = torch.autograd.grad(fla.fused_linear_attention(*leaves), leaves, dout)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, e) for a, e in zip(got, again)),
+              f"the backward kernel did not repeat bit for bit at {(b, h, w, c)}")
+        gaps, scaled = {}, {}
+        for name, a, e in zip(names, got, want):
+            gaps[name] = float((a - e).abs().max())
+            tol = FLA_BWD_DX_TOL * (1.0 + float(e.abs().max())) if name == "dx" else (
+                FLA_BWD_SCALED_TOL * float(e.abs().max()))
+            scaled[name] = tol
+            check(gaps[name] <= tol, f"{name} of fused_linear_attention differs from the "
+                                     f"plain version at {(b, h, w, c)}: {gaps[name]} > {tol}")
+            gaps_all[name] = max(gaps_all[name], gaps[name])
+        _, ctx, stats = fla._forward_kernel(*args)
+        times = time_rows({"": lambda: fla.fused_linear_attention_bwd(*args, ctx, stats, dout),
+                           "plain_": lambda: fla.fused_linear_attention_bwd_plain(*args, dout)},
+                          timed)
+        nbytes, ops = fla_bwd_bytes_ops(b, h * w, c)
+        b_ms, b_by = bound_ms(nbytes, ops)
+        emit({"phase": "kernel", "name": "fused_linear_attention_bwd", "use": use,
+              "call": label, "x": [b, h, w, c], "max_abs_gap": gaps, "tolerance": scaled,
+              **times, "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+              "bytes": nbytes, "ops": ops})
+        tot["max_abs_err"] = max(tot["max_abs_err"], *gaps.values())
+        if use == "training":
+            tot["bytes"] += nbytes
+            tot["ops"] += ops
+            for key in timed:
+                tot[key] += times[key]
+    tot["bound_ms"], tot["bound_by"] = bound_ms(tot["bytes"], tot["ops"])
+    tot["library_ms"] = tot["library_device_ms"] = None
+    tot["max_abs_gap_by_gradient"] = gaps_all
+    totals["fused_linear_attention_bwd"] = tot
+
+
+STAGE2_STEPS = 24        # one epoch of the stage-2 run: synthetic_n = 64 * 24
+STAGE2_TIMED = 16        # steps timed one by one after it
+STAGE2_GRIDS = 12        # log_gen_images_per_iter: a sample grid every 12 steps
+STAGE2_ROUTE_STEPS = 8
+STAGE2_COTRAIN_STEPS = 4
+STAGE2_LOSS_TOL = 1e-5   # step 1, kernel route vs plain route, relative
+STAGE2_TRAJ_TOL = 1e-4   # steps 1-8, relative
+# step-1 gradients, kernel route vs plain route, leaf by leaf: within this
+# share of the leaf's largest entry (sums over up to 16384 rows in another order)
+STAGE2_GRAD_TOL = 1e-4
+FLA_BWD_DX_TOL = 1e-4    # tests/test_torch_kernels_cuda.py
+FLA_BWD_SCALED_TOL = 1e-5
+
+
+def stage2_overrides(run_name: str, steps: int = STAGE2_STEPS):
+    """configs/nf_diffusion.yaml at full width (its UNets, schedule, T and
+    loss as they stand) on the port's synthetic data, one epoch of `steps`
+    steps, from the stage-1 run of phase 12, frozen."""
+    return ["data.name=synthetic", f"data.batch_size={BATCH}", f"data.img_size={IMG}",
+            f"data.synthetic_n={BATCH * steps}",
+            f"model.normalizing_flow.init_nf.pretrain.dir={run_name}",
+            "model.normalizing_flow.init_nf.pretrain.epoch=1",
+            "model.training.epochs=1", "model.training.print_freq=1",
+            "model.training.save_checkpoint_freq=1",
+            f"model.logging.log_gen_images_per_iter={STAGE2_GRIDS}",
+            "model.evaluation.vlb_batches=1"]
+
+
+def stage2_per_step(frozen: bool) -> dict:
+    per_pass = LEVELS * STEPS
+    blocks = 2 * len(UNET_KWARGS["dim_mults"]) * LEVELS  # linear-attention calls
+    return {"channel_mix": per_pass if frozen else 2 * per_pass - 1,
+            "coupling_tail": per_pass, "coupling_tail_bwd": 0 if frozen else per_pass,
+            "coupling_tail_inverse": 0, "fused_linear_attention": blocks,
+            "fused_linear_attention_bwd": blocks}
+
+
+def stage2_run_launches(per_step: dict, steps: int) -> dict:
+    """The launches of one run_diffusion_prior.main train phase of `steps`
+    steps: the steps, the sample grids (one every STAGE2_GRIDS steps and the
+    checkpoint's) and one VLB batch."""
+    parts, blocks = LEVELS, 2 * len(UNET_KWARGS["dim_mults"])
+    grids = steps // STAGE2_GRIDS + 1
+    grid = {"channel_mix": 3 * STEPS, "coupling_tail_inverse": 3 * STEPS,
+            "fused_linear_attention": parts * DIFFUSION_KWARGS["sampling_timesteps"] * blocks}
+    vlb = {"channel_mix": 3 * STEPS, "coupling_tail": 3 * STEPS,
+           "fused_linear_attention": parts * blocks
+           * -(-DIFFUSION_KWARGS["timesteps"] // DIFFUSION_KWARGS["vlb_time_chunk"])}
+    return {k: steps * v + grids * grid.get(k, 0) + vlb.get(k, 0) for k, v in per_step.items()}
+
+
+def phase_stage2_training(torch, counters, stage1_dir):
+    """Phase 17: python -m nfdpm_tpu_torch.run_diffusion_prior's main, in
+    this process so that its launches are counted, then phase=eval through
+    the command line, then STAGE2_TIMED steps timed one by one with a
+    profile of one. Returns (launches, the run directory, the stage-1 run
+    directory the flow came from)."""
+    from nfdpm_tpu_torch import run_diffusion_prior
+    from nfdpm_tpu_torch.models.nf_backbone import load_pretrained_flow
+    from nfdpm_tpu_torch.profiling import profile_call
+    from nfdpm_tpu_torch.training import diffusion_trainer as dt
+
+    cwd = ROOT / "build" / "chip_smoke" / "stage2"
+    shutil.rmtree(cwd, ignore_errors=True)
+    (cwd / "outputs").mkdir(parents=True)
+    (cwd / "outputs" / "stage1").symlink_to(stage1_dir)
+    overrides = stage2_overrides("stage1")
+    here = os.getcwd()
+    os.environ["NFDPM_NO_TENSORBOARD"] = "1"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    try:
+        os.chdir(cwd)
+        result = run_diffusion_prior.main(overrides + ["experiment_name=stage2"])
+    finally:
+        os.chdir(here)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = counts(counters)
+    peak = torch.cuda.max_memory_allocated()
+    run_dir = cwd / result["run_dir"]
+
+    per_step = stage2_per_step(frozen=True)
+    expected = stage2_run_launches(per_step, STAGE2_STEPS)
+    check(launches == expected, f"run_diffusion_prior launched {launches}, expected {expected}")
+
+    records = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    losses = [r["value"] for r in records
+              if r["name"] == "l1" and r["context"] == {"subset": "train"}]
+    check(len(losses) == STAGE2_STEPS and all(map(math.isfinite, losses)),
+          f"stage 2 logged {len(losses)} losses, or one that is not finite: {losses}")
+    first, last = sum(losses[:4]) / 4, sum(losses[-4:]) / 4
+    check(last < first, f"the stage-2 loss did not fall: first 4 steps {first}, last 4 {last}")
+    arch = json.loads((run_dir / "diffusion_architecture.json").read_text())
+    check((run_dir / "checkpoints" / "model_diffusion_001.pt").exists()
+          and arch["kind"] == "diffusion_prior" and arch["frozen"] is True
+          and arch["unet_kwargs"]["dim"] == UNET_KWARGS["dim"],
+          "run_diffusion_prior did not write its checkpoint and architecture file")
+    vlb_line = f"VLB test bpd (diffusion prior): {result['vlb_bpd']:.4f}"
+    check(vlb_line in (run_dir / "train.log").read_text() and math.isfinite(result["vlb_bpd"]),
+          "the final VLB line is missing")
+
+    # phase=eval through the command line reproduces the VLB
+    env = dict(os.environ, PYTHONPATH=str(ROOT), NFDPM_NO_TENSORBOARD="1")
+    t1 = time.perf_counter()
+    done = subprocess.run([sys.executable, "-m", "nfdpm_tpu_torch.run_diffusion_prior",
+                           *overrides, "experiment_name=stage2_eval", "phase=eval",
+                           f"load.load_exp_dir={run_dir.name}", "load.load_epoch=1"],
+                          cwd=cwd, env=env, capture_output=True, text=True, timeout=600)
+    check(done.returncode == 0, f"phase=eval failed:\n{done.stdout[-1500:]}\n"
+                                f"{done.stderr[-1500:]}")
+    check(vlb_line in done.stdout, f"phase=eval did not reproduce {vlb_line!r}:\n"
+                                   f"{done.stdout[-800:]}")
+    eval_seconds = time.perf_counter() - t1
+
+    # steps timed one by one, from the checkpoint
+    device = torch.device("cuda")
+    backbone, flow = load_pretrained_flow(str(stage1_dir), 1, True, device)
+    dp = stage2_prior()
+    tcfg = dt.DiffusionTrainConfig(lr_diffusion=1e-3, n_bits=N_BITS)
+    tx = dt.make_two_group_optimizer(tcfg, True)
+    state = dt.restore_train_state(str(run_dir), 1, backbone, dp, False, device)
+    step = dt.make_train_step(backbone, dp, tcfg, tx, device=device)
+    batches = [torch.from_numpy(imgs).to(device) for imgs, _ in
+               list(train_loaders(STAGE2_STEPS).train.iter_epoch(1))[:4]]
+    walls = []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(STAGE2_TIMED + 2):
+        before = counts(counters)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        state, metrics = step(state, batches[i % len(batches)], TRAIN_SEED)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t2) * 1e3)
+        after = counts(counters)
+        delta = {k: after[k] - before[k] for k in before}
+        check(delta == per_step, f"stage-2 train step {i} launched {delta}")
+        check(math.isfinite(float(metrics["loss"])), "stage-2 loss not finite")
+    step_peak = torch.cuda.max_memory_allocated()
+    timed = sorted(walls[-STAGE2_TIMED:])
+    median = (timed[7] + timed[8]) / 2
+    prof = profile_call(lambda: step(state, batches[0], TRAIN_SEED), iters=1, warmup=1, top=25)
+    emit({"phase": "stage2_training", "steps": STAGE2_STEPS, "batch": BATCH,
+          "seconds": seconds, "loss_per_step": losses, "loss_first4": first,
+          "loss_last4": last, "vlb_bpd": result["vlb_bpd"], "vlb_images": result["vlb_n"],
+          "vlb_stderr": result["vlb_stderr"], "eval_reproduced": True,
+          "eval_seconds": eval_seconds, "launches": launches, "expected_launches": expected,
+          "launches_per_step": per_step, "max_memory_allocated_bytes": peak,
+          "step_wall_ms": walls, "step_wall_ms_median_last16": median,
+          "step_wall_ms_min_last16": timed[0], "step_wall_ms_max_last16": timed[-1],
+          "step_wall_ms_quartiles_last16": [timed[3], timed[11]],
+          "images_per_s": BATCH / median * 1e3, "step_max_memory_allocated_bytes": step_peak,
+          "profile_one_step": prof})
+    return launches, run_dir, stage1_dir
+
+
+def stage2_draws(torch, gen, dp):
+    """Injected draws of one stage-2 step at batch 64 (make_loss_fn's `draws`)."""
+    return {"dequant": torch.rand((BATCH, IMG, IMG, 3), generator=gen, device="cuda"),
+            "parts": [{"t": torch.randint(0, DIFFUSION_KWARGS["timesteps"], (BATCH,),
+                                          generator=gen, device="cuda"),
+                       "noise": torch.randn((BATCH, h, w, c), generator=gen, device="cuda")}
+                      for h, w, c in dp.formater.input_shapes]}
+
+
+def phase_stage2_routes(torch, counters, run_dir, stage1_dir):
+    """Phase 18: the kernel route against use_kernels=False, each from the
+    checkpoint of phase 17 with the same injected draws: the loss and every
+    gradient of step 1 under the l2 loss (l1's gradient is a sign, which a
+    residual on zero flips), and the l1 losses of steps 1-8."""
+    from nfdpm_tpu_torch.convert import named_leaves
+    from nfdpm_tpu_torch.models.nf_backbone import load_pretrained_flow
+    from nfdpm_tpu_torch.training import diffusion_trainer as dt
+
+    device = torch.device("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(99)
+    batches = [torch.from_numpy(imgs).to(device) for imgs, _ in
+               list(train_loaders(STAGE2_STEPS).train.iter_epoch(0))[:STAGE2_ROUTE_STEPS]]
+    dp0 = stage2_prior()
+    draws = [stage2_draws(torch, gen, dp0) for _ in batches]
+    tcfg = dt.DiffusionTrainConfig(lr_diffusion=1e-3, n_bits=N_BITS)
+    tx = dt.make_two_group_optimizer(tcfg, True)
+
+    def route(use_kernels, loss_type, n):
+        backbone, _ = load_pretrained_flow(str(stage1_dir), 1, True, device, use_kernels)
+        dp = stage2_prior(use_kernels, loss_type=loss_type)
+        state = dt.restore_train_state(str(run_dir), 1, backbone, dp, False, device)
+        step = dt.make_train_step(backbone, dp, tcfg, tx, inject_noise=True, device=device)
+        losses = []
+        for i in range(n):
+            before = counts(counters)
+            state, metrics = step(state, batches[i], draws[i])
+            if not use_kernels:
+                check(counts(counters) == before, "the plain route launched a kernel")
+            losses.append(float(metrics["loss"]))
+        return state, losses
+
+    state_k, loss_k = route(True, "l2", 1)
+    state_p, loss_p = route(False, "l2", 1)
+    gap = abs(loss_k[0] - loss_p[0]) / abs(loss_p[0])
+    check(gap <= STAGE2_LOSS_TOL, f"step-1 losses differ by {gap} (relative)")
+    leaves_p = dict(named_leaves(state_p["params"]))
+    worst, missing, attention = (0.0, ""), [], 0
+    for path, leaf in named_leaves(state_k["params"]):
+        if not path.startswith("diffusion/"):
+            continue
+        other = leaves_p[path].grad
+        if leaf.grad is None or other is None:
+            missing.append(path)
+            continue
+        ratio = float((leaf.grad - other).abs().max()) / max(float(other.abs().max()), 1e-30)
+        attention += any(k in path for k in (".fn.w_qkv", ".fn.w_out", ".fn.b_out", ".fn.g"))
+        if ratio > worst[0]:
+            worst = (ratio, path)
+    check(not missing, f"step 1: no gradient for {missing}")
+    check(attention == LEVELS * 2 * len(UNET_KWARGS["dim_mults"]) * 4 + LEVELS * 3,
+          f"compared {attention} attention leaves")
+    check(worst[0] <= STAGE2_GRAD_TOL,
+          f"step-1 gradients differ between the routes: {worst[1]} by {worst[0]} of its "
+          "largest entry")
+    del state_k, state_p
+    _, traj_k = route(True, "l1", STAGE2_ROUTE_STEPS)
+    _, traj_p = route(False, "l1", STAGE2_ROUTE_STEPS)
+    gaps = [abs(a - b) / abs(b) for a, b in zip(traj_k, traj_p)]
+    check(max(gaps) <= STAGE2_TRAJ_TOL, f"l1 losses of steps 1-8 differ by {gaps}")
+    emit({"phase": "stage2_training_routes", "step1_l2_loss": [loss_k[0], loss_p[0]],
+          "step1_relative_gap": gap, "step1_tolerance": STAGE2_LOSS_TOL,
+          "step1_worst_gradient": {"leaf": worst[1], "gap_over_leaf_max": worst[0]},
+          "gradient_tolerance": STAGE2_GRAD_TOL, "attention_leaves_compared": attention,
+          "l1_kernels": traj_k, "l1_plain": traj_p, "l1_relative_gaps": gaps,
+          "trajectory_tolerance": STAGE2_TRAJ_TOL})
+
+
+def phase_stage2_cotraining(torch, counters, stage1_dir):
+    """Phase 19: run_diffusion_prior.main with the flow co-trained
+    (model.normalizing_flow.freeze=false, model.normalizing_flow.lr=1e-4)
+    for one epoch of STAGE2_COTRAIN_STEPS steps, in this process: exact
+    launches, the l1_plus_bpd loss logged, flow leaves of its checkpoint
+    moved from the stage-1 run, p_mat and sign not, no stage-1 prior in the
+    state; then phase=eval, in-process, reads the trained flow back from the
+    stage-2 checkpoint and prints the same VLB."""
+    from nfdpm_tpu_torch import run_diffusion_prior
+    from nfdpm_tpu_torch.convert import is_frozen_path, named_leaves
+    from nfdpm_tpu_torch.training.checkpoint import restore_params
+
+    cwd = ROOT / "build" / "chip_smoke" / "stage2_cotrain"
+    shutil.rmtree(cwd, ignore_errors=True)
+    (cwd / "outputs").mkdir(parents=True)
+    (cwd / "outputs" / "stage1").symlink_to(stage1_dir)
+    overrides = stage2_overrides("stage1", STAGE2_COTRAIN_STEPS) + [
+        "model.normalizing_flow.freeze=false", "model.normalizing_flow.lr=1e-4"]
+    here = os.getcwd()
+    torch.cuda.synchronize()
+    for fn in counters:
+        fn.launches = 0
+    counters[0].backward_launches = 0
+    t0 = time.perf_counter()
+    try:
+        os.chdir(cwd)
+        result = run_diffusion_prior.main(overrides + ["experiment_name=cotrain"])
+    finally:
+        os.chdir(here)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, dx = counts(counters), counters[0].backward_launches
+    per_step = stage2_per_step(frozen=False)
+    expected = stage2_run_launches(per_step, STAGE2_COTRAIN_STEPS)
+    check(launches == expected and dx == STAGE2_COTRAIN_STEPS * (LEVELS * STEPS - 1),
+          f"co-trained run_diffusion_prior launched {launches} ({dx} dx), expected {expected}")
+    run_dir = cwd / result["run_dir"]
+
+    records = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    losses = [r["value"] for r in records
+              if r["name"] == "l1_plus_bpd" and r["context"] == {"subset": "train"}]
+    check(len(losses) == STAGE2_COTRAIN_STEPS and all(map(math.isfinite, losses)),
+          f"co-training logged {len(losses)} l1_plus_bpd losses, or one not finite: {losses}")
+    arch = json.loads((run_dir / "diffusion_architecture.json").read_text())
+    check(arch["frozen"] is False, "diffusion_architecture.json does not say the flow co-trained")
+    trained = restore_params(str(run_dir), "diffusion", 1, "cuda")
+    start = dict(named_leaves(restore_params(str(stage1_dir), "gaussian", 1, "cuda")["flow"]))
+    moved, fixed = 0, 0
+    for path, leaf in named_leaves(trained["flow"]):
+        same = torch.equal(leaf, start[path])
+        if is_frozen_path(path):
+            check(same, f"co-training changed {path}")
+            fixed += 1
+        else:
+            moved += not same
+    check(moved > 0 and "prior" not in trained,
+          "the co-trained flow did not move, or the stage-1 prior joined the state")
+
+    t1 = time.perf_counter()
+    try:
+        os.chdir(cwd)
+        again = run_diffusion_prior.main(overrides + [
+            "experiment_name=cotrain_eval", "phase=eval",
+            f"load.load_exp_dir={run_dir.name}", "load.load_epoch=1"])
+    finally:
+        os.chdir(here)
+    eval_seconds = time.perf_counter() - t1
+    check(f"{again['vlb_bpd']:.4f}" == f"{result['vlb_bpd']:.4f}",
+          f"phase=eval of the co-trained run gave {again['vlb_bpd']}, training "
+          f"{result['vlb_bpd']}")
+    emit({"phase": "stage2_cotraining", "steps": STAGE2_COTRAIN_STEPS, "lr_nf": 1e-4,
+          "seconds": seconds, "launches": launches, "expected_launches": expected,
+          "channel_mix_dx": dx, "launches_per_step": per_step, "loss_per_step": losses,
+          "flow_leaves_moved": moved, "p_mat_and_sign_unchanged": fixed,
+          "vlb_bpd": result["vlb_bpd"], "eval_vlb_bpd": again["vlb_bpd"],
+          "eval_seconds": eval_seconds})
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1192,11 +1624,12 @@ def main() -> int:
     params = {"flow": glow_m.init_glow(0, cfg, device),
               "prior": prior_m.init_gaussian_prior(glow_m.final_channels(cfg), True, device)}
     randomize_zero_leaves(torch, params, seed=1)
-    totals["fused_linear_attention"] = phase_attention_kernel(
-        torch, fla, attention_shapes(torch, stage2_prior(), device))
+    unet_shapes = attention_shapes(torch, stage2_prior(), device)
+    totals["fused_linear_attention"] = phase_attention_kernel(torch, fla, unet_shapes)
 
     counters = (cm.channel_mix, ct.coupling_tail, ct.coupling_tail_bwd,
-                ct.coupling_tail_inverse, fla.fused_linear_attention)
+                ct.coupling_tail_inverse, fla.fused_linear_attention,
+                fla.fused_linear_attention_bwd)
     launches = {"glow": glow_path(torch, np, params, counters)}
     launches["stage2"], model = stage2_path(torch, np, params["flow"], counters)
     phase_profile(torch, model)
@@ -1204,12 +1637,23 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     phase_backward_kernels(torch, cm, ct, totals)
+    phase_attention_backward(torch, fla, unet_shapes, totals)
     launches["training"], run_dir, out, loaders = phase_training(torch, counters)
     phase_training_routes(torch, loaders, counters)
     phase_resume(torch, run_dir, out, loaders)
+    del out, loaders
+    torch.cuda.empty_cache()
+
+    launches["stage2_training"], stage2_run, stage1_run = phase_stage2_training(
+        torch, counters, run_dir)
+    phase_stage2_routes(torch, counters, stage2_run, stage1_run)
+    launches["stage2_cotraining"] = phase_stage2_cotraining(torch, counters, stage1_run)
 
     per = {"fused_linear_attention": "one UNet evaluation of each of the three parts at "
-                                     "batch 64 (one DDIM step): 12 launches"}
+                                     "batch 64 (one DDIM step or one stage-2 train "
+                                     "step): 12 launches",
+           "fused_linear_attention_bwd": "the backward of one stage-2 train step at batch "
+                                         "64: 12 launches"}
     sources = {"channel_mix": ("flow_kernels.cu", "nfdpm_tpu/ops/pallas/channel_mix.py:70"),
                "coupling_tail": ("flow_kernels.cu", "nfdpm_tpu/ops/pallas/coupling_tail.py:75"),
                "coupling_tail_inverse": ("flow_kernels.cu",
@@ -1218,7 +1662,10 @@ def main() -> int:
                "coupling_tail_bwd": ("flow_kernels.cu",
                                      "nfdpm_tpu/ops/pallas/coupling_tail.py:148"),
                "fused_linear_attention": (
-                   "linear_attention.cu", "nfdpm_tpu/ops/pallas/fused_linear_attention.py:164")}
+                   "linear_attention.cu", "nfdpm_tpu/ops/pallas/fused_linear_attention.py:164"),
+               # the custom VJP's backward, which the JAX package leaves to XLA
+               "fused_linear_attention_bwd": (
+                   "linear_attention.cu", "nfdpm_tpu/ops/pallas/fused_linear_attention.py:192")}
     kernels = []
     for name, tot in totals.items():
         by_path = {path: n[name] for path, n in launches.items()}
@@ -1233,9 +1680,10 @@ def main() -> int:
             "plain_device_ms": tot["plain_device_ms"],
             "library_device_ms": tot["library_device_ms"],
             "per": per.get(name, "one pass: 4 launches at each of the 3 level shapes"),
-            **{k: v for k, v in tot.items() if k.startswith("dx_") or k == "max_gradient_gap"}})
+            **{k: v for k, v in tot.items() if k.startswith("dx_")
+               or k in ("max_gradient_gap", "max_abs_gap_by_gradient")}})
     order = ["channel_mix", "coupling_tail", "coupling_tail_bwd", "coupling_tail_inverse",
-             "fused_linear_attention"]
+             "fused_linear_attention", "fused_linear_attention_bwd"]
     kernels.sort(key=lambda k: order.index(k["name"]))
     summary = {"kernels": kernels}
     RECORDS.append(summary)

@@ -142,8 +142,12 @@ def named_leaves(tree: Tree, prefix: str = "", keep_none: bool = False):
     """(path, leaf) for every leaf, paths joined by "/", in the tree's own
     order (dict insertion order, list index). None leaves are left out
     unless `keep_none`, which lets two trees of one structure be walked side
-    by side when one of them has None where the other has a tensor."""
-    if isinstance(tree, dict):
+    by side when one of them has None where the other has a tensor. A module
+    (a UNet) stands for its named parameters, so it walks like the dict of
+    them by name."""
+    if isinstance(tree, torch.nn.Module):
+        items = tree.named_parameters()
+    elif isinstance(tree, dict):
         items = tree.items()
     elif isinstance(tree, (list, tuple)):
         items = enumerate(tree)
@@ -153,6 +157,19 @@ def named_leaves(tree: Tree, prefix: str = "", keep_none: bool = False):
         return
     for k, v in items:
         yield from named_leaves(v, f"{prefix}/{k}" if prefix else str(k), keep_none)
+
+
+def map_tree(tree: Tree, fn) -> Tree:
+    """`fn` on every tensor of a tree of dicts and lists; a module (a UNet)
+    stands for the dict of its parameters by name. None and other leaves (a
+    step count) pass through as they are."""
+    if isinstance(tree, torch.nn.Module):
+        return {k: fn(v) for k, v in tree.named_parameters()}
+    if isinstance(tree, dict):
+        return {k: map_tree(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [map_tree(v, fn) for v in tree]
+    return fn(tree) if isinstance(tree, torch.Tensor) else tree
 
 
 def is_frozen_path(path: str) -> bool:
@@ -172,19 +189,41 @@ def trainable(params: Tree, _name: str = "") -> Tree:
 
 
 def opt_state_from_jax(mu: Dict[str, Any], nu: Dict[str, Any], count: int,
-                       device=None) -> Dict[str, Any]:
+                       device=None, dp=None) -> Dict[str, Any]:
     """Adam's moments as JAX-layout {"flow", "prior"} trees of numpy arrays
     (the `mu` and `nu` of optax's ScaleByAdamState, with zeros where optax
     masks a leaf out) and its step count -> the state of
-    training/optim.py:Optimizer."""
-    return {"mu": from_jax_params(mu, device), "nu": from_jax_params(nu, device),
-            "count": int(count)}
+    training/optim.py:Optimizer.
+
+    With `dp` (models/diffusion_prior.DiffusionPrior) the trees are a
+    stage-2 train state's {"flow", "diffusion": {"parts": (flax UNet
+    tree, ...)}} (zeros for a group that optax.set_to_zero leaves without
+    moments); each part's moments become a dict by the UNet's parameter
+    names, in the order the optimizer walks them."""
+    if dp is None:
+        return {"mu": from_jax_params(mu, device), "nu": from_jax_params(nu, device),
+                "count": int(count)}
+    device = resolve_device(device)
+
+    def moments(tree):
+        params = diffusion_from_jax_params(tree, dp, device)
+        return {"flow": params["flow"],
+                "diffusion": map_tree(params["diffusion"], torch.Tensor.detach)}
+
+    return {"mu": moments(mu), "nu": moments(nu), "count": int(count)}
 
 
-def opt_state_to_jax(opt_state: Dict[str, Any]):
+def opt_state_to_jax(opt_state: Dict[str, Any], dp=None):
     """The inverse: (mu, nu, count) with the moments in the JAX layout."""
-    return (to_jax_params(opt_state["mu"]), to_jax_params(opt_state["nu"]),
-            int(opt_state["count"]))
+    if dp is None:
+        return (to_jax_params(opt_state["mu"]), to_jax_params(opt_state["nu"]),
+                int(opt_state["count"]))
+
+    def moments(tree):
+        unets = dp.unets_from_named(tree["diffusion"]["parts"], "cpu")
+        return diffusion_to_jax_params({"flow": tree["flow"], "diffusion": {"parts": unets}})
+
+    return moments(opt_state["mu"]), moments(opt_state["nu"]), int(opt_state["count"])
 
 
 def _flatten(tree: Tree, prefix: str, out: Dict[str, np.ndarray]) -> None:
@@ -366,18 +405,26 @@ def unet_to_flax(unet) -> Dict[str, Any]:
                        for path, (name, kind) in _unet_layout(unet).items()})
 
 
-def diffusion_from_jax_params(tree: Dict[str, Any], dp, device=None) -> Dict[str, Any]:
-    """A stage-2 tree {"flow", "prior" (optional), "diffusion": {"parts":
-    (p_0, ...)}} of numpy arrays -> {"flow", "prior", "diffusion": {"parts":
-    [Unet, ...]}} on `device` (CUDA unless named); `dp` is the
-    models/diffusion_prior.DiffusionPrior the UNets belong to."""
+def diffusion_from_jax_params(tree: Dict[str, Any], dp, device=None,
+                              requires_grad: bool = False) -> Dict[str, Any]:
+    """A stage-2 tree {"flow" (optional), "prior" (optional), "diffusion":
+    {"parts": (p_0, ...)}} of numpy arrays -> {"flow", "prior", "diffusion":
+    {"parts": [Unet, ...]}} on `device` (CUDA unless named); `dp` is the
+    models/diffusion_prior.DiffusionPrior the UNets belong to. Without a
+    "flow" (an EMA shadow of the UNets alone) only "diffusion" comes back.
+    `requires_grad=True` makes every parameter but p_mat and sign an
+    autograd leaf (a train state's)."""
     device = resolve_device(device)
     parts = tree["diffusion"]["parts"]
     if len(parts) != dp.num_parts:
         raise ValueError(f"{len(parts)} UNet trees for a prior of {dp.num_parts} parts")
-    unets = [dp.place(unet_from_flax(dp.build_unet(i), p), device)
+    unets = [dp.place(unet_from_flax(dp.build_unet(i), p), device, requires_grad)
              for i, p in enumerate(parts)]
-    params = from_jax_params({"flow": tree["flow"], "prior": tree.get("prior")}, device)
+    params = {}
+    if "flow" in tree:
+        params = from_jax_params({"flow": tree["flow"], "prior": tree.get("prior")}, device)
+        if requires_grad:
+            params = trainable(params)
     params["diffusion"] = {"parts": unets}
     return params
 

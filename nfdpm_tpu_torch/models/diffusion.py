@@ -4,8 +4,10 @@ Counterpart of the sampling and scoring half of nfdpm_tpu/models/diffusion.py:
 the beta schedules and `make_schedule` (fp64 numpy, stored as fp32), the KL
 and discretized-likelihood helpers, and from `GaussianDiffusion` the q
 process, the objective conversions, learned variances, the ancestral, DDIM
-and DPM-Solver++(2M) chains and the variational bound. Training (`p_losses`,
-`loss`), `sample_given_start` and `interpolate` belong to later slices.
+and DPM-Solver++(2M) chains, `sample_given_start`, `interpolate`, the
+variational bound, and the training loss (`p_losses`, `loss`: the three
+objectives, l1 and l2, p2 weights, self-conditioning, and the hybrid loss of
+learned variances).
 
 The JAX package runs each chain as one `lax.scan`; here a chain is a Python
 loop over the same time grid. Inside a chain t is the same for the whole
@@ -20,7 +22,12 @@ and whose entry 1 + j is the N(0, 1) draw of the j-th step of the chain (the
 JAX package draws fold_in(k_loop, t) for the ancestral chain and
 fold_in(k_loop, j) for DDIM). A step that adds no noise (ancestral t = 0,
 DDIM with sigma = 0) draws nothing from the generator. The VLB takes
-`noise[t]` per timestep t, JAX's fold_in(key, t).
+`noise[t]` per timestep t, JAX's fold_in(key, t). `sample_given_start`
+takes noise[0] for the q draw to T-1 and noise[1 + j] for step j;
+`interpolate` noise[0] and noise[1] for the two q draws and noise[2 + j]
+for step j. The training loss takes its timesteps `t`, its N(0, 1) `noise`
+and the self-conditioning coin `self_cond` (JAX's bernoulli(k_scdrop)), or
+draws them from the generator in that order.
 """
 
 from __future__ import annotations
@@ -229,6 +236,9 @@ class GaussianDiffusion:
         return self.model_apply(params, x, t, x_self_cond)
 
     # -- normalization -----------------------------------------------------
+    def normalize(self, x):
+        return x * 2.0 - 1.0 if self.cfg.auto_normalize else x
+
     def unnormalize(self, x):
         return (x + 1.0) * 0.5 if self.cfg.auto_normalize else x
 
@@ -330,26 +340,57 @@ class GaussianDiffusion:
         return torch.randn(shape, generator=generator, device=generator.device)
 
     @staticmethod
-    def _step_noise(shape, generator, noise, j: int, device):
+    def _step_noise(shape, generator, noise, j: int, device, first: int = 1):
         if noise is not None:
-            return noise[1 + j]
+            return noise[first + j]
         return torch.randn(shape, generator=generator, device=device)
+
+    def _ancestral(self, params, img, t_start: int, generator, noise, first: int = 1):
+        """Ancestral steps t = t_start .. 0 from img; step j draws
+        noise[first + j]; no noise at t = 0."""
+        shape = tuple(img.shape)
+        x_sc = torch.zeros_like(img)
+        for j, t in enumerate(range(t_start, -1, -1)):
+            sc = x_sc if self.cfg.self_condition else None
+            mean, _, logvar, x_sc = self.p_mean_variance(params, img, t, sc,
+                                                         clip_denoised=True)
+            if t > 0:
+                eps = self._step_noise(shape, generator, noise, j, img.device, first)
+                img = mean + _exp(0.5 * logvar) * eps
+            else:
+                img = mean
+        return img
 
     def p_sample_loop(self, params, shape, generator: Optional[torch.Generator] = None,
                       noise: Optional[Sequence[torch.Tensor]] = None):
         """The T-step ancestral chain, t = T-1 .. 0; no noise at t = 0."""
         img = self._start(shape, generator, noise)
-        x_sc = torch.zeros_like(img)
-        for j, t in enumerate(range(self.num_timesteps - 1, -1, -1)):
-            sc = x_sc if self.cfg.self_condition else None
-            mean, _, logvar, x_sc = self.p_mean_variance(params, img, t, sc,
-                                                         clip_denoised=True)
-            if t > 0:
-                eps = self._step_noise(shape, generator, noise, j, img.device)
-                img = mean + _exp(0.5 * logvar) * eps
-            else:
-                img = mean
-        return self.unnormalize(img)
+        return self.unnormalize(self._ancestral(params, img, self.num_timesteps - 1,
+                                                generator, noise))
+
+    def sample_given_start(self, params, x_start, generator: Optional[torch.Generator] = None,
+                           noise: Optional[Sequence[torch.Tensor]] = None):
+        """Noise x_start to t = T-1 with q_sample, then the full ancestral
+        chain back."""
+        shape = tuple(x_start.shape)
+        t_last = self.num_timesteps - 1
+        img = self.q_sample(x_start, t_last, self._start(shape, generator, noise))
+        return self.unnormalize(self._ancestral(params, img, t_last, generator, noise))
+
+    def interpolate(self, params, x1, x2, t: Optional[int] = None, lam: float = 0.5,
+                    generator: Optional[torch.Generator] = None,
+                    noise: Optional[Sequence[torch.Tensor]] = None):
+        """Noise x1 and x2 to t (default T-1), mix them (1 - lam, lam), and
+        denoise from t-1 to 0, as the JAX package does (it starts the chain
+        one step below t and does not unnormalize)."""
+        t = self.num_timesteps - 1 if t is None else int(t)
+        shape = tuple(x1.shape)
+        draw = (lambda i: noise[i]) if noise is not None else (
+            lambda i: torch.randn(shape, generator=generator, device=x1.device))
+        xt1 = self.q_sample(x1, t, draw(0))
+        xt2 = self.q_sample(x2, t, draw(1))
+        img = (1 - lam) * xt1 + lam * xt2
+        return self._ancestral(params, img, t - 1, generator, noise, first=2)
 
     def ddim_sample(self, params, shape, generator: Optional[torch.Generator] = None,
                     noise: Optional[Sequence[torch.Tensor]] = None):
@@ -424,6 +465,66 @@ class GaussianDiffusion:
         if method not in chains:
             raise ValueError(f"unknown sampling_method: {method!r}")
         return chains[method](params, shape, generator, noise)
+
+    # -- training loss ---------------------------------------------------------
+    def p_losses(self, params, x_start, t: torch.Tensor, noise: Optional[torch.Tensor] = None,
+                 generator: Optional[torch.Generator] = None,
+                 self_cond: Optional[bool] = None) -> torch.Tensor:
+        """Scalar loss at the per-sample timesteps t [B]. With
+        self-conditioning, the coin `self_cond` (drawn if None, p = 1/2)
+        decides whether the model first predicts x0 from x_t, without a
+        gradient, as its own conditioning input. With learned variances the
+        VLB term trains only the variance half (the prediction detached),
+        weighted vlb_loss_weight * T / 1000."""
+        if noise is None:
+            noise = torch.randn(x_start.shape, generator=generator, device=x_start.device)
+        x = self.q_sample(x_start, t, noise)
+
+        x_self_cond = None
+        if self.cfg.self_condition:
+            if self_cond is None:
+                self_cond = bool(torch.rand((), generator=generator,
+                                            device=generator.device) < 0.5)
+            if self_cond:
+                with torch.no_grad():  # the JAX package's stop_gradient
+                    _, x_self_cond = self.model_predictions(params, x, t)
+            else:
+                x_self_cond = torch.zeros_like(x)
+
+        out_full = self._model(params, x, t, x_self_cond)
+        out, var_raw = self._split_model_out(out_full)
+        if self.cfg.objective == "pred_noise":
+            target = noise
+        elif self.cfg.objective == "pred_x0":
+            target = x_start
+        elif self.cfg.objective == "pred_v":
+            target = self.predict_v(x_start, t, noise)
+        else:
+            raise ValueError(self.cfg.objective)
+        if self.cfg.loss_type == "l1":
+            loss = torch.abs(out - target)
+        elif self.cfg.loss_type == "l2":
+            loss = (out - target) ** 2
+        else:
+            raise ValueError(self.cfg.loss_type)
+        loss = torch.mean(_mean_flat(loss) * self._extract("p2_loss_weight", t, 1))
+
+        if self.cfg.learned_variance:
+            frozen = torch.cat([out.detach(), var_raw], dim=-1)
+            vb = self._vb_terms_bpd(params, x_start, x, t, x_self_cond, clip_denoised=False,
+                                    model_out=frozen)
+            loss = loss + (self.cfg.vlb_loss_weight * (self.num_timesteps / 1000.0)
+                           * torch.mean(vb))
+        return loss
+
+    def loss(self, params, img, generator: Optional[torch.Generator] = None,
+             t: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None,
+             self_cond: Optional[bool] = None) -> torch.Tensor:
+        """t ~ U{0, ..., T-1} per sample (or given), normalize, p_losses."""
+        if t is None:
+            t = torch.randint(0, self.num_timesteps, (img.shape[0],), generator=generator,
+                              device=img.device)
+        return self.p_losses(params, self.normalize(img), t, noise, generator, self_cond)
 
     # -- VLB / NLL -----------------------------------------------------------
     def _vb_terms_bpd(self, params, x_start, x_t, t: torch.Tensor, x_self_cond=None,

@@ -1,7 +1,7 @@
 """DiffusionPrior: one UNet + GaussianDiffusion per formater-defined latent part.
 
-Counterpart of nfdpm_tpu/models/diffusion_prior.py for sampling and
-scoring (`losses` belongs to the training slice). As in the JAX package, a
+Counterpart of nfdpm_tpu/models/diffusion_prior.py: training losses,
+sampling, sampling given a start, interpolation and scoring. As in the JAX package, a
 part's weights live in the params tree {"parts": (unet_0, ..., unet_{n-1})},
 here one models/unet.Unet module per part, and every method takes that tree
 first. `use_kernels=False` takes the plain PyTorch version of the
@@ -52,14 +52,47 @@ class DiffusionPrior:
         return Unet(channels=c, **self.unet_kwargs)
 
     @staticmethod
-    def place(unet: Unet, device) -> Unet:
-        return to_device(unet, device)
+    def place(unet: Unet, device, requires_grad: bool = False) -> Unet:
+        return to_device(unet, device, requires_grad)
 
-    def init_params(self, seed: int = 0, device=None) -> Dict[str, Any]:
-        """Seeded random UNets (seed + i for part i) on `device`."""
+    def init_params(self, seed: int = 0, device=None,
+                    requires_grad: bool = False) -> Dict[str, Any]:
+        """Seeded random UNets (seed + i for part i) on `device`; their
+        parameters autograd leaves when `requires_grad` (training)."""
         device = resolve_device(device)
-        return {"parts": [self.place(init_unet_(self.build_unet(i), seed + i), device)
+        return {"parts": [self.place(init_unet_(self.build_unet(i), seed + i), device,
+                                     requires_grad)
                           for i in range(self.num_parts)]}
+
+    def unets_from_named(self, parts: Sequence[Dict[str, torch.Tensor]], device=None,
+                         requires_grad: bool = False) -> List[Unet]:
+        """The UNets of a checkpoint, whose parts are saved as dicts of
+        tensors by parameter name, on `device`."""
+        device = resolve_device(device)
+        unets = []
+        for i, named in enumerate(parts):
+            unet = self.build_unet(i)
+            with torch.no_grad():
+                for name, p in unet.named_parameters():
+                    p.copy_(named[name])
+            unets.append(self.place(unet, device, requires_grad))
+        return unets
+
+    # -- training ------------------------------------------------------------
+    def losses(self, params, latents: Sequence[torch.Tensor],
+               generator: Optional[torch.Generator] = None,
+               draws: Optional[Sequence[Dict[str, Any]]] = None) -> List[torch.Tensor]:
+        """Per-part diffusion losses after formater processing. `draws[i]`
+        holds part i's injected "t", "noise" and "self_cond" (see
+        GaussianDiffusion.loss); otherwise the parts draw from `generator`
+        one after the other."""
+        processed = self.formater.process_latents(latents)
+        out = []
+        for i, (diff, z) in enumerate(zip(self.parts, processed)):
+            d = draws[i] if draws is not None else {}
+            out.append(diff.loss(params["parts"][i], z, generator, t=d.get("t"),
+                                 noise=d.get("noise"), self_cond=d.get("self_cond")))
+        return out
 
     # -- sampling ------------------------------------------------------------
     def sample_latents(self, params, n: int, generator: Optional[torch.Generator] = None,
@@ -72,6 +105,27 @@ class DiffusionPrior:
                                None if noise is None else noise[i])
                    for i, diff in enumerate(self.parts)]
         return self.formater.postprocess(samples)
+
+    def sample_latents_given_start(self, params, processed: Sequence[torch.Tensor],
+                                   generator: Optional[torch.Generator] = None,
+                                   noise=None) -> List[torch.Tensor]:
+        """Each PROCESSED part (formater.process_latents' output, the space
+        the models were trained in) noised to T-1 and denoised back; returns
+        processed parts (undo with formater.postprocess). `noise[i]` is part
+        i's injected noise (GaussianDiffusion.sample_given_start)."""
+        return [diff.sample_given_start(params["parts"][i], z, generator,
+                                        None if noise is None else noise[i])
+                for i, (diff, z) in enumerate(zip(self.parts, processed))]
+
+    def interpolate_latents(self, params, processed1: Sequence[torch.Tensor],
+                            processed2: Sequence[torch.Tensor], lam: float = 0.5,
+                            generator: Optional[torch.Generator] = None,
+                            noise=None) -> List[torch.Tensor]:
+        """Per-part interpolation at t = T-1 between two lists of processed
+        parts; inputs and outputs in the trained space, as above."""
+        return [diff.interpolate(params["parts"][i], processed1[i], processed2[i], None, lam,
+                                 generator, None if noise is None else noise[i])
+                for i, diff in enumerate(self.parts)]
 
     # -- evaluation ----------------------------------------------------------
     def neg_log_likelihood_nats(self, params, latents: Sequence[torch.Tensor],

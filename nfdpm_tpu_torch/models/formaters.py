@@ -14,7 +14,7 @@ Counterpart of nfdpm_tpu/models/formaters.py:
     turns an NLL of z' back into one of z.
 
 Stateless: every shape follows from (L, in_channels, size). NHWC.
-(`fit_formater_stats` belongs to the training slice.)
+`fit_formater_stats` fits the stats from batches of flow latents.
 """
 
 from __future__ import annotations
@@ -71,6 +71,9 @@ class BaseFormater:
                 raise ValueError(f"{len(std)} stds for {c} channels")
             total += float(h) * float(w) * float(np.sum(np.log(np.asarray(std, np.float64))))
         return total
+
+    def with_stats(self, stats: StatsT) -> "BaseFormater":
+        return dataclasses.replace(self, stats=stats)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,3 +161,37 @@ def stats_from_json(obj) -> Optional[StatsT]:
         return None
     return tuple((tuple(float(x) for x in mean), tuple(float(x) for x in std))
                  for mean, std in obj)
+
+
+def fit_formater_stats(formater: BaseFormater, latent_batches, eps: float = 1e-6) -> StatsT:
+    """Channelwise mean and std of the formater's PROCESSED parts.
+
+    `latent_batches` iterates over lists of raw flow-latent parts (one list
+    per batch, NHWC tensors or arrays). The geometry (squeeze, concatenate)
+    is applied without any existing standardization, then the first and
+    second moments accumulate per channel in float64 on the host; the std
+    is floored at `eps`. Returns the plain-float stats for
+    `formater.with_stats(...)`."""
+    base = dataclasses.replace(formater, stats=None)
+    sums = sumsqs = counts = None
+    for latents in latent_batches:
+        parts = base.process_latents([torch.as_tensor(np.asarray(z, np.float32))
+                                      if not isinstance(z, torch.Tensor) else z.detach()
+                                      for z in latents])
+        parts = [z.cpu().numpy().astype(np.float64) for z in parts]
+        if sums is None:
+            sums = [np.zeros(z.shape[-1]) for z in parts]
+            sumsqs = [np.zeros(z.shape[-1]) for z in parts]
+            counts = [0.0] * len(parts)
+        for i, z in enumerate(parts):
+            sums[i] += z.sum(axis=(0, 1, 2))
+            sumsqs[i] += (z * z).sum(axis=(0, 1, 2))
+            counts[i] += float(np.prod(z.shape[:-1]))
+    if sums is None:
+        raise ValueError("fit_formater_stats: empty latent_batches")
+    stats = []
+    for s, ss, c in zip(sums, sumsqs, counts):
+        mean = s / c
+        std = np.maximum(np.sqrt(np.maximum(ss / c - mean * mean, 0.0)), eps)
+        stats.append((tuple(float(v) for v in mean), tuple(float(v) for v in std)))
+    return tuple(stats)

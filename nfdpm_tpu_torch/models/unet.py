@@ -18,8 +18,9 @@ parameter tree.
 The linear-attention blocks go through ops/kernels/fused_linear_attention
 (the CUDA kernel on CUDA tensors, its plain version on CPU tensors) unless
 `use_kernels=False` is passed to the forward, which takes the plain
-version everywhere. The mid-block attention is plain PyTorch, as it was
-XLA outside Pallas in the JAX package. Float32 only.
+version everywhere. Their gradient is the kernel's hand-written backward
+(FusedLinearAttentionFunction). The mid-block attention is plain PyTorch,
+as it was XLA outside Pallas in the JAX package. Float32 only.
 """
 
 from __future__ import annotations
@@ -345,8 +346,8 @@ def init_unet_(unet: Unet, seed: int) -> Unet:
     return unet
 
 
-def to_device(unet: Unet, device) -> Unet:
-    """Move to `device` for inference: 4-D conv weights in channels-last
-    memory, no gradients."""
+def to_device(unet: Unet, device, requires_grad: bool = False) -> Unet:
+    """Move to `device`: 4-D conv weights in channels-last memory, the
+    parameters autograd leaves only for training."""
     unet = unet.to(device=device).to(memory_format=torch.channels_last)
-    return unet.requires_grad_(False).eval()
+    return unet.requires_grad_(requires_grad).eval()

@@ -43,8 +43,10 @@ _SIGNATURES = {
     },
     "attention_kernels": {
         "fused_linear_attention_smem_bytes": ([_I], ctypes.c_longlong),
-        "fused_linear_attention_f32": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-                                       _I),
+        "fused_linear_attention_f32": ([_P] * 8 + [_I, _I, _I, _P], _I),
+        "fused_linear_attention_bwd_smem_bytes": ([_I], ctypes.c_longlong),
+        "fused_linear_attention_bwd_tile": ([], _I),
+        "fused_linear_attention_bwd_f32": ([_P] * 13 + [_I, _I, _I, _P], _I),
     },
 }
 

@@ -20,6 +20,7 @@ import torch
 # group -> substrings of CUDA kernel names, tried in this order
 GROUPS = (
     ("fused_linear_attention", ("fla_context_kernel", "fla_output_kernel")),
+    ("fused_linear_attention backward", ("fla_bwd_",)),
     ("channel_mix + coupling tails", ("channel_mix_kernel", "coupling_tail")),
     ("convolution backward (cuDNN)", ("wgrad", "dgrad", "bwd_data", "bwd_filter",
                                       "backward_data", "backward_filter")),

@@ -1,0 +1,254 @@
+"""Diffusion-prior experiment entry point (stage 2: NFBackbone + DiffusionPrior), PyTorch port.
+
+    python -m nfdpm_tpu_torch.run_diffusion_prior \\
+        model.normalizing_flow.init_nf.pretrain.dir=<stage-1 run dir under outputs/> \\
+        model.normalizing_flow.init_nf.pretrain.epoch=10 data.name=synthetic ...
+
+Counterpart of run_diffusion_prior_experiment.py over the same
+configs/nf_diffusion.yaml and the same dotted overrides. It runs on the CUDA
+device; `device=cpu` is the only way onto the CPU. The flow comes from a
+stage-1 run directory of the port (`init_nf.mode=pretrain`, written by
+nfdpm_tpu_torch.run_baseline) or from a seeded init (`scratch`); it is
+frozen or co-trained (`freeze`, `lr`). One UNet and Gaussian diffusion per
+latent part of the formater. With `standardize_latents` the latent stats
+are fit once from the training stream, stored in diffusion_architecture.json
+and read back on resume and eval. Phases:
+
+  train: (optionally resumed) training with checkpoints and sample grids,
+         then the variational-bound bits/dim of the test set
+         ("VLB test bpd (diffusion prior)", `model.evaluation.vlb_batches`);
+  eval:  the parameters of a checkpoint (load.load_exp_dir, load_epoch; the
+         EMA weights when the run kept them) and the same bits/dim.
+
+`model.normalizing_flow.use_pallas` chooses the kernel route for the flow
+and the UNets (the hand-written CUDA kernels on the card); true here unless
+an override names it. What is not ported raises NotImplementedError:
+configured FID/KID/SSIM metrics, `parallel.*` other than the defaults
+(part-parallel included), `load.load_batch`, the watchdog and profiler
+hooks, a bf16 UNet and `coupling_dtype`, and an orbax run directory of the
+JAX package as the pretrained flow.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+import time
+
+CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                      "configs", "nf_diffusion.yaml")
+PARALLEL_DEFAULTS = {"n_model": 1, "n_slices": 1, "part_parallel": False, "fsdp": False,
+                     "spatial": False}
+
+
+def refuse_unported(cfg) -> None:
+    """Raise for every configured option the port does not have yet."""
+    from .run_baseline import refuse_unported as refuse_stage1
+
+    for key, default in PARALLEL_DEFAULTS.items():
+        value = cfg.select(f"parallel.{key}", default)
+        if value != default:
+            raise NotImplementedError(
+                f"parallel.{key}={value!r} is not ported (ROADMAP §1.13: multi-GPU); "
+                "the port trains on one device")
+    refuse_stage1(cfg)  # metrics, load.load_batch
+    if cfg.select("model.normalizing_flow.coupling_dtype"):
+        raise NotImplementedError(
+            "model.normalizing_flow.coupling_dtype is not ported (ROADMAP §1.3: bf16); "
+            "the port runs the coupling CNN in float32 only")
+    unet_dtype = cfg.select("model.diffusion.unet_dtype", cfg.select("model.unet.dtype",
+                                                                     "float32"))
+    if str(unet_dtype) != "float32":
+        raise NotImplementedError(
+            f"a {unet_dtype} UNet is not ported (ROADMAP §1.3: bf16); the port runs "
+            "the UNet in float32 only")
+
+
+def main(argv) -> dict:
+    """Run the phase the overrides `argv` name; returns {"run_dir", "vlb_bpd",
+    "vlb_n", "vlb_stderr"}."""
+    import nfdpm_tpu_torch as port
+    from .data.pipeline import read_dataset
+    from .models import glow as glow_m
+    from .models.diffusion_prior import DiffusionPrior
+    from .models.formaters import get_formater, stats_from_json
+    from .models.nf_backbone import NFBackbone, load_pretrained_flow
+    from .training import diffusion_trainer as dt
+    from .training.checkpoint import load_architecture, restore_params, save_architecture
+    from .utils.config import load_config, make_run_dir
+    from .utils.env import log_environment, parse_train_eval_mode, set_seeds, setup_logger
+
+    overrides = [a for a in argv if "=" in a]
+    cfg = load_config(CONFIG, overrides)
+    nf_cfg = cfg.model.normalizing_flow
+    use_kernels = (bool(nf_cfg.get("use_pallas", False)) if any(
+        o.lstrip("+").startswith("model.normalizing_flow.use_pallas=") for o in overrides)
+        else True)
+    device = port.resolve_device(cfg.select("device"))
+    port.disable_tf32()
+    train_phase = parse_train_eval_mode(cfg.phase)
+    refuse_unported(cfg)
+
+    run_dir = make_run_dir(cfg)
+    logger = setup_logger("base", os.path.join(run_dir, "train.log"))
+    logger.info("Configuration:\n" + cfg.to_yaml())
+    log_environment(logger, device)
+    set_seeds(int(cfg.seed))
+
+    img_size = int(cfg.data.img_size)
+    in_channels = 1 if cfg.data.name == "MNIST" else 3
+    frozen = bool(nf_cfg.freeze)
+    if nf_cfg.init_nf.mode == "pretrain":
+        pretrain_dir = os.path.join("outputs", str(nf_cfg.init_nf.pretrain.dir))
+        backbone, flow_params = load_pretrained_flow(
+            pretrain_dir, int(nf_cfg.init_nf.pretrain.epoch), frozen, device, use_kernels)
+        logger.info(f"Loaded pretrained flow from {pretrain_dir}")
+    elif nf_cfg.init_nf.mode == "scratch":
+        sc = nf_cfg.init_nf.scratch
+        gcfg = glow_m.GlowConfig(in_channels=in_channels, levels=int(sc.L), steps=int(sc.K),
+                                 coupling_width=int(sc.get("coupling_width", 512)),
+                                 use_kernels=use_kernels)
+        backbone = NFBackbone(cfg=gcfg, img_size=img_size, frozen=frozen)
+        flow_params = glow_m.init_glow(int(cfg.seed), gcfg, device)
+        logger.info("Initialized flow from scratch")
+    else:
+        raise ValueError(f"init_nf.mode must be 'pretrain' or 'scratch', "
+                         f"got {nf_cfg.init_nf.mode!r}")
+
+    formater = get_formater(nf_cfg.latent_formater)(
+        L=backbone.cfg.levels, in_channels=backbone.cfg.in_channels, size=backbone.img_size)
+    learned_variance = bool(cfg.select("model.diffusion.learned_variance", False))
+    unet_kwargs = dict(
+        dim=int(cfg.model.unet.dim), dim_mults=tuple(cfg.model.unet.dim_mults),
+        resnet_block_groups=int(cfg.model.unet.resnet_block_groups),
+        learned_sinusoidal_cond=bool(cfg.model.unet.learned_sinusoidal_cond),
+        random_fourier_features=bool(cfg.model.unet.random_fourier_features),
+        learned_sinusoidal_dim=int(cfg.model.unet.learned_sinusoidal_dim),
+        learned_variance=learned_variance, dtype="float32")
+    diffusion_kwargs = dict(
+        timesteps=int(cfg.model.diffusion.timesteps),
+        sampling_timesteps=int(cfg.model.diffusion.sampling_timesteps),
+        loss_type=cfg.model.diffusion.loss_type,
+        beta_schedule=cfg.model.diffusion.beta_schedule,
+        ddim_sampling_eta=float(cfg.model.diffusion.ddim_sampling_eta),
+        scan_unroll=int(cfg.select("model.diffusion.scan_unroll", 1)),
+        sampling_method=str(cfg.select("model.diffusion.sampling_method", "auto")),
+        vlb_time_chunk=int(cfg.select("model.diffusion.vlb_time_chunk", 4)),
+        vlb_decoder=str(cfg.select("model.diffusion.vlb_decoder", "discretized")),
+        vlb_clip_denoised=bool(cfg.select("model.diffusion.vlb_clip_denoised", True)),
+        learned_variance=learned_variance,
+        vlb_loss_weight=float(cfg.select("model.diffusion.vlb_loss_weight", 1.0)))
+
+    tr = cfg.model.training
+    tcfg = dt.DiffusionTrainConfig(
+        epochs=int(tr.epochs),
+        lr_diffusion=float(cfg.model.optimizer.lr),
+        lr_nf=float(nf_cfg.lr) if nf_cfg.lr else None,
+        optimizer=cfg.model.optimizer.type,
+        n_bits=int(tr.n_bits),
+        temperature=float(tr.temperature),
+        print_freq=int(tr.print_freq),
+        save_checkpoint_freq=int(tr.save_checkpoint_freq),
+        log_gen_images_per_iter=int(cfg.model.logging.log_gen_images_per_iter),
+        log_param_distribution=bool(cfg.model.logging.get("log_param_distribution", False)),
+        compat_three_channel_bpd=bool(cfg.select("compat.three_channel_bpd", True)),
+        ema_decay=(float(e) if (e := cfg.select("model.training.ema_decay")) else None),
+        ema_update_every=int(cfg.select("model.training.ema_update_every", 10)),
+        watchdog_timeout_s=(float(w) if (w := cfg.select(
+            "model.training.watchdog_timeout_s")) else None),
+        profile_epoch=(int(p) if (p := cfg.select("model.training.profile_epoch")) else None),
+        profile_steps=int(cfg.select("model.training.profile_steps", 50)),
+        lr_schedule=str(cfg.select("model.optimizer.schedule", "constant")),
+        lr_warmup_steps=int(cfg.select("model.optimizer.warmup_steps", 0)),
+        lr_decay_steps=(int(d) if (d := cfg.select("model.optimizer.decay_steps")) else None),
+        lr_end_factor=float(cfg.select("model.optimizer.end_lr_factor", 0.0)),
+    )
+
+    loaders = read_dataset(
+        cfg.data.name, cfg.data.root, digits=cfg.data.digits,
+        batch_size=int(cfg.data.batch_size), img_size=img_size,
+        transformations=list(cfg.data.transformations or []), seed=int(cfg.seed),
+        synthetic_fallback=bool(cfg.data.get("synthetic_fallback", False)),
+        synthetic_n=int(cfg.data.get("synthetic_n", 512)))
+
+    resume_dir = cfg.load.load_exp_dir
+    resume_epoch = int(cfg.load.load_epoch) if resume_dir else None
+    if resume_dir:
+        resume_dir = os.path.join("outputs", resume_dir)
+
+    # latent standardization: a resumed or evaluated run reads the stats its
+    # diffusion models were trained with; a new run fits them once
+    standardize = bool(cfg.select("model.normalizing_flow.standardize_latents", False))
+    formater_stats = None
+    if resume_dir:
+        try:
+            formater_stats = stats_from_json(load_architecture(
+                resume_dir, "diffusion_architecture.json").get("formater_stats"))
+        except FileNotFoundError:
+            formater_stats = None
+        if formater_stats is not None:
+            logger.info(f"Loaded latent standardization stats from {resume_dir}")
+        elif standardize:
+            logger.warning(
+                "standardize_latents=true requested but the resumed run at "
+                f"{resume_dir} was trained without standardization stats; ignoring "
+                "the flag to keep the restored diffusion params in their latent space.")
+    elif standardize:
+        formater_stats = dt.fit_latent_stats(
+            backbone, flow_params, formater, tcfg, loaders.train,
+            n_batches=int(cfg.select("model.normalizing_flow.standardize_batches", 8)),
+            seed=int(cfg.seed), device=device)
+    if formater_stats is not None:
+        formater = formater.with_stats(formater_stats)
+        logger.info("Latent standardization ON: sum(log std) over dims = "
+                    f"{formater.stats_log_sigma_total():.1f} nats "
+                    "(added back to every VLB NLL)")
+
+    dp = DiffusionPrior(formater=formater, unet_kwargs=unet_kwargs,
+                        diffusion_kwargs=diffusion_kwargs, use_kernels=use_kernels)
+    save_architecture(run_dir, {
+        "kind": "diffusion_prior",
+        "flow": {"L": backbone.cfg.levels, "K": backbone.cfg.steps,
+                 "in_channels": backbone.cfg.in_channels,
+                 "coupling_width": backbone.cfg.coupling_width,
+                 "learn_prior": backbone.cfg.learn_prior,
+                 "invconv_param": backbone.cfg.invconv_param, "img_size": img_size},
+        "formater": str(nf_cfg.latent_formater),
+        "formater_stats": formater_stats,
+        "unet_kwargs": {k: (list(v) if isinstance(v, tuple) else v)
+                        for k, v in unet_kwargs.items()},
+        "diffusion_kwargs": diffusion_kwargs,
+        "frozen": frozen,
+        "n_bits": int(tr.n_bits),
+        "temperature": float(tr.temperature),
+    }, filename="diffusion_architecture.json")
+
+    vlb_batches = cfg.select("model.evaluation.vlb_batches", "full")
+    vlb_batches = None if str(vlb_batches) == "full" else int(vlb_batches)
+
+    def report_vlb(params):
+        bpd, n, stderr = dt.calculate_bpd_with_diff_prior(
+            backbone, dp, tcfg, params, loaders.test, int(cfg.seed),
+            max_batches=vlb_batches, with_stats=True, device=device)
+        logger.info(f"VLB test bpd (diffusion prior): {bpd:.4f} (N={n}, stderr={stderr:.4f})")
+        return {"run_dir": run_dir, "vlb_bpd": bpd, "vlb_n": n, "vlb_stderr": stderr}
+
+    if train_phase:
+        out = dt.train(backbone=backbone, flow_params=flow_params, dp=dp, tcfg=tcfg,
+                       loaders=loaders, run_dir=run_dir, logger=logger, seed=int(cfg.seed),
+                       resume_dir=resume_dir, resume_epoch=resume_epoch, device=device)
+        return report_vlb(dt.ema_eval_params(out["state"]))
+    else:
+        if not resume_dir:
+            raise ValueError("phase=eval requires load.load_exp_dir/load_epoch")
+        # parameters only, the EMA weights where the run kept them
+        params = restore_params(resume_dir, "diffusion", resume_epoch, device, prefer_ema=True)
+        params["diffusion"] = {"parts": dp.unets_from_named(params["diffusion"]["parts"],
+                                                            device)}
+        return report_vlb(params)
+
+
+if __name__ == "__main__":
+    t0 = time.time()
+    main(sys.argv[1:])
+    print(f"Experiment duration: {time.time() - t0:.1f}s")

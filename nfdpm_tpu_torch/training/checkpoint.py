@@ -1,8 +1,9 @@
 """Checkpoints of train states, and the run directory's architecture file.
 
 Counterpart of nfdpm_tpu/training/checkpoint.py with torch.save in place of
-orbax: a state {"params", "opt_state", "step"} of plain tensors (on the
-host), ints and nested dicts and lists goes to
+orbax: a state {"params", "opt_state", "step"} (and the diffusion
+trainer's "ema") of plain tensors (on the host), ints and nested dicts and
+lists, a module saved as the dict of its parameters by name, goes to
 
     <run_dir>/checkpoints/model_{prefix}_{epoch:03d}.pt
 
@@ -22,7 +23,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from .. import resolve_device
-from ..convert import trainable
+from ..convert import map_tree, trainable
 
 
 def checkpoint_path(run_dir: str, prefix: str, epoch: int) -> str:
@@ -42,14 +43,6 @@ def load_architecture(run_dir: str,
         return json.load(f)
 
 
-def _map_tensors(tree: Any, fn) -> Any:
-    if isinstance(tree, dict):
-        return {k: _map_tensors(v, fn) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_map_tensors(v, fn) for v in tree]
-    return fn(tree) if isinstance(tree, torch.Tensor) else tree
-
-
 def _place(tree: Any, device: torch.device) -> Any:
     """Tensors onto `device`, 4-D conv weights in channels-last memory (as
     convert.tree_to_device keeps them)."""
@@ -57,14 +50,14 @@ def _place(tree: Any, device: torch.device) -> Any:
         t = t.to(device)
         return t.contiguous(memory_format=torch.channels_last) if t.dim() == 4 else t
 
-    return _map_tensors(tree, place)
+    return map_tree(tree, place)
 
 
 def save_state(run_dir: str, prefix: str, epoch: int, state: Any) -> str:
     """Write the state's checkpoint for `epoch`; returns its path."""
     path = checkpoint_path(run_dir, prefix, epoch)
     os.makedirs(os.path.dirname(path), exist_ok=True)
-    host = _map_tensors(state, lambda t: t.detach().cpu())
+    host = map_tree(state, lambda t: t.detach().cpu())
     tmp = f"{path}.{os.getpid()}.tmp"
     try:
         torch.save(host, tmp)
@@ -89,11 +82,24 @@ def restore_state(run_dir: str, prefix: str, epoch: int, device=None) -> Any:
     return state
 
 
-def restore_params(run_dir: str, prefix: str, epoch: int, device=None) -> Any:
+def checkpoint_keys(run_dir: str, prefix: str, epoch: int) -> list:
+    """Top-level keys of a saved state ("ema" among them when the run kept
+    one)."""
+    return list(_load(run_dir, prefix, epoch).keys())
+
+
+def restore_params(run_dir: str, prefix: str, epoch: int, device=None,
+                   prefer_ema: bool = False) -> Any:
     """Only the `params` subtree, on `device`: needs no optimizer, so a run
-    trained with any optimizer or schedule restores for scoring and sampling."""
+    trained with any optimizer or schedule restores for scoring and sampling.
+    `prefer_ema=True` puts the checkpoint's EMA weights in place of the live
+    ones where it has them (the diffusion trainer's `ema_decay`)."""
     device = resolve_device(device)
-    return _place(_load(run_dir, prefix, epoch)["params"], device)
+    tree = _load(run_dir, prefix, epoch)
+    params = tree["params"]
+    if prefer_ema and "ema" in tree:
+        params = {**params, **tree["ema"]}
+    return _place(params, device)
 
 
 def latest_epoch(run_dir: str, prefix: str) -> Optional[int]:

@@ -1,0 +1,457 @@
+"""Diffusion-prior training loop (stage 2): NFBackbone + DiffusionPrior.
+
+Counterpart of nfdpm_tpu/training/diffusion_trainer.py, in eager PyTorch:
+
+  * `make_train_step`: 5-bit preprocess and uniform dequantization, the flow
+    transform (no split-prior log-densities), the per-part diffusion losses
+    summed, plus `nf_bpd_weight` times the flow's bits/dim term when the
+    flow co-trains; backward; the two-group Adam update, no clipping. On a
+    CUDA device the flow's channel mix and coupling tail and the UNets'
+    linear-attention blocks run through the hand-written kernels, forward
+    and backward, unless their configs turn them off. A frozen flow runs
+    under torch.no_grad(): no graph and no gradient kernels for it. The
+    draws of step n (dequantization, and per part the timesteps, the noise
+    and the self-conditioning coin) are a pure function of (seed, n), or
+    injected.
+  * `make_two_group_optimizer`: {"diffusion": lr_diffusion, "flow": lr_nf
+    when the flow co-trains and lr_nf is set, else no update}, p_mat and sign
+    never updated, each group on the schedule at its own peak rate.
+  * EMA of the trainable parameters (the UNets, plus the flow when it
+    co-trains), inside the step (`ema_update_every=1`) or every k steps, with
+    the warm-up min(decay, (1 + n) / (10 + n)); sampling and evaluation read
+    `ema_eval_params`.
+  * Checkpoints every `save_checkpoint_freq` epochs and at the end (a
+    UNet saved as the dict of its parameters by name); resume at an epoch
+    boundary, the EMA kept, dropped or seeded as the run asks.
+  * `calculate_bpd_with_diff_prior`: the variational bound in bits/dim over
+    a loader, with its standard error; `fit_latent_stats` for latent
+    standardization.
+
+Not here yet: mid-epoch interrupt checkpoints, the hung-step watchdog and
+the profiler hook (`watchdog_timeout_s` and `profile_epoch` raise when
+set), sample metrics and training across several devices.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+import math
+import time
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from .. import disable_tf32, inference, resolve_device
+from ..convert import map_tree, named_leaves, trainable
+from ..data.pipeline import DatasetLoaders, Loader, prefetch_to_device
+from ..models import prior as prior_m
+from ..models.diffusion_prior import DiffusionPrior
+from ..models.formaters import fit_formater_stats
+from ..models.nf_backbone import NFBackbone
+from ..ops import quantize as q
+from .checkpoint import restore_state, save_state
+from .optim import Optimizer, make_lr_schedule
+from .tracking import Tracker
+
+# First words of the seeds of the trainer's generators (inference.reseed):
+# the train steps, the evaluations, the sample grids, the latent stats. They
+# differ from the flow trainer's (0-3).
+_STEP, _EVAL, _SAMPLES, _STATS = 4, 5, 6, 7
+
+
+@dataclasses.dataclass(frozen=True)
+class DiffusionTrainConfig:
+    epochs: int = 10
+    lr_diffusion: float = 1e-3
+    lr_nf: Optional[float] = None      # used when the flow is unfrozen
+    optimizer: str = "adam"
+    lr_schedule: str = "constant"  # both groups, each at its own peak rate
+    lr_warmup_steps: int = 0
+    lr_decay_steps: Optional[int] = None  # cosine: total steps incl. warmup
+    lr_end_factor: float = 0.0            # cosine: end LR = lr * factor
+    n_bits: int = 5
+    temperature: float = 1.0
+    print_freq: int = 50
+    save_checkpoint_freq: int = 5
+    log_gen_images_per_iter: int = 20
+    n_samples_log: int = 8
+    log_param_distribution: bool = False  # per-epoch param histograms
+    nf_bpd_weight: float = 0.5  # weight of the flow's bits/dim when it co-trains
+    compat_three_channel_bpd: bool = True  # count 3 channels per pixel even
+    # for 1-channel images, as the published bits/dim do
+    ema_decay: Optional[float] = None  # e.g. 0.9995: EMA of the trainable params
+    profile_epoch: Optional[int] = None  # not ported: raises when set
+    profile_steps: int = 50
+    watchdog_timeout_s: Optional[float] = None  # not ported: raises when set
+    ema_update_every: int = 10  # 1: the EMA update inside the step; k > 1:
+    # every k-th step, its warm-up counting updates (n = step // k)
+
+    def __post_init__(self):
+        if self.watchdog_timeout_s is not None:
+            raise NotImplementedError(
+                "watchdog_timeout_s is not ported (ROADMAP §1.12: run-dir tooling, "
+                "resume, watchdog)")
+        if self.profile_epoch is not None:
+            raise NotImplementedError(
+                "profile_epoch is not ported (ROADMAP §1.12); profile a step with "
+                "nfdpm_tpu_torch.profiling.profile_call")
+
+
+def make_two_group_optimizer(tcfg: DiffusionTrainConfig, frozen: bool) -> Optimizer:
+    """Adam or AdamW without clipping: `lr_diffusion` for the "diffusion"
+    leaves, `lr_nf` for the "flow" leaves when the flow co-trains and lr_nf
+    is set, otherwise no update of the flow (optax.set_to_zero)."""
+    if tcfg.optimizer not in ("adam", "adamw"):
+        raise ValueError(f"Unknown optimizer: {tcfg.optimizer}")
+
+    def schedule(lr):
+        return make_lr_schedule(lr, tcfg.lr_schedule, tcfg.lr_warmup_steps,
+                                tcfg.lr_decay_steps, tcfg.lr_end_factor)
+
+    flow = None if frozen or tcfg.lr_nf is None else schedule(tcfg.lr_nf)
+    return Optimizer(groups={"diffusion": schedule(tcfg.lr_diffusion), "flow": flow},
+                     name=tcfg.optimizer, clip_value=None, clip_norm=None)
+
+
+def _n_pixel(backbone: NFBackbone, tcfg: DiffusionTrainConfig) -> float:
+    return prior_m.n_pixels(backbone.img_size, backbone.cfg.in_channels,
+                            tcfg.compat_three_channel_bpd)
+
+
+def make_loss_fn(backbone: NFBackbone, dp: DiffusionPrior, tcfg: DiffusionTrainConfig):
+    """loss(params, batch, generator=None, draws=None) -> (scalar loss, the
+    per-part losses [parts], detached) for images `batch` in [0, 1],
+    [B, H, W, C] on the parameters' device. `draws` = {"dequant": the U(0, 1)
+    dequantization draw, "parts": [{"t", "noise", "self_cond"}, ...]}
+    (DiffusionPrior.losses); what is not injected comes from `generator`."""
+    n_pixel = _n_pixel(backbone, tcfg)
+
+    def loss_fn(params, batch, generator=None, draws=None):
+        x = q.dequantize(generator, q.preprocess(batch, tcfg.n_bits), tcfg.n_bits,
+                         None if draws is None else draws["dequant"])
+        latents, ldj = backbone.transform(params["flow"], x)
+        losses = dp.losses(params["diffusion"], latents, generator,
+                           None if draws is None else draws["parts"])
+        loss = sum(losses)
+        if not backbone.frozen:
+            loss = loss + tcfg.nf_bpd_weight * torch.mean(-ldj / (math.log(2.0) * n_pixel))
+        return loss, torch.stack([part.detach() for part in losses])
+
+    return loss_fn
+
+
+def _draws_on(device: torch.device, draws: Dict[str, Any]) -> Dict[str, Any]:
+    def put(v, dtype):
+        if not isinstance(v, torch.Tensor):
+            v = torch.from_numpy(np.array(v))
+        return v.to(device=device, dtype=dtype)
+
+    return {"dequant": put(draws["dequant"], torch.float32),
+            "parts": [{"t": put(p["t"], torch.int64), "noise": put(p["noise"], torch.float32),
+                       "self_cond": p.get("self_cond")} for p in draws["parts"]]}
+
+
+# -- EMA ---------------------------------------------------------------------
+
+def _ema_subtree(params, frozen: bool) -> Dict[str, Any]:
+    """What the EMA shadows: the UNets, plus the flow when it co-trains."""
+    if frozen:
+        return {"diffusion": params["diffusion"]}
+    return {"flow": params["flow"], "diffusion": params["diffusion"]}
+
+
+def _ema_copy(params, frozen: bool) -> Dict[str, Any]:
+    """A detached copy of the shadowed subtree (the UNets as modules without
+    gradients)."""
+    out = {"diffusion": {"parts": [copy.deepcopy(u).requires_grad_(False)
+                                   for u in params["diffusion"]["parts"]]}}
+    if not frozen:
+        out["flow"] = map_tree(params["flow"], lambda t: t.detach().clone())
+    return out
+
+
+@torch.no_grad()
+def _ema_lerp_(ema, params, frozen: bool, decay: float, n: int) -> None:
+    """ema <- ema + (1 - d) (params - ema), d = min(decay, (1 + n) / (10 + n))
+    in fp32, in place."""
+    n32 = np.float32(n)
+    d = np.minimum(np.float32(decay), (np.float32(1.0) + n32) / (np.float32(10.0) + n32))
+    live = _ema_subtree(params, frozen)
+    shadow = [t for key in live for _, t in named_leaves(ema[key])]
+    current = [t.detach() for key in live for _, t in named_leaves(live[key])]
+    if len(shadow) != len(current):
+        raise ValueError("the EMA shadow does not match the trained parameters")
+    torch._foreach_add_(shadow, torch._foreach_sub(current, shadow),
+                        alpha=float(np.float32(1.0) - d))
+
+
+def make_ema_update(backbone: NFBackbone, tcfg: DiffusionTrainConfig):
+    """apply(state) -> state with the shadow moved toward the live params, in
+    place, its warm-up counting updates (n = step // ema_update_every)."""
+    k = max(1, int(tcfg.ema_update_every))
+
+    def apply(state):
+        _ema_lerp_(state["ema"], state["params"], backbone.frozen, tcfg.ema_decay,
+                   state["step"] // k)
+        return state
+
+    return apply
+
+
+def ema_eval_params(state) -> Dict[str, Any]:
+    """The parameters with the EMA weights where they are tracked; the live
+    ones when the state has no EMA. Sampling and evaluation read these."""
+    ema = state.get("ema")
+    if ema is None:
+        return state["params"]
+    return {"flow": ema.get("flow", state["params"]["flow"]), "diffusion": ema["diffusion"]}
+
+
+# -- the step ----------------------------------------------------------------
+
+def init_train_state(seed: int, backbone: NFBackbone, flow_params, dp: DiffusionPrior,
+                     tx: Optimizer, ema: bool = False, device=None) -> Dict[str, Any]:
+    """{"params": {"flow", "diffusion": {"parts": [Unet, ...]}}, "opt_state",
+    "step"} (and "ema") on `device` (CUDA unless named): the UNets seeded
+    (seed + part), the flow's parameters autograd leaves when it co-trains."""
+    device = resolve_device(device)
+    flow = flow_params if backbone.frozen else trainable(flow_params)
+    params = {"flow": flow, "diffusion": dp.init_params(seed, device, requires_grad=True)}
+    state = {"params": params, "opt_state": tx.init(params), "step": 0}
+    if ema:
+        state["ema"] = _ema_copy(params, backbone.frozen)
+    return state
+
+
+def make_train_step(backbone: NFBackbone, dp: DiffusionPrior, tcfg: DiffusionTrainConfig,
+                    tx: Optimizer, inject_noise: bool = False, device=None):
+    """Build train_step(state, batch, seed) -> (state, metrics).
+
+    The parameters, moments and EMA shadow are updated in place; the
+    returned state shares them and carries the raised step and count. The
+    draws of a step come from a generator reseeded from (`seed`,
+    state["step"]). `inject_noise=True` takes the draws themselves as the
+    third argument (make_loss_fn's `draws`), so that a test can give this
+    step and the JAX package's the same numbers. `metrics` = {"loss",
+    "part_losses"} are device tensors: reading them waits for the step."""
+    device = resolve_device(device)
+    disable_tf32()
+    loss_fn = make_loss_fn(backbone, dp, tcfg)
+    generator = torch.Generator(device=device)
+    in_step_ema = tcfg.ema_decay is not None and tcfg.ema_update_every <= 1
+
+    def train_step(state, batch, seed_or_draws):
+        params = state["params"]
+        for _, p in named_leaves(params):
+            p.grad = None
+        batch = inference._on(device, batch)
+        if inject_noise:
+            loss, parts = loss_fn(params, batch, draws=_draws_on(device, seed_or_draws))
+        else:
+            loss, parts = loss_fn(params, batch, inference.reseed(
+                generator, _STEP, seed_or_draws, state["step"]))
+        loss.backward()
+        # a trained leaf the loss does not reach (a co-trained flow's split
+        # priors) has no .grad: a zero gradient, as jax.grad gives it
+        grads = map_tree(params, lambda p: p.grad if p.grad is not None or not p.requires_grad
+                         else torch.zeros_like(p))
+        opt_state = tx.apply(params, grads, state["opt_state"])
+        out = {"params": params, "opt_state": opt_state, "step": state["step"] + 1}
+        if "ema" in state:
+            if in_step_ema:
+                _ema_lerp_(state["ema"], params, backbone.frozen, tcfg.ema_decay,
+                           state["step"])
+            out["ema"] = state["ema"]
+        return out, {"loss": loss.detach(), "part_losses": parts}
+
+    return train_step
+
+
+def make_sample_fn(backbone: NFBackbone, dp: DiffusionPrior, tcfg: DiffusionTrainConfig,
+                   device=None):
+    """sample(params, seed, n, temperature, salt=0) -> uint8 [n, H, W, C] on
+    the device: diffusion latents, then the flow inverse; a pure function of
+    (seed, salt)."""
+    device = resolve_device(device)
+    sample = inference.make_diffusion_sample_fn(backbone, dp, tcfg.n_bits, device)
+    generator = torch.Generator(device=device)
+
+    def sample_fn(params, seed: int, n: int, temperature: float, salt: int = 0):
+        return sample(params, n, temperature,
+                      generator=inference.reseed(generator, _SAMPLES, seed, salt))
+
+    return sample_fn
+
+
+def calculate_bpd_with_diff_prior(backbone: NFBackbone, dp: DiffusionPrior,
+                                  tcfg: DiffusionTrainConfig, params, loader: Loader,
+                                  seed: int, max_batches: Optional[int] = None,
+                                  with_stats: bool = False, device=None):
+    """Variational-bound bits/dim of flow + diffusion prior over a loader
+    (all of it, or its first `max_batches` batches), padded batches with the
+    pad masked out; batch i draws from a generator seeded from (seed, i).
+    `with_stats=True` returns (mean, images, standard error of the mean)."""
+    device = resolve_device(device)
+    eval_step = inference.make_vlb_eval_step(backbone, dp, tcfg.n_bits,
+                                             tcfg.compat_three_channel_bpd, device)
+    generator = torch.Generator(device=device)
+    total, total_sq, count = 0.0, 0.0, 0
+    for i, (imgs, _labels, n_valid) in enumerate(loader.padded_batches()):
+        if max_batches is not None and i >= max_batches:
+            break
+        bpds = eval_step(params, imgs, inference.reseed(generator, _EVAL, seed, i))
+        valid = bpds[:n_valid].double().cpu().numpy()
+        total += float(valid.sum())
+        total_sq += float((valid * valid).sum())
+        count += n_valid
+    mean = total / max(count, 1)
+    if not with_stats:
+        return mean
+    var = max(total_sq / max(count, 1) - mean * mean, 0.0)
+    return mean, count, math.sqrt(var / max(count, 1))
+
+
+def fit_latent_stats(backbone: NFBackbone, flow_params, formater, tcfg: DiffusionTrainConfig,
+                     loader: Loader, *, n_batches: int = 8, seed: int = 0, device=None):
+    """Channelwise latent-standardization stats of the formater's processed
+    parts, from `n_batches` batches pushed through the flow (preprocessed
+    and dequantized as in training; batch i draws from (seed, i))."""
+    device = resolve_device(device)
+    generator = torch.Generator(device=device)
+
+    def batches():
+        for i, (imgs, _labels, n_valid) in enumerate(loader.padded_batches()):
+            if i >= n_batches:
+                break
+            with torch.inference_mode():
+                x = q.dequantize(inference.reseed(generator, _STATS, seed, i),
+                                 q.preprocess(inference._on(device, imgs), tcfg.n_bits),
+                                 tcfg.n_bits)
+                latents, _ = backbone.transform(flow_params, x)
+            yield [z[:n_valid] for z in latents]
+
+    return fit_formater_stats(formater, batches())
+
+
+# -- checkpoints ----------------------------------------------------------------
+
+def _state_from_checkpoint(tree, dp: DiffusionPrior, device):
+    """A restored checkpoint (restore_state: tensors placed, parameters
+    autograd leaves) with its UNets rebuilt as modules."""
+    params = tree["params"]
+    state = {"params": {"flow": params["flow"], "diffusion": {"parts": dp.unets_from_named(
+                 params["diffusion"]["parts"], device, requires_grad=True)}},
+             "opt_state": tree["opt_state"], "step": int(tree["step"])}
+    if "ema" in tree:
+        ema = {"diffusion": {"parts": dp.unets_from_named(tree["ema"]["diffusion"]["parts"],
+                                                          device)}}
+        if "flow" in tree["ema"]:
+            ema["flow"] = tree["ema"]["flow"]
+        state["ema"] = ema
+    return state
+
+
+def restore_train_state(run_dir: str, epoch: int, backbone: NFBackbone, dp: DiffusionPrior,
+                        want_ema: bool, device=None) -> Dict[str, Any]:
+    """The train state of a checkpoint, its EMA kept when the run wants one,
+    dropped when it no longer does, seeded from the restored parameters when
+    it newly does."""
+    device = resolve_device(device)
+    state = _state_from_checkpoint(restore_state(run_dir, "diffusion", epoch, device),
+                                   dp, device)
+    if not want_ema:
+        state.pop("ema", None)
+    elif "ema" not in state:
+        state["ema"] = _ema_copy(state["params"], backbone.frozen)
+    return state
+
+
+def train(*, backbone: NFBackbone, flow_params, dp: DiffusionPrior,
+          tcfg: DiffusionTrainConfig, loaders: DatasetLoaders, run_dir: str, logger,
+          seed: int = 42, resume_dir: Optional[str] = None,
+          resume_epoch: Optional[int] = None, evaluate_fn=None,
+          device=None) -> Dict[str, Any]:
+    """The whole stage-2 training run, on `device` (CUDA unless named).
+    `evaluate_fn(sample_fn, params, epoch)` is an optional hook for sample
+    metrics at checkpoint epochs and, with `full=True`, at the end.
+
+    Resume: `resume_epoch=E` means E epochs are complete in `resume_dir`;
+    training continues at epoch E+1 and, each epoch's data order being a
+    pure function of (seed, epoch) and each step's draws one of (seed,
+    step), repeats what the uninterrupted run would have done."""
+    device = resolve_device(device)
+    disable_tf32()
+    tx = make_two_group_optimizer(tcfg, backbone.frozen)
+    tracker = Tracker(run_dir)
+    loss_name = dp.parts[0].cfg.loss_type + ("" if backbone.frozen else "_plus_bpd")
+    want_ema = tcfg.ema_decay is not None
+
+    start_epoch = 0
+    if resume_dir is not None and resume_epoch is not None:
+        state = restore_train_state(resume_dir, resume_epoch, backbone, dp, want_ema, device)
+        start_epoch = resume_epoch
+        logger.info(f"Resumed from {resume_dir} @ epoch {resume_epoch}")
+    else:
+        state = init_train_state(seed, backbone, flow_params, dp, tx, ema=want_ema,
+                                 device=device)
+    current_iter = state["step"]
+
+    train_step = make_train_step(backbone, dp, tcfg, tx, device=device)
+    ema_fn = (make_ema_update(backbone, tcfg)
+              if want_ema and tcfg.ema_update_every > 1 else None)
+    sample = make_sample_fn(backbone, dp, tcfg, device)
+
+    def sample_fn(params, n: int, temperature: float, salt: int) -> torch.Tensor:
+        return sample(params, seed, n, temperature, salt)
+
+    log_count = 0
+    for epoch in range(start_epoch + 1, start_epoch + tcfg.epochs + 1):
+        t0 = time.time()
+        pending = []  # device scalars; fetched only at print_freq
+        for batch, _labels in prefetch_to_device(loaders.train.iter_epoch(epoch - 1), device):
+            state, metrics = train_step(state, batch, seed)
+            current_iter += 1
+            if ema_fn is not None and current_iter % tcfg.ema_update_every == 0:
+                state = ema_fn(state)
+            pending.append(metrics["loss"])
+
+            if current_iter % tcfg.print_freq == 0:
+                avg = float(torch.stack(pending).mean())
+                pending = []
+                tracker.track(avg, loss_name, step=current_iter, epoch=epoch,
+                              context={"subset": "train"})
+                logger.info(f"epoch {epoch} iter {current_iter}: {loss_name} {avg:.4f}")
+                log_count += 1
+                if log_count % tcfg.log_gen_images_per_iter == 0:
+                    samples = sample_fn(ema_eval_params(state), tcfg.n_samples_log,
+                                        tcfg.temperature, 2 * current_iter + 1)
+                    tracker.track_images(samples.cpu().numpy(), "generated",
+                                         step=current_iter, epoch=epoch)
+
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        dt = time.time() - t0
+        logger.info(f"epoch {epoch} done in {dt:.1f}s "
+                    f"({len(loaders.train) / max(dt, 1e-9):.2f} it/s)")
+        if tcfg.log_param_distribution:
+            tracker.track_param_distributions(state["params"], step=current_iter,
+                                              epoch=epoch)
+
+        if epoch % tcfg.save_checkpoint_freq == 0:
+            if evaluate_fn is not None:
+                evaluate_fn(sample_fn, ema_eval_params(state), epoch)
+            save_state(run_dir, "diffusion", epoch, state)
+            samples = sample_fn(ema_eval_params(state), 64, tcfg.temperature, 2 * epoch)
+            tracker.track_images(samples.cpu().numpy(), "checkpoint_samples",
+                                 step=current_iter, epoch=epoch)
+
+    final_epoch = start_epoch + tcfg.epochs
+    save_state(run_dir, "diffusion", final_epoch, state)
+    results = {}
+    if evaluate_fn is not None:
+        results["metrics"] = evaluate_fn(sample_fn, ema_eval_params(state), final_epoch,
+                                         full=True)
+    tracker.close()
+    return {"state": state, "results": results, "sample_fn": sample_fn}

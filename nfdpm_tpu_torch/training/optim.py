@@ -1,4 +1,5 @@
-"""Optimizer: adam/adamw behind the flow trainer's double gradient clipping.
+"""Optimizer: adam/adamw behind the flow trainer's double gradient clipping,
+and the diffusion trainer's two learning-rate groups without clipping.
 
 Counterpart of nfdpm_tpu/training/optim.py, which chains optax transforms:
 
@@ -16,9 +17,15 @@ out here to match optax, not torch.optim:
   * the learning rate is a schedule of the optimizer's own step count, which
     is part of the state, so a resumed run continues the schedule.
 
+Each top level of the tree is a group with its own schedule, or None for
+a group that never updates (optax.set_to_zero): {"flow", "prior"} for the
+flow trainer (make_optimizer), {"diffusion", "flow"} without clipping for
+the diffusion trainer (its make_two_group_optimizer).
+
 State: {"mu": tree, "nu": tree, "count": int}, the moments shaped like the
-parameter tree (zeros where a leaf never updates). `apply` updates the
-parameters and the moments in place and makes no host synchronisation.
+parameter tree (zeros where a leaf never updates; a module's parameters
+become a dict by name). `apply` updates the parameters and the moments in
+place and makes no host synchronisation.
 """
 
 from __future__ import annotations
@@ -29,7 +36,7 @@ from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
-from ..convert import is_frozen_path, named_leaves
+from ..convert import is_frozen_path, map_tree, named_leaves
 
 Tree = Any
 Schedule = Callable[[int], float]
@@ -71,31 +78,30 @@ def make_lr_schedule(lr: float, schedule: str = "constant", warmup_steps: int = 
 
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
+    # top-level key of the tree -> its schedule; None, or a key not named,
+    # for a group that never updates
+    groups: Dict[str, Optional[Schedule]]
     name: str = "adam"
-    lr_schedule: Schedule = lambda count: 1e-3
     clip_value: Optional[float] = 1.0
     clip_norm: Optional[float] = 1.0
-    fixed_prior: bool = False
     b1: float = 0.9
     b2: float = 0.999
     eps: float = 1e-8
     weight_decay: float = 1e-4  # adamw only
 
+    def schedule_of(self, path: str) -> Optional[Schedule]:
+        """The schedule of the leaf at `path`, None where it is never updated."""
+        if is_frozen_path(path):
+            return None
+        return self.groups.get(path.split("/", 1)[0])
+
     def updates(self, path: str) -> bool:
         """Whether the leaf at `path` ("flow/...", "prior/...") is updated."""
-        if is_frozen_path(path):
-            return False
-        return not (self.fixed_prior and path.split("/", 1)[0] == "prior")
+        return self.schedule_of(path) is not None
 
     def init(self, params: Tree) -> Dict[str, Any]:
-        def zeros(node):
-            if isinstance(node, dict):
-                return {k: zeros(v) for k, v in node.items()}
-            if isinstance(node, (list, tuple)):
-                return [zeros(v) for v in node]
-            return None if node is None else torch.zeros_like(node, requires_grad=False)
-
-        return {"mu": zeros(params), "nu": zeros(params), "count": 0}
+        return {"mu": map_tree(params, torch.zeros_like),
+                "nu": map_tree(params, torch.zeros_like), "count": 0}
 
     def clipped(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
         """The gradients after both clips, as new tensors."""
@@ -119,13 +125,14 @@ class Optimizer:
         for (path, p), (_, g), (_, m), (_, v) in zip(
                 *(named_leaves(t, keep_none=True)
                   for t in (params, grads, state["mu"], state["nu"]))):
-            if p is not None and self.updates(path):
+            schedule = None if p is None else self.schedule_of(path)
+            if schedule is not None:
                 if g is None:
                     raise ValueError(f"no gradient for the trainable leaf {path}")
-                rows.append((p, g, m, v))
+                rows.append((p, g, m, v, schedule))
         if not rows:
             return dict(state, count=state["count"] + 1)
-        ps, gs, mus, nus = (list(col) for col in zip(*rows))
+        ps, gs, mus, nus, schedules = (list(col) for col in zip(*rows))
         gs = self.clipped(gs)
 
         count = state["count"] + 1
@@ -140,18 +147,19 @@ class Optimizer:
         torch._foreach_div_(step, denom)
         if self.name == "adamw":
             torch._foreach_add_(step, ps, alpha=self.weight_decay)
-        # the rate of this update is the schedule at the count before it
-        torch._foreach_add_(ps, step, alpha=-self.lr_schedule(count - 1))
+        # the rate of this update is the schedule at the count before it;
+        # one foreach add per group
+        for schedule in dict.fromkeys(schedules):
+            group = [i for i, s in enumerate(schedules) if s is schedule]
+            torch._foreach_add_([ps[i] for i in group], [step[i] for i in group],
+                                alpha=-schedule(count - 1))
         return dict(state, count=count)
 
 
 def grads_of(params: Tree) -> Tree:
-    """The tree of the leaves' accumulated `.grad`s (None where there is none)."""
-    if isinstance(params, dict):
-        return {k: grads_of(v) for k, v in params.items()}
-    if isinstance(params, (list, tuple)):
-        return [grads_of(v) for v in params]
-    return None if params is None else params.grad
+    """The tree of the leaves' accumulated `.grad`s (None where there is none);
+    a module's become a dict by parameter name."""
+    return map_tree(params, lambda p: p.grad)
 
 
 def make_optimizer(name: str = "adam", lr: float = 1e-3,
@@ -164,5 +172,5 @@ def make_optimizer(name: str = "adam", lr: float = 1e-3,
     if name not in ("adam", "adamw"):
         raise ValueError(f"Unknown optimizer: {name}")
     schedule = lr_schedule if lr_schedule is not None else (lambda count: lr)
-    return Optimizer(name=name, lr_schedule=schedule, clip_value=clip_value,
-                     clip_norm=clip_norm, fixed_prior=fixed_prior)
+    return Optimizer(groups={"flow": schedule, "prior": None if fixed_prior else schedule},
+                     name=name, clip_value=clip_value, clip_norm=clip_norm)

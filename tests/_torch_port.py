@@ -5,6 +5,8 @@ packages; JAX runs on the CPU, PyTorch on the CPU (device="cpu")."""
 
 from __future__ import annotations
 
+import contextlib
+
 import jax
 import numpy as np
 import torch
@@ -97,3 +99,43 @@ def adam_moments(opt_state, params):
         return np.asarray(moment)
 
     return fill(state.mu, params), fill(state.nu, params), int(state.count)
+
+
+# -- a small analytic model in place of the UNet, written in both frameworks,
+# so that a diffusion process compiles in a second --------------------------
+
+def model_weights(c, out, seed):
+    rng = np.random.default_rng(seed)
+    return {"w": (rng.standard_normal((c, out)) / np.sqrt(c)).astype(np.float32),
+            "s": (0.5 * rng.standard_normal((c, out)) / np.sqrt(c)).astype(np.float32)}
+
+
+def jax_model(p, x, steps, sc):
+    """tanh(x W + 0.1 sin(0.37 t) + sc S); t [B] or length 1."""
+    import jax.numpy as jnp
+
+    h = x @ p["w"] + 0.1 * jnp.sin(0.37 * steps.astype(jnp.float32)).reshape(-1, 1, 1, 1)
+    if sc is not None:
+        h = h + sc @ p["s"]
+    return jnp.tanh(h)
+
+
+def torch_model(p, x, steps, sc):
+    h = x @ p["w"] + 0.1 * torch.sin(0.37 * steps.float()).reshape(-1, 1, 1, 1)
+    if sc is not None:
+        h = h + sc @ p["s"]
+    return torch.tanh(h)
+
+
+@contextlib.contextmanager
+def one_torch_thread():
+    """PyTorch on one CPU thread: at the tests' tiny sizes its thread pool
+    costs more than it gives, the more so beside other test workers (a
+    stage-2 CPU training run took 1.3 s on one thread and 35 s on eight of a
+    loaded 8-core host)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)

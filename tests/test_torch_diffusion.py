@@ -26,7 +26,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import close, randomize, t, to_numpy_tree
+from _torch_port import (close, jax_model, model_weights, one_torch_thread, randomize, t,
+                         to_numpy_tree, torch_model)
 from nfdpm_tpu.models import diffusion as jdiff
 from nfdpm_tpu.models import formaters as jfmt
 from nfdpm_tpu.models import glow as jglow
@@ -40,32 +41,15 @@ from nfdpm_tpu_torch.models import glow as tglow
 from nfdpm_tpu_torch.models.diffusion_prior import DiffusionPrior as TDiffusionPrior
 from nfdpm_tpu_torch.models.nf_backbone import NFBackbone as TBackbone
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    with one_torch_thread():
+        yield
+
+
 CHAIN_TOL = dict(atol=1e-4, rtol=1e-5)
 T_STEPS, S_STEPS = 20, 5
 PART_SHAPES = [(3, 4, 4, 6), (3, 2, 2, 24)]  # two latent parts, batch 3
-
-
-# -- a small analytic model, written in both frameworks ----------------------
-
-def _model_weights(c, out, seed):
-    rng = np.random.default_rng(seed)
-    return {"w": (rng.standard_normal((c, out)) / np.sqrt(c)).astype(np.float32),
-            "s": (0.5 * rng.standard_normal((c, out)) / np.sqrt(c)).astype(np.float32)}
-
-
-def _jax_model(p, x, steps, sc):
-    """tanh(x W + 0.1 sin(0.37 t) + sc S); t [B] or length 1."""
-    h = x @ p["w"] + 0.1 * jnp.sin(0.37 * steps.astype(jnp.float32)).reshape(-1, 1, 1, 1)
-    if sc is not None:
-        h = h + sc @ p["s"]
-    return jnp.tanh(h)
-
-
-def _torch_model(p, x, steps, sc):
-    h = x @ p["w"] + 0.1 * torch.sin(0.37 * steps.float()).reshape(-1, 1, 1, 1)
-    if sc is not None:
-        h = h + sc @ p["s"]
-    return torch.tanh(h)
 
 
 VARIANTS = {
@@ -83,9 +67,9 @@ def _pair(shape, variant, **extra):
               beta_schedule="cosine", auto_normalize=False, **VARIANTS[variant])
     kw.update(extra)
     out = c * (2 if kw.get("learned_variance") else 1)
-    w = _model_weights(c, out, seed=c)
-    return (jdiff.GaussianDiffusion(_jax_model, jdiff.DiffusionConfig(**kw)),
-            tdiff.GaussianDiffusion(_torch_model, tdiff.DiffusionConfig(**kw)), w)
+    w = model_weights(c, out, seed=c)
+    return (jdiff.GaussianDiffusion(jax_model, jdiff.DiffusionConfig(**kw)),
+            tdiff.GaussianDiffusion(torch_model, tdiff.DiffusionConfig(**kw)), w)
 
 
 def _normal(key, shape):

@@ -18,6 +18,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+from _torch_port import one_torch_thread
 from nfdpm_tpu.data import datasets as jdata
 from nfdpm_tpu.data import pipeline as jpipe
 from nfdpm_tpu_torch import run_baseline
@@ -25,6 +26,13 @@ from nfdpm_tpu_torch.data import datasets as tdata
 from nfdpm_tpu_torch.data import pipeline as tpipe
 from nfdpm_tpu_torch.utils import config as tconfig
 from nfdpm_tpu_torch.utils import env as tenv
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    with one_torch_thread():
+        yield
+
 
 REPO = Path(__file__).resolve().parents[1]
 SMALL = ["data.name=synthetic", "data.synthetic_fallback=true", "data.batch_size=8",
@@ -38,7 +46,7 @@ def _cli(cwd, *overrides, check=True):
     out = subprocess.run([sys.executable, "-m", "nfdpm_tpu_torch.run_baseline", *overrides],
                          cwd=cwd, capture_output=True, text=True, timeout=300,
                          env={"PYTHONPATH": str(REPO), "PATH": "/usr/bin:/bin",
-                              "NFDPM_NO_TENSORBOARD": "1"})
+                              "NFDPM_NO_TENSORBOARD": "1", "OMP_NUM_THREADS": "1"})
     if check and out.returncode != 0:
         raise AssertionError(out.stdout[-2000:] + out.stderr[-2000:])
     return out

@@ -17,13 +17,19 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import close, randomize, t, to_numpy_tree
+from _torch_port import close, one_torch_thread, randomize, t, to_numpy_tree
 from nfdpm_tpu.models import glow as jglow
 from nfdpm_tpu.models import prior as jprior
 from nfdpm_tpu.training import nf_trainer as nft
 from nfdpm_tpu_torch import convert, inference
 from nfdpm_tpu_torch.models import glow as tglow
 from nfdpm_tpu_torch.models import prior as tprior
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    with one_torch_thread():
+        yield
+
 
 LDJ_TOL = dict(rtol=1e-5, atol=1e-4)
 IMG, BATCH = 8, 4

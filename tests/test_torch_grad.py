@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import close, port_tree, randomize, t, to_numpy_tree
+from _torch_port import close, one_torch_thread, port_tree, randomize, t, to_numpy_tree
 from nfdpm_tpu.models import glow as jglow
 from nfdpm_tpu.models import prior as jprior
 from nfdpm_tpu.ops import bijectors as jbj
@@ -36,6 +36,12 @@ from nfdpm_tpu_torch.ops.kernels import fused_linear_attention as fla
 from nfdpm_tpu_torch.training import nf_trainer as tnft
 
 IMG, BATCH, N_BITS = 8, 8, 5
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    with one_torch_thread():
+        yield
 
 
 def _rng_arrays(seed, *shapes, scale=1.0):
@@ -116,8 +122,9 @@ def test_wrappers_without_a_gradient_raise_under_grad():
         leaf.requires_grad_(True)
     with pytest.raises(RuntimeError, match="no gradient.*§2.3"):
         ct.coupling_tail_inverse(x, x, x)
-    with pytest.raises(RuntimeError, match="no gradient.*§1.10"):
-        fla.fused_linear_attention(x.detach(), w_qkv, w_out, v, v)
+    # fused_linear_attention has its gradient now (test_torch_fla_grad.py)
+    y = fla.fused_linear_attention(x.detach(), w_qkv, w_out, v, v)
+    assert type(y.grad_fn).__name__ == "FusedLinearAttentionFunctionBackward"
     # the plain versions stay differentiable; without grad the wrappers run
     assert ct.coupling_tail_inverse_plain(x, x, x).grad_fn is not None
     assert fla.fused_linear_attention_plain(x, w_qkv, w_out, v, v).grad_fn is not None

@@ -9,7 +9,9 @@ Tolerances: elementwise rtol 1e-5 and atol 1e-5; the coupling logdet, a sum
 of up to D log terms taken in another order, rtol 1e-5 and atol 1e-4; the
 linear-attention block, whose LayerNorm divides sums of up to C + 128 + N
 products taken in another order by the row's spread, rtol 1e-4 and atol 1e-4.
-Gradients: dW and db sum over up to N = 16384 rows (rtol 1e-4, atol 1e-4).
+Gradients: dW and db sum over up to N = 16384 rows (rtol 1e-4, atol 1e-4);
+the linear-attention block's dx rtol and atol 1e-4, its weight, bias and
+gain gradients within 1e-5 of each gradient's largest entry.
 """
 
 import pytest
@@ -154,11 +156,50 @@ def test_wrappers_without_a_gradient_raise_under_grad(gen):
     x = _randn(gen, 2, 4, 4, 16).requires_grad_(True)
     with pytest.raises(RuntimeError, match="no gradient"):
         ct.coupling_tail_inverse(x, x, x)
+    # fused_linear_attention has its gradient now: a graph, no error
     w_qkv, w_out, v = _randn(gen, 16, 384), _randn(gen, 128, 16), _randn(gen, 16)
-    with pytest.raises(RuntimeError, match="no gradient"):
-        fla.fused_linear_attention(x, w_qkv, w_out, v, v)
+    assert fla.fused_linear_attention(x, w_qkv, w_out, v, v).grad_fn is not None
     with torch.no_grad():
         assert ct.coupling_tail_inverse(x, x, x).shape == x.shape
+
+
+# The 12 calls of one stage-2 training step at batch 64 (configs/nf_diffusion.yaml:
+# three UNets of dim 64, [1, 2], over the parts (16,16,6), (8,8,12), (4,4,48)):
+# per part at side H, linear attention at (side, C) = (H, 64), (H/2, 64), (H/2, 128),
+# (H, 64): the two down levels at widths 64 and 64, the two up levels at 128 and 64.
+TRAIN_SHAPES = [(64, s, s, c) for h in (16, 8, 4)
+                for s, c in ((h, 64), (h // 2, 64), (h // 2, 128), (h, 64))]
+# dx of the block, elementwise; the weight gradients sum over up to
+# B*N = 16384 rows, so they are held to a bound scaled to the gradient's
+# largest entry
+BWD_ATOL_DX = 1e-4
+BWD_SCALED = 1e-5
+
+
+@pytest.mark.parametrize("shape", TRAIN_SHAPES + [(5, 3, 5, 20), (2, 4, 4, 200)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_fused_linear_attention_bwd_matches_plain(gen, shape):
+    c = shape[-1]
+    x = _randn(gen, *shape).requires_grad_(True)
+    w_qkv = _randn(gen, c, 384, scale=c ** -0.5).requires_grad_(True)
+    w_out = _randn(gen, 128, c, scale=128 ** -0.5).requires_grad_(True)
+    b_out = _randn(gen, c, scale=0.1).requires_grad_(True)
+    g = (1.0 + _randn(gen, c, scale=0.1)).requires_grad_(True)
+    dout = _randn(gen, *shape)
+    leaves = (x, w_qkv, w_out, b_out, g)
+    fwd, bwd = fla.fused_linear_attention.launches, fla.fused_linear_attention_bwd.launches
+    y = fla.fused_linear_attention(*leaves)
+    got = torch.autograd.grad(y, leaves, dout)
+    torch.cuda.synchronize()
+    assert (fla.fused_linear_attention.launches, fla.fused_linear_attention_bwd.launches) == (
+        fwd + 1, bwd + 1)
+    want = fla.fused_linear_attention_bwd_plain(*(t.detach() for t in leaves), dout)
+    torch.testing.assert_close(got[0], want[0], rtol=BWD_ATOL_DX, atol=BWD_ATOL_DX)
+    for a, e in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a, e, rtol=0, atol=BWD_SCALED * float(e.abs().max()))
+    # fixed order, no atomics: the same bits again
+    again = torch.autograd.grad(fla.fused_linear_attention(*leaves), leaves, dout)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 def test_wrappers_raise_on_bad_inputs(gen):

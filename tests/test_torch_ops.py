@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import close, port_tree, randomize, t
+from _torch_port import close, one_torch_thread, port_tree, randomize, t
 from nfdpm_tpu.models import prior as jprior
 from nfdpm_tpu.ops import bijectors as jbj
 from nfdpm_tpu.ops import coupling as jcoupling
@@ -29,6 +29,12 @@ from nfdpm_tpu_torch.ops import quantize as tq
 from nfdpm_tpu_torch.ops import zeroconv as tzc
 from nfdpm_tpu_torch.ops.kernels import channel_mix as tcm
 from nfdpm_tpu_torch.ops.kernels import coupling_tail as tct
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    with one_torch_thread():
+        yield
+
 
 LDJ_TOL = dict(rtol=1e-5, atol=1e-4)
 

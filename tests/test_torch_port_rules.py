@@ -20,15 +20,25 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_port import one_torch_thread
 import nfdpm_tpu_torch
-from nfdpm_tpu_torch import convert, inference, run_baseline, serve
+from nfdpm_tpu_torch import convert, inference, run_baseline, run_diffusion_prior, serve
 from nfdpm_tpu_torch.models import formaters as tfmt
 from nfdpm_tpu_torch.models import glow as tglow
+from nfdpm_tpu_torch.models import nf_backbone
 from nfdpm_tpu_torch.models import prior as tprior
 from nfdpm_tpu_torch.models.diffusion_prior import DiffusionPrior
 from nfdpm_tpu_torch.models.nf_backbone import NFBackbone
 from nfdpm_tpu_torch.training import checkpoint as tckpt
+from nfdpm_tpu_torch.training import diffusion_trainer as tdt
 from nfdpm_tpu_torch.training import nf_trainer as tnft
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    with one_torch_thread():
+        yield
+
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "nfdpm_tpu_torch").rglob("*.py")) + [
@@ -76,6 +86,8 @@ def test_fresh_interpreter_loads_no_jax_or_reference_modules():
                "nfdpm_tpu_torch.models.formaters", "nfdpm_tpu_torch.models.nf_backbone",
                "nfdpm_tpu_torch.ops.kernels.fused_linear_attention",
                "nfdpm_tpu_torch.run_baseline", "nfdpm_tpu_torch.training.nf_trainer",
+               "nfdpm_tpu_torch.run_diffusion_prior",
+               "nfdpm_tpu_torch.training.diffusion_trainer",
                "nfdpm_tpu_torch.training.optim", "nfdpm_tpu_torch.training.checkpoint",
                "nfdpm_tpu_torch.training.tracking", "nfdpm_tpu_torch.data.datasets",
                "nfdpm_tpu_torch.data.pipeline", "nfdpm_tpu_torch.utils.config",
@@ -128,10 +140,19 @@ def _stage2(formater="IdentityFormater"):
 
 def test_stage2_entry_points_never_fall_back_to_cpu(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    _, backbone, dp = _stage2()
+    cfg, backbone, dp = _stage2()
+    flow = tglow.init_glow(0, cfg, "cpu")
+    tcfg = tdt.DiffusionTrainConfig()
+    tx = tdt.make_two_group_optimizer(tcfg, True)
     for entry in (lambda: inference.make_diffusion_sample_fn(backbone, dp),
                   lambda: inference.make_vlb_eval_step(backbone, dp),
                   lambda: dp.init_params(0),
+                  lambda: tdt.init_train_state(0, backbone, flow, dp, tx),
+                  lambda: tdt.make_train_step(backbone, dp, tcfg, tx),
+                  lambda: tdt.train(backbone=backbone, flow_params=flow, dp=dp, tcfg=tcfg,
+                                    loaders=None, run_dir="unused", logger=None),
+                  lambda: nf_backbone.load_pretrained_flow(str(tmp_path), 1),
+                  lambda: run_diffusion_prior.main(["data.name=synthetic"]),
                   lambda: serve.make_server(["--weights", str(tmp_path / "none.npz"),
                                              "--arch", str(tmp_path / "none.json")])):
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -19,7 +19,7 @@ import optax
 import pytest
 import torch
 
-from _torch_port import adam_moments, randomize, t, to_numpy_tree
+from _torch_port import adam_moments, one_torch_thread, randomize, t, to_numpy_tree
 from nfdpm_tpu.models import glow as jglow
 from nfdpm_tpu.models import prior as jprior
 from nfdpm_tpu.training import nf_trainer as jnft
@@ -34,6 +34,12 @@ from nfdpm_tpu_torch.training import tracking as ttrack
 
 IMG, BATCH = 8, 8
 GLOW = dict(in_channels=3, levels=2, steps=2, coupling_width=32, learn_prior=True)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    with one_torch_thread():
+        yield
 
 
 def _leaves(tree):

@@ -14,12 +14,18 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import close, randomize, t, to_numpy_tree
+from _torch_port import close, one_torch_thread, randomize, t, to_numpy_tree
 from nfdpm_tpu.models import unet as junet
 from nfdpm_tpu.ops.pallas import fused_linear_attention as jfla
 from nfdpm_tpu_torch import convert
 from nfdpm_tpu_torch.models import unet as tunet
 from nfdpm_tpu_torch.ops.kernels import fused_linear_attention as tfla
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    with one_torch_thread():
+        yield
+
 
 UNET_TOL = dict(atol=1e-4, rtol=0.0)
 
@@ -183,10 +189,11 @@ def test_linear_attention(fused):
     expected = apply(jnp.asarray(x))
     with torch.no_grad():
         close(m(t(x)), expected, **UNET_TOL)
-    # the kernel route has no gradient yet: with the module's parameters
-    # requiring grad it raises instead of returning a detached result
-    with pytest.raises(RuntimeError, match="no gradient"):
-        m(t(x))
+    # with the module's parameters requiring grad the kernel route goes
+    # through its autograd Function (gradients: test_torch_fla_grad.py)
+    y = m(t(x))
+    assert type(y.grad_fn).__name__ == "FusedLinearAttentionFunctionBackward"
+    close(y, expected, **UNET_TOL)
     close(m(t(x), use_kernels=False), expected, **UNET_TOL)
 
 
