@@ -102,7 +102,26 @@ line each:
      and sign not; `phase=eval` of that run, in-process, reads the trained
      flow back and prints the same VLB.
 
-Then come the kernel summary line (six kernels), the nvidia-smi line and, last,
+  whole-step megakernel (run right after 6; launch counters zeroed before
+  21, read after the chained forward):
+ 20. megakernel: step_megakernel_forward against its plain version at the
+     three level shapes (batch 64, width 512), the JAX package's test case
+     (5x16x16x12, width 64) and a ragged case, y within 1e-5 and the
+     logdet within rtol 1e-5 / atol 1e-3, the same bits on a second call;
+     the kernel's tiling and halo waste; times as in 3 (the kernel alone,
+     its weight packing, the whole wrapper), beside the plain version, the
+     step the Glow path runs (bijectors.step_forward_kernels: channel_mix,
+     cuDNN coupling CNN, coupling_tail) and bijectors.step_forward_megakernel;
+     the bound by operations;
+ 21. megakernel_glow: the Glow of phase 4 scores phase 4's batch and draw
+     with its 12 steps chained through bijectors.step_forward_megakernel
+     (glow.forward's level walk over squeeze_forward and split_forward):
+     bits/dim and every latent part within 1e-4 of make_eval_step's kernel
+     route, exactly 12 megakernel launches and no other, a refused
+     gradient; device ms (CUDA graph) and wall ms of the chained forward,
+     of glow.forward's kernel route and of its plain route.
+
+Then come the kernel summary line (seven kernels), the nvidia-smi line and, last,
 {"ok": true, "device": {...}}. Any failed check raises and exits non-zero
 before that line. All records are also written to chiprun_out/chip_smoke.json.
 """
@@ -578,7 +597,8 @@ def glow_path(torch, np, params, counters):
     launches_fwd = counts(counters)
     check(launches_fwd == {"channel_mix": 3 * STEPS, "coupling_tail": 3 * STEPS,
                            "coupling_tail_bwd": 0, "coupling_tail_inverse": 0,
-                           "fused_linear_attention": 0, "fused_linear_attention_bwd": 0},
+                           "fused_linear_attention": 0, "fused_linear_attention_bwd": 0,
+                           "step_megakernel_forward": 0},
           f"one forward launched {launches_fwd}")
     ms_k = host_ms(torch, lambda: eval_k(params, batch, noise=noise))
     ms_p = host_ms(torch, lambda: eval_p(params, batch, noise=noise))
@@ -605,12 +625,200 @@ def glow_path(torch, np, params, counters):
                 "--width", str(WIDTH), "--img-size", str(IMG), "--n-bits", str(N_BITS)],
         counters, {"channel_mix": 12, "coupling_tail": 0, "coupling_tail_bwd": 0,
                    "coupling_tail_inverse": 12, "fused_linear_attention": 0,
-                   "fused_linear_attention_bwd": 0}, "gaussian")
+                   "fused_linear_attention_bwd": 0, "step_megakernel_forward": 0}, "gaussian")
     launches = counts(counters)
     emit({"phase": "serving", "warmup_s": warmup, "requests": results,
           "main_path_launches": launches})
     for name in ("channel_mix", "coupling_tail", "coupling_tail_inverse"):
         check(launches[name] > 0, f"{name} was never launched on the Glow path")
+    return launches
+
+
+MEGA_Y_TOL, MEGA_LDJ_ATOL = 1e-5, 1e-3  # the JAX package's test of the TPU kernel
+
+
+def megakernel_bytes_ops(b: int, h: int, w: int, c: int, d: int):
+    """Bytes and fp32 operations of one whole-step call: x read and y written
+    once, every weight once, ldj; per pixel the mix (C x C), the first conv
+    (9 x C/2 x D), the 1x1 conv (D x D) and the zeroconv (9 x D x C), an FMA
+    counted as two operations (the tail's few per channel left out)."""
+    n, half = b * h * w, c // 2
+    weights = c * c + c + 9 * half * d + 2 * d + d * d + 2 * d + 9 * d * c + 2 * c
+    return 4 * (2 * n * c + weights + b), 2 * n * (c * c + 9 * half * d + d * d + 9 * d * c)
+
+
+def random_step(torch, bj, c: int, width: int, seed: int):
+    """One Glow step of the port's init at C channels and hidden width
+    `width`, its zero-initialised leaves given small seeded values."""
+    from nfdpm_tpu_torch.convert import tree_to_device
+
+    params = tree_to_device(bj.init_step(seed, c, width), torch.device("cuda"))
+    randomize_zero_leaves(torch, params, seed)
+    return params
+
+
+def phase_megakernel(torch, sm, bj):
+    """The whole-step megakernel against its plain version and against the
+    step the Glow path runs (bijectors.step_forward_kernels: channel_mix,
+    cuDNN coupling CNN, coupling_tail) at the three level shapes, the JAX
+    package's test case and a ragged one; returns its per-pass summary."""
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    cases = [(BATCH, h, w, c, WIDTH, True) for (h, w, c) in level_shapes()]
+    cases += [(5, 16, 16, 12, 64, False),  # tests/test_pallas_kernels.py's case
+              (7, 5, 9, 14, 44, False)]   # odd B, H and W; C and width not multiples of 8
+    timed = ("ms", "device_ms", "pack_device_ms", "plain_ms", "plain_device_ms",
+             "route_ms", "route_device_ms", "step_ms", "step_device_ms")
+    tot = dict({k: 0.0 for k in timed}, bytes=0.0, ops=0.0, max_abs_err=0.0)
+    for b, h, w, c, d, on_path in cases:
+        params = random_step(torch, bj, c, d, seed=b + c)
+        wf, bf, _ = bj.fold_actnorm_invconv(params["actnorm"], params["invconv"])
+        net = params["coupling"]["net"]
+        x = torch.randn((b, h, w, c), generator=gen, device="cuda")
+        ldj0 = torch.zeros((b,), device="cuda")
+        with torch.no_grad():
+            y_k, l_k = sm.step_megakernel_forward(x, wf, bf, net)
+            y_p, l_p = sm.step_megakernel_forward_plain(x, wf, bf, net)
+            y_2, l_2 = sm.step_megakernel_forward(x, wf, bf, net)
+        torch.cuda.synchronize()
+        y_err, l_err = float((y_k - y_p).abs().max()), float((l_k - l_p).abs().max())
+        check(torch.allclose(y_k, y_p, rtol=MEGA_Y_TOL, atol=MEGA_Y_TOL)
+              and torch.allclose(l_k, l_p, rtol=1e-5, atol=MEGA_LDJ_ATOL),
+              f"step_megakernel differs from its plain version at {(b, h, w, c, d)}: "
+              f"y {y_err}, ldj {l_err}")
+        check(torch.equal(y_k, y_2) and torch.equal(l_k, l_2),
+              f"two step_megakernel calls differ at {(b, h, w, c, d)}")
+        plan = sm.plan(b, h, w, c, d)
+        record = {"phase": "kernel", "name": "step_megakernel", "x": [b, h, w, c],
+                  "width": d, "on_path": on_path, "launches_per_pass": STEPS if on_path else 0,
+                  "y_max_abs_err": y_err, "ldj_max_abs_err": l_err,
+                  "max_abs_err": max(y_err, l_err), "plan": plan._asdict(),
+                  "halo_waste": sm.halo_waste(plan, h, w)}
+        if on_path:
+            packed = sm.pack(wf, bf, net, c)
+            with torch.no_grad():
+                fns = {"": lambda: sm.step_megakernel_forward(x, wf, bf, net),
+                       "plain_": lambda: sm.step_megakernel_forward_plain(x, wf, bf, net),
+                       "route_": lambda: bj.step_forward_kernels(params, x, ldj0),
+                       "step_": lambda: bj.step_forward_megakernel(params, x, ldj0)}
+                times = {}
+                for key, fn in fns.items():
+                    times[f"{key}ms"] = cuda_ms(fn, iters=50, warmup=5)
+                    times[f"{key}device_ms"] = graph_ms(fn, calls=10, replays=10)
+                # the kernel alone, its weights packed once, and the packing
+                times["device_ms"] = graph_ms(lambda: sm.launch(x, packed, d), calls=10,
+                                              replays=10)
+                times["pack_device_ms"] = graph_ms(lambda: sm.pack(wf, bf, net, c), calls=10,
+                                                   replays=10)
+            nbytes, ops = megakernel_bytes_ops(b, h, w, c, d)
+            b_ms, b_by = bound_ms(nbytes, ops)
+            record.update(times, bound_ms=b_ms, bound_by=b_by, bytes=nbytes, ops=ops)
+            tot["bytes"] += STEPS * nbytes
+            tot["ops"] += STEPS * ops
+            for key in timed:
+                tot[key] += STEPS * times[key]
+        tot["max_abs_err"] = max(tot["max_abs_err"], y_err, l_err)
+        emit(record)
+    tot["bound_ms"], tot["bound_by"] = bound_ms(tot["bytes"], tot["ops"])
+    tot["library_ms"] = tot["library_device_ms"] = None  # no one PyTorch call is a Glow step
+    return tot
+
+
+def megakernel_glow_forward(bj, flow, x):
+    """glow.forward's level walk (models/glow.py) with every step through
+    bijectors.step_forward_megakernel: (latent parts, ldj, logp)."""
+    import torch
+
+    ldj = torch.zeros((x.shape[0],), dtype=torch.float32, device=x.device)
+    logp = torch.zeros_like(ldj)
+    latents, y = [], x
+    for block in flow["blocks"]:
+        y = bj.squeeze_forward(y)
+        for sp in block["steps"]:
+            y, ldj = bj.step_forward_megakernel(sp, y, ldj)
+        y, ldj, z, logp = bj.split_forward(block["split"], y, ldj, logp)
+        latents.append(z)
+    y = bj.squeeze_forward(y)
+    for sp in flow["final_steps"]:
+        y, ldj = bj.step_forward_megakernel(sp, y, ldj)
+    latents.append(y)
+    return latents, ldj, logp
+
+
+def phase_megakernel_glow(torch, np, params, counters):
+    """The full-width Glow scoring forward with its 12 steps chained through
+    the megakernel, against inference.make_eval_step's kernel route on the
+    same batch and dequantization draw; returns the launches of the path."""
+    from nfdpm_tpu_torch import inference
+    from nfdpm_tpu_torch.models import glow as glow_m
+    from nfdpm_tpu_torch.models import prior as prior_m
+    from nfdpm_tpu_torch.ops import bijectors as bj
+    from nfdpm_tpu_torch.ops import quantize as q
+
+    device = torch.device("cuda")
+    cfg = glow_m.GlowConfig(levels=LEVELS, steps=STEPS, coupling_width=WIDTH)
+    plain_cfg = glow_m.GlowConfig(levels=LEVELS, steps=STEPS, coupling_width=WIDTH,
+                                  use_kernels=False)
+    # the batch and the draw of phase 4
+    imgs = np.random.default_rng(2).integers(0, 256, (BATCH, IMG, IMG, 3), dtype=np.uint8)
+    batch = torch.from_numpy(imgs.astype(np.float32) / 255.0).to(device)
+    noise = torch.rand(batch.shape, generator=torch.Generator(device="cuda").manual_seed(3),
+                       device=device)
+    flow = params["flow"]
+    x = q.dequantize(None, q.preprocess(batch, N_BITS), N_BITS, noise)
+    bpd_ref = inference.make_eval_step(cfg, N_BITS, device=device)(params, batch, noise=noise)
+    with torch.inference_mode():
+        lat_ref, _, _ = glow_m.forward(flow, cfg, x)
+
+    for fn in counters:
+        fn.launches = 0
+    with torch.inference_mode():
+        lat, ldj, logp = megakernel_glow_forward(bj, flow, x)
+        ll = ldj + logp + prior_m.gaussian_prior_logp(params["prior"], lat[-1])
+    torch.cuda.synchronize()
+    launches = counts(counters)
+    check(launches == {"channel_mix": 0, "coupling_tail": 0, "coupling_tail_bwd": 0,
+                       "coupling_tail_inverse": 0, "fused_linear_attention": 0,
+                       "fused_linear_attention_bwd": 0,
+                       "step_megakernel_forward": LEVELS * STEPS},
+          f"the chained forward launched {launches}")
+    n_pixel = prior_m.n_pixels(IMG, 3)
+    bpd = (np.log(2.0 ** N_BITS) * n_pixel - ll) * (np.log2(np.e) / n_pixel)
+    check(bool(torch.isfinite(bpd).all()) and tuple(bpd.shape) == (BATCH,),
+          "chained bits/dim not finite or of the wrong shape")
+    gap = float((bpd - bpd_ref).abs().max())
+    check(gap <= 1e-4, f"chained and kernel-route bits/dim differ by {gap}")
+    latent_gaps = [float((a - b).abs().max()) for a, b in zip(lat, lat_ref)]
+    check(len(lat) == len(lat_ref) and max(latent_gaps) <= 1e-4,
+          f"chained and kernel-route latents differ by {latent_gaps}")
+    refused = False
+    try:
+        with torch.enable_grad():
+            bj.step_forward_megakernel(flow["blocks"][0]["steps"][0],
+                                       bj.squeeze_forward(x).requires_grad_(True),
+                                       torch.zeros((BATCH,), device=device))
+    except RuntimeError as err:
+        refused = "no gradient" in str(err)
+    check(refused, "step_forward_megakernel did not refuse a gradient")
+    check(launches == counts(counters), "the refused call launched a kernel")
+
+    def chained():
+        with torch.inference_mode():
+            return megakernel_glow_forward(bj, flow, x)
+
+    def route(c):
+        def run():
+            with torch.inference_mode():
+                return glow_m.forward(flow, c, x)
+        return run
+
+    times = {}
+    for key, fn in (("megakernel", chained), ("kernel_route", route(cfg)),
+                    ("plain_route", route(plain_cfg))):
+        times[f"{key}_device_ms"] = graph_ms(fn, calls=3, replays=5)
+        times[f"{key}_wall_ms"] = host_ms(torch, fn)
+    emit({"phase": "megakernel_glow", "batch": BATCH, "bpd_mean": float(bpd.mean()),
+          "max_bpd_gap": gap, "max_latent_gap_per_part": latent_gaps, "tolerance": 1e-4,
+          "launches_one_forward": launches, "refuses_gradient": refused, **times})
     return launches
 
 
@@ -677,7 +885,7 @@ def stage2_path(torch, np, flow, counters):
     check(launches_k == {"channel_mix": 3 * STEPS, "coupling_tail": 3 * STEPS,
                          "coupling_tail_bwd": 0, "coupling_tail_inverse": 0,
                          "fused_linear_attention": parts * vlb_calls * blocks,
-                         "fused_linear_attention_bwd": 0},
+                         "fused_linear_attention_bwd": 0, "step_megakernel_forward": 0},
           f"one VLB batch launched {launches_k}")
     check(not any(launches_p.values()), f"the plain route launched {launches_p}")
     emit({"phase": "stage2_scoring", "batch": VLB_BATCH, "timesteps":
@@ -709,7 +917,7 @@ def stage2_path(torch, np, flow, counters):
     per_chunk = {"channel_mix": 3 * STEPS, "coupling_tail": 0, "coupling_tail_bwd": 0,
                  "coupling_tail_inverse": 3 * STEPS,
                  "fused_linear_attention": parts * steps * blocks,
-                 "fused_linear_attention_bwd": 0}
+                 "fused_linear_attention_bwd": 0, "step_megakernel_forward": 0}
     check(launches_k == per_chunk, f"one 64-image chunk launched {launches_k}")
     latent_gap = max(float((a - b).abs().max()) for a, b in zip(lat_k, lat_p))
     pixels = img_k.to(torch.int16) - img_p.to(torch.int16)
@@ -986,7 +1194,8 @@ def phase_training(torch, counters):
                 "coupling_tail": TRAIN_STEPS * per_pass + evals * per_pass,
                 "coupling_tail_bwd": TRAIN_STEPS * per_pass,
                 "coupling_tail_inverse": per_pass,  # the checkpoint's sample grid
-                "fused_linear_attention": 0, "fused_linear_attention_bwd": 0}
+                "fused_linear_attention": 0, "fused_linear_attention_bwd": 0,
+                "step_megakernel_forward": 0}
     check(launches == expected and backward == TRAIN_STEPS * bwd_mix,
           f"train() launched {launches} ({backward} backward), expected {expected}")
     frozen_after = frozen_leaves(out["state"]["params"])
@@ -1009,7 +1218,8 @@ def phase_training(torch, counters):
     batches = [torch.from_numpy(imgs).to(device) for imgs, _ in loaders.train.iter_epoch(1)]
     per_step = {"channel_mix": per_pass + bwd_mix, "coupling_tail": per_pass,
                 "coupling_tail_bwd": per_pass, "coupling_tail_inverse": 0,
-                "fused_linear_attention": 0, "fused_linear_attention_bwd": 0}
+                "fused_linear_attention": 0, "fused_linear_attention_bwd": 0,
+                "step_megakernel_forward": 0}
     walls, step_bpds = [], []
     torch.cuda.reset_peak_memory_stats()
     for i in range(TIMED_STEPS):
@@ -1316,7 +1526,7 @@ def stage2_per_step(frozen: bool) -> dict:
     return {"channel_mix": per_pass if frozen else 2 * per_pass - 1,
             "coupling_tail": per_pass, "coupling_tail_bwd": 0 if frozen else per_pass,
             "coupling_tail_inverse": 0, "fused_linear_attention": blocks,
-            "fused_linear_attention_bwd": blocks}
+            "fused_linear_attention_bwd": blocks, "step_megakernel_forward": 0}
 
 
 def stage2_run_launches(per_step: dict, steps: int) -> dict:
@@ -1612,6 +1822,8 @@ def main() -> int:
     from nfdpm_tpu_torch.ops.kernels import channel_mix as cm
     from nfdpm_tpu_torch.ops.kernels import coupling_tail as ct
     from nfdpm_tpu_torch.ops.kernels import fused_linear_attention as fla
+    from nfdpm_tpu_torch.ops.kernels import step_megakernel as sm
+    from nfdpm_tpu_torch.ops import bijectors as bj
 
     import numpy as np
 
@@ -1629,8 +1841,10 @@ def main() -> int:
 
     counters = (cm.channel_mix, ct.coupling_tail, ct.coupling_tail_bwd,
                 ct.coupling_tail_inverse, fla.fused_linear_attention,
-                fla.fused_linear_attention_bwd)
+                fla.fused_linear_attention_bwd, sm.step_megakernel_forward)
     launches = {"glow": glow_path(torch, np, params, counters)}
+    totals["step_megakernel"] = phase_megakernel(torch, sm, bj)
+    launches["megakernel_glow"] = phase_megakernel_glow(torch, np, params, counters)
     launches["stage2"], model = stage2_path(torch, np, params["flow"], counters)
     phase_profile(torch, model)
     del model, params
@@ -1665,10 +1879,13 @@ def main() -> int:
                    "linear_attention.cu", "nfdpm_tpu/ops/pallas/fused_linear_attention.py:164"),
                # the custom VJP's backward, which the JAX package leaves to XLA
                "fused_linear_attention_bwd": (
-                   "linear_attention.cu", "nfdpm_tpu/ops/pallas/fused_linear_attention.py:192")}
+                   "linear_attention.cu", "nfdpm_tpu/ops/pallas/fused_linear_attention.py:192"),
+               "step_megakernel": ("step_megakernel.cu",
+                                   "nfdpm_tpu/ops/pallas/step_megakernel.py:135")}
+    counter_of = {"step_megakernel": "step_megakernel_forward"}
     kernels = []
     for name, tot in totals.items():
-        by_path = {path: n[name] for path, n in launches.items()}
+        by_path = {path: n[counter_of.get(name, name)] for path, n in launches.items()}
         source, replaces = sources[name]
         kernels.append({
             "name": name, "route": "cuda",
@@ -1680,10 +1897,10 @@ def main() -> int:
             "plain_device_ms": tot["plain_device_ms"],
             "library_device_ms": tot["library_device_ms"],
             "per": per.get(name, "one pass: 4 launches at each of the 3 level shapes"),
-            **{k: v for k, v in tot.items() if k.startswith("dx_")
+            **{k: v for k, v in tot.items() if k.startswith(("dx_", "route_", "step_", "pack_"))
                or k in ("max_gradient_gap", "max_abs_gap_by_gradient")}})
     order = ["channel_mix", "coupling_tail", "coupling_tail_bwd", "coupling_tail_inverse",
-             "fused_linear_attention", "fused_linear_attention_bwd"]
+             "fused_linear_attention", "fused_linear_attention_bwd", "step_megakernel"]
     kernels.sort(key=lambda k: order.index(k["name"]))
     summary = {"kernels": kernels}
     RECORDS.append(summary)

@@ -19,6 +19,8 @@ The Glow step has two routes. `step_forward`/`step_inverse` with
 step_inverse_pallas) send the folded actnorm + 1x1-conv channel mix and the
 coupling tail through the wrappers in ops/kernels/, which launch the CUDA
 kernels for CUDA tensors and take the plain versions for CPU tensors.
+`step_forward_megakernel` runs a whole forward step in one kernel, as the
+JAX package's experiment does; no config selects it.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from .coupling import (actnorm_stats_init, coupling_net_apply,
                        coupling_net_ddinit, init_coupling_net)
 from .kernels.channel_mix import channel_mix
 from .kernels.coupling_tail import coupling_tail, coupling_tail_inverse
+from .kernels.step_megakernel import step_megakernel_forward
 from .zeroconv import init_zeroconv, zeroconv_apply
 
 Params = Dict[str, Any]
@@ -330,6 +333,20 @@ def step_forward_kernels(params: Params, x: torch.Tensor,
     y_b, ldj_part = coupling_tail(log_scale.contiguous(), bias.contiguous(),
                                   x_b.contiguous())
     return torch.cat([y_a, y_b], dim=-1), ldj + ldj_part
+
+
+def step_forward_megakernel(params: Params, x: torch.Tensor,
+                            ldj: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Glow step through the whole-step megakernel: the actnorm and the 1x1
+    conv folded, the kernel (channel mix, coupling CNN and tail in one
+    launch), then the mix's H*W*(sum s + log|det W|). Forward only: raises
+    where a gradient is asked for. The input may be a view (a squeeze, a
+    split); the kernel takes it contiguous."""
+    h, w = x.shape[1], x.shape[2]
+    w_fold, b_fold, ld = fold_actnorm_invconv(params["actnorm"], params["invconv"])
+    y, ldj_part = step_megakernel_forward(x.contiguous(), w_fold, b_fold,
+                                          params["coupling"]["net"])
+    return y, ldj + (h * w) * ld + ldj_part
 
 
 @torch.no_grad()

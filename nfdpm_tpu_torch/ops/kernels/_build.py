@@ -26,7 +26,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 # library name -> its source under csrc/
 SOURCES = {"flow_kernels": "flow_kernels.cu",
-           "attention_kernels": "linear_attention.cu"}
+           "attention_kernels": "linear_attention.cu",
+           "step_megakernel": "step_megakernel.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -47,6 +48,10 @@ _SIGNATURES = {
         "fused_linear_attention_bwd_smem_bytes": ([_I], ctypes.c_longlong),
         "fused_linear_attention_bwd_tile": ([], _I),
         "fused_linear_attention_bwd_f32": ([_P] * 13 + [_I, _I, _I, _P], _I),
+    },
+    "step_megakernel": {
+        "step_megakernel_plan": ([_I] * 5 + [_P], ctypes.c_longlong),
+        "step_megakernel_f32": ([_P] * 15 + [_I] * 8 + [_P], _I),
     },
 }
 

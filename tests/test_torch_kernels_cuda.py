@@ -11,15 +11,20 @@ linear-attention block, whose LayerNorm divides sums of up to C + 128 + N
 products taken in another order by the row's spread, rtol 1e-4 and atol 1e-4.
 Gradients: dW and db sum over up to N = 16384 rows (rtol 1e-4, atol 1e-4);
 the linear-attention block's dx rtol and atol 1e-4, its weight, bias and
-gain gradients within 1e-5 of each gradient's largest entry.
+gain gradients within 1e-5 of each gradient's largest entry. The whole-step
+megakernel: y rtol and atol 1e-5, its logdet (a sum of H W C/2 log terms,
+each from sums of up to 9 x 512 products) rtol 1e-5 and atol 1e-3, the
+bounds of the JAX package's own test of the TPU kernel.
 """
 
 import pytest
 import torch
 
+import nfdpm_tpu_torch
 from nfdpm_tpu_torch.ops.kernels import channel_mix as cm
 from nfdpm_tpu_torch.ops.kernels import coupling_tail as ct
 from nfdpm_tpu_torch.ops.kernels import fused_linear_attention as fla
+from nfdpm_tpu_torch.ops.kernels import step_megakernel as sm
 
 pytestmark = pytest.mark.cuda
 
@@ -218,3 +223,63 @@ def test_wrappers_raise_on_bad_inputs(gen):
         fla.fused_linear_attention(x4, _randn(gen, 16, 96), w_out, v, v)
     with pytest.raises(ValueError, match="heads"):
         fla.fused_linear_attention(x4, w_qkv, w_out, v, v, heads=2, dim_head=64)
+
+
+def _megakernel_case(gen, b, h, w, c, width):
+    """x, w_fold, b_fold and a coupling net with every leaf random (the
+    zeroconv and the actnorms too), conv weights channels-last as the port
+    keeps them."""
+    def conv(*shape, scale):
+        return _randn(gen, *shape, scale=scale).to(memory_format=torch.channels_last)
+
+    net = {"conv1": {"w": conv(width, c // 2, 3, 3, scale=(9 * c / 2) ** -0.5)},
+           "an1": {"scale": _randn(gen, width, scale=0.1), "bias": _randn(gen, width, scale=0.1)},
+           "conv2": {"w": conv(width, width, 1, 1, scale=width ** -0.5)},
+           "an2": {"scale": _randn(gen, width, scale=0.1), "bias": _randn(gen, width, scale=0.1)},
+           "zconv": {"w": conv(c, width, 3, 3, scale=0.02), "b": _randn(gen, c, scale=0.05),
+                     "logs": _randn(gen, c, scale=0.05)}}
+    return (_randn(gen, b, h, w, c), _randn(gen, c, c, scale=c ** -0.5),
+            _randn(gen, c, scale=0.1), net)
+
+
+# the three level shapes of the served Glow (L3/K4/w512, batch 64), the JAX
+# package's test case, and a ragged one: odd batch, odd H and W, C not a
+# multiple of 4, a width that no chunk divides
+@pytest.mark.parametrize("shape", [(64, 16, 16, 12, 512), (64, 8, 8, 24, 512),
+                                   (64, 4, 4, 48, 512), (5, 16, 16, 12, 64),
+                                   (7, 5, 9, 14, 44)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_step_megakernel_matches_plain(gen, shape):
+    nfdpm_tpu_torch.disable_tf32()  # the plain version's convolutions in full fp32
+    x, wf, bf, net = _megakernel_case(gen, *shape)
+    before = sm.step_megakernel_forward.launches
+    y, ldj = sm.step_megakernel_forward(x, wf, bf, net)
+    torch.cuda.synchronize()
+    assert sm.step_megakernel_forward.launches == before + 1
+    y_p, ldj_p = sm.step_megakernel_forward_plain(x, wf, bf, net)
+    torch.testing.assert_close(y, y_p, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(ldj, ldj_p, rtol=1e-5, atol=1e-3)
+    # fixed order, no atomics: the same bits again
+    y2, ldj2 = sm.step_megakernel_forward(x, wf, bf, net)
+    assert torch.equal(y, y2) and torch.equal(ldj, ldj2)
+
+
+def test_step_megakernel_refuses_gradient_and_bad_inputs(gen):
+    x, wf, bf, net = _megakernel_case(gen, 2, 4, 4, 8, 16)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        sm.step_megakernel_forward(x, wf.clone().requires_grad_(True), bf, net)
+    with torch.no_grad():
+        assert sm.step_megakernel_forward(x, wf.clone().requires_grad_(True), bf, net)[0].shape \
+            == x.shape
+    with pytest.raises(ValueError, match="odd"):
+        sm.step_megakernel_forward(_randn(gen, 2, 4, 4, 7), wf, bf, net)
+    wide = dict(net, conv2={"w": _randn(gen, 24, 24, 1, 1)})
+    with pytest.raises(ValueError, match="conv2.w"):
+        sm.step_megakernel_forward(x, wf, bf, wide)
+    with pytest.raises(ValueError, match="contiguous"):
+        sm.step_megakernel_forward(x.transpose(1, 2), wf, bf, net)
+    with pytest.raises(TypeError):
+        sm.step_megakernel_forward(x.double(), wf.double(), bf.double(), net)
+    ragged = _megakernel_case(gen, 2, 4, 4, 8, 18)
+    with pytest.raises(ValueError, match="multiples of 4"):
+        sm.step_megakernel_forward(*ragged)
