@@ -2,6 +2,7 @@
 """Drive the PyTorch port's serving and training paths once on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --stage1-training    # phases 1, 2, 12 and 13 only
 
 Runs nfdpm_tpu_torch (never JAX, never nfdpm_tpu) with seeded random
 weights at the width of the repo's models: the Glow of configs/nf_base.yaml
@@ -20,7 +21,12 @@ line each:
      CUDA events around back-to-back calls as the path makes them (Python
      wrapper included), "device_ms" from replays of a CUDA graph of the
      calls (host taken out); the same for the plain version and, where one
-     PyTorch call computes the function, for that call; and the bound;
+     PyTorch call computes the function, for that call; and the bound.
+     Each line also names the kernel's design version and, for channel_mix
+     and the attention forward, the wrapper's plan; the attention's lines
+     add its bound on its 3xTF32 tensor-core route. Then the host steps of
+     the two planned wrappers: host-clock us a call of each step they take
+     and of the whole wrapper, beside the library call;
   Glow path (launch counters zeroed before 4, read after 6):
   4. scoring: bits/dim through inference.make_eval_step, kernel route
      against the plain route (use_kernels=False), within 1e-4;
@@ -122,7 +128,10 @@ line each:
      of glow.forward's kernel route and of its plain route.
 
 Then come the kernel summary line (seven kernels), the nvidia-smi line and, last,
-{"ok": true, "device": {...}}. Any failed check raises and exits non-zero
+{"ok": true, "device": {...}}. With --stage1-training the script runs only
+the environment, the build and phases 12 and 13 and prints neither: copied
+into another checkout, it times that checkout's stage-1 training with the
+same measuring code. Any failed check raises and exits non-zero
 before that line. All records are also written to chiprun_out/chip_smoke.json.
 """
 
@@ -146,6 +155,7 @@ ROOT = Path(__file__).resolve().parent
 LEVELS, STEPS, WIDTH, IMG, BATCH, N_BITS = 3, 4, 512, 32, 64, 5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FP32_FLOPS_PER_S = 67e12   # H100 SXM, fp32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12  # H100 SXM, TF32 on the tensor cores, dense
 # Operations per element of the two tail kernels, counted from their source:
 # forward: add, exp, add, reciprocal, add, mul, add, log, add = 9;
 # inverse: add, exp, add, reciprocal, add, div, sub = 7.
@@ -154,6 +164,11 @@ TAIL_OPS, TAIL_INV_OPS = 9, 7
 # g_y, s + eps, the quotient, its product with g_ldj, the sum, g_y s = 15
 TAIL_BWD_OPS = 15
 RECORDS = []
+# Design version of each kernel, beside its times in the "kernel" lines
+# (1: the first design; channel_mix 2: square kernels with rows in registers
+# and a dx mode; fused_linear_attention 2: a fused pass of one batch row a
+# block and split token-tiled passes, with 3xTF32 tensor-core products).
+KERNEL_VERSIONS = {"channel_mix": 2, "fused_linear_attention": 2}
 
 # Stage 2, configs/nf_diffusion.yaml; the keys of a stage-2 run's
 # diffusion_architecture.json (nfdpm_tpu/training/runload.py)
@@ -356,10 +371,11 @@ def phase_kernels(torch, cm, ct):
                      "device_ms": graph_ms(kernel), "plain_device_ms": graph_ms(plain),
                      "library_device_ms": graph_ms(library) if library else None}
             b_ms, b_by = bound_ms(nbytes, ops)
-            emit({"phase": "kernel", "name": name, "x": [b, h, w, c],
-                  "on_path": on_path, "launches_per_pass": per_pass,
+            extra = ({"plan": cm.plan(n, c, o)._asdict()} if name == "channel_mix" else {})
+            emit({"phase": "kernel", "name": name, "version": KERNEL_VERSIONS.get(name, 1),
+                  "x": [b, h, w, c], "on_path": on_path, "launches_per_pass": per_pass,
                   "max_abs_err": err, **times, "bound_ms": b_ms, "bound_by": b_by,
-                  "bytes": nbytes, "ops": ops})
+                  "bytes": nbytes, "ops": ops, **extra})
             tot = totals[name]
             tot["max_abs_err"] = max(tot["max_abs_err"], err)
             if on_path:
@@ -405,6 +421,15 @@ def fla_bytes_ops(b: int, n: int, c: int):
     return nbytes, ops
 
 
+def fla_tensor_core_bound_ms(b: int, n: int, c: int) -> float:
+    """The least time of the call on the kernel's own route: every product
+    (the projections, k^T v and q ctx) as three TF32 products (3xTF32) at
+    the tensor cores' 495 TFLOP/s, or the bytes of fla_bytes_ops at
+    3.35 TB/s, the larger."""
+    nbytes, ops = fla_bytes_ops(b, n, c)
+    return max(3 * ops / TF32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+
+
 def fla_bwd_bytes_ops(b: int, n: int, c: int):
     """Bytes and operations of the whole gradient at x [b, n, c]: every
     input (x, the four weights, the saved contexts and softmax statistics,
@@ -436,6 +461,7 @@ def phase_attention_kernel(torch, fla, sampling_shapes):
     cases.append(("ragged", "C 20, N 3x5, B 5", 5, 3, 5, 20))
     timed = ("ms", "plain_ms", "device_ms", "plain_device_ms")
     tot = dict({t: 0.0 for t in timed}, bytes=0.0, ops=0.0, max_abs_err=0.0)
+    step_tc_ms = 0.0
     for use, label, b, h, w, c in cases:
         x = randn(b, h, w, c)
         w_qkv, w_out = randn(c, 384, scale=c ** -0.5), randn(128, c, scale=128 ** -0.5)
@@ -447,25 +473,91 @@ def phase_attention_kernel(torch, fla, sampling_shapes):
         check(torch.allclose(y_k, y_p, rtol=FLA_TOL, atol=FLA_TOL),
               f"fused_linear_attention differs from its plain version at "
               f"{tuple(x.shape)}: {err}")
+        check(torch.equal(y_k, fla.fused_linear_attention(*args)),
+              f"fused_linear_attention gave other bits on a second call at {tuple(x.shape)}")
         times = {"ms": cuda_ms(lambda: fla.fused_linear_attention(*args)),
                  "plain_ms": cuda_ms(lambda: fla.fused_linear_attention_plain(*args)),
                  "device_ms": graph_ms(lambda: fla.fused_linear_attention(*args)),
                  "plain_device_ms": graph_ms(lambda: fla.fused_linear_attention_plain(*args))}
         nbytes, ops = fla_bytes_ops(b, h * w, c)
         b_ms, b_by = bound_ms(nbytes, ops)
-        emit({"phase": "kernel", "name": "fused_linear_attention", "use": use,
+        tc_ms = fla_tensor_core_bound_ms(b, h * w, c)
+        emit({"phase": "kernel", "name": "fused_linear_attention",
+              "version": KERNEL_VERSIONS["fused_linear_attention"], "use": use,
               "call": label, "x": [b, h, w, c], "max_abs_err": err, "tolerance": FLA_TOL,
-              **times, "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
-              "bytes": nbytes, "ops": ops})
+              "same_bits_twice": True, **times, "library_ms": None, "bound_ms": b_ms,
+              "bound_by": b_by, "tensor_core_bound_ms": tc_ms, "bytes": nbytes, "ops": ops,
+              "plan": attention_plan(fla, h * w, c)})
         tot["max_abs_err"] = max(tot["max_abs_err"], err)
         if use == "sampling":
             tot["bytes"] += nbytes
             tot["ops"] += ops
+            step_tc_ms += tc_ms
             for key in timed:
                 tot[key] += times[key]
     tot["bound_ms"], tot["bound_by"] = bound_ms(tot["bytes"], tot["ops"])
     tot["library_ms"] = tot["library_device_ms"] = None
+    emit({"phase": "attention_step_bounds", "per": "one sampling step: 12 calls at batch 64",
+          "bound_ms": tot["bound_ms"], "bound_by": tot["bound_by"],
+          "tensor_core_bound_ms": step_tc_ms})
     return tot
+
+
+def attention_plan(fla, n: int, c: int) -> dict:
+    p = fla.plan(n, c)
+    return dict(p._asdict(), smem_bytes=fla.smem_bytes(p.fused, p.m_tiles, c))
+
+
+def host_us(fn, iters: int = 2000) -> float:
+    """Host-clock us of one call, no synchronisation (launches queue up)."""
+    for _ in range(50):
+        fn()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) / iters * 1e6
+
+
+def phase_wrapper_host_steps(torch, cm, fla, build):
+    """Host us a call of each step the channel_mix wrapper takes, at the
+    three level shapes, and of the attention wrapper's, at N 64 C 64, beside
+    the library call and the stream lookup the launch helper avoids."""
+    gen = torch.Generator(device="cuda").manual_seed(99)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mix = build.function("flow_kernels", "channel_mix_f32")
+    for h, w, c in level_shapes():
+        x = torch.randn((BATCH, h, w, c), generator=gen, device=dev)
+        wt = torch.randn((c, c), generator=gen, device=dev) * c ** -0.5
+        bias = torch.randn((c,), generator=gen, device=dev)
+        x2d, n = x.view(-1, c), x.numel() // c
+        y = torch.empty_like(x)
+        p = cm.plan(n, c, c)
+        steps = {
+            "check_cuda_f32": lambda: build.check_cuda_f32("channel_mix", x, wt, bias),
+            "torch.empty_like": lambda: torch.empty_like(x),
+            "plan": lambda: cm.plan(n, c, c, True),
+            "torch.cuda.current_stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
+            "torch._C._cuda_getCurrentRawStream":
+                lambda: torch._C._cuda_getCurrentRawStream(dev.index),
+            "build.launch": lambda: build.launch(
+                "channel_mix", mix, dev, x.data_ptr(), wt.data_ptr(), bias.data_ptr(),
+                y.data_ptr(), n, c, c, 0, p.variant, p.rows_per_block),
+            "channel_mix wrapper": lambda: cm.channel_mix(x, wt, bias),
+            "torch.addmm": lambda: torch.addmm(bias, x2d, wt.T)}
+        emit({"phase": "host_steps", "name": "channel_mix", "x": [BATCH, h, w, c],
+              "host_us": {name: host_us(fn) for name, fn in steps.items()}})
+        torch.cuda.synchronize()
+    x = torch.randn((BATCH, 8, 8, 64), generator=gen, device=dev)
+    args = (x, torch.randn((64, 384), generator=gen, device=dev) * 0.125,
+            torch.randn((128, 64), generator=gen, device=dev) * 128 ** -0.5,
+            torch.randn((64,), generator=gen, device=dev) * 0.1,
+            1.0 + torch.randn((64,), generator=gen, device=dev) * 0.1)
+    steps = {"checks": lambda: fla._check("fused_linear_attention", *args, 4, 32),
+             "plan": lambda: fla.plan(64, 64),
+             "attention wrapper": lambda: fla.fused_linear_attention(*args)}
+    emit({"phase": "host_steps", "name": "fused_linear_attention", "x": [BATCH, 8, 8, 64],
+          "host_us": {name: host_us(fn, 500) for name, fn in steps.items()}})
+    torch.cuda.synchronize()
 
 
 ZERO_INIT = ("actnorm", "an1", "an2", "zconv", "conv", "prior")
@@ -1019,6 +1111,7 @@ def phase_backward_kernels(torch, cm, ct, totals):
              "library_device_ms")
     tot = dict({t: 0.0 for t in timed}, bytes=0.0, ops=0.0, max_abs_err=0.0)
     dx = {f"dx_{t}": 0.0 for t in timed}
+    tot_dx_err = [0.0]
     grad_gap = 0.0
     for b, h, w, c, per_pass, on_path in cases:
         o = c if on_path else c + 6
@@ -1050,20 +1143,28 @@ def phase_backward_kernels(torch, cm, ct, totals):
             for key in timed:
                 tot[key] += per_pass * (times[key] or 0.0)
 
-        # the dx call of channel_mix's backward: the same kernel with W^T and
-        # a zero bias; torch.matmul computes the same product in one call
+        # the dx call of channel_mix's backward: the kernel's dx mode (W read
+        # untransposed, no bias); torch.matmul computes the same product in
+        # one call
         g, wt = randn(b, h, w, o), randn(o, c, scale=c ** -0.5)
-        wt_t, zero = wt.T.contiguous(), torch.zeros((c,), device="cuda")
         g2d = g.view(-1, o)
-        times = time_rows({"": lambda: cm.channel_mix(g, wt_t, zero),
-                           "plain_": lambda: cm.channel_mix_plain(g, wt_t, zero),
+        dx_k, dx_p = cm.channel_mix_dx(g, wt), cm.channel_mix_dx_plain(g, wt)
+        torch.cuda.synchronize()
+        err = float((dx_k - dx_p).abs().max())
+        check(torch.allclose(dx_k, dx_p, rtol=1e-5, atol=1e-5),
+              f"channel_mix's dx mode differs from its plain version at {(b, h, w, o)}: {err}")
+        times = time_rows({"": lambda: cm.channel_mix_dx(g, wt),
+                           "plain_": lambda: cm.channel_mix_dx_plain(g, wt),
                            "library_": lambda: torch.matmul(g2d, wt)}, timed)
         n = b * h * w
-        nbytes, ops = 4 * (n * o + n * c + o * c + c), 2 * n * c * o
+        nbytes, ops = 4 * (n * o + n * c + o * c), 2 * n * c * o
         b_ms, b_by = bound_ms(nbytes, ops)
-        emit({"phase": "kernel", "name": "channel_mix", "use": "backward dx", "x": [b, h, w, o],
-              "on_path": on_path, "launches_per_pass": per_pass, **times,
-              "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "ops": ops})
+        emit({"phase": "kernel", "name": "channel_mix", "version": KERNEL_VERSIONS["channel_mix"],
+              "use": "backward dx", "x": [b, h, w, o], "on_path": on_path,
+              "launches_per_pass": per_pass, "max_abs_err": err, **times,
+              "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "ops": ops,
+              "plan": cm.plan(n, o, c)._asdict()})
+        tot_dx_err[0] = max(tot_dx_err[0], err)
         if on_path:
             for key in timed:
                 dx[f"dx_{key}"] += per_pass * (times[key] or 0.0)
@@ -1106,7 +1207,7 @@ def phase_backward_kernels(torch, cm, ct, totals):
     tot["library_ms"] = tot["library_device_ms"] = None
     tot["max_gradient_gap"] = grad_gap
     totals["coupling_tail_bwd"] = tot
-    totals["channel_mix"].update(dx)
+    totals["channel_mix"].update(dx, dx_max_abs_err=tot_dx_err[0])
 
 
 def train_configs(use_kernels: bool = True, epochs: int = 1):
@@ -1829,6 +1930,15 @@ def main() -> int:
 
     smi = phase_environment(torch, port)
     phase_build(build)
+    counters = (cm.channel_mix, ct.coupling_tail, ct.coupling_tail_bwd,
+                ct.coupling_tail_inverse, fla.fused_linear_attention,
+                fla.fused_linear_attention_bwd, sm.step_megakernel_forward)
+    if sys.argv[1:] == ["--stage1-training"]:
+        phase_training(torch, counters)
+        return 0
+    if sys.argv[1:]:
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
+        return 2
     totals = phase_kernels(torch, cm, ct)
 
     device = torch.device("cuda")
@@ -1838,10 +1948,8 @@ def main() -> int:
     randomize_zero_leaves(torch, params, seed=1)
     unet_shapes = attention_shapes(torch, stage2_prior(), device)
     totals["fused_linear_attention"] = phase_attention_kernel(torch, fla, unet_shapes)
+    phase_wrapper_host_steps(torch, cm, fla, build)
 
-    counters = (cm.channel_mix, ct.coupling_tail, ct.coupling_tail_bwd,
-                ct.coupling_tail_inverse, fla.fused_linear_attention,
-                fla.fused_linear_attention_bwd, sm.step_megakernel_forward)
     launches = {"glow": glow_path(torch, np, params, counters)}
     totals["step_megakernel"] = phase_megakernel(torch, sm, bj)
     launches["megakernel_glow"] = phase_megakernel_glow(torch, np, params, counters)

@@ -80,13 +80,9 @@ def _tail(log_scale: torch.Tensor, bias: torch.Tensor,
     d = x_b.numel() // rows if rows else 0
     y_b = torch.empty_like(x_b)
     ldj = torch.empty((rows,), dtype=torch.float32, device=device)
-    lib = _build.library("flow_kernels")
-    with torch.cuda.device(device):
-        err = lib.coupling_tail_f32(log_scale.data_ptr(), bias.data_ptr(),
-                                    x_b.data_ptr(), y_b.data_ptr(),
-                                    ldj.data_ptr(), rows, d,
-                                    _build.stream_handle(device))
-    _build.raise_on_error("coupling_tail", err)
+    _build.launch("coupling_tail", _build.function("flow_kernels", "coupling_tail_f32"), device,
+                  log_scale.data_ptr(), bias.data_ptr(), x_b.data_ptr(), y_b.data_ptr(),
+                  ldj.data_ptr(), rows, d)
     coupling_tail.launches += 1
     return y_b, ldj
 
@@ -111,14 +107,11 @@ def coupling_tail_bwd(log_scale: torch.Tensor, bias: torch.Tensor, x_b: torch.Te
         raise ValueError(f"coupling_tail_bwd: g_ldj {tuple(g_ldj.shape)} != ({rows},)")
     d = x_b.numel() // rows if rows else 0
     d_ls, d_xb = torch.empty_like(x_b), torch.empty_like(x_b)
-    lib = _build.library("flow_kernels")
-    with torch.cuda.device(device):
-        err = lib.coupling_tail_bwd_f32(
-            log_scale.data_ptr(), bias.data_ptr(), x_b.data_ptr(),
-            None if g_y is None else g_y.data_ptr(),
-            None if g_ldj is None else g_ldj.data_ptr(),
-            d_ls.data_ptr(), d_xb.data_ptr(), rows, d, _build.stream_handle(device))
-    _build.raise_on_error("coupling_tail_bwd", err)
+    _build.launch("coupling_tail_bwd", _build.function("flow_kernels", "coupling_tail_bwd_f32"),
+                  device, log_scale.data_ptr(), bias.data_ptr(), x_b.data_ptr(),
+                  None if g_y is None else g_y.data_ptr(),
+                  None if g_ldj is None else g_ldj.data_ptr(),
+                  d_ls.data_ptr(), d_xb.data_ptr(), rows, d)
     coupling_tail_bwd.launches += 1
     return d_ls, d_xb
 
@@ -175,13 +168,10 @@ def coupling_tail_inverse(log_scale: torch.Tensor, bias: torch.Tensor,
     device = _build.check_cuda_f32("coupling_tail_inverse", log_scale, bias, y_b)
     _check_shapes("coupling_tail_inverse", log_scale, bias, y_b)
     x_b = torch.empty_like(y_b)
-    lib = _build.library("flow_kernels")
-    with torch.cuda.device(device):
-        err = lib.coupling_tail_inverse_f32(log_scale.data_ptr(), bias.data_ptr(),
-                                            y_b.data_ptr(), x_b.data_ptr(),
-                                            y_b.numel(),
-                                            _build.stream_handle(device))
-    _build.raise_on_error("coupling_tail_inverse", err)
+    _build.launch("coupling_tail_inverse",
+                  _build.function("flow_kernels", "coupling_tail_inverse_f32"), device,
+                  log_scale.data_ptr(), bias.data_ptr(), y_b.data_ptr(), x_b.data_ptr(),
+                  y_b.numel())
     coupling_tail_inverse.launches += 1
     return x_b
 

@@ -9,26 +9,37 @@
 //
 // 1. channel_mix_f32 replaces nfdpm_tpu/ops/pallas/channel_mix.py
 //    (channel_mix -> _channel_mix_impl -> pl.pallas_call):
-//        y[n, o] = sum_c x[n, c] * w[o, c] + b[o]
-//    Bound: bytes. At the Glow widths (C = O <= 48 on the served model) one
-//    launch moves 4*(N*C + N*O + O*C + O) bytes, about 1.6 MB at the first
-//    level, and does 2*N*C*O flops, far below the fp32 rate. So the kernel
-//    must read x once and write y once; the arithmetic is free. Design: a
-//    block takes `rows` pixel rows, stages those rows and the transposed
-//    weight W^T plus the bias in shared memory (W^T is at most 48x48 fp32,
-//    9 KB, on this path), and each thread produces outputs with fp32 FMAs
-//    over C. Reads of x and writes of y are contiguous across the block, so
-//    they coalesce. W^T's row stride is made odd, so that neither its
-//    transposing store nor the reads along O meet bank conflicts. `rows`
-//    halves from CM_ROWS until the grid has two blocks per SM (or a block
-//    has CM_MIN_ROWS rows): at N = 1024 a fixed 64-row tile gave 16 blocks
-//    for 132 SMs. No padding of C or O to 128 lanes: that was a TPU tiling
-//    artefact. No tensor cores: TF32 would break the fp32 parity that the
-//    TPU kernel holds with Precision.HIGHEST. At these sizes launch overhead,
-//    not bandwidth, dominates; that is left to a later change.
-//    The backward pass (_channel_mix_bwd there) sends dx = g W through this
-//    same kernel with W^T and a zero bias, as the TPU kernel does; dW and db
-//    are a matmul and a sum outside any kernel on both sides.
+//        forward:  y[n, o] = sum_c x[n, c] * w[o, c] + b[o]
+//        dx mode:  y[n, c] = sum_o g[n, o] * w[o, c]      (no bias)
+//    The dx mode is the backward pass's dx = g W (_channel_mix_bwd there):
+//    the same weight read untransposed, so the backward needs no copy of
+//    W^T and no zero bias. dW and db are a matmul and a sum outside any
+//    kernel on both sides.
+//    Bound: bytes and, at the Glow's sizes, launch latency. One launch moves
+//    4*(N*C + N*O + O*C + O) bytes (1.6 MB at the first level) and does
+//    2*N*C*O flops (about 19 MFLOP), far below the fp32 rate; no tensor
+//    cores (TF32 would break the fp32 parity that the TPU kernel holds with
+//    Precision.HIGHEST). So x is read once and y written once, both with
+//    16-byte accesses straight between device memory and registers, and
+//    nothing but the weight goes through shared memory.
+//    Design, for the Glow widths C = O in {12, 24, 48} (compile-time
+//    specialisations, no division in any inner loop): a thread holds one
+//    pixel row of x in registers and produces OG of its outputs (OG = 12,
+//    8, 4 at C = 12, 24, 48, so G = C / OG threads share a row). Warps are
+//    laid out so that the lanes of a shared-memory phase take consecutive
+//    rows and one output group: every weight read from shared memory is a
+//    16-byte broadcast (a warp takes RW = 32 rows of one group at C = 12
+//    and 24, RW = 16 rows of two groups at C = 48, which gives level 3's
+//    1024 rows 64 blocks instead of 32). A block takes `rows_per_block`
+//    rows (a multiple of RW) and stages the [in][out] matrix it multiplies
+//    by (W^T for the forward, W for dx; at most 9 KB) and the bias once
+//    with 16-byte loads, while its rows' loads are in flight.
+//    The wrapper's plan (ops/kernels/channel_mix.py: plan) picks
+//    rows_per_block per shape: halved from 256 until the grid fills the
+//    132 SMs or a block has RW rows (and a block stays within 512
+//    threads). Any other C, O, or operands
+//    not 16-byte aligned, take a generic kernel: one thread per output,
+//    scalar loads, the weight read through the L1 cache.
 //
 // 2. coupling_tail_f32 replaces nfdpm_tpu/ops/pallas/coupling_tail.py
 //    (coupling_tail -> _forward -> pl.pallas_call):
@@ -63,9 +74,8 @@
 
 namespace {
 
-constexpr int CM_ROWS = 64;
-constexpr int CM_MIN_ROWS = 4;
-constexpr int CM_THREADS = 256;
+constexpr int CM_GENERIC_THREADS = 256;
+constexpr int CM_MAX_THREADS = 512;  // the plan's largest block
 constexpr long long SM_COUNT = 132;  // H100 SXM
 constexpr int CT_THREADS = 256;
 constexpr int EW_THREADS = 256;
@@ -75,42 +85,133 @@ __device__ __forceinline__ float sigmoid_shift2(float v) {
   return 1.0f / (1.0f + expf(-(v + 2.0f)));
 }
 
-// Row stride of the staged W^T: odd, so strided shared-memory accesses
-// spread over all 32 banks.
-__host__ __device__ __forceinline__ int odd_stride(int o) { return o | 1; }
+// Square channel mix at compile-time width C, OG outputs per thread; see
+// the note at the top. A warp takes RW consecutive rows and 32 / RW output
+// groups, RW lanes per group (RW >= 8: the 8 lanes of a shared-memory
+// phase share a group, so weight reads stay broadcasts); WPC warps cover
+// one chunk of RW rows and all G groups. The weight is staged as the
+// [in][out] matrix both modes multiply by (W^T for the forward, W for dx),
+// so that a thread's OG outputs of input channel k are consecutive.
+template <int C, int OG, int RW, bool DX>
+__global__ void __launch_bounds__(CM_MAX_THREADS)
+channel_mix_square_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                          const float* __restrict__ b, float* __restrict__ y,
+                          long long n, int rows_per_block) {
+  constexpr int G = C / OG;
+  constexpr int GPW = 32 / RW;
+  constexpr int WPC = G / GPW;
+  static_assert(G % GPW == 0, "a warp's groups must divide the row's");
+  constexpr int C4 = C / 4;
+  __shared__ float4 ws[C * C4];  // [in][out] in float4s of outputs
+  __shared__ float bs[C];
 
-__global__ void __launch_bounds__(CM_THREADS)
-channel_mix_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                   const float* __restrict__ b, float* __restrict__ y,
-                   long long n, int c, int o, int rows_per_block) {
-  extern __shared__ float smem[];
-  const int os = odd_stride(o);
-  float* wt = smem;         // [c][os], wt[k * os + j] = w[j * c + k]
-  float* bs = wt + c * os;  // [o]
-  float* xs = bs + o;       // [rows_per_block][c]
+  // the row's loads go out first, so that they are in flight while the
+  // block stages the weight
+  const int wid = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int grp = (wid % WPC) * GPW + lane / RW;
+  const long long row = static_cast<long long>(blockIdx.x) * rows_per_block +
+                        RW * (wid / WPC) + lane % RW;
+  float xr[C];
+  if (row < n) {
+    const float4* xg = reinterpret_cast<const float4*>(x + row * C);
+#pragma unroll
+    for (int k = 0; k < C4; ++k) {
+      const float4 v = __ldg(xg + k);
+      xr[4 * k] = v.x;
+      xr[4 * k + 1] = v.y;
+      xr[4 * k + 2] = v.z;
+      xr[4 * k + 3] = v.w;
+    }
+  }
+  const float4* w4 = reinterpret_cast<const float4*>(w);
+  if (DX) {
+    for (int i = threadIdx.x; i < C * C4; i += blockDim.x) ws[i] = __ldg(w4 + i);
+  } else {
+    // W^T in 4x4 blocks: rows o..o+3, columns k..k+3 of W (four 16-byte
+    // loads) become rows k..k+3, columns o..o+3 of W^T (four 16-byte stores)
+    for (int i = threadIdx.x; i < C4 * C4; i += blockDim.x) {
+      const int kb = i / C4, ob = i - kb * C4;
+      const float4 r0 = __ldg(w4 + (4 * ob) * C4 + kb), r1 = __ldg(w4 + (4 * ob + 1) * C4 + kb),
+                   r2 = __ldg(w4 + (4 * ob + 2) * C4 + kb), r3 = __ldg(w4 + (4 * ob + 3) * C4 + kb);
+      ws[(4 * kb) * C4 + ob] = make_float4(r0.x, r1.x, r2.x, r3.x);
+      ws[(4 * kb + 1) * C4 + ob] = make_float4(r0.y, r1.y, r2.y, r3.y);
+      ws[(4 * kb + 2) * C4 + ob] = make_float4(r0.z, r1.z, r2.z, r3.z);
+      ws[(4 * kb + 3) * C4 + ob] = make_float4(r0.w, r1.w, r2.w, r3.w);
+    }
+    for (int i = threadIdx.x; i < C; i += blockDim.x) bs[i] = __ldg(b + i);
+  }
+  __syncthreads();
+  if (row >= n) return;
 
+  // acc[j] = sum_k x[k] m[k, grp * OG + j], m the staged [in][out] matrix
+  float acc[OG];
+#pragma unroll
+  for (int j = 0; j < OG; ++j) acc[j] = 0.0f;
+#pragma unroll
+  for (int k = 0; k < C; ++k) {
+    const float4* wr = ws + k * C4 + grp * (OG / 4);
+#pragma unroll
+    for (int j4 = 0; j4 < OG / 4; ++j4) {
+      const float4 v = wr[j4];
+      acc[4 * j4] = fmaf(xr[k], v.x, acc[4 * j4]);
+      acc[4 * j4 + 1] = fmaf(xr[k], v.y, acc[4 * j4 + 1]);
+      acc[4 * j4 + 2] = fmaf(xr[k], v.z, acc[4 * j4 + 2]);
+      acc[4 * j4 + 3] = fmaf(xr[k], v.w, acc[4 * j4 + 3]);
+    }
+  }
+  if (!DX) {
+#pragma unroll
+    for (int j = 0; j < OG; ++j) acc[j] += bs[grp * OG + j];
+  }
+  float4* yg = reinterpret_cast<float4*>(y + row * C + grp * OG);
+#pragma unroll
+  for (int j4 = 0; j4 < OG / 4; ++j4)
+    yg[j4] = make_float4(acc[4 * j4], acc[4 * j4 + 1], acc[4 * j4 + 2], acc[4 * j4 + 3]);
+}
+
+// Any C, O and alignment: one thread per output of the block's rows. In
+// the forward mode the input has cin = C channels and the output cout = O,
+// y[r, j] = sum_k x[r, k] w[j, k] + b[j]; in the dx mode cin = O, cout = C,
+// y[r, j] = sum_k g[r, k] w[k, j].
+__global__ void __launch_bounds__(CM_GENERIC_THREADS)
+channel_mix_generic_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                           const float* __restrict__ b, float* __restrict__ y,
+                           long long n, int cin, int cout, int dx, int rows_per_block) {
   const long long row0 = static_cast<long long>(blockIdx.x) * rows_per_block;
   const long long left = n - row0;
   const int rows = left < rows_per_block ? static_cast<int>(left) : rows_per_block;
-
-  for (int i = threadIdx.x; i < c * o; i += blockDim.x) {
-    const int j = i / c, k = i - j * c;
-    wt[k * os + j] = w[i];
-  }
-  for (int j = threadIdx.x; j < o; j += blockDim.x) bs[j] = b[j];
-  const float* xg = x + row0 * c;
-  for (int i = threadIdx.x; i < rows * c; i += blockDim.x) xs[i] = xg[i];
-  __syncthreads();
-
-  float* yg = y + row0 * o;
-  for (int i = threadIdx.x; i < rows * o; i += blockDim.x) {
-    const int r = i / o, j = i - r * o;
-    const float* xr = xs + r * c;
+  for (int i = threadIdx.x; i < rows * cout; i += blockDim.x) {
+    const int r = i / cout, j = i - r * cout;
+    const float* xr = x + (row0 + r) * cin;
     float acc = 0.0f;
-    for (int k = 0; k < c; ++k) acc = fmaf(xr[k], wt[k * os + j], acc);
-    yg[i] = acc + bs[j];
+    if (dx) {
+      for (int k = 0; k < cin; ++k) acc = fmaf(__ldg(xr + k), __ldg(w + k * cout + j), acc);
+    } else {
+      const float* wr = w + static_cast<long long>(j) * cin;
+      for (int k = 0; k < cin; ++k) acc = fmaf(__ldg(xr + k), __ldg(wr + k), acc);
+      acc += __ldg(b + j);
+    }
+    y[(row0 + r) * cout + j] = acc;
   }
 }
+
+template <int C, int OG, int RW>
+cudaError_t launch_square(const float* x, const float* w, const float* b, float* y,
+                          long long n, int dx, int rows, cudaStream_t stream) {
+  constexpr int G = C / OG;
+  const int threads = rows * G;
+  if (rows % RW != 0 || threads > CM_MAX_THREADS) return cudaErrorInvalidValue;
+  const long long blocks = (n + rows - 1) / rows;
+  if (dx)
+    channel_mix_square_kernel<C, OG, RW, true><<<static_cast<unsigned>(blocks), threads, 0,
+                                                 stream>>>(x, w, b, y, n, rows);
+  else
+    channel_mix_square_kernel<C, OG, RW, false><<<static_cast<unsigned>(blocks), threads, 0,
+                                                  stream>>>(x, w, b, y, n, rows);
+  return cudaGetLastError();
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<unsigned long long>(p) & 15ULL) == 0; }
 
 __global__ void __launch_bounds__(CT_THREADS)
 coupling_tail_kernel(const float* __restrict__ ls, const float* __restrict__ bias,
@@ -175,30 +276,36 @@ coupling_tail_bwd_kernel(const float* __restrict__ ls,
 
 extern "C" {
 
-// Shared memory one channel_mix block needs, in bytes, at its largest row
-// tile; the wrapper checks it against the card's limit before it launches.
-long long channel_mix_smem_bytes(int c, int o) {
-  return 4LL * (static_cast<long long>(c) * odd_stride(o) + o +
-                static_cast<long long>(CM_ROWS) * c);
-}
-
+// x [N, cin], w [O, C], b [O] (unused in the dx mode, may be null) ->
+// y [N, cout]; forward: cin = C, cout = O; dx mode: cin = O, cout = C.
+// `variant` and `rows_per_block` are the wrapper's plan
+// (ops/kernels/channel_mix.py:plan): variant 0 is the generic kernel, 12,
+// 24 or 48 the square kernel of that width, which needs C = O = variant
+// and 16-byte aligned x, w and y; a plan that does not hold is refused
+// with cudaErrorInvalidValue before anything is launched.
 int channel_mix_f32(const float* x, const float* w, const float* b, float* y,
-                    long long n, int c, int o, void* stream) {
+                    long long n, int c, int o, int dx, int variant, int rows_per_block,
+                    void* stream) {
   if (n <= 0) return static_cast<int>(cudaSuccess);
-  int rows = CM_ROWS;
-  while (rows > CM_MIN_ROWS && (n + rows - 1) / rows < 2 * SM_COUNT) rows /= 2;
-  const long long smem =
-      4LL * (static_cast<long long>(c) * odd_stride(o) + o + static_cast<long long>(rows) * c);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        channel_mix_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+  if (rows_per_block <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (variant != 0) {
+    if (c != variant || o != variant || !aligned16(x) || !aligned16(w) || !aligned16(y) ||
+        (!dx && b == nullptr))
+      return static_cast<int>(cudaErrorInvalidValue);
+    switch (variant) {
+      case 12:
+        return static_cast<int>(launch_square<12, 12, 32>(x, w, b, y, n, dx, rows_per_block, s));
+      case 24:
+        return static_cast<int>(launch_square<24, 8, 32>(x, w, b, y, n, dx, rows_per_block, s));
+      case 48:
+        return static_cast<int>(launch_square<48, 4, 16>(x, w, b, y, n, dx, rows_per_block, s));
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
-  const long long blocks = (n + rows - 1) / rows;
-  channel_mix_kernel<<<static_cast<unsigned>(blocks), CM_THREADS,
-                       static_cast<size_t>(smem),
-                       static_cast<cudaStream_t>(stream)>>>(x, w, b, y, n, c, o, rows);
+  const long long blocks = (n + rows_per_block - 1) / rows_per_block;
+  channel_mix_generic_kernel<<<static_cast<unsigned>(blocks), CM_GENERIC_THREADS, 0, s>>>(
+      x, w, b, y, n, dx ? o : c, dx ? c : o, dx, rows_per_block);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -15,11 +15,19 @@ CUDA tensors and `fused_linear_attention_bwd_plain`, the same formulas
 written out in PyTorch, on CPU tensors. The kernel forms dqkv, dy and o; the
 large plain products (dx, dW_qkv, dW_out, db_out) are matmuls and sums here,
 as the JAX package left the whole backward to XLA.
+
+The forward kernel's layout per shape is `plan`, a pure function of the
+shape that the wrapper hands to the kernel as arguments (the CPU tests hold
+it): fused (one batch row a block, one pass) up to FUSED_MAX_N tokens an
+image, split (a context pass over token tiles, then an output pass) above.
+The kernel lays out its shared memory for the plan; `smem_bytes` is the
+same sum, with which the plan refuses a shape that does not fit a block.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -31,6 +39,61 @@ _MAX_SMEM = 232448
 KERNEL_HEADS, KERNEL_DIM_HEAD = 4, 32
 _MAX_GRID_Y = 65535
 EPS = 1e-5
+
+# The forward's layout constants, as in csrc/linear_attention.cu.
+FUSED_MAX_N = 64     # tokens an image up to which the forward is one fused pass
+SPLIT_TOK = 64       # tokens per block of both split passes
+MAX_C = 256          # widest C of any plan (the out-projection's register tiles)
+_KCH, _HIDDEN = 16, 128
+_S_IN, _S_OUT_SPLIT = 4, 3  # stages of the weight rings (csrc: S_IN, S_OUT_SPLIT)
+_QKV_LD, _KV_LD, _Q_LD = 3 * _HIDDEN + 4, 2 * _HIDDEN + 4, _HIDDEN + 4
+_CS_FLOATS = KERNEL_HEADS * KERNEL_DIM_HEAD * (KERNEL_DIM_HEAD + 8)  # staged contexts
+PART_FLOATS = KERNEL_HEADS * KERNEL_DIM_HEAD ** 2 + 2 * _HIDDEN  # one tile's partials
+
+
+class Plan(NamedTuple):
+    fused: bool   # one pass, one batch row a block; else the two split passes
+    m_tiles: int  # 16-token tiles of a block (the tensor cores' M)
+
+
+def smem_bytes(fused: bool, m_tiles: int, c: int) -> int:
+    """Dynamic shared memory the kernel lays out for a plan at C channels
+    (split: the larger of its two passes), the sums of
+    csrc/linear_attention.cu: fused_floats, ctx_pass_floats and
+    out_pass_floats, times 4."""
+    x_ld = -(-c // _KCH) * _KCH + 4
+    nto = 1 if c <= 64 else 2 if c <= 128 else 4  # the out-projection's n-tiles
+
+    def ring(nt, stages):
+        return stages * _KCH * (64 * nt + 8)
+
+    if fused:
+        m = 16 * m_tiles
+        return 4 * (max(m * x_ld + ring(6, _S_IN),
+                        m * _QKV_LD + _CS_FLOATS + ring(nto, 8 if nto <= 2 else 3)) + 10 * m)
+    ctx_pass = max(SPLIT_TOK * x_ld + ring(4, _S_IN), SPLIT_TOK * _KV_LD)
+    out_pass = (_CS_FLOATS + max(SPLIT_TOK * x_ld + ring(2, _S_IN),
+                                 2 * SPLIT_TOK * _Q_LD + ring(nto, _S_OUT_SPLIT))
+                + 10 * SPLIT_TOK)
+    return 4 * max(ctx_pass, out_pass)
+
+
+@functools.lru_cache(maxsize=None)
+def plan(n: int, c: int) -> Optional[Plan]:
+    """The forward kernel's plan for images of n tokens of c channels, or
+    None where no variant exists (c > MAX_C, or more shared memory than a
+    block has).
+
+    N <= FUSED_MAX_N: fused, grid B, a block holds one batch row's N tokens
+    in ceil(N / 16) tensor-core row tiles. Larger N: split, both passes on a
+    grid (ceil(N / SPLIT_TOK), B) of SPLIT_TOK-token tiles. Packing several
+    batch rows into a block was measured and lost at every served N
+    (PERF.md, Findings)."""
+    if c < 1 or c > MAX_C or n < 1:
+        return None
+    p = Plan(True, -(-n // 16)) if n <= FUSED_MAX_N else Plan(False, SPLIT_TOK // 16)
+    return p if smem_bytes(p.fused, p.m_tiles, c) <= _MAX_SMEM else None
+
 
 Grads = Tuple[Optional[torch.Tensor], ...]
 
@@ -122,10 +185,10 @@ def _check(name: str, x, w_qkv, w_out, b_out, g, heads: int, dim_head: int):
         raise ValueError(f"{name}: x must be [B, H, W, C], got {tuple(x.shape)}")
     b, _, _, c = x.shape
     hidden = heads * dim_head
-    expected = {"w_qkv": (c, 3 * hidden), "w_out": (hidden, c), "b_out": (c,), "g": (c,)}
-    for arg, t in zip(expected, (w_qkv, w_out, b_out, g)):
-        if tuple(t.shape) != expected[arg]:
-            raise ValueError(f"{name}: {arg} {tuple(t.shape)} != {expected[arg]}")
+    for arg, t, want in (("w_qkv", w_qkv, (c, 3 * hidden)), ("w_out", w_out, (hidden, c)),
+                         ("b_out", b_out, (c,)), ("g", g, (c,))):
+        if t.shape != want:
+            raise ValueError(f"{name}: {arg} {tuple(t.shape)} != {want}")
     if b > _MAX_GRID_Y:
         raise ValueError(f"{name}: batch {b} > {_MAX_GRID_Y}")
     return device
@@ -137,21 +200,30 @@ def _forward_kernel(x, w_qkv, w_out, b_out, g, heads: int = 4, dim_head: int = 3
     [B, 4, 2, 32] that the backward reads."""
     device = _check("fused_linear_attention", x, w_qkv, w_out, b_out, g, heads, dim_head)
     b, hh, ww, c = x.shape
-    lib = _build.library("attention_kernels")
-    if lib.fused_linear_attention_smem_bytes(c) > _MAX_SMEM:
+    n = hh * ww
+    if x.numel() == 0:
+        return (torch.empty_like(x),
+                x.new_empty((b, heads, dim_head, dim_head)), x.new_empty((b, heads, 2, dim_head)))
+    p = plan(n, c)
+    if p is None:
         raise ValueError(f"fused_linear_attention: C={c} exceeds the shared memory "
                          "of one block")
     y = torch.empty_like(x)
-    ctx = torch.empty((b, heads, dim_head, dim_head), dtype=torch.float32, device=device)
-    stats = torch.empty((b, heads, 2, dim_head), dtype=torch.float32, device=device)
-    if y.numel() == 0:
-        return y, ctx, stats
-    with torch.cuda.device(device):
-        err = lib.fused_linear_attention_f32(
-            x.data_ptr(), w_qkv.data_ptr(), w_out.data_ptr(), b_out.data_ptr(),
-            g.data_ptr(), ctx.data_ptr(), stats.data_ptr(), y.data_ptr(), b, hh * ww, c,
-            _build.stream_handle(device))
-    _build.raise_on_error("fused_linear_attention", err)
+    # one allocation for ctx and stats (stats starts at a multiple of 16
+    # bytes); the split plan's tile partials are scratch of their own, so
+    # that training, which saves ctx and stats, does not keep them
+    n_ctx, n_stats = b * heads * dim_head * dim_head, b * heads * 2 * dim_head
+    buf = torch.empty((n_ctx + n_stats,), dtype=torch.float32, device=device)
+    ctx = buf[:n_ctx].view(b, heads, dim_head, dim_head)
+    stats = buf[n_ctx:].view(b, heads, 2, dim_head)
+    ptrs = [t.data_ptr() for t in (x, w_qkv, w_out, b_out, g, ctx, stats, y)]
+    part = None if p.fused else torch.empty((b * -(-n // SPLIT_TOK) * PART_FLOATS,),
+                                            dtype=torch.float32, device=device)
+    vec = c % 4 == 0 and all(ptr % 16 == 0 for ptr in (ptrs[0], ptrs[1], ptrs[2], ptrs[7]))
+    _build.launch("fused_linear_attention",
+                  _build.function("attention_kernels", "fused_linear_attention_f32"), device,
+                  *ptrs, None if part is None else part.data_ptr(), b, n, c, int(p.fused),
+                  p.m_tiles, int(vec))
     fused_linear_attention.launches += 1
     return y, ctx, stats
 
@@ -177,11 +249,11 @@ def fused_linear_attention_bwd(x: torch.Tensor, w_qkv: torch.Tensor, w_out: torc
             or tuple(stats.shape) != (b, KERNEL_HEADS, 2, KERNEL_DIM_HEAD)):
         raise ValueError("fused_linear_attention_bwd: ctx and stats are not the "
                          "forward's for this batch")
-    lib = _build.library("attention_kernels")
-    if lib.fused_linear_attention_bwd_smem_bytes(c) > _MAX_SMEM:
+    if _build.function("attention_kernels", "fused_linear_attention_bwd_smem_bytes")(c) \
+            > _MAX_SMEM:
         raise ValueError(f"fused_linear_attention_bwd: C={c} exceeds the shared "
                          "memory of one block")
-    tiles = -(-n // lib.fused_linear_attention_bwd_tile())
+    tiles = -(-n // _build.function("attention_kernels", "fused_linear_attention_bwd_tile")())
     f32 = dict(dtype=torch.float32, device=device)
     o = torch.empty((b * n, hidden), **f32)
     dy = torch.empty((b * n, c), **f32)
@@ -189,13 +261,12 @@ def fused_linear_attention_bwd(x: torch.Tensor, w_qkv: torch.Tensor, w_out: torc
     dg_part = torch.empty((b * tiles, c), **f32)
     dctx_part = torch.empty((b, tiles, KERNEL_HEADS, KERNEL_DIM_HEAD, KERNEL_DIM_HEAD), **f32)
     if b * n and c:
-        with torch.cuda.device(device):
-            err = lib.fused_linear_attention_bwd_f32(
-                x.data_ptr(), w_qkv.data_ptr(), w_out.data_ptr(), b_out.data_ptr(),
-                g.data_ptr(), ctx.data_ptr(), stats.data_ptr(), dout.data_ptr(),
-                o.data_ptr(), dy.data_ptr(), dqkv.data_ptr(), dg_part.data_ptr(),
-                dctx_part.data_ptr(), b, n, c, _build.stream_handle(device))
-        _build.raise_on_error("fused_linear_attention_bwd", err)
+        _build.launch("fused_linear_attention_bwd",
+                      _build.function("attention_kernels", "fused_linear_attention_bwd_f32"),
+                      device, x.data_ptr(), w_qkv.data_ptr(), w_out.data_ptr(),
+                      b_out.data_ptr(), g.data_ptr(), ctx.data_ptr(), stats.data_ptr(),
+                      dout.data_ptr(), o.data_ptr(), dy.data_ptr(), dqkv.data_ptr(),
+                      dg_part.data_ptr(), dctx_part.data_ptr(), b, n, c)
         fused_linear_attention_bwd.launches += 1
     else:
         for t in (o, dy, dqkv, dg_part):
@@ -245,12 +316,14 @@ def fused_linear_attention(x: torch.Tensor, w_qkv: torch.Tensor,
     """x [B, H, W, C] pre-normed, fp32 -> [B, H, W, C].
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (two CUDA kernels behind one call, counted as one launch) or raises.
+    (one CUDA kernel, or two behind one call on the split plan, counted as
+    one launch) or raises.
     Differentiable in all five tensors (FusedLinearAttentionFunction); where
     no gradient is asked for, nothing is saved."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w_qkv, w_out, b_out, g)):
+    if torch.is_grad_enabled() and (x.requires_grad or w_qkv.requires_grad or w_out.requires_grad
+                                    or b_out.requires_grad or g.requires_grad):
         return FusedLinearAttentionFunction.apply(x, w_qkv, w_out, b_out, g, heads, dim_head)
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return fused_linear_attention_plain(x, w_qkv, w_out, b_out, g, heads, dim_head)
     return _forward_kernel(x, w_qkv, w_out, b_out, g, heads, dim_head)[0]
 

@@ -105,7 +105,7 @@ def plan(batch: int, h: int, w: int, c: int, width: int) -> Optional[Plan]:
     """The kernel's plan for x [batch, h, w, c] at hidden width `width`, or
     None where no tiling fits (width not a multiple of 4, or too wide)."""
     out = (ctypes.c_int * 5)()
-    smem = _build.library("step_megakernel").step_megakernel_plan(batch, h, w, c, width, out)
+    smem = _build.function("step_megakernel", "step_megakernel_plan")(batch, h, w, c, width, out)
     return None if smem < 0 else Plan(*out, smem)
 
 
@@ -147,13 +147,10 @@ def launch(x: torch.Tensor, packed, width: int) -> Tuple[torch.Tensor, torch.Ten
     y = torch.empty_like(x)
     rows = torch.empty((b, h, w), dtype=torch.float32, device=device)
     ldj = torch.empty((b,), dtype=torch.float32, device=device)
-    lib = _build.library("step_megakernel")
-    with torch.cuda.device(device):
-        err = lib.step_megakernel_f32(x.data_ptr(), *(t.data_ptr() for t in packed),
-                                      y.data_ptr(), rows.data_ptr(), ldj.data_ptr(),
-                                      b, h, w, c, width, p.th, p.tw, p.nc,
-                                      _build.stream_handle(device))
-    _build.raise_on_error("step_megakernel_forward", err)
+    _build.launch("step_megakernel_forward",
+                  _build.function("step_megakernel", "step_megakernel_f32"), device,
+                  x.data_ptr(), *(t.data_ptr() for t in packed), y.data_ptr(), rows.data_ptr(),
+                  ldj.data_ptr(), b, h, w, c, width, p.th, p.tw, p.nc)
     step_megakernel_forward.launches += 1
     return y, ldj
 

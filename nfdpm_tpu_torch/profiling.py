@@ -19,9 +19,10 @@ import torch
 
 # group -> substrings of CUDA kernel names, tried in this order
 GROUPS = (
-    ("fused_linear_attention", ("fla_context_kernel", "fla_output_kernel")),
+    ("fused_linear_attention", ("fla_fused_kernel", "fla_ctx_pass_kernel",
+                                "fla_out_pass_kernel")),
     ("fused_linear_attention backward", ("fla_bwd_",)),
-    ("channel_mix + coupling tails", ("channel_mix_kernel", "coupling_tail")),
+    ("channel_mix + coupling tails", ("channel_mix_", "coupling_tail")),
     ("convolution backward (cuDNN)", ("wgrad", "dgrad", "bwd_data", "bwd_filter",
                                       "backward_data", "backward_filter")),
     ("optimizer and clips (foreach)", ("multi_tensor_apply",)),

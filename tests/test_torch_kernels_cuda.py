@@ -5,10 +5,14 @@ skip. On the card, run them without the JAX test bootstrap:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
-Tolerances: elementwise rtol 1e-5 and atol 1e-5; the coupling logdet, a sum
+Tolerances: elementwise rtol 1e-5 and atol 1e-5 (channel_mix forward and
+dx mode too); the coupling logdet, a sum
 of up to D log terms taken in another order, rtol 1e-5 and atol 1e-4; the
 linear-attention block, whose LayerNorm divides sums of up to C + 128 + N
-products taken in another order by the row's spread, rtol 1e-4 and atol 1e-4.
+products taken in another order by the row's spread, rtol 1e-4 and atol 1e-4
+(its projections run in 3xTF32 on the tensor cores: products to about
+2^-19 relative); its contexts rtol and atol 1e-4, the k softmax's maxima 1e-5 and
+sums rtol and atol 1e-4 (sums of up to N exponentials).
 Gradients: dW and db sum over up to N = 16384 rows (rtol 1e-4, atol 1e-4);
 the linear-attention block's dx rtol and atol 1e-4, its weight, bias and
 gain gradients within 1e-5 of each gradient's largest entry. The whole-step
@@ -40,8 +44,13 @@ def _randn(gen, *shape, scale=1.0):
     return torch.randn(shape, generator=gen, device="cuda") * scale
 
 
-@pytest.mark.parametrize("shape,o", [((64, 16, 16, 12), 12), ((64, 4, 4, 48), 48),
-                                     ((37, 3, 5, 14), 20), ((3, 1, 1, 192), 192)])
+# the three level shapes of the served Glow (the square kernel), a ragged
+# C != O and a wide one (the generic kernel)
+CM_SHAPES = [((64, 16, 16, 12), 12), ((64, 8, 8, 24), 24), ((64, 4, 4, 48), 48),
+             ((37, 3, 5, 14), 20), ((3, 1, 1, 192), 192)]
+
+
+@pytest.mark.parametrize("shape,o", CM_SHAPES)
 def test_channel_mix_matches_plain(gen, shape, o):
     x, w, b = _randn(gen, *shape), _randn(gen, o, shape[-1], scale=0.3), _randn(gen, o)
     before = cm.channel_mix.launches
@@ -49,6 +58,21 @@ def test_channel_mix_matches_plain(gen, shape, o):
     torch.cuda.synchronize()
     assert cm.channel_mix.launches == before + 1
     torch.testing.assert_close(y, cm.channel_mix_plain(x, w, b), rtol=1e-5, atol=1e-5)
+    # an operand off 16-byte alignment takes the generic kernel: same values
+    x_off = torch.empty(x.numel() + 1, device="cuda")[1:].view(x.shape).copy_(x)
+    torch.testing.assert_close(cm.channel_mix(x_off, w, b), y, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape,o", CM_SHAPES)
+def test_channel_mix_dx_matches_plain(gen, shape, o):
+    """The dx mode, g [..., O] W [O, C]: one launch, no W^T copy, no bias."""
+    g, w = _randn(gen, *shape[:-1], o), _randn(gen, o, shape[-1], scale=0.3)
+    before = cm.channel_mix.launches
+    dx = cm.channel_mix_dx(g, w)
+    torch.cuda.synchronize()
+    assert cm.channel_mix.launches == before + 1
+    assert dx.shape == shape
+    torch.testing.assert_close(dx, cm.channel_mix_dx_plain(g, w), rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("shape", [(64, 16, 16, 6), (37, 3, 5, 7), (1, 1, 1, 1)])
@@ -65,22 +89,69 @@ def test_coupling_tail_and_inverse_match_plain(gen, shape):
                                rtol=1e-5, atol=1e-5)
 
 
-# the served UNet's shapes (C 64 and 128 at N 256, 64, 16, 4), a ragged C, an
-# odd N and B, one token, and C past one staged chunk of the out-projection
-@pytest.mark.parametrize("shape", [(64, 16, 16, 64), (64, 8, 8, 128), (64, 2, 2, 128),
-                                   (5, 3, 5, 20), (3, 1, 1, 7), (2, 4, 4, 200)])
-def test_fused_linear_attention_matches_plain(gen, shape):
+# The linear-attention calls of one evaluation of the three UNets of
+# configs/nf_diffusion.yaml (parts 16x16, 8x8, 4x4; per part at side H:
+# (H, 64), (H/2, 64), (H/2, 128), (H, 64)) as (side, C).
+UNET_CALLS = [(s, c) for h in (16, 8, 4) for s, c in ((h, 64), (h // 2, 64), (h // 2, 128),
+                                                       (h, 64))]
+# Each distinct call at batch 64 (sampling and training) and 32 (VLB
+# scoring); ragged N on both sides of the fused plan's 64 tokens at C = 20;
+# a ragged C, one token, and C past one staged chunk of the out-projection.
+FLA_SHAPES = ([(64, s, s, c) for s, c in sorted(set(UNET_CALLS))]
+              + [(32, s, s, c) for s, c in sorted(set(UNET_CALLS))]
+              + [(5, 3, 5, 20), (5, 7, 9, 20), (5, 1, 65, 20), (5, 1, 257, 20),
+                 (3, 1, 1, 7), (2, 4, 4, 200)])
+
+
+def _attention_case(gen, shape):
     c = shape[-1]
     x = _randn(gen, *shape)
     w_qkv, w_out = _randn(gen, c, 384, scale=c ** -0.5), _randn(gen, 128, c, scale=128 ** -0.5)
     b_out, g = _randn(gen, c, scale=0.1), 1.0 + _randn(gen, c, scale=0.1)
+    return x, w_qkv, w_out, b_out, g
+
+
+@pytest.mark.parametrize("shape", FLA_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_fused_linear_attention_matches_plain(gen, shape):
+    args = _attention_case(gen, shape)
     before = fla.fused_linear_attention.launches
-    y = fla.fused_linear_attention(x, w_qkv, w_out, b_out, g)
+    y = fla.fused_linear_attention(*args)
     torch.cuda.synchronize()
     assert fla.fused_linear_attention.launches == before + 1
-    torch.testing.assert_close(y, fla.fused_linear_attention_plain(x, w_qkv, w_out, b_out, g),
+    torch.testing.assert_close(y, fla.fused_linear_attention_plain(*args),
                                rtol=1e-4, atol=1e-4)
-    assert torch.equal(y, fla.fused_linear_attention(x, w_qkv, w_out, b_out, g))
+    assert torch.equal(y, fla.fused_linear_attention(*args))
+
+
+@pytest.mark.parametrize("shape", FLA_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_fused_linear_attention_writes_contexts_and_softmax_stats(gen, shape):
+    """ctx [B, 4, 32, 32] and stats [B, 4, 2, 32] (each k column's softmax
+    maximum and sum over the tokens), as the backward kernel reads them,
+    against the same quantities formed in PyTorch; the same bits twice."""
+    x, w_qkv, w_out, b_out, g = _attention_case(gen, shape)
+    b, hh, ww, c = shape
+    n = hh * ww
+    y, ctx, stats = fla._forward_kernel(x, w_qkv, w_out, b_out, g)
+    _, k, v = torch.matmul(x.reshape(b, n, c), w_qkv).split(128, dim=-1)
+    k, v = k.reshape(b, n, 4, 32), v.reshape(b, n, 4, 32)
+    m = k.amax(dim=1)
+    s = torch.exp(k - m[:, None]).sum(dim=1)
+    want_ctx = torch.einsum("bnhd,bnhe->bhde", torch.softmax(k, dim=1), v / n)
+    torch.testing.assert_close(stats[:, :, 0], m, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(stats[:, :, 1], s, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(ctx, want_ctx, rtol=1e-4, atol=1e-4)
+    again = fla._forward_kernel(x, w_qkv, w_out, b_out, g)
+    assert all(torch.equal(a, e) for a, e in zip((y, ctx, stats), again))
+
+
+@pytest.mark.parametrize("shape", FLA_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_attention_plan_smem_matches_the_kernel(gen, shape):
+    """The shared memory the wrapper's plan is checked with is what the
+    kernel lays out for it."""
+    b, hh, ww, c = shape
+    p = fla.plan(hh * ww, c)
+    kernel_smem = fla._build.function("attention_kernels", "fused_linear_attention_plan_smem")
+    assert fla.smem_bytes(p.fused, p.m_tiles, c) == kernel_smem(int(p.fused), p.m_tiles, c)
 
 
 # the three level shapes of the L3 flow at batch 64, and a ragged case
@@ -181,7 +252,8 @@ BWD_ATOL_DX = 1e-4
 BWD_SCALED = 1e-5
 
 
-@pytest.mark.parametrize("shape", TRAIN_SHAPES + [(5, 3, 5, 20), (2, 4, 4, 200)],
+@pytest.mark.parametrize("shape", TRAIN_SHAPES + [(5, 3, 5, 20), (2, 4, 4, 200),
+                                   (5, 1, 65, 20), (5, 1, 257, 20)],
                          ids=lambda s: "x".join(map(str, s)))
 def test_fused_linear_attention_bwd_matches_plain(gen, shape):
     c = shape[-1]

@@ -1,0 +1,133 @@
+"""The per-shape plans of the channel_mix and fused_linear_attention kernels.
+
+Each wrapper hands its kernel a plan made by a pure Python function of the
+shape (`channel_mix.plan`, `fused_linear_attention.plan`). Here, with no
+card, every shape the main paths give the kernels (and ragged ones) must
+get a plan whose shared memory fits a Hopper block (232,448 bytes) and
+whose grid, laid out and walked as the kernel's entry point and kernels
+do it (csrc/flow_kernels.cu: channel_mix_f32, csrc/linear_attention.cu:
+fused_linear_attention_f32), covers every row or token exactly once. The
+card test test_attention_plan_smem_matches_the_kernel holds
+`fused_linear_attention.smem_bytes` against the kernel's own sum.
+"""
+
+import numpy as np
+import pytest
+
+from nfdpm_tpu_torch.ops.kernels import channel_mix as cm
+from nfdpm_tpu_torch.ops.kernels import fused_linear_attention as fla
+
+MAX_SMEM = 232448
+CM_GENERIC_THREADS = 256  # csrc/flow_kernels.cu: the generic kernel's block
+BATCH, VLB_ROWS = 64, 32  # chip_smoke.py: sampling and training at 64, VLB 4 x 8
+
+# Glow L3 at 32x32x3, batch 64: (rows, C = O) of each level, and a ragged case
+LEVELS = [(64 * 16 * 16, 12), (64 * 8 * 8, 24), (64 * 4 * 4, 48)]
+CM_CASES = [(n, c, c) for n, c in LEVELS] + [(555, 14, 20), (555, 20, 14), (3, 192, 192)]
+
+# The linear-attention calls of one evaluation of the three UNets of
+# configs/nf_diffusion.yaml (parts 16x16, 8x8, 4x4; per part at side H:
+# (H, 64), (H/2, 64), (H/2, 128), (H, 64)) as (N, C).
+UNET_CALLS = [(s * s, c) for h in (16, 8, 4)
+              for s, c in ((h, 64), (h // 2, 64), (h // 2, 128), (h, 64))]
+FLA_CASES = ([(BATCH, n, c) for n, c in UNET_CALLS]        # sampling and training
+             + [(VLB_ROWS, n, c) for n, c in UNET_CALLS]   # VLB scoring
+             + [(5, n, 20) for n in (1, 15, 63, 64, 65, 257)]  # ragged, both sides of 64
+             + [(3, 16, 7), (2, 16, 200), (2, 300, 256)])
+
+
+def _blocks(p, n):
+    return -(-n // p.rows_per_block)
+
+
+def _square_coverage(p, n, c):
+    """(row, output group) counts of the square kernel's thread layout:
+    rows_per_block * G threads a block, RW rows a warp, 32 / RW groups a
+    warp, WPC warps per RW rows."""
+    outputs, rw = cm.SQUARE[c]
+    groups = c // outputs
+    wpc = groups // (32 // rw)
+    tid = np.arange(p.rows_per_block * groups)
+    wid, lane = tid // 32, tid % 32
+    grp = (wid % wpc) * (32 // rw) + lane // rw
+    counts = np.zeros((n, groups), np.int64)
+    for blk in range(_blocks(p, n)):
+        rows = blk * p.rows_per_block + rw * (wid // wpc) + lane % rw
+        ok = rows < n
+        np.add.at(counts, (rows[ok], grp[ok]), 1)
+    return counts
+
+
+def _generic_coverage(p, n, c_out):
+    counts = np.zeros((n, c_out), np.int64)
+    for blk in range(_blocks(p, n)):
+        row0 = blk * p.rows_per_block
+        rows = min(p.rows_per_block, n - row0)
+        for tid in range(CM_GENERIC_THREADS):
+            i = np.arange(tid, rows * c_out, CM_GENERIC_THREADS)
+            np.add.at(counts, (row0 + i // c_out, i % c_out), 1)
+    return counts
+
+
+@pytest.mark.parametrize("n,c_in,c_out", CM_CASES)
+@pytest.mark.parametrize("aligned", [True, False])
+def test_channel_mix_plan_fits_and_covers_every_output_once(n, c_in, c_out, aligned):
+    p = cm.plan(n, c_in, c_out, aligned)
+    assert p.rows_per_block > 0
+    if p.variant:
+        assert aligned and c_in == c_out == p.variant
+        outputs, rw = cm.SQUARE[p.variant]
+        assert p.rows_per_block % rw == 0
+        assert p.rows_per_block * (c_in // outputs) <= cm.MAX_THREADS
+        assert 4 * (c_in * c_in + c_in) <= MAX_SMEM  # the staged weight and bias
+        counts = _square_coverage(p, n, c_in)
+    else:
+        counts = _generic_coverage(p, n, c_out)
+    assert (counts == 1).all()
+
+
+def test_channel_mix_plan_at_the_glow_levels():
+    """The level shapes take the square kernel; blocks shrink until the
+    grid fills the 132 SMs or a block has one warp's rows (32 at C = 12
+    and 24, 16 at C = 48)."""
+    got = [cm.plan(n, c, c) for n, c in LEVELS]
+    assert [p.variant for p in got] == [12, 24, 48]
+    assert [_blocks(p, n) for p, (n, _) in zip(got, LEVELS)] == [256, 128, 64]
+    assert cm.plan(1024, 48, 48, aligned=False).variant == 0
+    assert cm.plan(555, 14, 20).variant == 0
+
+
+def _fla_coverage(p, b, n):
+    """Token counts of the forward's grid: fused, B blocks, block b takes
+    batch row b's N tokens in its m_tiles 16-row tiles; split, both passes
+    on (ceil(N / SPLIT_TOK), B) blocks of SPLIT_TOK tokens."""
+    counts = np.zeros((b, n), np.int64)
+    if p.fused:
+        assert n <= 16 * p.m_tiles
+        for row in range(b):
+            counts[row] += 1
+        return counts
+    assert 16 * p.m_tiles == fla.SPLIT_TOK
+    for tile in range(-(-n // fla.SPLIT_TOK)):
+        for row in range(b):
+            counts[row, tile * fla.SPLIT_TOK: (tile + 1) * fla.SPLIT_TOK] += 1
+    return counts
+
+
+@pytest.mark.parametrize("b,n,c", FLA_CASES, ids=lambda v: str(v))
+def test_attention_plan_fits_and_covers_every_token_once(b, n, c):
+    p = fla.plan(n, c)
+    assert p is not None and fla.smem_bytes(p.fused, p.m_tiles, c) <= MAX_SMEM
+    assert p.fused == (n <= fla.FUSED_MAX_N)
+    assert (_fla_coverage(p, b, n) == 1).all()
+
+
+def test_attention_plan_at_the_served_shapes():
+    """One batch row a fused block at the served N = 4, 16 and 64 (1, 1 and
+    4 tensor-core row tiles); at N = 256 the split plan, 64-token tiles. No
+    plan beyond C = 256."""
+    assert fla.plan(4, 64) == (True, 1)
+    assert fla.plan(16, 128) == (True, 1)
+    assert fla.plan(64, 128) == (True, 4)
+    assert fla.plan(256, 64) == (False, 4)
+    assert fla.plan(16, 300) is None
