@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --stage1-training    # phases 1, 2, 12 and 13 only
+    python3 chip_smoke.py --attention-backward # phases 1, 2 and 16 only
 
 Runs nfdpm_tpu_torch (never JAX, never nfdpm_tpu) with seeded random
 weights at the width of the repo's models: the Glow of configs/nf_base.yaml
@@ -25,8 +26,9 @@ line each:
      Each line also names the kernel's design version and, for channel_mix
      and the attention forward, the wrapper's plan; the attention's lines
      add its bound on its 3xTF32 tensor-core route. Then the host steps of
-     the two planned wrappers: host-clock us a call of each step they take
-     and of the whole wrapper, beside the library call;
+     the three planned wrappers (channel_mix, the attention forward and
+     backward): host-clock us a call of each step they take and of the
+     whole wrapper, beside the library call;
   Glow path (launch counters zeroed before 4, read after 6):
   4. scoring: bits/dim through inference.make_eval_step, kernel route
      against the plain route (use_kernels=False), within 1e-4;
@@ -80,7 +82,11 @@ line each:
      kernels) against fused_linear_attention_bwd_plain at the 12 calls of a
      stage-2 train step (B = 64) and a ragged case: each of the five
      gradients within its tolerance, the same bits on a second call; times
-     of the whole gradient as in 3, and its bound;
+     of the whole gradient as in 3, and its bound; then its two parts: the
+     backward kernels alone (events and graph replays of
+     `_backward_kernel`, and the profiler's sum over the fla_bwd_ kernels)
+     with their own bound (fp32 and 3xTF32), and the library products
+     behind them (`_library_products`); the plan of each call;
   stage-2 training path (launch counters zeroed before 17, read after it):
  17. stage-2 training: nfdpm_tpu_torch.run_diffusion_prior's main (the
      function `python -m nfdpm_tpu_torch.run_diffusion_prior` runs), in this
@@ -131,7 +137,9 @@ Then come the kernel summary line (seven kernels), the nvidia-smi line and, last
 {"ok": true, "device": {...}}. With --stage1-training the script runs only
 the environment, the build and phases 12 and 13 and prints neither: copied
 into another checkout, it times that checkout's stage-1 training with the
-same measuring code. Any failed check raises and exits non-zero
+same measuring code; --attention-backward the same for phase 16 alone
+(in a checkout whose wrapper has no `bwd_plan`, the lines carry no plan).
+Any failed check raises and exits non-zero
 before that line. All records are also written to chiprun_out/chip_smoke.json.
 """
 
@@ -167,8 +175,10 @@ RECORDS = []
 # Design version of each kernel, beside its times in the "kernel" lines
 # (1: the first design; channel_mix 2: square kernels with rows in registers
 # and a dx mode; fused_linear_attention 2: a fused pass of one batch row a
-# block and split token-tiled passes, with 3xTF32 tensor-core products).
-KERNEL_VERSIONS = {"channel_mix": 2, "fused_linear_attention": 2}
+# block and split token-tiled passes, with 3xTF32 tensor-core products;
+# fused_linear_attention_bwd 2: the same plans for the gradient).
+KERNEL_VERSIONS = {"channel_mix": 2, "fused_linear_attention": 2,
+                   "fused_linear_attention_bwd": 2}
 
 # Stage 2, configs/nf_diffusion.yaml; the keys of a stage-2 run's
 # diffusion_architecture.json (nfdpm_tpu/training/runload.py)
@@ -444,6 +454,28 @@ def fla_bwd_bytes_ops(b: int, n: int, c: int):
     return nbytes, 2 * macs
 
 
+def fla_bwd_kernel_bytes_ops(b: int, n: int, c: int):
+    """Bytes and operations of the backward kernels alone (without the
+    library products behind them): x, the cotangent, the weights, the
+    saved contexts and statistics read once, o, dy and dqkv written once;
+    the multiply-adds (2 operations each) of the q, k and v projections,
+    the out-projection and do = dy W_out^T (5 128 C a token), and of the
+    per-head products q ctx, dq, dctx, dk and dv (5 4096 a token)."""
+    hidden, dh = 128, 32
+    weights = 3 * hidden * c + hidden * c + 2 * c
+    nbytes = 4 * (b * n * (2 * c + hidden + c + 3 * hidden) + weights
+                  + b * 4 * dh * (dh + 2))
+    macs = b * n * (5 * hidden * c + 5 * 4 * dh * dh)
+    return nbytes, 2 * macs
+
+
+def fla_bwd_tensor_core_bound_ms(b: int, n: int, c: int) -> float:
+    """The backward kernels' least time on their own route: every product
+    as three TF32 products at 495 TFLOP/s, or their bytes, the larger."""
+    nbytes, ops = fla_bwd_kernel_bytes_ops(b, n, c)
+    return max(3 * ops / TF32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+
+
 def phase_attention_kernel(torch, fla, sampling_shapes):
     """fused_linear_attention against its plain version at the 12 shapes of
     one sampling step (B = 64), at the VLB shapes (B = 4 * VLB_BATCH) and at
@@ -520,8 +552,9 @@ def host_us(fn, iters: int = 2000) -> float:
 
 def phase_wrapper_host_steps(torch, cm, fla, build):
     """Host us a call of each step the channel_mix wrapper takes, at the
-    three level shapes, and of the attention wrapper's, at N 64 C 64, beside
-    the library call and the stream lookup the launch helper avoids."""
+    three level shapes, and of the attention wrappers' (forward and
+    backward), at N 64 C 64, beside the library call and the stream lookup
+    the launch helper avoids."""
     gen = torch.Generator(device="cuda").manual_seed(99)
     dev = torch.device("cuda", torch.cuda.current_device())
     mix = build.function("flow_kernels", "channel_mix_f32")
@@ -558,6 +591,32 @@ def phase_wrapper_host_steps(torch, cm, fla, build):
     emit({"phase": "host_steps", "name": "fused_linear_attention", "x": [BATCH, 8, 8, 64],
           "host_us": {name: host_us(fn, 500) for name, fn in steps.items()}})
     torch.cuda.synchronize()
+    # the backward's wrapper at the same shape; each step runs 110 times, so
+    # that its kernels (six a whole gradient) stay within the launch queue
+    dout = torch.randn_like(x)
+    _, ctx, stats = fla._forward_kernel(*args)
+    outs = fla._backward_kernel(*args, ctx, stats, dout)
+    p = fla.bwd_plan(64, 64)
+    tiles = 1 if p.fused else -(-64 // (16 * p.m_tiles))
+    dctx_part = torch.empty((0 if p.fused else BATCH * tiles * 4 * 32 * 32,), device=dev)
+    size = sum(t.numel() for t in outs) + dctx_part.numel()
+    ptrs = [t.data_ptr() for t in (*args, ctx, stats, dout, *outs, dctx_part)]
+    bwd = build.function("attention_kernels", "fused_linear_attention_bwd_f32")
+    steps = {"checks": lambda: fla._check("fused_linear_attention_bwd", *args, 4, 32),
+             "bwd_plan": lambda: fla.bwd_plan(64, 64),
+             "allocation": lambda: torch.empty((size,), device=dev),
+             "build.launch": lambda: build.launch(
+                 "fused_linear_attention_bwd", bwd, dev, *ptrs, BATCH, 64, 64,
+                 int(p.fused), p.m_tiles, 1),
+             "_backward_kernel": lambda: fla._backward_kernel(*args, ctx, stats, dout),
+             "library products": lambda: fla._library_products(x, args[1], *outs),
+             "backward wrapper": lambda: fla.fused_linear_attention_bwd(*args, ctx, stats, dout)}
+    host = {}
+    for name, fn in steps.items():
+        host[name] = host_us(fn, 60)
+        torch.cuda.synchronize()
+    emit({"phase": "host_steps", "name": "fused_linear_attention_bwd",
+          "x": [BATCH, 8, 8, 64], "plan": p._asdict(), "host_us": host})
 
 
 ZERO_INIT = ("actnorm", "an1", "an2", "zconv", "conv", "prior")
@@ -1525,13 +1584,25 @@ def phase_resume(torch, run_dir, out, loaders):
     emit(record)
 
 
+# The backward's parts measured in phase 16, which the summary line carries
+# (its bounds, which are computed, stay in the phase's own lines).
+BWD_MEASURED = ("kernel_ms", "kernel_device_ms", "kernel_profiler_ms", "products_device_ms")
+
+
 def phase_attention_backward(torch, fla, train_shapes, totals):
     """fused_linear_attention's gradient, kernel route (the autograd Function
     over both kernels) against fused_linear_attention_bwd_plain, at the 12
     calls of one stage-2 train step (B = 64) and a ragged case. Times of the
     whole gradient (the backward kernels and the plain products behind
-    them) as in phase 3; bound from fla_bwd_bytes_ops. Adds the
-    summary of one train step (12 launches) to `totals`."""
+    them) as in phase 3, bound from fla_bwd_bytes_ops; then the two parts:
+    the kernels alone (`_backward_kernel`: events, graph replays, and the
+    profiler's sum over the fla_bwd_ kernels of whole-gradient calls) and
+    the library products (`_library_products`), with the kernels' own
+    bound (fla_bwd_kernel_bytes_ops, fp32 and 3xTF32). Adds the summary of
+    one train step (12 launches) to `totals` and prints it as the
+    attention_backward_step line, bounds included."""
+    from nfdpm_tpu_torch import profiling
+
     gen = torch.Generator(device="cuda").manual_seed(5432)
 
     def randn(*shape, scale=1.0):
@@ -1542,8 +1613,10 @@ def phase_attention_backward(torch, fla, train_shapes, totals):
     cases.append(("ragged", "C 20, N 3x5, B 5", 5, 3, 5, 20))
     names = ("dx", "dW_qkv", "dW_out", "db_out", "dg")
     timed = ("ms", "plain_ms", "device_ms", "plain_device_ms")
-    tot = dict({t: 0.0 for t in timed}, bytes=0.0, ops=0.0, max_abs_err=0.0)
+    parts = BWD_MEASURED + ("kernel_bound_ms", "kernel_tensor_core_bound_ms")
+    tot = dict({t: 0.0 for t in timed + parts}, bytes=0.0, ops=0.0, max_abs_err=0.0)
     gaps_all = {n: 0.0 for n in names}
+    bwd_plan = getattr(fla, "bwd_plan", None)  # absent from the two-pass design
     for use, label, b, h, w, c in cases:
         x = randn(b, h, w, c)
         w_qkv, w_out = randn(c, 384, scale=c ** -0.5), randn(128, c, scale=128 ** -0.5)
@@ -1572,25 +1645,48 @@ def phase_attention_backward(torch, fla, train_shapes, totals):
                                      f"plain version at {(b, h, w, c)}: {gaps[name]} > {tol}")
             gaps_all[name] = max(gaps_all[name], gaps[name])
         _, ctx, stats = fla._forward_kernel(*args)
-        times = time_rows({"": lambda: fla.fused_linear_attention_bwd(*args, ctx, stats, dout),
+        whole = lambda: fla.fused_linear_attention_bwd(*args, ctx, stats, dout)  # noqa: E731
+        times = time_rows({"": whole,
                            "plain_": lambda: fla.fused_linear_attention_bwd_plain(*args, dout)},
                           timed)
+        kernel = lambda: fla._backward_kernel(*args, ctx, stats, dout)  # noqa: E731
+        outs = kernel()
+        prof = profiling.profile_call(whole, iters=20)
+        by_group = prof.get("by_group_ms") or {}
+        times.update({
+            "kernel_ms": cuda_ms(kernel), "kernel_device_ms": graph_ms(kernel),
+            "kernel_profiler_ms": by_group.get("fused_linear_attention backward",
+                                               "not measured"),
+            "products_device_ms": graph_ms(lambda: fla._library_products(x, w_qkv, *outs))})
         nbytes, ops = fla_bwd_bytes_ops(b, h * w, c)
         b_ms, b_by = bound_ms(nbytes, ops)
-        emit({"phase": "kernel", "name": "fused_linear_attention_bwd", "use": use,
-              "call": label, "x": [b, h, w, c], "max_abs_gap": gaps, "tolerance": scaled,
-              **times, "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
-              "bytes": nbytes, "ops": ops})
+        k_bytes, k_ops = fla_bwd_kernel_bytes_ops(b, h * w, c)
+        k_ms, k_by = bound_ms(k_bytes, k_ops)
+        times["kernel_bound_ms"] = k_ms
+        times["kernel_tensor_core_bound_ms"] = fla_bwd_tensor_core_bound_ms(b, h * w, c)
+        record = {"phase": "kernel", "name": "fused_linear_attention_bwd",
+                  "version": KERNEL_VERSIONS["fused_linear_attention_bwd"], "use": use,
+                  "call": label, "x": [b, h, w, c], "max_abs_gap": gaps, "tolerance": scaled,
+                  **times, "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+                  "bytes": nbytes, "ops": ops, "kernel_bound_by": k_by,
+                  "kernel_bytes": k_bytes, "kernel_ops": k_ops}
+        if bwd_plan is not None:
+            record["plan"] = bwd_plan(h * w, c)._asdict()
+        emit(record)
         tot["max_abs_err"] = max(tot["max_abs_err"], *gaps.values())
         if use == "training":
             tot["bytes"] += nbytes
             tot["ops"] += ops
-            for key in timed:
-                tot[key] += times[key]
+            for key in timed + parts:
+                # a sum over the step's shapes only where every shape measured it
+                if isinstance(tot[key], float):
+                    tot[key] = (tot[key] + times[key] if isinstance(times[key], float)
+                                else "not measured")
     tot["bound_ms"], tot["bound_by"] = bound_ms(tot["bytes"], tot["ops"])
     tot["library_ms"] = tot["library_device_ms"] = None
     tot["max_abs_gap_by_gradient"] = gaps_all
     totals["fused_linear_attention_bwd"] = tot
+    emit({"phase": "attention_backward_step", **tot})
 
 
 STAGE2_STEPS = 24        # one epoch of the stage-2 run: synthetic_n = 64 * 24
@@ -1936,6 +2032,11 @@ def main() -> int:
     if sys.argv[1:] == ["--stage1-training"]:
         phase_training(torch, counters)
         return 0
+    if sys.argv[1:] == ["--attention-backward"]:
+        totals = {}
+        phase_attention_backward(torch, fla, attention_shapes(torch, stage2_prior(),
+                                                              torch.device("cuda")), totals)
+        return 0
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
@@ -2005,8 +2106,9 @@ def main() -> int:
             "plain_device_ms": tot["plain_device_ms"],
             "library_device_ms": tot["library_device_ms"],
             "per": per.get(name, "one pass: 4 launches at each of the 3 level shapes"),
-            **{k: v for k, v in tot.items() if k.startswith(("dx_", "route_", "step_", "pack_"))
-               or k in ("max_gradient_gap", "max_abs_gap_by_gradient")}})
+            **{k: v for k, v in tot.items()
+               if k.startswith(("dx_", "route_", "step_", "pack_"))
+               or k in ("max_gradient_gap", "max_abs_gap_by_gradient", *BWD_MEASURED)}})
     order = ["channel_mix", "coupling_tail", "coupling_tail_bwd", "coupling_tail_inverse",
              "fused_linear_attention", "fused_linear_attention_bwd", "step_megakernel"]
     kernels.sort(key=lambda k: order.index(k["name"]))

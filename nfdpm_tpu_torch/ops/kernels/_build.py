@@ -44,9 +44,8 @@ _SIGNATURES = {
     "attention_kernels": {
         "fused_linear_attention_plan_smem": ([_I] * 3, ctypes.c_longlong),
         "fused_linear_attention_f32": ([_P] * 9 + [_I] * 6 + [_P], _I),
-        "fused_linear_attention_bwd_smem_bytes": ([_I], ctypes.c_longlong),
-        "fused_linear_attention_bwd_tile": ([], _I),
-        "fused_linear_attention_bwd_f32": ([_P] * 13 + [_I, _I, _I, _P], _I),
+        "fused_linear_attention_bwd_smem_bytes": ([_I] * 3, ctypes.c_longlong),
+        "fused_linear_attention_bwd_f32": ([_P] * 13 + [_I] * 6 + [_P], _I),
     },
     "step_megakernel": {
         "step_megakernel_plan": ([_I] * 5 + [_P], ctypes.c_longlong),

@@ -69,25 +69,43 @@
 // outside any Pallas kernel). The forward also writes each (b, head)'s k
 // softmax maximum and sum beside the contexts; training saves both, so the
 // backward reads the contexts instead of a second token pass to rebuild
-// them, and k's token softmax from two numbers a column. Two kernels:
-//  3. row pass, one block per (tile of OUT_TOK tokens, batch row): q, its
-//     per-head softmax, o = q ctx and y = o W_out + b recomputed as in the
-//     output pass; the LayerNorm backward dy = rstd (dh - mean(dh) - yhat
-//     mean(dh yhat)) with dh = dOut g; do = dy W_out^T; dq through the
-//     per-head softmax; the tile's partial sums of dctx[h] = q_h^T do_h and
-//     of dg = sum dOut yhat. Writes o, dy, the q third of dqkv, the partials.
-//  4. head pass, one block per (head, batch row): the dctx partials summed
-//     in tile order, then a walk over token tiles that recomputes the head's
-//     k and v columns and writes dk = k_s (v / N dctx^T - S) and
-//     dv = k_s dctx / N, where the token softmax's correction
-//     S[d] = sum_n k_s[n, d] dk_s[n, d] equals sum_e ctx[d, e] dctx[d, e]
-//     and so needs no pass of its own.
+// them, and k's token softmax from two numbers a column.
+//
+// Bound. The kernels do 5 128 C + 5 4096 multiply-adds a token (the q, k, v
+// projections, y = o W_out and do = dy W_out^T; q ctx, dq, dctx, dk, dv)
+// and move x, dout, o, dy and dqkv once (4 (3 C + 512) bytes a token): at
+// B = 64, N = 256, C = 64 that is 2.0 GFLOP against 46 MB, 30.0 us at the
+// fp32 rate, 12.2 us on the 3xTF32 route and 14.1 us at 3.35 TB/s; over
+// the 12 calls of a stage-2 train step 0.105 ms (fp32) and 0.051 ms (the
+// larger of 3xTF32 and bytes). Every product runs in 3xTF32 on the tensor
+// cores (gemm_3xtf32 with its cp.async rings for the projections, W_out
+// staged whole and read as stored, unmasked, for y and, transposed, for
+// do; per-head products on the fragments), so what a block waits on is the
+// mma.sync pipe, the first arrival of x and the weights, and the barriers
+// of the LayerNorm's row sums (tools/profile_linear_attention.py). The
+// plan (ops/kernels/fused_linear_attention.py: bwd_plan) is handed in:
+//  3. fused, N <= 32: one launch, one batch row a block: x W_qkv in one
+//     product; q's softmax, k_s from the statistics, v / N; o = q_s ctx
+//     (out, for dW_out), y = o W_out + b and the LayerNorm backward
+//     dy = rstd (dh - mean(dh) - yhat mean(dh yhat)), dh = dout g, on the
+//     out-projection's fragments (dy out; the row's column sums of
+//     dout yhat out for dg); do = dy W_out^T; dq through the per-head
+//     softmax on do ctx^T's fragments; dctx = q_s^T do over all the row's
+//     tokens, in shared memory; S = sum_e ctx dctx; dk = k_s (v_s dctx^T -
+//     S) and dv = k_s dctx / N. The token softmax's correction
+//     S[d] = sum_n k_s[n, d] dk_s[n, d] equals sum_e ctx[d, e] dctx[d, e],
+//     so it needs no pass of its own.
+//  4. split, above: a row pass, grid (tiles of 16 m_tiles tokens, B), as
+//     the fused kernel up to dq with q alone projected, writing the tile's
+//     dctx partial ([4][32][32]) and dg partial; then a k/v pass on the
+//     same grid that sums its row's dctx partials in tile order, forms S,
+//     projects its tokens onto k and v (all four heads, one product) and
+//     writes dk and dv. Two kernels behind one call. At batch 64 two
+//     blocks a row (32-token tiles) beat one fused block a row at N = 64.
 // The large plain products stay with the wrapper (torch.matmul and sums):
 // dx = dqkv W_qkv^T, dW_qkv = x^T dqkv, dW_out = o^T dy, db = sum dy,
 // dg = the sum of the partials. Every sum runs in a fixed order, with no
-// atomics, so a gradient repeats bit for bit. The backward moves about
-// twice the forward's bytes and does about three times its products: at
-// the training shapes it is bound by fp32 arithmetic, as the forward.
+// atomics, so a gradient repeats bit for bit.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -97,26 +115,10 @@ namespace {
 constexpr int HEADS = 4;
 constexpr int DH = 32;
 constexpr int HIDDEN = HEADS * DH;  // 128
-constexpr int THREADS = 256;
-constexpr int CTX_TOK = 32;  // tokens per tile of the context pass
-constexpr int KC = 32;       // channels per staged chunk of a projection
-constexpr int OUT_TOK = 16;  // tokens per block of the output pass
-constexpr int WO_COLS = 64;  // output channels per chunk of the out-projection
-constexpr int QS = HIDDEN + 1;  // odd row strides: no bank conflicts
-constexpr int CS = DH + 1;
 constexpr float LN_EPS = 1e-5f;
 constexpr float Q_SCALE = 0.17677669529663687f;  // DH^-1/2
 constexpr int MAX_DEVICES = 64;
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
+constexpr long long MAX_SMEM_BYTES = 232448;  // a block's shared memory on Hopper
 
 // ---------------------------------------------------------------------------
 // Forward pass
@@ -168,6 +170,10 @@ __host__ __device__ constexpr long long out_pass_floats(int c) {
          max2(1LL * SPLIT_TOK * x_ld(c) + ring_floats(2, S_IN),
               2LL * SPLIT_TOK * Q_LD + ring_floats(out_tiles(c), S_OUT_SPLIT)) +
          10LL * SPLIT_TOK;
+}
+
+__host__ __device__ inline bool aligned16(const void* p) {
+  return (reinterpret_cast<unsigned long long>(p) & 15ULL) == 0;
 }
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
@@ -351,21 +357,37 @@ __device__ void store_acc(const float (&acc)[MT][NT][4], float* out, int ldo) {
     }
 }
 
-// y[row, :] = LayerNorm(acc[row, :] + b_out) * g for rows < rows_valid, from
-// the out-projection's fragments: per-row sums over a thread's columns, the
-// four lanes of a row (shuffles), then the 8 warps in order through `red`
-// ([8][16 MT] partials, then the means and the rstds): two passes, mean then
-// variance, as the plain version; no atomics.
-template <int MT, int NT>
-__device__ void layer_norm_store(float (&acc)[MT][NT][4], const float* __restrict__ bout,
-                                 const float* __restrict__ g, float* __restrict__ y,
-                                 int rows_valid, int c, float* red) {
+// Row sums of per-thread partials held for the fragment rows mt 16 + gq and
+// + 8 (part[mt][half]): the four lanes of a row by shuffles, then the 8
+// warps in order through red[8][16 MT]; out[row] = sum times scale, for all
+// 16 MT rows. Barriers before the reads and at the end; no atomics.
+template <int MT>
+__device__ void row_sums(const float (&part)[MT][2], float* red, float* out, float scale) {
   constexpr int M = 16 * MT;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gq = lane >> 2, tq = lane & 3;
-  float* mean = red + FWD_WARPS * M;
-  float* rstd = mean + M;
-  const float inv_c = 1.f / static_cast<float>(c);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float s = part[mt][half];
+      s += __shfl_xor_sync(0xffffffffu, s, 1);
+      s += __shfl_xor_sync(0xffffffffu, s, 2);
+      if (tq == 0) red[warp * M + mt * 16 + gq + 8 * half] = s;
+    }
+  __syncthreads();
+  if (threadIdx.x < M) {
+    float s = 0.f;
+    for (int w = 0; w < FWD_WARPS; ++w) s += red[w * M + threadIdx.x];
+    out[threadIdx.x] = s * scale;
+  }
+  __syncthreads();
+}
+
+// The out-projection's fragments plus b_out, zero in the columns past C.
+template <int MT, int NT>
+__device__ void add_bias(float (&acc)[MT][NT][4], const float* __restrict__ bout, int c) {
+  const int warp = threadIdx.x >> 5, tq = threadIdx.x & 3;
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt) {
     const int col = warp * 8 * NT + nt * 8 + 2 * tq;
@@ -378,13 +400,23 @@ __device__ void layer_norm_store(float (&acc)[MT][NT][4], const float* __restric
       acc[mt][nt][3] = col + 1 < c ? acc[mt][nt][3] + b1 : 0.f;
     }
   }
+}
+
+// The mean and the variance of each fragment row over its C columns, two
+// passes as the plain version, into mean[16 MT] and var[16 MT].
+template <int MT, int NT>
+__device__ void row_moments(const float (&acc)[MT][NT][4], int c, float* red, float* mean,
+                            float* var) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const float inv_c = 1.f / static_cast<float>(c);
+  float part[MT][2];
   for (int pass = 0; pass < 2; ++pass) {
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
-        const int row = mt * 16 + gq + 8 * half;
-        const float m = pass ? mean[row] : 0.f;
+        const float m = pass ? mean[mt * 16 + gq + 8 * half] : 0.f;
         float s = 0.f;
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt) {
@@ -396,28 +428,33 @@ __device__ void layer_norm_store(float (&acc)[MT][NT][4], const float* __restric
             s = pass ? fmaf(d, d, s) : s + d;
           }
         }
-        s += __shfl_xor_sync(0xffffffffu, s, 1);
-        s += __shfl_xor_sync(0xffffffffu, s, 2);
-        if (tq == 0) red[warp * M + row] = s;
+        part[mt][half] = s;
       }
-    __syncthreads();
-    if (threadIdx.x < M) {
-      float s = 0.f;
-      for (int w = 0; w < FWD_WARPS; ++w) s += red[w * M + threadIdx.x];
-      if (pass)
-        rstd[threadIdx.x] = rsqrtf(s * inv_c + LN_EPS);
-      else
-        mean[threadIdx.x] = s * inv_c;
-    }
-    __syncthreads();
+    row_sums<MT>(part, red, pass ? var : mean, inv_c);
   }
+}
+
+// y[row, :] = LayerNorm(acc[row, :] + b_out) * g for rows < rows_valid, from
+// the out-projection's fragments; red: [8][16 MT] partials, then the means
+// and the variances.
+template <int MT, int NT>
+__device__ void layer_norm_store(float (&acc)[MT][NT][4], const float* __restrict__ bout,
+                                 const float* __restrict__ g, float* __restrict__ y,
+                                 int rows_valid, int c, float* red) {
+  constexpr int M = 16 * MT;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  float* mean = red + FWD_WARPS * M;
+  float* var = mean + M;
+  add_bias(acc, bout, c);
+  row_moments(acc, c, red, mean, var);
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int row = mt * 16 + gq + 8 * half;
       if (row >= rows_valid) continue;
-      const float m = mean[row], r = rstd[row];
+      const float m = mean[row], r = rsqrtf(var[row] + LN_EPS);
       float* yr = y + static_cast<long long>(row) * c;
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
@@ -506,10 +543,12 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4], const float (&a)[4], c
 
 // Contexts on the tensor cores (3xTF32): ctx[h][d][e] = sum_r k[r][h 32 + d]
 // v[r][h 32 + e] over rows [0, rows8), rows8 a multiple of 8, rows past the
-// tokens zero in k or v. Warp w takes head w / 2 and d in [16 (w % 2),
-// +16), all 32 e; store(h, d, e, c_e, c_e+1) takes each pair of results.
+// tokens zero in k or v (row strides ldk, ldv). Warp w takes head w / 2 and
+// d in [16 (w % 2), +16), all 32 e; store(h, d, e, c_e, c_e+1) takes each
+// pair of results. The backward forms dctx[h] = q_s,h^T do_h with it.
 template <typename Store>
-__device__ void ctx_mma(const float* k, const float* v, int ld, int rows8, Store store) {
+__device__ void ctx_mma(const float* k, int ldk, const float* v, int ldv, int rows8,
+                        Store store) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gq = lane >> 2, tq = lane & 3;
   const int h = warp >> 1, d0 = (warp & 1) * 16;
@@ -517,12 +556,12 @@ __device__ void ctx_mma(const float* k, const float* v, int ld, int rows8, Store
   const float* vb = v + h * DH + gq;
   float acc[4][4] = {};
   for (int kk = 0; kk < rows8; kk += 8) {
-    const float* k0 = ka + (kk + tq) * ld;
-    const float* k1 = k0 + 4 * ld;
+    const float* k0 = ka + (kk + tq) * ldk;
+    const float* k1 = k0 + 4 * ldk;
     const float a[4] = {k0[0], k0[8], k1[0], k1[8]};  // A[d][r] = k[r][d]
 #pragma unroll
     for (int nt = 0; nt < 4; ++nt) {
-      const float b[2] = {vb[(kk + tq) * ld + nt * 8], vb[(kk + tq + 4) * ld + nt * 8]};
+      const float b[2] = {vb[(kk + tq) * ldv + nt * 8], vb[(kk + tq + 4) * ldv + nt * 8]};
       mma_3xtf32(acc[nt], a, b);
     }
   }
@@ -533,37 +572,66 @@ __device__ void ctx_mma(const float* k, const float* v, int ld, int rows8, Store
   }
 }
 
-// o[r][h 32 + e] = sum_d q[r][h 32 + d] ctx[h][d][e] for 16 MT rows on the
-// tensor cores (3xTF32); cs: the contexts, [4][32][CS_LD]. Warp w takes
-// head w / 2 and e in [16 (w % 2), +16).
-template <int MT>
-__device__ void q_ctx_mma(const float* q, int ldq, const float* cs, float* o, int ldo) {
+// Per-head products on the tensor cores (3xTF32) for 16 MT rows of A (row
+// stride lda): acc = out[r][32 h + j] = sum_u A[r][32 h + u] B_h[u][j], with
+// B_h[u][j] = Bs[(32 h + u) ldb + j] or, TRANS, Bs[(32 h + j) ldb + u] (a
+// [32][32] block per head read as stored, transposed). Warp w takes head
+// w / 2 and j in [16 (w % 2), +16): acc[mt][nt] is the m16n8 fragment at
+// rows mt 16 + lane / 4 (+ 8) and columns head_col(nt) (+ 1).
+template <int MT, bool TRANS>
+__device__ void head_mma(float (&acc)[MT][2][4], const float* A, int lda, const float* Bs,
+                         int ldb) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gq = lane >> 2, tq = lane & 3;
-  const int h = warp >> 1, e0 = (warp & 1) * 16;
-  const float* cb = cs + h * DH * CS_LD + e0 + gq;
-  float acc[MT][2][4] = {};
+  const int h = warp >> 1, j0 = (warp & 1) * 16;
+  const float* bh = Bs + h * DH * ldb;
 #pragma unroll
   for (int kk = 0; kk < DH; kk += 8) {
-    float b[2][2];
+    unsigned bhi[2][2], blo[2][2];
 #pragma unroll
     for (int nt = 0; nt < 2; ++nt) {
-      b[nt][0] = cb[(kk + tq) * CS_LD + nt * 8];
-      b[nt][1] = cb[(kk + tq + 4) * CS_LD + nt * 8];
+      const int j = j0 + nt * 8 + gq;
+      split_tf32(TRANS ? bh[j * ldb + kk + tq] : bh[(kk + tq) * ldb + j], bhi[nt][0], blo[nt][0]);
+      split_tf32(TRANS ? bh[j * ldb + kk + tq + 4] : bh[(kk + tq + 4) * ldb + j], bhi[nt][1],
+                 blo[nt][1]);
     }
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
-      const float* qa = q + (mt * 16 + gq) * ldq + h * DH + kk + tq;
-      const float a[4] = {qa[0], qa[8 * ldq], qa[4], qa[8 * ldq + 4]};
+      const float* a = A + (mt * 16 + gq) * lda + h * DH + kk + tq;
+      unsigned ah[4], al[4];
+      split_tf32(a[0], ah[0], al[0]);
+      split_tf32(a[8 * lda], ah[1], al[1]);
+      split_tf32(a[4], ah[2], al[2]);
+      split_tf32(a[8 * lda + 4], ah[3], al[3]);
 #pragma unroll
-      for (int nt = 0; nt < 2; ++nt) mma_3xtf32(acc[mt][nt], a, b[nt]);
+      for (int nt = 0; nt < 2; ++nt) {
+        mma_tf32(acc[mt][nt], al, bhi[nt]);
+        mma_tf32(acc[mt][nt], ah, blo[nt]);
+        mma_tf32(acc[mt][nt], ah, bhi[nt]);
+      }
     }
   }
+}
+
+// The column of fragment n-tile nt of head_mma for this thread (even; the
+// pair's second is + 1).
+__device__ __forceinline__ int head_col(int nt) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  return (warp >> 1) * DH + (warp & 1) * 16 + nt * 8 + 2 * (lane & 3);
+}
+
+// o[r][h 32 + e] = sum_d q[r][h 32 + d] ctx[h][d][e] for 16 MT rows; cs:
+// the contexts, [4][32][CS_LD].
+template <int MT>
+__device__ void q_ctx_mma(const float* q, int ldq, const float* cs, float* o, int ldo) {
+  const int gq = (threadIdx.x & 31) >> 2;
+  float acc[MT][2][4] = {};
+  head_mma<MT, false>(acc, q, ldq, cs, CS_LD);
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
     for (int nt = 0; nt < 2; ++nt) {
-      float* od = o + (mt * 16 + gq) * ldo + h * DH + e0 + nt * 8 + 2 * tq;
+      float* od = o + (mt * 16 + gq) * ldo + head_col(nt);
       *reinterpret_cast<float2*>(od) = make_float2(acc[mt][nt][0], acc[mt][nt][1]);
       *reinterpret_cast<float2*>(od + 8 * ldo) = make_float2(acc[mt][nt][2], acc[mt][nt][3]);
     }
@@ -576,7 +644,7 @@ __device__ void q_ctx_mma(const float* q, int ldq, const float* cs, float* o, in
 //   after it, over the same space: qkv [16 MT][QKV_LD] (q | k | v; k's
 //   columns later hold o), the contexts [4][32][CS_LD], the W_out ring
 //   (all of it loads while the softmaxes and contexts are formed);
-//   last, red [10][16 MT]: the LayerNorm's partials, means and rstds.
+//   last, red [10][16 MT]: the LayerNorm's partials, means and variances.
 template <int MT, int NTO>
 __global__ void __launch_bounds__(FWD_THREADS, 1)
 fla_fused_kernel(const float* __restrict__ x, const float* __restrict__ wqkv,
@@ -628,7 +696,7 @@ fla_fused_kernel(const float* __restrict__ x, const float* __restrict__ wqkv,
 
   // 3. contexts ctx[h] = k_s^T (v / N), kept and written out
   float* cg = ctx + static_cast<long long>(b) * HEADS * DH * DH;
-  ctx_mma(qkv + HIDDEN, qkv + 2 * HIDDEN, QKV_LD, round_up(n, 8),
+  ctx_mma(qkv + HIDDEN, QKV_LD, qkv + 2 * HIDDEN, QKV_LD, round_up(n, 8),
           [&](int h, int d, int e, float c0, float c1) {
             const float2 v = make_float2(c0, c1);
             *reinterpret_cast<float2*>(cs + (h * DH + d) * CS_LD + e) = v;
@@ -685,7 +753,7 @@ fla_ctx_pass_kernel(const float* __restrict__ x, const float* __restrict__ wqkv,
     pt[HEADS * DH * DH + HIDDEN + tid] = ms.y;
   }
   __syncthreads();
-  ctx_mma(kv, kv + HIDDEN, KV_LD, round_up(rows, 8),
+  ctx_mma(kv, KV_LD, kv + HIDDEN, KV_LD, round_up(rows, 8),
           [&](int h, int d, int e, float c0, float c1) {
             *reinterpret_cast<float2*>(pt + (h * DH + d) * DH + e) = make_float2(c0, c1);
           });
@@ -790,323 +858,581 @@ fla_out_pass_kernel(const float* __restrict__ x, const float* __restrict__ wqkv,
 // Backward pass
 // ---------------------------------------------------------------------------
 
-// Shared memory of the row pass, in floats, before its two [OUT_TOK, C] tiles.
-constexpr int BWD_WB = (KC * HIDDEN > HIDDEN * (WO_COLS + 1)) ? KC * HIDDEN
-                                                              : HIDDEN * (WO_COLS + 1);
-constexpr int BWD_FIXED_FLOATS =
-    OUT_TOK * (KC + 1)    // x chunk
-    + BWD_WB              // W chunk (W_q, W_out, then W_out transposed)
-    + 3 * OUT_TOK * QS    // q softmax, o (later do), dq of the softmax output
-    + HEADS * DH * CS;    // contexts
+// The backward's kernels stage W_out whole, [128][wo_ld(C)] (row stride
+// = 8 mod 32, zeros past C), and read it as stored for both y = o W_out and
+// do = dy W_out^T. red: [8][16 MT] partials, then four per-row values.
+__host__ __device__ constexpr int wo_ld(int c) { return 64 * out_tiles(c) + 8; }
+constexpr int BWD_RED = 12;
 
-// Row pass, grid (ceil(N / OUT_TOK), B): for its tokens it recomputes q, the
-// per-head softmax, o = q ctx, y = o W_out + b and the LayerNorm, then runs
-// the LayerNorm backward (dy), do = dy W_out^T, dq through the per-head
-// softmax, and the tile's share of dctx[h] = sum_n q_h[n]^T do_h[n] and of
-// dg = sum_n dOut[n] yhat[n]. Writes o, dy, the q third of dqkv and the two
-// per-tile partial sums.
-__global__ void __launch_bounds__(THREADS)
-fla_bwd_rows_kernel(const float* __restrict__ x, const float* __restrict__ wqkv,
-                    const float* __restrict__ ctx, const float* __restrict__ wout,
-                    const float* __restrict__ bout, const float* __restrict__ g,
-                    const float* __restrict__ dout, float* __restrict__ o_out,
-                    float* __restrict__ dy_out, float* __restrict__ dqkv,
-                    float* __restrict__ dg_part, float* __restrict__ dctx_part,
-                    int n, int c) {
-  extern __shared__ float smem[];
-  float* xs = smem;                       // [OUT_TOK][KC + 1]
-  float* wbuf = xs + OUT_TOK * (KC + 1);  // BWD_WB
-  float* qs = wbuf + BWD_WB;              // [OUT_TOK][QS], scaled q softmax
-  float* os = qs + OUT_TOK * QS;          // [OUT_TOK][QS], o, then do
-  float* ds = os + OUT_TOK * QS;          // [OUT_TOK][QS], dL/dq (softmax output)
-  float* cs = ds + OUT_TOK * QS;          // [HEADS * DH][CS]
-  float* ys = cs + HEADS * DH * CS;       // [OUT_TOK][c], y, then dy
-  float* gs = ys + OUT_TOK * c;           // [OUT_TOK][c], dOut * yhat
+// Phase stamps for tools/profile_linear_attention.py: built with
+// FLA_BWD_PROFILE, thread 0 of each block records clock64() at the
+// backward kernels' phase boundaries (16 slots a block); otherwise nothing.
+#ifdef FLA_BWD_PROFILE
+__device__ long long fla_bwd_prof[1 << 16];
+#define BWD_STAMP(i) \
+  if (threadIdx.x == 0) fla_bwd_prof[(blockIdx.y * gridDim.x + blockIdx.x) * 16 + (i)] = clock64()
+#else
+#define BWD_STAMP(i)
+#endif
 
-  const int b = blockIdx.y, blk = blockIdx.x, n0 = blk * OUT_TOK, tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int rows = min(OUT_TOK, n - n0);
-  const long long row0 = static_cast<long long>(b) * n + n0;  // first token's row
-  const float* xb = x + row0 * c;
-  const int pr = tid >> 4, pc = tid & 15;  // row pr, columns pc + 16j
+// Dynamic shared memory of each backward kernel, in floats; the layouts are
+// spelled out in the kernels, and the wrapper's plan checks the same sums
+// (ops/kernels/fused_linear_attention.py: bwd_smem_bytes).
+__host__ __device__ constexpr long long bwd_tiles_floats(int m, int c) {
+  return 128LL * wo_ld(c) + 1LL * m * Q_LD + 1LL * m * x_ld(c);  // W_out, o / do, dout / dy
+}
+__host__ __device__ constexpr long long bwd_fused_floats(int m_tiles, int c) {
+  return CS_FLOATS +
+         max2(16LL * m_tiles * x_ld(c) + ring_floats(6, S_IN),
+              16LL * m_tiles * QKV_LD + bwd_tiles_floats(16 * m_tiles, c)) +
+         BWD_RED * 16LL * m_tiles;
+}
+__host__ __device__ constexpr long long bwd_rows_floats(int m_tiles, int c) {
+  return CS_FLOATS +
+         max2(16LL * m_tiles * x_ld(c) + ring_floats(2, S_IN),
+              16LL * m_tiles * Q_LD + bwd_tiles_floats(16 * m_tiles, c)) +
+         BWD_RED * 16LL * m_tiles;
+}
+__host__ __device__ constexpr long long bwd_kv_floats(int m_tiles, int c) {
+  return 2LL * CS_FLOATS + 3 * HIDDEN +
+         max2(16LL * m_tiles * x_ld(c) + ring_floats(4, S_IN), 16LL * m_tiles * KV_LD);
+}
 
-  const float* ctx_b = ctx + static_cast<long long>(b) * HEADS * DH * DH;
-  for (int i = tid; i < HEADS * DH * DH; i += THREADS) {
-    const int row = i / DH, e = i - row * DH;
-    cs[row * CS + e] = ctx_b[i];
-  }
-
-  // q = x W_q, as the forward's output pass
-  float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  for (int c0 = 0; c0 < c; c0 += KC) {
-    const int kc = min(KC, c - c0);
-    for (int i = tid; i < OUT_TOK * KC; i += THREADS) {
-      const int r = i / KC, k = i - r * KC;
-      xs[r * (KC + 1) + k] = (r < rows && k < kc) ? xb[static_cast<long long>(r) * c + c0 + k] : 0.f;
-    }
-    for (int i = tid; i < KC * HIDDEN; i += THREADS) {
-      const int k = i / HIDDEN, j = i - k * HIDDEN;
-      wbuf[i] = k < kc ? wqkv[static_cast<long long>(c0 + k) * 3 * HIDDEN + j] : 0.f;
-    }
-    __syncthreads();
-    for (int k = 0; k < kc; ++k) {
-      const float xv = xs[pr * (KC + 1) + k];
+// acc += A B on the tensor cores in 3xTF32, B resident in shared memory:
+// B[k][n] = Bs[k ldb + n], or, TRANS, Bs[n ldb + k] (a matrix stored
+// [n][k], read as stored). A: 16 MT rows (row stride lda) over k in
+// [0, k8), k8 a multiple of 8, zero where A or B has no entry. Warp w owns
+// columns [8 NT w, 8 NT (w + 1)), fragments as gemm_3xtf32's.
+template <int MT, int NT, bool TRANS>
+__device__ void gemm_smem_3xtf32(float (&acc)[MT][NT][4], const float* As, int lda,
+                                 const float* Bs, int ldb, int k8) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int n0 = warp * 8 * NT + gq;
+  for (int kk = 0; kk < k8; kk += 8) {
+    unsigned ah[MT][4], al[MT][4];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[j] = fmaf(xv, wbuf[k * HIDDEN + pc + 16 * j], acc[j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int j = 0; j < 8; ++j) qs[pr * QS + pc + 16 * j] = acc[j];
-  __syncthreads();
-
-  for (int p = warp; p < OUT_TOK * HEADS; p += THREADS / 32) {
-    float* q = qs + (p / HEADS) * QS + (p % HEADS) * DH;
-    const float v = q[lane];
-    const float e = expf(v - warp_max(v));
-    q[lane] = e / warp_sum(e) * Q_SCALE;
-  }
-  __syncthreads();
-
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int col = pc + 16 * j, h = col / DH, e = col - h * DH;
-    const float* q = qs + pr * QS + h * DH;
-    const float* cc = cs + h * DH * CS + e;
-    float a = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < DH; ++d) a = fmaf(q[d], cc[d * CS], a);
-    os[pr * QS + col] = a;
-  }
-  __syncthreads();
-
-  // y = o W_out + b
-  for (int c0 = 0; c0 < c; c0 += WO_COLS) {
-    const int wc = min(WO_COLS, c - c0);
-    for (int i = tid; i < HIDDEN * WO_COLS; i += THREADS) {
-      const int k = i / WO_COLS, j = i - k * WO_COLS;
-      wbuf[i] = j < wc ? wout[static_cast<long long>(k) * c + c0 + j] : 0.f;
-    }
-    __syncthreads();
-    float a[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int k = 0; k < HIDDEN; ++k) {
-      const float ov = os[pr * QS + k];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) a[j] = fmaf(ov, wbuf[k * WO_COLS + pc + 16 * j], a[j]);
+    for (int mt = 0; mt < MT; ++mt) {
+      const float* a = As + (mt * 16 + gq) * lda + kk + tq;
+      split_tf32(a[0], ah[mt][0], al[mt][0]);
+      split_tf32(a[8 * lda], ah[mt][1], al[mt][1]);
+      split_tf32(a[4], ah[mt][2], al[mt][2]);
+      split_tf32(a[8 * lda + 4], ah[mt][3], al[mt][3]);
     }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = pc + 16 * j;
-      if (col < wc) ys[pr * c + c0 + col] = a[j] + bout[c0 + col];
-    }
-    __syncthreads();
-  }
-
-  // o goes out for dW_out = o^T dy
-  for (int i = tid; i < rows * HIDDEN; i += THREADS) {
-    const int r = i / HIDDEN, k = i - r * HIDDEN;
-    o_out[(row0 + r) * HIDDEN + k] = os[r * QS + k];
-  }
-
-  // LayerNorm backward, one warp per token: with yhat = (y - mean) rstd and
-  // dh = dOut g, dy = rstd (dh - mean(dh) - yhat mean(dh yhat))
-  for (int r = warp; r < OUT_TOK; r += THREADS / 32) {
-    float* row = ys + r * c;
-    float* grow = gs + r * c;
-    if (r >= rows) {
-      for (int k = lane; k < c; k += 32) row[k] = grow[k] = 0.f;
-      continue;
-    }
-    const float* drow = dout + (row0 + r) * c;
-    float s = 0.f;
-    for (int k = lane; k < c; k += 32) s += row[k];
-    const float mean = warp_sum(s) / static_cast<float>(c);
-    float ss = 0.f;
-    for (int k = lane; k < c; k += 32) {
-      const float d = row[k] - mean;
-      ss = fmaf(d, d, ss);
-    }
-    const float rstd = rsqrtf(warp_sum(ss) / static_cast<float>(c) + LN_EPS);
-    float s1 = 0.f, s2 = 0.f;
-    for (int k = lane; k < c; k += 32) {
-      const float yhat = (row[k] - mean) * rstd;
-      const float dh = drow[k] * g[k];
-      s1 += dh;
-      s2 = fmaf(dh, yhat, s2);
-    }
-    const float m1 = warp_sum(s1) / static_cast<float>(c);
-    const float m2 = warp_sum(s2) / static_cast<float>(c);
-    for (int k = lane; k < c; k += 32) {
-      const float yhat = (row[k] - mean) * rstd;
-      const float dv = drow[k];
-      const float dyv = rstd * (dv * g[k] - m1 - yhat * m2);
-      grow[k] = dv * yhat;
-      row[k] = dyv;
-      dy_out[(row0 + r) * c + k] = dyv;
-    }
-  }
-  __syncthreads();
-
-  // the tile's share of dg, summed over its rows in order
-  float* dgp = dg_part + (static_cast<long long>(b) * gridDim.x + blk) * c;
-  for (int k = tid; k < c; k += THREADS) {
-    float a = 0.f;
-    for (int r = 0; r < OUT_TOK; ++r) a += gs[r * c + k];
-    dgp[k] = a;
-  }
-
-  // do = dy W_out^T, W_out staged [HIDDEN][WO_COLS + 1] (odd stride: each
-  // thread walks a row of it)
-  float dacc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  for (int c0 = 0; c0 < c; c0 += WO_COLS) {
-    const int wc = min(WO_COLS, c - c0);
-    for (int i = tid; i < HIDDEN * WO_COLS; i += THREADS) {
-      const int k = i / WO_COLS, j = i - k * WO_COLS;
-      wbuf[k * (WO_COLS + 1) + j] = j < wc ? wout[static_cast<long long>(k) * c + c0 + j] : 0.f;
-    }
-    __syncthreads();
-    const float* dyr = ys + pr * c + c0;
-    for (int j2 = 0; j2 < wc; ++j2) {
-      const float dv = dyr[j2];
+    for (int nt = 0; nt < NT; ++nt) {
+      const int col = n0 + nt * 8;
+      unsigned bh[2], bl[2];
+      split_tf32(TRANS ? Bs[col * ldb + kk + tq] : Bs[(kk + tq) * ldb + col], bh[0], bl[0]);
+      split_tf32(TRANS ? Bs[col * ldb + kk + tq + 4] : Bs[(kk + tq + 4) * ldb + col], bh[1],
+                 bl[1]);
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
-        dacc[j] = fmaf(dv, wbuf[(pc + 16 * j) * (WO_COLS + 1) + j2], dacc[j]);
+      for (int mt = 0; mt < MT; ++mt) {
+        mma_tf32(acc[mt][nt], al[mt], bh);
+        mma_tf32(acc[mt][nt], ah[mt], bl);
+        mma_tf32(acc[mt][nt], ah[mt], bh);
+      }
     }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int j = 0; j < 8; ++j) os[pr * QS + pc + 16 * j] = dacc[j];
-  __syncthreads();
-
-  // dq_h[n, d] = sum_e do_h[n, e] ctx_h[d, e]  (the softmax output's gradient)
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int col = pc + 16 * j, h = col / DH;
-    const float* dov = os + pr * QS + h * DH;
-    const float* cc = cs + col * CS;
-    float a = 0.f;
-#pragma unroll 8
-    for (int e = 0; e < DH; ++e) a = fmaf(dov[e], cc[e], a);
-    ds[pr * QS + col] = a;
-  }
-  __syncthreads();
-
-  // per-head softmax backward; with qs = scale * p:
-  // dq_raw = qs (dq - sum_j p_j dq_j) = qs (dq - sum_j qs_j dq_j / scale)
-  for (int p = warp; p < rows * HEADS; p += THREADS / 32) {
-    const int r = p / HEADS, h = p % HEADS;
-    const float qv = qs[r * QS + h * DH + lane];
-    const float dv = ds[r * QS + h * DH + lane];
-    const float dot = warp_sum(qv * dv);
-    dqkv[(row0 + r) * 3 * HIDDEN + h * DH + lane] = qv * (dv - dot / Q_SCALE);
-  }
-
-  // the tile's share of dctx, entry i = (h, d, e)
-  float* dcp = dctx_part + (static_cast<long long>(b) * gridDim.x + blk) * HEADS * DH * DH;
-  for (int i = tid; i < HEADS * DH * DH; i += THREADS) {
-    const int h = i / (DH * DH), d = (i / DH) % DH, e = i % DH;
-    float a = 0.f;
-    for (int r = 0; r < rows; ++r)
-      a = fmaf(qs[r * QS + h * DH + d], os[r * QS + h * DH + e], a);
-    dcp[i] = a;
   }
 }
 
-// Head pass, grid (HEADS, B): reduces the tiles' dctx shares in order, then
-// walks the tokens in tiles of CTX_TOK, recomputes the head's k and v
-// columns and k's token softmax from the forward's maximum and sum, and
-// writes the k and v thirds of dqkv:
-//   dk_s[n, d] = sum_e (v[n, e] / N) dctx[d, e]
-//   dk[n, d]   = k_s[n, d] (dk_s[n, d] - S[d]),  S[d] = sum_n k_s[n, d] dk_s[n, d]
-//   dv[n, e]   = sum_d k_s[n, d] dctx[d, e] / N
-// S needs no pass of its own: S[d] = sum_e ctx[d, e] dctx[d, e], since
-// ctx[d, e] = sum_n k_s[n, d] v[n, e] / N.
-__global__ void __launch_bounds__(THREADS)
-fla_bwd_heads_kernel(const float* __restrict__ x, const float* __restrict__ wqkv,
-                     const float* __restrict__ ctx, const float* __restrict__ stats,
-                     const float* __restrict__ dctx_part, float* __restrict__ dqkv,
-                     int n, int c, int tiles) {
-  __shared__ float xs[CTX_TOK][KC + 1];
-  __shared__ float ws[KC][2 * DH];
-  __shared__ float kv[CTX_TOK][2 * DH + 1];  // k, then k_s; v, then v / N
-  __shared__ float dcs[DH][CS];
-  __shared__ float col_max[DH], col_sum[DH], s_col[DH];
+// The LayerNorm's backward on the out-projection's fragments (acc = o W_out,
+// bias not yet added) of a tile's 16 MT rows. db holds the cotangent dout
+// ([16 MT][ldd], zero past the valid rows and columns) and receives, in
+// place, dy = rstd (dh - mean(dh) - yhat mean(dh yhat)), with
+// yhat = (y - mean) rstd and dh = dout g (zero past C and, as dout is,
+// past the valid rows); the tile's column sums of dout yhat go to dg_g[c]
+// (each thread's rows in order, then the lanes of a column by shuffles: a
+// fixed order). red: BWD_RED x 16 MT floats.
+template <int MT, int NT>
+__device__ void layer_norm_bwd(float (&acc)[MT][NT][4], const float* __restrict__ bout,
+                               const float* __restrict__ g, float* db, int ldd,
+                               float* __restrict__ dg_g, int c, float* red) {
+  constexpr int M = 16 * MT;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  float* mean = red + FWD_WARPS * M;
+  float* var = mean + M;
+  float* m1 = var + M;
+  float* m2 = m1 + M;
+  add_bias(acc, bout, c);
+  row_moments(acc, c, red, mean, var);
+  float gv[NT][2];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int col = warp * 8 * NT + nt * 8 + 2 * tq + i;
+      gv[nt][i] = col < c ? g[col] : 0.f;
+    }
+  float p1[MT][2], p2[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = mt * 16 + gq + 8 * half;
+      const float m = mean[row], r = rsqrtf(var[row] + LN_EPS);
+      float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int col = warp * 8 * NT + nt * 8 + 2 * tq;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const bool ok = col + i < c;
+          const float yh = ok ? (acc[mt][nt][2 * half + i] - m) * r : 0.f;
+          acc[mt][nt][2 * half + i] = yh;
+          const float dh = ok ? db[row * ldd + col + i] * gv[nt][i] : 0.f;
+          s1 += dh;
+          s2 = fmaf(dh, yh, s2);
+        }
+      }
+      p1[mt][half] = s1;
+      p2[mt][half] = s2;
+    }
+  const float inv_c = 1.f / static_cast<float>(c);
+  row_sums<MT>(p1, red, m1, inv_c);
+  row_sums<MT>(p2, red, m2, inv_c);
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int col = warp * 8 * NT + nt * 8 + 2 * tq;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float dg = 0.f;
+      if (col + i < c) {
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int row = mt * 16 + gq + 8 * half;
+            float* d = db + row * ldd + col + i;
+            const float dv = *d, yh = acc[mt][nt][2 * half + i];
+            dg = fmaf(dv, yh, dg);
+            *d = rsqrtf(var[row] + LN_EPS) * (dv * gv[nt][i] - m1[row] - yh * m2[row]);
+          }
+      }
+      dg += __shfl_xor_sync(0xffffffffu, dg, 4);
+      dg += __shfl_xor_sync(0xffffffffu, dg, 8);
+      dg += __shfl_xor_sync(0xffffffffu, dg, 16);
+      if (gq == 0 && col + i < c) dg_g[col + i] = dg;
+    }
+  }
+}
 
-  const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
-  const float* xb = x + static_cast<long long>(b) * n * c;
-  const int pr = tid >> 3, pc = tid & 7;
-  const float inv_n = 1.f / static_cast<float>(n);
+// dq through the per-head softmax, for a tile's 16 MT rows: dqs = do ctx_h^T
+// on the fragments, then dq = q_s (dqs - sum_d q_s dqs / scale) (q_s: the
+// scaled softmax), the row sums over a head's 32 dims from the two warps
+// of the head through red[8][16 MT], added in warp order. Writes the rows
+// < rows_valid of dq into dqkv_g (row stride 384).
+template <int MT>
+__device__ void dq_store(const float* qs, int ldq, const float* dob, const float* cs, float* red,
+                         float* __restrict__ dqkv_g, int rows_valid) {
+  constexpr int M = 16 * MT;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  float acc[MT][2][4] = {};
+  head_mma<MT, true>(acc, dob, Q_LD, cs, CS_LD);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = mt * 16 + gq + 8 * half;
+      float s = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const float* q = qs + row * ldq + head_col(nt);
+        s = fmaf(q[0], acc[mt][nt][2 * half], s);
+        s = fmaf(q[1], acc[mt][nt][2 * half + 1], s);
+      }
+      s += __shfl_xor_sync(0xffffffffu, s, 1);
+      s += __shfl_xor_sync(0xffffffffu, s, 2);
+      if (tq == 0) red[warp * M + row] = s;
+    }
+  __syncthreads();
+  const int pair = warp & ~1;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = mt * 16 + gq + 8 * half;
+      if (row >= rows_valid) continue;
+      const float dot = (red[pair * M + row] + red[(pair + 1) * M + row]) / Q_SCALE;
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const float* q = qs + row * ldq + head_col(nt);
+        *reinterpret_cast<float2*>(dqkv_g + static_cast<long long>(row) * 3 * HIDDEN +
+                                   head_col(nt)) =
+            make_float2(q[0] * (acc[mt][nt][2 * half] - dot),
+                        q[1] * (acc[mt][nt][2 * half + 1] - dot));
+      }
+    }
+}
 
-  for (int i = tid; i < DH * DH; i += THREADS) {
-    const int d = i / DH, e = i - d * DH;
-    const float* part = dctx_part + static_cast<long long>(b) * tiles * HEADS * DH * DH
-                        + h * DH * DH + i;
-    float a = 0.f;
-    for (int t = 0; t < tiles; ++t) a += part[static_cast<long long>(t) * HEADS * DH * DH];
-    dcs[d][e] = a;
+// dk and dv of a tile's 16 MT rows from k_s and v_s = v / N (row stride
+// ld), the head's dctx [4][32][CS_LD] and S[h 32 + d] = sum_e ctx dctx:
+//   dk[n, d] = k_s[n, d] (sum_e v_s[n, e] dctx[d, e] - S[d])
+//   dv[n, e] = sum_d k_s[n, d] dctx[d, e] / N
+// into the k and v thirds of dqkv_g's rows < rows_valid.
+template <int MT>
+__device__ void dk_dv_store(const float* ks, const float* vs, int ld, const float* dcs,
+                            const float* s_col, float inv_n, float* __restrict__ dqkv_g,
+                            int rows_valid) {
+  const int gq = (threadIdx.x & 31) >> 2;
+  {
+    float acc[MT][2][4] = {};
+    head_mma<MT, true>(acc, vs, ld, dcs, CS_LD);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = mt * 16 + gq + 8 * half;
+        if (row >= rows_valid) continue;
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const int col = head_col(nt);
+          const float* k = ks + row * ld + col;
+          *reinterpret_cast<float2*>(dqkv_g + static_cast<long long>(row) * 3 * HIDDEN + HIDDEN +
+                                     col) =
+              make_float2(k[0] * (acc[mt][nt][2 * half] - s_col[col]),
+                          k[1] * (acc[mt][nt][2 * half + 1] - s_col[col + 1]));
+        }
+      }
+  }
+  float acc[MT][2][4] = {};
+  head_mma<MT, false>(acc, ks, ld, dcs, CS_LD);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = mt * 16 + gq + 8 * half;
+      if (row >= rows_valid) continue;
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+        *reinterpret_cast<float2*>(dqkv_g + static_cast<long long>(row) * 3 * HIDDEN +
+                                   2 * HIDDEN + head_col(nt)) =
+            make_float2(acc[mt][nt][2 * half] * inv_n, acc[mt][nt][2 * half + 1] * inv_n);
+    }
+}
+
+// rows x cols of a shared-memory tile (row stride lds, a multiple of 4) to
+// device memory (row stride cols): 16-byte stores where cols is a multiple
+// of 4 and dst 16-byte aligned, else 4-byte ones.
+__device__ void store_rows(float* __restrict__ dst, const float* src, int lds, int rows,
+                           int cols) {
+  if ((cols & 3) == 0 && aligned16(dst)) {
+    const int c4 = cols >> 2;
+    for (int i = threadIdx.x; i < rows * c4; i += FWD_THREADS) {
+      const int r = i / c4, q = (i - r * c4) * 4;
+      *reinterpret_cast<float4*>(dst + static_cast<long long>(r) * cols + q) =
+          *reinterpret_cast<const float4*>(src + r * lds + q);
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * cols; i += FWD_THREADS) {
+      const int r = i / cols, q = i - r * cols;
+      dst[static_cast<long long>(r) * cols + q] = src[r * lds + q];
+    }
+  }
+}
+
+// The part of the backward that a tile's rows take on their own, after the
+// q projection and its softmax (q_s in qs, row stride ldq; the contexts in
+// cs; W_out and the cotangent tile on their way to wo and db by cp.async):
+// o = q_s ctx (to ob and o_g), y = o W_out + b, the LayerNorm backward (dy
+// to db and dy_g, the tile's dg to dg_g), do = dy W_out^T (to ob) and dq
+// (to dqkv_g). Global pointers are at the tile's first row; ends with a
+// barrier.
+template <int MT, int NTO>
+__device__ void bwd_rows_tile(const float* qs, int ldq, const float* cs, const float* wo,
+                              float* ob, float* db, float* red, const float* __restrict__ bout,
+                              const float* __restrict__ g, float* __restrict__ o_g,
+                              float* __restrict__ dy_g, float* __restrict__ dg_g,
+                              float* __restrict__ dqkv_g, int rows, int c) {
+  const int lda = x_ld(c), ldw = wo_ld(c);
+  q_ctx_mma<MT>(qs, ldq, cs, ob, Q_LD);
+  __syncthreads();
+  store_rows(o_g, ob, Q_LD, rows, HIDDEN);
+  cp_async_wait<0>();  // W_out and the cotangent
+  __syncthreads();
+  BWD_STAMP(3);
+  {
+    float acc[MT][NTO][4];
+    zero_acc(acc);
+    gemm_smem_3xtf32<MT, NTO, false>(acc, ob, Q_LD, wo, ldw, HIDDEN);
+    BWD_STAMP(4);
+    layer_norm_bwd(acc, bout, g, db, lda, dg_g, c, red);
   }
   __syncthreads();
-  if (tid < DH) {
-    const float* st = stats + (static_cast<long long>(b) * HEADS + h) * 2 * DH;
-    col_max[tid] = st[tid];
-    col_sum[tid] = st[DH + tid];
-    const float* cr = ctx + ((static_cast<long long>(b) * HEADS + h) * DH + tid) * DH;
+  store_rows(dy_g, db, lda, rows, c);
+  BWD_STAMP(5);
+  {
+    float acc[MT][2][4];
+    zero_acc(acc);
+    gemm_smem_3xtf32<MT, 2, true>(acc, db, lda, wo, ldw, round_up(c, 8));
+    store_acc(acc, ob, Q_LD);
+  }
+  __syncthreads();
+  BWD_STAMP(6);
+  dq_store<MT>(qs, ldq, ob, cs, red, dqkv_g, rows);
+  __syncthreads();
+  BWD_STAMP(7);
+}
+
+// Start the cp.async copies of W_out (whole) and of a tile's cotangent,
+// zero past C and past the valid rows; committed as one group.
+__device__ void stage_wout_dout(float* wo, float* db, const float* wout, const float* dout,
+                                int rows, int m, int c, bool vec) {
+  stage_tile(wo, wo_ld(c), wout, c, HIDDEN, wo_ld(c) - 8, HIDDEN, c, vec);
+  stage_tile(db, x_ld(c), dout, c, m, round_up(c, KCH), rows, c, vec);
+  cp_async_commit();
+}
+
+// Fused backward, N <= 64 (the plan takes it up to 32): one block takes one
+// batch row (N tokens padded to 16 MT rows). Shared memory, in floats: the
+// contexts [4][32][CS_LD]; then the x tile [16 MT][x_ld(C)] and the W_qkv
+// ring, over which come qkv [16 MT][QKV_LD] (q_s | k_s | v_s), W_out
+// [128][wo_ld(C)] (later dctx), o / do [16 MT][Q_LD] and dout / dy
+// [16 MT][x_ld(C)]; last red.
+template <int MT, int NTO>
+__global__ void __launch_bounds__(FWD_THREADS, 1)
+fla_bwd_fused_kernel(const float* __restrict__ x, const float* __restrict__ wqkv,
+                     const float* __restrict__ wout, const float* __restrict__ bout,
+                     const float* __restrict__ g, const float* __restrict__ ctx,
+                     const float* __restrict__ stats, const float* __restrict__ dout,
+                     float* __restrict__ o_g, float* __restrict__ dy_g,
+                     float* __restrict__ dqkv, float* __restrict__ dg_part, int n, int c,
+                     int vec) {
+  constexpr int M = 16 * MT;
+  extern __shared__ __align__(16) float smem[];
+  const int lda = x_ld(c);
+  float* cs = smem;
+  float* xs = cs + CS_FLOATS;
+  float* ring = xs + M * lda;
+  float* qkv = cs + CS_FLOATS;
+  float* wo = qkv + M * QKV_LD;
+  float* ob = wo + HIDDEN * wo_ld(c);
+  float* db = ob + M * Q_LD;
+  float* red = smem + bwd_fused_floats(MT, c) - BWD_RED * M;
+  const int b = blockIdx.x, tid = threadIdx.x;
+  const long long row0 = static_cast<long long>(b) * n;
+
+  // 1. x W_qkv: q, k and v in one product; the contexts arrive with x
+  BWD_STAMP(0);
+  stage_tile(cs, CS_LD, ctx + static_cast<long long>(b) * HEADS * DH * DH, DH, HIDDEN, DH,
+             HIDDEN, DH, true);
+  stage_tile(xs, lda, x + row0 * c, c, M, round_up(c, KCH), n, c, vec);
+  cp_async_commit();
+  {
+    const Operand w_qkv{wqkv, 3 * HIDDEN, 0, 3 * HIDDEN, c, vec != 0};
+    gemm_prologue<6, S_IN>(w_qkv, ring);
+    float acc[MT][6][4];
+    zero_acc(acc);
+    gemm_3xtf32<MT, 6, S_IN>(acc, xs, lda, w_qkv, ring);
+    store_acc(acc, qkv, QKV_LD);
+  }
+  stage_wout_dout(wo, db, wout, dout + row0 * c, n, M, c, vec != 0);
+  __syncthreads();
+  BWD_STAMP(1);
+
+  // 2. q's softmax; k_s = exp(k - m) / s from the forward's statistics;
+  //    v_s = v / N
+  q_softmax(qkv, QKV_LD, n);
+  const float inv_n = 1.f / static_cast<float>(n);
+  {
+    const int col = tid & (HIDDEN - 1);
+    const float* st = stats + (static_cast<long long>(b) * HEADS + (col >> 5)) * 2 * DH + (col & 31);
+    const float m = st[0], inv_s = 1.f / st[DH];
+    for (int r = tid >> 7; r < M; r += FWD_THREADS / HIDDEN) {
+      float* kr = qkv + r * QKV_LD + HIDDEN + col;
+      kr[0] = expf(kr[0] - m) * inv_s;
+      kr[HIDDEN] *= inv_n;
+    }
+  }
+  __syncthreads();
+  BWD_STAMP(2);
+
+  // 3. o, y, the LayerNorm backward, do, dq
+  bwd_rows_tile<MT, NTO>(qkv, QKV_LD, cs, wo, ob, db, red, bout, g, o_g + row0 * HIDDEN,
+                         dy_g + row0 * c, dg_part + static_cast<long long>(b) * c,
+                         dqkv + row0 * 3 * HIDDEN, n, c);
+
+  // 4. dctx[h] = q_s,h^T do_h over all the row's tokens, over W_out's space
+  float* dcs = wo;
+  ctx_mma(qkv, QKV_LD, ob, Q_LD, round_up(n, 8), [&](int h, int d, int e, float c0, float c1) {
+    *reinterpret_cast<float2*>(dcs + (h * DH + d) * CS_LD + e) = make_float2(c0, c1);
+  });
+  __syncthreads();
+  BWD_STAMP(8);
+
+  // 5. S = sum_e ctx dctx, then dk and dv
+  float* s_col = red;
+  if (tid < HIDDEN) {
     float a = 0.f;
-    for (int e = 0; e < DH; ++e) a = fmaf(cr[e], dcs[tid][e], a);
+    for (int e = 0; e < DH; ++e) a = fmaf(cs[tid * CS_LD + e], dcs[tid * CS_LD + e], a);
     s_col[tid] = a;
   }
   __syncthreads();
-
-  for (int n0 = 0; n0 < n; n0 += CTX_TOK) {
-    const int rows = min(CTX_TOK, n - n0);
-    float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    for (int c0 = 0; c0 < c; c0 += KC) {
-      const int kc = min(KC, c - c0);
-      for (int i = tid; i < CTX_TOK * KC; i += THREADS) {
-        const int r = i / KC, k = i - r * KC;
-        xs[r][k] = (r < rows && k < kc) ? xb[static_cast<long long>(n0 + r) * c + c0 + k] : 0.f;
-      }
-      for (int i = tid; i < KC * 2 * DH; i += THREADS) {
-        const int k = i / (2 * DH), j = i - k * 2 * DH;
-        const int col = (j < DH ? HIDDEN : 2 * HIDDEN - DH) + h * DH + j;
-        ws[k][j] = k < kc ? wqkv[static_cast<long long>(c0 + k) * 3 * HIDDEN + col] : 0.f;
-      }
-      __syncthreads();
-      for (int k = 0; k < kc; ++k) {
-        const float xv = xs[pr][k];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[j] = fmaf(xv, ws[k][pc + 8 * j], acc[j]);
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = pc + 8 * j;
-      kv[pr][col] = col < DH ? expf(acc[j] - col_max[col]) / col_sum[col] : acc[j] * inv_n;
-    }
-    __syncthreads();
-
-    float* out = dqkv + (static_cast<long long>(b) * n + n0 + pr) * 3 * HIDDEN + h * DH;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = pc + 8 * j;  // d for dk, e for dv
-      float dks = 0.f, dvs = 0.f;
-#pragma unroll 8
-      for (int u = 0; u < DH; ++u) {
-        dks = fmaf(kv[pr][DH + u], dcs[col][u], dks);
-        dvs = fmaf(kv[pr][u], dcs[u][col], dvs);
-      }
-      if (pr < rows) {
-        out[HIDDEN + col] = kv[pr][col] * (dks - s_col[col]);
-        out[2 * HIDDEN + col] = dvs * inv_n;
-      }
-    }
-    __syncthreads();  // the next tile overwrites kv
-  }
+  dk_dv_store<MT>(qkv + HIDDEN, qkv + 2 * HIDDEN, QKV_LD, dcs, s_col, inv_n,
+                  dqkv + row0 * 3 * HIDDEN, n);
+  BWD_STAMP(9);
 }
 
-long long bwd_smem_bytes(int c) {
-  return 4LL * (BWD_FIXED_FLOATS + 2LL * OUT_TOK * c);
+// Split backward, row pass: grid (tiles of 16 MT tokens, B). As the fused
+// kernel up to dq, with q alone projected (x W_q); the tile's dctx partial
+// q_s^T do goes to dctx_part[b][tile] ([4][32][32]) and its dg partial to
+// dg_part[b tiles + tile]. Shared memory: the contexts; the x tile and the
+// W_q ring, over which come q_s [16 MT][Q_LD], W_out, o / do and dout / dy;
+// red.
+template <int MT, int NTO>
+__global__ void __launch_bounds__(FWD_THREADS, 1)
+fla_bwd_rows_kernel(const float* __restrict__ x, const float* __restrict__ wqkv,
+                    const float* __restrict__ wout, const float* __restrict__ bout,
+                    const float* __restrict__ g, const float* __restrict__ ctx,
+                    const float* __restrict__ dout, float* __restrict__ o_g,
+                    float* __restrict__ dy_g, float* __restrict__ dqkv,
+                    float* __restrict__ dg_part, float* __restrict__ dctx_part, int n, int c,
+                    int vec) {
+  constexpr int M = 16 * MT;
+  extern __shared__ __align__(16) float smem[];
+  const int lda = x_ld(c);
+  float* cs = smem;
+  float* xs = cs + CS_FLOATS;
+  float* ring = xs + M * lda;
+  float* qs = cs + CS_FLOATS;
+  float* wo = qs + M * Q_LD;
+  float* ob = wo + HIDDEN * wo_ld(c);
+  float* db = ob + M * Q_LD;
+  float* red = smem + bwd_rows_floats(MT, c) - BWD_RED * M;
+  const int tile = blockIdx.x, b = blockIdx.y;
+  const int n0 = tile * M, rows = min(M, n - n0);
+  const long long row0 = static_cast<long long>(b) * n + n0;
+
+  BWD_STAMP(0);
+  stage_tile(cs, CS_LD, ctx + static_cast<long long>(b) * HEADS * DH * DH, DH, HIDDEN, DH,
+             HIDDEN, DH, true);
+  stage_tile(xs, lda, x + row0 * c, c, M, round_up(c, KCH), rows, c, vec);
+  cp_async_commit();
+  {
+    const Operand w_q{wqkv, 3 * HIDDEN, 0, HIDDEN, c, vec != 0};
+    gemm_prologue<2, S_IN>(w_q, ring);
+    float acc[MT][2][4];
+    zero_acc(acc);
+    gemm_3xtf32<MT, 2, S_IN>(acc, xs, lda, w_q, ring);
+    store_acc(acc, qs, Q_LD);
+  }
+  stage_wout_dout(wo, db, wout, dout + row0 * c, rows, M, c, vec != 0);
+  __syncthreads();
+  BWD_STAMP(1);
+  q_softmax(qs, Q_LD, M);
+  __syncthreads();
+  BWD_STAMP(2);
+
+  const long long part = static_cast<long long>(b) * gridDim.x + tile;
+  bwd_rows_tile<MT, NTO>(qs, Q_LD, cs, wo, ob, db, red, bout, g, o_g + row0 * HIDDEN,
+                         dy_g + row0 * c, dg_part + part * c, dqkv + row0 * 3 * HIDDEN, rows, c);
+  float* pt = dctx_part + part * HEADS * DH * DH;
+  ctx_mma(qs, Q_LD, ob, Q_LD, round_up(rows, 8), [&](int h, int d, int e, float c0, float c1) {
+    *reinterpret_cast<float2*>(pt + (h * DH + d) * DH + e) = make_float2(c0, c1);
+  });
+  BWD_STAMP(8);
+}
+
+// Split backward, k/v pass: grid (tiles of 16 MT tokens, B). Each block sums
+// its batch row's dctx partials in tile order, forms S = sum_e ctx dctx,
+// projects its tokens onto k and v (all four heads, one product), forms
+// k_s from the forward's statistics and v_s = v / N, and writes dk and dv.
+// Shared memory: the contexts, dctx, S and the statistics [3][128]; then the
+// x tile and the W_kv ring, over which comes kv [16 MT][KV_LD].
+template <int MT>
+__global__ void __launch_bounds__(FWD_THREADS, 1)
+fla_bwd_kv_kernel(const float* __restrict__ x, const float* __restrict__ wqkv,
+                  const float* __restrict__ ctx, const float* __restrict__ stats,
+                  const float* __restrict__ dctx_part, float* __restrict__ dqkv, int n, int c,
+                  int vec) {
+  constexpr int M = 16 * MT;
+  extern __shared__ __align__(16) float smem[];
+  const int lda = x_ld(c);
+  float* cs = smem;
+  float* dcs = cs + CS_FLOATS;
+  float* s_col = dcs + CS_FLOATS;
+  float* col_max = s_col + HIDDEN;
+  float* col_inv = col_max + HIDDEN;
+  float* xs = col_inv + HIDDEN;
+  float* ring = xs + M * lda;
+  float* kv = xs;
+  const int tile = blockIdx.x, b = blockIdx.y, tid = threadIdx.x, tiles = gridDim.x;
+  const int n0 = tile * M, rows = min(M, n - n0);
+  const long long row0 = static_cast<long long>(b) * n + n0;
+
+  BWD_STAMP(10);
+  stage_tile(cs, CS_LD, ctx + static_cast<long long>(b) * HEADS * DH * DH, DH, HIDDEN, DH,
+             HIDDEN, DH, true);
+  stage_tile(xs, lda, x + row0 * c, c, M, round_up(c, KCH), rows, c, vec);
+  cp_async_commit();
+  const Operand w_kv{wqkv, 3 * HIDDEN, HIDDEN, 2 * HIDDEN, c, vec != 0};
+  gemm_prologue<4, S_IN>(w_kv, ring);
+
+  // dctx: thread (h d = tid / 2) sums 16 of its row's 32 entries over the tiles
+  {
+    const int hd = tid >> 1, e0 = (tid & 1) * 16;
+    const float* pb = dctx_part + static_cast<long long>(b) * tiles * HEADS * DH * DH + hd * DH + e0;
+    float a[16];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) a[j] = 0.f;
+#pragma unroll 4
+    for (int t = 0; t < tiles; ++t) {
+      const float4* pc = reinterpret_cast<const float4*>(pb + static_cast<long long>(t) * HEADS * DH * DH);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float4 v = pc[j];
+        a[4 * j] += v.x;
+        a[4 * j + 1] += v.y;
+        a[4 * j + 2] += v.z;
+        a[4 * j + 3] += v.w;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 16; ++j) dcs[hd * CS_LD + e0 + j] = a[j];
+    if (tid < HIDDEN) {
+      const float* st = stats + (static_cast<long long>(b) * HEADS + (tid >> 5)) * 2 * DH + (tid & 31);
+      col_max[tid] = st[0];
+      col_inv[tid] = 1.f / st[DH];
+    }
+  }
+
+  BWD_STAMP(11);
+  float acc[MT][4][4];
+  zero_acc(acc);
+  gemm_3xtf32<MT, 4, S_IN>(acc, xs, lda, w_kv, ring);  // also waits for the contexts
+  store_acc(acc, kv, KV_LD);
+  if (tid < HIDDEN) {
+    float a = 0.f;
+    for (int e = 0; e < DH; ++e) a = fmaf(cs[tid * CS_LD + e], dcs[tid * CS_LD + e], a);
+    s_col[tid] = a;
+  }
+  __syncthreads();
+  BWD_STAMP(12);
+  const float inv_n = 1.f / static_cast<float>(n);
+  {
+    const int col = tid & (HIDDEN - 1);
+    const float m = col_max[col], inv_s = col_inv[col];
+    for (int r = tid >> 7; r < M; r += FWD_THREADS / HIDDEN) {
+      float* kr = kv + r * KV_LD + col;
+      kr[0] = expf(kr[0] - m) * inv_s;
+      kr[HIDDEN] *= inv_n;
+    }
+  }
+  __syncthreads();
+  BWD_STAMP(13);
+  dk_dv_store<MT>(kv, kv + HIDDEN, KV_LD, dcs, s_col, inv_n, dqkv + row0 * 3 * HIDDEN, rows);
+  BWD_STAMP(14);
+}
+
+// Dynamic shared memory of the backward for a plan, in bytes (the larger of
+// the split path's two kernels); -1 where no plan exists.
+long long bwd_plan_smem(int fused, int m_tiles, int c) {
+  if (c <= 0 || c > 256) return -1;
+  if (fused) return (m_tiles < 1 || m_tiles > 2) ? -1 : 4 * bwd_fused_floats(m_tiles, c);
+  if (m_tiles != 2 && m_tiles != 4) return -1;
+  return 4 * max2(bwd_rows_floats(m_tiles, c), bwd_kv_floats(m_tiles, c));
 }
 
 // The shared-memory allowance above 48 KB is raised once per device and
@@ -1169,7 +1495,60 @@ cudaError_t launch_out_pass(const float* x, const float* wqkv, const float* wout
   return cudaGetLastError();
 }
 
-bool aligned16(const void* p) { return (reinterpret_cast<unsigned long long>(p) & 15ULL) == 0; }
+struct BwdArgs {
+  const float *x, *wqkv, *wout, *bout, *g, *ctx, *stats, *dout;
+  float *o, *dy, *dqkv, *dg_part, *dctx_part;
+  int batch, n, c, vec;
+};
+
+// The smallest C that takes NTO out-projection n-tiles: a kernel whose layout
+// does not fit even there is never launched, and not compiled.
+__host__ __device__ constexpr int least_c(int nto) { return nto == 1 ? 1 : 32 * nto + 1; }
+
+template <int MT, int NTO>
+cudaError_t launch_bwd_fused(const BwdArgs& a, long long smem, cudaStream_t s) {
+  if constexpr (4 * bwd_fused_floats(MT, least_c(NTO)) > MAX_SMEM_BYTES) {
+    return cudaErrorInvalidValue;
+  } else {
+    static long long granted[MAX_DEVICES] = {};
+    cudaError_t err = grant_smem(fla_bwd_fused_kernel<MT, NTO>, smem, granted);
+    if (err != cudaSuccess) return err;
+    fla_bwd_fused_kernel<MT, NTO><<<a.batch, FWD_THREADS, static_cast<size_t>(smem), s>>>(
+        a.x, a.wqkv, a.wout, a.bout, a.g, a.ctx, a.stats, a.dout, a.o, a.dy, a.dqkv, a.dg_part,
+        a.n, a.c, a.vec);
+    return cudaGetLastError();
+  }
+}
+
+template <int MT, int NTO>
+cudaError_t launch_bwd_split(const BwdArgs& a, cudaStream_t s) {
+  if constexpr (4 * bwd_rows_floats(MT, least_c(NTO)) > MAX_SMEM_BYTES) {
+    return cudaErrorInvalidValue;
+  } else {
+    static long long granted_rows[MAX_DEVICES] = {}, granted_kv[MAX_DEVICES] = {};
+    const long long rows_smem = 4 * bwd_rows_floats(MT, a.c);
+    const long long kv_smem = 4 * bwd_kv_floats(MT, a.c);
+    cudaError_t err = grant_smem(fla_bwd_rows_kernel<MT, NTO>, rows_smem, granted_rows);
+    if (err == cudaSuccess) err = grant_smem(fla_bwd_kv_kernel<MT>, kv_smem, granted_kv);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((a.n + 16 * MT - 1) / (16 * MT), a.batch);
+    fla_bwd_rows_kernel<MT, NTO><<<grid, FWD_THREADS, static_cast<size_t>(rows_smem), s>>>(
+        a.x, a.wqkv, a.wout, a.bout, a.g, a.ctx, a.dout, a.o, a.dy, a.dqkv, a.dg_part,
+        a.dctx_part, a.n, a.c, a.vec);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    fla_bwd_kv_kernel<MT><<<grid, FWD_THREADS, static_cast<size_t>(kv_smem), s>>>(
+        a.x, a.wqkv, a.ctx, a.stats, a.dctx_part, a.dqkv, a.n, a.c, a.vec);
+    return cudaGetLastError();
+  }
+}
+
+template <int NTO>
+cudaError_t launch_bwd(const BwdArgs& a, int fused, int m_tiles, long long smem,
+                       cudaStream_t s) {
+  if (!fused) return m_tiles == 2 ? launch_bwd_split<2, NTO>(a, s) : launch_bwd_split<4, NTO>(a, s);
+  return m_tiles == 1 ? launch_bwd_fused<1, NTO>(a, smem, s) : launch_bwd_fused<2, NTO>(a, smem, s);
+}
 
 }  // namespace
 
@@ -1188,12 +1567,12 @@ long long fused_linear_attention_plan_smem(int fused, int m_tiles, int c) {
   return 4 * (a > b ? a : b);
 }
 
-// The same for the backward's row pass.
-long long fused_linear_attention_bwd_smem_bytes(int c) { return bwd_smem_bytes(c); }
-
-// Tokens per block of the backward's row pass: the wrapper sizes the
-// per-tile partial sums with it.
-int fused_linear_attention_bwd_tile() { return OUT_TOK; }
+// The same for the backward (the larger of its two kernels' on the split
+// path); -1 where no plan exists (C > 256, m_tiles other than 1 or 2 fused,
+// other than 2 or 4 split).
+long long fused_linear_attention_bwd_smem_bytes(int fused, int m_tiles, int c) {
+  return bwd_plan_smem(fused, m_tiles, c);
+}
 
 // x [B, N, C], w_qkv [C, 384], w_out [128, C], b_out [C], g [C] -> y [B, N, C];
 // ctx [B, 4, 32, 32] and stats [B, 4, 2, 32] (the k softmax's maximum and
@@ -1252,29 +1631,39 @@ int fused_linear_attention_f32(const float* x, const float* wqkv, const float* w
 
 // The backward pass up to the plain products: from the forward's inputs, its
 // ctx and stats and the cotangent dout [B, N, C], writes o [B, N, 128],
-// dy [B, N, C] (the out-projection's output gradient), dqkv [B, N, 384],
-// and the per-tile partial sums dg_part [B, tiles, C] and
-// dctx_part [B, tiles, 4, 32, 32], tiles = ceil(N / 16). The wrapper forms
-// dx, dW_qkv, dW_out, db_out and dg from them.
+// dy [B, N, C] (the out-projection's output gradient), dqkv [B, N, 384] and
+// the per-tile column sums dg_part [B, tiles, C] of dout yhat; the wrapper
+// forms dx, dW_qkv, dW_out, db_out and dg from them. The plan: fused (one
+// batch row a block, m_tiles 1 or 2, N <= 16 m_tiles, tiles = 1) or split
+// (tiles of 16 m_tiles tokens, m_tiles 2 or 4; dctx_part: scratch of
+// [B, tiles, 4, 32, 32] floats). vec: C a multiple of 4 and x, w_qkv, w_out,
+// dout 16-byte aligned (16-byte copies). ctx, o and dctx_part must be
+// 16-byte aligned, dqkv 8-byte. A plan or operand that does not hold is
+// refused with cudaErrorInvalidValue before anything is launched.
 int fused_linear_attention_bwd_f32(const float* x, const float* wqkv, const float* wout,
                                    const float* bout, const float* g, const float* ctx,
                                    const float* stats, const float* dout, float* o,
                                    float* dy, float* dqkv, float* dg_part, float* dctx_part,
-                                   int batch, int n, int c, void* stream) {
+                                   int batch, int n, int c, int fused, int m_tiles, int vec,
+                                   void* stream) {
   if (batch <= 0 || n <= 0 || c <= 0) return static_cast<int>(cudaSuccess);
-  static long long smem_granted[MAX_DEVICES] = {};
-  const long long smem = bwd_smem_bytes(c);
-  cudaError_t err = grant_smem(fla_bwd_rows_kernel, smem, smem_granted);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long smem = bwd_plan_smem(fused, m_tiles, c);
+  if (smem < 0 || smem > MAX_SMEM_BYTES || (fused && n > 16 * m_tiles))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (vec && (c % 4 != 0 || !aligned16(x) || !aligned16(wqkv) || !aligned16(wout) ||
+              !aligned16(dout)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (!aligned16(ctx) || !aligned16(o) || (reinterpret_cast<unsigned long long>(dqkv) & 7ULL) ||
+      (!fused && (dctx_part == nullptr || !aligned16(dctx_part))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const BwdArgs a{x, wqkv, wout, bout, g, ctx, stats, dout, o, dy, dqkv, dg_part, dctx_part,
+                  batch, n, c, vec};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int tiles = (n + OUT_TOK - 1) / OUT_TOK;
-  fla_bwd_rows_kernel<<<dim3(tiles, batch), THREADS, static_cast<size_t>(smem), s>>>(
-      x, wqkv, ctx, wout, bout, g, dout, o, dy, dqkv, dg_part, dctx_part, n, c);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  fla_bwd_heads_kernel<<<dim3(HEADS, batch), THREADS, 0, s>>>(x, wqkv, ctx, stats, dctx_part,
-                                                              dqkv, n, c, tiles);
-  return static_cast<int>(cudaGetLastError());
+  switch (out_tiles(c)) {
+    case 1: return static_cast<int>(launch_bwd<1>(a, fused, m_tiles, smem, s));
+    case 2: return static_cast<int>(launch_bwd<2>(a, fused, m_tiles, smem, s));
+    default: return static_cast<int>(launch_bwd<4>(a, fused, m_tiles, smem, s));
+  }
 }
 
 }  // extern "C"

@@ -12,16 +12,20 @@ and the LayerNorm gain g [C].
 Gradient, as `_fla_bwd` there (the VJP of `_reference_impl`):
 `FusedLinearAttentionFunction`, whose backward is the hand-written kernel on
 CUDA tensors and `fused_linear_attention_bwd_plain`, the same formulas
-written out in PyTorch, on CPU tensors. The kernel forms dqkv, dy and o; the
-large plain products (dx, dW_qkv, dW_out, db_out) are matmuls and sums here,
-as the JAX package left the whole backward to XLA.
+written out in PyTorch, on CPU tensors. The kernel (`_backward_kernel`)
+forms dqkv, dy, o and dg's per-tile sums; the large plain products (dx,
+dW_qkv, dW_out, db_out, dg) are matmuls and sums here
+(`_library_products`), as the JAX package left the whole backward to XLA.
 
-The forward kernel's layout per shape is `plan`, a pure function of the
-shape that the wrapper hands to the kernel as arguments (the CPU tests hold
-it): fused (one batch row a block, one pass) up to FUSED_MAX_N tokens an
-image, split (a context pass over token tiles, then an output pass) above.
-The kernel lays out its shared memory for the plan; `smem_bytes` is the
-same sum, with which the plan refuses a shape that does not fit a block.
+Each kernel's layout per shape is a plan, a pure function of the shape
+that the wrapper hands to the kernel as arguments (the CPU tests hold it):
+`plan` for the forward, fused (one batch row a block, one pass) up to
+FUSED_MAX_N tokens an image, split (a context pass over token tiles, then
+an output pass) above; `bwd_plan` for the backward, fused up to
+BWD_FUSED_MAX_N, split (a row pass, then a k/v pass) above. The kernels lay
+out their shared memory for the plan; `smem_bytes` and `bwd_smem_bytes` are
+the same sums, with which the plans refuse a shape that does not fit a
+block.
 """
 
 from __future__ import annotations
@@ -43,12 +47,14 @@ EPS = 1e-5
 # The forward's layout constants, as in csrc/linear_attention.cu.
 FUSED_MAX_N = 64     # tokens an image up to which the forward is one fused pass
 SPLIT_TOK = 64       # tokens per block of both split passes
+BWD_FUSED_MAX_N = 32  # tokens an image up to which the backward is one fused pass
 MAX_C = 256          # widest C of any plan (the out-projection's register tiles)
 _KCH, _HIDDEN = 16, 128
 _S_IN, _S_OUT_SPLIT = 4, 3  # stages of the weight rings (csrc: S_IN, S_OUT_SPLIT)
 _QKV_LD, _KV_LD, _Q_LD = 3 * _HIDDEN + 4, 2 * _HIDDEN + 4, _HIDDEN + 4
 _CS_FLOATS = KERNEL_HEADS * KERNEL_DIM_HEAD * (KERNEL_DIM_HEAD + 8)  # staged contexts
 PART_FLOATS = KERNEL_HEADS * KERNEL_DIM_HEAD ** 2 + 2 * _HIDDEN  # one tile's partials
+_BWD_RED = 12  # the backward's per-row reduction space, floats per row (csrc: BWD_RED)
 
 
 class Plan(NamedTuple):
@@ -61,12 +67,7 @@ def smem_bytes(fused: bool, m_tiles: int, c: int) -> int:
     (split: the larger of its two passes), the sums of
     csrc/linear_attention.cu: fused_floats, ctx_pass_floats and
     out_pass_floats, times 4."""
-    x_ld = -(-c // _KCH) * _KCH + 4
-    nto = 1 if c <= 64 else 2 if c <= 128 else 4  # the out-projection's n-tiles
-
-    def ring(nt, stages):
-        return stages * _KCH * (64 * nt + 8)
-
+    x_ld, nto, ring = _x_ld(c), _out_tiles(c), _ring
     if fused:
         m = 16 * m_tiles
         return 4 * (max(m * x_ld + ring(6, _S_IN),
@@ -76,6 +77,18 @@ def smem_bytes(fused: bool, m_tiles: int, c: int) -> int:
                                  2 * SPLIT_TOK * _Q_LD + ring(nto, _S_OUT_SPLIT))
                 + 10 * SPLIT_TOK)
     return 4 * max(ctx_pass, out_pass)
+
+
+def _x_ld(c: int) -> int:
+    return -(-c // _KCH) * _KCH + 4
+
+
+def _out_tiles(c: int) -> int:
+    return 1 if c <= 64 else 2 if c <= 128 else 4  # the out-projection's n-tiles
+
+
+def _ring(nt: int, stages: int) -> int:
+    return stages * _KCH * (64 * nt + 8)
 
 
 @functools.lru_cache(maxsize=None)
@@ -93,6 +106,43 @@ def plan(n: int, c: int) -> Optional[Plan]:
         return None
     p = Plan(True, -(-n // 16)) if n <= FUSED_MAX_N else Plan(False, SPLIT_TOK // 16)
     return p if smem_bytes(p.fused, p.m_tiles, c) <= _MAX_SMEM else None
+
+
+def bwd_smem_bytes(fused: bool, m_tiles: int, c: int) -> int:
+    """Dynamic shared memory the backward kernels lay out for a plan at C
+    channels (split: the larger of its two kernels), the sums of
+    csrc/linear_attention.cu: bwd_fused_floats, bwd_rows_floats and
+    bwd_kv_floats, times 4."""
+    m, x_ld = 16 * m_tiles, _x_ld(c)
+    tiles = _HIDDEN * (64 * _out_tiles(c) + 8) + m * _Q_LD + m * x_ld  # W_out, o, dy
+    red = _BWD_RED * m
+    if fused:
+        return 4 * (_CS_FLOATS + max(m * x_ld + _ring(6, _S_IN), m * _QKV_LD + tiles) + red)
+    rows = _CS_FLOATS + max(m * x_ld + _ring(2, _S_IN), m * _Q_LD + tiles) + red
+    kv = 2 * _CS_FLOATS + 3 * _HIDDEN + max(m * x_ld + _ring(4, _S_IN), m * _KV_LD)
+    return 4 * max(rows, kv)
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_plan(n: int, c: int) -> Optional[Plan]:
+    """The backward kernels' plan for images of n tokens of c channels, or
+    None where no variant fits a block.
+
+    N <= BWD_FUSED_MAX_N: fused where its layout fits (one launch, grid B;
+    a block holds one batch row's N tokens in ceil(N / 16) row tiles and
+    forms dctx itself). Otherwise split, a row pass and a k/v pass on a grid
+    (tiles, B) of 16 m_tiles-token tiles: 32 at N <= 64, so that a batch
+    row spreads over two blocks or more; above, 64 where the layout fits,
+    else 32 (C above 128). Timed at the training shapes under every plan,
+    the fused plan's one block a row left half the SMs idle at N = 64 at
+    batch 64 (PERF.md, Findings), so the kernels have fused variants of one
+    and two row tiles only."""
+    if c < 1 or c > MAX_C or n < 1:
+        return None
+    fused = [Plan(True, -(-n // 16))] if n <= BWD_FUSED_MAX_N else []
+    split = [Plan(False, 2)] if n <= SPLIT_TOK else [Plan(False, 4), Plan(False, 2)]
+    return next((p for p in fused + split if bwd_smem_bytes(p.fused, p.m_tiles, c) <= _MAX_SMEM),
+                None)
 
 
 Grads = Tuple[Optional[torch.Tensor], ...]
@@ -228,15 +278,11 @@ def _forward_kernel(x, w_qkv, w_out, b_out, g, heads: int = 4, dim_head: int = 3
     return y, ctx, stats
 
 
-def fused_linear_attention_bwd(x: torch.Tensor, w_qkv: torch.Tensor, w_out: torch.Tensor,
-                               b_out: torch.Tensor, g: torch.Tensor, ctx: torch.Tensor,
-                               stats: torch.Tensor, dout: torch.Tensor,
-                               needs: Tuple[bool, ...] = (True,) * 5) -> Grads:
-    """The gradient on CUDA tensors: one launch of the backward kernel (two
-    CUDA kernels, counted as one), then the plain products. `ctx` and
-    `stats` are what the forward launch wrote for the same inputs; `needs`
-    says which of (dx, dW_qkv, dW_out, db_out, dg) to form (None for the
-    others)."""
+def _backward_kernel(x, w_qkv, w_out, b_out, g, ctx, stats, dout):
+    """One launch of the backward kernels on checked CUDA operands:
+    (o [B N, 128], dy [B N, C], dqkv [B N, 384], dg_part [B tiles, C]),
+    views of one allocation, from which `_library_products` forms the
+    five gradients."""
     device = _check("fused_linear_attention_bwd", x, w_qkv, w_out, b_out, g,
                     KERNEL_HEADS, KERNEL_DIM_HEAD)
     _build.check_cuda_f32("fused_linear_attention_bwd", x, ctx, stats, dout)
@@ -249,34 +295,58 @@ def fused_linear_attention_bwd(x: torch.Tensor, w_qkv: torch.Tensor, w_out: torc
             or tuple(stats.shape) != (b, KERNEL_HEADS, 2, KERNEL_DIM_HEAD)):
         raise ValueError("fused_linear_attention_bwd: ctx and stats are not the "
                          "forward's for this batch")
-    if _build.function("attention_kernels", "fused_linear_attention_bwd_smem_bytes")(c) \
-            > _MAX_SMEM:
+    p = bwd_plan(n, c) if x.numel() else Plan(True, 1)
+    if p is None:
         raise ValueError(f"fused_linear_attention_bwd: C={c} exceeds the shared "
                          "memory of one block")
-    tiles = -(-n // _build.function("attention_kernels", "fused_linear_attention_bwd_tile")())
-    f32 = dict(dtype=torch.float32, device=device)
-    o = torch.empty((b * n, hidden), **f32)
-    dy = torch.empty((b * n, c), **f32)
-    dqkv = torch.empty((b * n, 3 * hidden), **f32)
-    dg_part = torch.empty((b * tiles, c), **f32)
-    dctx_part = torch.empty((b, tiles, KERNEL_HEADS, KERNEL_DIM_HEAD, KERNEL_DIM_HEAD), **f32)
-    if b * n and c:
+    tiles = 1 if p.fused else -(-n // (16 * p.m_tiles))
+    # o, dy, dqkv, dg_part and the split plan's dctx partials in one
+    # allocation, each starting at a multiple of 16 bytes
+    sizes = [b * n * hidden, b * n * c, b * n * 3 * hidden, b * tiles * c,
+             0 if p.fused else b * tiles * KERNEL_HEADS * KERNEL_DIM_HEAD ** 2]
+    offsets = [0]
+    for size in sizes:
+        offsets.append(offsets[-1] + -(-size // 4) * 4)
+    buf = torch.empty((offsets[-1],), dtype=torch.float32, device=device)
+    o, dy, dqkv, dg_part, dctx_part = (buf[lo:lo + size]
+                                       for lo, size in zip(offsets, sizes))
+    if x.numel() == 0:
+        buf.zero_()
+    else:
+        ptrs = [t.data_ptr() for t in (x, w_qkv, w_out, b_out, g, ctx, stats, dout)]
+        vec = c % 4 == 0 and all(ptr % 16 == 0 for ptr in (ptrs[0], ptrs[1], ptrs[2], ptrs[7]))
         _build.launch("fused_linear_attention_bwd",
                       _build.function("attention_kernels", "fused_linear_attention_bwd_f32"),
-                      device, x.data_ptr(), w_qkv.data_ptr(), w_out.data_ptr(),
-                      b_out.data_ptr(), g.data_ptr(), ctx.data_ptr(), stats.data_ptr(),
-                      dout.data_ptr(), o.data_ptr(), dy.data_ptr(), dqkv.data_ptr(),
-                      dg_part.data_ptr(), dctx_part.data_ptr(), b, n, c)
+                      device, *ptrs, *(t.data_ptr() for t in (o, dy, dqkv, dg_part, dctx_part)),
+                      b, n, c, int(p.fused), p.m_tiles, int(vec))
         fused_linear_attention_bwd.launches += 1
-    else:
-        for t in (o, dy, dqkv, dg_part):
-            t.zero_()
+    return (o.view(b * n, hidden), dy.view(b * n, c), dqkv.view(b * n, 3 * hidden),
+            dg_part.view(b * tiles, c))
+
+
+def _library_products(x, w_qkv, o, dy, dqkv, dg_part,
+                      needs: Tuple[bool, ...] = (True,) * 5) -> Grads:
+    """The plain products behind the kernels: (dx, dW_qkv, dW_out, db_out, dg)
+    from their outputs, None where `needs` says no."""
+    b, hh, ww, c = x.shape
     need_dx, need_wqkv, need_wout, need_b, need_g = needs
     return (torch.matmul(dqkv, w_qkv.T).reshape(x.shape) if need_dx else None,
-            torch.matmul(x.reshape(b * n, c).T, dqkv) if need_wqkv else None,
+            torch.matmul(x.reshape(b * hh * ww, c).T, dqkv) if need_wqkv else None,
             torch.matmul(o.T, dy) if need_wout else None,
             dy.sum(dim=0) if need_b else None,
             dg_part.sum(dim=0) if need_g else None)
+
+
+def fused_linear_attention_bwd(x: torch.Tensor, w_qkv: torch.Tensor, w_out: torch.Tensor,
+                               b_out: torch.Tensor, g: torch.Tensor, ctx: torch.Tensor,
+                               stats: torch.Tensor, dout: torch.Tensor,
+                               needs: Tuple[bool, ...] = (True,) * 5) -> Grads:
+    """The gradient on CUDA tensors: one launch of the backward kernels
+    (counted as one), then the plain products. `ctx` and `stats` are what
+    the forward launch wrote for the same inputs; `needs` says which of
+    (dx, dW_qkv, dW_out, db_out, dg) to form (None for the others)."""
+    o, dy, dqkv, dg_part = _backward_kernel(x, w_qkv, w_out, b_out, g, ctx, stats, dout)
+    return _library_products(x, w_qkv, o, dy, dqkv, dg_part, needs)
 
 
 class FusedLinearAttentionFunction(torch.autograd.Function):

@@ -252,9 +252,18 @@ BWD_ATOL_DX = 1e-4
 BWD_SCALED = 1e-5
 
 
-@pytest.mark.parametrize("shape", TRAIN_SHAPES + [(5, 3, 5, 20), (2, 4, 4, 200),
-                                   (5, 1, 65, 20), (5, 1, 257, 20)],
-                         ids=lambda s: "x".join(map(str, s)))
+def _check_bwd_against_plain(args, dout, got):
+    want = fla.fused_linear_attention_bwd_plain(*args, dout)
+    torch.testing.assert_close(got[0], want[0], rtol=BWD_ATOL_DX, atol=BWD_ATOL_DX)
+    for a, e in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a, e, rtol=0, atol=BWD_SCALED * float(e.abs().max()))
+
+
+BWD_SHAPES = TRAIN_SHAPES + [(5, 3, 5, 20), (2, 4, 4, 200), (5, 1, 65, 20), (5, 1, 257, 20),
+                             (3, 1, 100, 200), (3, 1, 7, 7)]
+
+
+@pytest.mark.parametrize("shape", BWD_SHAPES, ids=lambda s: "x".join(map(str, s)))
 def test_fused_linear_attention_bwd_matches_plain(gen, shape):
     c = shape[-1]
     x = _randn(gen, *shape).requires_grad_(True)
@@ -270,13 +279,48 @@ def test_fused_linear_attention_bwd_matches_plain(gen, shape):
     torch.cuda.synchronize()
     assert (fla.fused_linear_attention.launches, fla.fused_linear_attention_bwd.launches) == (
         fwd + 1, bwd + 1)
-    want = fla.fused_linear_attention_bwd_plain(*(t.detach() for t in leaves), dout)
-    torch.testing.assert_close(got[0], want[0], rtol=BWD_ATOL_DX, atol=BWD_ATOL_DX)
-    for a, e in zip(got[1:], want[1:]):
-        torch.testing.assert_close(a, e, rtol=0, atol=BWD_SCALED * float(e.abs().max()))
+    _check_bwd_against_plain([t.detach() for t in leaves], dout, got)
     # fixed order, no atomics: the same bits again
     again = torch.autograd.grad(fla.fused_linear_attention(*leaves), leaves, dout)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+# every plan the backward has, forced at shapes where each exists: fused (in
+# one or two row tiles, N <= 32), and split in 64- and 32-token tiles
+_BWD_PLAN_SHAPES = [(5, 3, 5, 20), (3, 4, 8, 64), (3, 1, 7, 7), (2, 4, 4, 128)]
+
+
+@pytest.mark.parametrize("shape,plan", [
+    *[(s, p) for s in _BWD_PLAN_SHAPES for p in ((True, None), (False, 4), (False, 2))],
+    ((4, 8, 8, 64), (False, 4)), ((4, 8, 8, 64), (False, 2))],
+    ids=lambda v: "x".join(map(str, v)) if len(v) == 4 else
+    {(True, None): "fused", (False, 4): "split64", (False, 2): "split32"}[v])
+def test_fused_linear_attention_bwd_each_plan_matches_plain(gen, shape, plan, monkeypatch):
+    args = _attention_case(gen, shape)
+    dout = _randn(gen, *shape)
+    n, c = shape[1] * shape[2], shape[-1]
+    forced = fla.Plan(True, -(-n // 16)) if plan[0] else fla.Plan(*plan)
+    assert fla.bwd_smem_bytes(forced.fused, forced.m_tiles, c) <= 232448
+    _, ctx, stats = fla._forward_kernel(*args)
+    monkeypatch.setattr(fla, "bwd_plan", lambda n_, c_: forced)
+    before = fla.fused_linear_attention_bwd.launches
+    got = fla.fused_linear_attention_bwd(*args, ctx, stats, dout)
+    torch.cuda.synchronize()
+    assert fla.fused_linear_attention_bwd.launches == before + 1
+    _check_bwd_against_plain(args, dout, got)
+    again = fla.fused_linear_attention_bwd(*args, ctx, stats, dout)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("shape", BWD_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_attention_bwd_plan_smem_matches_the_kernel(gen, shape):
+    """The shared memory the backward's plan is checked with is what its
+    kernels lay out, for the plan of the shape and for both split tilings."""
+    kernel_smem = fla._build.function("attention_kernels", "fused_linear_attention_bwd_smem_bytes")
+    n, c = shape[1] * shape[2], shape[-1]
+    p = fla.bwd_plan(n, c)
+    for fused, m_tiles in {tuple(p), (False, 4), (False, 2)}:
+        assert fla.bwd_smem_bytes(fused, m_tiles, c) == kernel_smem(int(fused), m_tiles, c)
 
 
 def test_wrappers_raise_on_bad_inputs(gen):

@@ -6,9 +6,14 @@ card, every shape the main paths give the kernels (and ragged ones) must
 get a plan whose shared memory fits a Hopper block (232,448 bytes) and
 whose grid, laid out and walked as the kernel's entry point and kernels
 do it (csrc/flow_kernels.cu: channel_mix_f32, csrc/linear_attention.cu:
-fused_linear_attention_f32), covers every row or token exactly once. The
-card test test_attention_plan_smem_matches_the_kernel holds
-`fused_linear_attention.smem_bytes` against the kernel's own sum.
+fused_linear_attention_f32 and fused_linear_attention_bwd_f32), covers
+every row or token exactly once. The attention backward's plan
+(`fused_linear_attention.bwd_plan`) must fit and take the fused layout at
+N <= BWD_FUSED_MAX_N wherever it fits, and two or more blocks a batch row
+above; its grids' coverage is held on the card at ragged N. The card tests
+test_attention_plan_smem_matches_the_kernel and
+test_attention_bwd_plan_smem_matches_the_kernel hold `smem_bytes` and
+`bwd_smem_bytes` against the kernels' own sums.
 """
 
 import numpy as np
@@ -131,3 +136,61 @@ def test_attention_plan_at_the_served_shapes():
     assert fla.plan(64, 128) == (True, 4)
     assert fla.plan(256, 64) == (False, 4)
     assert fla.plan(16, 300) is None
+
+
+# The attention backward: the 12 calls of a stage-2 train step at batch 64,
+# the ragged case of chip_smoke.py, both sides of N = 64, and C up to MAX_C
+# at the N of each plan
+BWD_CASES = ([(BATCH, n, c) for n, c in UNET_CALLS] + [(5, 15, 20)]
+             + [(5, n, 20) for n in (1, 63, 64, 65, 257)]
+             + [(2, n, c) for c in (1, 7, 64, 65, 96, 128, 129, 200, fla.MAX_C)
+                for n in (4, 48, 64, 300)])
+
+
+@pytest.mark.parametrize("b,n,c", BWD_CASES, ids=lambda v: str(v))
+def test_attention_bwd_plan_fits_and_covers_every_token_once(b, n, c):
+    """The plan fits a block and is the one its rule names; a fused plan
+    holds all N tokens of a batch row. That the kernels' grids then cover
+    every token and batch row exactly once is held on the card, against the
+    plain version at ragged N (7, 15, 65, 100, 257) in
+    tests/test_torch_kernels_cuda.py."""
+    p = fla.bwd_plan(n, c)
+    assert p is not None and fla.bwd_smem_bytes(p.fused, p.m_tiles, c) <= MAX_SMEM
+    fused = fla.Plan(True, -(-n // 16))
+    if n <= fla.BWD_FUSED_MAX_N and fla.bwd_smem_bytes(True, fused.m_tiles, c) <= MAX_SMEM:
+        assert p == fused
+    elif n <= fla.SPLIT_TOK:
+        assert p == (False, 2)
+    else:
+        assert not p.fused and p.m_tiles in (2, 4)
+    assert not p.fused or (p.m_tiles <= 2 and n <= 16 * p.m_tiles)
+
+
+def test_attention_bwd_fused_plan_holds_at_most_two_row_tiles():
+    """The backward's fused kernel exists for one and two 16-token row tiles
+    only (csrc/linear_attention.cu refuses more), so every N <= 64 at every
+    C is given a fused plan of at most two tiles that holds all its tokens,
+    or a split plan of 32-token tiles."""
+    for c in (1, 20, 64, 128, 200, fla.MAX_C):
+        for n in range(1, fla.SPLIT_TOK + 1):
+            p = fla.bwd_plan(n, c)
+            assert p in ((True, 1), (True, 2), (False, 2)), (n, c, p)
+            assert not p.fused or n <= 16 * p.m_tiles <= fla.BWD_FUSED_MAX_N
+
+
+def test_attention_bwd_plan_at_the_training_shapes():
+    """Fused at the 6 calls of a train step with N <= 32 (one batch row a
+    block); split into 32-token tiles at the 4 with N = 64 (two blocks a
+    row) and into 64-token tiles at the 2 with N = 256; 32-token tiles
+    above C = 128; nothing beyond C = 256."""
+    plans = [fla.bwd_plan(n, c) for n, c in UNET_CALLS]
+    assert sum(p.fused for p in plans) == 6
+    assert fla.bwd_plan(256, 64) == (False, 4)
+    assert fla.bwd_plan(64, 64) == (False, 2)
+    assert fla.bwd_plan(64, 128) == (False, 2)
+    assert fla.bwd_plan(33, 128) == (False, 2)
+    assert fla.bwd_plan(16, 128) == (True, 1)
+    assert fla.bwd_plan(4, 64) == (True, 1)
+    assert fla.bwd_plan(32, 128) == (True, 2)
+    assert fla.bwd_plan(300, 200) == (False, 2)
+    assert fla.bwd_plan(16, 300) is None

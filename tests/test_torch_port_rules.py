@@ -42,7 +42,8 @@ def _one_thread():
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "nfdpm_tpu_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "tools" / "profile_torch_serving.py"]
+    REPO / "chip_smoke.py"] + [REPO / "tools" / f"profile_{name}.py" for name in (
+        "torch_serving", "linear_attention", "step_megakernel")]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "nfdpm_tpu")
 
 

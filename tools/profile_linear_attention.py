@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Where the time goes inside the fused_linear_attention forward, on one CUDA card.
+"""Where the time goes inside the fused_linear_attention kernels, on one CUDA card.
 
     python3 tools/profile_linear_attention.py
 
@@ -16,6 +16,15 @@ and one JSON line per call gives the plan and SM cycles per block by phase
           o (q ctx), out_gemm (o W_out), layernorm;
   split:  ctx pass: kv_gemm, softmax, partial_ctx;
           output pass: combine, q_gemm, q_softmax, o, out_gemm, layernorm.
+Then the backward at the same calls (the shapes of a stage-2 train step):
+the copy is built with FLA_BWD_PROFILE, which turns on the BWD_STAMP
+marks of the backward kernels, and `_backward_kernel` runs on it:
+  fused:     proj (x W_qkv), softmax (q; k_s, v_s), o (q ctx), out_gemm
+             (o W_out), layernorm_bwd, do (dy W_out^T), dq, dctx, dk_dv;
+  split:     row pass: q_proj, q_softmax, o, out_gemm, layernorm_bwd, do,
+             dq, dctx_partial;
+             k/v pass: combine (the dctx partials), kv_gemm (and S),
+             softmax (k_s, v_s), dk_dv.
 Lines also go to chiprun_out/profile_linear_attention.json. Needs CUDA and
 nvcc; imports no JAX.
 """
@@ -35,6 +44,11 @@ SLOTS = 16
 FUSED = ("proj", "softmax", "ctx", "o", "out_gemm", "layernorm")
 CTX_PASS = ("kv_gemm", "softmax", "partial_ctx")
 OUT_PASS = ("combine", "q_gemm", "q_softmax", "o", "out_gemm", "layernorm")
+BWD_FUSED = ("proj", "softmax", "o", "out_gemm", "layernorm_bwd", "do", "dq", "dctx",
+             "dk_dv")
+BWD_ROWS = ("q_proj", "q_softmax", "o", "out_gemm", "layernorm_bwd", "do", "dq",
+            "dctx_partial")
+BWD_KV = ("combine", "kv_gemm", "softmax", "dk_dv")
 UNET_CALLS = [(16, 64), (8, 64), (8, 128), (4, 64), (4, 128), (2, 64), (2, 128)]
 
 
@@ -48,6 +62,7 @@ def instrument(src: str) -> str:
     stamp = ("if (threadIdx.x == 0) fla_prof[(blockIdx.y * gridDim.x + blockIdx.x) * 16 + {}]"
              " = clock64();\n")
     src = rep("#include <math.h>\n", "#include <math.h>\n\n__device__ long long fla_prof[1 << 16];\n")
+    src = "#define FLA_BWD_PROFILE\n" + src
     # fused kernel
     for i, anchor in enumerate(("  // 1. qkv = x W_qkv", "  // 2. q's per-head softmax",
                                 "  // 3. contexts ctx[h]", "  // 4. o = q ctx",
@@ -81,6 +96,10 @@ def instrument(src: str) -> str:
               "int fla_prof_read(long long* out, int count) {\n"
               "  return static_cast<int>(cudaMemcpyFromSymbol(out, fla_prof,\n"
               "                                               count * sizeof(long long)));\n"
+              "}\n\n"
+              "int fla_bwd_prof_read(long long* out, int count) {\n"
+              "  return static_cast<int>(cudaMemcpyFromSymbol(out, fla_bwd_prof,\n"
+              "                                               count * sizeof(long long)));\n"
               "}\n\n}  // extern \"C\"")
     return src
 
@@ -97,8 +116,8 @@ def load_instrumented(build):
     for name, (argtypes, restype) in build._SIGNATURES["attention_kernels"].items():
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = argtypes, restype
-    lib.fla_prof_read.argtypes, lib.fla_prof_read.restype = [ctypes.c_void_p, ctypes.c_int], \
-        ctypes.c_int
+    for reader in (lib.fla_prof_read, lib.fla_bwd_prof_read):
+        reader.argtypes, reader.restype = [ctypes.c_void_p, ctypes.c_int], ctypes.c_int
     # the wrappers launch through _build.function: point it at the copy
     build._libraries["attention_kernels"] = lib
     for key in [k for k in build._functions if k[0] == "attention_kernels"]:
@@ -115,6 +134,43 @@ def phases(stamps, names, first):
     total = [row[first + len(names)] - row[first] for row in stamps]
     out["total"] = (sum(total) / len(total), max(total))
     return out
+
+
+def read_stamps(reader, blocks):
+    buf = (ctypes.c_longlong * (blocks * SLOTS))()
+    if reader(ctypes.addressof(buf), blocks * SLOTS) != 0:
+        raise RuntimeError("reading the stamps failed")
+    return [buf[i * SLOTS:(i + 1) * SLOTS] for i in range(blocks)]
+
+
+def cycles_record(cycles):
+    return {k: {ph: [round(v[0]), v[1]] for ph, v in d.items()} for k, d in cycles.items()}
+
+
+def profile_backward(torch, fla, lib, gen, side, c):
+    """SM cycles by phase of the backward kernels at one call (batch 64)."""
+    b, n = 64, side * side
+    args = (torch.randn((b, side, side, c), generator=gen, device="cuda"),
+            torch.randn((c, 384), generator=gen, device="cuda") * c ** -0.5,
+            torch.randn((128, c), generator=gen, device="cuda") * 128 ** -0.5,
+            torch.randn((c,), generator=gen, device="cuda") * 0.1,
+            1.0 + torch.randn((c,), generator=gen, device="cuda") * 0.1)
+    dout = torch.randn((b, side, side, c), generator=gen, device="cuda")
+    _, ctx, stats = fla._forward_kernel(*args)
+    p = fla.bwd_plan(n, c)
+    for _ in range(3):
+        grads = fla.fused_linear_attention_bwd(*args, ctx, stats, dout)
+    torch.cuda.synchronize()
+    want = fla.fused_linear_attention_bwd_plain(*args, dout)
+    err = max(float((a - e).abs().max()) for a, e in zip(grads, want))
+    blocks = b if p.fused else b * -(-n // (16 * p.m_tiles))
+    stamps = read_stamps(lib.fla_bwd_prof_read, blocks)
+    if p.fused:
+        cycles = {"fused": phases(stamps, BWD_FUSED, 0)}
+    else:
+        cycles = {"row_pass": phases(stamps, BWD_ROWS, 0), "kv_pass": phases(stamps, BWD_KV, 10)}
+    return {"direction": "backward", "x": [b, side, side, c], "plan": p._asdict(),
+            "blocks": blocks, "max_abs_err": err, "cycles_mean_max": cycles_record(cycles)}
 
 
 def main() -> int:
@@ -147,19 +203,18 @@ def main() -> int:
         err = float((y - fla.fused_linear_attention_plain(*args)).abs().max())
         # the grid: a block a batch row (fused), or a block a row's token tile
         blocks = b if p.fused else b * -(-n // fla.SPLIT_TOK)
-        buf = (ctypes.c_longlong * (blocks * SLOTS))()
-        if lib.fla_prof_read(ctypes.addressof(buf), blocks * SLOTS) != 0:
-            raise RuntimeError("fla_prof_read failed")
-        stamps = [buf[i * SLOTS:(i + 1) * SLOTS] for i in range(blocks)]
+        stamps = read_stamps(lib.fla_prof_read, blocks)
         if p.fused:
             cycles = {"fused": phases(stamps, FUSED, 0)}
         else:
             cycles = {"ctx_pass": phases(stamps, CTX_PASS, 0),
                       "out_pass": phases(stamps, OUT_PASS, 8)}
-        rec = {"x": [b, side, side, c], "plan": p._asdict(), "blocks": blocks,
-               "max_abs_err": err,
-               "cycles_mean_max": {k: {ph: [round(v[0]), v[1]] for ph, v in d.items()}
-                                   for k, d in cycles.items()}}
+        rec = {"direction": "forward", "x": [b, side, side, c], "plan": p._asdict(),
+               "blocks": blocks, "max_abs_err": err, "cycles_mean_max": cycles_record(cycles)}
+        records.append(rec)
+        print(json.dumps(rec), flush=True)
+    for side, c in UNET_CALLS:
+        rec = profile_backward(torch, fla, lib, gen, side, c)
         records.append(rec)
         print(json.dumps(rec), flush=True)
     out = ROOT / "chiprun_out" / "profile_linear_attention.json"
