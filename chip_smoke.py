@@ -23,12 +23,21 @@ line each:
      wrapper included), "device_ms" from replays of a CUDA graph of the
      calls (host taken out); the same for the plain version and, where one
      PyTorch call computes the function, for that call; and the bound.
-     Each line also names the kernel's design version and, for channel_mix
-     and the attention forward, the wrapper's plan; the attention's lines
-     add its bound on its 3xTF32 tensor-core route. Then the host steps of
-     the three planned wrappers (channel_mix, the attention forward and
+     Each line also names the kernel's design version and, for channel_mix,
+     the attention forward and coupling_tail, the wrapper's plan; the
+     attention's lines add its bound on its 3xTF32 tensor-core route.
+     coupling_tail runs in both modes: the step mode (the Glow step's whole
+     tail, the Glow path's) at the three level shapes and a ragged C/2 = 5,
+     the same bits on a second call, and the plain-operand mode. Then the
+     host steps of the planned wrappers (channel_mix and the two modes of
+     the coupling tails at the level shapes, the attention forward and
      backward): host-clock us a call of each step they take and of the
-     whole wrapper, beside the library call;
+     whole wrapper, beside the library call. Then "tail_route": the Glow
+     step's kernel route at the level shapes, its CUDA activities in order
+     and their count (forward, and forward with backward), its times and the
+     tail kernels' alone; the forward must end with the zeroconv's
+     convolution and one step-tail launch, and the step launch one tail
+     kernel each way;
   Glow path (launch counters zeroed before 4, read after 6):
   4. scoring: bits/dim through inference.make_eval_step, kernel route
      against the plain route (use_kernels=False), within 1e-4;
@@ -52,11 +61,13 @@ line each:
      wall and device ms, device busy share, device ms by kernel group and by
      kernel (nfdpm_tpu_torch.profiling).
   training path (launch counters zeroed before 12, read after it):
- 11. kernels, backward: coupling_tail_bwd against its plain version, and the
-     gradients of the channel_mix and coupling_tail autograd Functions
-     against autograd through their plain versions, at the three level
-     shapes and a ragged case; times as in 3, the dx call of channel_mix
-     beside torch.matmul for the same product;
+ 11. kernels, backward: coupling_tail_bwd against its plain version in
+     both modes (the step mode's d_zb and d_zlogs the same bits on a second
+     call), and the gradients of the channel_mix, coupling_tail and
+     coupling_step_tail autograd Functions against autograd through their
+     plain versions, at the three level shapes and ragged cases; times as
+     in 3, the dx call of channel_mix beside torch.matmul for the same
+     product;
  12. training: nfdpm_tpu_torch.training.nf_trainer.train, the function the
      entry point calls, at the full width of configs/nf_base.yaml (L3/K4,
      width 512, 32x32x3, 5 bits, batch 64, Adam 1e-3, fp32) on TRAIN_STEPS
@@ -171,14 +182,25 @@ TAIL_OPS, TAIL_INV_OPS = 9, 7
 # the tail's backward: sigmoid 4, 1 - s, s ds, x_b + bias, two products with
 # g_y, s + eps, the quotient, its product with g_ldj, the sum, g_y s = 15
 TAIL_BWD_OPS = 15
+# the step mode, per value of the transformed half: the zeroconv epilogue on
+# the log-scale and the bias (an add and a mul each) = 4 more; its backward
+# also scales both cotangents by exp(3 zlogs) and adds them, and the
+# products with h, into the d_zb and d_zlogs sums = 8 more. Per channel, the
+# 2C exponentials of the epilogue besides.
+STEP_TAIL_OPS, STEP_TAIL_BWD_OPS = TAIL_OPS + 4, TAIL_BWD_OPS + 4 + 8
 RECORDS = []
 # Design version of each kernel, beside its times in the "kernel" lines
 # (1: the first design; channel_mix 2: square kernels with rows in registers
 # and a dx mode; fused_linear_attention 2: a fused pass of one batch row a
 # block and split token-tiled passes, with 3xTF32 tensor-core products;
-# fused_linear_attention_bwd 2: the same plans for the gradient).
+# fused_linear_attention_bwd 2: the same plans for the gradient;
+# coupling_tail and coupling_tail_bwd 2: a unit of VW values a thread, a
+# grid that fills the card, fixed-order sums across blocks, and the step
+# mode that takes in the zeroconv epilogue, the half copies, the
+# concatenation and the logdet add).
 KERNEL_VERSIONS = {"channel_mix": 2, "fused_linear_attention": 2,
-                   "fused_linear_attention_bwd": 2}
+                   "fused_linear_attention_bwd": 2, "coupling_tail": 2,
+                   "coupling_tail_bwd": 2}
 
 # Stage 2, configs/nf_diffusion.yaml; the keys of a stage-2 run's
 # diffusion_architecture.json (nfdpm_tpu/training/runload.py)
@@ -244,7 +266,10 @@ def cuda_ms(fn, iters: int = 200, warmup: int = 20) -> float:
 
 def graph_ms(fn, calls: int = 50, replays: int = 20) -> float:
     """Mean device time of one call with the host taken out: `calls` calls
-    captured in one CUDA graph, replayed `replays` times between events."""
+    captured in one CUDA graph, replayed `replays` times between events.
+    The capture runs on the stream that the warm-up calls ran on, where a
+    wrapper that keeps state per stream (the step-tail backward's ticket)
+    has made it."""
     import torch
 
     stream = torch.cuda.Stream()
@@ -254,7 +279,7 @@ def graph_ms(fn, calls: int = 50, replays: int = 20) -> float:
             fn()
     torch.cuda.current_stream().wait_stream(stream)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for _ in range(calls):
             fn()
     graph.replay()
@@ -322,9 +347,22 @@ def phase_build(build):
     emit({"phase": "build", "seconds": seconds, "libraries": libraries})
 
 
+def step_tail_bytes_ops(b: int, n: int, c: int, backward: bool = False):
+    """Bytes and operations of one step-mode tail over n pixels of C
+    channels: the forward reads y and r and writes out (3 n C values), zb,
+    zlogs, ldj and ldj'; the backward reads y's transformed half, r and
+    g_out and writes d_y and d_r (4.5 n C: d_y's first half is g_out's, so
+    y's first half is never read), zb, zlogs, g_ldj, d_zb and d_zlogs."""
+    if backward:
+        return 4 * (9 * n * c // 2 + 4 * c + b), STEP_TAIL_BWD_OPS * n * c // 2 + 2 * c
+    return 4 * (3 * n * c + 2 * c + 2 * b), STEP_TAIL_OPS * n * c // 2 + 2 * c
+
+
 def phase_kernels(torch, cm, ct):
     """Each kernel against its plain version; returns per-kernel summaries
-    of one pass (4 launches at each of the 3 level shapes)."""
+    of one pass (4 launches at each of the 3 level shapes). The Glow path
+    runs coupling_tail in its step mode, so those rows make its summary;
+    the plain-operand mode's rows are checked and timed beside them."""
     gen = torch.Generator(device="cuda").manual_seed(1234)
 
     def randn(*shape, scale=1.0):
@@ -332,6 +370,7 @@ def phase_kernels(torch, cm, ct):
 
     cases = [(BATCH, h, w, c, STEPS, True) for (h, w, c) in level_shapes()]
     cases.append((37, 3, 5, 14, 0, False))  # ragged: N = 555, D = 105
+    cases.append((5, 3, 5, 10, 0, False))   # ragged step tail: C/2 = 5, 4-byte accesses
     timed = ("ms", "plain_ms", "library_ms", "device_ms", "plain_device_ms",
              "library_device_ms")
     totals = {k: dict({t: 0.0 for t in timed}, bytes=0.0, ops=0.0, max_abs_err=0.0)
@@ -344,7 +383,8 @@ def phase_kernels(torch, cm, ct):
         n, d = b * h * w, h * w * (c // 2)
         x2d = x.view(-1, c)
 
-        # (name, max |kernel - plain|, bytes, ops, kernel, plain, library call)
+        # (name, max |kernel - plain|, bytes, ops, kernel, plain, library call,
+        # extra keys of the line; a "plain operands" mode is on no path)
         rows = []
         y_k, y_p = cm.channel_mix(x, wt, bias), cm.channel_mix_plain(x, wt, bias)
         torch.cuda.synchronize()
@@ -354,17 +394,45 @@ def phase_kernels(torch, cm, ct):
         rows.append(("channel_mix", err, 4 * (n * c + n * o + o * c + o), 2 * n * c * o,
                      lambda: cm.channel_mix(x, wt, bias),
                      lambda: cm.channel_mix_plain(x, wt, bias),
-                     lambda: torch.addmm(bias, x2d, wt.T)))
+                     lambda: torch.addmm(bias, x2d, wt.T),
+                     {"plan": cm.plan(n, c, o)._asdict()}))
 
+        # the step mode, as the Glow step launches it: the channel mix's
+        # output, the zeroconv's raw convolution, its bias and log-scale,
+        # the running logdet
+        r, zb, zlogs, ldj0 = randn(b, h, w, c, scale=0.5), randn(c, scale=0.2), \
+            randn(c, scale=0.2), randn(b, scale=10.0)
+        (sk, slk), (sp, slp) = (ct.coupling_step_tail(x, r, zb, zlogs, ldj0),
+                                ct.coupling_step_tail_plain(x, r, zb, zlogs, ldj0))
+        again = ct.coupling_step_tail(x, r, zb, zlogs, ldj0)
+        torch.cuda.synchronize()
+        err = max(float((sk - sp).abs().max()), float((slk - slp).abs().max()))
+        check(torch.allclose(sk, sp, rtol=1e-5, atol=1e-5)
+              and torch.allclose(slk, slp, rtol=1e-5, atol=1e-4),
+              f"coupling_tail's step mode differs from its plain version at "
+              f"{(b, h, w, c)}: {err}")
+        check(torch.equal(sk, again[0]) and torch.equal(slk, again[1]),
+              f"coupling_tail's step mode gave other bits on a second call at {(b, h, w, c)}")
+        nbytes, ops = step_tail_bytes_ops(b, n, c)
+        plan = ct.forward_plan(b, h * w, c // 2,
+                               ct.vector_width(c // 2, x.data_ptr(), r.data_ptr()))
+        rows.append(("coupling_tail", err, nbytes, ops,
+                     lambda: ct.coupling_step_tail(x, r, zb, zlogs, ldj0),
+                     lambda: ct.coupling_step_tail_plain(x, r, zb, zlogs, ldj0), None,
+                     {"mode": "step", "plan": plan._asdict()}))
+
+        # the plain-operand mode, the JAX function's counterpart (on no path)
         (yk, lk), (yp, lp) = ct.coupling_tail(ls, tb, xb), ct.coupling_tail_plain(ls, tb, xb)
         torch.cuda.synchronize()
         err = max(float((yk - yp).abs().max()), float((lk - lp).abs().max()))
         check(torch.allclose(yk, yp, rtol=1e-5, atol=1e-5)
-              and torch.allclose(lk, lp, rtol=1e-5, atol=1e-4),
-              f"coupling_tail differs from its plain version at {half}: {err}")
+              and torch.allclose(lk, lp, rtol=1e-5, atol=1e-4)
+              and torch.equal(lk, ct.coupling_tail(ls, tb, xb)[1]),
+              f"coupling_tail differs from its plain version (or from itself) at {half}: {err}")
         rows.append(("coupling_tail", err, 4 * (4 * b * d + b), TAIL_OPS * b * d,
                      lambda: ct.coupling_tail(ls, tb, xb),
-                     lambda: ct.coupling_tail_plain(ls, tb, xb), None))
+                     lambda: ct.coupling_tail_plain(ls, tb, xb), None,
+                     {"mode": "plain operands"}))
 
         xk, xp = ct.coupling_tail_inverse(ls, tb, yk), ct.coupling_tail_inverse_plain(ls, tb, yk)
         torch.cuda.synchronize()
@@ -373,19 +441,21 @@ def phase_kernels(torch, cm, ct):
               f"coupling_tail_inverse differs from its plain version at {half}: {err}")
         rows.append(("coupling_tail_inverse", err, 4 * 4 * b * d, TAIL_INV_OPS * b * d,
                      lambda: ct.coupling_tail_inverse(ls, tb, yk),
-                     lambda: ct.coupling_tail_inverse_plain(ls, tb, yk), None))
+                     lambda: ct.coupling_tail_inverse_plain(ls, tb, yk), None, {}))
 
-        for name, err, nbytes, ops, kernel, plain, library in rows:
+        for name, err, nbytes, ops, kernel, plain, library, extra in rows:
             times = {"ms": cuda_ms(kernel), "plain_ms": cuda_ms(plain),
                      "library_ms": cuda_ms(library) if library else None,
                      "device_ms": graph_ms(kernel), "plain_device_ms": graph_ms(plain),
                      "library_device_ms": graph_ms(library) if library else None}
             b_ms, b_by = bound_ms(nbytes, ops)
-            extra = ({"plan": cm.plan(n, c, o)._asdict()} if name == "channel_mix" else {})
+            path = extra.get("mode") != "plain operands"
             emit({"phase": "kernel", "name": name, "version": KERNEL_VERSIONS.get(name, 1),
-                  "x": [b, h, w, c], "on_path": on_path, "launches_per_pass": per_pass,
-                  "max_abs_err": err, **times, "bound_ms": b_ms, "bound_by": b_by,
-                  "bytes": nbytes, "ops": ops, **extra})
+                  "x": [b, h, w, c], "on_path": on_path and path,
+                  "launches_per_pass": per_pass if path else 0, "max_abs_err": err, **times,
+                  "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "ops": ops, **extra})
+            if not path:
+                continue
             tot = totals[name]
             tot["max_abs_err"] = max(tot["max_abs_err"], err)
             if on_path:
@@ -550,13 +620,56 @@ def host_us(fn, iters: int = 2000) -> float:
     return (time.perf_counter() - t0) / iters * 1e6
 
 
-def phase_wrapper_host_steps(torch, cm, fla, build):
-    """Host us a call of each step the channel_mix wrapper takes, at the
-    three level shapes, and of the attention wrappers' (forward and
-    backward), at N 64 C 64, beside the library call and the stream lookup
-    the launch helper avoids."""
+def tail_host_steps(torch, ct, build, gen, dev):
+    """Host us a call of each step the step-tail wrapper takes, and of the
+    whole forward and backward wrappers of both modes, at the three level
+    shapes."""
+    fn = build.function("flow_kernels", "coupling_tail_step_f32")
+    for h, w, c in level_shapes():
+        def randn(*shape, scale=1.0):
+            return torch.randn(shape, generator=gen, device=dev) * scale
+
+        y, r, g = randn(BATCH, h, w, c), randn(BATCH, h, w, c, scale=0.5), randn(BATCH, h, w, c)
+        zb, zlogs, ldj = randn(c, scale=0.2), randn(c, scale=0.2), randn(BATCH)
+        half = (BATCH, h, w, c // 2)
+        ls, bias, xb = randn(*half, scale=0.5), randn(*half), randn(*half)
+        out, ldj_out = torch.empty_like(y), torch.empty_like(ldj)
+        vw = ct.vector_width(c // 2, y.data_ptr(), r.data_ptr(), out.data_ptr())
+        p = ct.forward_plan(BATCH, h * w, c // 2, vw)
+        steps = {
+            "check_cuda_f32": lambda: build.check_cuda_f32("coupling_step_tail", y, r, zb,
+                                                           zlogs, ldj),
+            "_check_step": lambda: ct._check_step("coupling_step_tail", y, r, zb, zlogs, ldj),
+            "torch.empty_like (out, ldj)": lambda: (torch.empty_like(y), torch.empty_like(ldj)),
+            "vector_width": lambda: ct.vector_width(c // 2, y.data_ptr(), r.data_ptr(),
+                                                    out.data_ptr()),
+            "forward_plan": lambda: ct.forward_plan(BATCH, h * w, c // 2, vw),
+            "build.launch": lambda: build.launch(
+                "coupling_tail", fn, dev, y.data_ptr(), r.data_ptr(), zb.data_ptr(),
+                zlogs.data_ptr(), ldj.data_ptr(), out.data_ptr(), ldj_out.data_ptr(),
+                BATCH, h * w, c, p.vw, p.threads, p.blocks),
+            "step tail wrapper": lambda: ct.coupling_step_tail(y, r, zb, zlogs, ldj),
+            "step tail backward wrapper": lambda: ct.coupling_step_tail_bwd(y, r, zb, zlogs,
+                                                                            g, ldj),
+            "plain-operand wrapper": lambda: ct.coupling_tail(ls, bias, xb),
+            "plain-operand backward wrapper": lambda: ct.coupling_tail_bwd(
+                ls, bias, xb, g[..., : c // 2].contiguous(), ldj)}
+        host = {}
+        for name, step in steps.items():
+            host[name] = host_us(step, 500)
+            torch.cuda.synchronize()
+        emit({"phase": "host_steps", "name": "coupling_tail", "x": [BATCH, h, w, c],
+              "plan": p._asdict(), "host_us": host})
+
+
+def phase_wrapper_host_steps(torch, cm, ct, fla, build):
+    """Host us a call of each step the channel_mix wrapper and the step-tail
+    wrapper take, at the three level shapes, and of the attention wrappers'
+    (forward and backward), at N 64 C 64, beside the library call and the
+    stream lookup the launch helper avoids."""
     gen = torch.Generator(device="cuda").manual_seed(99)
     dev = torch.device("cuda", torch.cuda.current_device())
+    tail_host_steps(torch, ct, build, gen, dev)
     mix = build.function("flow_kernels", "channel_mix_f32")
     for h, w, c in level_shapes():
         x = torch.randn((BATCH, h, w, c), generator=gen, device=dev)
@@ -783,6 +896,86 @@ def glow_path(torch, np, params, counters):
     for name in ("channel_mix", "coupling_tail", "coupling_tail_inverse"):
         check(launches[name] > 0, f"{name} was never launched on the Glow path")
     return launches
+
+
+def kernel_events(torch, fn):
+    """The CUDA activities (kernels, copies, fills) of one call of `fn`, in
+    the order they ran on the card: [(name, device us)], from
+    torch.profiler, after one call that is not recorded."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA and e.device_time > 0]
+    events.sort(key=lambda e: e.time_range.start)
+    return [(e.name, e.device_time) for e in events]
+
+
+def short_names(events, width: int = 60):
+    return [name[:width] for name, _ in events]
+
+
+def phase_tail_route(torch):
+    """The Glow step's kernel route (bijectors.step_forward_kernels) at the
+    three level shapes, batch 64, width 512: the CUDA activities of one
+    forward and of one forward and backward, in order, their count and
+    device us (the profiler's sum). The forward must end with the
+    zeroconv's convolution and one step-tail launch, nothing between them
+    or after, and the forward and backward must launch one tail kernel each
+    way. (Phases 3 and 11 time the tail kernels at these shapes;
+    tools/profile_coupling_tails.py times the route in any checkout of the
+    port.)"""
+    from nfdpm_tpu_torch.convert import is_frozen_path, named_leaves
+    from nfdpm_tpu_torch.ops import bijectors as bj
+    from nfdpm_tpu_torch.ops.zeroconv import conv2d_nhwc
+
+    gen = torch.Generator(device="cuda").manual_seed(77)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    for h, w, c in level_shapes():
+        params = random_step(torch, bj, c, WIDTH, seed=c)
+        x, ldj0 = randn(BATCH, h, w, c), randn(BATCH, scale=10.0)
+        with torch.no_grad():
+            def fwd():
+                return bj.step_forward_kernels(params, x, ldj0)
+
+            seq = kernel_events(torch, fwd)
+            zc = params["coupling"]["net"]["zconv"]
+            h2 = randn(BATCH, h, w, WIDTH)
+            conv_names = {n for n, _ in kernel_events(
+                torch, lambda: conv2d_nhwc(h2, zc["w"], padding=1))}
+        leaves = [leaf.requires_grad_(True) for path, leaf in named_leaves(params)
+                  if not is_frozen_path(path)]
+        xg = x.clone().requires_grad_(True)
+        gy, gl = randn(BATCH, h, w, c), randn(BATCH)
+
+        def fwd_bwd():
+            y, ldj = bj.step_forward_kernels(params, xg, ldj0)
+            return torch.autograd.grad((y, ldj), leaves + [xg], (gy, gl))
+
+        seq_fb = kernel_events(torch, fwd_bwd)
+        tails = [n for n, _ in seq if "coupling_tail" in n]
+        tails_fb = [n for n, _ in seq_fb if "coupling_tail" in n]
+        check(len(tails) == 1 and "coupling_tail" in seq[-1][0] and len(seq) > 1
+              and seq[-2][0] in conv_names,
+              f"the step's forward at {(h, w, c)} does not end with the zeroconv's "
+              f"convolution and one tail launch: {short_names(seq[-4:])}")
+        check(len(tails_fb) == 2,
+              f"the step's forward and backward launched {tails_fb} at {(h, w, c)}")
+        emit({"phase": "tail_route", "x": [BATCH, h, w, c], "width": WIDTH,
+              "step_fwd_launches": len(seq),
+              "step_fwd_profiler_device_us": sum(us for _, us in seq),
+              "step_fwd_bwd_launches": len(seq_fb),
+              "step_fwd_bwd_profiler_device_us": sum(us for _, us in seq_fb),
+              "step_fwd_kernels": short_names(seq), "step_fwd_bwd_kernels": short_names(seq_fb)})
+        for leaf in leaves:
+            leaf.requires_grad_(False)
 
 
 MEGA_Y_TOL, MEGA_LDJ_ATOL = 1e-5, 1e-3  # the JAX package's test of the TPU kernel
@@ -1154,11 +1347,12 @@ def time_rows(rows, timed):
 
 
 def phase_backward_kernels(torch, cm, ct, totals):
-    """coupling_tail_bwd against its plain version, the dx call of
-    channel_mix timed beside torch.matmul, and the gradients of the two
-    autograd Functions against autograd through the plain versions. Adds
-    the coupling_tail_bwd summary of one backward pass (4 launches at each
-    of the 3 level shapes) and channel_mix's dx times to `totals`."""
+    """coupling_tail_bwd against its plain version in both modes, the dx
+    call of channel_mix timed beside torch.matmul, and the gradients of the
+    three autograd Functions against autograd through the plain versions.
+    Adds the coupling_tail_bwd summary of one backward pass (its step mode,
+    4 launches at each of the 3 level shapes) and channel_mix's dx times to
+    `totals`."""
     gen = torch.Generator(device="cuda").manual_seed(2345)
 
     def randn(*shape, scale=1.0):
@@ -1166,6 +1360,7 @@ def phase_backward_kernels(torch, cm, ct, totals):
 
     cases = [(BATCH, h, w, c, STEPS, True) for (h, w, c) in level_shapes()]
     cases.append((37, 3, 5, 14, 0, False))  # ragged: N = 555, D = 105
+    cases.append((5, 3, 5, 10, 0, False))   # ragged step tail: C/2 = 5
     timed = ("ms", "plain_ms", "library_ms", "device_ms", "plain_device_ms",
              "library_device_ms")
     tot = dict({t: 0.0 for t in timed}, bytes=0.0, ops=0.0, max_abs_err=0.0)
@@ -1179,7 +1374,47 @@ def phase_backward_kernels(torch, cm, ct, totals):
         ls, tb, xb = randn(*half, scale=0.5), randn(*half), randn(*half)
         g_y, g_ldj = randn(*half), randn(b)
 
-        # the VJP kernel against its plain version
+        # the VJP kernel's step mode, as a train step launches it, against
+        # its plain version: d_y and d_r elementwise, d_zb and d_zlogs sums
+        # over up to 16384 pixels in another order (1e-4, as dW and db); the
+        # same bits on a second call
+        ys, rs = randn(b, h, w, c), randn(b, h, w, c, scale=0.5)
+        zb, zlogs, g_out = randn(c, scale=0.2), randn(c, scale=0.2), randn(b, h, w, c)
+        got = ct.coupling_step_tail_bwd(ys, rs, zb, zlogs, g_out, g_ldj)
+        want = ct.coupling_step_tail_bwd_plain(ys, rs, zb, zlogs, g_out, g_ldj)
+        again = ct.coupling_step_tail_bwd(ys, rs, zb, zlogs, g_out, g_ldj)
+        torch.cuda.synchronize()
+        gaps = {name: float((a - e).abs().max())
+                for name, a, e in zip(("d_y", "d_r", "d_zb", "d_zlogs"), got, want)}
+        check(all(torch.allclose(a, e, rtol=tol, atol=tol)
+                  for a, e, tol in zip(got, want, (1e-5, 1e-5, 1e-4, 1e-4))),
+              f"coupling_tail_bwd's step mode differs from its plain version at "
+              f"{(b, h, w, c)}: {gaps}")
+        check(all(torch.equal(a, e) for a, e in zip(got, again)),
+              f"coupling_tail_bwd's step mode gave other bits on a second call at "
+              f"{(b, h, w, c)}")
+        err = max(gaps.values())
+        times = time_rows(
+            {"": lambda: ct.coupling_step_tail_bwd(ys, rs, zb, zlogs, g_out, g_ldj),
+             "plain_": lambda: ct.coupling_step_tail_bwd_plain(ys, rs, zb, zlogs, g_out, g_ldj),
+             "library_": None}, timed)
+        nbytes, ops = step_tail_bytes_ops(b, b * h * w, c, backward=True)
+        b_ms, b_by = bound_ms(nbytes, ops)
+        emit({"phase": "kernel", "name": "coupling_tail_bwd", "mode": "step",
+              "version": KERNEL_VERSIONS["coupling_tail_bwd"], "x": [b, h, w, c],
+              "on_path": on_path, "launches_per_pass": per_pass, "max_abs_err": err,
+              "max_abs_err_by_output": gaps, **times, "bound_ms": b_ms, "bound_by": b_by,
+              "bytes": nbytes, "ops": ops,
+              "plan": ct.backward_plan(b, h * w, c // 2, ct.vector_width(
+                  c // 2, ys.data_ptr(), rs.data_ptr(), g_out.data_ptr()))._asdict()})
+        tot["max_abs_err"] = max(tot["max_abs_err"], err)
+        if on_path:
+            tot["bytes"] += per_pass * nbytes
+            tot["ops"] += per_pass * ops
+            for key in timed:
+                tot[key] += per_pass * (times[key] or 0.0)
+
+        # the plain-operand mode against its plain version (on no path)
         k_ls, k_xb = ct.coupling_tail_bwd(ls, tb, xb, g_y, g_ldj)
         p_ls, p_xb = ct.coupling_tail_bwd_plain(ls, tb, xb, g_y, g_ldj)
         torch.cuda.synchronize()
@@ -1192,15 +1427,11 @@ def phase_backward_kernels(torch, cm, ct, totals):
                            "library_": None}, timed)
         nbytes, ops = 4 * (6 * b * d + b), TAIL_BWD_OPS * b * d
         b_ms, b_by = bound_ms(nbytes, ops)
-        emit({"phase": "kernel", "name": "coupling_tail_bwd", "x": list(half),
-              "on_path": on_path, "launches_per_pass": per_pass, "max_abs_err": err,
+        emit({"phase": "kernel", "name": "coupling_tail_bwd", "mode": "plain operands",
+              "version": KERNEL_VERSIONS["coupling_tail_bwd"], "x": list(half),
+              "on_path": False, "launches_per_pass": 0, "max_abs_err": err,
               **times, "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "ops": ops})
         tot["max_abs_err"] = max(tot["max_abs_err"], err)
-        if on_path:
-            tot["bytes"] += per_pass * nbytes
-            tot["ops"] += per_pass * ops
-            for key in timed:
-                tot[key] += per_pass * (times[key] or 0.0)
 
         # the dx call of channel_mix's backward: the kernel's dx mode (W read
         # untransposed, no bias); torch.matmul computes the same product in
@@ -1249,10 +1480,23 @@ def phase_backward_kernels(torch, cm, ct, totals):
         want += torch.autograd.grad(ct.coupling_tail_plain(*leaves), leaves, (g_y, g_ldj))
         check(ct.coupling_tail_bwd.launches == before + 1,
               "coupling_tail's backward did not launch coupling_tail_bwd once")
+        # and the step mode's Function: one forward and one backward launch
+        leaves = [t.clone().requires_grad_(True) for t in (ys, rs, zb, zlogs, g_ldj)]
+        before = (ct.coupling_tail.launches, ct.coupling_tail_bwd.launches)
+        out, ldj_out = ct.coupling_step_tail(*leaves)
+        check(out.grad_fn is not None and ldj_out.grad_fn is not None,
+              "coupling_step_tail returned a result without a grad_fn")
+        got += torch.autograd.grad((out, ldj_out), leaves, (g_out, g_ldj))
+        want += torch.autograd.grad(ct.coupling_step_tail_plain(*leaves), leaves,
+                                    (g_out, g_ldj))
+        check((ct.coupling_tail.launches, ct.coupling_tail_bwd.launches)
+              == (before[0] + 1, before[1] + 1),
+              "coupling_step_tail forward + backward did not launch each kernel once")
         torch.cuda.synchronize()
-        # dW and db sum over up to 16384 rows in another order: 1e-4
-        names = ("dx", "dW", "db", "d_ls", "d_bias", "d_xb")
-        tols = (1e-5, 1e-4, 1e-4, 1e-5, 1e-5, 1e-5)
+        # dW and db, d_zb and d_zlogs sum over up to 16384 rows in another order: 1e-4
+        names = ("dx", "dW", "db", "d_ls", "d_bias", "d_xb",
+                 "step d_y", "step d_r", "step d_zb", "step d_zlogs", "step d_ldj")
+        tols = (1e-5, 1e-4, 1e-4, 1e-5, 1e-5, 1e-5, 1e-5, 1e-5, 1e-4, 1e-4, 1e-5)
         gaps = {}
         for name, tol, a, e in zip(names, tols, got, want):
             gaps[name] = float((a - e).abs().max())
@@ -2049,7 +2293,8 @@ def main() -> int:
     randomize_zero_leaves(torch, params, seed=1)
     unet_shapes = attention_shapes(torch, stage2_prior(), device)
     totals["fused_linear_attention"] = phase_attention_kernel(torch, fla, unet_shapes)
-    phase_wrapper_host_steps(torch, cm, fla, build)
+    phase_wrapper_host_steps(torch, cm, ct, fla, build)
+    phase_tail_route(torch)
 
     launches = {"glow": glow_path(torch, np, params, counters)}
     totals["step_megakernel"] = phase_megakernel(torch, sm, bj)

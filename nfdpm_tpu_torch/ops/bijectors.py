@@ -18,7 +18,9 @@ The Glow step has two routes. `step_forward`/`step_inverse` with
 `step_inverse_kernels` (the counterparts of step_forward_pallas and
 step_inverse_pallas) send the folded actnorm + 1x1-conv channel mix and the
 coupling tail through the wrappers in ops/kernels/, which launch the CUDA
-kernels for CUDA tensors and take the plain versions for CPU tensors.
+kernels for CUDA tensors and take the plain versions for CPU tensors; the
+forward's tail also takes in the zeroconv's epilogue, the concatenation of
+the halves and the logdet add (coupling_step_tail).
 `step_forward_megakernel` runs a whole forward step in one kernel, as the
 JAX package's experiment does; no config selects it.
 """
@@ -30,10 +32,10 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from .coupling import (actnorm_stats_init, coupling_net_apply,
+from .coupling import (actnorm_stats_init, coupling_net_apply, coupling_net_conv,
                        coupling_net_ddinit, init_coupling_net)
 from .kernels.channel_mix import channel_mix
-from .kernels.coupling_tail import coupling_tail, coupling_tail_inverse
+from .kernels.coupling_tail import coupling_step_tail, coupling_tail_inverse
 from .kernels.step_megakernel import step_megakernel_forward
 from .zeroconv import init_zeroconv, zeroconv_apply
 
@@ -320,19 +322,19 @@ def step_forward(params: Params, x: torch.Tensor, ldj: torch.Tensor,
 
 def step_forward_kernels(params: Params, x: torch.Tensor,
                          ldj: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Glow step through the kernels: the folded channel mix, then the
-    coupling CNN (cuDNN), then the coupling tail with its logdet. The
-    kernels take contiguous operands, so the channel halves are copied out
-    of the NHWC tensors they are slices of."""
+    """Glow step through the kernels: the folded channel mix, the coupling
+    CNN up to its zeroconv's convolution (cuDNN), then the step tail in one
+    launch: the zeroconv's bias and scale, the coupling tail on the second
+    half with its logdet, the first half passed through and the logdet
+    added to the running one. The input may be a view (a squeeze); the
+    channel mix takes it contiguous."""
     h, w = x.shape[1], x.shape[2]
     w_fold, b_fold, ld = fold_actnorm_invconv(params["actnorm"], params["invconv"])
     y = channel_mix(x.contiguous(), w_fold, b_fold)
     ldj = ldj + (h * w) * ld
-    y_a, x_b = _halves(y)
-    log_scale, bias = _halves(coupling_net_apply(params["coupling"]["net"], y_a))
-    y_b, ldj_part = coupling_tail(log_scale.contiguous(), bias.contiguous(),
-                                  x_b.contiguous())
-    return torch.cat([y_a, y_b], dim=-1), ldj + ldj_part
+    net = params["coupling"]["net"]
+    r = coupling_net_conv(net, _halves(y)[0])
+    return coupling_step_tail(y, r, net["zconv"]["b"], net["zconv"]["logs"], ldj)
 
 
 def step_forward_megakernel(params: Params, x: torch.Tensor,

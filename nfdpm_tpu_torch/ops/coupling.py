@@ -46,10 +46,24 @@ def _conv_actnorm_relu(x: torch.Tensor, conv: Params, an: Params,
     return torch.relu(torch.exp(an["scale"]) * (h + an["bias"]))
 
 
-def coupling_net_apply(params: Params, x: torch.Tensor) -> torch.Tensor:
+def _trunk(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """Conv3x3+ActNorm -> ReLU -> Conv1x1+ActNorm -> ReLU: the zeroconv's input."""
     h = _conv_actnorm_relu(x, params["conv1"], params["an1"], padding=1)
-    h = _conv_actnorm_relu(h, params["conv2"], params["an2"], padding=0)
-    return zeroconv_apply(params["zconv"], h)
+    return _conv_actnorm_relu(h, params["conv2"], params["an2"], padding=0)
+
+
+def coupling_net_apply(params: Params, x: torch.Tensor) -> torch.Tensor:
+    return zeroconv_apply(params["zconv"], _trunk(params, x))
+
+
+def coupling_net_conv(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """The coupling CNN up to the zeroconv's convolution, before its bias and
+    scale: coupling_net_apply(params, x) == (r + b) * exp(3 logs) with
+    r = coupling_net_conv(params, x) and the zeroconv's b and logs. The
+    Glow step's kernel route hands r to the step tail, which applies that
+    epilogue itself (ops/kernels/coupling_tail.py: coupling_step_tail)."""
+    w = params["zconv"]["w"]
+    return conv2d_nhwc(_trunk(params, x), w, padding=(w.shape[-1] - 1) // 2)
 
 
 def actnorm_stats_init(h: torch.Tensor, eps: float = 1e-6) -> Params:

@@ -33,13 +33,16 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _SIGNATURES = {
     "flow_kernels": {
         "channel_mix_f32": ([_P, _P, _P, _P, ctypes.c_longlong] + [_I] * 5 + [_P], _I),
-        "coupling_tail_f32": ([_P, _P, _P, _P, _P, _I, ctypes.c_longlong, _P], _I),
-        "coupling_tail_inverse_f32": ([_P, _P, _P, _P, ctypes.c_longlong, _P], _I),
-        "coupling_tail_bwd_f32": ([_P, _P, _P, _P, _P, _P, _P, _I, ctypes.c_longlong, _P],
-                                  _I),
+        "coupling_tail_f32": ([_P] * 5 + [_I, _L] + [_I] * 3 + [_P], _I),
+        "coupling_tail_step_f32": ([_P] * 7 + [_I, _L] + [_I] * 4 + [_P], _I),
+        "coupling_tail_inverse_f32": ([_P, _P, _P, _P, _L, _P], _I),
+        "coupling_tail_bwd_f32": ([_P] * 5 + [_L] + [_P] * 2 + [_I, _L] + [_I] * 4 + [_P], _I),
+        "coupling_tail_step_bwd_f32": ([_P] * 6 + [_L] + [_P] * 6 + [_I, _L] + [_I] * 5
+                                       + [_P], _I),
     },
     "attention_kernels": {
         "fused_linear_attention_plan_smem": ([_I] * 3, ctypes.c_longlong),

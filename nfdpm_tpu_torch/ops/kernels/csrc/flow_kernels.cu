@@ -41,43 +41,92 @@
 //    not 16-byte aligned, take a generic kernel: one thread per output,
 //    scalar loads, the weight read through the L1 cache.
 //
-// 2. coupling_tail_f32 replaces nfdpm_tpu/ops/pallas/coupling_tail.py
-//    (coupling_tail -> _forward -> pl.pallas_call):
-//        s = sigmoid(ls + 2); y_b = (x_b + bias) * s; ldj[r] = sum log(s + 1e-6)
-//    Bound: bytes (three reads, one write per element, a few transcendental
-//    ops each). Design: one block per batch row loops over the row's D
-//    elements, writes y_b and reduces the log terms with a warp shuffle and
-//    then a shared-memory pass over the warps' partials, in a fixed order and
-//    without atomics, so ldj is the same from run to run. The ragged tail of
-//    D is masked by the loop bound; the TPU kernel's pad to 128 lanes and its
-//    analytic correction of the logdet are not carried over. With a batch of
-//    64 only 64 of the 132 SMs get a block; accepted for now.
+// 2. coupling_tail_f32 and coupling_tail_step_f32 replace
+//    nfdpm_tpu/ops/pallas/coupling_tail.py (coupling_tail -> _forward ->
+//    pl.pallas_call):
+//        s = sigmoid(ls + 2); y_b = (x_b + bias) * s; ldj[b] = sum log(s + 1e-6)
+//    The step mode (coupling_tail_step_f32) is the whole tail of a Glow step
+//    in one launch. From the channel mix's output y [B, P, C] and the
+//    zeroconv's raw convolution r [B, P, C] (before its bias and scale):
+//        h = (r + zb) * exp(3 zlogs);  ls, bias = h[..., :C/2], h[..., C/2:]
+//        out = [y[..., :C/2], (y[..., C/2:] + bias) * s]
+//        ldj' = ldj + sum log(s + 1e-6)
+//    so the step route has no epilogue, half copies, concatenation or
+//    logdet add of its own. The plain-operand mode (coupling_tail_f32:
+//    three [B, D] operands; no epilogue, no pass-through half, no ldj in)
+//    is another instance of the same kernel template.
+//    Bound: bytes (y and r read and out written in the step mode, 12 bytes
+//    a value; a few transcendental operations each) and, at the Glow's
+//    sizes (0.2-0.8 MB a call), launch latency. Design: a thread takes one
+//    unit, VW values of the transformed half of one pixel with the VW
+//    log-scale values that pair with them (and, in the step mode, the VW
+//    pass-through values). VW = 4 (16-byte accesses) where C/2 and the
+//    pointers allow it, else 2 or 1 (level 1's C/2 = 6 takes 8-byte
+//    accesses). The unit's loads go out before the block stages zb and
+//    exp(3 zlogs) in shared memory, once a block. An image's units go to one
+//    thread-block cluster of at most 8 blocks (grid: blocks per image x B);
+//    the wrapper's plan (ops/kernels/coupling_tail.py: forward_plan) halves
+//    the threads from 128 to 32 until the grid has a block per SM (384, 192
+//    and 192 blocks at the three level shapes of batch 64; larger images
+//    take larger blocks, then a loop). The logdet is deterministic and
+//    needs no pass through device memory: each block sums its log terms in
+//    a fixed order (each thread's VW terms, a warp shuffle, the warps in
+//    order), writes it into block 0's shared memory (distributed shared
+//    memory), and after one cluster barrier block 0 adds the cluster's sums
+//    in rank order, then ldj. The outputs are stored after the barrier, so
+//    it waits on no store. No atomics touch a value, so ldj repeats bit for bit. The
+//    TPU kernel's pad to 128 lanes and its analytic correction of the
+//    logdet are not carried over.
 //
 // 3. coupling_tail_inverse_f32 replaces the second pl.pallas_call in
 //    nfdpm_tpu/ops/pallas/coupling_tail.py (coupling_tail_inverse):
 //        x_b = y_b / (sigmoid(ls + 2) + 1e-6) - bias
 //    Bound: bytes. A grid-stride elementwise pass, no reduction.
 //
-// 4. coupling_tail_bwd_f32 is the vector-Jacobian product of coupling_tail
-//    (nfdpm_tpu/ops/pallas/coupling_tail.py:_bwd, which the JAX package
-//    leaves to XLA to fuse into one pass; eager PyTorch would run it as about
-//    ten elementwise kernels over four tensors):
-//        s = sigmoid(ls + 2); ds = s (1 - s)
-//        d_ls = g_y (x_b + bias) ds + g_ldj[r] ds / (s + 1e-6)
-//        d_xb = d_bias = g_y s                      (one tensor, written once)
-//    Bound: bytes (four reads and two writes per element, plus g_ldj[rows]).
-//    A grid-stride elementwise pass; the row of an element is i / d. g_y or
-//    g_ldj may be null (that output of the forward pass was not used) and
-//    then counts as zeros. No reduction, so nothing depends on block order.
+// 4. coupling_tail_bwd_f32 and coupling_tail_step_bwd_f32 are the
+//    vector-Jacobian products of the two modes of 2 (the JAX package's
+//    coupling_tail.py:_bwd, which it leaves to XLA to fuse into one pass,
+//    and in the step mode the zeroconv epilogue's, which it leaves to
+//    autodiff):
+//        s = sigmoid(ls + 2); ds = s (1 - s); e = exp(3 zlogs)
+//        d_ls = g_b (x_b + bias) ds + g_ldj[b] ds / (s + 1e-6); d_bias = g_b s
+//        plain mode: d_ls, and d_xb = d_bias (one tensor, written once)
+//        step mode:  d_y = [g_a, g_b s]; d_r = [d_ls, d_bias] e
+//                    d_zb[c] = sum over pixels of d_r[c]
+//                    d_zlogs[c] = 3 sum over pixels of [d_ls, d_bias][c] h[c]
+//    g or g_ldj may be null (that output was not used) and then counts as
+//    zeros; g_ldj is read at a stride, so an expanded scalar is not copied.
+//    Bound: bytes (y's transformed half, r and g read, d_y and d_r written
+//    in the step mode: 18 bytes a value; y's first half is never read, as
+//    d_y's first half is g's). Design: the forward's units. A block of 256 or 512
+//    threads holds lanes = threads / (C/2 / VW) pixel lanes, and each lane
+//    walks px_per_lane pixels at a stride of `lanes`, so a thread always
+//    meets the same channels and keeps their d_zb and d_zlogs sums in
+//    registers. The per-channel sums are deterministic: the block adds its
+//    lanes' sums in a fixed order into a row of 2C values in device memory,
+//    and the last block to finish, picked by a ticket counter, adds the rows
+//    in a fixed order. A thread stores its last unit's outputs only after
+//    its block has taken the ticket, so that the ticket's release waits on
+//    the row alone. The wrapper's plan (backward_plan) gives at most one block
+//    per SM (97, 49 and 25 blocks at the three level shapes of batch 64,
+//    one pixel a lane): every unit is in flight in one wave, and few rows
+//    keep the last block's pass short. The plain mode has no sums and
+//    stores as it goes.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <initializer_list>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int CM_GENERIC_THREADS = 256;
 constexpr int CM_MAX_THREADS = 512;  // the plan's largest block
 constexpr long long SM_COUNT = 132;  // H100 SXM
-constexpr int CT_THREADS = 256;
+constexpr int TAIL_MAX_THREADS = 512;  // the tail plans' largest block
+constexpr int TAIL_MAX_CLUSTER = 8;    // the forward's blocks an image: a portable cluster
 constexpr int EW_THREADS = 256;
 constexpr float COUPLING_EPS = 1e-6f;
 
@@ -213,30 +262,362 @@ cudaError_t launch_square(const float* x, const float* w, const float* b, float*
 
 bool aligned16(const void* p) { return (reinterpret_cast<unsigned long long>(p) & 15ULL) == 0; }
 
-__global__ void __launch_bounds__(CT_THREADS)
-coupling_tail_kernel(const float* __restrict__ ls, const float* __restrict__ bias,
-                     const float* __restrict__ xb, float* __restrict__ yb,
-                     float* __restrict__ ldj, long long d) {
-  const long long base = static_cast<long long>(blockIdx.x) * d;
-  float acc = 0.0f;
-  for (long long i = threadIdx.x; i < d; i += blockDim.x) {
-    const float s = sigmoid_shift2(ls[base + i]);
-    yb[base + i] = (xb[base + i] + bias[base + i]) * s;
-    acc += logf(s + COUPLING_EPS);
-  }
-  for (int off = 16; off > 0; off >>= 1)
-    acc += __shfl_down_sync(0xffffffffu, acc, off);
+// The operands of the two tail kernels (note items 2 and 4). Each tensor is
+// [B, P, stride] with P pixels an image; the tail transforms `half` values of
+// a pixel. The plain mode sees a [B, D] operand as D / VW pixels of VW values
+// (stride = half = VW); the step mode sees [B, H, W, C] as H W pixels of C
+// values (stride = C, half = C / 2), and its half pointers (t, x, g, out)
+// point C / 2 values into the pixel.
+struct TailArgs {
+  const float* ls;      // log-scale half (step: the raw zeroconv output r)
+  const float* t;       // bias half (step: r + C/2)
+  const float* x;       // transformed half of the input (step: y + C/2)
+  const float* y;       // step forward: y, whose first half passes through
+  const float* zb;      // step: the zeroconv's bias [C]
+  const float* zlogs;   // step: the zeroconv's log-scale [C]
+  const float* ldj_in;  // step forward: the running logdet [B], or null
+  const float* g;       // backward: cotangent at x's places, or null (zeros)
+  const float* g_a;     // step backward: cotangent of out, or null (zeros)
+  const float* g_ldj;   // backward: [B] at stride g_ldj_stride, or null
+  float* out;           // forward: transformed half; backward: d_x (step: d_y + C/2)
+  float* out_a;         // step: out's (forward) or d_y's (backward) first half
+  float* d_ls;          // backward: d_ls (step: d_r, both halves)
+  float* ldj;           // forward: [B]
+  float* d_zb;          // step backward: [C]
+  float* d_zlogs;       // step backward: [C]
+  float* partial;       // step backward: the blocks' rows of per-channel sums
+  unsigned int* ticket; // step backward: zero between launches; the last block resets it
+  long long px;         // pixels an image
+  long long g_ldj_stride;
+  int stride;           // values from one pixel to the next
+  int half;             // values a pixel's tail transforms
+  int rows;             // B
+  int px_per_lane;      // backward: pixels each lane walks
+};
 
-  __shared__ float warp_sums[CT_THREADS / 32];
+template <int VW>
+__device__ __forceinline__ void load_vec(const float* __restrict__ p, float (&v)[VW]) {
+  if constexpr (VW == 4) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+  } else if constexpr (VW == 2) {
+    const float2 q = __ldg(reinterpret_cast<const float2*>(p));
+    v[0] = q.x; v[1] = q.y;
+  } else {
+    v[0] = __ldg(p);
+  }
+}
+
+template <int VW>
+__device__ __forceinline__ void load_or_zero(const float* p, long long o, float (&v)[VW]) {
+  if (p != nullptr) {
+    load_vec<VW>(p + o, v);
+  } else {
+#pragma unroll
+    for (int k = 0; k < VW; ++k) v[k] = 0.0f;
+  }
+}
+
+template <int VW>
+__device__ __forceinline__ void store_vec(float* p, const float (&v)[VW]) {
+  if constexpr (VW == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (VW == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+    *p = v[0];
+  }
+}
+
+// zb at epi[0, C) and exp(3 zlogs) at epi[C, 2C), once a block
+__device__ __forceinline__ void stage_epilogue(const TailArgs& a, float* epi) {
+  const int c = 2 * a.half;
+  for (int i = threadIdx.x; i < c; i += blockDim.x) {
+    epi[i] = __ldg(a.zb + i);
+    epi[c + i] = expf(__ldg(a.zlogs + i) * 3.0f);
+  }
+}
+
+// The zeroconv's epilogue on a unit at channel c0 of each half:
+// ls, t := (r + zb) * exp(3 zlogs)
+template <int VW>
+__device__ __forceinline__ void apply_epilogue(const float* epi, int half, int c0,
+                                               float (&ls)[VW], float (&t)[VW]) {
+  const int c = 2 * half;
+#pragma unroll
+  for (int k = 0; k < VW; ++k) {
+    ls[k] = (ls[k] + epi[c0 + k]) * epi[c + c0 + k];
+    t[k] = (t[k] + epi[half + c0 + k]) * epi[c + half + c0 + k];
+  }
+}
+
+// finish(j, sum over k < rows of at(k, j)) for each j < width, every sum in
+// one fixed order: where width < blockDim.x, the block splits a slot's k
+// into m_n interleaved runs (k = m, m + m_n, ...) whose sums then add up in
+// the order m = 0, 1, ... (through `scratch`, blockDim.x floats). No
+// atomics, so the sums repeat bit for bit. Every thread of the block calls
+// it. The unrolled run sends its loads out together.
+template <typename At, typename Finish>
+__device__ void fixed_order_sum(int rows, int width, float* scratch, At at, Finish finish) {
+  const int threads = blockDim.x;
+  const int m_n = width < threads ? threads / width : 1;
+  if (m_n == 1) {
+    for (int j = threadIdx.x; j < width; j += threads) {
+      float s = 0.0f;
+#pragma unroll 16
+      for (int k = 0; k < rows; ++k) s += at(k, j);
+      finish(j, s);
+    }
+    return;
+  }
+  const int j = threadIdx.x % width, m = threadIdx.x / width;
+  if (m < m_n) {
+    float s = 0.0f;
+#pragma unroll 16
+    for (int k = m; k < rows; k += m_n) s += at(k, j);
+    scratch[m * width + j] = s;
+  }
+  __syncthreads();
+  if (threadIdx.x < width) {
+    float s = 0.0f;
+    for (int mm = 0; mm < m_n; ++mm) s += scratch[mm * width + threadIdx.x];
+    finish(threadIdx.x, s);
+  }
+}
+
+// True in the block that finishes last. The barrier orders the block's
+// row writes before thread 0's ticket, an acquire-release add at device
+// scope that publishes them and, in the last block, sees every other
+// block's. The ticket only picks the block; that block resets it for the
+// next launch (every other block has taken its ticket by then).
+__device__ __forceinline__ bool last_block(unsigned int* ticket, unsigned int blocks,
+                                           bool* flag) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned int taken;
+    asm volatile("atom.add.acq_rel.gpu.u32 %0, [%1], 1;"
+                 : "=r"(taken) : "l"(ticket) : "memory");
+    const bool last = taken == blocks - 1;
+    if (last) *ticket = 0u;
+    *flag = last;
+  }
+  __syncthreads();
+  return *flag;
+}
+
+// Forward, note item 2: grid (blocks per image, B) in clusters of one
+// image's blocks (at most 8), a thread per unit (a loop where an image has
+// more than 8 blocks of units). Each block writes the sum of its log terms
+// into block 0's shared memory (distributed shared memory, slot = rank);
+// after the cluster's barrier block 0 adds the slots in rank order. No
+// output is stored before the barrier, so it waits on no store, and no
+// block reads another's shared memory after it.
+template <bool STEP, int VW>
+__global__ void __launch_bounds__(TAIL_MAX_THREADS)
+coupling_tail_fwd_kernel(const TailArgs a) {
+  extern __shared__ float epi[];  // step: zb, exp(3 zlogs) [2C]
+  __shared__ float warp_sums[TAIL_MAX_THREADS / 32];
+  __shared__ float block_sums[TAIL_MAX_CLUSTER];  // block 0's: one slot a block
+  cg::cluster_group cluster = cg::this_cluster();
+  const int q_n = a.half / VW;
+  const long long units = a.px * q_n;
+  const long long stride_u = static_cast<long long>(gridDim.x) * blockDim.x;
+  long long u = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long base = blockIdx.y * a.px;
+  // the first unit's loads go out before the block stages the epilogue
+  float ls[VW], t[VW], x[VW], ya[VW];
+  long long o = 0;
+  int c0 = 0;
+  bool active = u < units;
+  if (active) {
+    c0 = static_cast<int>(u % q_n) * VW;
+    o = (base + u / q_n) * a.stride + c0;
+    load_vec<VW>(a.ls + o, ls);
+    load_vec<VW>(a.t + o, t);
+    load_vec<VW>(a.x + o, x);
+    if (STEP) load_vec<VW>(a.y + o, ya);
+  }
+  if (STEP) {
+    stage_epilogue(a, epi);
+    __syncthreads();
+  }
+  float acc = 0.0f;
+  while (active) {
+    if (STEP) apply_epilogue<VW>(epi, a.half, c0, ls, t);
+#pragma unroll
+    for (int k = 0; k < VW; ++k) {
+      const float s = sigmoid_shift2(ls[k]);
+      x[k] = (x[k] + t[k]) * s;
+      acc += logf(s + COUPLING_EPS);
+    }
+    u += stride_u;
+    if (u >= units) break;  // the last unit's stores wait until the logdet is out
+    if (STEP) store_vec<VW>(a.out_a + o, ya);
+    store_vec<VW>(a.out + o, x);
+    c0 = static_cast<int>(u % q_n) * VW;
+    o = (base + u / q_n) * a.stride + c0;
+    load_vec<VW>(a.ls + o, ls);
+    load_vec<VW>(a.t + o, t);
+    load_vec<VW>(a.x + o, x);
+    if (STEP) load_vec<VW>(a.y + o, ya);
+  }
+  // the block's log terms: warp shuffles, then the warps in order
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, off);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (lane == 0) warp_sums[warp] = acc;
   __syncthreads();
-  if (warp == 0) {
-    acc = lane < CT_THREADS / 32 ? warp_sums[lane] : 0.0f;
-    for (int off = 16; off > 0; off >>= 1)
-      acc += __shfl_down_sync(0xffffffffu, acc, off);
-    if (lane == 0) ldj[blockIdx.x] = acc;
+  if (threadIdx.x == 0) {
+    float s = 0.0f;
+    for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w) s += warp_sums[w];
+    cluster.map_shared_rank(block_sums, 0)[cluster.block_rank()] = s;
   }
+  cluster.sync();
+  if (cluster.block_rank() == 0 && threadIdx.x == 0) {
+    float s = 0.0f;
+    for (unsigned r = 0; r < cluster.num_blocks(); ++r) s += block_sums[r];
+    const int row = static_cast<int>(blockIdx.y);
+    a.ldj[row] = a.ldj_in != nullptr ? __ldg(a.ldj_in + row) + s : s;
+  }
+  if (active) {
+    if (STEP) store_vec<VW>(a.out_a + o, ya);
+    store_vec<VW>(a.out + o, x);
+  }
+}
+
+// One unit's operands for the backward
+template <int VW>
+struct TailUnit {
+  float ls[VW], t[VW], x[VW], g[VW], ga[VW];
+  float gl;
+};
+
+template <bool STEP, int VW>
+__device__ __forceinline__ void load_unit(const TailArgs& a, long long o, long long row,
+                                          TailUnit<VW>& u) {
+  load_vec<VW>(a.ls + o, u.ls);
+  load_vec<VW>(a.t + o, u.t);
+  load_vec<VW>(a.x + o, u.x);
+  load_or_zero<VW>(a.g, o, u.g);
+  if (STEP) load_or_zero<VW>(a.g_a, o, u.ga);
+  u.gl = a.g_ldj != nullptr ? __ldg(a.g_ldj + row * a.g_ldj_stride) : 0.0f;
+}
+
+// The unit's VJP, in place: u.x := d_x (d_xb, or d_y's second half), u.ls :=
+// d_ls (step: d_r's first half), u.t := step: d_r's second half; u.ga is
+// d_y's first half as loaded. acc: d_zb of the unit's first-half channels,
+// of its second-half ones, then d_zlogs / 3 of the same (4 VW sums).
+template <bool STEP, int VW>
+__device__ __forceinline__ void unit_vjp(const TailArgs& a, const float* epi, int c0,
+                                         TailUnit<VW>& u, float (&acc)[4 * VW]) {
+  if (STEP) apply_epilogue<VW>(epi, a.half, c0, u.ls, u.t);  // ls, t: the zeroconv's h
+  const float* e = epi + 2 * a.half;
+#pragma unroll
+  for (int k = 0; k < VW; ++k) {
+    const float s = sigmoid_shift2(u.ls[k]);
+    const float ds = s * (1.0f - s);
+    float d_ls = u.g[k] * (u.x[k] + u.t[k]) * ds + u.gl * ds / (s + COUPLING_EPS);
+    float d_t = u.g[k] * s;
+    u.x[k] = d_t;
+    if (STEP) {
+      acc[2 * VW + k] += d_ls * u.ls[k];
+      acc[3 * VW + k] += d_t * u.t[k];
+      d_ls *= e[c0 + k];
+      d_t *= e[a.half + c0 + k];
+      acc[k] += d_ls;
+      acc[VW + k] += d_t;
+      u.t[k] = d_t;
+    }
+    u.ls[k] = d_ls;
+  }
+}
+
+template <bool STEP, int VW>
+__device__ __forceinline__ void store_unit(const TailArgs& a, long long o, const TailUnit<VW>& u) {
+  store_vec<VW>(a.out + o, u.x);
+  store_vec<VW>(a.d_ls + o, u.ls);
+  if (STEP) {
+    store_vec<VW>(a.out_a + o, u.ga);          // d_y's first half: g's, passed through
+    store_vec<VW>(a.d_ls + o + a.half, u.t);   // d_r's second half
+  }
+}
+
+// Backward, note item 4: a 1-D grid; block b takes pixels
+// [b lanes px_per_lane, (b + 1) lanes px_per_lane) of the whole batch.
+// Step partials: [blocks][2C], d_zb's C sums then d_zlogs'. In the step
+// mode a thread's last unit is stored after the block has taken its
+// ticket, so that the ticket's fence waits on no output store.
+template <bool STEP, int VW>
+__global__ void __launch_bounds__(TAIL_MAX_THREADS)
+coupling_tail_bwd_kernel(const TailArgs a) {
+  // step: zb, exp(3 zlogs) [2C], the lanes' sums [lanes][2C], the combine's scratch
+  extern __shared__ float tail_smem[];
+  __shared__ bool last;
+  const int q_n = a.half / VW;
+  const int lanes = blockDim.x / q_n;
+  const int lane = threadIdx.x / q_n, c0 = (threadIdx.x % q_n) * VW;
+  const long long n_px = a.rows * a.px;
+  const long long step = lanes;
+  const long long p_end = min(n_px, (blockIdx.x + 1LL) * step * a.px_per_lane);
+  long long p = blockIdx.x * step * a.px_per_lane + lane;
+  const bool any = lane < lanes && p < p_end;
+  bool more = any;
+  // the first unit's loads go out before the block stages the epilogue
+  TailUnit<VW> cur;
+  if (more) load_unit<STEP, VW>(a, p * a.stride + c0, p / a.px, cur);
+  float* epi = tail_smem;
+  if (STEP) {
+    stage_epilogue(a, epi);
+    __syncthreads();
+  }
+  float acc[4 * VW];
+#pragma unroll
+  for (int j = 0; j < 4 * VW; ++j) acc[j] = 0.0f;
+  while (more) {
+    const long long next = p + step;
+    more = next < p_end;
+    TailUnit<VW> nxt;
+    if (more) load_unit<STEP, VW>(a, next * a.stride + c0, next / a.px, nxt);
+    unit_vjp<STEP, VW>(a, epi, c0, cur, acc);
+    if (!more) break;  // cur is the last unit: p stays on it
+    store_unit<STEP, VW>(a, p * a.stride + c0, cur);
+    cur = nxt;
+    p = next;
+  }
+  if (!STEP) {
+    if (any) store_unit<STEP, VW>(a, p * a.stride + c0, cur);
+    return;
+  }
+
+  // the lanes' sums, [lane][2C] in channel order, then the block's row
+  const int c = 2 * a.half, width = 2 * c;
+  float* sums = epi + width;  // after zb and exp(3 zlogs)
+  float* scratch = sums + lanes * width;
+  if (lane < lanes) {
+#pragma unroll
+    for (int k = 0; k < VW; ++k) {
+      float* row = sums + lane * width + c0 + k;
+      row[0] = acc[k];                       // d_zb, first half
+      row[a.half] = acc[VW + k];             // d_zb, second half
+      row[c] = acc[2 * VW + k];              // d_zlogs / 3, first half
+      row[c + a.half] = acc[3 * VW + k];     // d_zlogs / 3, second half
+    }
+  }
+  __syncthreads();
+  float* part = a.partial + static_cast<long long>(blockIdx.x) * width;
+  fixed_order_sum(
+      lanes, width, scratch, [&](int k, int j) { return sums[k * width + j]; },
+      [&](int j, float s) { part[j] = s; });
+  const bool is_last = last_block(a.ticket, gridDim.x, &last);
+  if (any) store_unit<STEP, VW>(a, p * a.stride + c0, cur);
+  if (!is_last) return;
+  const float* all = a.partial;
+  fixed_order_sum(
+      static_cast<int>(gridDim.x), width, scratch,
+      [&](int k, int j) { return __ldcg(all + static_cast<long long>(k) * width + j); },
+      [&](int j, float s) {
+        if (j < c) a.d_zb[j] = s;
+        else a.d_zlogs[j - c] = 3.0f * s;
+      });
 }
 
 __global__ void __launch_bounds__(EW_THREADS)
@@ -252,24 +633,70 @@ coupling_tail_inverse_kernel(const float* __restrict__ ls,
   }
 }
 
-__global__ void __launch_bounds__(EW_THREADS)
-coupling_tail_bwd_kernel(const float* __restrict__ ls,
-                         const float* __restrict__ bias,
-                         const float* __restrict__ xb,
-                         const float* __restrict__ gy,    // null: zeros
-                         const float* __restrict__ gldj,  // [rows]; null: zeros
-                         float* __restrict__ d_ls, float* __restrict__ d_xb,
-                         long long d, long long total) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < total; i += stride) {
-    const float s = sigmoid_shift2(ls[i]);
-    const float ds = s * (1.0f - s);
-    const float g = gy != nullptr ? gy[i] : 0.0f;
-    const float gl = gldj != nullptr ? gldj[i / d] : 0.0f;
-    d_ls[i] = g * (xb[i] + bias[i]) * ds + gl * ds / (s + COUPLING_EPS);
-    d_xb[i] = g * s;
+// Shared memory (floats) of the two tail kernels: the epilogue's 2C in the
+// step mode; the backward's lanes' sums and the combine's scratch.
+long long tail_smem_floats(bool step, bool backward, int half, int vw, int threads) {
+  const long long c = 2LL * half;
+  if (!step) return 0;
+  if (!backward) return 2 * c;
+  return 2 * c + static_cast<long long>(threads / (half / vw)) * 2 * c + threads;
+}
+
+// The checks both modes share: a plan the kernels take, and pointers that
+// the vector width allows (null ones are not read); false refuses the launch.
+bool tail_plan_ok(int half, int stride, int vw, int threads,
+                  std::initializer_list<const void*> ptrs) {
+  if (vw != 1 && vw != 2 && vw != 4) return false;
+  if (threads < 32 || threads > TAIL_MAX_THREADS || threads % 32 != 0) return false;
+  if (half <= 0 || half % vw != 0 || stride % vw != 0) return false;
+  for (const void* p : ptrs)
+    if (p != nullptr && (reinterpret_cast<unsigned long long>(p) % (4ULL * vw)) != 0) return false;
+  return true;
+}
+
+// The forward in clusters of `blocks` blocks (one image's, at most 8)
+template <bool STEP>
+cudaError_t launch_tail_fwd(const TailArgs& a, int vw, int threads, int blocks,
+                            cudaStream_t stream) {
+  if (blocks <= 0 || blocks > TAIL_MAX_CLUSTER || a.rows > 65535)
+    return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(blocks), static_cast<unsigned>(a.rows));
+  cfg.blockDim = dim3(static_cast<unsigned>(threads));
+  cfg.dynamicSmemBytes = sizeof(float) * tail_smem_floats(STEP, false, a.half, vw, threads);
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = static_cast<unsigned>(blocks);
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  cudaError_t err;
+  switch (vw) {
+    case 4: err = cudaLaunchKernelEx(&cfg, coupling_tail_fwd_kernel<STEP, 4>, a); break;
+    case 2: err = cudaLaunchKernelEx(&cfg, coupling_tail_fwd_kernel<STEP, 2>, a); break;
+    default: err = cudaLaunchKernelEx(&cfg, coupling_tail_fwd_kernel<STEP, 1>, a); break;
   }
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <bool STEP>
+cudaError_t launch_tail_bwd(const TailArgs& a, int vw, int threads, int blocks,
+                            cudaStream_t stream) {
+  const int lanes = threads / (a.half / vw);
+  if (blocks <= 0 || lanes < 1 || a.px_per_lane < 1 ||
+      static_cast<long long>(blocks) * lanes * a.px_per_lane < a.rows * a.px)
+    return cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * tail_smem_floats(STEP, true, a.half, vw, threads);
+  if (smem > 48 * 1024) return cudaErrorInvalidValue;
+  const unsigned grid = static_cast<unsigned>(blocks);
+  switch (vw) {
+    case 4: coupling_tail_bwd_kernel<STEP, 4><<<grid, threads, smem, stream>>>(a); break;
+    case 2: coupling_tail_bwd_kernel<STEP, 2><<<grid, threads, smem, stream>>>(a); break;
+    default: coupling_tail_bwd_kernel<STEP, 1><<<grid, threads, smem, stream>>>(a); break;
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -309,13 +736,40 @@ int channel_mix_f32(const float* x, const float* w, const float* b, float* y,
   return static_cast<int>(cudaGetLastError());
 }
 
-int coupling_tail_f32(const float* ls, const float* bias, const float* xb,
-                      float* yb, float* ldj, int rows, long long d,
+// The plain-operand tail: ls, bias, x_b [rows, d] -> y_b [rows, d] and
+// ldj [rows]. `vw`, `threads` and `blocks` (an image's, a cluster) are the
+// wrapper's plan (ops/kernels/coupling_tail.py: forward_plan).
+int coupling_tail_f32(const float* ls, const float* bias, const float* xb, float* yb,
+                      float* ldj, int rows, long long d, int vw, int threads, int blocks,
                       void* stream) {
   if (rows <= 0) return static_cast<int>(cudaSuccess);
-  coupling_tail_kernel<<<rows, CT_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      ls, bias, xb, yb, ldj, d);
-  return static_cast<int>(cudaGetLastError());
+  if (d % vw != 0 || !tail_plan_ok(vw, vw, vw, threads, {ls, bias, xb, yb}))
+    return static_cast<int>(cudaErrorInvalidValue);
+  TailArgs a{};
+  a.ls = ls; a.t = bias; a.x = xb; a.out = yb; a.ldj = ldj;
+  a.px = d / vw; a.stride = vw; a.half = vw; a.rows = rows;
+  return static_cast<int>(
+      launch_tail_fwd<false>(a, vw, threads, blocks, static_cast<cudaStream_t>(stream)));
+}
+
+// The Glow step's tail: y, r [rows, hw, c] (the channel mix's output and the
+// zeroconv's raw convolution), zb, zlogs [c], ldj_in [rows] (may be null:
+// zeros) -> out [rows, hw, c] and ldj [rows]. c even, at most 512. Plan as
+// for coupling_tail_f32.
+int coupling_tail_step_f32(const float* y, const float* r, const float* zb,
+                           const float* zlogs, const float* ldj_in, float* out, float* ldj,
+                           int rows, long long hw, int c, int vw, int threads, int blocks,
+                           void* stream) {
+  if (rows <= 0) return static_cast<int>(cudaSuccess);
+  const int half = c / 2;
+  if (c % 2 != 0 || c > 512 || !tail_plan_ok(half, c, vw, threads, {y, r, out}))
+    return static_cast<int>(cudaErrorInvalidValue);
+  TailArgs a{};
+  a.ls = r; a.t = r + half; a.x = y + half; a.y = y; a.zb = zb; a.zlogs = zlogs;
+  a.ldj_in = ldj_in; a.out = out + half; a.out_a = out; a.ldj = ldj;
+  a.px = hw; a.stride = c; a.half = half; a.rows = rows;
+  return static_cast<int>(
+      launch_tail_fwd<true>(a, vw, threads, blocks, static_cast<cudaStream_t>(stream)));
 }
 
 int coupling_tail_inverse_f32(const float* ls, const float* bias,
@@ -323,24 +777,55 @@ int coupling_tail_inverse_f32(const float* ls, const float* bias,
                               void* stream) {
   if (total <= 0) return static_cast<int>(cudaSuccess);
   long long blocks = (total + EW_THREADS - 1) / EW_THREADS;
-  if (blocks > 132LL * 16) blocks = 132LL * 16;  // grid-stride beyond that
+  if (blocks > SM_COUNT * 16) blocks = SM_COUNT * 16;  // grid-stride beyond that
   coupling_tail_inverse_kernel<<<static_cast<unsigned>(blocks), EW_THREADS, 0,
                                  static_cast<cudaStream_t>(stream)>>>(
       ls, bias, yb, xb, total);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The plain-operand tail's VJP: ls, bias, x_b, g_y [rows, d] (g_y may be
+// null: zeros), g_ldj [rows] at stride g_ldj_stride (may be null) ->
+// d_ls, d_xb [rows, d] (d_bias = d_xb). Plan: backward_plan.
 int coupling_tail_bwd_f32(const float* ls, const float* bias, const float* xb,
-                          const float* gy, const float* gldj, float* d_ls,
-                          float* d_xb, int rows, long long d, void* stream) {
-  const long long total = static_cast<long long>(rows) * d;
-  if (total <= 0) return static_cast<int>(cudaSuccess);
-  long long blocks = (total + EW_THREADS - 1) / EW_THREADS;
-  if (blocks > SM_COUNT * 16) blocks = SM_COUNT * 16;  // grid-stride beyond that
-  coupling_tail_bwd_kernel<<<static_cast<unsigned>(blocks), EW_THREADS, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      ls, bias, xb, gy, gldj, d_ls, d_xb, d, total);
-  return static_cast<int>(cudaGetLastError());
+                          const float* gy, const float* gldj, long long gldj_stride,
+                          float* d_ls, float* d_xb, int rows, long long d, int vw,
+                          int threads, int blocks, int px_per_lane, void* stream) {
+  if (rows <= 0) return static_cast<int>(cudaSuccess);
+  if (d % vw != 0 || !tail_plan_ok(vw, vw, vw, threads, {ls, bias, xb, gy, d_ls, d_xb}))
+    return static_cast<int>(cudaErrorInvalidValue);
+  TailArgs a{};
+  a.ls = ls; a.t = bias; a.x = xb; a.g = gy; a.g_ldj = gldj; a.g_ldj_stride = gldj_stride;
+  a.out = d_xb; a.d_ls = d_ls;
+  a.px = d / vw; a.stride = vw; a.half = vw; a.rows = rows; a.px_per_lane = px_per_lane;
+  return static_cast<int>(
+      launch_tail_bwd<false>(a, vw, threads, blocks, static_cast<cudaStream_t>(stream)));
+}
+
+// The Glow step tail's VJP: y, r [rows, hw, c], zb, zlogs [c], g_out
+// [rows, hw, c] (may be null), g_ldj [rows] at stride g_ldj_stride (may be
+// null) -> d_y, d_r [rows, hw, c], d_zb, d_zlogs [c]. Plan as for
+// coupling_tail_bwd_f32; `partial` holds blocks x 2c floats; `ticket` is an
+// unsigned int, zero between launches (the kernel leaves it so).
+int coupling_tail_step_bwd_f32(const float* y, const float* r, const float* zb,
+                               const float* zlogs, const float* g_out, const float* gldj,
+                               long long gldj_stride, float* d_y, float* d_r, float* d_zb,
+                               float* d_zlogs, float* partial, void* ticket, int rows,
+                               long long hw, int c, int vw, int threads, int blocks,
+                               int px_per_lane, void* stream) {
+  if (rows <= 0) return static_cast<int>(cudaSuccess);
+  const int half = c / 2;
+  if (c % 2 != 0 || c > 512 || !tail_plan_ok(half, c, vw, threads, {y, r, g_out, d_y, d_r}))
+    return static_cast<int>(cudaErrorInvalidValue);
+  TailArgs a{};
+  a.ls = r; a.t = r + half; a.x = y + half; a.zb = zb; a.zlogs = zlogs;
+  a.g = g_out != nullptr ? g_out + half : nullptr; a.g_a = g_out;
+  a.g_ldj = gldj; a.g_ldj_stride = gldj_stride;
+  a.out = d_y + half; a.out_a = d_y; a.d_ls = d_r; a.d_zb = d_zb; a.d_zlogs = d_zlogs;
+  a.partial = partial; a.ticket = static_cast<unsigned int*>(ticket);
+  a.px = hw; a.stride = c; a.half = half; a.rows = rows; a.px_per_lane = px_per_lane;
+  return static_cast<int>(
+      launch_tail_bwd<true>(a, vw, threads, blocks, static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

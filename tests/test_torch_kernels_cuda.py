@@ -13,7 +13,8 @@ products taken in another order by the row's spread, rtol 1e-4 and atol 1e-4
 (its projections run in 3xTF32 on the tensor cores: products to about
 2^-19 relative); its contexts rtol and atol 1e-4, the k softmax's maxima 1e-5 and
 sums rtol and atol 1e-4 (sums of up to N exponentials).
-Gradients: dW and db sum over up to N = 16384 rows (rtol 1e-4, atol 1e-4);
+Gradients: dW and db sum over up to N = 16384 rows (rtol 1e-4, atol 1e-4),
+and so do the step tail's d_zb and d_zlogs;
 the linear-attention block's dx rtol and atol 1e-4, its weight, bias and
 gain gradients within 1e-5 of each gradient's largest entry. The whole-step
 megakernel: y rtol and atol 1e-5, its logdet (a sum of H W C/2 log terms,
@@ -192,6 +193,137 @@ def test_coupling_tail_gradient_matches_autograd_of_plain(gen, shape):
                                    allow_unused=True)
     torch.testing.assert_close(only_ldj[0], want_ldj[0], rtol=1e-5, atol=1e-5)
     assert not only_ldj[1].any() and not only_ldj[2].any()
+
+
+# the three level shapes of the L3 flow at batch 64 (C/2 = 6 takes 8-byte
+# accesses, 12 and 24 16-byte ones), a ragged case (C/2 = 5: 4-byte), a
+# single pixel and the smallest C
+STEP_SHAPES = [(64, 16, 16, 12), (64, 8, 8, 24), (64, 4, 4, 48), (5, 3, 5, 10),
+               (37, 1, 1, 48), (3, 2, 2, 2)]
+
+
+def _step_case(gen, shape):
+    c = shape[-1]
+    return (_randn(gen, *shape), _randn(gen, *shape, scale=0.5), _randn(gen, c, scale=0.2),
+            _randn(gen, c, scale=0.2), _randn(gen, shape[0], scale=10.0))
+
+
+def _misaligned(t):
+    """The same values 4 bytes off the allocation's 16-byte alignment."""
+    return torch.empty(t.numel() + 1, device=t.device)[1:].view(t.shape).copy_(t)
+
+
+@pytest.mark.parametrize("shape", STEP_SHAPES)
+def test_coupling_step_tail_matches_plain(gen, shape):
+    args = _step_case(gen, shape)
+    before = ct.coupling_tail.launches
+    out, ldj = ct.coupling_step_tail(*args)
+    torch.cuda.synchronize()
+    assert ct.coupling_tail.launches == before + 1
+    out_p, ldj_p = ct.coupling_step_tail_plain(*args)
+    torch.testing.assert_close(out, out_p, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(ldj, ldj_p, rtol=1e-5, atol=1e-4)
+    # the first half passes through untouched
+    assert torch.equal(out[..., : shape[-1] // 2], args[0][..., : shape[-1] // 2])
+    # fixed reduction order, no atomics on values: the same bits again
+    again = ct.coupling_step_tail(*args)
+    assert torch.equal(out, again[0]) and torch.equal(ldj, again[1])
+    # operands off 16-byte alignment take a narrower access: same values
+    y_off, r_off = _misaligned(args[0]), _misaligned(args[1])
+    out_off, ldj_off = ct.coupling_step_tail(y_off, r_off, *args[2:])
+    torch.testing.assert_close(out_off, out, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(ldj_off, ldj, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("shape", STEP_SHAPES)
+@pytest.mark.parametrize("given", ["both", "g_out", "g_ldj"])
+def test_coupling_step_tail_bwd_matches_plain(gen, shape, given):
+    y, r, zb, zlogs, _ = _step_case(gen, shape)
+    g_out = _randn(gen, *shape) if given != "g_ldj" else None
+    # an expanded scalar, as the mean of a loss hands it over: read in place
+    g_ldj = _randn(gen, 1).expand(shape[0]) if given != "g_out" else None
+    before = ct.coupling_tail_bwd.launches
+    got = ct.coupling_step_tail_bwd(y, r, zb, zlogs, g_out, g_ldj)
+    torch.cuda.synchronize()
+    assert ct.coupling_tail_bwd.launches == before + 1
+    want = ct.coupling_step_tail_bwd_plain(y, r, zb, zlogs, g_out, g_ldj)
+    for name, a, e in zip(("d_y", "d_r", "d_zb", "d_zlogs"), got, want):
+        tol = 1e-4 if name in ("d_zb", "d_zlogs") else 1e-5
+        torch.testing.assert_close(a, e, rtol=tol, atol=tol, msg=name)
+    again = ct.coupling_step_tail_bwd(y, r, zb, zlogs, g_out, g_ldj)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)  # the per-channel sums in a fixed order
+    # the plain-operand backward with the same expanded g_ldj
+    half = shape[-1] // 2
+    h = (r + zb) * torch.exp(zlogs * 3.0)
+    ls, bias, x_b = (h[..., :half].contiguous(), h[..., half:].contiguous(),
+                     y[..., half:].contiguous())
+    g_y = None if g_out is None else g_out[..., half:].contiguous()
+    got = ct.coupling_tail_bwd(ls, bias, x_b, g_y, g_ldj)
+    want = ct.coupling_tail_bwd_plain(ls, bias, x_b, g_y, g_ldj)
+    for a, e in zip(got, want):
+        torch.testing.assert_close(a, e, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(64, 16, 16, 12), (64, 4, 4, 48), (5, 3, 5, 10)])
+def test_coupling_step_tail_gradient_matches_autograd_of_plain(gen, shape):
+    leaves = [t.requires_grad_(True) for t in _step_case(gen, shape)]
+    out, ldj = ct.coupling_step_tail(*leaves)
+    assert type(out.grad_fn).__name__ == "CouplingStepTailFunctionBackward"
+    g_out, g_ldj = _randn(gen, *shape), _randn(gen, shape[0])
+    fwd, bwd = ct.coupling_tail.launches, ct.coupling_tail_bwd.launches
+    got = torch.autograd.grad((out, ldj), leaves, (g_out, g_ldj))
+    assert (ct.coupling_tail.launches, ct.coupling_tail_bwd.launches) == (fwd, bwd + 1)
+    want = torch.autograd.grad(ct.coupling_step_tail_plain(*leaves), leaves, (g_out, g_ldj))
+    for i, (a, e) in enumerate(zip(got, want)):
+        tol = 1e-4 if i in (2, 3) else 1e-5
+        torch.testing.assert_close(a, e, rtol=tol, atol=tol)
+
+
+def test_coupling_step_tail_bwd_on_two_streams_at_once(gen):
+    """Each stream has its own ticket counter: launches that overlap on two
+    streams give the bits of one stream's launches, and a graph captured on
+    a stream replays them too."""
+    args = [_step_case(gen, shape)[:4] + (_randn(gen, *shape), _randn(gen, shape[0]))
+            for shape in ((64, 16, 16, 12), (64, 8, 8, 24))]
+    want = [ct.coupling_step_tail_bwd(*a) for a in args]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    got = [[], []]
+    for _ in range(20):
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                got[i].append(ct.coupling_step_tail_bwd(*args[i]))
+    torch.cuda.synchronize()
+    for i in range(2):
+        for out in got[i]:
+            assert all(torch.equal(a, b) for a, b in zip(out, want[i]))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=streams[0]):
+        captured = ct.coupling_step_tail_bwd(*args[0])
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(captured, want[0]))
+    # a stream that never launched it has no counter, and capture cannot make one
+    fresh = torch.cuda.Stream()
+    ct._tickets.pop((fresh.device_index, fresh.cuda_stream), None)
+    with pytest.raises(RuntimeError, match="capturing stream"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph(), stream=fresh):
+            ct.coupling_step_tail_bwd(*args[0])
+
+
+def test_coupling_step_tail_refuses_bad_inputs(gen):
+    y, r, zb, zlogs, ldj = _step_case(gen, (2, 4, 4, 12))
+    with pytest.raises(ValueError, match="contiguous"):
+        ct.coupling_step_tail(y, r.transpose(1, 2), zb, zlogs, ldj)
+    with pytest.raises(ValueError, match="zb and zlogs"):
+        ct.coupling_step_tail(y, r, zb[:6], zlogs, ldj)
+    with pytest.raises(ValueError, match="C even"):
+        ct.coupling_step_tail(y[..., :11].contiguous(), r[..., :11].contiguous(),
+                              zb[:11], zlogs[:11], ldj)
+    with pytest.raises(ValueError, match="g_ldj"):
+        ct.coupling_step_tail_bwd(y, r, zb, zlogs, None, ldj[:1])
 
 
 @pytest.mark.parametrize("shape,o", [((64, 16, 16, 12), 12), ((64, 8, 8, 24), 24),
