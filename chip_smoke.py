@@ -26,18 +26,20 @@ line each:
      Each line also names the kernel's design version and, for channel_mix,
      the attention forward and coupling_tail, the wrapper's plan; the
      attention's lines add its bound on its 3xTF32 tensor-core route.
-     coupling_tail runs in both modes: the step mode (the Glow step's whole
-     tail, the Glow path's) at the three level shapes and a ragged C/2 = 5,
-     the same bits on a second call, and the plain-operand mode. Then the
+     coupling_tail and coupling_tail_inverse run in both modes: the step
+     mode (the Glow step's whole tail, forward or inverse, the Glow paths')
+     at the three level shapes and ragged ones (C/2 = 5 and 7), the same
+     bits on a second call, and the plain-operand mode. Then the
      host steps of the planned wrappers (channel_mix and the two modes of
      the coupling tails at the level shapes, the attention forward and
      backward): host-clock us a call of each step they take and of the
      whole wrapper, beside the library call. Then "tail_route": the Glow
-     step's kernel route at the level shapes, its CUDA activities in order
-     and their count (forward, and forward with backward), its times and the
-     tail kernels' alone; the forward must end with the zeroconv's
-     convolution and one step-tail launch, and the step launch one tail
-     kernel each way;
+     step's kernel routes at the level shapes, their CUDA activities in
+     order, their count and device us (forward, forward with backward, and
+     inverse); the forward must end with the zeroconv's convolution and one
+     step-tail launch, the step launch one tail kernel each way, and the
+     inverse end with the zeroconv's convolution, one inverse-tail launch
+     and the channel mix;
   Glow path (launch counters zeroed before 4, read after 6):
   4. scoring: bits/dim through inference.make_eval_step, kernel route
      against the plain route (use_kernels=False), within 1e-4;
@@ -129,13 +131,14 @@ line each:
   21, read after the chained forward):
  20. megakernel: step_megakernel_forward against its plain version at the
      three level shapes (batch 64, width 512), the JAX package's test case
-     (5x16x16x12, width 64) and a ragged case, y within 1e-5 and the
-     logdet within rtol 1e-5 / atol 1e-3, the same bits on a second call;
-     the kernel's tiling and halo waste; times as in 3 (the kernel alone,
+     (5x16x16x12, width 64), a ragged case and blocks of four whole images
+     (16x2x2x48), y within 1e-5 and the logdet within rtol 1e-5 / atol
+     1e-3, the same bits on a second call; the kernel's plan and halo
+     waste; times as in 3 (the kernel alone,
      its weight packing, the whole wrapper), beside the plain version, the
      step the Glow path runs (bijectors.step_forward_kernels: channel_mix,
      cuDNN coupling CNN, coupling_tail) and bijectors.step_forward_megakernel;
-     the bound by operations;
+     the bound by operations, and on the kernel's 3xTF32 tensor-core route;
  21. megakernel_glow: the Glow of phase 4 scores phase 4's batch and draw
      with its 12 steps chained through bijectors.step_forward_megakernel
      (glow.forward's level walk over squeeze_forward and split_forward):
@@ -188,6 +191,8 @@ TAIL_BWD_OPS = 15
 # products with h, into the d_zb and d_zlogs sums = 8 more. Per channel, the
 # 2C exponentials of the epilogue besides.
 STEP_TAIL_OPS, STEP_TAIL_BWD_OPS = TAIL_OPS + 4, TAIL_BWD_OPS + 4 + 8
+# the inverse's step mode: the same epilogue on top of the inverse's 7
+STEP_TAIL_INV_OPS = TAIL_INV_OPS + 4
 RECORDS = []
 # Design version of each kernel, beside its times in the "kernel" lines
 # (1: the first design; channel_mix 2: square kernels with rows in registers
@@ -197,10 +202,14 @@ RECORDS = []
 # coupling_tail and coupling_tail_bwd 2: a unit of VW values a thread, a
 # grid that fills the card, fixed-order sums across blocks, and the step
 # mode that takes in the zeroconv epilogue, the half copies, the
-# concatenation and the logdet add).
+# concatenation and the logdet add; coupling_tail_inverse 2: the same units
+# and a step mode for the inverse step; step_megakernel 2: every product on
+# the tensor cores in 3xTF32, a block a run of consecutive pixels, the
+# zeroconv in scatter form with no halo, a gather-and-tail kernel).
 KERNEL_VERSIONS = {"channel_mix": 2, "fused_linear_attention": 2,
                    "fused_linear_attention_bwd": 2, "coupling_tail": 2,
-                   "coupling_tail_bwd": 2}
+                   "coupling_tail_bwd": 2, "coupling_tail_inverse": 2,
+                   "step_megakernel": 2}
 
 # Stage 2, configs/nf_diffusion.yaml; the keys of a stage-2 run's
 # diffusion_architecture.json (nfdpm_tpu/training/runload.py)
@@ -434,6 +443,28 @@ def phase_kernels(torch, cm, ct):
                      lambda: ct.coupling_tail_plain(ls, tb, xb), None,
                      {"mode": "plain operands"}))
 
+        # the inverse's step mode, as the inverse Glow step launches it: the
+        # step's output (the forward step tail's) and the same convolution
+        xk = ct.coupling_step_tail_inverse(sk, r, zb, zlogs)
+        xp = ct.coupling_step_tail_inverse_plain(sk, r, zb, zlogs)
+        again = ct.coupling_step_tail_inverse(sk, r, zb, zlogs)
+        torch.cuda.synchronize()
+        err = float((xk - xp).abs().max())
+        check(torch.allclose(xk, xp, rtol=1e-5, atol=1e-5),
+              f"coupling_tail_inverse's step mode differs from its plain version at "
+              f"{(b, h, w, c)}: {err}")
+        check(torch.equal(xk, again),
+              f"coupling_tail_inverse's step mode gave other bits on a second call at "
+              f"{(b, h, w, c)}")
+        plan = ct.inverse_plan(b, h * w, c // 2,
+                               ct.vector_width(c // 2, sk.data_ptr(), r.data_ptr()))
+        rows.append(("coupling_tail_inverse", err, 4 * (3 * n * c + 2 * c),
+                     STEP_TAIL_INV_OPS * n * c // 2 + 2 * c,
+                     lambda: ct.coupling_step_tail_inverse(sk, r, zb, zlogs),
+                     lambda: ct.coupling_step_tail_inverse_plain(sk, r, zb, zlogs), None,
+                     {"mode": "step", "plan": plan._asdict()}))
+
+        # its plain-operand mode, the JAX function's counterpart (on no path)
         xk, xp = ct.coupling_tail_inverse(ls, tb, yk), ct.coupling_tail_inverse_plain(ls, tb, yk)
         torch.cuda.synchronize()
         err = float((xk - xp).abs().max())
@@ -441,7 +472,8 @@ def phase_kernels(torch, cm, ct):
               f"coupling_tail_inverse differs from its plain version at {half}: {err}")
         rows.append(("coupling_tail_inverse", err, 4 * 4 * b * d, TAIL_INV_OPS * b * d,
                      lambda: ct.coupling_tail_inverse(ls, tb, yk),
-                     lambda: ct.coupling_tail_inverse_plain(ls, tb, yk), None, {}))
+                     lambda: ct.coupling_tail_inverse_plain(ls, tb, yk), None,
+                     {"mode": "plain operands"}))
 
         for name, err, nbytes, ops, kernel, plain, library, extra in rows:
             times = {"ms": cuda_ms(kernel), "plain_ms": cuda_ms(plain),
@@ -649,6 +681,7 @@ def tail_host_steps(torch, ct, build, gen, dev):
                 zlogs.data_ptr(), ldj.data_ptr(), out.data_ptr(), ldj_out.data_ptr(),
                 BATCH, h * w, c, p.vw, p.threads, p.blocks),
             "step tail wrapper": lambda: ct.coupling_step_tail(y, r, zb, zlogs, ldj),
+            "inverse step tail wrapper": lambda: ct.coupling_step_tail_inverse(y, r, zb, zlogs),
             "step tail backward wrapper": lambda: ct.coupling_step_tail_bwd(y, r, zb, zlogs,
                                                                             g, ldj),
             "plain-operand wrapper": lambda: ct.coupling_tail(ls, bias, xb),
@@ -920,15 +953,17 @@ def short_names(events, width: int = 60):
 
 
 def phase_tail_route(torch):
-    """The Glow step's kernel route (bijectors.step_forward_kernels) at the
-    three level shapes, batch 64, width 512: the CUDA activities of one
-    forward and of one forward and backward, in order, their count and
-    device us (the profiler's sum). The forward must end with the
-    zeroconv's convolution and one step-tail launch, nothing between them
-    or after, and the forward and backward must launch one tail kernel each
-    way. (Phases 3 and 11 time the tail kernels at these shapes;
-    tools/profile_coupling_tails.py times the route in any checkout of the
-    port.)"""
+    """The Glow step's kernel routes (bijectors.step_forward_kernels and
+    bijectors.step_inverse_kernels) at the three level shapes, batch 64,
+    width 512: the CUDA activities of one forward, of one forward and
+    backward, and of one inverse, in order, their count and device us (the
+    profiler's sum). The forward must end with the zeroconv's convolution
+    and one step-tail launch, nothing between them or after; the forward
+    and backward must launch one tail kernel each way; the inverse must end
+    with the zeroconv's convolution, one inverse-tail launch and the channel
+    mix, nothing between them or after. (Phases 3 and 11 time the tail
+    kernels at these shapes; tools/profile_coupling_tails.py times the
+    routes in any checkout of the port.)"""
     from nfdpm_tpu_torch.convert import is_frozen_path, named_leaves
     from nfdpm_tpu_torch.ops import bijectors as bj
     from nfdpm_tpu_torch.ops.zeroconv import conv2d_nhwc
@@ -942,10 +977,8 @@ def phase_tail_route(torch):
         params = random_step(torch, bj, c, WIDTH, seed=c)
         x, ldj0 = randn(BATCH, h, w, c), randn(BATCH, scale=10.0)
         with torch.no_grad():
-            def fwd():
-                return bj.step_forward_kernels(params, x, ldj0)
-
-            seq = kernel_events(torch, fwd)
+            seq = kernel_events(torch, lambda: bj.step_forward_kernels(params, x, ldj0))
+            seq_inv = kernel_events(torch, lambda: bj.step_inverse_kernels(params, x))
             zc = params["coupling"]["net"]["zconv"]
             h2 = randn(BATCH, h, w, WIDTH)
             conv_names = {n for n, _ in kernel_events(
@@ -962,18 +995,28 @@ def phase_tail_route(torch):
         seq_fb = kernel_events(torch, fwd_bwd)
         tails = [n for n, _ in seq if "coupling_tail" in n]
         tails_fb = [n for n, _ in seq_fb if "coupling_tail" in n]
+        tails_inv = [n for n, _ in seq_inv if "coupling_tail" in n]
         check(len(tails) == 1 and "coupling_tail" in seq[-1][0] and len(seq) > 1
               and seq[-2][0] in conv_names,
               f"the step's forward at {(h, w, c)} does not end with the zeroconv's "
               f"convolution and one tail launch: {short_names(seq[-4:])}")
         check(len(tails_fb) == 2,
               f"the step's forward and backward launched {tails_fb} at {(h, w, c)}")
+        check(len(tails_inv) == 1 and len(seq_inv) > 2
+              and "coupling_tail_inverse" in seq_inv[-2][0]
+              and "channel_mix" in seq_inv[-1][0] and seq_inv[-3][0] in conv_names,
+              f"the step's inverse at {(h, w, c)} does not end with the zeroconv's "
+              f"convolution, one inverse-tail launch and the channel mix: "
+              f"{short_names(seq_inv[-4:])}")
         emit({"phase": "tail_route", "x": [BATCH, h, w, c], "width": WIDTH,
               "step_fwd_launches": len(seq),
               "step_fwd_profiler_device_us": sum(us for _, us in seq),
               "step_fwd_bwd_launches": len(seq_fb),
               "step_fwd_bwd_profiler_device_us": sum(us for _, us in seq_fb),
-              "step_fwd_kernels": short_names(seq), "step_fwd_bwd_kernels": short_names(seq_fb)})
+              "step_inv_launches": len(seq_inv),
+              "step_inv_profiler_device_us": sum(us for _, us in seq_inv),
+              "step_fwd_kernels": short_names(seq), "step_fwd_bwd_kernels": short_names(seq_fb),
+              "step_inv_kernels": short_names(seq_inv)})
         for leaf in leaves:
             leaf.requires_grad_(False)
 
@@ -1009,7 +1052,8 @@ def phase_megakernel(torch, sm, bj):
     gen = torch.Generator(device="cuda").manual_seed(4321)
     cases = [(BATCH, h, w, c, WIDTH, True) for (h, w, c) in level_shapes()]
     cases += [(5, 16, 16, 12, 64, False),  # tests/test_pallas_kernels.py's case
-              (7, 5, 9, 14, 44, False)]   # odd B, H and W; C and width not multiples of 8
+              (7, 5, 9, 14, 44, False),   # odd B, H and W; C and width not multiples of 8
+              (16, 2, 2, 48, 512, False)]  # blocks of four whole images
     timed = ("ms", "device_ms", "pack_device_ms", "plain_ms", "plain_device_ms",
              "route_ms", "route_device_ms", "step_ms", "step_device_ms")
     tot = dict({k: 0.0 for k in timed}, bytes=0.0, ops=0.0, max_abs_err=0.0)
@@ -1032,11 +1076,12 @@ def phase_megakernel(torch, sm, bj):
         check(torch.equal(y_k, y_2) and torch.equal(l_k, l_2),
               f"two step_megakernel calls differ at {(b, h, w, c, d)}")
         plan = sm.plan(b, h, w, c, d)
-        record = {"phase": "kernel", "name": "step_megakernel", "x": [b, h, w, c],
+        record = {"phase": "kernel", "name": "step_megakernel",
+                  "version": KERNEL_VERSIONS["step_megakernel"], "x": [b, h, w, c],
                   "width": d, "on_path": on_path, "launches_per_pass": STEPS if on_path else 0,
                   "y_max_abs_err": y_err, "ldj_max_abs_err": l_err,
                   "max_abs_err": max(y_err, l_err), "plan": plan._asdict(),
-                  "halo_waste": sm.halo_waste(plan, h, w)}
+                  "halo_waste": sm.halo_waste(plan, b, h, w)}
         if on_path:
             packed = sm.pack(wf, bf, net, c)
             with torch.no_grad():
@@ -1055,7 +1100,8 @@ def phase_megakernel(torch, sm, bj):
                                                    replays=10)
             nbytes, ops = megakernel_bytes_ops(b, h, w, c, d)
             b_ms, b_by = bound_ms(nbytes, ops)
-            record.update(times, bound_ms=b_ms, bound_by=b_by, bytes=nbytes, ops=ops)
+            record.update(times, bound_ms=b_ms, bound_by=b_by, bytes=nbytes, ops=ops,
+                          tensor_core_bound_ms=3 * ops / TF32_FLOPS_PER_S * 1e3)
             tot["bytes"] += STEPS * nbytes
             tot["ops"] += STEPS * ops
             for key in timed:
@@ -1063,6 +1109,8 @@ def phase_megakernel(torch, sm, bj):
         tot["max_abs_err"] = max(tot["max_abs_err"], y_err, l_err)
         emit(record)
     tot["bound_ms"], tot["bound_by"] = bound_ms(tot["bytes"], tot["ops"])
+    # its route: every product in 3xTF32 on the tensor cores
+    tot["tensor_core_bound_ms"] = 3 * tot["ops"] / TF32_FLOPS_PER_S * 1e3
     tot["library_ms"] = tot["library_device_ms"] = None  # no one PyTorch call is a Glow step
     return tot
 
@@ -2353,7 +2401,8 @@ def main() -> int:
             "per": per.get(name, "one pass: 4 launches at each of the 3 level shapes"),
             **{k: v for k, v in tot.items()
                if k.startswith(("dx_", "route_", "step_", "pack_"))
-               or k in ("max_gradient_gap", "max_abs_gap_by_gradient", *BWD_MEASURED)}})
+               or k in ("max_gradient_gap", "max_abs_gap_by_gradient", "tensor_core_bound_ms",
+                        *BWD_MEASURED)}})
     order = ["channel_mix", "coupling_tail", "coupling_tail_bwd", "coupling_tail_inverse",
              "fused_linear_attention", "fused_linear_attention_bwd", "step_megakernel"]
     kernels.sort(key=lambda k: order.index(k["name"]))

@@ -35,7 +35,7 @@ import torch
 from .coupling import (actnorm_stats_init, coupling_net_apply, coupling_net_conv,
                        coupling_net_ddinit, init_coupling_net)
 from .kernels.channel_mix import channel_mix
-from .kernels.coupling_tail import coupling_step_tail, coupling_tail_inverse
+from .kernels.coupling_tail import coupling_step_tail, coupling_step_tail_inverse
 from .kernels.step_megakernel import step_megakernel_forward
 from .zeroconv import init_zeroconv, zeroconv_apply
 
@@ -371,13 +371,19 @@ def step_inverse(params: Params, y: torch.Tensor,
 
 
 def step_inverse_kernels(params: Params, y: torch.Tensor) -> torch.Tensor:
-    """Inverse step through the kernels: the coupling tail inverse, then the
-    channel mix with weight diag(e^-s) W^{-1} and bias -b, which is the
-    fused inverse's "- b" term in the kernel's matmul-plus-bias form."""
-    y_a, y_b = _halves(y)
-    log_scale, bias = _halves(coupling_net_apply(params["coupling"]["net"], y_a))
-    x_b = coupling_tail_inverse(log_scale.contiguous(), bias.contiguous(),
-                                y_b.contiguous())
-    x = torch.cat([y_a, x_b], dim=-1)
+    """Inverse step through the kernels: the coupling CNN up to its
+    zeroconv's convolution (cuDNN), then the inverse step tail in one
+    launch (the zeroconv's bias and scale, the inverse tail on the second
+    half, the first half passed through, x written whole), then the channel
+    mix with weight diag(e^-s) W^{-1} and bias -b, which is the fused
+    inverse's "- b" term in the kernel's matmul-plus-bias form. The mix's
+    weight and bias are made first, so that nothing runs between the
+    convolution, the tail and the mix. The input may be a view; the tail
+    takes it contiguous."""
     an = params["actnorm"]
-    return channel_mix(x, _inverse_fold(an, params["invconv"]).contiguous(), -an["bias"])
+    w_inv, b_inv = _inverse_fold(an, params["invconv"]).contiguous(), -an["bias"]
+    y = y.contiguous()
+    net = params["coupling"]["net"]
+    r = coupling_net_conv(net, _halves(y)[0])
+    x = coupling_step_tail_inverse(y, r, net["zconv"]["b"], net["zconv"]["logs"])
+    return channel_mix(x, w_inv, b_inv)

@@ -3,7 +3,8 @@
 Each source has a plain C interface and becomes one shared library: at
 first use, `nvcc` compiles it for Hopper (`sm_90a`) into
 `build/kernels/lib<name>.so` at the root of the checkout, and `ctypes`
-loads it. A library is rebuilt when it is missing or older than its source.
+loads it. A library is rebuilt when it is missing or older than its source
+or than a header the sources share (csrc/*.cuh).
 `build()` starts one `nvcc` per stale source, all at once, and waits for
 them together. Nothing here runs at import time: the CPU tests import every
 module, and the CPU has no `nvcc`.
@@ -39,7 +40,8 @@ _SIGNATURES = {
         "channel_mix_f32": ([_P, _P, _P, _P, ctypes.c_longlong] + [_I] * 5 + [_P], _I),
         "coupling_tail_f32": ([_P] * 5 + [_I, _L] + [_I] * 3 + [_P], _I),
         "coupling_tail_step_f32": ([_P] * 7 + [_I, _L] + [_I] * 4 + [_P], _I),
-        "coupling_tail_inverse_f32": ([_P, _P, _P, _P, _L, _P], _I),
+        "coupling_tail_inverse_f32": ([_P] * 4 + [_L] + [_I] * 3 + [_P], _I),
+        "coupling_tail_inverse_step_f32": ([_P] * 5 + [_I, _L] + [_I] * 4 + [_P], _I),
         "coupling_tail_bwd_f32": ([_P] * 5 + [_L] + [_P] * 2 + [_I, _L] + [_I] * 4 + [_P], _I),
         "coupling_tail_step_bwd_f32": ([_P] * 6 + [_L] + [_P] * 6 + [_I, _L] + [_I] * 5
                                        + [_P], _I),
@@ -51,8 +53,8 @@ _SIGNATURES = {
         "fused_linear_attention_bwd_f32": ([_P] * 13 + [_I] * 6 + [_P], _I),
     },
     "step_megakernel": {
-        "step_megakernel_plan": ([_I] * 5 + [_P], ctypes.c_longlong),
-        "step_megakernel_f32": ([_P] * 15 + [_I] * 8 + [_P], _I),
+        "step_megakernel_smem_bytes": ([_I] * 6, ctypes.c_longlong),
+        "step_megakernel_f32": ([_P] * 15 + [_I] * 7 + [_P], _I),
     },
 }
 
@@ -82,8 +84,11 @@ def _nvcc() -> str:
 
 
 def _stale(name: str) -> bool:
+    """True where the library is missing or older than its source or a
+    header beside it (csrc/*.cuh, which the sources include)."""
     lib = library_path(name)
-    return not lib.exists() or lib.stat().st_mtime < source(name).stat().st_mtime
+    newest = max(p.stat().st_mtime for p in [source(name), *CSRC.glob("*.cuh")])
+    return not lib.exists() or lib.stat().st_mtime < newest
 
 
 def build(names: Optional[Iterable[str]] = None) -> float:

@@ -27,12 +27,20 @@ modes (`_bwd` there, left to XLA in the JAX package):
     step:  d_y = [g_a, g_b s];  d_r = [d_ls, d_bias] e  (e = exp(3 zlogs))
            d_zb = sum d_r;  d_zlogs = 3 sum [d_ls, d_bias] h  (over B, H, W)
 
-The inverse tail has no gradient (the JAX package never differentiates it
+The inverse kernel serves the same two modes: the plain-operand
+`coupling_tail_inverse(log_scale, bias, y_b)` and the step mode
+`coupling_step_tail_inverse(y, r, zb, zlogs)`, the whole tail of an inverse
+Glow step in one launch, the inverse channel mix's input written whole:
+
+      h = (r + zb) * exp(3 zlogs);  ls, bias = h[..., :C/2], h[..., C/2:]
+      x = [y[..., :C/2], y[..., C/2:] / (sigmoid(ls + 2) + 1e-6) - bias]
+
+The inverse has no gradient (the JAX package never differentiates it
 either) and raises when one is asked for.
 
-Each kernel's layout per shape is a plan (`forward_plan`, `backward_plan`),
-a pure function of the shape and the access width that the wrapper hands
-to the kernel as arguments (the CPU tests hold it). The kernels' logdet and
+Each kernel's layout per shape is a plan (`forward_plan`, `backward_plan`,
+`inverse_plan`), a pure function of the shape and the access width that
+the wrapper hands to the kernel as arguments (the CPU tests hold it). The kernels' logdet and
 per-channel sums take a fixed order. The forward adds an image's blocks'
 sums within their thread-block cluster; the step-mode backward adds its
 blocks' rows of per-channel sums in the block that finishes last, picked
@@ -52,6 +60,7 @@ from . import _build
 
 EPS = 1e-6
 SMS = 132                # H100 SXM
+MAX_INVERSE_BLOCKS = SMS * 16  # csrc/flow_kernels.cu: launch_tail_inverse; threads loop past it
 MAX_THREADS = 512        # csrc/flow_kernels.cu: TAIL_MAX_THREADS
 MAX_CLUSTER = 8          # csrc/flow_kernels.cu: TAIL_MAX_CLUSTER, a portable cluster
 MAX_STEP_CHANNELS = 512  # csrc/flow_kernels.cu: coupling_tail_step_f32
@@ -94,6 +103,19 @@ def forward_plan(rows: int, px: int, half: int, vw: int) -> Plan:
     while threads < MAX_THREADS and -(-units // threads) > MAX_CLUSTER:
         threads *= 2
     return Plan(vw, threads, min(MAX_CLUSTER, max(1, -(-units // threads))), 1)
+
+
+@functools.lru_cache(maxsize=None)
+def inverse_plan(rows: int, px: int, half: int, vw: int) -> Plan:
+    """The inverse kernel's plan (a plain row: rows = 1, px = n / vw, half =
+    vw): a 1-D grid of one unit a thread, the threads halved from 128 to 32
+    until the grid has a block per SM; past MAX_INVERSE_BLOCKS blocks the
+    threads walk the units in a loop."""
+    units = rows * px * (half // vw)
+    threads = 128
+    while threads > 32 and -(-units // threads) < SMS:
+        threads //= 2
+    return Plan(vw, threads, min(MAX_INVERSE_BLOCKS, max(1, -(-units // threads))), 1)
 
 
 @functools.lru_cache(maxsize=None)
@@ -167,6 +189,16 @@ def coupling_step_tail_plain(y: torch.Tensor, r: torch.Tensor, zb: torch.Tensor,
     h, _ = _epilogue(r, zb, zlogs)
     y_b, ldj_part = coupling_tail_plain(h[..., :half], h[..., half:], y[..., half:])
     return torch.cat([y[..., :half], y_b], dim=-1), ldj + ldj_part
+
+
+def coupling_step_tail_inverse_plain(y: torch.Tensor, r: torch.Tensor, zb: torch.Tensor,
+                                     zlogs: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the inverse step tail: y, r [B, ..., C], zb,
+    zlogs [C] -> x [B, ..., C]."""
+    half = y.shape[-1] // 2
+    h, _ = _epilogue(r, zb, zlogs)
+    x_b = coupling_tail_inverse_plain(h[..., :half], h[..., half:], y[..., half:])
+    return torch.cat([y[..., :half], x_b], dim=-1)
 
 
 def coupling_step_tail_bwd_plain(y: torch.Tensor, r: torch.Tensor, zb: torch.Tensor,
@@ -433,31 +465,64 @@ def coupling_step_tail(y: torch.Tensor, r: torch.Tensor, zb: torch.Tensor,
     return _step_tail(y, r, zb, zlogs, ldj)
 
 
+_INVERSE_ROADMAP = ("§2.3: the inverse tail is not differentiated in the JAX package "
+                    "either; use coupling_tail_inverse_plain")
+
+
 def coupling_tail_inverse(log_scale: torch.Tensor, bias: torch.Tensor,
                           y_b: torch.Tensor) -> torch.Tensor:
     """Inverse tail, [B, H, W, C/2] fp32 inputs -> x_b of the same shape.
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    or raises. Not differentiable: raises where a gradient is asked for."""
-    _build.refuse_gradient("coupling_tail_inverse",
-                           "§2.3: the inverse tail is not differentiated in the JAX "
-                           "package either; use coupling_tail_inverse_plain",
-                           log_scale, bias, y_b)
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel's
+    plain-operand mode or raises. Not differentiable: raises where a
+    gradient is asked for."""
+    _build.refuse_gradient("coupling_tail_inverse", _INVERSE_ROADMAP, log_scale, bias, y_b)
     if y_b.device.type == "cpu":
         return coupling_tail_inverse_plain(log_scale, bias, y_b)
     device = _build.check_cuda_f32("coupling_tail_inverse", log_scale, bias, y_b)
     _check_shapes("coupling_tail_inverse", log_scale, bias, y_b)
     x_b = torch.empty_like(y_b)
+    n = y_b.numel()
+    vw = vector_width(n, log_scale.data_ptr(), bias.data_ptr(), y_b.data_ptr(), x_b.data_ptr())
+    p = inverse_plan(1, n // vw, vw, vw)
     _build.launch("coupling_tail_inverse",
                   _build.function("flow_kernels", "coupling_tail_inverse_f32"), device,
-                  log_scale.data_ptr(), bias.data_ptr(), y_b.data_ptr(), x_b.data_ptr(),
-                  y_b.numel())
+                  log_scale.data_ptr(), bias.data_ptr(), y_b.data_ptr(), x_b.data_ptr(), n,
+                  p.vw, p.threads, p.blocks)
     coupling_tail_inverse.launches += 1
     return x_b
 
 
+def coupling_step_tail_inverse(y: torch.Tensor, r: torch.Tensor, zb: torch.Tensor,
+                               zlogs: torch.Tensor) -> torch.Tensor:
+    """The tail of an inverse Glow step: y [B, H, W, C] (the step's output),
+    r [B, H, W, C] (the zeroconv's raw convolution of y's first half,
+    contiguous NHWC), zb and zlogs [C] (its bias and log-scale) -> x [B, H,
+    W, C], the inverse channel mix's input, fp32.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    (counted in `coupling_tail_inverse.launches`) or raises. Not
+    differentiable: raises where a gradient is asked for."""
+    _build.refuse_gradient("coupling_step_tail_inverse", _INVERSE_ROADMAP, y, r, zb, zlogs)
+    if y.device.type == "cpu":
+        return coupling_step_tail_inverse_plain(y, r, zb, zlogs)
+    device = _build.check_cuda_f32("coupling_step_tail_inverse", y, r, zb, zlogs)
+    b, c, px = _check_step("coupling_step_tail_inverse", y, r, zb, zlogs, None)
+    x = torch.empty_like(y)
+    p = inverse_plan(b, px, c // 2, vector_width(c // 2, y.data_ptr(), r.data_ptr(),
+                                                 x.data_ptr()))
+    _build.launch("coupling_step_tail_inverse",
+                  _build.function("flow_kernels", "coupling_tail_inverse_step_f32"), device,
+                  y.data_ptr(), r.data_ptr(), zb.data_ptr(), zlogs.data_ptr(), x.data_ptr(),
+                  b, px, c, p.vw, p.threads, p.blocks)
+    coupling_tail_inverse.launches += 1
+    return x
+
+
 # `coupling_tail.launches` counts every launch of the forward kernel, both
-# modes; `coupling_tail_bwd.launches` every launch of the backward kernel.
+# modes; `coupling_tail_bwd.launches` every launch of the backward kernel;
+# `coupling_tail_inverse.launches` every launch of the inverse kernel, both
+# modes.
 coupling_tail.launches = 0
 coupling_tail_bwd.launches = 0
 coupling_tail_inverse.launches = 0

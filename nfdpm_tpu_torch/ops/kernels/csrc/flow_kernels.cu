@@ -78,10 +78,29 @@
 //    TPU kernel's pad to 128 lanes and its analytic correction of the
 //    logdet are not carried over.
 //
-// 3. coupling_tail_inverse_f32 replaces the second pl.pallas_call in
-//    nfdpm_tpu/ops/pallas/coupling_tail.py (coupling_tail_inverse):
+// 3. coupling_tail_inverse_f32 and coupling_tail_inverse_step_f32 replace
+//    the second pl.pallas_call in nfdpm_tpu/ops/pallas/coupling_tail.py
+//    (coupling_tail_inverse):
 //        x_b = y_b / (sigmoid(ls + 2) + 1e-6) - bias
-//    Bound: bytes. A grid-stride elementwise pass, no reduction.
+//    The step mode (coupling_tail_inverse_step_f32) is the whole tail of an
+//    inverse Glow step in one launch, the mirror of 2's step mode. From the
+//    step's y [B, P, C] and the zeroconv's raw convolution r [B, P, C]:
+//        h = (r + zb) * exp(3 zlogs);  ls, bias = h[..., :C/2], h[..., C/2:]
+//        x = [y[..., :C/2], y[..., C/2:] / (sigmoid(ls + 2) + 1e-6) - bias]
+//    written whole and contiguous, ready for the inverse channel mix: the
+//    inverse route has no epilogue, half copies or concatenation of its
+//    own. The plain-operand mode (three [N] operands, no epilogue, no
+//    pass-through half) is another instance of the same kernel template.
+//    Bound: bytes (y and r read, x written in the step mode: 12 bytes a
+//    value) and, at the Glow's sizes, launch latency. No reduction, so no
+//    cluster and no ticket. Design: 2's units (VW values of a pixel's
+//    transformed half with their log-scale partners and, in the step mode,
+//    the VW pass-through values; 16-, 8- or 4-byte accesses by VW), the
+//    first unit's loads out before the block stages zb and exp(3 zlogs);
+//    a 1-D grid of one unit a thread, whose plan (ops/kernels/
+//    coupling_tail.py: inverse_plan) halves the threads from 128 to 32
+//    until it has a block per SM (384, 192 and 192 blocks at the three
+//    level shapes of batch 64); past SM_COUNT x 16 blocks the threads loop.
 //
 // 4. coupling_tail_bwd_f32 and coupling_tail_step_bwd_f32 are the
 //    vector-Jacobian products of the two modes of 2 (the JAX package's
@@ -127,7 +146,6 @@ constexpr int CM_MAX_THREADS = 512;  // the plan's largest block
 constexpr long long SM_COUNT = 132;  // H100 SXM
 constexpr int TAIL_MAX_THREADS = 512;  // the tail plans' largest block
 constexpr int TAIL_MAX_CLUSTER = 8;    // the forward's blocks an image: a portable cluster
-constexpr int EW_THREADS = 256;
 constexpr float COUPLING_EPS = 1e-6f;
 
 __device__ __forceinline__ float sigmoid_shift2(float v) {
@@ -272,15 +290,15 @@ struct TailArgs {
   const float* ls;      // log-scale half (step: the raw zeroconv output r)
   const float* t;       // bias half (step: r + C/2)
   const float* x;       // transformed half of the input (step: y + C/2)
-  const float* y;       // step forward: y, whose first half passes through
+  const float* y;       // step forward and inverse: y, whose first half passes through
   const float* zb;      // step: the zeroconv's bias [C]
   const float* zlogs;   // step: the zeroconv's log-scale [C]
   const float* ldj_in;  // step forward: the running logdet [B], or null
   const float* g;       // backward: cotangent at x's places, or null (zeros)
   const float* g_a;     // step backward: cotangent of out, or null (zeros)
   const float* g_ldj;   // backward: [B] at stride g_ldj_stride, or null
-  float* out;           // forward: transformed half; backward: d_x (step: d_y + C/2)
-  float* out_a;         // step: out's (forward) or d_y's (backward) first half
+  float* out;           // forward, inverse: transformed half; backward: d_x (step: d_y + C/2)
+  float* out_a;         // step: out's (forward), x's (inverse) or d_y's (backward) first half
   float* d_ls;          // backward: d_ls (step: d_r, both halves)
   float* ldj;           // forward: [B]
   float* d_zb;          // step backward: [C]
@@ -620,16 +638,47 @@ coupling_tail_bwd_kernel(const TailArgs a) {
       });
 }
 
-__global__ void __launch_bounds__(EW_THREADS)
-coupling_tail_inverse_kernel(const float* __restrict__ ls,
-                             const float* __restrict__ bias,
-                             const float* __restrict__ yb,
-                             float* __restrict__ xb, long long total) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < total; i += stride) {
-    const float s = sigmoid_shift2(ls[i]);
-    xb[i] = yb[i] / (s + COUPLING_EPS) - bias[i];
+// Inverse, note item 3: a 1-D grid over the units of all pixels, one a
+// thread (a loop past the grid). Step: zb, exp(3 zlogs) in shared memory.
+template <bool STEP, int VW>
+__global__ void __launch_bounds__(TAIL_MAX_THREADS)
+coupling_tail_inverse_kernel(const TailArgs a) {
+  extern __shared__ float epi[];  // step: zb, exp(3 zlogs) [2C]
+  const int q_n = a.half / VW;
+  const long long units = a.rows * a.px * q_n;
+  const long long stride_u = static_cast<long long>(gridDim.x) * blockDim.x;
+  long long u = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  // the first unit's loads go out before the block stages the epilogue
+  float ls[VW], t[VW], yb[VW], ya[VW];
+  long long o = 0;
+  int c0 = 0;
+  bool active = u < units;
+  if (active) {
+    c0 = static_cast<int>(u % q_n) * VW;
+    o = (u / q_n) * a.stride + c0;
+    load_vec<VW>(a.ls + o, ls);
+    load_vec<VW>(a.t + o, t);
+    load_vec<VW>(a.x + o, yb);
+    if (STEP) load_vec<VW>(a.y + o, ya);
+  }
+  if (STEP) {
+    stage_epilogue(a, epi);
+    __syncthreads();
+  }
+  while (active) {
+    if (STEP) apply_epilogue<VW>(epi, a.half, c0, ls, t);
+#pragma unroll
+    for (int k = 0; k < VW; ++k) yb[k] = yb[k] / (sigmoid_shift2(ls[k]) + COUPLING_EPS) - t[k];
+    if (STEP) store_vec<VW>(a.out_a + o, ya);
+    store_vec<VW>(a.out + o, yb);
+    u += stride_u;
+    if (u >= units) break;
+    c0 = static_cast<int>(u % q_n) * VW;
+    o = (u / q_n) * a.stride + c0;
+    load_vec<VW>(a.ls + o, ls);
+    load_vec<VW>(a.t + o, t);
+    load_vec<VW>(a.x + o, yb);
+    if (STEP) load_vec<VW>(a.y + o, ya);
   }
 }
 
@@ -695,6 +744,21 @@ cudaError_t launch_tail_bwd(const TailArgs& a, int vw, int threads, int blocks,
     case 4: coupling_tail_bwd_kernel<STEP, 4><<<grid, threads, smem, stream>>>(a); break;
     case 2: coupling_tail_bwd_kernel<STEP, 2><<<grid, threads, smem, stream>>>(a); break;
     default: coupling_tail_bwd_kernel<STEP, 1><<<grid, threads, smem, stream>>>(a); break;
+  }
+  return cudaGetLastError();
+}
+
+// The inverse: a 1-D grid of `blocks` blocks
+template <bool STEP>
+cudaError_t launch_tail_inverse(const TailArgs& a, int vw, int threads, int blocks,
+                                cudaStream_t stream) {
+  if (blocks <= 0 || blocks > SM_COUNT * 16) return cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * tail_smem_floats(STEP, false, a.half, vw, threads);
+  const unsigned grid = static_cast<unsigned>(blocks);
+  switch (vw) {
+    case 4: coupling_tail_inverse_kernel<STEP, 4><<<grid, threads, smem, stream>>>(a); break;
+    case 2: coupling_tail_inverse_kernel<STEP, 2><<<grid, threads, smem, stream>>>(a); break;
+    default: coupling_tail_inverse_kernel<STEP, 1><<<grid, threads, smem, stream>>>(a); break;
   }
   return cudaGetLastError();
 }
@@ -772,16 +836,37 @@ int coupling_tail_step_f32(const float* y, const float* r, const float* zb,
       launch_tail_fwd<true>(a, vw, threads, blocks, static_cast<cudaStream_t>(stream)));
 }
 
-int coupling_tail_inverse_f32(const float* ls, const float* bias,
-                              const float* yb, float* xb, long long total,
-                              void* stream) {
-  if (total <= 0) return static_cast<int>(cudaSuccess);
-  long long blocks = (total + EW_THREADS - 1) / EW_THREADS;
-  if (blocks > SM_COUNT * 16) blocks = SM_COUNT * 16;  // grid-stride beyond that
-  coupling_tail_inverse_kernel<<<static_cast<unsigned>(blocks), EW_THREADS, 0,
-                                 static_cast<cudaStream_t>(stream)>>>(
-      ls, bias, yb, xb, total);
-  return static_cast<int>(cudaGetLastError());
+// The plain-operand inverse: ls, bias, y_b [n] -> x_b [n]. `vw`, `threads`
+// and `blocks` are the wrapper's plan (ops/kernels/coupling_tail.py:
+// inverse_plan, with px = n / vw and half = vw).
+int coupling_tail_inverse_f32(const float* ls, const float* bias, const float* yb, float* xb,
+                              long long n, int vw, int threads, int blocks, void* stream) {
+  if (n <= 0) return static_cast<int>(cudaSuccess);
+  if (n % vw != 0 || !tail_plan_ok(vw, vw, vw, threads, {ls, bias, yb, xb}))
+    return static_cast<int>(cudaErrorInvalidValue);
+  TailArgs a{};
+  a.ls = ls; a.t = bias; a.x = yb; a.out = xb;
+  a.px = n / vw; a.stride = vw; a.half = vw; a.rows = 1;
+  return static_cast<int>(
+      launch_tail_inverse<false>(a, vw, threads, blocks, static_cast<cudaStream_t>(stream)));
+}
+
+// The inverse Glow step's tail: y, r [rows, hw, c] (the step's output and
+// the zeroconv's raw convolution), zb, zlogs [c] -> x [rows, hw, c]. c
+// even, at most 512. Plan: inverse_plan.
+int coupling_tail_inverse_step_f32(const float* y, const float* r, const float* zb,
+                                   const float* zlogs, float* x, int rows, long long hw,
+                                   int c, int vw, int threads, int blocks, void* stream) {
+  if (rows <= 0) return static_cast<int>(cudaSuccess);
+  const int half = c / 2;
+  if (c % 2 != 0 || c > 512 || !tail_plan_ok(half, c, vw, threads, {y, r, x}))
+    return static_cast<int>(cudaErrorInvalidValue);
+  TailArgs a{};
+  a.ls = r; a.t = r + half; a.x = y + half; a.y = y; a.zb = zb; a.zlogs = zlogs;
+  a.out = x + half; a.out_a = x;
+  a.px = hw; a.stride = c; a.half = half; a.rows = rows;
+  return static_cast<int>(
+      launch_tail_inverse<true>(a, vw, threads, blocks, static_cast<cudaStream_t>(stream)));
 }
 
 // The plain-operand tail's VJP: ls, bias, x_b, g_y [rows, d] (g_y may be

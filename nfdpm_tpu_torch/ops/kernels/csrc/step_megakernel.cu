@@ -3,465 +3,585 @@
 // Replaces nfdpm_tpu/ops/pallas/step_megakernel.py (step_megakernel_forward
 // -> pl.pallas_call). Plain C interface, built by nvcc into a shared library
 // and loaded with ctypes (nfdpm_tpu_torch/ops/kernels/_build.py); the entry
-// point launches on the stream it is given, allocates nothing and returns
-// cudaGetLastError(). The wrapper (ops/kernels/step_megakernel.py) checks
-// device, dtype, contiguity and shapes and packs the weights:
+// point launches on the stream it is given, allocates nothing (the wrapper
+// passes the scratch z) and returns cudaGetLastError(). The wrapper
+// (ops/kernels/step_megakernel.py) checks device, dtype, contiguity and
+// shapes, packs the weights and hands over its plan:
 //
 //     x [B, H, W, C], C even, half = C / 2
 //     wf [C, C] (out, in), bf [C]          folded actnorm + 1x1 channel mix
-//     w1 [9, half, D], s1, b1 [D]          3x3 conv to the hidden width D,
+//     w1 [9 half, D] tap-major, s1, b1 [D] 3x3 conv to the hidden width D,
 //                                          actnorm (log-scale, bias)
 //     w2 [D, D] (in, out), s2, b2 [D]      1x1 conv, actnorm
-//     wz [9, D, C4], bz, zl [C]            3x3 zeroconv, C4 = C rounded up
-//                                          to 4 (zero columns), log-scale
+//     wz [D, ZC], bz, zl [C]               3x3 zeroconv, scatter form: column
+//                                          tap C + c holds tap's weight to
+//                                          output channel c; ZC = 9 C rounded
+//                                          up to 8 (zero columns); log-scale
+//     w1, w2 and wz in the B-fragment layout (frag_b there: blocks of 8 x 8)
 //
-// Taps are tap-major in the order (dh + 1) * 3 + (dw + 1). Per pixel:
+// Taps are in the order (dh + 1) * 3 + (dw + 1). Per pixel:
 //
 //     y    = x wf^T + bf;  y_a, x_b = split(y)
 //     h1   = relu(e^{s1} (conv3x3(y_a, w1) + b1))
 //     h2   = relu(e^{s2} (h1 w2 + b2))
 //     net  = (conv3x3(h2, wz) + bz) e^{3 zl};  ls, t = split(net)
 //     s    = sigmoid(ls + 2);  y = [y_a, (x_b + t) s]
-//     rows = sum_j log(s_j + 1e-6)            per pixel; ldj[b] = sum of rows
+//     ldj[b] = sum over the image's pixels and j of log(s_j + 1e-6)
 //
-// Bound: operations. At the Glow's widths (D = 512, C = 12 / 24 / 48 on the
-// served model) a pixel costs 2 (9 half D + D D + 9 D C + C C) flops, 0.69
-// to 1.19 MFLOP, and moves 8 C bytes; the weights (1-2 MB) stay in L2. The
-// 1x1 conv (D x D per pixel) is most of it at the first level, the
-// zeroconv and the first conv add up to as much at the last.
+// Bound: operations. At the Glow's widths (D = 512, C = 12 / 24 / 48) a
+// pixel costs 2 (9 half D + D D + 9 D C + C C) flops, 0.69 to 1.19 MFLOP,
+// and moves 8 C bytes; the weights (1-2 MB) stay in L2. 64.2 GFLOP a pass
+// of 12 steps at batch 64: 0.96 ms at the fp32 rate (67 TFLOP/s), 0.39 ms
+// on this kernel's route, 3 x the flops at the TF32 rate (495 TFLOP/s).
 //
-// Design. One block takes one output tile (th x tw pixels of one image) and
-// keeps one 512-wide hidden on chip, as the TPU kernel keeps both in VMEM:
-// - y_a is computed on the tile plus two pixels all round, into shared
-//   memory, zero outside the image (the convs' padding), so no tap needs a
-//   mask;
-// - h1 on the tile plus one pixel all round, clipped to the image ("region
-//   1"), all D channels, channel-major in shared memory: each thread makes
-//   4 pixels x 4 channels from 9 taps x half inputs;
-// - h2 is never whole: chunks of nc channels are a register-tiled product
-//   (4 pixels x 4 channels per thread, one or two such quads) of h1 with
-//   rows of w2 staged through shared memory 32 at a time, in two stages
-//   (cp.async: the next rows load while these are used); each chunk, after
-//   its actnorm and ReLU, goes to a zero-bordered box in shared memory and
-//   straight into the zeroconv's accumulators (C channels per tile pixel,
-//   kept in registers over all chunks; where the tile has few pixels the
-//   chunk's channels are split among several threads per output and their
-//   partial sums are added in a fixed order at the end);
-// - the first conv's and the zeroconv's weights (w1, wz: up to 0.9 MB) are
-//   read through L1 from L2, each thread issuing a channel's nine taps at
-//   once; one dependent load at a time left the kernel waiting on L2;
-// - the affine tail runs on the tile, and each pixel's log terms are summed
-//   in channel order; a second small kernel sums an image's pixels in a
-//   fixed order. No atomics anywhere: two calls give the same bits.
-// The halo costs work: region 1 is up to (th + 2)(tw + 2) pixels for th tw
-// outputs, and the first conv and the 1x1 conv run on all of it. The host
-// picks the tile (th, tw) and the chunk width nc per shape from a simple
-// cost model (plan_for() below): the work per block, the number of blocks per
-// wave, shared memory within the 227 KB of a block. No tensor cores: TF32
-// would break the fp32 parity the TPU kernel keeps with Precision.HIGHEST.
-// The Pallas kernel's flattened rows, pltpu.roll taps and iota masks are a
-// Mosaic device and are not carried over; pixels are indexed directly.
+// Design. Every product runs on the tensor cores in 3xTF32 (mma.sync
+// m16n8k8, fp32 operands split into TF32 hi + lo, three products: about
+// 2^-19 relative, the fp32 gates of the JAX package's Precision.HIGHEST
+// kernel; tf32_mma.cuh, shared with the attention), each ring stage's sums
+// added to the running ones outside the tensor cores (they round toward
+// zero, a bias that grows with the depth). mma.sync and not wgmma:
+// 3xTF32 splits every operand in registers before its product, which
+// wgmma's shared-memory B operand cannot take without a second copy of
+// each weight tile, and the level shapes give 16-64-row tiles, not
+// wgmma's 64.
+// - A block takes M = 16 mt consecutive pixels of the flattened [B, H, W]
+//   (mt = 4, 2, 1 at the three level shapes: 256, 128 and 64 blocks),
+//   whatever image rows or images they cover.
+// - No halo. The zeroconv runs in scatter form: each pixel q's h2 times
+//   wz gives Z[q][tap C + c], the share of q in the output of pixel q -
+//   (dh, dw), a [M x D] x [D x ZC] product over the block's own pixels
+//   only. So h2, and with it h1 and the 1x1 conv, is needed on the
+//   block's pixels alone, and no block recomputes another's border
+//   (halo_waste 1 where M divides B H W); the 3x3 conv1 reads y_a on the
+//   block's pixels +- (W + 1), which the block mixes itself (C half
+//   multiply-adds a pixel: scalar fp32). A second small kernel gathers
+//   each output pixel's nine taps of Z in tap order, adds bias and scale,
+//   runs the affine tail and sums an image's log terms in a fixed order
+//   (one block an image). No atomics anywhere: two calls give the same
+//   bits.
+// - Products. conv1 is an implicit GEMM [M x 9 half] x [9 half x D] on an
+//   im2col tile in shared memory, in chunks of 512 / mt hidden channels;
+//   h1 [M x D] stays in shared memory. Then per chunk of 512 / mt
+//   channels: the 1x1 conv [M x D] x [D x chunk], its actnorm and ReLU into
+//   a chunk of h2 in shared memory, and that chunk's scatter zeroconv
+//   [M x chunk] x [chunk x ZC] into accumulators that stay in registers
+//   over all chunks. Eight warps split each product's columns; every warp
+//   holds all mt row tiles, so an A fragment serves all its column tiles
+//   and a B fragment all its row tiles.
+// - Feeding. Every B operand (w1's, w2's and wz's rows) streams through one
+//   ring of `stages` buffers of 32 rows (16 at mt = 1) by cp.async (the
+//   next stages load while this one is multiplied; zeros past the edges),
+//   and the next product's first stages are issued as soon as a product
+//   ends, so they load during its epilogue: the zeroconv's weights no
+//   longer wait on L2 one dependent load at a time. The weights come
+//   packed in the B-fragment layout and the A operands (the im2col tile,
+//   h1, each h2 chunk) are written in the A-fragment layout (a_frag), so a
+//   thread's fragment is one 16-byte (A) or 8-byte (B) load of contiguous
+//   shared memory, free of bank conflicts, and an epilogue stores a
+//   fragment as one 16-byte store (the k order within each group of 8 is
+//   permuted the same way in both layouts). Each group's fragments load
+//   before the previous group's products issue, and the three products of
+//   a tile are issued a whole pass over the warp's tiles apart.
+// Measured on the H100 (tools/profile_step_megakernel.py): the 1x1 conv's
+// products take about 60% of a block's cycles at the first level, the
+// zeroconv's 40% at the last, issuing mma.sync at about half the rate the
+// tensor cores take it (317 TFLOP/s in TF32, tools/probe_mma_rate.py);
+// the third level fills 64 of the 132 SMs.
+// The plan (mt, stages) is the wrapper's (ops/kernels/step_megakernel.py:
+// plan), a pure function of the shape; the entry refuses one that does not
+// hold. The Pallas kernel's flattened rows, pltpu.roll taps and iota masks
+// are a Mosaic device and are not carried over.
 
 #include <cuda_runtime.h>
 
+#include "tf32_mma.cuh"
+
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int QMAX = 2;         // 4x4 quads of the 1x1 conv per thread
-constexpr int ZMAX = 4;         // zeroconv outputs (1 pixel x 4 channels) per thread
-constexpr int KC = 32;          // rows of w2 staged per step
-constexpr long long SMEM_LIMIT = 232448;   // a block's shared memory on Hopper
-constexpr long long SM_SMEM = 233472;      // an SM's, as blocks see it
-constexpr int SM_COUNT = 132;              // H100 SXM
+constexpr int THREADS = 256;   // 8 warps
+constexpr int TAIL_THREADS = 256;
+constexpr int TAIL_X_FLOATS = 6144;  // x rows the gather-and-tail kernel stages at once
+constexpr int MAX_C = 56;            // 9 C within a warp's 8 column tiles of 8 (mt = 1)
+constexpr long long SMEM_LIMIT = 232448;  // a block's shared memory on Hopper
 constexpr int MAX_DEVICES = 64;
 constexpr float COUPLING_EPS = 1e-6f;
 
-__host__ __device__ __forceinline__ int round4(int v) { return (v + 3) & ~3; }
-__host__ __device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ constexpr int round_up(int v, int m) { return (v + m - 1) / m * m; }
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
 
-// The tiling of one shape; offsets and strides in floats.
-struct Plan {
-  int th, tw;     // output tile
-  int nc;         // hidden channels per chunk of h2
-  int slots;      // 4x4 quads of the 1x1 conv per thread (1 or 2)
-  int ks;         // threads that share one zeroconv output
-  int s1;         // channel stride of h1
-  int pbs;        // channel stride of an h2 chunk
-  int off_h1, off_work;  // y_a at 0; w2 rows + h2 chunk, later the partial sums
-  long long smem;        // bytes
-  double cost;
+// Rows of a streamed operand per ring stage: 32 (16 at mt = 1, whose
+// stages are 512 columns wide)
+__host__ __device__ constexpr int kch(int mt) { return mt == 1 ? 16 : 32; }
+
+// Columns of the scatter zeroconv: 9 C rounded up to 8
+__host__ __device__ constexpr int z_cols(int c) { return round_up(9 * c, 8); }
+
+// One block's shared memory for a plan, in floats (the wrapper's
+// smem_bytes mirrors it): y_a on the block's pixels +- (W + 1), h1, the
+// ring, and a work area that holds x's rows and wf's first half for y_a,
+// then conv1's im2col tile, later a chunk of h2. A operands (the im2col
+// tile, h1, the h2 chunk) are in the A-fragment layout (a_frag), the ring's
+// stages in the B-fragment layout (the packed weights' own).
+struct Layout {
+  int m;       // pixels a block: 16 mt
+  int nc;      // hidden channels a chunk: 512 / mt (8 warps x 8 / mt column tiles)
+  int zc;      // the zeroconv's scatter columns
+  int znt;     // its column tiles a warp
+  int k1;      // conv1's depth 9 half, rounded up to kch(mt)
+  int dp;      // D rounded up to kch(mt)
+  int yrows;   // y_a pixels: m + 2 W + 2
+  int off_h1, off_ring, off_work;
+  long long floats;
 };
 
-// Fill `pl` for a tile th x tw and chunk width nc; false where it does not
-// fit. Cost: FMA steps of one thread over the block, times waves of blocks.
-bool plan_for(int batch, int h, int w, int c, int d, int th, int tw, int nc, Plan* pl) {
-  const int half = c / 2, cq = cdiv(c, 4);
-  const int p1 = (th + 2 < h ? th + 2 : h) * (tw + 2 < w ? tw + 2 : w);
-  const int p1q = cdiv(p1, 4);
-  const int quads = p1q * (nc / 4);
-  if (quads > THREADS * QMAX) return false;
-  const int items = th * tw * cq;
-  if (items > THREADS * ZMAX) return false;
-  pl->th = th; pl->tw = tw; pl->nc = nc;
-  pl->slots = cdiv(quads, THREADS);
-  pl->ks = items <= THREADS ? THREADS / items : 1;
-  pl->s1 = (p1q & 1) ? 4 * p1q : 4 * p1q + 4;  // odd number of quads: no bank conflicts
-  pl->pbs = ((th + 2) * (tw + 2)) | 1;
-  const int ya = round4((th + 4) * (tw + 4) * half);
-  const int h1 = d * pl->s1;
-  const int chunk = 2 * KC * nc + round4(nc * pl->pbs);
-  const int partial = round4(pl->ks * items * 4) + th * tw * cq * 4;
-  pl->off_h1 = ya;
-  pl->off_work = ya + h1;
-  pl->smem = 4LL * (ya + h1 + (chunk > partial ? chunk : partial));
-  if (pl->smem > SMEM_LIMIT) return false;
-  const int chunks = cdiv(d, nc);
-  const double gemm = static_cast<double>(chunks) * d * pl->slots * 16;
-  const double conv1 = static_cast<double>(cdiv(p1q * (d / 4), THREADS)) * 9 * half * 16;
-  const double zconv = static_cast<double>(chunks) * cdiv(nc, pl->ks) * 9 * 4 *
-                       (items <= THREADS ? 1 : cdiv(items, THREADS));
-  const double mix = static_cast<double>(cdiv((th + 4) * (tw + 4) * half, THREADS)) * c;
-  const long long blocks = static_cast<long long>(cdiv(h, th)) * cdiv(w, tw) * batch;
-  long long per_sm = SM_SMEM / (pl->smem + 1024);
-  per_sm = per_sm < 1 ? 1 : (per_sm > 2 ? 2 : per_sm);
-  const long long waves = (blocks + SM_COUNT * per_sm - 1) / (SM_COUNT * per_sm);
-  // two blocks on one SM share its FMA units, and hide each other's latency
-  pl->cost = static_cast<double>(waves) * (gemm + conv1 + zconv + mix) *
-             (per_sm == 2 ? 1.5 : 1.0);
-  return true;
+__host__ __device__ inline Layout layout_for(int w, int c, int d, int mt, int stages) {
+  Layout l;
+  l.m = 16 * mt;
+  l.nc = 512 / mt;
+  l.zc = z_cols(c);
+  l.znt = cdiv(l.zc, 64);
+  l.k1 = round_up(9 * (c / 2), kch(mt));
+  l.dp = round_up(d, kch(mt));
+  l.yrows = l.m + 2 * w + 2;
+  l.off_h1 = round_up(l.yrows * (c / 2), 4);
+  l.off_ring = l.off_h1 + l.m * l.dp;
+  l.off_work = l.off_ring + stages * kch(mt) * l.nc;
+  l.floats = static_cast<long long>(l.off_work) +
+             imax(imax(l.m * l.k1, l.m * l.nc), (l.yrows + c / 2) * c);
+  return l;
 }
 
-// The cheapest plan over tiles (th <= min(h, 64), tw from w down) and chunk
-// widths (multiples of 4 up to d); false when none fits (d too wide). Some
-// 10^4 evaluations of plan_for: asked once per shape, not per launch.
-bool plan(int batch, int h, int w, int c, int d, Plan* best) {
-  if (batch <= 0 || h <= 0 || w <= 0 || c <= 0 || (c & 1) || d <= 0 || (d & 3))
-    return false;
-  bool found = false;
-  const int tws[] = {w, 32, 16, 8, 4, 2, 1};
-  for (int i = 0; i < 7; ++i) {
-    const int tw = tws[i];
-    if (tw > w || (i > 0 && tw >= w)) continue;
-    for (int th = 1; th <= h && th <= 64; ++th) {
-      for (int nc = 4; nc <= d; nc += 4) {
-        Plan pl;
-        // quads and shared memory grow with nc: the first misfit ends the row
-        if (!plan_for(batch, h, w, c, d, th, tw, nc, &pl)) break;
-        if (!found || pl.cost < best->cost) {
-          *best = pl;
-          found = true;
-        }
-      }
+// The A-fragment layout of an operand of 16 mt rows and kgs groups of 8
+// columns: block (mt, kg) of 128 floats holds, at lane 4 + e, the element
+// (16 mt + lane / 4 + 8 (e & 1), 8 kg + 2 (lane % 4) + (e >> 1)): one
+// thread's four values of an m16n8k8 A fragment, one 16-byte load (the k
+// order within each group of 8 is permuted, as the B layout permutes it).
+__device__ __forceinline__ int a_frag(int r, int k, int kgs) {
+  return (((((r >> 4) * kgs + (k >> 3)) * 32 + (r & 7) * 4 + ((k & 7) >> 1)) << 2) +
+          ((k & 1) << 1) + ((r >> 3) & 1));
+}
+
+struct MegaArgs {
+  const float *x, *wf, *bf, *w1, *s1, *b1, *w2, *s2, *b2, *wz, *bz, *zl;
+  float *y, *z, *ldj;
+  long long n;  // B H W
+  int h, w, c, d, stages;
+};
+
+// Optional SM-cycle stamps by phase (tools/profile_step_megakernel.py
+// builds the source with STEP_MEGAKERNEL_PROFILE): thread 0 of each block
+// adds the cycles since its last mark to the phase's slot; elsewhere
+// nothing is compiled in.
+#ifdef STEP_MEGAKERNEL_PROFILE
+constexpr int PROF_SLOTS = 8;
+__device__ long long mk_prof[1 << 16];
+#define MK_PROF_START long long mk_t = clock64(), mk_span[PROF_SLOTS] = {}
+#define MK_MARK(k)                                  \
+  if (threadIdx.x == 0) {                           \
+    const long long mk_now = clock64();             \
+    mk_span[k] += mk_now - mk_t;                    \
+    mk_t = mk_now;                                  \
+  }
+#define MK_PROF_FLUSH                                                         \
+  if (threadIdx.x == 0 && (blockIdx.x + 1) * PROF_SLOTS <= (1 << 16))        \
+    for (int k = 0; k < PROF_SLOTS; ++k) mk_prof[blockIdx.x * PROF_SLOTS + k] = mk_span[k]
+#else
+#define MK_PROF_START
+#define MK_MARK(k)
+#define MK_PROF_FLUSH
+#endif
+
+// A streamed B operand in the B-fragment layout (ops/kernels/
+// step_megakernel.py: frag_b): block (kg, nt) of 64 floats holds, at lane
+// 2 + i, the weight's element (8 kg + 2 (lane % 4) + i, 8 nt + lane / 4);
+// blocks row-major by kg, nts a row. A product reads groups [0, kgs) and
+// column tiles [nt0, nt0 + nc / 8) of which those below nt_end exist;
+// zeros elsewhere. Stage s holds groups [K s / 8, K (s + 1) / 8) (K =
+// kch(MT)) in ring buffer s % stages, in the same layout (nc / 8 tiles a
+// group): one contiguous run a group.
+struct Operand {
+  const float* b;
+  int nts, nt0, nt_end, kgs;
+};
+
+// The ring: `stages` buffers of K nc floats; the slots a product reads and
+// fills next.
+struct Ring {
+  float* base;
+  int stages, rd, wr;
+};
+
+// Issue the copies of stage s into the ring's fill slot and move the slot
+// on: 16-byte copies, a stage's K nc / 4 of them in the stage's own order,
+// THREADS apart for each thread (shifts, no division).
+template <int MT>
+__device__ __forceinline__ void load_stage(const Operand& op, Ring& ring, int s) {
+  constexpr int K = kch(MT), NC = 512 / MT, PER_KG = 2 * NC;  // 16-byte copies a group
+  if (s * K < op.kgs * 8) {
+    float* dst = ring.base + ring.wr * K * NC;
+#pragma unroll
+    for (int ch = threadIdx.x; ch < K * NC / 4; ch += THREADS) {
+      const int kg = s * (K / 8) + ch / PER_KG, rem = ch % PER_KG;
+      const int nt = op.nt0 + rem / 16;
+      const bool ok = kg < op.kgs && nt < op.nt_end;
+      cp_async16z(dst + 4 * ch,
+                  ok ? op.b + (static_cast<long long>(kg) * op.nts + nt) * 64 + 4 * (rem % 16)
+                     : op.b,
+                  ok);
     }
   }
-  return found;
+  cp_async_commit();  // an empty group past the last stage keeps the count
+  ring.wr = ring.wr + 1 == ring.stages ? 0 : ring.wr + 1;
 }
 
-__device__ __forceinline__ void fma4x4(float (&acc)[4][4], const float4 a, const float4 b) {
-  const float av[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    acc[u][0] = fmaf(av[u], b.x, acc[u][0]);
-    acc[u][1] = fmaf(av[u], b.y, acc[u][1]);
-    acc[u][2] = fmaf(av[u], b.z, acc[u][2]);
-    acc[u][3] = fmaf(av[u], b.w, acc[u][3]);
+// The ring's first stages - 1 stages of a product, issued as soon as the
+// ring is free (the previous product's last barrier), so that they load
+// during whatever comes before the product.
+template <int MT>
+__device__ __forceinline__ void gemm_prologue(const Operand& op, Ring& ring) {
+  ring.rd = 0;
+  ring.wr = 0;
+  for (int s = 0; s < ring.stages - 1; ++s) load_stage<MT>(op, ring, s);
+}
+
+// Wait until stage s has landed: at most stages - 2 groups in flight.
+__device__ __forceinline__ void wait_stage(int stages) {
+  switch (stages) {
+    case 4: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<1>(); break;
+    default: cp_async_wait<0>(); break;
   }
 }
 
-// 16 bytes from global to shared memory without a register, asynchronously
-// (cp.async; sm_80 and later). Host compilers see a plain copy.
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-#if defined(__CUDA_ARCH__)
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(addr), "l"(src) : "memory");
-#else
-  *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
-#endif
+template <int MT, int NT>
+__device__ __forceinline__ void zero(float (&acc)[MT][NT][4]) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-#if defined(__CUDA_ARCH__)
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-#endif
+// One k group of 8 of a warp's fragments, as loaded from shared memory.
+template <int MT, int NT>
+struct Frags {
+  float4 a[MT];
+  float2 b[NT];
+};
+
+// The fragments of k group kg of A (kgs groups) and of the stage's group
+// kgl, for the warp's column tiles from wt.
+template <int MT, int NT>
+__device__ __forceinline__ void load_frags(Frags<MT, NT>& f, const float* as, int kgs, int kg,
+                                           const float* bs, int kgl, int wt, int ntw) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+    f.a[mt] = *reinterpret_cast<const float4*>(as + (((mt * kgs + kg) * 32 + lane) << 2));
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    if (nt >= ntw) break;
+    f.b[nt] = *reinterpret_cast<const float2*>(bs + (kgl * 8 * NT + wt + nt) * 64 + 2 * lane);
+  }
 }
 
-// Wait until at most N groups of this thread's copies are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-#if defined(__CUDA_ARCH__)
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-#endif
+// acc += A B on the tensor cores in 3xTF32. A: 16 MT rows in the A-fragment
+// layout with kgs groups of 8 columns (zero or finite past the operand's
+// depth up to the next multiple of K). B streams through the ring
+// (gemm_prologue issued its first stages). Warp w owns the column tiles
+// [ntw w, ntw (w + 1)), ntw <= NT; acc[mt][nt] is the m16n8 fragment (rows
+// 16 mt + lane/4 and + 8, columns 8 (ntw w + nt) + 2 (lane % 4) + 0, 1).
+// Both layouts take a thread's (k, k + 4) fragment pair from physical
+// columns (2 (lane % 4), + 1) of each group of 8: the sum is unchanged. The
+// next group's fragments are loaded before this group's products are
+// issued. The tensor cores round their fp32 sums toward zero, which over
+// hundreds of products biases the sum (about 1e-5 relative at K = 512); so
+// each stage's K k sum in a fresh fragment, added to acc with an fp32 add
+// that rounds to nearest. Ends with a barrier: the ring and A may be
+// overwritten after it.
+template <int MT, int NT>
+__device__ __forceinline__ void gemm(float (&acc)[MT][NT][4], const float* As, int kgs,
+                                     const Operand& op, int ntw, Ring& ring) {
+  constexpr int K = kch(MT), NC = 512 / MT;
+  const int warp = threadIdx.x >> 5;
+  const int wt = warp * ntw;
+  const bool active = op.nt0 + wt < op.nt_end;
+  const int steps = cdiv(op.kgs * 8, K);
+  for (int s = 0; s < steps; ++s) {
+    wait_stage(ring.stages);
+    __syncthreads();
+    const float* bs = ring.base + ring.rd * K * NC;
+    ring.rd = ring.rd + 1 == ring.stages ? 0 : ring.rd + 1;
+    load_stage<MT>(op, ring, s + ring.stages - 1);
+    if (!active) continue;
+    float part[MT][NT][4];
+    zero(part);
+    Frags<MT, NT> cur, nxt;
+    load_frags(cur, As, kgs, s * (K / 8), bs, 0, wt, ntw);
+#pragma unroll
+    for (int g = 0; g < K / 8; ++g) {
+      if (g + 1 < K / 8) load_frags(nxt, As, kgs, s * (K / 8) + g + 1, bs, g + 1, wt, ntw);
+      unsigned ah[MT][4], al[MT][4], bh[NT][2], bl[NT][2];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        split_tf32(cur.a[mt].x, ah[mt][0], al[mt][0]);
+        split_tf32(cur.a[mt].y, ah[mt][1], al[mt][1]);
+        split_tf32(cur.a[mt].z, ah[mt][2], al[mt][2]);
+        split_tf32(cur.a[mt].w, ah[mt][3], al[mt][3]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        if (nt >= ntw) break;
+        split_tf32(cur.b[nt].x, bh[nt][0], bl[nt][0]);
+        split_tf32(cur.b[nt].y, bh[nt][1], bl[nt][1]);
+      }
+      // each of the three products over all the warp's tiles in turn, so
+      // that two products on one accumulator are MT ntw products apart
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          if (nt < ntw) mma_tf32(part[mt][nt], al[mt], bh[nt]);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          if (nt < ntw) mma_tf32(part[mt][nt], ah[mt], bl[nt]);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          if (nt < ntw) mma_tf32(part[mt][nt], ah[mt], bh[nt]);
+      if (g + 1 < K / 8) cur = nxt;
+    }
+    // the stage's sums join the running ones in fp32, rounded to nearest
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[mt][nt][i] += part[mt][nt][i];
+  }
+  cp_async_wait<0>();
+  __syncthreads();
 }
 
-// S: 4x4 quads of the 1x1 conv per thread (the plan's slots).
-template <int S>
-__global__ void __launch_bounds__(THREADS)
-step_megakernel_kernel(const float* __restrict__ x, const float* __restrict__ wf,
-                       const float* __restrict__ bf, const float* __restrict__ w1,
-                       const float* __restrict__ s1, const float* __restrict__ b1,
-                       const float* __restrict__ w2, const float* __restrict__ s2,
-                       const float* __restrict__ b2, const float* __restrict__ wz,
-                       const float* __restrict__ bz, const float* __restrict__ zl,
-                       float* __restrict__ y, float* __restrict__ rows,
-                       int h, int w, int c, int d, Plan pl) {
+// A chunk's actnorm and ReLU into an A operand (A-fragment layout, kgs
+// groups): column j = n - n0 of the chunk gets relu(e^{s[n]} (acc +
+// b[n])) (zero at n >= d) for the warp's columns j < width; a fragment's
+// four values are one 16-byte store.
+template <int MT, int NT>
+__device__ __forceinline__ void actnorm_relu(const float (&acc)[MT][NT][4], float* dst,
+                                             int kgs, int kg0, int n0, int width,
+                                             const float* __restrict__ s,
+                                             const float* __restrict__ b, int d) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, tq = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int j = warp * 8 * NT + 8 * nt, n = n0 + j + 2 * tq;
+    if (j >= width) continue;
+    const bool on = n < d;  // d % 4 == 0: n and n + 1 are both inside or both past
+    const float e0 = on ? expf(__ldg(s + n)) : 0.f, e1 = on ? expf(__ldg(s + n + 1)) : 0.f;
+    const float c0 = on ? __ldg(b + n) : 0.f, c1 = on ? __ldg(b + n + 1) : 0.f;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+      *reinterpret_cast<float4*>(dst + (((mt * kgs + kg0 + j / 8) * 32 + lane) << 2)) =
+          make_float4(fmaxf(e0 * (acc[mt][nt][0] + c0), 0.f),
+                      fmaxf(e0 * (acc[mt][nt][2] + c0), 0.f),
+                      fmaxf(e1 * (acc[mt][nt][1] + c1), 0.f),
+                      fmaxf(e1 * (acc[mt][nt][3] + c1), 0.f));
+  }
+}
+
+// The main kernel: grid ceil(B H W / M), one block of THREADS per M pixels;
+// writes Z [B H W, ZC] (the scatter zeroconv before its bias and scale).
+template <int MT>
+__global__ void __launch_bounds__(THREADS, 1) step_megakernel_kernel(const MegaArgs a) {
+  constexpr int NT = 8 / MT;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  float* ya = smem;                  // [(th+4)(tw+4)][half], zero outside the image
-  float* h1 = smem + pl.off_h1;      // [d][s1], region-1 pixels
-  float* w2s = smem + pl.off_work;   // [2][KC][nc], two stages of w2 rows
-  float* h2s = w2s + 2 * KC * pl.nc; // [nc][pbs], (th+2)(tw+2) box, zero outside the image
+  const Layout l = layout_for(a.w, a.c, a.d, MT, a.stages);
+  float* ya = smem;                  // [yrows][half], zero outside [0, B H W)
+  float* h1 = smem + l.off_h1;       // [m x dp], A-fragment layout
+  Ring ring{smem + l.off_ring, a.stages, 0, 0};  // [stages][kch(MT) nc]
+  float* work = smem + l.off_work;   // im2col [m x k1], later an h2 chunk [m x nc]
+  const int half = a.c / 2, hw = a.h * a.w;
+  const long long p0 = static_cast<long long>(blockIdx.x) * l.m;
+  const long long qlo = p0 - a.w - 1;
+  MK_PROF_START;
 
-  const int tid = threadIdx.x;
-  const int half = c / 2, cq = cdiv(c, 4), dq = d / 4, nq_per = pl.nc / 4;
-  const int tiles_w = cdiv(w, pl.tw);
-  const int b = blockIdx.y;
-  const int th0 = (blockIdx.x / tiles_w) * pl.th, tw0 = (blockIdx.x % tiles_w) * pl.tw;
-  const int th = min(pl.th, h - th0), tw = min(pl.tw, w - tw0);
-  const int r1a = max(0, th0 - 1), r1b = min(h, th0 + th + 1);
-  const int c1a = max(0, tw0 - 1), c1b = min(w, tw0 + tw + 1);
-  const int r1w = c1b - c1a, p1 = (r1b - r1a) * r1w, p1q = cdiv(p1, 4);
-  const int yw = pl.tw + 4, yh = pl.th + 4, pbw = pl.tw + 2;
-  const float* ximg = x + static_cast<long long>(b) * h * w * c;
+  const int dt = cdiv(a.d, 8);       // the hidden width's column tiles (and groups)
+  Operand op{a.w1, dt, 0, dt, cdiv(9 * half, 8)};
+  gemm_prologue<MT>(op, ring);
 
-  // 1. y_a = (x wf^T + bf)[:half] on the tile +- 2
-  for (int i = tid; i < yh * yw * half; i += THREADS) {
-    const int j = i % half, q = i / half;
-    const int rr = th0 - 2 + q / yw, cc = tw0 - 2 + q % yw;
-    float v = 0.f;
-    if (rr >= 0 && rr < h && cc >= 0 && cc < w) {
-      const float* xp = ximg + (static_cast<long long>(rr) * w + cc) * c;
-      const float* wr = wf + j * c;
-      float acc = 0.f;
-      for (int k = 0; k < c; ++k) acc = fmaf(xp[k], wr[k], acc);
-      v = acc + bf[j];
-    }
-    ya[i] = v;
-  }
-  for (int i = tid; i < pl.nc * pl.pbs; i += THREADS) h2s[i] = 0.f;
+  // 1. y_a = (x wf^T + bf)[:half] on pixels [qlo, qlo + yrows): x's rows
+  //    there (one contiguous run) and wf's first half rows staged first
+  float* xs = work;                  // [yrows][c], zero outside [0, B H W)
+  float* wfs = work + l.yrows * a.c; // [half][c]
+  const long long xlo = qlo * a.c, xn = a.n * a.c;
+  for (int i = threadIdx.x; i < l.yrows * a.c; i += THREADS)
+    xs[i] = xlo + i >= 0 && xlo + i < xn ? __ldg(a.x + xlo + i) : 0.f;
+  for (int i = threadIdx.x; i < half * a.c; i += THREADS) wfs[i] = __ldg(a.wf + i);
   __syncthreads();
-
-  // 2. h1 = relu(e^{s1} (conv3x3(y_a, w1) + b1)) on region 1: 4 pixels x 4
-  // channels per item; channels fastest across the threads, so the y_a
-  // reads are broadcasts and the w1 reads coalesce
-  for (int it = tid; it < p1q * dq; it += THREADS) {
-    const int kq = it % dq, pq = it / dq;
-    int base[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int p = min(4 * pq + u, p1 - 1);  // a ragged quad repeats its last pixel
-      const int rr = r1a + p / r1w, cc = c1a + p % r1w;
-      base[u] = ((rr - th0 + 2) * yw + (cc - tw0 + 2)) * half;
-    }
-    float acc[4][4] = {};
-    const float4* wt = reinterpret_cast<const float4*>(w1) + kq;
-#pragma unroll 2
-    for (int j = 0; j < half; ++j) {
-      // the nine taps' weights first: nine loads from L2 in flight at once
-      float4 wv[9];
-#pragma unroll
-      for (int tap = 0; tap < 9; ++tap) wv[tap] = __ldg(wt + (tap * half + j) * dq);
-#pragma unroll
-      for (int tap = 0; tap < 9; ++tap) {
-        const int shift = ((tap / 3 - 1) * yw + (tap % 3 - 1)) * half + j;
-        const float4 av = make_float4(ya[base[0] + shift], ya[base[1] + shift],
-                                      ya[base[2] + shift], ya[base[3] + shift]);
-        fma4x4(acc, av, wv[tap]);
-      }
-    }
-#pragma unroll
-    for (int v = 0; v < 4; ++v) {
-      const int k = 4 * kq + v;
-      const float es = expf(s1[k]), bb = b1[k];
-      *reinterpret_cast<float4*>(h1 + k * pl.s1 + 4 * pq) =
-          make_float4(fmaxf(es * (acc[0][v] + bb), 0.f), fmaxf(es * (acc[1][v] + bb), 0.f),
-                      fmaxf(es * (acc[2][v] + bb), 0.f), fmaxf(es * (acc[3][v] + bb), 0.f));
-    }
-  }
-
-  // this thread's quads of the 1x1 conv (a quad past the end repeats quad 0
-  // and is not stored) and its zeroconv outputs (pixel fastest across the
-  // threads, so the h2 reads are consecutive and the wz reads broadcasts)
-  const int quads = p1q * nq_per;
-  int qp[S], qn[S];
-#pragma unroll
-  for (int s = 0; s < S; ++s) {
-    const int q = tid + s * THREADS < quads ? tid + s * THREADS : 0;
-    qp[s] = q / nq_per;
-    qn[s] = q % nq_per;
-  }
-  const int pt = th * tw, items = pt * cq, planned = pl.th * pl.tw * cq;
-  const int slice = pl.ks > 1 ? tid / planned : 0;
-  int zoff[ZMAX], zcq[ZMAX];
-  bool zon[ZMAX];
-#pragma unroll
-  for (int z = 0; z < ZMAX; ++z) {
-    const int item = pl.ks > 1 ? (z == 0 ? tid % planned : items) : tid + z * THREADS;
-    zon[z] = item < items && slice < pl.ks;
-    const int p = zon[z] ? item % pt : 0;
-    zcq[z] = zon[z] ? item / pt : 0;
-    zoff[z] = (p / tw + 1) * pbw + (p % tw + 1);
-  }
-  float zacc[ZMAX][4] = {};
-
-  // 3. chunks of h2, each folded into the zeroconv
-  for (int n0 = 0; n0 < d; n0 += pl.nc) {
-    const int nvalid = min(pl.nc, d - n0);
-    float acc[S][4][4] = {};
-    // rows k0 .. k0 + KC of w2's chunk columns into stage `st` (zeros past the end)
-    auto fetch = [&](int k0, int st) {
-      float* dst = w2s + st * KC * pl.nc;
-      for (int i = tid; i < KC * nq_per; i += THREADS) {
-        const int kk = i / nq_per, nn = 4 * (i % nq_per);
-        if (k0 + kk < d && n0 + nn < d)
-          cp_async16(dst + kk * pl.nc + nn, w2 + static_cast<long long>(k0 + kk) * d + n0 + nn);
-        else
-          *reinterpret_cast<float4*>(dst + kk * pl.nc + nn) = make_float4(0.f, 0.f, 0.f, 0.f);
-      }
-      cp_async_commit();
-    };
-    __syncthreads();  // h1 written; the last chunk's stages consumed
-    fetch(0, 0);
-    for (int k0 = 0, st = 0; k0 < d; k0 += KC, st ^= 1) {
-      const int kvalid = min(KC, d - k0);
-      if (k0 + KC < d) {
-        fetch(k0 + KC, st ^ 1);  // the next rows load while these are used
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      const float* hk = h1 + k0 * pl.s1;
-      const float* wk = w2s + st * KC * pl.nc;
-#pragma unroll 4
-      for (int kk = 0; kk < kvalid; ++kk) {
-#pragma unroll
-        for (int s = 0; s < S; ++s) {
-          const float4 a = *reinterpret_cast<const float4*>(hk + kk * pl.s1 + 4 * qp[s]);
-          const float4 bv = *reinterpret_cast<const float4*>(wk + kk * pl.nc + 4 * qn[s]);
-          fma4x4(acc[s], a, bv);
-        }
-      }
-      __syncthreads();  // stage st is refilled two steps on
-    }
-    // h2 = relu(e^{s2} (acc + b2)) into the zero-bordered box
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-      if (tid + s * THREADS >= quads) continue;
-#pragma unroll
-      for (int v = 0; v < 4; ++v) {
-        const int n = n0 + 4 * qn[s] + v;
-        if (n >= d) continue;
-        const float es = expf(s2[n]), bb = b2[n];
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const int p = 4 * qp[s] + u;
-          if (p >= p1) continue;
-          const int rr = r1a + p / r1w, cc = c1a + p % r1w;
-          h2s[(4 * qn[s] + v) * pl.pbs + (rr - th0 + 1) * pbw + (cc - tw0 + 1)] =
-              fmaxf(es * (acc[s][u][v] + bb), 0.f);
-        }
-      }
-    }
-    __syncthreads();
-    // zeroconv: this slice's contiguous share of the chunk's channels; per
-    // channel the nine taps' weights are loaded together, nine loads from
-    // L2 in flight at once
-    const int per = cdiv(nvalid, pl.ks);
-    const int k_lo = min(nvalid, slice * per), k_hi = min(nvalid, k_lo + per);
-    const long long tap_stride = static_cast<long long>(d) * cq;  // float4s
-#pragma unroll
-    for (int z = 0; z < ZMAX; ++z) {
-      if (!zon[z]) continue;
-      const float* hp = h2s + zoff[z];
-      const float4* wp = reinterpret_cast<const float4*>(wz) +
-                         static_cast<long long>(n0) * cq + zcq[z];
-#pragma unroll 2
-      for (int kk = k_lo; kk < k_hi; ++kk) {
-        float4 wv[9];
-#pragma unroll
-        for (int tap = 0; tap < 9; ++tap) wv[tap] = __ldg(wp + tap * tap_stride + kk * cq);
-#pragma unroll
-        for (int tap = 0; tap < 9; ++tap) {
-          const float hv = hp[kk * pl.pbs + (tap / 3 - 1) * pbw + (tap % 3 - 1)];
-          zacc[z][0] = fmaf(hv, wv[tap].x, zacc[z][0]);
-          zacc[z][1] = fmaf(hv, wv[tap].y, zacc[z][1]);
-          zacc[z][2] = fmaf(hv, wv[tap].z, zacc[z][2]);
-          zacc[z][3] = fmaf(hv, wv[tap].w, zacc[z][3]);
-        }
-      }
-    }
-  }
-  __syncthreads();  // the chunk buffers become the partial sums
-
-  // 4. the zeroconv's outputs: add the slices' partial sums in slice order,
-  // then the bias and the scale
-  float* part = smem + pl.off_work;                    // [ks][planned][4]
-  float* net = part + round4(pl.ks * planned * 4);     // [pt][4 cq]
-  if (pl.ks > 1) {
-    if (zon[0]) {
-#pragma unroll
-      for (int v = 0; v < 4; ++v) part[(slice * planned + tid % planned) * 4 + v] = zacc[0][v];
-    }
-    __syncthreads();
-    if (zon[0] && slice == 0) {
-#pragma unroll
-      for (int v = 0; v < 4; ++v) {
-        float sum = 0.f;
-        for (int sl = 0; sl < pl.ks; ++sl) sum += part[(sl * planned + tid) * 4 + v];
-        zacc[0][v] = sum;
-      }
-    }
-  }
-#pragma unroll
-  for (int z = 0; z < ZMAX; ++z) {
-    if (!zon[z] || slice != 0) continue;
-    const int item = pl.ks > 1 ? tid : tid + z * THREADS;
-    const int p = item % pt;
-#pragma unroll
-    for (int v = 0; v < 4; ++v) {
-      const int ch = 4 * zcq[z] + v;
-      if (ch < c) net[p * 4 * cq + ch] = (zacc[z][v] + bz[ch]) * expf(3.f * zl[ch]);
-    }
+  for (int i = threadIdx.x; i < l.yrows * half; i += THREADS) {
+    const int j = i % half, r = i / half;
+    const long long q = qlo + r;
+    float acc = 0.f;
+    for (int k = 0; k < a.c; ++k) acc = fmaf(xs[r * a.c + k], wfs[j * a.c + k], acc);
+    ya[i] = q >= 0 && q < a.n ? acc + __ldg(a.bf + j) : 0.f;
   }
   __syncthreads();
-
-  // 5. affine tail and each pixel's log terms, summed in channel order
-  for (int p = tid; p < pt; p += THREADS) {
-    const int tr = p / tw, tc = p % tw, rr = th0 + tr, cc = tw0 + tc;
-    const long long pix = (static_cast<long long>(b) * h + rr) * w + cc;
-    const float* xp = x + pix * c;
-    float* yp = y + pix * c;
-    const float* yap = ya + ((tr + 2) * yw + (tc + 2)) * half;
-    const float* np_ = net + p * 4 * cq;
-    float ldj = 0.f;
-    for (int j = 0; j < half; ++j) {
-      const float* wr = wf + (half + j) * c;
-      float acc = 0.f;
-      for (int k = 0; k < c; ++k) acc = fmaf(xp[k], wr[k], acc);
-      const float xb = acc + bf[half + j];
-      const float sc = 1.f / (1.f + expf(-(np_[j] + 2.f)));
-      yp[j] = yap[j];
-      yp[half + j] = (xb + np_[half + j]) * sc;
-      ldj += logf(sc + COUPLING_EPS);
+  // conv1's im2col tile: a1[r][tap half + j] = y_a at pixel p0 + r moved by
+  // the tap, zero outside the image, past the last pixel and past 9 half
+  float* a1 = work;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = warp; r < l.m; r += THREADS / 32) {
+    const long long p = p0 + r;
+    const int pix = static_cast<int>(p % hw), pr = pix / a.w, pc = pix % a.w;
+    const int base = r + a.w + 1;  // p's row in ya
+    for (int k = lane; k < l.k1; k += 32) {
+      float v = 0.f;
+      if (k < 9 * half && p < a.n) {
+        const int tap = k / half, j = k - tap * half;
+        const int dh = tap / 3 - 1, dw = tap % 3 - 1;
+        if (pr + dh >= 0 && pr + dh < a.h && pc + dw >= 0 && pc + dw < a.w)
+          v = ya[(base + dh * a.w + dw) * half + j];
+      }
+      a1[a_frag(r, k, l.k1 / 8)] = v;
     }
-    rows[pix] = ldj;
   }
+  MK_MARK(0);
+
+  // 2. h1 = relu(e^{s1} (conv3x3(y_a, w1) + b1)), nc channels at a time
+  //    (the product's first barrier orders the tile's writes before it)
+  float acc[MT][NT][4];
+  Operand op2{a.w2, dt, 0, dt, dt};
+  for (int n0 = 0; n0 < l.dp; n0 += l.nc) {
+    zero(acc);
+    gemm<MT, NT>(acc, a1, l.k1 / 8, op, NT, ring);
+    if (n0 + l.nc < l.dp) {
+      op.nt0 = (n0 + l.nc) / 8;
+      gemm_prologue<MT>(op, ring);
+    } else {
+      gemm_prologue<MT>(op2, ring);  // the 1x1 conv's first chunk
+    }
+    actnorm_relu<MT, NT>(acc, h1, l.dp / 8, n0 / 8, n0, l.dp - n0, a.s1, a.b1, a.d);
+  }
+  MK_MARK(1);
+
+  // 3. chunks of h2 = relu(e^{s2} (h1 w2 + b2)), each folded into the
+  //    scatter zeroconv's accumulators
+  float zacc[MT][NT][4];
+  zero(zacc);
+  Operand opz{a.wz, l.zc / 8, 0, l.zc / 8, 0};
+  for (int n0 = 0; n0 < a.d; n0 += l.nc) {
+    zero(acc);
+    gemm<MT, NT>(acc, h1, l.dp / 8, op2, NT, ring);
+    MK_MARK(2);
+    opz.b = a.wz + static_cast<long long>(n0) * l.zc;  // the chunk's groups of rows
+    opz.kgs = cdiv(min(l.nc, a.d - n0), 8);
+    gemm_prologue<MT>(opz, ring);
+    actnorm_relu<MT, NT>(acc, work, l.nc / 8, 0, n0, l.nc, a.s2, a.b2, a.d);
+    MK_MARK(3);
+    gemm<MT, NT>(zacc, work, l.nc / 8, opz, l.znt, ring);
+    if (n0 + l.nc < a.d) {
+      op2.nt0 = (n0 + l.nc) / 8;
+      gemm_prologue<MT>(op2, ring);
+    }
+    MK_MARK(4);
+  }
+
+  // 4. Z rows of the block's pixels, 8-byte stores
+  const int gq = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int col = warp * 8 * l.znt + 8 * nt + 2 * tq;
+    if (nt >= l.znt || col >= l.zc) continue;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const long long p = p0 + 16 * mt + gq + 8 * hr;
+        if (p < a.n)
+          *reinterpret_cast<float2*>(a.z + p * l.zc + col) =
+              make_float2(zacc[mt][nt][2 * hr], zacc[mt][nt][2 * hr + 1]);
+      }
+  }
+  MK_MARK(5);
+  MK_PROF_FLUSH;
 }
 
-// ldj[b] = sum of the image's n per-pixel rows, in a fixed order.
-__global__ void __launch_bounds__(THREADS)
-rows_sum_kernel(const float* __restrict__ rows, float* __restrict__ ldj, int n) {
-  __shared__ float part[THREADS];
-  const float* r = rows + static_cast<long long>(blockIdx.x) * n;
-  float acc = 0.f;
-  for (int i = threadIdx.x; i < n; i += THREADS) acc += r[i];
-  part[threadIdx.x] = acc;
-  __syncthreads();
-  for (int s = THREADS / 2; s > 0; s >>= 1) {
-    if (static_cast<int>(threadIdx.x) < s) part[threadIdx.x] += part[threadIdx.x + s];
-    __syncthreads();
+// The gather and the tail: one block an image, in runs of pixels whose x
+// rows (one contiguous run) are staged in shared memory beside wf, bf, bz
+// and exp(3 zl). Each unit (pixel, j < half) adds its pixel's nine taps of
+// Z in tap order for channels j and half + j (nine loads each, issued
+// together), then the bias and the scale, the channel mix's two outputs
+// and the affine tail; the image's log terms are summed in a fixed order
+// (each thread's units in order, a warp shuffle, the warps in order).
+__global__ void __launch_bounds__(TAIL_THREADS) step_tail_kernel(const MegaArgs a) {
+  __shared__ float xs[TAIL_X_FLOATS];
+  __shared__ float wfs[MAX_C * MAX_C];
+  __shared__ float cs[4 * MAX_C];  // bf, bz, exp(3 zl)
+  __shared__ float warp_sums[TAIL_THREADS / 32];
+  const int c = a.c, half = c / 2, hw = a.h * a.w, zc = z_cols(c);
+  const long long img = static_cast<long long>(blockIdx.x) * hw;
+  for (int i = threadIdx.x; i < c * c; i += TAIL_THREADS) wfs[i] = __ldg(a.wf + i);
+  for (int i = threadIdx.x; i < c; i += TAIL_THREADS) {
+    cs[i] = __ldg(a.bf + i);
+    cs[c + i] = __ldg(a.bz + i);
+    cs[2 * c + i] = expf(3.f * __ldg(a.zl + i));
   }
-  if (threadIdx.x == 0) ldj[blockIdx.x] = part[0];
+  const int run = TAIL_X_FLOATS / c;  // pixels a run
+  float acc = 0.f;
+  for (int p0 = 0; p0 < hw; p0 += run) {
+    const int np = min(run, hw - p0);
+    __syncthreads();  // the last run's rows are read; the constants are staged
+    for (int i = threadIdx.x; i < np * c; i += TAIL_THREADS)
+      xs[i] = __ldg(a.x + (img + p0) * c + i);
+    __syncthreads();
+    for (int u = threadIdx.x; u < np * half; u += TAIL_THREADS) {
+      const int pr = u / half, j = u - pr * half, pix = p0 + pr;
+      const int r = pix / a.w, cc = pix % a.w;
+      const long long q = img + pix;
+      float zl[9], zt[9];
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) {
+        const int dh = tap / 3 - 1, dw = tap % 3 - 1;
+        const bool in = r + dh >= 0 && r + dh < a.h && cc + dw >= 0 && cc + dw < a.w;
+        const float* zq = a.z + (q + dh * a.w + dw) * zc + tap * c;
+        zl[tap] = in ? __ldg(zq + j) : 0.f;
+        zt[tap] = in ? __ldg(zq + half + j) : 0.f;
+      }
+      float y_a = 0.f, x_b = 0.f;
+      const float* xp = xs + pr * c;
+      for (int k = 0; k < c; ++k) {
+        y_a = fmaf(xp[k], wfs[j * c + k], y_a);
+        x_b = fmaf(xp[k], wfs[(half + j) * c + k], x_b);
+      }
+      float ls = 0.f, t = 0.f;
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) {
+        ls += zl[tap];
+        t += zt[tap];
+      }
+      ls = (ls + cs[c + j]) * cs[2 * c + j];
+      t = (t + cs[c + half + j]) * cs[2 * c + half + j];
+      const float s = 1.f / (1.f + expf(-(ls + 2.f)));
+      a.y[q * c + j] = y_a + cs[j];
+      a.y[q * c + half + j] = (x_b + cs[half + j] + t) * s;
+      acc += logf(s + COUPLING_EPS);
+    }
+  }
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, off);
+  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = acc;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float sum = 0.f;
+    for (int wi = 0; wi < TAIL_THREADS / 32; ++wi) sum += warp_sums[wi];
+    a.ldj[blockIdx.x] = sum;
+  }
 }
 
 // The shared-memory allowance above 48 KB is raised once per device and
@@ -482,54 +602,71 @@ cudaError_t grant_smem(Kernel kernel, long long smem, long long* granted) {
   return cudaSuccess;
 }
 
+// Bytes of dynamic shared memory of a plan, or -1 where the plan does not
+// hold: mt in {1, 2, 4} (and the zeroconv's columns within a warp's 8 / mt
+// tiles), stages in {2, 3, 4}, C even, D a positive multiple of 4, within
+// a block's shared memory.
+long long plan_smem(int h, int w, int c, int d, int mt, int stages) {
+  if (h <= 0 || w <= 0 || c <= 0 || (c & 1) || c > MAX_C || d <= 0 || (d & 3)) return -1;
+  if ((mt != 1 && mt != 2 && mt != 4) || stages < 2 || stages > 4) return -1;
+  const Layout l = layout_for(w, c, d, mt, stages);
+  if (l.znt > 8 / mt) return -1;
+  const long long bytes = 4 * l.floats;
+  return bytes <= SMEM_LIMIT ? bytes : -1;
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<unsigned long long>(p) & 15ULL) == 0; }
+
 }  // namespace
+
+#ifdef STEP_MEGAKERNEL_PROFILE
+// The profile build's stamps: blocks x 8 slots of SM cycles into dst.
+extern "C" int step_megakernel_profile_read(long long* dst, int blocks) {
+  return static_cast<int>(cudaMemcpyFromSymbol(dst, mk_prof,
+                                               sizeof(long long) * PROF_SLOTS * blocks));
+}
+#endif
 
 extern "C" {
 
-// The cheapest plan of a shape (a search over tiles and chunk widths: the
-// wrapper asks once per shape and keeps the answer): out = [th, tw, nc,
-// slots, ks]; returns the dynamic shared memory in bytes, or -1 where no
-// tiling fits (an odd C, a hidden width that is not a multiple of 4 or too
-// wide).
-long long step_megakernel_plan(int batch, int h, int w, int c, int d, int* out) {
-  Plan pl;
-  if (!plan(batch, h, w, c, d, &pl)) return -1;
-  out[0] = pl.th; out[1] = pl.tw; out[2] = pl.nc; out[3] = pl.slots; out[4] = pl.ks;
-  return pl.smem;
+// The dynamic shared memory of a plan in bytes, -1 where it does not hold
+// (the wrapper's smem_bytes computes the same; a card test holds the two
+// against each other).
+long long step_megakernel_smem_bytes(int h, int w, int c, int d, int mt, int stages) {
+  return plan_smem(h, w, c, d, mt, stages);
 }
 
-// x [B, H, W, C] -> y [B, H, W, C], rows [B, H, W] (scratch: the per-pixel
-// log terms) and ldj [B]; weights as the note at the top says. (th, tw, nc)
-// is a plan from step_megakernel_plan for the same shape.
+// x [B, H, W, C] -> y [B, H, W, C] and ldj [B], with z [B H W, ZC] as
+// scratch; weights as the note at the top says. (mt, stages) is the
+// wrapper's plan; one that does not hold, or a weight not 16-byte aligned,
+// is refused with cudaErrorInvalidValue before anything is launched.
 int step_megakernel_f32(const float* x, const float* wf, const float* bf, const float* w1,
                         const float* s1, const float* b1, const float* w2, const float* s2,
                         const float* b2, const float* wz, const float* bz, const float* zl,
-                        float* y, float* rows, float* ldj, int batch, int h, int w, int c,
-                        int d, int th, int tw, int nc, void* stream) {
-  if (batch <= 0 || h <= 0 || w <= 0) return static_cast<int>(cudaSuccess);
-  Plan pl;
-  if ((c & 1) || (d & 3) || th < 1 || th > h || tw < 1 || tw > w || nc < 4 || (nc & 3) ||
-      nc > d || !plan_for(batch, h, w, c, d, th, tw, nc, &pl))
+                        float* y, float* z, float* ldj, int batch, int h, int w, int c, int d,
+                        int mt, int stages, void* stream) {
+  if (batch <= 0) return static_cast<int>(cudaSuccess);
+  const long long smem = plan_smem(h, w, c, d, mt, stages);
+  if (smem < 0 || !aligned16(w1) || !aligned16(w2) || !aligned16(wz) || !aligned16(z))
     return static_cast<int>(cudaErrorInvalidValue);
-  static long long granted1[MAX_DEVICES] = {};
-  static long long granted2[MAX_DEVICES] = {};
-  cudaError_t err = pl.slots == 1
-      ? grant_smem(step_megakernel_kernel<1>, pl.smem, granted1)
-      : grant_smem(step_megakernel_kernel<2>, pl.smem, granted2);
+  const long long n = static_cast<long long>(batch) * h * w;
+  const long long blocks = (n + 16 * mt - 1) / (16 * mt);
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  static long long granted[3][MAX_DEVICES] = {};
+  cudaError_t err = mt == 4   ? grant_smem(step_megakernel_kernel<4>, smem, granted[2])
+                    : mt == 2 ? grant_smem(step_megakernel_kernel<2>, smem, granted[1])
+                              : grant_smem(step_megakernel_kernel<1>, smem, granted[0]);
   if (err != cudaSuccess) return static_cast<int>(err);
+  MegaArgs a{x, wf, bf, w1, s1, b1, w2, s2, b2, wz, bz, zl, y, z, ldj, n, h, w, c, d, stages};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(static_cast<unsigned>(cdiv(h, pl.th) * cdiv(w, pl.tw)),
-                  static_cast<unsigned>(batch));
-  if (pl.slots == 1) {
-    step_megakernel_kernel<1><<<grid, THREADS, static_cast<size_t>(pl.smem), s>>>(
-        x, wf, bf, w1, s1, b1, w2, s2, b2, wz, bz, zl, y, rows, h, w, c, d, pl);
-  } else {
-    step_megakernel_kernel<2><<<grid, THREADS, static_cast<size_t>(pl.smem), s>>>(
-        x, wf, bf, w1, s1, b1, w2, s2, b2, wz, bz, zl, y, rows, h, w, c, d, pl);
-  }
+  const unsigned grid = static_cast<unsigned>(blocks);
+  const size_t bytes = static_cast<size_t>(smem);
+  if (mt == 4) step_megakernel_kernel<4><<<grid, THREADS, bytes, s>>>(a);
+  else if (mt == 2) step_megakernel_kernel<2><<<grid, THREADS, bytes, s>>>(a);
+  else step_megakernel_kernel<1><<<grid, THREADS, bytes, s>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  rows_sum_kernel<<<batch, THREADS, 0, s>>>(rows, ldj, h * w);
+  step_tail_kernel<<<static_cast<unsigned>(batch), TAIL_THREADS, 0, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

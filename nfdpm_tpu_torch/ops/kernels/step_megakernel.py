@@ -11,16 +11,18 @@ Counterpart of nfdpm_tpu/ops/pallas/step_megakernel.py, with its contract:
 `ldj_part` leaves out the channel mix's H*W*(sum s + log|det W|), which the
 caller adds (ops/bijectors.py:step_forward_megakernel). The kernel is
 `step_megakernel_f32` in csrc/step_megakernel.cu (its note says what bounds
-it and how it is tiled); it picks its own tiling per shape, so there is no
-`tile_b`. The JAX function has no VJP, and neither has this one: it raises
-where a gradient is asked for. Nothing in the Glow wires it in (the JAX
+it and how it is laid out): every product on the tensor cores in 3xTF32, a
+block a run of consecutive pixels, the zeroconv in scatter form (no halo),
+then a gather-and-tail kernel. Its plan is `plan`, a pure function of the
+shape that the entry point checks; there is no `tile_b`. The JAX function
+has no VJP, and neither has this one: it raises where a gradient is asked
+for. Nothing in the Glow wires it in (the JAX
 package keeps it as a tested experiment too); `bijectors.step_forward`
 stays the model's route.
 """
 
 from __future__ import annotations
 
-import ctypes
 import functools
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
@@ -87,56 +89,120 @@ def step_megakernel_forward_plain(x: torch.Tensor, w_fold: torch.Tensor,
     return torch.cat([y_a, y_b], dim=-1), ldj
 
 
+SMS = 132                # H100 SXM
+SMEM_LIMIT = 232448      # a block's shared memory on Hopper
+
+
+def kch(mt: int) -> int:
+    """Rows of a streamed operand per ring stage (csrc/step_megakernel.cu:
+    kch): 32, or 16 at mt = 1, whose stages are 512 columns wide."""
+    return 16 if mt == 1 else 32
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def z_cols(c: int) -> int:
+    """Columns of the scatter zeroconv's output Z: 9 C rounded up to 8."""
+    return _round_up(9 * c, 8)
+
+
+def smem_bytes(w: int, c: int, d: int, mt: int, stages: int) -> int:
+    """A block's dynamic shared memory (csrc/step_megakernel.cu: layout_for):
+    y_a on its 16 mt pixels +- (W + 1), h1 [16 mt, D], the ring of `stages`
+    stages of kch(mt) rows, and the largest of x's rows and wf's first half
+    (for y_a), conv1's im2col tile and a chunk of h2."""
+    m, nc, half, k = 16 * mt, 512 // mt, c // 2, kch(mt)
+    ya = _round_up((m + 2 * w + 2) * half, 4)
+    h1 = m * _round_up(d, k)
+    ring = stages * k * nc
+    work = max(m * _round_up(9 * half, k), m * nc, (m + 2 * w + 2 + half) * c)
+    return 4 * (ya + h1 + ring + work)
+
+
+def frag_b(w: torch.Tensor) -> torch.Tensor:
+    """A weight [K, N] in the kernel's B-fragment layout: K and N padded
+    with zeros to multiples of 8, then block (kg, nt) of 64 values holds, at
+    lane * 2 + i, the element (8 kg + 2 (lane % 4) + i, 8 nt + lane // 4):
+    one thread's two values of an m16n8k8 B fragment, one 8-byte load."""
+    k, n = w.shape
+    w = F.pad(w, (0, -n % 8, 0, -k % 8))
+    kg, nt = w.shape[0] // 8, w.shape[1] // 8
+    # rows 8 kg + 2 t + i, columns 8 nt + g -> [kg, nt, g, t, i]
+    return w.reshape(kg, 4, 2, nt, 8).permute(0, 3, 4, 1, 2).contiguous()
+
+
 class Plan(NamedTuple):
-    """The kernel's tiling of one shape (csrc/step_megakernel.cu, plan_for):
-    th x tw output pixels per block, nc hidden channels per chunk of h2,
-    slots 4x4 quads of the 1x1 conv per thread, ks threads per zeroconv
-    output, smem bytes of dynamic shared memory."""
-    th: int
-    tw: int
-    nc: int
-    slots: int
-    ks: int
+    """The kernel's plan for one shape: a block takes 16 mt consecutive
+    pixels of the flattened [B, H, W] (mt row tiles of the tensor-core
+    products, 512 / mt hidden channels a chunk), `stages` buffers in its
+    cp.async ring; `blocks` blocks, `smem` bytes of dynamic shared memory
+    each."""
+    mt: int
+    stages: int
+    blocks: int
     smem: int
 
 
 @functools.lru_cache(maxsize=64)
 def plan(batch: int, h: int, w: int, c: int, width: int) -> Optional[Plan]:
-    """The kernel's plan for x [batch, h, w, c] at hidden width `width`, or
-    None where no tiling fits (width not a multiple of 4, or too wide)."""
-    out = (ctypes.c_int * 5)()
-    smem = _build.function("step_megakernel", "step_megakernel_plan")(batch, h, w, c, width, out)
-    return None if smem < 0 else Plan(*out, smem)
+    """The plan for x [batch, h, w, c] at hidden width `width`, or None where
+    none fits (C odd, a width that is not a positive multiple of 4, or too
+    wide for shared memory). A pure function of the shape: of the mt whose
+    zeroconv columns fit a warp's 8 / mt column tiles, the one with the
+    fewest waves (of one block an SM) x mt, the largest on a tie (2 x 4 at
+    the first level, 1 x 2 at the second, 1 x 1 at the third); the deepest
+    ring (4, 3, 2) that fits."""
+    if batch <= 0 or h <= 0 or w <= 0 or c <= 0 or c % 2 or width <= 0 or width % 4:
+        return None
+    n = batch * h * w
+    best, best_cost = None, None
+    for mt in (4, 2, 1):
+        if -(-z_cols(c) // 64) > 8 // mt:
+            continue
+        stages = next((s for s in (4, 3, 2) if smem_bytes(w, c, width, mt, s) <= SMEM_LIMIT),
+                      None)
+        if stages is None:
+            continue
+        blocks = -(-n // (16 * mt))
+        cost = -(-blocks // SMS) * mt
+        if best is None or cost < best_cost:
+            best = Plan(mt, stages, blocks, smem_bytes(w, c, width, mt, stages))
+            best_cost = cost
+    return best
 
 
-def halo_waste(p: Plan, h: int, w: int) -> float:
-    """Pixels of h1 and h2 the kernel computes per output pixel: each tile
-    also computes its one-pixel border that lies inside the image."""
-    rows = sum(min(h, r + p.th + 1) - max(0, r - 1) for r in range(0, h, p.th))
-    cols = sum(min(w, s + p.tw + 1) - max(0, s - 1) for s in range(0, w, p.tw))
-    return rows * cols / (h * w)
+def halo_waste(p: Plan, batch: int, h: int, w: int) -> float:
+    """Pixels the kernel runs conv1, the 1x1 conv and the zeroconv on per
+    output pixel: blocks x 16 mt over B H W (the scatter zeroconv needs no
+    border; the last block's rows past the end still run through the
+    products). y_a, a C x C/2 mix, is made on each block's pixels +- (W + 1)."""
+    return p.blocks * 16 * p.mt / (batch * h * w)
 
 
 def pack(w_fold: torch.Tensor, b_fold: torch.Tensor, net: Params, c: int):
-    """The weights as the kernel takes them: 3x3 convs tap-major, the 1x1
-    conv as [in, out], the zeroconv's columns padded with zeros to a
-    multiple of 4. The port keeps conv weights channels-last, so each is
+    """The weights as the kernel takes them: the first conv tap-major [9
+    C/2, D], the 1x1 conv as [in, out], the zeroconv in scatter form [D, 9
+    C] (column tap C + c: the tap's weight to output channel c) padded with
+    zero columns to z_cols(C); those three in the B-fragment layout
+    (`frag_b`). The port keeps conv weights channels-last, so each is
     copied out explicitly."""
-    wz = taps(net["zconv"]["w"])
-    if c % 4:
-        wz = F.pad(wz, (0, 4 - c % 4))
-    return [w_fold.contiguous(), b_fold.contiguous(), taps(net["conv1"]["w"]),
+    wz = taps(net["zconv"]["w"])  # [9, D, C]
+    d = wz.shape[1]
+    wz = F.pad(wz.permute(1, 0, 2).reshape(d, 9 * c), (0, z_cols(c) - 9 * c))
+    return [w_fold.contiguous(), b_fold.contiguous(),
+            frag_b(taps(net["conv1"]["w"]).reshape(9 * (c // 2), d)),
             net["an1"]["scale"].contiguous(), net["an1"]["bias"].contiguous(),
-            net["conv2"]["w"][:, :, 0, 0].T.contiguous(),
+            frag_b(net["conv2"]["w"][:, :, 0, 0].T),
             net["an2"]["scale"].contiguous(), net["an2"]["bias"].contiguous(),
-            wz.contiguous(), net["zconv"]["b"].contiguous(),
-            net["zconv"]["logs"].contiguous()]
+            frag_b(wz), net["zconv"]["b"].contiguous(), net["zconv"]["logs"].contiguous()]
 
 
 def launch(x: torch.Tensor, packed, width: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One launch of the kernel (and of its per-image sum) on CUDA operands,
-    the weights already packed (`pack`). The wrapper packs them on every
-    call; a caller that times the kernel alone packs once."""
+    """One launch of the kernel (and of its gather-and-tail kernel) on CUDA
+    operands, the weights already packed (`pack`). The wrapper packs them
+    on every call; a caller that times the kernel alone packs once."""
     device = _build.check_cuda_f32("step_megakernel_forward", x, *packed)
     b, h, w, c = x.shape
     p = plan(b, h, w, c, width)
@@ -145,12 +211,12 @@ def launch(x: torch.Tensor, packed, width: int) -> Tuple[torch.Tensor, torch.Ten
                          f"width {width} (it takes multiples of 4 that fit in shared "
                          "memory)")
     y = torch.empty_like(x)
-    rows = torch.empty((b, h, w), dtype=torch.float32, device=device)
+    z = torch.empty((b * h * w, z_cols(c)), dtype=torch.float32, device=device)
     ldj = torch.empty((b,), dtype=torch.float32, device=device)
     _build.launch("step_megakernel_forward",
                   _build.function("step_megakernel", "step_megakernel_f32"), device,
-                  x.data_ptr(), *(t.data_ptr() for t in packed), y.data_ptr(), rows.data_ptr(),
-                  ldj.data_ptr(), b, h, w, c, width, p.th, p.tw, p.nc)
+                  x.data_ptr(), *(t.data_ptr() for t in packed), y.data_ptr(), z.data_ptr(),
+                  ldj.data_ptr(), b, h, w, c, width, p.mt, p.stages)
     step_megakernel_forward.launches += 1
     return y, ldj
 

@@ -235,6 +235,24 @@ def test_coupling_step_tail_matches_plain(gen, shape):
     torch.testing.assert_close(ldj_off, ldj, rtol=1e-5, atol=1e-4)
 
 
+@pytest.mark.parametrize("shape", STEP_SHAPES + [(3, 2, 3, 14)])
+def test_coupling_step_tail_inverse_matches_plain(gen, shape):
+    y, r, zb, zlogs, _ = _step_case(gen, shape)
+    before = ct.coupling_tail_inverse.launches
+    x = ct.coupling_step_tail_inverse(y, r, zb, zlogs)
+    torch.cuda.synchronize()
+    assert ct.coupling_tail_inverse.launches == before + 1
+    torch.testing.assert_close(x, ct.coupling_step_tail_inverse_plain(y, r, zb, zlogs),
+                               rtol=1e-5, atol=1e-5)
+    assert torch.equal(x[..., : shape[-1] // 2], y[..., : shape[-1] // 2])
+    assert torch.equal(x, ct.coupling_step_tail_inverse(y, r, zb, zlogs))  # the same bits
+    # operands off 16-byte alignment take 4-byte accesses: same values
+    x_off = ct.coupling_step_tail_inverse(_misaligned(y), _misaligned(r), zb, zlogs)
+    torch.testing.assert_close(x_off, x, rtol=1e-5, atol=1e-5)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        ct.coupling_step_tail_inverse(y, r.clone().requires_grad_(True), zb, zlogs)
+
+
 @pytest.mark.parametrize("shape", STEP_SHAPES)
 @pytest.mark.parametrize("given", ["both", "g_out", "g_ldj"])
 def test_coupling_step_tail_bwd_matches_plain(gen, shape, given):
@@ -491,11 +509,12 @@ def _megakernel_case(gen, b, h, w, c, width):
 
 
 # the three level shapes of the served Glow (L3/K4/w512, batch 64), the JAX
-# package's test case, and a ragged one: odd batch, odd H and W, C not a
-# multiple of 4, a width that no chunk divides
+# package's test case, a ragged one (odd batch, odd H and W, C not a
+# multiple of 4, a width that no chunk divides) and blocks of four whole
+# images
 @pytest.mark.parametrize("shape", [(64, 16, 16, 12, 512), (64, 8, 8, 24, 512),
                                    (64, 4, 4, 48, 512), (5, 16, 16, 12, 64),
-                                   (7, 5, 9, 14, 44)],
+                                   (7, 5, 9, 14, 44), (16, 2, 2, 48, 512)],
                          ids=lambda s: "x".join(map(str, s)))
 def test_step_megakernel_matches_plain(gen, shape):
     nfdpm_tpu_torch.disable_tf32()  # the plain version's convolutions in full fp32
@@ -531,3 +550,31 @@ def test_step_megakernel_refuses_gradient_and_bad_inputs(gen):
     ragged = _megakernel_case(gen, 2, 4, 4, 8, 18)
     with pytest.raises(ValueError, match="multiples of 4"):
         sm.step_megakernel_forward(*ragged)
+
+
+@pytest.mark.parametrize("shape", [(16, 16, 12, 512), (8, 8, 24, 512), (4, 4, 48, 512),
+                                   (16, 16, 12, 64), (5, 9, 14, 44), (2, 2, 48, 512),
+                                   (4, 4, 8, 18), (4, 4, 64, 512), (3, 300, 12, 512)])
+def test_step_megakernel_smem_matches_the_kernel(gen, shape):
+    """The wrapper's smem_bytes against the kernel's own layout for every
+    plan (mt, stages); the kernel refuses what the plan check refuses."""
+    from nfdpm_tpu_torch.ops.kernels import _build
+
+    h, w, c, d = shape
+    smem = _build.function("step_megakernel", "step_megakernel_smem_bytes")
+    for mt in (1, 2, 3, 4):
+        for stages in (1, 2, 3, 4, 5):
+            want = sm.smem_bytes(w, c, d, mt, stages)
+            fits = (mt in (1, 2, 4) and 2 <= stages <= 4 and d % 4 == 0
+                    and -(-sm.z_cols(c) // 64) <= 8 // mt and want <= 232448)
+            assert smem(h, w, c, d, mt, stages) == (want if fits else -1), (mt, stages)
+
+
+def test_step_megakernel_entry_refuses_a_plan_that_does_not_hold(gen, monkeypatch):
+    x, wf, bf, net = _megakernel_case(gen, 2, 4, 4, 8, 16)
+    packed = sm.pack(wf, bf, net, 8)
+    good = sm.plan(2, 4, 4, 8, 16)
+    for bad in (good._replace(mt=3), good._replace(stages=5)):
+        monkeypatch.setattr(sm, "plan", lambda *args, _p=bad: _p)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            sm.launch(x, packed, 16)

@@ -1,4 +1,5 @@
-"""The per-shape plans of the channel_mix and fused_linear_attention kernels.
+"""The per-shape plans of the channel_mix, fused_linear_attention and
+whole-step megakernel kernels.
 
 Each wrapper hands its kernel a plan made by a pure Python function of the
 shape (`channel_mix.plan`, `fused_linear_attention.plan`). Here, with no
@@ -13,7 +14,12 @@ N <= BWD_FUSED_MAX_N wherever it fits, and two or more blocks a batch row
 above; its grids' coverage is held on the card at ragged N. The card tests
 test_attention_plan_smem_matches_the_kernel and
 test_attention_bwd_plan_smem_matches_the_kernel hold `smem_bytes` and
-`bwd_smem_bytes` against the kernels' own sums.
+`bwd_smem_bytes` against the kernels' own sums. The megakernel's plan
+(`step_megakernel.plan`) must fit, walk every pixel exactly once in runs
+of 16 mt, stage y_a on every in-image neighbour its conv1 reads, keep the
+scatter zeroconv's columns within a warp's tiles, and report a halo waste
+equal to a pixel-by-pixel count (test_step_megakernel_smem_matches_the_kernel
+holds its `smem_bytes` against the kernel's).
 """
 
 import numpy as np
@@ -21,6 +27,7 @@ import pytest
 
 from nfdpm_tpu_torch.ops.kernels import channel_mix as cm
 from nfdpm_tpu_torch.ops.kernels import fused_linear_attention as fla
+from nfdpm_tpu_torch.ops.kernels import step_megakernel as sm
 
 MAX_SMEM = 232448
 CM_GENERIC_THREADS = 256  # csrc/flow_kernels.cu: the generic kernel's block
@@ -194,3 +201,59 @@ def test_attention_bwd_plan_at_the_training_shapes():
     assert fla.bwd_plan(32, 128) == (True, 2)
     assert fla.bwd_plan(300, 200) == (False, 2)
     assert fla.bwd_plan(16, 300) is None
+
+
+# (B, H, W, C, width): the three level shapes of the served Glow (batch 64,
+# width 512), the JAX package's test case, a ragged case (odd B, H and W, C
+# and width not multiples of 8) and blocks of four whole images
+MEGA_CASES = [(64, 16, 16, 12, 512), (64, 8, 8, 24, 512), (64, 4, 4, 48, 512),
+              (5, 16, 16, 12, 64), (7, 5, 9, 14, 44), (16, 2, 2, 48, 512)]
+
+
+@pytest.mark.parametrize("b,h,w,c,d", MEGA_CASES)
+def test_megakernel_plan_fits_and_covers_every_pixel_once(b, h, w, c, d):
+    """The plan as csrc/step_megakernel.cu walks it: block i takes the
+    pixels [16 mt i, 16 mt (i + 1)) of the flattened [B, H, W], stages y_a
+    on [first - W - 1, first + 16 mt + W + 1) and runs conv1 on its own
+    pixels; its products run on all 16 mt rows."""
+    p = sm.plan(b, h, w, c, d)
+    assert p is not None and p.mt in (1, 2, 4) and p.stages in (2, 3, 4)
+    assert p.smem == sm.smem_bytes(w, c, d, p.mt, p.stages) <= MAX_SMEM
+    assert -(-sm.z_cols(c) // 64) <= 8 // p.mt  # the zeroconv's columns: a warp's tiles
+    n, m = b * h * w, 16 * p.mt
+    covered = np.zeros(n, np.int64)
+    rows_run = 0
+    for blk in range(p.blocks):
+        first = blk * m
+        own = np.arange(first, min(first + m, n))
+        covered[own] += 1
+        rows_run += m
+        # every in-image neighbour that conv1 reads lies in the staged range
+        pix = own % (h * w)
+        for dh in (-1, 0, 1):
+            for dw in (-1, 0, 1):
+                inside = ((pix // w + dh >= 0) & (pix // w + dh < h)
+                          & (pix % w + dw >= 0) & (pix % w + dw < w))
+                q = own[inside] + dh * w + dw
+                assert ((q >= first - w - 1) & (q < first + m + w + 1)).all()
+    assert (covered == 1).all()
+    assert sm.halo_waste(p, b, h, w) == rows_run / n
+
+
+def test_megakernel_plan_at_the_level_shapes():
+    """A block per 64, 32 and 16 pixels at the three levels: 256, 128 and 64
+    blocks, two waves, one and one of one block an SM; no halo; the deepest
+    ring that fits (stages of 32 rows, 16 at mt = 1)."""
+    plans = [sm.plan(*shape) for shape in MEGA_CASES[:3]]
+    assert [(p.mt, p.blocks, p.stages) for p in plans] == [(4, 256, 4), (2, 128, 4),
+                                                            (1, 64, 4)]
+    assert [sm.halo_waste(p, *shape[:3]) for p, shape in zip(plans, MEGA_CASES)] == [1.0] * 3
+    assert [sm.z_cols(c) for c in (12, 24, 48, 14)] == [112, 216, 432, 128]
+
+
+def test_megakernel_plan_refuses_what_the_kernel_does_not_take():
+    assert sm.plan(2, 4, 4, 7, 16) is None      # odd C
+    assert sm.plan(2, 4, 4, 8, 18) is None      # a width not a multiple of 4
+    assert sm.plan(2, 4, 4, 8, 8192) is None    # h1 too wide for shared memory
+    assert sm.plan(2, 4, 4, 64, 512) is None    # 9 C past a warp's column tiles
+    assert sm.plan(0, 4, 4, 8, 16) is None

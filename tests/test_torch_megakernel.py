@@ -154,8 +154,11 @@ def test_wrapper_refuses_a_gradient_and_bad_inputs():
 
 
 def test_halo_waste_counts_the_clipped_border():
-    plan = tsm.Plan(th=4, tw=16, nc=40, slots=1, ks=1, smem=0)
-    # rows per tile 5, 6, 6, 5 over 16; columns 16 of 16
-    assert tsm.halo_waste(plan, 16, 16) == 22 / 16
-    assert tsm.halo_waste(plan._replace(th=4, tw=4), 4, 4) == 1.0
-    assert tsm.halo_waste(plan._replace(th=2, tw=8), 8, 8) == 14 / 8
+    """The scatter zeroconv needs no border, so there is none to clip: the
+    kernel runs its products on blocks x 16 mt pixels, the last block's
+    rows past the end included (tests/test_torch_kernels_plan.py counts
+    them pixel by pixel)."""
+    plan = tsm.Plan(mt=4, stages=4, blocks=256, smem=0)
+    assert tsm.halo_waste(plan, 64, 16, 16) == 1.0
+    assert tsm.halo_waste(plan._replace(mt=1, blocks=20), 7, 5, 9) == 320 / 315
+    assert tsm.halo_waste(plan._replace(mt=2, blocks=3), 1, 9, 9) == 96 / 81

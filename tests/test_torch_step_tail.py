@@ -12,9 +12,16 @@ to a few hundred fp32 terms in another order); the backward against
 jax.vjp rtol 1e-4 and atol 1e-6 (d_zb and d_zlogs sum over B x H x W
 pixels); the autograd Function against autograd through the plain version
 rtol 1e-5 and atol 1e-6 (the same terms, d_zlogs summed as 3 d_h h there
-and as 3 e sum d_h (r + zb) by autograd). The plans of the two kernels are
-pure Python and are held here too: their grids cover every unit or pixel
-exactly once, the forward's fills the card at the level shapes.
+and as 3 e sum d_h (r + zb) by autograd). The inverse step tail
+(coupling_step_tail_inverse) is held against the JAX inverse composition
+(the zeroconv, the Pallas coupling_tail_inverse in interpret mode,
+jnp.concatenate) at the same shapes and a ragged C = 14, atol 1e-5; a
+round trip through the forward step tail within 2e-3 (the bound of
+tests/test_pallas_kernels.py); the inverse step and a small Glow's
+inverse through the kernel route against step_inverse_pallas. The plans
+of the three kernels are pure Python and are held here too: their grids
+cover every unit or pixel exactly once, the forward's and the inverse's
+fill the card at the level shapes.
 """
 
 import jax
@@ -247,6 +254,97 @@ def test_step_forward_kernels_gradient_matches_jax_grad(shape):
         np.testing.assert_allclose(a.numpy(), e, err_msg=str(path), **VJP_TOL)
 
 
+# --- the inverse step tail ---
+
+INVERSE_SHAPES = SHAPES + [(3, 2, 3, 14)]  # and a ragged C/2 = 7
+
+
+def _jax_inverse_tail(zc, y, h_in):
+    """The JAX composition the inverse step tail replaces (nfdpm_tpu's
+    step_inverse_pallas from the coupling CNN's last layer to the concat)."""
+    half = y.shape[-1] // 2
+    net_out = jzc.zeroconv_apply(zc, h_in)
+    x_b = jct.coupling_tail_inverse(net_out[..., :half], net_out[..., half:], y[..., half:],
+                                    True)
+    return jnp.concatenate([y[..., :half], x_b], axis=-1)
+
+
+@pytest.mark.parametrize("shape", INVERSE_SHAPES)
+def test_step_tail_inverse_plain_matches_jax_composition(shape):
+    y, h_in, zc, ldj = _case(shape, seed=30)
+    x_j = _jax_inverse_tail(zc, jnp.asarray(y), jnp.asarray(h_in))
+    y_t, r, zb, zlogs, _ = _port_operands(zc, y, h_in, ldj)
+    x_t = ct.coupling_step_tail_inverse_plain(y_t, r, zb, zlogs)
+    close(x_t, x_j)
+    assert torch.equal(x_t[..., : shape[-1] // 2], y_t[..., : shape[-1] // 2])
+    # the entry point takes the plain version on CPU tensors, launching nothing
+    before = ct.coupling_tail_inverse.launches
+    assert torch.equal(ct.coupling_step_tail_inverse(y_t, r, zb, zlogs), x_t)
+    assert ct.coupling_tail_inverse.launches == before
+
+
+@pytest.mark.parametrize("shape", INVERSE_SHAPES)
+def test_step_tail_inverse_undoes_the_step_tail(shape):
+    """The inverse divides by s + 1e-6, so it undoes the forward only to
+    about 1e-6 / s relative: the round trip is held with the zeroconv's
+    leaves at the scale the port's tests give a Glow's zero-initialised
+    leaves (0.05, as `_step`), where s stays near sigmoid(2)."""
+    b, h, w, c = shape
+    zc = randomize(jzc.init_zeroconv(WIDTH, c, filter_size=3), seed=40, scale=0.05)
+    y, h_in, ldj = _normal(41, shape), _normal(42, (b, h, w, WIDTH)), _normal(43, (b,), 10.0)
+    y_t, r, zb, zlogs, ldj_t = _port_operands(zc, y, h_in, ldj)
+    out, _ = ct.coupling_step_tail(y_t, r, zb, zlogs, ldj_t)
+    close(ct.coupling_step_tail_inverse(out, r, zb, zlogs), y, atol=2e-3)
+
+
+def test_step_tail_inverse_refuses_a_gradient():
+    y, h_in, zc, ldj = _case(SHAPES[-1], seed=41)
+    y_t, r, zb, zlogs, _ = _port_operands(zc, y, h_in, ldj)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        ct.coupling_step_tail_inverse(y_t, r.requires_grad_(True), zb, zlogs)
+    with torch.no_grad():
+        assert ct.coupling_step_tail_inverse(y_t, r, zb, zlogs).shape == y_t.shape
+    with pytest.raises(ValueError, match="CUDA"):
+        ct.coupling_step_tail_inverse(*[torch.empty(s, device="meta")
+                                        for s in ((2, 3, 4), (2, 3, 4), (4,), (4,))])
+
+
+@pytest.mark.parametrize("shape", INVERSE_SHAPES)
+def test_step_inverse_kernels_matches_step_inverse_pallas(shape):
+    sp = _step(shape[-1], 17)
+    y = _normal(8, shape)
+    x_j = jbj.step_inverse_pallas(sp, jnp.asarray(y))
+    # a view, as a split hands it over (channels of a wider tensor)
+    y_view = torch.cat([t(y), t(y)], dim=-1)[..., : shape[-1]]
+    assert not y_view.is_contiguous()
+    x_t = tbj.step_inverse_kernels(port_tree(sp), y_view)
+    close(x_t, x_j)
+    x_back, _ = tbj.step_forward_kernels(port_tree(sp), x_t, torch.zeros(shape[0]))
+    close(x_back, y, atol=2e-3)
+
+
+def test_glow_inverse_kernel_route_matches_jax():
+    """A small Glow (L2/K2, width 16, 8x8x3) inverted from seeded latents
+    through the kernel route on the CPU against nfdpm_tpu's inverse through
+    step_inverse_pallas."""
+    from _torch_port import to_numpy_tree
+    from nfdpm_tpu.models import glow as jglow
+    from nfdpm_tpu_torch.convert import from_jax_params
+    from nfdpm_tpu_torch.models import glow as tglow
+
+    kw = dict(in_channels=3, levels=2, steps=2, coupling_width=16)
+    jcfg, tcfg = jglow.GlowConfig(use_pallas=True, **kw), tglow.GlowConfig(use_kernels=True, **kw)
+    flow = randomize(to_numpy_tree(jglow.init_glow(3, jcfg)), seed=4)
+    shapes = tglow.latent_shapes_nhwc(tcfg, 8)
+    lats = [_normal(60 + i, (2, *s)) for i, s in enumerate(shapes)]
+    x_j = jglow.inverse(jax.tree.map(jnp.asarray, flow), jcfg, [jnp.asarray(z) for z in lats])
+    tflow = from_jax_params({"flow": flow}, "cpu")["flow"]
+    before = ct.coupling_tail_inverse.launches
+    x_t = tglow.inverse(tflow, tcfg, [t(z) for z in lats])
+    assert ct.coupling_tail_inverse.launches == before  # CPU tensors: the plain versions
+    close(x_t, x_j)
+
+
 # --- the kernels' plans (pure Python: the grids as the kernels walk them) ---
 
 LEVELS = [(64, 16 * 16, 12), (64, 8 * 8, 24), (64, 4 * 4, 48)]  # (B, H W, C) at batch 64
@@ -280,7 +378,8 @@ def _backward_pixels(p, rows, px, half):
 
 # every access width the wrapper may pick for each shape (C/2 divisible by it)
 PLAN_CASES = [(rows, px, c, vw)
-              for rows, px, c in LEVELS + [(5, 15, 10), (3, 1, 2), (1, 7, 512), (2, 4096, 48)]
+              for rows, px, c in LEVELS + [(5, 15, 10), (3, 1, 2), (1, 7, 512), (2, 4096, 48),
+                                         (16, 4096, 48)]
               for vw in (4, 2, 1) if (c // 2) % vw == 0]
 
 
@@ -291,6 +390,13 @@ def test_step_tail_plans_cover_every_unit_once(rows, px, c, vw):
     assert f.threads in (32, 64, 128, 256, 512) and f.vw == vw
     assert 1 <= f.blocks <= ct.MAX_CLUSTER  # one cluster an image
     assert (_forward_units(f, rows, px, half) == 1).all()
+    i = ct.inverse_plan(rows, px, half, vw)
+    assert i.threads in (32, 64, 128) and i.vw == vw and 1 <= i.blocks <= ct.MAX_INVERSE_BLOCKS
+    units = rows * px * (half // vw)
+    reached = np.zeros(units, np.int64)
+    for u in range(i.blocks * i.threads):  # a thread a unit, a loop past the grid
+        reached[u:units:i.blocks * i.threads] += 1
+    assert (reached == 1).all()
     b = ct.backward_plan(rows, px, half, vw)
     counts, fits = _backward_pixels(b, rows, px, half)
     assert fits and (counts == 1).all() and b.blocks <= ct.SMS
@@ -300,7 +406,8 @@ def test_step_tail_plans_cover_every_unit_once(rows, px, c, vw):
 
 
 def test_step_tail_plans_at_the_level_shapes():
-    """The forward's grid has a block per SM at every level shape; the
+    """The forward's and the inverse's grids have a block per SM at every
+    level shape; the
     access width is 16 bytes where C/2 allows it (levels 2 and 3) and 8
     at level 1 (C/2 = 6)."""
     want_vw = [2, 4, 4]
@@ -312,6 +419,9 @@ def test_step_tail_plans_at_the_level_shapes():
             for (r, p, c), v in zip(LEVELS, want_vw)] == [128, 64, 32]
     assert [ct.forward_plan(r, p, c // 2, v).blocks
             for (r, p, c), v in zip(LEVELS, want_vw)] == [6, 3, 3]
+    # the inverse: one unit a thread, 384, 192 and 192 blocks
+    assert [tuple(ct.inverse_plan(r, p, c // 2, v))[1:3]
+            for (r, p, c), v in zip(LEVELS, want_vw)] == [(128, 384), (64, 192), (32, 192)]
     assert [tuple(ct.backward_plan(r, p, c // 2, v))[1:]
             for (r, p, c), v in zip(LEVELS, want_vw)] == [(512, 97, 1), (256, 49, 1),
                                                           (256, 25, 1)]

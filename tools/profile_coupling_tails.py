@@ -11,18 +11,22 @@ measured by the same code; alternate them in one call. Batch 64, width 512,
 seeded random weights, TF32 off:
 
   - "tail_kernels", at each level shape (16,16,12), (8,8,24), (4,4,48): the
-    tail kernels alone, forward and backward, device us a launch (50 calls
-    in a CUDA graph) and us (CUDA events). The step mode
-    (coupling_step_tail, its backward) where the port has it, else the
-    plain-operand kernels on the half-width operands;
-  - "step_route", at each level shape: one Glow step's kernel route
-    (bijectors.step_forward_kernels), the CUDA activities of its forward and
-    of its forward and backward (torch.profiler), their device us, and the
-    forward's device ms (CUDA graph);
+    tail kernels alone, forward, backward and inverse, device us a launch
+    (50 calls in a CUDA graph) and us (CUDA events). The step modes
+    (coupling_step_tail, its backward, coupling_step_tail_inverse) where the
+    port has them, else the plain-operand kernels on the half-width
+    operands;
+  - "step_route", at each level shape: one Glow step's kernel routes
+    (bijectors.step_forward_kernels, step_inverse_kernels), the CUDA
+    activities of the forward, of the forward and backward and of the
+    inverse (torch.profiler), their device us, and the forward's and the
+    inverse's device ms (CUDA graph);
   - "paths": Glow scoring of a batch of 64 (inference.make_eval_step, kernel
-    route) and the stage-1 train step (nf_trainer.make_train_step from a
-    ddinit'ed state, configs/nf_base.yaml), each: CUDA activities a call and
-    their device ms; scoring's wall ms (20 synchronised calls); the train
+    route), the Glow's inverse of that batch's latents (glow.inverse, the
+    sampling path's 12 inverse steps) and the stage-1 train step
+    (nf_trainer.make_train_step from a ddinit'ed state,
+    configs/nf_base.yaml), each: CUDA activities a call and their device
+    ms; scoring's and the inverse's wall ms (20 synchronised calls); the train
     step's wall ms (median and spread of the last 16 of 20 synchronised
     steps) and busy share (device ms over the median).
 
@@ -49,6 +53,7 @@ def tail_kernels(torch, cs, ct, emit):
         return torch.randn(shape, generator=gen, device="cuda") * scale
 
     step_mode = hasattr(ct, "coupling_step_tail")
+    inverse_step_mode = hasattr(ct, "coupling_step_tail_inverse")
     for h, w, c in cs.level_shapes():
         ldj0, g_ldj = randn(cs.BATCH, scale=10.0), randn(cs.BATCH)
         if step_mode:
@@ -69,10 +74,23 @@ def tail_kernels(torch, cs, ct, emit):
 
             def bwd():
                 return ct.coupling_tail_bwd(ls, bias, xb, g_y, g_ldj)
+        y_i, r_i = randn(cs.BATCH, h, w, c), randn(cs.BATCH, h, w, c, scale=0.5)
+        zb_i, zlogs_i = randn(c, scale=0.2), randn(c, scale=0.2)
+        half = (cs.BATCH, h, w, c // 2)
+        ls_i, bias_i = randn(*half, scale=0.5), randn(*half)
+        yb_i = y_i[..., c // 2:].contiguous()
+
+        def inv():
+            if inverse_step_mode:
+                return ct.coupling_step_tail_inverse(y_i, r_i, zb_i, zlogs_i)
+            return ct.coupling_tail_inverse(ls_i, bias_i, yb_i)
+
         emit({"phase": "tail_kernels", "x": [cs.BATCH, h, w, c],
               "mode": "step" if step_mode else "plain operands",
+              "inverse_mode": "step" if inverse_step_mode else "plain operands",
               "fwd_device_us": cs.graph_ms(fwd) * 1e3, "fwd_us": cs.cuda_ms(fwd) * 1e3,
-              "bwd_device_us": cs.graph_ms(bwd) * 1e3, "bwd_us": cs.cuda_ms(bwd) * 1e3})
+              "bwd_device_us": cs.graph_ms(bwd) * 1e3, "bwd_us": cs.cuda_ms(bwd) * 1e3,
+              "inv_device_us": cs.graph_ms(inv) * 1e3, "inv_us": cs.cuda_ms(inv) * 1e3})
 
 
 def step_route(torch, cs, emit):
@@ -91,8 +109,13 @@ def step_route(torch, cs, emit):
             def fwd():
                 return bj.step_forward_kernels(params, x, ldj0)
 
+            def inv():
+                return bj.step_inverse_kernels(params, x)
+
             seq = cs.kernel_events(torch, fwd)
             fwd_device_ms = cs.graph_ms(fwd)
+            seq_inv = cs.kernel_events(torch, inv)
+            inv_device_ms = cs.graph_ms(inv)
         leaves = [leaf.requires_grad_(True) for path, leaf in named_leaves(params)
                   if not is_frozen_path(path)]
         xg = x.clone().requires_grad_(True)
@@ -107,7 +130,11 @@ def step_route(torch, cs, emit):
               "fwd_activities": len(seq), "fwd_profiler_device_us": sum(us for _, us in seq),
               "fwd_device_ms": fwd_device_ms, "fwd_bwd_activities": len(seq_fb),
               "fwd_bwd_profiler_device_us": sum(us for _, us in seq_fb),
-              "fwd_kernels": cs.short_names(seq), "fwd_bwd_kernels": cs.short_names(seq_fb)})
+              "inv_activities": len(seq_inv),
+              "inv_profiler_device_us": sum(us for _, us in seq_inv),
+              "inv_device_ms": inv_device_ms,
+              "fwd_kernels": cs.short_names(seq), "fwd_bwd_kernels": cs.short_names(seq_fb),
+              "inv_kernels": cs.short_names(seq_inv)})
 
 
 def paths(torch, np, cs, emit):
@@ -134,6 +161,16 @@ def paths(torch, np, cs, emit):
     seq = cs.kernel_events(torch, score)
     score_wall = cs.host_ms(torch, score, iters=20)
     score_device = sum(us for _, us in seq) / 1e3
+    with torch.inference_mode():
+        latents, _, _ = glow_m.forward(params["flow"], cfg, batches[0])
+
+    def invert():
+        with torch.inference_mode():
+            return glow_m.inverse(params["flow"], cfg, latents)
+
+    seq_inv = cs.kernel_events(torch, invert)
+    inv_wall = cs.host_ms(torch, invert, iters=20)
+    inv_device = sum(us for _, us in seq_inv) / 1e3
 
     tx = nft.optimizer_of(tcfg)
     state = nft.init_train_state(cs.TRAIN_SEED, cfg, tcfg, tx, device=device)
@@ -158,6 +195,8 @@ def paths(torch, np, cs, emit):
     emit({"phase": "paths", "batch": cs.BATCH,
           "scoring_activities": len(seq), "scoring_device_ms": score_device,
           "scoring_wall_ms": score_wall, "scoring_busy_share": score_device / score_wall,
+          "inverse_activities": len(seq_inv), "inverse_device_ms": inv_device,
+          "inverse_wall_ms": inv_wall,
           "train_step_activities": len(seq_t), "train_step_device_ms": step_device,
           "train_step_wall_ms_median_last16": median,
           "train_step_wall_ms_min_max_last16": [last16[0], last16[-1]],

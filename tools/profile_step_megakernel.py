@@ -3,84 +3,53 @@
 
     python3 tools/profile_step_megakernel.py
 
-Builds an instrumented copy of nfdpm_tpu_torch/ops/kernels/csrc/
-step_megakernel.cu into build/profile/ (the source in the checkout is not
-changed): thread 0 of every block reads clock64() at the block's phase
-boundaries, which are __syncthreads() barriers, so each count is the time
-the whole block spent in that phase; the copy adds one barrier after each
-chunk's zeroconv to close that phase. At the three level shapes of the
+Builds nfdpm_tpu_torch/ops/kernels/csrc/step_megakernel.cu a second time,
+with STEP_MEGAKERNEL_PROFILE defined, into build/profile/ (the source is
+not changed): that turns on its MK_MARK stamps, where thread 0 of every
+block adds the SM cycles since its previous stamp to the phase's slot. Most
+stamps follow a product, which ends with a barrier, so a slot is about the
+time the whole block spent in that phase. At the three level shapes of the
 served Glow (batch 64, width 512, seeded random step weights) it prints one
 JSON line each: the kernel's plan, blocks and waves, ms per call (CUDA
-events; the instrumented copy, a little slower than the kernel itself), and
-SM cycles per block by phase (mean and max over blocks): mix (y_a on the
-tile +- 2), conv1 (h1), gemm (the 1x1 conv over all chunks, w2 staging
-included), h2_epilogue (actnorm, ReLU, the store of each chunk) and
-zeroconv, the rest being the tail. Lines also go to
-chiprun_out/profile_step_megakernel.json. Needs CUDA and nvcc; imports no JAX.
+events; both kernels), the device us of the main kernel and of the
+gather-and-tail kernel (torch.profiler), and SM cycles per block by phase
+(mean and max over blocks):
+  mix          y_a on the block's pixels +- (W + 1) and conv1's im2col tile
+  conv1        conv1's products and their actnorm and ReLU into h1
+  gemm         the 1x1 conv's products, all chunks
+  h2_epilogue  each chunk's actnorm and ReLU into shared memory
+  zeroconv     the scatter zeroconv's products, all chunks
+  store        Z's rows to device memory
+Lines also go to chiprun_out/profile_step_megakernel.json. Needs CUDA and
+nvcc; imports no JAX.
 """
 
 from __future__ import annotations
 
 import ctypes
 import json
-import re
 import subprocess
 import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-PHASES = ("total", "mix", "conv1", "gemm", "h2_epilogue", "zeroconv")
-
-
-def instrument(src: str) -> str:
-    """The kernel source with clock64() counters written to prof[block][8]."""
-    def rep(old, new):
-        if src.count(old) != 1:
-            raise RuntimeError(f"instrument: the source no longer has {old!r}")
-        return src.replace(old, new)
-
-    src = rep("int h, int w, int c, int d, Plan pl) {",
-              "int h, int w, int c, int d, Plan pl, long long* prof) {\n"
-              "  long long t0 = clock64(), tp = t0, t_mix = 0, t_conv1 = 0, acc_g = 0,\n"
-              "            acc_e = 0, acc_z = 0, tg = 0, te = 0, tz = 0;")
-    src = rep("h2s[i] = 0.f;\n  __syncthreads();",
-              "h2s[i] = 0.f;\n  __syncthreads();\n  t_mix = clock64() - tp; tp = clock64();")
-    src = rep("    __syncthreads();  // h1 written; the last chunk's stages consumed",
-              "    __syncthreads();  // h1 written; the last chunk's stages consumed\n"
-              "    if (n0 == 0) t_conv1 = clock64() - tp;\n    tg = clock64();")
-    src = rep("      __syncthreads();  // stage st is refilled two steps on\n    }",
-              "      __syncthreads();  // stage st is refilled two steps on\n    }\n"
-              "    acc_g += clock64() - tg; te = clock64();")
-    src = rep("    __syncthreads();\n    // zeroconv:",
-              "    __syncthreads();\n    acc_e += clock64() - te; tz = clock64();\n    // zeroconv:")
-    end_of_chunk = re.search(r"zacc\[z\]\[3\]\);\n        \}\n      \}\n    \}\n(?=  \})", src)
-    if end_of_chunk is None:
-        raise RuntimeError("instrument: the zeroconv loop has changed")
-    src = (src[:end_of_chunk.end()] + "    __syncthreads();\n    acc_z += clock64() - tz;\n"
-           + src[end_of_chunk.end():])
-    src = rep("    rows[pix] = ldj;\n  }\n}",
-              "    rows[pix] = ldj;\n  }\n  __syncthreads();\n  if (tid == 0) {\n"
-              "    long long* o = prof + (static_cast<long long>(blockIdx.y) * gridDim.x +"
-              " blockIdx.x) * 8;\n"
-              "    o[0] = clock64() - t0; o[1] = t_mix; o[2] = t_conv1; o[3] = acc_g;\n"
-              "    o[4] = acc_e; o[5] = acc_z;\n  }\n}")
-    src = rep("int d, int th, int tw, int nc, void* stream) {",
-              "int d, int th, int tw, int nc, void* stream, long long* prof) {")
-    return src.replace("y, rows, h, w, c, d, pl);", "y, rows, h, w, c, d, pl, prof);")
+PHASES = ("mix", "conv1", "gemm", "h2_epilogue", "zeroconv", "store")
+SLOTS = 8  # csrc/step_megakernel.cu: PROF_SLOTS
 
 
 def build(out_dir: Path) -> ctypes.CDLL:
     from nfdpm_tpu_torch.ops.kernels import _build
 
     out_dir.mkdir(parents=True, exist_ok=True)
-    cu, lib = out_dir / "step_megakernel_profile.cu", out_dir / "libstep_megakernel_profile.so"
-    cu.write_text(instrument(_build.source("step_megakernel").read_text()))
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(cu)], check=True,
-                   capture_output=True, text=True)
+    lib = out_dir / "libstep_megakernel_profile.so"
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-DSTEP_MEGAKERNEL_PROFILE", "-o",
+                    str(lib), str(_build.source("step_megakernel"))],
+                   check=True, capture_output=True, text=True)
     dll = ctypes.CDLL(str(lib))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    dll.step_megakernel_f32.argtypes = [p] * 15 + [i] * 8 + [p, p]
-    dll.step_megakernel_f32.restype = i
+    argtypes, restype = _build._SIGNATURES["step_megakernel"]["step_megakernel_f32"]
+    dll.step_megakernel_f32.argtypes, dll.step_megakernel_f32.restype = argtypes, restype
+    dll.step_megakernel_profile_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    dll.step_megakernel_profile_read.restype = ctypes.c_int
     return dll
 
 
@@ -110,29 +79,36 @@ def main() -> int:
         x = torch.randn((b, h, w, c), generator=torch.Generator(device="cuda").manual_seed(5),
                         device="cuda")
         plan = sm.plan(b, h, w, c, d)
-        blocks = -(-h // plan.th) * -(-w // plan.tw) * b
-        prof = torch.zeros((blocks, 8), dtype=torch.int64, device="cuda")
-        y, rows = torch.empty_like(x), torch.empty((b, h, w), device="cuda")
+        y = torch.empty_like(x)
+        z = torch.empty((b * h * w, sm.z_cols(c)), device="cuda")
         ldj = torch.empty((b,), device="cuda")
 
         def call():
             err = lib.step_megakernel_f32(
-                x.data_ptr(), *(t.data_ptr() for t in packed), y.data_ptr(), rows.data_ptr(),
-                ldj.data_ptr(), b, h, w, c, d, plan.th, plan.tw, plan.nc,
-                torch.cuda.current_stream().cuda_stream, prof.data_ptr())
+                x.data_ptr(), *(t.data_ptr() for t in packed), y.data_ptr(), z.data_ptr(),
+                ldj.data_ptr(), b, h, w, c, d, plan.mt, plan.stages,
+                torch.cuda.current_stream().cuda_stream)
             if err:
                 raise RuntimeError(f"instrumented step_megakernel: CUDA error {err}")
 
         ms = cs.cuda_ms(call, iters=20, warmup=3)
+        kernels = cs.kernel_events(torch, call)
         y_ref, ldj_ref = sm.step_megakernel_forward_plain(x, wf, bf, params["coupling"]["net"])
         cs.check(torch.allclose(y, y_ref, rtol=cs.MEGA_Y_TOL, atol=cs.MEGA_Y_TOL)
                  and torch.allclose(ldj, ldj_ref, rtol=1e-5, atol=cs.MEGA_LDJ_ATOL),
                  f"the instrumented kernel is wrong at {(b, h, w, c)}")
+        prof = torch.zeros((plan.blocks, SLOTS), dtype=torch.int64)
+        err = lib.step_megakernel_profile_read(prof.data_ptr(), plan.blocks)
+        if err:
+            raise RuntimeError(f"step_megakernel_profile_read: CUDA error {err}")
         cycles = prof[:, :len(PHASES)].double()
-        record = {"x": [b, h, w, c], "width": d, "plan": plan._asdict(), "blocks": blocks,
-                  "ms": ms, "sm_clock_khz": clock_khz, "nvidia_smi": smi,
-                  "cycles_per_block_mean": dict(zip(PHASES, cycles.mean(0).tolist())),
-                  "cycles_per_block_max": dict(zip(PHASES, cycles.max(0).values.tolist()))}
+        mean, peak = cycles.mean(0).tolist(), cycles.max(0).values.tolist()
+        record = {"x": [b, h, w, c], "width": d, "plan": plan._asdict(),
+                  "waves": -(-plan.blocks // 132), "ms": ms,
+                  "device_us": {name[:60]: us for name, us in kernels},
+                  "sm_clock_khz": clock_khz, "nvidia_smi": smi,
+                  "cycles_per_block_mean": dict(zip(PHASES, mean), total=sum(mean)),
+                  "cycles_per_block_max": dict(zip(PHASES, peak))}
         records.append(record)
         print(json.dumps(record), flush=True)
     out = ROOT / "chiprun_out" / "profile_step_megakernel.json"
