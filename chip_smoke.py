@@ -147,6 +147,29 @@ line each:
      gradient; device ms (CUDA graph) and wall ms of the chained forward,
      of glow.forward's kernel route and of its plain route.
 
+  sample-quality evaluation (launch counters zeroed before 22c and before
+  22d, read after each):
+ 22. sample_metrics: (a) the FID Inception-v3 and CLIP ViT-B/32 feature nets
+     (seeded random weights), TF1 bilinear resize and SSIM/PSNR on the card
+     against the same on the CPU (rtol 1e-3 / atol 2e-3; atol 2e-4; rtol
+     2e-5); (b) `python -m nfdpm_tpu_torch.metrics.precompute_stats` as a
+     subprocess over 2048 synthetic 32x32 images (both resize modes,
+     inception_v3) and over a CelebA-format directory of 256 training
+     images written by tools/make_synthetic_celeba.py (clip_vit_b_32,
+     clean, 224), into build/chip_smoke/metrics/stats; (c) run_baseline.main
+     phase=eval on phase 12's run with FID and KID in both modes and
+     SSIM/PSNR over 2048 generated images: every metric present and finite,
+     the flow kernels' exact launches for 2048 samples (256 a call) and the
+     bits/dim; (d) run_diffusion_prior.main phase=eval on phase 17's run
+     with FID (legacy_tensorflow) over 256 generated images: present,
+     finite, exact launches; both with the host seconds of their parts
+     (sampler, resize by mode, feature net, FID and KID math); (e) the Glow
+     sampler's images/s, resize host ms a image by mode, the feature nets'
+     ms a batch of 32, 64 and 256 (CUDA events) and images/s beside
+     Inception's fp32 bound, peak memory, and a projection (arithmetic from
+     these rates) of a full=True CIFAR-10 evaluation of 50,000 images.
+     Each line carries the card's name and power limit.
+
 Then come the kernel summary line (seven kernels), the nvidia-smi line and, last,
 {"ok": true, "device": {...}}. With --stage1-training the script runs only
 the environment, the build and phases 12 and 13 and prints neither: copied
@@ -934,16 +957,23 @@ def glow_path(torch, np, params, counters):
 def kernel_events(torch, fn):
     """The CUDA activities (kernels, copies, fills) of one call of `fn`, in
     the order they ran on the card: [(name, device us)], from
-    torch.profiler, after one call that is not recorded."""
+    torch.profiler, after one call that is not recorded; a trace with no
+    device event is taken again, up to three times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA and e.device_time > 0]
+    # the profiler now and then hands back a trace without a single device
+    # event; the call itself launched its work all the same, so trace it again
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA and e.device_time > 0]
+        if events:
+            break
     events.sort(key=lambda e: e.time_range.start)
     return [(e.name, e.device_time) for e in events]
 
@@ -2296,6 +2326,360 @@ def phase_stage2_cotraining(torch, counters, stage1_dir):
     return launches
 
 
+# Sample-quality evaluation (phase 22): the counts of configs/nf_base.yaml's
+# FID/KID at a size that fits the run, and the CIFAR-10 train count that a
+# full=True evaluation generates (nfdpm_tpu_torch/data/datasets.py)
+METRIC_IMAGES = 2048          # stats images and generated images of stage 1
+STAGE2_METRIC_IMAGES = 256    # generated images of stage 2
+CELEBA_TRAIN, CELEBA_TEST = 256, 32
+FULL_EVAL_IMAGES = 50_000
+METRIC_DEV_RTOL, METRIC_DEV_ATOL = 1e-3, 2e-3   # feature nets, card against CPU
+RESIZE_DEV_ATOL = 2e-4                           # TF1 bilinear, [0, 255] values
+SSIM_DEV_RTOL = 2e-5
+FEATURE_BATCHES = (32, 64, 256)  # 32: what make_nf_evaluate_fn runs
+
+
+def conv_macs_per_image(torch, model, res: int) -> int:
+    """Multiply-adds of one image through every nn.Conv2d of `model`,
+    counted from the convolutions' output shapes."""
+    total, hooks = [0], []
+
+    def hook(mod, _inp, out):
+        total[0] += out[0].numel() * (mod.in_channels // mod.groups) * math.prod(
+            mod.kernel_size)
+
+    for m in model.modules():
+        if isinstance(m, torch.nn.Conv2d):
+            hooks.append(m.register_forward_hook(hook))
+    try:
+        with torch.inference_mode():
+            model(torch.zeros(1, 3, res, res, device=next(model.parameters()).device))
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
+def within(torch, a, b, rtol: float, atol: float):
+    """(max |a - b|, whether |a - b| <= atol + rtol |b| everywhere)."""
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    gap = (a - b).abs()
+    return float(gap.max()), bool((gap <= atol + rtol * b.abs()).all())
+
+
+class EvalTimers:
+    """Host seconds of an evaluation's parts, each synchronised: the
+    sampler, resizing, the feature net, FID's and KID's score math. Wraps
+    the module attributes that nfdpm_tpu_torch.metrics.compute calls
+    through, and the cached feature function, until `restore`."""
+
+    def __init__(self, torch, compute, fid_m, model_name: str):
+        self.torch, self.compute, self.fid_m = torch, compute, fid_m
+        self.seconds = {k: 0.0 for k in ("sampler", "resize_legacy_tensorflow",
+                                         "resize_clean", "feature_net", "fid_math",
+                                         "kid_math")}
+        self.images = {"sampler": 0, "resize_legacy_tensorflow": 0, "resize_clean": 0,
+                       "feature_net": 0}
+        self.saved = {"make_cached_sampler": compute.make_cached_sampler,
+                      "resize_batch": fid_m.resize_batch,
+                      "frechet_distance": fid_m.frechet_distance,
+                      "kid_score": fid_m.kid_score}
+        self.model_name = model_name
+        self.feature_fn = compute._EXTRACTOR_CACHE[model_name]
+        saved = self.saved
+
+        def timed(key, fn, count=None):
+            def wrapper(*args, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args, **kw)
+                torch.cuda.synchronize()
+                self.seconds[key] += time.perf_counter() - t0
+                if count is not None:
+                    self.images[key] += count(args, out)
+                return out
+            return wrapper
+
+        def resize_batch(images, size, mode, device=None):
+            key = f"resize_{mode}"
+            return timed(key, saved["resize_batch"], lambda a, o: len(a[0]))(
+                images, size, mode, device)
+
+        def make_cached_sampler(sample_images):
+            return saved["make_cached_sampler"](
+                timed("sampler", sample_images, lambda a, o: len(o)))
+
+        compute.make_cached_sampler = make_cached_sampler
+        fid_m.resize_batch = resize_batch
+        fid_m.frechet_distance = timed("fid_math", saved["frechet_distance"])
+        fid_m.kid_score = timed("kid_math", saved["kid_score"])
+        compute._EXTRACTOR_CACHE[model_name] = timed("feature_net", self.feature_fn,
+                                                     lambda a, o: len(a[0]))
+
+    def restore(self):
+        self.compute.make_cached_sampler = self.saved["make_cached_sampler"]
+        for name in ("resize_batch", "frechet_distance", "kid_score"):
+            setattr(self.fid_m, name, self.saved[name])
+        self.compute._EXTRACTOR_CACHE[self.model_name] = self.feature_fn
+
+
+def metric_config(metrics, modes, quick: int):
+    """Overrides configuring `metrics` (FID, KID) in each of `modes` through
+    inception_v3, `quick` generated images, 256 a sampler call."""
+    out = []
+    for m in metrics:
+        out += [f"model.evaluation.metrics.{m}.mode=[{','.join(modes)}]",
+                f"model.evaluation.metrics.{m}.model_name=[{','.join(['inception_v3'] * len(modes))}]"]
+    return out + [f"model.evaluation.quick_num_gen={quick}",
+                  "model.evaluation.gen_batch_size=256"]
+
+
+def run_in(cwd: Path, main, argv):
+    here = os.getcwd()
+    try:
+        os.chdir(cwd)
+        return main(argv)
+    finally:
+        os.chdir(here)
+
+
+def phase_sample_metrics(torch, np, counters, smi, stage1_dir, stage2_run):
+    """Phase 22: sample-quality evaluation on the card. (a) the feature
+    nets, TF1 resize and SSIM/PSNR on the card against the CPU; (b) the
+    stats command line as a subprocess over synthetic images (both modes,
+    inception_v3) and over a CelebA-format directory (clip_vit_b_32, clean,
+    224); (c) run_baseline.main phase=eval of phase 12's run with FID and
+    KID in both modes and SSIM/PSNR, the flow kernels' exact launches;
+    (d) run_diffusion_prior.main phase=eval of phase 17's run with FID;
+    (e) rates: the Glow sampler, resizing, the feature nets at batches of
+    32, 64 and 256 (CUDA events) beside Inception's bound, peak memory, and
+    a projection of a full CIFAR-10 evaluation. Returns the launches of (c)
+    and of (d)."""
+    import copy
+
+    from nfdpm_tpu_torch import run_baseline, run_diffusion_prior
+    from nfdpm_tpu_torch.data.datasets import synthetic
+    from nfdpm_tpu_torch.metrics import clip_features, compute
+    from nfdpm_tpu_torch.metrics import fid as fid_m
+    from nfdpm_tpu_torch.metrics import inception
+    from nfdpm_tpu_torch.metrics.image_quality import psnr, ssim
+    from nfdpm_tpu_torch.training import nf_trainer as nft
+    from nfdpm_tpu_torch.training.checkpoint import restore_params
+
+    base = ROOT / "build" / "chip_smoke" / "metrics"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    stats_dir, weights_dir = base / "stats", base / "weights"
+    os.environ["NFDPM_TPU_STATS_DIR"] = str(stats_dir)
+    os.environ["NFDPM_TPU_WEIGHTS_DIR"] = str(weights_dir)
+    weights = {name: (weights_dir / net.WEIGHTS_FILE).exists()
+               for name, net in (("inception_v3", inception), ("clip_vit_b_32", clip_features))}
+    device = torch.device("cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # (a) the card against the CPU, same seeded weights and inputs
+    small = torch.from_numpy(synthetic(8, IMG, 3, seed=3).images)
+    resized_cpu = fid_m.tf1_bilinear_resize(small, 299)
+    resized_dev = fid_m.tf1_bilinear_resize(small.to(device), 299)
+    gap, ok = within(torch, resized_dev, resized_cpu, 0.0, RESIZE_DEV_ATOL)
+    check(ok, f"tf1_bilinear_resize: the card is {gap} from the CPU")
+    devices = {"tf1_bilinear_resize_max_abs_gap": gap}
+    for name, net, res in (("inception_v3", inception, 299), ("clip_vit_b_32", clip_features,
+                                                                224)):
+        model = net.random_init(0)
+        x = fid_m.tf1_bilinear_resize(small, res)
+        on_cpu = net.make_feature_fn(copy.deepcopy(model), "cpu")(x)
+        on_dev = net.make_feature_fn(model, device)(x.to(device))
+        gap, ok = within(torch, on_dev, on_cpu, METRIC_DEV_RTOL, METRIC_DEV_ATOL)
+        check(ok and on_dev.shape == (8, net.FEATURE_DIM),
+              f"{name}: features on the card are {gap} from the CPU's")
+        devices[f"{name}_max_abs_gap"] = gap
+        devices[f"{name}_mean_abs_feature"] = float(on_cpu.abs().mean())
+    noisy = (small.float() + 12 * torch.randn(small.shape, generator=torch.Generator()
+                                              .manual_seed(4))).clamp(0, 255)
+    for name, fn in (("ssim", ssim), ("psnr", psnr)):
+        cpu_v, dev_v = fn(noisy, small.float()), fn(noisy.to(device), small.float().to(device))
+        gap, ok = within(torch, dev_v, cpu_v, SSIM_DEV_RTOL, 0.0)
+        check(ok, f"{name}: the card gives {float(dev_v)}, the CPU {float(cpu_v)}")
+        devices[f"{name}_card_cpu"] = [float(dev_v), float(cpu_v)]
+    emit({"phase": "sample_metrics_devices", "nvidia_smi": smi, "images": 8,
+          "feature_tolerance": [METRIC_DEV_RTOL, METRIC_DEV_ATOL],
+          "resize_tolerance": RESIZE_DEV_ATOL, "ssim_psnr_rtol": SSIM_DEV_RTOL, **devices})
+
+    # (b) the stats command line, in its own process, on the card
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+
+    def command(*argv, timeout=600):
+        t0 = time.perf_counter()
+        done = subprocess.run([sys.executable, *argv], cwd=base, env=env, capture_output=True,
+                              text=True, timeout=timeout)
+        check(done.returncode == 0, f"{argv[:2]} failed:\n{done.stdout[-1500:]}\n"
+                                    f"{done.stderr[-1500:]}")
+        return time.perf_counter() - t0, done.stderr
+
+    stats_cli = ["-m", "nfdpm_tpu_torch.metrics.precompute_stats", "--action", "precompute"]
+    synth_s, synth_log = command(*stats_cli, "--datasets", "synthetic", "--models",
+                                 "inception_v3", "--limit", str(METRIC_IMAGES))
+    celeba_root = base / "celeba"
+    write_s, _ = command(str(ROOT / "tools" / "make_synthetic_celeba.py"), "--root",
+                         str(celeba_root), "--n-train", str(CELEBA_TRAIN), "--n-val", "8",
+                         "--n-test", str(CELEBA_TEST))
+    celeba_s, celeba_log = command(*stats_cli, "--datasets", "celeba", "--models",
+                                   "clip_vit_b_32", "--modes", "clean", "--data_root",
+                                   str(celeba_root))
+    files = {}
+    for key, n, dim in ((("synthetic", "legacy_tensorflow", "inception_v3", "train", IMG),
+                         METRIC_IMAGES, 2048),
+                        (("synthetic", "clean", "inception_v3", "train", IMG), METRIC_IMAGES,
+                         2048),
+                        (("celeba", "clean", "clip_vit_b_32", "train", 224), CELEBA_TRAIN, 512),
+                        (("celeba", "clean", "clip_vit_b_32", "test", 224), CELEBA_TEST, 512)):
+        stats = fid_m.load_stats(*key)
+        check(stats is not None and stats["feats"].shape == (n, dim)
+              and np.isfinite(stats["sigma"]).all(),
+              f"the stats command line did not write {fid_m.stat_filename(*key)}")
+        files[fid_m.stat_filename(*key)] = list(stats["feats"].shape)
+    for name, net, log in (("inception_v3", inception, synth_log),
+                           ("clip_vit_b_32", clip_features, celeba_log)):
+        check(weights[name] or f"{weights_dir / net.WEIGHTS_FILE} not found" in log,
+              f"the stats command line did not name the missing {name} weights file")
+    emit({"phase": "sample_metrics_stats", "nvidia_smi": smi, "files": files,
+          "synthetic_seconds": synth_s, "celeba_write_seconds": write_s,
+          "celeba_clip_seconds": celeba_s, "weights_files_present": weights})
+
+    # (c) stage-1 evaluation: phase=eval of phase 12's full-width run
+    cwd = base / "stage1"
+    (cwd / "outputs").mkdir(parents=True)
+    (cwd / "outputs" / "stage1").symlink_to(stage1_dir)
+    compute.get_feature_extractor("inception_v3", device)  # built outside the timers
+    n_eval = BATCH * 4
+    argv = ["data.name=synthetic", f"data.batch_size={BATCH}", f"data.img_size={IMG}",
+            f"data.synthetic_n={n_eval}", "experiment_name=metrics_stage1", "phase=eval",
+            "load.load_exp_dir=stage1", "load.load_epoch=1",
+            "model.evaluation.metrics.SSIM_and_PSNR.data_range=255",
+            *metric_config(("FID", "KID"), ("legacy_tensorflow", "clean"), METRIC_IMAGES)]
+    torch.cuda.synchronize()
+    for fn in counters:
+        fn.launches = 0
+    timers = EvalTimers(torch, compute, fid_m, "inception_v3")
+    t0 = time.perf_counter()
+    try:
+        result = run_in(cwd, run_baseline.main, argv)
+    finally:
+        torch.cuda.synchronize()
+        timers.restore()
+    stage1_s = time.perf_counter() - t0
+    stage1_parts = timers.seconds
+    launches1 = counts(counters)
+    metrics1 = result["results"]["metrics"]
+    keys = {"FID_inception", "FID_clean_inception", "KID_inception", "KID_clean_inception",
+            "SSIM", "PSNR"}
+    check(set(metrics1) == keys and all(map(math.isfinite, metrics1.values())),
+          f"stage-1 evaluation gave {metrics1}")
+    per_pass = LEVELS * STEPS
+    evals = 1 + n_eval // BATCH  # bits/dim: the test loader's batch and the eval loader's
+    calls = METRIC_IMAGES // 256  # sampler calls of 256 images
+    expected1 = {"channel_mix": (evals + calls) * per_pass, "coupling_tail": evals * per_pass,
+                 "coupling_tail_bwd": 0, "coupling_tail_inverse": calls * per_pass,
+                 "fused_linear_attention": 0, "fused_linear_attention_bwd": 0,
+                 "step_megakernel_forward": 0}
+    check(launches1 == expected1, f"stage-1 evaluation launched {launches1}, expected "
+                                  f"{expected1}")
+    check(timers.images["sampler"] == METRIC_IMAGES
+          and timers.images["feature_net"] == 4 * METRIC_IMAGES,
+          f"stage-1 evaluation sampled or featurised {timers.images}")
+    emit({"phase": "sample_metrics_stage1", "nvidia_smi": smi, "generated": METRIC_IMAGES,
+          "stats_images": METRIC_IMAGES, "metrics": metrics1,
+          "random_feature_weights": not weights["inception_v3"],
+          "bpd": {k: v for k, v in result["results"].items() if k != "metrics"},
+          "seconds": stage1_s, "host_seconds_by_part": timers.seconds,
+          "images_by_part": timers.images, "launches": launches1})
+
+    # (d) stage-2 evaluation: phase=eval of phase 17's run, FID legacy_tensorflow
+    argv = stage2_overrides("stage1") + [
+        "experiment_name=metrics_stage2", "phase=eval", f"load.load_exp_dir={stage2_run.name}",
+        "load.load_epoch=1",
+        *metric_config(("FID",), ("legacy_tensorflow",), STAGE2_METRIC_IMAGES)]
+    torch.cuda.synchronize()
+    for fn in counters:
+        fn.launches = 0
+    timers = EvalTimers(torch, compute, fid_m, "inception_v3")
+    t0 = time.perf_counter()
+    try:
+        result2 = run_in(stage2_run.parent.parent, run_diffusion_prior.main, argv)
+    finally:
+        torch.cuda.synchronize()
+        timers.restore()
+    stage2_s = time.perf_counter() - t0
+    launches2 = counts(counters)
+    fid2 = result2["metrics"].get("FID_inception")
+    check(set(result2["metrics"]) == {"FID_inception"} and fid2 is not None
+          and math.isfinite(fid2), f"stage-2 evaluation gave {result2['metrics']}")
+    blocks = 2 * len(UNET_KWARGS["dim_mults"])
+    vlb_calls = -(-DIFFUSION_KWARGS["timesteps"] // DIFFUSION_KWARGS["vlb_time_chunk"])
+    expected2 = {"channel_mix": 2 * per_pass, "coupling_tail": per_pass,
+                 "coupling_tail_bwd": 0, "coupling_tail_inverse": per_pass,
+                 "fused_linear_attention": LEVELS * blocks * (
+                     vlb_calls + DIFFUSION_KWARGS["sampling_timesteps"]),
+                 "fused_linear_attention_bwd": 0, "step_megakernel_forward": 0}
+    check(launches2 == expected2, f"stage-2 evaluation launched {launches2}, expected "
+                                  f"{expected2}")
+    emit({"phase": "sample_metrics_stage2", "nvidia_smi": smi,
+          "generated": STAGE2_METRIC_IMAGES, "metrics": result2["metrics"],
+          "random_feature_weights": not weights["inception_v3"], "vlb_bpd": result2["vlb_bpd"],
+          "seconds": stage2_s, "host_seconds_by_part": timers.seconds,
+          "images_by_part": timers.images, "launches": launches2})
+    stage2_sampler_img_s = STAGE2_METRIC_IMAGES / timers.seconds["sampler"]
+
+    # (e) rates
+    cfg, tcfg = train_configs()
+    params = restore_params(str(stage1_dir), "gaussian", 1, device)
+    sample_fn = nft.make_sample_fn(cfg, tcfg, IMG, TRAIN_SEED, device)
+    sampler_s = host_ms(torch, lambda: sample_fn(params, 256, 1.0, 7), iters=4) / 1e3
+    host = synthetic(256, IMG, 3, seed=5).images
+    resize_ms = {}
+    for mode in ("legacy_tensorflow", "clean"):
+        ms = host_ms(torch, lambda: fid_m.resize_batch(host, 299, mode, device), iters=2)
+        resize_ms[mode] = ms / len(host)
+    rates = {}
+    for name, net, res in (("inception_v3", inception, 299), ("clip_vit_b_32", clip_features,
+                                                                224)):
+        fn = (timers.feature_fn if name == "inception_v3"
+              else net.make_feature_fn(net.random_init(0), device))
+        for b in FEATURE_BATCHES:
+            x = torch.rand((b, res, res, 3), generator=torch.Generator(device="cuda")
+                           .manual_seed(b), device=device) * 255
+            ms = cuda_ms(lambda: fn(x), iters=5, warmup=2)
+            rates[f"{name}_b{b}"] = {"ms_per_batch": ms, "images_per_s": b / ms * 1e3}
+            if name == "inception_v3":
+                # fp32 outside the tensor cores (TF32 is off): 2 operations a multiply-add
+                macs = conv_macs_per_image(torch, fn.model, res)
+                rates[f"{name}_b{b}"].update(
+                    conv_macs_per_image=macs, bound_by="operations",
+                    bound_ms=2 * macs * b / FP32_FLOPS_PER_S * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    del params
+    inc_ms = rates["inception_v3_b32"]["ms_per_batch"] / 32
+    configs = 4  # FID and KID, each mode: every configuration extracts its own features
+    # arithmetic, not a measurement: this run's rates times a full=True
+    # CIFAR-10 evaluation's counts (the score math does not grow with the
+    # count: 2048-d covariances, KID subsets of at most 1000)
+    projection = {
+        "images": FULL_EVAL_IMAGES, "configurations": configs,
+        "sampler_s": FULL_EVAL_IMAGES * sampler_s / 256,
+        "resize_s": FULL_EVAL_IMAGES * 2 * sum(resize_ms.values()) / 1e3,
+        "inception_s": FULL_EVAL_IMAGES * configs * inc_ms / 1e3,
+        "score_math_s": stage1_parts["fid_math"] + stage1_parts["kid_math"]}
+    projection["total_s"] = sum(v for k, v in projection.items() if k.endswith("_s"))
+    emit({"phase": "sample_metrics_rates", "nvidia_smi": smi,
+          "glow_sampler_images_per_s": 256 / sampler_s,
+          "stage2_sampler_images_per_s": stage2_sampler_img_s,
+          "resize_host_ms_per_image": resize_ms, "feature_nets": rates,
+          "max_memory_allocated_bytes": peak, "projection_arithmetic": projection})
+    return launches1, launches2
+
+
 def main() -> int:
     import torch
 
@@ -2364,6 +2748,9 @@ def main() -> int:
         torch, counters, run_dir)
     phase_stage2_routes(torch, counters, stage2_run, stage1_run)
     launches["stage2_cotraining"] = phase_stage2_cotraining(torch, counters, stage1_run)
+    torch.cuda.empty_cache()
+    launches["sample_metrics_stage1"], launches["sample_metrics_stage2"] = (
+        phase_sample_metrics(torch, np, counters, smi, stage1_run, stage2_run))
 
     per = {"fused_linear_attention": "one UNet evaluation of each of the three parts at "
                                      "batch 64 (one DDIM step or one stage-2 train "

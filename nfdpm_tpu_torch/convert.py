@@ -435,3 +435,73 @@ def diffusion_to_jax_params(params: Dict[str, Any]) -> Dict[str, Any]:
     tree = to_jax_params(params)
     tree["diffusion"] = {"parts": tuple(unet_to_flax(u) for u in params["diffusion"]["parts"])}
     return tree
+
+
+# ---------------------------------------------------------------------------
+# Feature nets of the metrics: flax parameter trees -> state dicts
+# ---------------------------------------------------------------------------
+
+_BN_LEAVES = {"bn_gamma": "weight", "bn_beta": "bias", "bn_mean": "running_mean",
+              "bn_var": "running_var"}
+
+
+def _state_dict(named: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in named.items()}
+
+
+def inception_from_flax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX package's Inception-v3 tree (nfdpm_tpu/metrics/inception.py)
+    as a state dict of metrics/inception.FIDInceptionV3: conv kernels HWIO
+    -> OIHW, bn_{gamma,beta,mean,var} -> bn.{weight,bias,running_mean,
+    running_var}, and a zero step counter per batch norm; the inverse of
+    the JAX package's `import_state_dict`. Raises KeyError on a leaf it
+    cannot place."""
+    flat: Dict[str, np.ndarray] = {}
+    _flatten(tree, "", flat)
+    named, counters = {}, {}
+    for path, a in flat.items():
+        scope, _, leaf = path.rpartition("/")
+        module = scope.replace("/", ".")
+        if leaf == "kernel" and scope.endswith("/conv"):
+            named[f"{module}.weight"] = _hwio_to_oihw(a)
+        elif leaf in _BN_LEAVES:
+            named[f"{module}.bn.{_BN_LEAVES[leaf]}"] = a
+            counters[f"{module}.bn.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
+        else:
+            raise KeyError(f"no Inception parameter for the flax leaf {path}")
+    return {**_state_dict(named), **counters}
+
+
+_CLIP_DENSE = {"attn/in_proj": "attn.in_proj_", "attn/out_proj": "attn.out_proj.",
+               "mlp_fc": "mlp.c_fc.", "mlp_proj": "mlp.c_proj."}
+
+
+def clip_from_flax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX package's CLIP visual tree (nfdpm_tpu/metrics/clip_features.py)
+    as a state dict of metrics/clip_features.VisionTransformer (OpenAI's
+    `visual.*` names without the prefix): block_i -> transformer.resblocks.i,
+    dense kernels [in, out] -> weights [out, in], the patch conv HWIO ->
+    OIHW, LayerNorm scale -> weight. Raises KeyError on a leaf it cannot
+    place."""
+    flat: Dict[str, np.ndarray] = {}
+    _flatten(tree, "", flat)
+    named = {}
+    for path, a in flat.items():
+        scope, _, leaf = path.rpartition("/")
+        prefix = ""
+        if scope.startswith("block_"):
+            block, _, scope = scope.partition("/")
+            prefix = f"transformer.resblocks.{block[len('block_'):]}."
+        if scope == "conv1" and leaf == "kernel":
+            name, a = "conv1.weight", _hwio_to_oihw(a)
+        elif scope == "" and leaf in ("class_embedding", "positional_embedding", "proj"):
+            name = leaf
+        elif scope in ("ln_pre", "ln_post", "ln_1", "ln_2") and leaf in ("scale", "bias"):
+            name = f"{scope}.{'weight' if leaf == 'scale' else 'bias'}"
+        elif scope in _CLIP_DENSE and leaf in ("kernel", "bias"):
+            name = _CLIP_DENSE[scope] + ("weight" if leaf == "kernel" else "bias")
+            a = np.ascontiguousarray(a.T) if leaf == "kernel" else a
+        else:
+            raise KeyError(f"no CLIP parameter for the flax leaf {path}")
+        named[prefix + name] = a
+    return _state_dict(named)

@@ -13,13 +13,19 @@ the only way onto the CPU. Phases:
          model.evaluation.bpd_dequant_samples draws per image and, with
          bpd_iwae, the importance-weighted bound.
 
+The configured sample metrics (model.evaluation.metrics.FID / KID as
+parallel `mode` and `model_name` lists, SSIM_and_PSNR) run at checkpoint
+epochs on `quick_num_gen` samples and, at the end of `train` and in
+`eval`, on the dataset's full count (nfdpm_tpu_torch.metrics.compute), on
+the same device, against stats that
+`python -m nfdpm_tpu_torch.metrics.precompute_stats` writes.
+
 `model.architecture.use_pallas` chooses the kernel route (the hand-written
 CUDA kernels on the card). It is true here unless an override names it: the
 file's own `false` is the JAX package's default, not the port's. What is
-not ported raises NotImplementedError instead of being skipped: configured
-FID/KID/SSIM metrics, `parallel.*` other than the defaults,
-`load.load_batch`, the watchdog and profiler hooks, and
-coupling_dtype=bfloat16.
+not ported raises NotImplementedError instead of being skipped:
+`parallel.*` other than the defaults, `load.load_batch`, the watchdog and
+profiler hooks, and coupling_dtype=bfloat16.
 """
 
 from __future__ import annotations
@@ -36,15 +42,6 @@ PARALLEL_DEFAULTS = {"n_model": 1, "n_slices": 1, "fsdp": False, "pipeline": Fal
 
 def refuse_unported(cfg) -> None:
     """Raise for every configured option the port does not have yet."""
-    from .utils.config import parse_metric
-
-    metrics = cfg.select("model.evaluation.metrics")
-    if (parse_metric(cfg.select("model.evaluation.metrics.FID"))
-            or parse_metric(cfg.select("model.evaluation.metrics.KID"))
-            or (metrics or {}).get("SSIM_and_PSNR")):
-        raise NotImplementedError(
-            "FID/KID/SSIM/PSNR evaluation is not ported (ROADMAP §1.11): leave "
-            "model.evaluation.metrics empty")
     for key, default in PARALLEL_DEFAULTS.items():
         value = cfg.select(f"parallel.{key}", default)
         if value != default:
@@ -56,7 +53,33 @@ def refuse_unported(cfg) -> None:
             "load.load_batch (mid-epoch resume) is not ported (ROADMAP §1.12)")
 
 
-def main(argv) -> None:
+def make_evaluate_fn(cfg, loaders, logger, device, quick_num_gen: int):
+    """The trainers' `evaluate_fn` for the configured FID/KID/SSIM_and_PSNR
+    metrics, or None when none is configured."""
+    from .utils.config import parse_metric
+
+    fid_cfgs = parse_metric(cfg.select("model.evaluation.metrics.FID"))
+    kid_cfgs = parse_metric(cfg.select("model.evaluation.metrics.KID"))
+    ssim_cfg = cfg.select("model.evaluation.metrics.SSIM_and_PSNR")
+    if not (fid_cfgs or kid_cfgs or ssim_cfg):
+        return None
+    from .metrics.compute import make_nf_evaluate_fn
+
+    return make_nf_evaluate_fn(
+        data_name=cfg.data.name, loaders=loaders, fid_configs=fid_cfgs,
+        kid_configs=kid_cfgs, img_size=int(cfg.data.img_size),
+        temperature=float(cfg.model.training.temperature), logger=logger,
+        ssim_psnr=dict(ssim_cfg) if ssim_cfg else None,
+        quick_num_gen=int(cfg.select("model.evaluation.quick_num_gen", quick_num_gen)),
+        dataset_split=str(cfg.select("model.evaluation.dataset_split", "train")),
+        gen_batch_size=int(cfg.select("model.evaluation.gen_batch_size", 256)),
+        device=device)
+
+
+def main(argv) -> dict:
+    """Run the phase the overrides `argv` name; returns {"run_dir",
+    "results"}: the final bits/dim ("bpd_test", "bpd_train") and, with
+    metrics configured, their values under "metrics"."""
     import nfdpm_tpu_torch as port
     from .data.pipeline import read_dataset
     from .models import glow as glow_m
@@ -131,6 +154,7 @@ def main(argv) -> None:
         synthetic_n=int(cfg.data.get("synthetic_n", 512)),
     )
 
+    evaluate_fn = make_evaluate_fn(cfg, loaders, logger, device, quick_num_gen=15)
     resume_dir = cfg.load.load_exp_dir
     resume_epoch = int(cfg.load.load_epoch) if resume_dir else None
     if resume_dir:
@@ -140,8 +164,10 @@ def main(argv) -> None:
         out = nft.train(
             cfg=gcfg, tcfg=tcfg, loaders=loaders, run_dir=run_dir, logger=logger,
             seed=int(cfg.seed), img_size=int(cfg.data.img_size),
-            resume_dir=resume_dir, resume_epoch=resume_epoch, device=device)
+            resume_dir=resume_dir, resume_epoch=resume_epoch, evaluate_fn=evaluate_fn,
+            device=device)
         logger.info(f"Training done: {out['results']}")
+        return {"run_dir": run_dir, "results": out["results"]}
     else:
         if not resume_dir:
             raise ValueError("phase=eval requires load.load_exp_dir/load_epoch")
@@ -155,6 +181,11 @@ def main(argv) -> None:
         tag = f" (K={k_deq}{', iwae' if iwae else ''})" if k_deq > 1 else ""
         for name, bpd in results.items():
             logger.info(f"{name.split('_', 1)[1]} bpd{tag}: {bpd:.4f}")
+        if evaluate_fn is not None:
+            sample_fn = nft.make_sample_fn(gcfg, tcfg, int(cfg.data.img_size), int(cfg.seed),
+                                           device)
+            results["metrics"] = evaluate_fn(sample_fn, params, resume_epoch, full=True)
+        return {"run_dir": run_dir, "results": results}
 
 
 if __name__ == "__main__":

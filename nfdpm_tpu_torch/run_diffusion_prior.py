@@ -20,13 +20,17 @@ and read back on resume and eval. Phases:
   eval:  the parameters of a checkpoint (load.load_exp_dir, load_epoch; the
          EMA weights when the run kept them) and the same bits/dim.
 
+The configured sample metrics (FID/KID/SSIM_and_PSNR, as in
+nfdpm_tpu_torch.run_baseline) run on the EMA weights where the run keeps
+them, at checkpoint epochs and at the end of `train` and in `eval`.
+
 `model.normalizing_flow.use_pallas` chooses the kernel route for the flow
 and the UNets (the hand-written CUDA kernels on the card); true here unless
 an override names it. What is not ported raises NotImplementedError:
-configured FID/KID/SSIM metrics, `parallel.*` other than the defaults
-(part-parallel included), `load.load_batch`, the watchdog and profiler
-hooks, a bf16 UNet and `coupling_dtype`, and an orbax run directory of the
-JAX package as the pretrained flow.
+`parallel.*` other than the defaults (part-parallel included),
+`load.load_batch`, the watchdog and profiler hooks, a bf16 UNet and
+`coupling_dtype`, and an orbax run directory of the JAX package as the
+pretrained flow.
 """
 
 from __future__ import annotations
@@ -51,7 +55,7 @@ def refuse_unported(cfg) -> None:
             raise NotImplementedError(
                 f"parallel.{key}={value!r} is not ported (ROADMAP §1.13: multi-GPU); "
                 "the port trains on one device")
-    refuse_stage1(cfg)  # metrics, load.load_batch
+    refuse_stage1(cfg)  # load.load_batch
     if cfg.select("model.normalizing_flow.coupling_dtype"):
         raise NotImplementedError(
             "model.normalizing_flow.coupling_dtype is not ported (ROADMAP §1.3: bf16); "
@@ -66,13 +70,15 @@ def refuse_unported(cfg) -> None:
 
 def main(argv) -> dict:
     """Run the phase the overrides `argv` name; returns {"run_dir", "vlb_bpd",
-    "vlb_n", "vlb_stderr"}."""
+    "vlb_n", "vlb_stderr"} and, with metrics configured, "metrics": the
+    values of the final evaluation."""
     import nfdpm_tpu_torch as port
     from .data.pipeline import read_dataset
     from .models import glow as glow_m
     from .models.diffusion_prior import DiffusionPrior
     from .models.formaters import get_formater, stats_from_json
     from .models.nf_backbone import NFBackbone, load_pretrained_flow
+    from .run_baseline import make_evaluate_fn
     from .training import diffusion_trainer as dt
     from .training.checkpoint import load_architecture, restore_params, save_architecture
     from .utils.config import load_config, make_run_dir
@@ -223,6 +229,7 @@ def main(argv) -> dict:
         "temperature": float(tr.temperature),
     }, filename="diffusion_architecture.json")
 
+    evaluate_fn = make_evaluate_fn(cfg, loaders, logger, device, quick_num_gen=2000)
     vlb_batches = cfg.select("model.evaluation.vlb_batches", "full")
     vlb_batches = None if str(vlb_batches) == "full" else int(vlb_batches)
 
@@ -236,8 +243,9 @@ def main(argv) -> dict:
     if train_phase:
         out = dt.train(backbone=backbone, flow_params=flow_params, dp=dp, tcfg=tcfg,
                        loaders=loaders, run_dir=run_dir, logger=logger, seed=int(cfg.seed),
-                       resume_dir=resume_dir, resume_epoch=resume_epoch, device=device)
-        return report_vlb(dt.ema_eval_params(out["state"]))
+                       resume_dir=resume_dir, resume_epoch=resume_epoch,
+                       evaluate_fn=evaluate_fn, device=device)
+        return {**report_vlb(dt.ema_eval_params(out["state"])), **out["results"]}
     else:
         if not resume_dir:
             raise ValueError("phase=eval requires load.load_exp_dir/load_epoch")
@@ -245,7 +253,11 @@ def main(argv) -> dict:
         params = restore_params(resume_dir, "diffusion", resume_epoch, device, prefer_ema=True)
         params["diffusion"] = {"parts": dp.unets_from_named(params["diffusion"]["parts"],
                                                             device)}
-        return report_vlb(params)
+        result = report_vlb(params)
+        if evaluate_fn is not None:
+            sample_fn = dt.make_sample_fn(backbone, dp, tcfg, int(cfg.seed), device)
+            result["metrics"] = evaluate_fn(sample_fn, params, resume_epoch, full=True)
+        return result
 
 
 if __name__ == "__main__":

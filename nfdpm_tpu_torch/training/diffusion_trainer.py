@@ -270,15 +270,16 @@ def make_train_step(backbone: NFBackbone, dp: DiffusionPrior, tcfg: DiffusionTra
 
 
 def make_sample_fn(backbone: NFBackbone, dp: DiffusionPrior, tcfg: DiffusionTrainConfig,
-                   device=None):
-    """sample(params, seed, n, temperature, salt=0) -> uint8 [n, H, W, C] on
-    the device: diffusion latents, then the flow inverse; a pure function of
-    (seed, salt)."""
+                   seed: int, device=None):
+    """sample_fn(params, n, temperature, salt) -> uint8 [n, H, W, C] on the
+    device: diffusion latents, then the flow inverse; a pure function of
+    (seed, salt). The sampler of training's sample grids and of the
+    metrics' `evaluate_fn`, in `train` and in phase=eval."""
     device = resolve_device(device)
     sample = inference.make_diffusion_sample_fn(backbone, dp, tcfg.n_bits, device)
     generator = torch.Generator(device=device)
 
-    def sample_fn(params, seed: int, n: int, temperature: float, salt: int = 0):
+    def sample_fn(params, n: int, temperature: float, salt: int) -> torch.Tensor:
         return sample(params, n, temperature,
                       generator=inference.reseed(generator, _SAMPLES, seed, salt))
 
@@ -401,10 +402,7 @@ def train(*, backbone: NFBackbone, flow_params, dp: DiffusionPrior,
     train_step = make_train_step(backbone, dp, tcfg, tx, device=device)
     ema_fn = (make_ema_update(backbone, tcfg)
               if want_ema and tcfg.ema_update_every > 1 else None)
-    sample = make_sample_fn(backbone, dp, tcfg, device)
-
-    def sample_fn(params, n: int, temperature: float, salt: int) -> torch.Tensor:
-        return sample(params, seed, n, temperature, salt)
+    sample_fn = make_sample_fn(backbone, dp, tcfg, seed, device)
 
     log_count = 0
     for epoch in range(start_epoch + 1, start_epoch + tcfg.epochs + 1):

@@ -196,6 +196,22 @@ def make_eval_step(cfg: glow_m.GlowConfig, tcfg: NFTrainConfig, device=None):
     return inference.make_eval_step(cfg, tcfg.n_bits, tcfg.compat_three_channel_bpd, device)
 
 
+def make_sample_fn(cfg: glow_m.GlowConfig, tcfg: NFTrainConfig, img_size: int, seed: int,
+                   device=None):
+    """sample_fn(params, n, temperature, salt) -> uint8 [n, H, W, C] on the
+    device, a pure function of (seed, salt): the sampler of training's
+    sample grids and of the metrics' `evaluate_fn`, in `train` and in
+    phase=eval."""
+    sample = inference.make_sample_fn(cfg, img_size, tcfg.n_bits, device)
+    generator = torch.Generator(device=sample.device)
+
+    def sample_fn(params, n: int, temperature: float, salt: int) -> torch.Tensor:
+        return sample(params, n, temperature,
+                      generator=inference.reseed(generator, _SAMPLES, seed, salt))
+
+    return sample_fn
+
+
 def calculate_bpd(eval_step, params, loader: Loader, seed: int,
                   n_dequant_samples: int = 1, iwae: bool = False) -> float:
     """Mean bits/dim over a loader, padded batches with the pad masked out.
@@ -277,13 +293,7 @@ def train(*, cfg: glow_m.GlowConfig, tcfg: NFTrainConfig, loaders: DatasetLoader
 
     train_step = make_train_step(cfg, tcfg, tx, device=device)
     eval_step = make_eval_step(cfg, tcfg, device)
-    sample = inference.make_sample_fn(cfg, img_size, tcfg.n_bits, device)
-    sample_generator = torch.Generator(device=device)
-
-    def sample_fn(params, n: int, temperature: float, salt: int) -> torch.Tensor:
-        """uint8 [n, H, W, C] on the device, a pure function of (seed, salt)."""
-        return sample(params, n, temperature,
-                      generator=inference.reseed(sample_generator, _SAMPLES, seed, salt))
+    sample_fn = make_sample_fn(cfg, tcfg, img_size, seed, device)
 
     log_count = 0
     for epoch in range(start_epoch + 1, start_epoch + tcfg.epochs + 1):

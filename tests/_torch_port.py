@@ -139,3 +139,52 @@ def one_torch_thread():
         yield
     finally:
         torch.set_num_threads(before)
+
+
+def projected_features(dim: int = 16, res: int = 299, seed: int = 2024):
+    """A feature function in place of Inception for the metrics' tests: a
+    seeded projection of the resized [0, 255] pixels [B, res, res, 3] to
+    `dim` values (numpy in, float32 numpy out). With more samples than
+    `dim` the covariances have full rank, so FID is well-conditioned."""
+    w = np.random.default_rng(seed).standard_normal((res * res * 3, dim))
+    w = (w / np.sqrt(res * res * 3) / 128.0).astype(np.float32)
+
+    def feats(x):
+        x = np.asarray(x, np.float32).reshape(len(x), -1)
+        return np.tanh(x @ w).astype(np.float32)
+
+    return feats
+
+
+def inject_features(monkeypatch, *caches, model_name: str = "inception_v3"):
+    """Put one projected feature function into each extractor cache: the
+    JAX package's takes arrays, the port's (the last) torch tensors."""
+    feats = projected_features()
+    for cache in caches[:-1]:
+        monkeypatch.setitem(cache, model_name, lambda x: feats(x))
+    monkeypatch.setitem(caches[-1], model_name,
+                        lambda x: torch.from_numpy(feats(x.cpu().numpy())))
+    return feats
+
+
+def metric_overrides(*metrics, quick_num_gen=40):
+    """Each metric in both resize modes through the feature net
+    inception_v3, and SSIM/PSNR."""
+    out = []
+    for m in metrics:
+        out += [f"model.evaluation.metrics.{m}.mode=[legacy_tensorflow,clean]",
+                f"model.evaluation.metrics.{m}.model_name=[inception_v3,inception_v3]"]
+    return out + ["model.evaluation.metrics.SSIM_and_PSNR.data_range=255",
+                  f"model.evaluation.quick_num_gen={quick_num_gen}"]
+
+
+def precompute_stats(monkeypatch, stats_dir, img_size):
+    """The port's precompute_statistics over synthetic images in both
+    modes, with a projected feature function in place of Inception."""
+    monkeypatch.setenv("NFDPM_TPU_STATS_DIR", str(stats_dir))
+    from nfdpm_tpu_torch.metrics import compute as tcompute
+
+    inject_features(monkeypatch, tcompute._EXTRACTOR_CACHE)
+    for mode in ("legacy_tensorflow", "clean"):
+        tcompute.precompute_statistics(None, "", "synthetic", "train", img_size, mode,
+                                       "inception_v3", limit=64, device="cpu")

@@ -30,7 +30,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import close, one_torch_thread, randomize, to_numpy_tree
+from _torch_port import (close, metric_overrides, one_torch_thread, precompute_stats,
+                         randomize, to_numpy_tree)
 from nfdpm_tpu.models import formaters as jfmt
 from nfdpm_tpu.models import glow as jglow
 from nfdpm_tpu.models.diffusion_prior import DiffusionPrior as JDiffusionPrior
@@ -408,12 +409,33 @@ def test_cotrained_eval_reads_the_trained_flow(cotrained):
     ("load.load_batch=3", "§1.12"),
     ("model.training.watchdog_timeout_s=5", "§1.12"),
     ("model.training.profile_epoch=1", "§1.12"),
-    ("model.evaluation.metrics.FID.mode=[clean] "
-     "model.evaluation.metrics.FID.model_name=[inception_v3]", "§1.11"),
 ])
 def test_refused_options_raise(workdir, override, match):
     with pytest.raises(NotImplementedError, match=match):
         _stage2(workdir, "experiment_name=refused", *override.split())
+
+
+def test_configured_metrics_run(workdir, tmp_path, monkeypatch, caplog):
+    """FID and KID in both modes and SSIM/PSNR on the EMA weights: at the
+    checkpoint epoch and the end of `train`, then in phase=eval, under the
+    JAX package's keys, finite; phase=eval samples what training's final
+    evaluation sampled, so its FID/KID are the same."""
+    precompute_stats(monkeypatch, tmp_path, 8)
+    metrics = metric_overrides("FID", "KID", quick_num_gen=32)
+    with caplog.at_level("INFO", logger="base"):
+        trained = _stage2(workdir, "experiment_name=metrics", "model.training.epochs=1",
+                          *metrics)
+    keys = {"FID_inception", "FID_clean_inception", "KID_inception", "KID_clean_inception",
+            "SSIM", "PSNR"}
+    assert set(trained["metrics"]) == keys
+    assert all(math.isfinite(v) for v in trained["metrics"].values())
+    assert caplog.text.count("epoch 1 metrics: {") == 2
+    run = trained["run_dir"].split("/")[-1]
+    evaluated = _stage2(workdir, "experiment_name=metrics_eval", "phase=eval",
+                        f"load.load_exp_dir={run}", "load.load_epoch=1", *metrics)["metrics"]
+    assert set(evaluated) == keys and all(math.isfinite(v) for v in evaluated.values())
+    for key in keys - {"SSIM", "PSNR"}:
+        assert evaluated[key] == trained["metrics"][key], key
 
 
 def test_orbax_run_directory_is_refused(tmp_path):

@@ -5,8 +5,9 @@ the port's own copies of the data pipeline against the JAX package's.
 
 trains a tiny Glow (L2/K1, coupling width 16, 8x8x3, batch 8, 64 synthetic
 images, one epoch) in a subprocess, then `phase=eval` reads the run
-directory back. Without `device=cpu` and without CUDA the entry point
-refuses to start.
+directory back; in-process, the same with FID or KID and SSIM/PSNR
+configured. Without `device=cpu` and without CUDA the entry point refuses
+to start.
 """
 
 import json
@@ -18,7 +19,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from _torch_port import one_torch_thread
+from _torch_port import metric_overrides, one_torch_thread, precompute_stats
 from nfdpm_tpu.data import datasets as jdata
 from nfdpm_tpu.data import pipeline as jpipe
 from nfdpm_tpu_torch import run_baseline
@@ -127,15 +128,27 @@ def test_refused_options_raise(tmp_path, monkeypatch, override, match):
 
 
 @pytest.mark.parametrize("metric", ["FID", "KID"])
-def test_configured_metrics_raise(tmp_path, monkeypatch, metric):
+def test_configured_metrics_run(tmp_path, monkeypatch, caplog, metric):
+    """FID or KID in both modes and SSIM/PSNR: at the checkpoint epoch and
+    the end of `train`, then in phase=eval, under the JAX package's keys,
+    finite; phase=eval samples what training's final evaluation sampled
+    (same weights, seed and salts), so its FID/KID are the same."""
+    precompute_stats(monkeypatch, tmp_path / "stats", 8)
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="§1.11"):
-        run_baseline.main(["device=cpu", *SMALL,
-                           f"model.evaluation.metrics.{metric}.mode=[clean]",
-                           f"model.evaluation.metrics.{metric}.model_name=[inception_v3]"])
-    with pytest.raises(NotImplementedError, match="§1.11"):
-        run_baseline.main(["device=cpu", *SMALL,
-                           "model.evaluation.metrics.SSIM_and_PSNR.data_range=255"])
+    argv = ["device=cpu", *SMALL, *metric_overrides(metric)]
+    with caplog.at_level("INFO", logger="base"):
+        trained = run_baseline.main(argv + ["experiment_name=metrics"])
+    keys = {f"{metric}_inception", f"{metric}_clean_inception", "SSIM", "PSNR"}
+    final = trained["results"]["metrics"]
+    assert set(final) == keys and all(np.isfinite(v) for v in final.values())
+    # the checkpoint epoch's evaluation, then the final one
+    assert caplog.text.count("epoch 1 metrics: {") == 2
+    evaluated = run_baseline.main(argv + [
+        "experiment_name=metrics_eval", "phase=eval", "load.load_epoch=1",
+        f"load.load_exp_dir={Path(trained['run_dir']).name}"])["results"]["metrics"]
+    assert set(evaluated) == keys and all(np.isfinite(v) for v in evaluated.values())
+    for key in keys - {"SSIM", "PSNR"}:  # SSIM/PSNR pair them with other loader epochs
+        assert evaluated[key] == final[key], key
 
 
 def test_use_pallas_maps_to_use_kernels_and_defaults_to_true(tmp_path, monkeypatch):

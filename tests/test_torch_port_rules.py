@@ -92,7 +92,10 @@ def test_fresh_interpreter_loads_no_jax_or_reference_modules():
                "nfdpm_tpu_torch.training.optim", "nfdpm_tpu_torch.training.checkpoint",
                "nfdpm_tpu_torch.training.tracking", "nfdpm_tpu_torch.data.datasets",
                "nfdpm_tpu_torch.data.pipeline", "nfdpm_tpu_torch.utils.config",
-               "nfdpm_tpu_torch.utils.env")
+               "nfdpm_tpu_torch.utils.env", "nfdpm_tpu_torch.metrics.compute",
+               "nfdpm_tpu_torch.metrics.fid", "nfdpm_tpu_torch.metrics.image_quality",
+               "nfdpm_tpu_torch.metrics.inception", "nfdpm_tpu_torch.metrics.clip_features",
+               "nfdpm_tpu_torch.metrics.precompute_stats")
     loaded = _modules_after("import " + ", ".join(modules))
     assert set(modules) <= loaded and "torch" in loaded
     new_bad = sorted(m for m in loaded - bare if _forbidden(m))
