@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --stage1-training    # phases 1, 2, 12 and 13 only
     python3 chip_smoke.py --attention-backward # phases 1, 2 and 16 only
+    python3 chip_smoke.py --run-dir-tools      # phases 1, 2, 12, 13, 17 and 23-25
 
 Runs nfdpm_tpu_torch (never JAX, never nfdpm_tpu) with seeded random
 weights at the width of the repo's models: the Glow of configs/nf_base.yaml
@@ -58,10 +59,15 @@ line each:
      /health and three /generate requests; per 64-image chunk the counters
      rise by 1200 fused_linear_attention, 12 channel_mix and 12
      coupling_tail_inverse launches;
- 10. profile: torch.profiler over a stage-2 sampling chunk and a VLB batch,
-     each cut to 30 UNet calls at the full chains' shapes, on each route:
-     wall and device ms, device busy share, device ms by kernel group and by
-     kernel (nfdpm_tpu_torch.profiling).
+ 10. profile: a stage-2 sampling chunk and a VLB batch, each cut to 30 UNet
+     calls at the full chains' shapes, on each route: after a warm-up of
+     each, 5 synchronised calls of each route taken in turns, wall ms
+     median and spread, and whether the kernel route's median exceeds the
+     plain route's by more than the spread ("profile_routes"); then
+     torch.profiler over one call of each: device ms, busy share, device ms
+     by kernel group and by kernel (nfdpm_tpu_torch.profiling); and the
+     attention wrapper's host us and device us at the VLB's shapes
+     ("host_steps");
   training path (launch counters zeroed before 12, read after it):
  11. kernels, backward: coupling_tail_bwd against its plain version in
      both modes (the step mode's d_zb and d_zlogs the same bits on a second
@@ -170,18 +176,57 @@ line each:
      these rates) of a full=True CIFAR-10 evaluation of 50,000 images.
      Each line carries the card's name and power limit.
 
+  run-directory tooling (launch counters zeroed before 23 and before 24,
+  read after each):
+ 23. mid_epoch_resume: in a subprocess with CUBLAS_WORKSPACE_CONFIG=:4096:8,
+     torch.use_deterministic_algorithms(True) and cudnn.deterministic, each
+     trainer at full width (nf_trainer.train, 8 steps of batch 64;
+     diffusion_trainer.train over phase 12's flow, frozen, EMA every second
+     step) runs one epoch twice uninterrupted, then once interrupted by a
+     loader proxy before batch 4 and resumed there (resume_batch=4):
+     parameters, Adam moments (and EMA) and step bitwise equal to the
+     uninterrupted run, the marker {"prefix", "epoch": 1, "batch_in_epoch":
+     4} and its removal; where PyTorch names an operation without a
+     deterministic CUDA implementation, that trainer runs in the default
+     mode instead, the op printed, and the resumed run's largest gap must
+     stay within twice the gap of the two uninterrupted runs. Then in this
+     process, the default mode: two uninterrupted stage-1 runs (run to run:
+     the largest parameter gap and the bits/dim gap of each mode's pair, the
+     wall ms of a synchronised step of each mode); profile_epoch=1 with
+     profile_steps=3 writes a trace that holds a channel_mix kernel (taken
+     again up to three times); `python -m nfdpm_tpu_torch.run_baseline
+     load.load_exp_dir=... load.load_epoch=1 load.load_batch=4` resumes an
+     interrupted run. Every run trains under the watchdog (30 s), which
+     never fires; each run's launches are exact;
+ 24. run_dir_serving: nfdpm_tpu_torch.serve --run-dir on phase 12's stage-1
+     run and phase 17's stage-2 run, against --weights holding the same
+     parameters: the same bytes for {"n": 128, "seed": 7}, 12 channel_mix
+     and 12 coupling_tail_inverse launches a 64-image chunk (and 1200
+     fused_linear_attention for stage 2), /health with run_dir, kind and
+     epoch; request wall s and samples/s; then --no-ema against the EMA
+     (DDIM-10) on phase 23's stage-2 run, which kept one: other samples;
+ 25. cli: python -m nfdpm_tpu_torch.generate_samples (n 128, batch 64, seed
+     7) and python -m nfdpm_tpu_torch.interpolate (steps 8) as subprocesses
+     on both run directories: the samples are the server's of phase 24, the
+     strip (10, 32, 32, 3) uint8, the Glow's lambda 0 and 1 columns within
+     one 5-bit level of the endpoints' codes; each command's JSON line.
+
 Then come the kernel summary line (seven kernels), the nvidia-smi line and, last,
-{"ok": true, "device": {...}}. With --stage1-training the script runs only
+{"ok": true, "device": {...}}. With --run-dir-tools the script runs the
+environment, the build, phases 12, 13 and 17 (whose run directories the
+tooling reads) and 23-25, and prints neither. With --stage1-training the script runs only
 the environment, the build and phases 12 and 13 and prints neither: copied
 into another checkout, it times that checkout's stage-1 training with the
 same measuring code; --attention-backward the same for phase 16 alone
 (in a checkout whose wrapper has no `bwd_plan`, the lines carry no plan).
 Any failed check raises and exits non-zero
-before that line. All records are also written to chiprun_out/chip_smoke.json.
+before that line. All records are also written to chiprun_out/chip_smoke.json,
+those of a failed run too.
 """
 
 from __future__ import annotations
 
+import contextlib
 import http.client
 import io
 import json
@@ -847,46 +892,14 @@ def serve_and_check(serve, argv, counters, per_chunk: dict, kind: str):
     another seed. Returns (warm-up seconds, per-request records)."""
     import numpy as np
 
-    server = serve.make_server(argv + ["--batch", str(BATCH), "--port", "0"])
-    thread = threading.Thread(target=server.serve_forever, daemon=True)
-    thread.start()
-    try:
-        port_no = server.server_address[1]
-        status, _, body = http_request(port_no, "GET", "/health")
-        health = json.loads(body)
-        check(status == 200 and health["status"] == "ok" and health["kind"] == kind,
-              f"/health failed: {status} {health}")
-        results = []
-        for req in ({"n": 64, "seed": 7}, {"n": 64, "seed": 7}, {"n": 100, "seed": 3}):
-            before = counts(counters)
-            t0 = time.perf_counter()
-            status, headers, body = http_request(port_no, "POST", "/generate", req)
-            wall = time.perf_counter() - t0
-            check(status == 200, f"/generate {req} answered {status}")
-            with np.load(io.BytesIO(body)) as data:
-                samples = data["samples"]
-            check(samples.dtype == np.uint8 and samples.shape == (req["n"], IMG, IMG, 3),
-                  f"/generate {req} gave {samples.dtype} {samples.shape}")
-            chunks = -(-req["n"] // BATCH)
-            after = counts(counters)
-            delta = {k: after[k] - before[k] for k in before}
-            check(delta == {k: v * chunks for k, v in per_chunk.items()},
-                  f"/generate {req}: launch counts {delta} for {chunks} chunk(s)")
-            results.append({"request": req, "wall_s": wall,
-                            "generation_s": float(headers["X-Generation-Seconds"]),
-                            "samples_per_s": req["n"] / float(headers["X-Generation-Seconds"]),
-                            "launches": delta, "samples": samples})
-        check(np.array_equal(results[0]["samples"], results[1]["samples"]),
-              "the same seed gave different samples")
-        check(not np.array_equal(results[0]["samples"][:64], results[2]["samples"][:64]),
-              "different seeds gave the same samples")
-    finally:
-        server.shutdown()
-        server.server_close()
-        thread.join(timeout=30)
-    for r in results:
-        r.pop("samples")
-    return server.info["warmup_seconds"], results
+    with serving(serve, argv) as (port_no, health):
+        check(health["status"] == "ok" and health["kind"] == kind, f"/health failed: {health}")
+        got = [generate(port_no, req, counters, per_chunk)
+               for req in ({"n": 64, "seed": 7}, {"n": 64, "seed": 7}, {"n": 100, "seed": 3})]
+    check(np.array_equal(got[0][0], got[1][0]), "the same seed gave different samples")
+    check(not np.array_equal(got[0][0][:64], got[2][0][:64]),
+          "different seeds gave the same samples")
+    return health["warmup_seconds"], [rec for _, rec in got]
 
 
 def glow_path(torch, np, params, counters):
@@ -1361,13 +1374,7 @@ def stage2_path(torch, np, flow, counters):
     arch = weights.with_name("diffusion_architecture.json")
     weights.parent.mkdir(parents=True, exist_ok=True)
     convert.save_npz(weights, convert.diffusion_to_jax_params(params))
-    arch.write_text(json.dumps({
-        "kind": "diffusion_prior",
-        "flow": {"L": LEVELS, "K": STEPS, "in_channels": 3, "coupling_width": WIDTH,
-                 "learn_prior": True, "invconv_param": "plu", "img_size": IMG},
-        "formater": FORMATER, "formater_stats": None, "unet_kwargs": UNET_KWARGS,
-        "diffusion_kwargs": DIFFUSION_KWARGS, "frozen": True, "n_bits": N_BITS,
-        "temperature": 1.0}, indent=1))
+    arch.write_text(json.dumps(stage2_architecture(), indent=1))
     warmup, results = serve_and_check(serve, ["--weights", str(weights), "--arch", str(arch)],
                                       counters, per_chunk, "diffusion")
     launches = counts(counters)
@@ -1380,18 +1387,24 @@ def stage2_path(torch, np, flow, counters):
 
 PROFILE_SAMPLING_STEPS = 10  # DDIM-10 chunk: 30 UNet calls at batch 64
 PROFILE_TIMESTEPS = 40       # VLB at T = 40: 30 UNet calls at 4 * VLB_BATCH rows
+PROFILE_ROUNDS = 5           # timed calls of each route, taken in turns
 
 
-def phase_profile(torch, model):
+def phase_profile(torch, model, fla, unet_shapes):
     """Where the time goes in stage-2 sampling and scoring, on each route.
     The chains are cut to 30 UNet calls each (PROFILE_*), every call at the
     shapes of the full chains, so that the profiler's event list stays
-    small; per UNet call the work is that of the full chains."""
+    small; per UNet call the work is that of the full chains. Each route is
+    called once to warm it, then PROFILE_ROUNDS times each in turns (kernel,
+    plain, plain, kernel, ...), each call synchronised: wall ms median and
+    spread; then one profiled call each (device ms, busy share, kernels).
+    Last, the attention wrapper's host us at the VLB's shapes."""
     from nfdpm_tpu_torch import inference
     from nfdpm_tpu_torch.profiling import profile_call
 
     backbone, _, backbone_p, _, params, batch = model
     device = torch.device("cuda")
+    work = {}
     for route, bb in (("kernels", backbone), ("plain", backbone_p)):
         use_kernels = route == "kernels"
         sample = inference.make_diffusion_sample_fn(
@@ -1401,17 +1414,56 @@ def phase_profile(torch, model):
             bb, stage2_prior(use_kernels, timesteps=PROFILE_TIMESTEPS,
                              sampling_timesteps=PROFILE_TIMESTEPS), N_BITS, device=device)
         gen = torch.Generator(device="cuda").manual_seed(11)
-        chunk = DIFFUSION_KWARGS["vlb_time_chunk"]
-        work = {"sample": (lambda: sample(params, BATCH, generator=gen), BATCH,
-                           f"DDIM-{PROFILE_SAMPLING_STEPS} chunk",
-                           LEVELS * PROFILE_SAMPLING_STEPS),
-                "score": (lambda: vlb(params, batch, generator=gen), VLB_BATCH,
-                          f"VLB batch at T = {PROFILE_TIMESTEPS}",
-                          LEVELS * -(-PROFILE_TIMESTEPS // chunk))}
-        for path, (fn, n, what, unet_calls) in work.items():
-            rec = profile_call(fn, iters=1, warmup=1)
+        work[route] = {"sample": lambda s=sample, g=gen: s(params, BATCH, generator=g),
+                       "score": lambda v=vlb, g=gen: v(params, batch, generator=g)}
+    chunk = DIFFUSION_KWARGS["vlb_time_chunk"]
+    what = {"sample": (BATCH, f"DDIM-{PROFILE_SAMPLING_STEPS} chunk",
+                       LEVELS * PROFILE_SAMPLING_STEPS),
+            "score": (VLB_BATCH, f"VLB batch at T = {PROFILE_TIMESTEPS}",
+                      LEVELS * -(-PROFILE_TIMESTEPS // chunk))}
+    for path, (n, label, unet_calls) in what.items():
+        walls = {"kernels": [], "plain": []}
+        for route in walls:
+            work[route][path]()
+        for i in range(PROFILE_ROUNDS):
+            for route in (("kernels", "plain") if i % 2 == 0 else ("plain", "kernels")):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                work[route][path]()
+                torch.cuda.synchronize()
+                walls[route].append((time.perf_counter() - t0) * 1e3)
+        stats = {route: {"wall_ms_calls": w, "wall_ms_median": median_of(w),
+                         "wall_ms_spread": max(w) - min(w)} for route, w in walls.items()}
+        for route in walls:
+            rec = profile_call(work[route][path], iters=1, warmup=0)
             emit({"phase": "profile", "path": path, "route": route, "batch": n,
-                  "what": what, "unet_calls": unet_calls, **rec})
+                  "what": label, "unet_calls": unet_calls, **rec, **stats[route]})
+        gap = stats["kernels"]["wall_ms_median"] - stats["plain"]["wall_ms_median"]
+        spread = max(stats[r]["wall_ms_spread"] for r in stats)
+        emit({"phase": "profile_routes", "path": path, "rounds": PROFILE_ROUNDS,
+              "kernels_median_ms": stats["kernels"]["wall_ms_median"],
+              "plain_median_ms": stats["plain"]["wall_ms_median"],
+              "kernels_minus_plain_ms": gap, "largest_spread_ms": spread,
+              "kernel_route_slower_beyond_spread": gap > spread})
+
+    # the attention wrapper's host us at the VLB's shapes (4 x VLB_BATCH rows)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    calls = []
+    for part, block, h, w, c in unet_shapes:
+        x = torch.randn((4 * VLB_BATCH, h, w, c), generator=gen, device=device)
+        args = (x, torch.randn((c, 384), generator=gen, device=device) * c ** -0.5,
+                torch.randn((128, c), generator=gen, device=device) * 128 ** -0.5,
+                torch.randn((c,), generator=gen, device=device) * 0.1,
+                1.0 + torch.randn((c,), generator=gen, device=device) * 0.1)
+        with torch.inference_mode():
+            calls.append({"part": part, "block": block, "x": [4 * VLB_BATCH, h, w, c],
+                          "wrapper_host_us": host_us(lambda: fla.fused_linear_attention(*args),
+                                                     500),
+                          "device_us": cuda_ms(lambda: fla.fused_linear_attention(*args),
+                                               100, 10) * 1e3})
+        torch.cuda.synchronize()
+    emit({"phase": "host_steps", "name": "fused_linear_attention at the VLB shapes",
+          "calls": calls})
 
 
 def time_rows(rows, timed):
@@ -2680,6 +2732,584 @@ def phase_sample_metrics(torch, np, counters, smi, stage1_dir, stage2_run):
     return launches1, launches2
 
 
+# -- run-directory tooling: mid-epoch resume, run-dir serving, the CLIs --------
+
+RESUME_STEPS = 8   # one epoch of the mid-epoch phase at batch 64
+RESUME_AT = 4      # the loader proxy interrupts before this batch
+WATCHDOG_S = 30.0  # every run of the phase trains under the watchdog
+# what the deterministic runs set; CUBLAS_WORKSPACE_CONFIG is read when the
+# CUDA context is made, so those runs go to a subprocess with it set
+DETERMINISTIC_ENV = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+
+
+class InterruptAfter:
+    """Loader proxy raising KeyboardInterrupt before yielding batch n of an
+    epoch (Ctrl-C in the middle of one)."""
+
+    def __init__(self, loader, n):
+        self._loader, self._n = loader, n
+
+    def __getattr__(self, name):
+        return getattr(self._loader, name)
+
+    def __len__(self):
+        return len(self._loader)
+
+    def iter_epoch(self, epoch, start_batch=0):
+        for i, item in enumerate(self._loader.iter_epoch(epoch, start_batch=start_batch)):
+            if start_batch + i >= self._n:
+                raise KeyboardInterrupt
+            yield item
+
+
+def set_deterministic(torch, on: bool) -> None:
+    torch.use_deterministic_algorithms(on)
+    torch.backends.cudnn.deterministic = on
+    torch.backends.cudnn.benchmark = False
+
+
+def state_gap(torch, a, b, keys=("params", "opt_state")):
+    """(largest |a - b| over the tensors of `keys`, whether they and the step
+    are bitwise equal) of two train states."""
+    from nfdpm_tpu_torch.convert import named_leaves
+
+    gap, equal = 0.0, a["step"] == b["step"]
+    for key in keys:
+        la, lb = dict(named_leaves(a[key])), dict(named_leaves(b[key]))
+        check(la.keys() == lb.keys(), f"the states' {key} differ in their leaves")
+        for name, x in la.items():
+            if not isinstance(x, torch.Tensor):
+                equal = equal and x == lb[name]
+                continue
+            x, y = x.detach(), lb[name].detach()
+            equal = equal and torch.equal(x, y)
+            if x.numel():
+                gap = max(gap, float((x - y).abs().max()))
+    return gap, bool(equal)
+
+
+def stage1_run_launches(steps: int, evals: int) -> dict:
+    """Launches of nf_trainer.train over `steps` steps and `evals` scoring
+    forwards, with no sample grid."""
+    per_pass = LEVELS * STEPS
+    return {"channel_mix": steps * (2 * per_pass - 1) + evals * per_pass,
+            "coupling_tail": (steps + evals) * per_pass, "coupling_tail_bwd": steps * per_pass,
+            "coupling_tail_inverse": 0, "fused_linear_attention": 0,
+            "fused_linear_attention_bwd": 0, "step_megakernel_forward": 0}
+
+
+def resume_trainer_run(torch, counters, kind, run_dir, interrupt=None, resume_batch=None,
+                       **options):
+    """One epoch of RESUME_STEPS steps of `kind` ("stage1": nf_trainer.train
+    at configs/nf_base.yaml's width; "stage2": diffusion_trainer.train at
+    configs/nf_diffusion.yaml's over phase 12's flow, frozen, EMA every second
+    step) under the watchdog, no sample grid. `interrupt=n`: the loader
+    raises before batch n and the run must stop there; `resume_batch=k`:
+    resume run_dir's epoch-1 checkpoint at batch k. Checks the run's exact
+    launches; returns train()'s output (None when interrupted)."""
+    from nfdpm_tpu_torch.training import diffusion_trainer as dt
+    from nfdpm_tpu_torch.training import nf_trainer as nft
+
+    run_dir = Path(run_dir)
+    run_dir.mkdir(parents=True, exist_ok=True)
+    loaders = train_loaders(RESUME_STEPS)
+    if interrupt is not None:
+        loaders = type(loaders)(train=InterruptAfter(loaders.train, interrupt),
+                                val=loaders.val, test=loaders.test, eval=loaders.eval)
+    logger = logging.getLogger(f"chip_smoke.resume.{run_dir.name}")
+    logger.setLevel(logging.INFO)
+    logger.propagate = False
+    common = dict(epochs=1, n_bits=N_BITS, print_freq=1, save_checkpoint_freq=50,
+                  watchdog_timeout_s=WATCHDOG_S, **options)
+    resume = dict(resume_dir=str(run_dir), resume_epoch=1, resume_batch=resume_batch) \
+        if resume_batch is not None else {}
+    steps = (interrupt if interrupt is not None else RESUME_STEPS) - (resume_batch or 0)
+    # a completed stage-1 run also scores the test and eval loaders
+    evals = 0 if interrupt is not None else len(loaders.test) + len(loaders.eval)
+    expected = (stage1_run_launches(steps, evals) if kind == "stage1" else
+                {k: steps * v for k, v in stage2_per_step(frozen=True).items()})
+    before = counts(counters)
+    try:
+        if kind == "stage1":
+            cfg, _ = train_configs()
+            out = nft.train(cfg=cfg, tcfg=nft.NFTrainConfig(lr=1e-3, **common), loaders=loaders,
+                            run_dir=str(run_dir), logger=logger, seed=TRAIN_SEED,
+                            img_size=IMG, device="cuda", **resume)
+        else:
+            from nfdpm_tpu_torch.models.nf_backbone import load_pretrained_flow
+
+            backbone, flow = load_pretrained_flow(str(stage1_train_dir()), 1, True, "cuda")
+            tcfg = dt.DiffusionTrainConfig(lr_diffusion=1e-3, ema_decay=0.999,
+                                           ema_update_every=2,
+                                           log_gen_images_per_iter=10 ** 6, **common)
+            (run_dir / "diffusion_architecture.json").write_text(
+                json.dumps(stage2_architecture(), indent=1))
+            out = dt.train(backbone=backbone, flow_params=flow, dp=stage2_prior(), tcfg=tcfg,
+                           loaders=loaders, run_dir=str(run_dir), logger=logger,
+                           seed=TRAIN_SEED, device="cuda", **resume)
+    except KeyboardInterrupt:
+        check(interrupt is not None, f"{run_dir.name}: an interrupt nobody asked for")
+        out = None
+    else:
+        check(interrupt is None, f"{run_dir.name}: the interrupted run did not stop")
+    torch.cuda.synchronize()
+    after = counts(counters)
+    delta = {k: after[k] - before[k] for k in before}
+    check(delta == expected, f"{run_dir.name} launched {delta}, expected {expected}")
+    check(not (run_dir / "watchdog_stall.txt").exists(), f"the watchdog fired in {run_dir}")
+    return out
+
+
+def stage1_train_dir() -> Path:
+    return ROOT / "build" / "chip_smoke" / "train_run"
+
+
+def step_wall_ms(torch, steps: int = 8) -> list:
+    """Wall ms of `steps` stage-1 train steps at batch 64, each synchronised
+    (the trainers' StepTimer, asked to wait for the card at each step's
+    end), from a ddinit'ed state, under the current determinism flags."""
+    from nfdpm_tpu_torch.training import nf_trainer as nft
+    from nfdpm_tpu_torch.utils.profiling import StepTimer
+
+    cfg, tcfg = train_configs()
+    tx = nft.optimizer_of(tcfg)
+    batches = [torch.from_numpy(imgs).to("cuda")
+               for imgs, _ in train_loaders(RESUME_STEPS).train.iter_epoch(0)]
+    state = nft.ddinit_train_state(nft.init_train_state(TRAIN_SEED, cfg, tcfg, tx, "cuda"),
+                                   cfg, tcfg, tx, batches[0],
+                                   torch.Generator(device="cuda").manual_seed(1))
+    step = nft.make_train_step(cfg, tcfg, tx, device="cuda")
+    timer = StepTimer(synchronize="cuda")
+    torch.cuda.synchronize()
+    for i in range(steps + 1):  # the first is a warm-up
+        with timer.step():
+            state, _ = step(state, batches[i % len(batches)], TRAIN_SEED)
+    return [d * 1e3 for d in timer.durations[1:]]
+
+
+def median_of(values):
+    v = sorted(values)
+    return (v[(len(v) - 1) // 2] + v[len(v) // 2]) / 2
+
+
+def resume_checks(torch, counters, kind, root: Path, gate: str) -> dict:
+    """An uninterrupted run, and a second for the run-to-run gap where it is
+    read (stage 1, and the tolerance gate); then one interrupted before
+    batch RESUME_AT and resumed there: the marker's content, its removal,
+    and the resumed state's gap to the first run. `gate`: "bitwise"
+    (deterministic mode) or "twice the run-to-run gap"."""
+    from nfdpm_tpu_torch.training import checkpoint as ckpt
+
+    prefix = "gaussian" if kind == "stage1" else "diffusion"
+    keys = ("params", "opt_state") + (("ema",) if kind == "stage2" else ())
+    a = resume_trainer_run(torch, counters, kind, root / f"{kind}_a")
+    run_gap = run_equal = b = None
+    if kind == "stage1" or gate != "bitwise":
+        b = resume_trainer_run(torch, counters, kind, root / f"{kind}_b")
+        run_gap, run_equal = state_gap(torch, a["state"], b["state"], keys)
+    cut = root / f"{kind}_cut"
+    resume_trainer_run(torch, counters, kind, cut, interrupt=RESUME_AT)
+    marker = ckpt.load_mid_epoch_marker(str(cut))
+    check(marker == {"prefix": prefix, "epoch": 1, "batch_in_epoch": RESUME_AT},
+          f"{kind}: the marker is {marker}")
+    resumed = resume_trainer_run(torch, counters, kind, cut, resume_batch=RESUME_AT)
+    check(ckpt.load_mid_epoch_marker(str(cut)) is None, f"{kind}: the marker outlived the run")
+    resume_gap, resume_equal = state_gap(torch, a["state"], resumed["state"], keys)
+    if gate == "bitwise":
+        check(resume_equal, f"{kind}: the resumed run is {resume_gap} from the uninterrupted "
+                            "one in deterministic mode")
+    else:
+        check(resume_gap <= 2 * run_gap, f"{kind}: the resumed run is {resume_gap} from the "
+                                         f"uninterrupted one, twice the run-to-run gap "
+                                         f"{run_gap} allows less")
+    rec = {"kind": kind, "gate": gate, "uninterrupted_run": str(root / f"{kind}_a"),
+           "marker": marker, "steps": RESUME_STEPS,
+           "interrupted_before_batch": RESUME_AT, "resume_max_gap": resume_gap,
+           "resume_bitwise_equal": resume_equal, "run_to_run_max_gap": run_gap,
+           "run_to_run_bitwise_equal": run_equal, "state_leaves": list(keys)}
+    if kind == "stage1":
+        rec["run_to_run_bpd_gap"] = abs(a["results"]["bpd_test"] - b["results"]["bpd_test"])
+        rec["resume_bpd_gap"] = abs(a["results"]["bpd_test"] - resumed["results"]["bpd_test"])
+        rec["bpd_test"] = a["results"]["bpd_test"]
+    return rec
+
+
+def deterministic_resume(torch, counters, root: Path) -> None:
+    """The subprocess of phase 23: both trainers' mid-epoch resume in
+    deterministic mode (bitwise), falling back to the default mode with the
+    tolerance gate for a trainer in which PyTorch names an operation that
+    has no deterministic CUDA implementation; run to run; step wall ms.
+    Prints its records and its launches."""
+    for fn in counters:
+        fn.launches = 0
+    out = {"phase": "mid_epoch_resume_deterministic",
+           "cublas_workspace_config": os.environ.get("CUBLAS_WORKSPACE_CONFIG")}
+    for kind in ("stage1", "stage2"):
+        set_deterministic(torch, True)
+        try:
+            out[kind] = resume_checks(torch, counters, kind, root / "deterministic", "bitwise")
+        except RuntimeError as e:
+            if "deterministic" not in str(e):
+                raise
+            # the op PyTorch names; then the default mode, said so, and the
+            # tolerance gate
+            op = str(e).strip().splitlines()[0]
+            set_deterministic(torch, False)
+            out[kind] = resume_checks(torch, counters, kind, root / "fallback",
+                                      "twice the run-to-run gap")
+            out[kind]["deterministic_mode_refused_by"] = op
+            out[kind]["mode"] = "default (deterministic refused)"
+        else:
+            out[kind]["mode"] = "deterministic"
+    set_deterministic(torch, True)
+    try:
+        walls = step_wall_ms(torch)
+        out["step_wall_ms"] = walls
+        out["step_wall_ms_median"] = median_of(walls)
+    except RuntimeError as e:
+        out["step_wall_ms"] = f"not measured: {str(e).splitlines()[0]}"
+    out["launches"] = counts(counters)
+    emit(out)
+
+
+def phase_mid_epoch_resume(torch, counters, smi):
+    """Phase 23: mid-epoch resume of both trainers, bitwise in deterministic
+    mode (a subprocess with CUBLAS_WORKSPACE_CONFIG set); run to run in
+    both modes; the watchdog on in every run, never firing; the profiler
+    hook's trace; load.load_batch through the command line. Returns (the
+    launches of the path, the stage-2 run directory that kept an EMA)."""
+    root = ROOT / "build" / "chip_smoke" / "mid_epoch"
+    shutil.rmtree(root, ignore_errors=True)
+    (root / "outputs").mkdir(parents=True)
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT), NFDPM_NO_TENSORBOARD="1",
+               **DETERMINISTIC_ENV)
+    done = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                           "--deterministic-resume", str(root)],
+                          env=env, capture_output=True, text=True, timeout=900)
+    child = [json.loads(line) for line in done.stdout.splitlines() if line.startswith("{")]
+    check(done.returncode == 0, f"the deterministic resume failed:\n{done.stdout[-2000:]}\n"
+                                f"{done.stderr[-3000:]}")
+    (det,) = [r for r in child if r.get("phase") == "mid_epoch_resume_deterministic"]
+    emit(det)
+    det_seconds = time.perf_counter() - t0
+
+    # the default mode in this process: run to run, the step's wall ms
+    set_deterministic(torch, False)
+    a = resume_trainer_run(torch, counters, "stage1", root / "default_a")
+    b = resume_trainer_run(torch, counters, "stage1", root / "default_b")
+    default_gap, default_equal = state_gap(torch, a["state"], b["state"])
+    walls = step_wall_ms(torch)
+
+    # load.load_batch through the command line, from an interrupted run; the
+    # command runs while this process takes the profiler's trace
+    resume_trainer_run(torch, counters, "stage1", root / "outputs" / "cut",
+                       interrupt=RESUME_AT)
+    cli_env = dict(os.environ, PYTHONPATH=str(ROOT), NFDPM_NO_TENSORBOARD="1")
+    t1 = time.perf_counter()
+    cli = subprocess.Popen(
+        [sys.executable, "-m", "nfdpm_tpu_torch.run_baseline", "data.name=synthetic",
+         f"data.batch_size={BATCH}", f"data.img_size={IMG}",
+         f"data.synthetic_n={BATCH * RESUME_STEPS}", f"model.architecture.L={LEVELS}",
+         f"model.architecture.K={STEPS}", f"model.architecture.coupling_width={WIDTH}",
+         "model.training.epochs=1", "model.training.print_freq=1",
+         "model.training.save_checkpoint_freq=50",
+         f"model.training.watchdog_timeout_s={WATCHDOG_S}", "experiment_name=resumed",
+         "load.load_exp_dir=cut", "load.load_epoch=1", f"load.load_batch={RESUME_AT}"],
+        cwd=root, env=cli_env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        # the profiler hook: profile_epoch 1, 3 steps; a trace without a device
+        # event is taken again, up to three times (kernel_events)
+        for attempt in range(1, 4):
+            prof_dir = root / f"profiled_{attempt}"
+            resume_trainer_run(torch, counters, "stage1", prof_dir, profile_epoch=1,
+                               profile_steps=3)
+            trace = prof_dir / "tb" / "profile" / "epoch_001.pt.trace.json"
+            check(trace.exists(), f"profile_epoch wrote no trace at {trace}")
+            events = json.loads(trace.read_text())["traceEvents"]
+            kernels = sorted({e["name"] for e in events if e.get("cat") == "kernel"})
+            mixes = [k for k in kernels if "channel_mix_" in k]
+            if mixes:
+                break
+        check(bool(mixes), f"three profiled runs gave no channel_mix kernel in the trace: "
+                           f"{kernels[:10]}")
+
+        cli_out, cli_err = cli.communicate(timeout=600)
+    finally:
+        if cli.poll() is None:
+            cli.kill()
+            cli.wait()
+    cli_seconds = time.perf_counter() - t1
+    check(cli.returncode == 0, f"run_baseline load.load_batch failed:\n{cli_out[-1500:]}"
+                               f"\n{cli_err[-1500:]}")
+    check(f"Resumed from outputs/cut @ epoch 1 batch {RESUME_AT}" in cli_out,
+          "the command line did not resume in the middle of the epoch")
+    final = dict(re.findall(r"final (test|train) bpd: ([0-9.]+)", cli_out))
+    iters = [int(i) for i in re.findall(r"epoch 1 iter (\d+):", cli_out)]
+    check(len(final) == 2 and iters == list(range(RESUME_AT + 1, RESUME_STEPS + 1)),
+          f"the resumed command line logged steps {iters} and final {final}")
+    stalls = sorted(str(p.relative_to(root)) for p in root.rglob("watchdog_stall.txt"))
+    check(not stalls, f"the watchdog fired: {stalls}")
+
+    launches = counts(counters)
+    for name, n in det["launches"].items():
+        launches[name] += n
+    emit({"phase": "mid_epoch_resume", "nvidia_smi": smi,
+          "deterministic": {k: det[k] for k in ("stage1", "stage2")},
+          "cublas_workspace_config": det["cublas_workspace_config"],
+          "deterministic_seconds": det_seconds,
+          "run_to_run": {
+              # stage 2 runs one uninterrupted run where deterministic mode
+              # holds: its pair would only show bitwise equality again
+              "deterministic": {k: {"max_param_gap": det[k]["run_to_run_max_gap"],
+                                    "bitwise_equal": det[k]["run_to_run_bitwise_equal"],
+                                    "bpd_gap": det[k].get("run_to_run_bpd_gap"),
+                                    "mode": det[k]["mode"]}
+                                for k in ("stage1", "stage2")
+                                if det[k]["run_to_run_max_gap"] is not None},
+              "default": {"stage1": {
+                  "max_param_gap": default_gap, "bitwise_equal": default_equal,
+                  "bpd_gap": abs(a["results"]["bpd_test"] - b["results"]["bpd_test"])}}},
+          "step_wall_ms_median": {"deterministic": det.get("step_wall_ms_median"),
+                                  "default": median_of(walls)},
+          "step_wall_ms": {"deterministic": det.get("step_wall_ms"), "default": walls},
+          "watchdog_timeout_s": WATCHDOG_S, "watchdog_fired": False,
+          "profiler": {"trace": str(trace.relative_to(ROOT)), "attempts": attempt,
+                       "kernels": len(kernels), "channel_mix_kernels": mixes},
+          "command_line": {"load_batch": RESUME_AT, "seconds": cli_seconds,
+                           "final_bpd": final, "steps_logged": iters},
+          "seconds": time.perf_counter() - t0, "launches": launches})
+    return launches, Path(det["stage2"]["uninterrupted_run"])
+
+
+def stage2_architecture() -> dict:
+    """The diffusion_architecture.json of the stage-2 model of the paths."""
+    return {"kind": "diffusion_prior",
+            "flow": {"L": LEVELS, "K": STEPS, "in_channels": 3, "coupling_width": WIDTH,
+                     "learn_prior": True, "invconv_param": "plu", "img_size": IMG},
+            "formater": FORMATER, "formater_stats": None, "unet_kwargs": UNET_KWARGS,
+            "diffusion_kwargs": DIFFUSION_KWARGS, "frozen": True, "n_bits": N_BITS,
+            "temperature": 1.0}
+
+
+@contextlib.contextmanager
+def serving(serve, argv):
+    """The server of `argv` on 127.0.0.1, answering on a thread: (its port,
+    its /health)."""
+    server = serve.make_server(argv + ["--batch", str(BATCH), "--port", "0"])
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        port_no = server.server_address[1]
+        status, _, body = http_request(port_no, "GET", "/health")
+        check(status == 200, f"/health of {argv} answered {status}")
+        yield port_no, json.loads(body)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+
+
+def generate(port_no, req, counters, per_chunk):
+    """One /generate request: (uint8 samples, record); checks the samples'
+    type and shape and the launches, exactly `per_chunk` per 64-image chunk."""
+    import numpy as np
+
+    before = counts(counters)
+    t0 = time.perf_counter()
+    status, headers, body = http_request(port_no, "POST", "/generate", req)
+    wall = time.perf_counter() - t0
+    check(status == 200, f"/generate {req} answered {status}")
+    with np.load(io.BytesIO(body)) as data:
+        samples = data["samples"]
+    check(samples.dtype == np.uint8 and samples.shape == (req["n"], IMG, IMG, 3),
+          f"/generate {req} gave {samples.dtype} {samples.shape}")
+    chunks = -(-req["n"] // BATCH)
+    after = counts(counters)
+    delta = {k: after[k] - before[k] for k in before}
+    check(delta == {k: v * chunks for k, v in per_chunk.items()},
+          f"/generate {req}: launch counts {delta} for {chunks} chunk(s)")
+    return samples, {"request": req, "wall_s": wall,
+                     "generation_s": float(headers["X-Generation-Seconds"]),
+                     "samples_per_s": req["n"] / float(headers["X-Generation-Seconds"]),
+                     "launches": delta}
+
+
+def sampling_chunk(sampling_timesteps: int = 0) -> dict:
+    """Launches of one 64-image sampling chunk: the Glow's inverse, and with
+    `sampling_timesteps` the stage-2 chains before it."""
+    return {"channel_mix": 3 * STEPS, "coupling_tail": 0, "coupling_tail_bwd": 0,
+            "coupling_tail_inverse": 3 * STEPS,
+            "fused_linear_attention": LEVELS * sampling_timesteps
+            * 2 * len(UNET_KWARGS["dim_mults"]),
+            "fused_linear_attention_bwd": 0, "step_megakernel_forward": 0}
+
+
+RUN_DIR_REQUEST = {"n": 128, "seed": 7}
+EMA_DDIM = 10  # the EMA check's chains: DDIM-10, one chunk
+
+
+def phase_run_dir_serving(torch, np, counters, smi, stage1_dir, stage2_dir, ema_dir):
+    """Phase 24: nfdpm_tpu_torch.serve --run-dir on phase 12's stage-1 run
+    and phase 17's stage-2 run, against --weights holding the same
+    parameters: the same bytes for RUN_DIR_REQUEST, exact launches; /health
+    reports run_dir, kind and epoch; then --no-ema against the EMA on the
+    stage-2 run of phase 23 that kept one. Returns (the launches of the
+    path, {kind: the samples})."""
+    from nfdpm_tpu_torch import convert, serve
+    from nfdpm_tpu_torch.convert import named_leaves
+    from nfdpm_tpu_torch.training import runload
+
+    out = ROOT / "build" / "chip_smoke" / "run_dir_serving"
+    out.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    for fn in counters:
+        fn.launches = 0
+    glow = runload.load_glow_run(str(stage1_dir), device="cuda")
+    convert.save_npz(out / "glow.npz", convert.to_jax_params(glow.params))
+    stage2 = runload.load_diffusion_run(str(stage2_dir), device="cuda")
+    convert.save_npz(out / "diffusion.npz", convert.diffusion_to_jax_params(stage2.params))
+    live = runload.load_diffusion_run(str(stage2_dir), use_ema=False, device="cuda")
+    live_leaves = dict(named_leaves(live.params))
+    check(all(torch.equal(x, live_leaves[k]) for k, x in named_leaves(stage2.params)),
+          "phase 17's run kept no EMA, yet --no-ema reads other weights")
+    del glow, stage2, live, live_leaves
+    sources = {
+        "gaussian": (stage1_dir, ["--weights", str(out / "glow.npz"), "--levels", str(LEVELS),
+                                  "--steps", str(STEPS), "--width", str(WIDTH),
+                                  "--img-size", str(IMG), "--n-bits", str(N_BITS)],
+                     sampling_chunk()),
+        "diffusion": (stage2_dir, ["--weights", str(out / "diffusion.npz"), "--arch",
+                                   str(Path(stage2_dir) / "diffusion_architecture.json")],
+                      sampling_chunk(DIFFUSION_KWARGS["sampling_timesteps"]))}
+    served, record = {}, {"phase": "run_dir_serving", "nvidia_smi": smi,
+                          "request": RUN_DIR_REQUEST}
+    for kind, (run_dir, weights_argv, per_chunk) in sources.items():
+        got = {}
+        for source, argv in (("run_dir", ["--run-dir", str(run_dir)]), ("weights", weights_argv)):
+            with serving(serve, argv) as (port_no, health):
+                samples, rec = generate(port_no, RUN_DIR_REQUEST, counters, per_chunk)
+            got[source] = (samples, rec, health)
+        health = got["run_dir"][2]
+        check(health["kind"] == kind and health["run_dir"] == str(run_dir)
+              and health["epoch"] == 1, f"/health of --run-dir: {health}")
+        check(np.array_equal(got["run_dir"][0], got["weights"][0]),
+              f"{kind}: --run-dir and --weights gave different samples")
+        served[kind] = got["run_dir"][0]
+        record[kind] = {"run_dir": str(Path(run_dir).relative_to(ROOT)), "health": health,
+                        "same_bytes_as_weights": True,
+                        **{source: got[source][1] for source in got}}
+
+    # --no-ema against the EMA, on a run that kept one (DDIM-10, one chunk)
+    ema = {}
+    for flag in ([], ["--no-ema"]):
+        with serving(serve, ["--run-dir", str(ema_dir), "--ddim", str(EMA_DDIM), *flag]) as (
+                port_no, health):
+            ema[bool(flag)] = generate(port_no, {"n": BATCH, "seed": 7}, counters,
+                                       sampling_chunk(EMA_DDIM))
+            check(health["ema"] is not bool(flag), f"/health says ema {health['ema']}")
+    check(not np.array_equal(ema[False][0], ema[True][0]),
+          "--no-ema and the EMA weights gave the same samples")
+    record["no_ema"] = {"run_dir": str(Path(ema_dir).relative_to(ROOT)), "ddim": EMA_DDIM,
+                        "differs_from_ema": True, "ema": ema[False][1], "live": ema[True][1]}
+    launches = counts(counters)
+    record["launches"] = launches
+    record["seconds"] = time.perf_counter() - t0
+    emit(record)
+    return launches, served
+
+
+def stage1_config_yaml(run_dir: Path) -> None:
+    """The config.yaml the entry point would have written for phase 12's run,
+    which nf_trainer.train made directly (the interpolation reads its data
+    config for the endpoints)."""
+    from nfdpm_tpu_torch.run_baseline import CONFIG
+    from nfdpm_tpu_torch.utils.config import load_config
+
+    cfg = load_config(CONFIG, [
+        "data.name=synthetic", f"data.batch_size={BATCH}", f"data.img_size={IMG}",
+        f"data.synthetic_n={BATCH * TRAIN_STEPS}", f"seed={TRAIN_SEED}",
+        f"model.architecture.L={LEVELS}", f"model.architecture.K={STEPS}",
+        f"model.architecture.coupling_width={WIDTH}", "model.training.epochs=1"])
+    (run_dir / "config.yaml").write_text(cfg.to_yaml())
+
+
+INTERP_STEPS = 8
+INTERP_T = 100  # the stage-2 strip's chain on the card: t = 100 of T = 1000
+
+
+def phase_cli(np, smi, stage1_dir, stage2_dir, served):
+    """Phase 25: python -m nfdpm_tpu_torch.generate_samples (n 128, batch 64,
+    seed 7) and python -m nfdpm_tpu_torch.interpolate (steps 8; the stage-2
+    strip at --t INTERP_T, a 100-step chain in place of the whole 1000: the
+    whole chain is held against JAX on the CPU, test_torch_run_dir_tools.py)
+    as four subprocesses on both run directories, started together: the
+    generated samples are the server's of phase 24; the strip is
+    (steps + 2, H, W, C) uint8, and for the Glow its lambda 0 and 1 columns
+    are the endpoints' 5-bit codes within one 5-bit level (the round trip's
+    error). The commands overlap: the phase's seconds are all four's."""
+    out = ROOT / "build" / "chip_smoke" / "cli_tools"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    if not (Path(stage1_dir) / "config.yaml").exists():
+        stage1_config_yaml(Path(stage1_dir))
+    env = dict(os.environ, PYTHONPATH=str(ROOT), NFDPM_NO_TENSORBOARD="1")
+    t0 = time.perf_counter()
+    procs = {}
+    for kind, run_dir in (("gaussian", stage1_dir), ("diffusion", stage2_dir)):
+        commands = {
+            "generate_samples": ["--n", str(RUN_DIR_REQUEST["n"]), "--batch", str(BATCH),
+                                 "--seed", str(RUN_DIR_REQUEST["seed"])],
+            "interpolate": ["--steps", str(INTERP_STEPS)]
+            + (["--t", str(INTERP_T)] if kind == "diffusion" else [])}
+        for tool, args in commands.items():
+            argv = [sys.executable, "-m", f"nfdpm_tpu_torch.{tool}", "--run-dir", str(run_dir),
+                    *args, "--out", str(out / kind)]
+            procs[(kind, tool)] = subprocess.Popen(argv, cwd=out, env=env, text=True,
+                                                   stdout=subprocess.PIPE,
+                                                   stderr=subprocess.PIPE)
+    done = {}
+    try:
+        for (kind, tool), proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=600)
+            check(proc.returncode == 0, f"{tool} on the {kind} run failed:\n{stdout[-1500:]}"
+                                        f"\n{stderr[-1500:]}")
+            line = stdout.strip().splitlines()[-1]
+            print(line, flush=True)
+            done[(kind, tool)] = json.loads(line)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    record = {"phase": "cli", "nvidia_smi": smi, "interpolation_t": {"diffusion": INTERP_T},
+              "concurrent": True}
+    for kind in ("gaussian", "diffusion"):
+        gen, interp = done[(kind, "generate_samples")], done[(kind, "interpolate")]
+        with np.load(gen["npz"]) as data:
+            samples = data["samples"]
+        check(np.array_equal(samples, served[kind]),
+              f"{kind}: generate_samples and the server gave different samples")
+        with np.load(interp["npz"]) as data:
+            strip = data["strip"]
+        check(strip.dtype == np.uint8 and strip.shape == (INTERP_STEPS + 2, IMG, IMG, 3),
+              f"{kind}: the strip is {strip.dtype} {strip.shape}")
+        rec = {"generate_samples": gen, "samples_equal_server": True, "interpolate": interp}
+        if kind == "gaussian":
+            codes = (strip[[0, -1]] // 8 * 8).astype(int)
+            ends = np.abs(strip[[1, -2]].astype(int) - codes)
+            check(int(ends.max()) <= 8, f"lambda 0 and 1 are {int(ends.max())} levels from "
+                                        "the endpoints' 5-bit codes")
+            rec["endpoint_max_diff"] = int(ends.max())
+            rec["endpoint_differing_share"] = float((ends > 0).mean())
+        record[kind] = rec
+    record["seconds"] = time.perf_counter() - t0
+    emit(record)
+
+
 def main() -> int:
     import torch
 
@@ -2700,13 +3330,27 @@ def main() -> int:
 
     import numpy as np
 
-    smi = phase_environment(torch, port)
-    phase_build(build)
     counters = (cm.channel_mix, ct.coupling_tail, ct.coupling_tail_bwd,
                 ct.coupling_tail_inverse, fla.fused_linear_attention,
                 fla.fused_linear_attention_bwd, sm.step_megakernel_forward)
+    if sys.argv[1:2] == ["--deterministic-resume"] and len(sys.argv) == 3:
+        # phase 23's subprocess, started by this script with its environment
+        port.disable_tf32()
+        deterministic_resume(torch, counters, Path(sys.argv[2]))
+        return 0
+    smi = phase_environment(torch, port)
+    phase_build(build)
     if sys.argv[1:] == ["--stage1-training"]:
         phase_training(torch, counters)
+        return 0
+    if sys.argv[1:] == ["--run-dir-tools"]:
+        _, stage1_run, _, _ = phase_training(torch, counters)
+        _, stage2_run, _ = phase_stage2_training(torch, counters, stage1_run)
+        torch.cuda.empty_cache()
+        _, ema_run = phase_mid_epoch_resume(torch, counters, smi)
+        _, served = phase_run_dir_serving(torch, np, counters, smi, stage1_run, stage2_run,
+                                          ema_run)
+        phase_cli(np, smi, stage1_run, stage2_run, served)
         return 0
     if sys.argv[1:] == ["--attention-backward"]:
         totals = {}
@@ -2732,7 +3376,7 @@ def main() -> int:
     totals["step_megakernel"] = phase_megakernel(torch, sm, bj)
     launches["megakernel_glow"] = phase_megakernel_glow(torch, np, params, counters)
     launches["stage2"], model = stage2_path(torch, np, params["flow"], counters)
-    phase_profile(torch, model)
+    phase_profile(torch, model, fla, unet_shapes)
     del model, params
     torch.cuda.empty_cache()
 
@@ -2751,6 +3395,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches["sample_metrics_stage1"], launches["sample_metrics_stage2"] = (
         phase_sample_metrics(torch, np, counters, smi, stage1_run, stage2_run))
+    torch.cuda.empty_cache()
+    launches["mid_epoch_resume"], ema_run = phase_mid_epoch_resume(torch, counters, smi)
+    launches["run_dir_serving"], served = phase_run_dir_serving(
+        torch, np, counters, smi, stage1_run, stage2_run, ema_run)
+    phase_cli(np, smi, stage1_run, stage2_run, served)
 
     per = {"fused_linear_attention": "one UNet evaluation of each of the three parts at "
                                      "batch 64 (one DDIM step or one stage-2 train "
@@ -2795,9 +3444,6 @@ def main() -> int:
     kernels.sort(key=lambda k: order.index(k["name"]))
     summary = {"kernels": kernels}
     RECORDS.append(summary)
-    out = ROOT / "chiprun_out" / "chip_smoke.json"
-    out.parent.mkdir(exist_ok=True)
-    out.write_text(json.dumps(RECORDS, indent=1))
     print(json.dumps(summary), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -2807,4 +3453,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:  # what the phases recorded, also when one of them failed
+        if RECORDS:
+            out = ROOT / "chiprun_out" / "chip_smoke.json"
+            out.parent.mkdir(exist_ok=True)
+            out.write_text(json.dumps(RECORDS, indent=1))

@@ -16,13 +16,19 @@ models     : Glow and its Gaussian prior; the stage-2 diffusion prior (UNet,
 convert    : weight bridge from the JAX package's parameter trees (Glow and
              flax UNet), and the .npz weight format.
 inference  : bits/dim scoring and sampling of both kinds (the serving path).
-training   : stage-1 training: optimizer (value and norm clips, Adam/AdamW),
-             train and eval steps, the training loop, checkpoints, tracking.
+training   : both stages' training: optimizer (value and norm clips,
+             Adam/AdamW), train and eval steps, the training loops with
+             mid-epoch resume, checkpoints, tracking; runload rebuilds a
+             model from a run directory.
 data       : dataset readers and the batch pipeline (numpy on the host).
-utils      : YAML configuration with dotted overrides, logging, seeding.
-run_baseline : the stage-1 entry point over configs/nf_base.yaml.
+utils      : YAML configuration with dotted overrides, logging, seeding;
+             the hung-step watchdog and the trainers' profiler hook.
+run_baseline, run_diffusion_prior : the entry points over
+             configs/nf_base.yaml and configs/nf_diffusion.yaml.
 serve      : HTTP generation server for a Glow model or a Glow with a
-             diffusion prior.
+             diffusion prior, from weights or a run directory.
+generate_samples, interpolate : sample and interpolation commands over a
+             run directory.
 profiling  : device time by kernel of a call, through torch.profiler.
 """
 

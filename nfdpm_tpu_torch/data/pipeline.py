@@ -251,18 +251,33 @@ def prefetch_to_device(iterator, device: torch.device):
     current one is handed out. For a CUDA device the batch goes through
     pinned host memory and a non-blocking copy on the current stream, so the
     copy overlaps the host work of the step before it; for the CPU it is a
-    plain conversion."""
+    plain conversion.
+
+    An exception from `iterator` (a KeyboardInterrupt among them) is raised
+    only after the batch already fetched has been handed out, so the
+    consumer takes every batch the iterator gave before it failed, as the
+    JAX package's producer queue hands out every batch put before one."""
     def to_device(item):
         imgs = torch.from_numpy(np.ascontiguousarray(item[0], np.float32))
         if device.type == "cuda":
             imgs = imgs.pin_memory().to(device, non_blocking=True)
         return (imgs,) + tuple(item[1:])
 
-    ahead = None
-    for item in iterator:
+    ahead, failure = None, None
+    items = iter(iterator)
+    while True:
+        try:
+            item = next(items)
+        except StopIteration:
+            break
+        except BaseException as e:  # noqa: B036 -- raised again below
+            failure = e
+            break
         nxt = to_device(item)
         if ahead is not None:
             yield ahead
         ahead = nxt
     if ahead is not None:
         yield ahead
+    if failure is not None:
+        raise failure

@@ -50,7 +50,7 @@ def main(argv=None):
 
     if args.data_parallel:
         raise NotImplementedError(
-            "--data-parallel is not ported (ROADMAP §1.13: multi-GPU); the port runs the "
+            "--data-parallel is not ported (ROADMAP: multi-GPU); the port runs the "
             "feature nets on one device")
 
     logging.basicConfig(level=logging.INFO)

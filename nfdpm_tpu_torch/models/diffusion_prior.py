@@ -120,10 +120,11 @@ class DiffusionPrior:
     def interpolate_latents(self, params, processed1: Sequence[torch.Tensor],
                             processed2: Sequence[torch.Tensor], lam: float = 0.5,
                             generator: Optional[torch.Generator] = None,
-                            noise=None) -> List[torch.Tensor]:
-        """Per-part interpolation at t = T-1 between two lists of processed
-        parts; inputs and outputs in the trained space, as above."""
-        return [diff.interpolate(params["parts"][i], processed1[i], processed2[i], None, lam,
+                            noise=None, t: Optional[int] = None) -> List[torch.Tensor]:
+        """Per-part interpolation at t (default T-1, the JAX package's only
+        choice) between two lists of processed parts; inputs and outputs in
+        the trained space, as above."""
+        return [diff.interpolate(params["parts"][i], processed1[i], processed2[i], t, lam,
                                  generator, None if noise is None else noise[i])
                 for i, diff in enumerate(self.parts)]
 

@@ -13,7 +13,6 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import os
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -58,24 +57,11 @@ class NFBackbone:
 def load_pretrained_flow(run_dir: str, epoch: int, frozen: bool = True, device=None,
                          use_kernels: bool = True) -> Tuple[NFBackbone, Dict[str, Any]]:
     """The backbone and flow parameters of a stage-1 run of the port
-    (nfdpm_tpu_torch.run_baseline): its architecture.json and
-    checkpoints/model_gaussian_<epoch>.pt, on `device` (CUDA unless named).
-    A run directory of the JAX package (orbax checkpoints) is not read yet."""
-    from .. import resolve_device
-    from ..training.checkpoint import checkpoint_path, load_architecture, restore_params
+    (nfdpm_tpu_torch.run_baseline), through training.runload.load_glow_run,
+    on `device` (CUDA unless named). A run directory of the JAX package
+    (orbax checkpoints) is refused with the command that converts it
+    (tools/jax_run_to_torch.py)."""
+    from ..training.runload import load_glow_run
 
-    device = resolve_device(device)
-    path = checkpoint_path(run_dir, "gaussian", epoch)
-    if not os.path.exists(path) and os.path.isdir(path[:-len(".pt")]):
-        raise NotImplementedError(
-            f"{run_dir} holds an orbax checkpoint of the JAX package; reading one is "
-            "not ported (ROADMAP §1.1: run-dir weights). Pretrain the flow with "
-            "python -m nfdpm_tpu_torch.run_baseline")
-    arch = load_architecture(run_dir)
-    cfg = glow_m.GlowConfig(
-        in_channels=int(arch["in_channels"]), levels=int(arch["L"]), steps=int(arch["K"]),
-        coupling_width=int(arch["coupling_width"]),
-        learn_prior=bool(arch.get("learn_prior", True)),
-        invconv_param=str(arch.get("invconv_param", "plu")), use_kernels=use_kernels)
-    params = restore_params(run_dir, "gaussian", epoch, device)
-    return NFBackbone(cfg=cfg, img_size=int(arch["img_size"]), frozen=frozen), params["flow"]
+    run = load_glow_run(run_dir, epoch, device, use_kernels)
+    return NFBackbone(cfg=run.gcfg, img_size=run.img_size, frozen=frozen), run.params["flow"]

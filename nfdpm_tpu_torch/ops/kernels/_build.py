@@ -152,12 +152,12 @@ def check_cuda_f32(name: str, *tensors: torch.Tensor) -> torch.device:
     return tensors[0].device
 
 
-def refuse_gradient(name: str, roadmap_item: str, *tensors: torch.Tensor) -> None:
+def refuse_gradient(name: str, reason: str, *tensors: torch.Tensor) -> None:
     """Raise when a gradient would be wanted through a wrapper that has none:
     its output would come back detached and the gradient silently missing."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
-            f"{name} has no gradient (ROADMAP {roadmap_item}): call it under "
+            f"{name} has no gradient ({reason}): call it under "
             "torch.no_grad() or torch.inference_mode(), or on tensors that do "
             "not require grad")
 

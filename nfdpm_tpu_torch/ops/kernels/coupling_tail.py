@@ -465,8 +465,8 @@ def coupling_step_tail(y: torch.Tensor, r: torch.Tensor, zb: torch.Tensor,
     return _step_tail(y, r, zb, zlogs, ldj)
 
 
-_INVERSE_ROADMAP = ("§2.3: the inverse tail is not differentiated in the JAX package "
-                    "either; use coupling_tail_inverse_plain")
+_INVERSE_NO_GRADIENT = ("the inverse tail is not differentiated in the JAX package "
+                        "either; use coupling_tail_inverse_plain")
 
 
 def coupling_tail_inverse(log_scale: torch.Tensor, bias: torch.Tensor,
@@ -476,7 +476,7 @@ def coupling_tail_inverse(log_scale: torch.Tensor, bias: torch.Tensor,
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel's
     plain-operand mode or raises. Not differentiable: raises where a
     gradient is asked for."""
-    _build.refuse_gradient("coupling_tail_inverse", _INVERSE_ROADMAP, log_scale, bias, y_b)
+    _build.refuse_gradient("coupling_tail_inverse", _INVERSE_NO_GRADIENT, log_scale, bias, y_b)
     if y_b.device.type == "cpu":
         return coupling_tail_inverse_plain(log_scale, bias, y_b)
     device = _build.check_cuda_f32("coupling_tail_inverse", log_scale, bias, y_b)
@@ -503,7 +503,7 @@ def coupling_step_tail_inverse(y: torch.Tensor, r: torch.Tensor, zb: torch.Tenso
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     (counted in `coupling_tail_inverse.launches`) or raises. Not
     differentiable: raises where a gradient is asked for."""
-    _build.refuse_gradient("coupling_step_tail_inverse", _INVERSE_ROADMAP, y, r, zb, zlogs)
+    _build.refuse_gradient("coupling_step_tail_inverse", _INVERSE_NO_GRADIENT, y, r, zb, zlogs)
     if y.device.type == "cpu":
         return coupling_step_tail_inverse_plain(y, r, zb, zlogs)
     device = _build.check_cuda_f32("coupling_step_tail_inverse", y, r, zb, zlogs)

@@ -229,7 +229,7 @@ def step_megakernel_forward(x: torch.Tensor, w_fold: torch.Tensor, b_fold: torch
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     or raises. Not differentiable: raises where a gradient is asked for."""
     _build.refuse_gradient("step_megakernel_forward",
-                           "§2.5: the JAX megakernel is forward only; use "
+                           "the JAX megakernel is forward only; use "
                            "bijectors.step_forward", x, w_fold, b_fold, *_leaves(net))
     width = _check(x, w_fold, b_fold, net)
     if x.device.type == "cpu":

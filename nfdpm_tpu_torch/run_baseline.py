@@ -7,7 +7,9 @@ and the same dotted overrides. It runs on the CUDA device; `device=cpu` is
 the only way onto the CPU. Phases:
 
   train: (optionally resumed) training with checkpoints, sample grids and
-         final test/train bits/dim;
+         final test/train bits/dim; `load.load_batch=k` resumes in the middle
+         of epoch `load.load_epoch` at batch k, as an interrupt's emergency
+         checkpoint logs it;
   eval:  restore a checkpoint's parameters (load.load_exp_dir, load_epoch)
          and compute test/train bits/dim, with
          model.evaluation.bpd_dequant_samples draws per image and, with
@@ -24,8 +26,7 @@ the same device, against stats that
 CUDA kernels on the card). It is true here unless an override names it: the
 file's own `false` is the JAX package's default, not the port's. What is
 not ported raises NotImplementedError instead of being skipped:
-`parallel.*` other than the defaults, `load.load_batch`, the watchdog and
-profiler hooks, and coupling_dtype=bfloat16.
+`parallel.*` other than the defaults and coupling_dtype=bfloat16.
 """
 
 from __future__ import annotations
@@ -46,11 +47,15 @@ def refuse_unported(cfg) -> None:
         value = cfg.select(f"parallel.{key}", default)
         if value != default:
             raise NotImplementedError(
-                f"parallel.{key}={value!r} is not ported (ROADMAP §1.13: multi-GPU); "
+                f"parallel.{key}={value!r} is not ported (ROADMAP: multi-GPU); "
                 "the port trains on one device")
-    if cfg.select("load.load_batch") is not None:
-        raise NotImplementedError(
-            "load.load_batch (mid-epoch resume) is not ported (ROADMAP §1.12)")
+
+
+def load_batch(cfg):
+    """`load.load_batch` of a resumed run, or None: the batch of epoch
+    `load.load_epoch` after which an interrupt wrote its checkpoint."""
+    batch = cfg.select("load.load_batch")
+    return int(batch) if cfg.load.load_exp_dir and batch is not None else None
 
 
 def make_evaluate_fn(cfg, loaders, logger, device, quick_num_gen: int):
@@ -157,6 +162,7 @@ def main(argv) -> dict:
     evaluate_fn = make_evaluate_fn(cfg, loaders, logger, device, quick_num_gen=15)
     resume_dir = cfg.load.load_exp_dir
     resume_epoch = int(cfg.load.load_epoch) if resume_dir else None
+    resume_batch = load_batch(cfg)
     if resume_dir:
         resume_dir = os.path.join("outputs", resume_dir)
 
@@ -164,8 +170,8 @@ def main(argv) -> dict:
         out = nft.train(
             cfg=gcfg, tcfg=tcfg, loaders=loaders, run_dir=run_dir, logger=logger,
             seed=int(cfg.seed), img_size=int(cfg.data.img_size),
-            resume_dir=resume_dir, resume_epoch=resume_epoch, evaluate_fn=evaluate_fn,
-            device=device)
+            resume_dir=resume_dir, resume_epoch=resume_epoch, resume_batch=resume_batch,
+            evaluate_fn=evaluate_fn, device=device)
         logger.info(f"Training done: {out['results']}")
         return {"run_dir": run_dir, "results": out["results"]}
     else:

@@ -26,11 +26,12 @@ them, at checkpoint epochs and at the end of `train` and in `eval`.
 
 `model.normalizing_flow.use_pallas` chooses the kernel route for the flow
 and the UNets (the hand-written CUDA kernels on the card); true here unless
-an override names it. What is not ported raises NotImplementedError:
-`parallel.*` other than the defaults (part-parallel included),
-`load.load_batch`, the watchdog and profiler hooks, a bf16 UNet and
-`coupling_dtype`, and an orbax run directory of the JAX package as the
-pretrained flow.
+an override names it. `load.load_batch=k` resumes in the middle of epoch
+`load.load_epoch` at batch k. What is not ported raises
+NotImplementedError: `parallel.*` other than the defaults (part-parallel
+included), a bf16 UNet and `coupling_dtype`, and an orbax run directory of
+the JAX package as the pretrained flow (tools/jax_run_to_torch.py converts
+one).
 """
 
 from __future__ import annotations
@@ -53,18 +54,18 @@ def refuse_unported(cfg) -> None:
         value = cfg.select(f"parallel.{key}", default)
         if value != default:
             raise NotImplementedError(
-                f"parallel.{key}={value!r} is not ported (ROADMAP §1.13: multi-GPU); "
+                f"parallel.{key}={value!r} is not ported (ROADMAP: multi-GPU); "
                 "the port trains on one device")
-    refuse_stage1(cfg)  # load.load_batch
+    refuse_stage1(cfg)
     if cfg.select("model.normalizing_flow.coupling_dtype"):
         raise NotImplementedError(
-            "model.normalizing_flow.coupling_dtype is not ported (ROADMAP §1.3: bf16); "
+            "model.normalizing_flow.coupling_dtype is not ported (ROADMAP: bf16); "
             "the port runs the coupling CNN in float32 only")
     unet_dtype = cfg.select("model.diffusion.unet_dtype", cfg.select("model.unet.dtype",
                                                                      "float32"))
     if str(unet_dtype) != "float32":
         raise NotImplementedError(
-            f"a {unet_dtype} UNet is not ported (ROADMAP §1.3: bf16); the port runs "
+            f"a {unet_dtype} UNet is not ported (ROADMAP: bf16); the port runs "
             "the UNet in float32 only")
 
 
@@ -78,7 +79,7 @@ def main(argv) -> dict:
     from .models.diffusion_prior import DiffusionPrior
     from .models.formaters import get_formater, stats_from_json
     from .models.nf_backbone import NFBackbone, load_pretrained_flow
-    from .run_baseline import make_evaluate_fn
+    from .run_baseline import load_batch, make_evaluate_fn
     from .training import diffusion_trainer as dt
     from .training.checkpoint import load_architecture, restore_params, save_architecture
     from .utils.config import load_config, make_run_dir
@@ -179,6 +180,7 @@ def main(argv) -> dict:
 
     resume_dir = cfg.load.load_exp_dir
     resume_epoch = int(cfg.load.load_epoch) if resume_dir else None
+    resume_batch = load_batch(cfg)
     if resume_dir:
         resume_dir = os.path.join("outputs", resume_dir)
 
@@ -244,7 +246,7 @@ def main(argv) -> dict:
         out = dt.train(backbone=backbone, flow_params=flow_params, dp=dp, tcfg=tcfg,
                        loaders=loaders, run_dir=run_dir, logger=logger, seed=int(cfg.seed),
                        resume_dir=resume_dir, resume_epoch=resume_epoch,
-                       evaluate_fn=evaluate_fn, device=device)
+                       resume_batch=resume_batch, evaluate_fn=evaluate_fn, device=device)
         return {**report_vlb(dt.ema_eval_params(out["state"])), **out["results"]}
     else:
         if not resume_dir:

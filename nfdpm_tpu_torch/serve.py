@@ -7,6 +7,7 @@ Counterpart of tools/serve.py, with the same contract, for both kinds:
         --width 512 --img-size 32 --batch 64 --port 8400
     python -m nfdpm_tpu_torch.serve --weights diffusion.npz \\
         --arch diffusion_architecture.json [--ddim 100] [--sampler ddim] --port 8400
+    python -m nfdpm_tpu_torch.serve --run-dir <run> [--epoch 10] [--no-ema] --port 8400
     curl localhost:8400/health
     curl -X POST localhost:8400/generate -d '{"n": 16, "seed": 7}' -o out.npz
 
@@ -26,6 +27,13 @@ in_channels, coupling_width, learn_prior, invconv_param, img_size),
 and "temperature"; --ddim overrides sampling_timesteps and --sampler the
 sampling method. The server runs on CUDA unless --device names another
 device.
+
+With --run-dir the server reads a run directory of the port instead
+(training/runload.py, either kind: the newest checkpoint unless --epoch
+names one; for a stage-2 run its EMA weights where it kept them, unless
+--no-ema), as tools/serve.py does for the JAX package's; /health then also
+reports "run_dir", "kind" and "epoch". A run directory of the JAX package
+is converted first with tools/jax_run_to_torch.py.
 """
 
 from __future__ import annotations
@@ -42,10 +50,8 @@ import numpy as np
 from . import resolve_device
 from .convert import diffusion_from_jax_params, from_jax_params, load_npz
 from .inference import generate_batched, make_diffusion_sample_fn, make_sample_fn
-from .models import formaters
 from .models import glow as glow_m
-from .models.diffusion_prior import DiffusionPrior
-from .models.nf_backbone import NFBackbone
+from .training import runload
 
 
 def image_grid(images: np.ndarray, nrow: int = 8, pad: int = 1) -> np.ndarray:
@@ -95,44 +101,48 @@ def _diffusion_model(args, device):
     """(sample_fn, params, info) of the diffusion kind, from --arch."""
     with open(args.arch) as f:
         arch = json.load(f)
-    fl = arch["flow"]
-    cfg = glow_m.GlowConfig(
-        in_channels=int(fl["in_channels"]), levels=int(fl["L"]), steps=int(fl["K"]),
-        coupling_width=int(fl["coupling_width"]),
-        learn_prior=bool(fl.get("learn_prior", True)),
-        invconv_param=str(fl.get("invconv_param", "plu")))
-    img_size = int(fl["img_size"])
-    formater = formaters.get_formater(arch["formater"])(
-        L=cfg.levels, in_channels=cfg.in_channels, size=img_size,
-        stats=formaters.stats_from_json(arch.get("formater_stats")))
-    dkw = dict(arch["diffusion_kwargs"])
-    if args.ddim is not None:
-        dkw["sampling_timesteps"] = args.ddim
-    if args.sampler is not None:
-        dkw["sampling_method"] = args.sampler
-    ukw = dict(arch["unet_kwargs"])
-    if "dim_mults" in ukw:
-        ukw["dim_mults"] = tuple(ukw["dim_mults"])
-    dp = DiffusionPrior(formater=formater, unet_kwargs=ukw, diffusion_kwargs=dkw)
+    backbone, dp = runload.build_diffusion_model(arch, args.ddim, args.sampler)
+    cfg, dkw = backbone.cfg, dp.diffusion_kwargs
     params = diffusion_from_jax_params(load_npz(args.weights), dp, device)
     _check_flow(params["flow"], cfg, args.weights)
     n_bits = int(arch.get("n_bits", 5))
     temperature = (float(arch.get("temperature", 1.0)) if args.temperature is None
                    else args.temperature)
-    backbone = NFBackbone(cfg=cfg, img_size=img_size)
     info = {"kind": "diffusion", "arch": str(args.arch), "temperature": temperature,
             "levels": cfg.levels, "steps": cfg.steps, "width": cfg.coupling_width,
-            "img_size": img_size, "n_bits": n_bits, "formater": arch["formater"],
+            "img_size": backbone.img_size, "n_bits": n_bits, "formater": arch["formater"],
             "sampling_method": dkw.get("sampling_method", "auto"),
             "sampling_timesteps": dkw.get("sampling_timesteps"),
             "timesteps": dkw.get("timesteps", 1000)}
     return make_diffusion_sample_fn(backbone, dp, n_bits, device), params, info
 
 
+def _run_dir_model(args, device):
+    """(sample_fn, params, info) of a run directory, either kind."""
+    run_dir = runload.resolve_run_dir(args.run_dir)
+    kind, run = runload.load_run(run_dir, args.epoch, args.ddim, not args.no_ema,
+                                 args.sampler, device)
+    if kind == "diffusion":
+        cfg, dkw = run.backbone.cfg, run.dp.diffusion_kwargs
+        extra = {"formater": type(run.dp.formater).__name__,
+                 "sampling_method": dkw.get("sampling_method", "auto"),
+                 "sampling_timesteps": dkw.get("sampling_timesteps"),
+                 "timesteps": dkw.get("timesteps", 1000), "ema": not args.no_ema}
+    else:
+        cfg, extra = run.gcfg, {}
+    temperature = run.temperature if args.temperature is None else args.temperature
+    info = {"run_dir": run_dir, "kind": kind, "epoch": run.epoch,
+            "temperature": float(temperature), "levels": cfg.levels, "steps": cfg.steps,
+            "width": cfg.coupling_width, "img_size": run.img_size,
+            "n_bits": run.tcfg.n_bits, **extra}
+    return runload.sample_fn_of(kind, run, device), run.params, info
+
+
 def build_sampler(args):
     """(sample_images(n, temperature, seed) -> uint8 NHWC numpy, info dict)."""
     device = resolve_device(args.device)
-    model = _diffusion_model if args.arch else _glow_model
+    model = (_run_dir_model if args.run_dir else _diffusion_model if args.arch
+             else _glow_model)
     sample_fn, params, kind_info = model(args, device)
 
     batch = args.batch
@@ -142,8 +152,8 @@ def build_sampler(args):
         with lock:  # one sampler, one stream of work on the card
             return generate_batched(sample_fn, params, n, batch, temperature, seed)
 
-    info = {"weights": str(args.weights), "batch": batch, "device": str(device),
-            **kind_info}
+    source = {"weights": str(args.weights)} if args.weights else {}
+    info = {**source, "batch": batch, "device": str(device), **kind_info}
     t0 = time.perf_counter()
     sample_images(min(2, batch), info["temperature"], 0)  # build kernels + warm
     info["warmup_seconds"] = round(time.perf_counter() - t0, 2)
@@ -213,8 +223,17 @@ def make_handler(sample_images, info):
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--weights", required=True,
-                    help=".npz written by nfdpm_tpu_torch.convert.save_npz")
+    source = ap.add_mutually_exclusive_group(required=True)
+    source.add_argument("--weights", help=".npz written by nfdpm_tpu_torch.convert.save_npz")
+    source.add_argument("--run-dir", help="a run directory of the port (or its name "
+                        "under outputs/), either kind")
+    ap.add_argument("--epoch", type=int, default=None,
+                    help="--run-dir: checkpoint epoch (default: the newest)")
+    ap.add_argument("--no-ema", action="store_true",
+                    help="--run-dir, diffusion kind: serve the live weights instead of "
+                         "the EMA shadow")
+    ap.add_argument("--data-parallel", action="store_true",
+                    help="not ported: the port serves from one device")
     ap.add_argument("--levels", type=int, default=3, help="Glow kind (also --steps "
                     "... --invconv-param); the diffusion kind reads them from --arch")
     ap.add_argument("--steps", type=int, default=4)
@@ -238,7 +257,11 @@ def parse_args(argv=None):
                     help="torch device (default: CUDA, and fail without it)")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8400)
-    return ap.parse_args(argv)
+    args = ap.parse_args(argv)
+    if args.data_parallel:
+        raise NotImplementedError("--data-parallel is not ported (ROADMAP: multi-GPU); "
+                                  "the port serves from one device")
+    return args
 
 
 def make_server(argv=None) -> ThreadingHTTPServer:

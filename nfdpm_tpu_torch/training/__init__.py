@@ -1,2 +1,3 @@
-"""Stage-1 training: optimizer, train and eval steps, the training loop,
-checkpoints and experiment tracking."""
+"""Training of both stages: optimizer, train and eval steps, the training
+loops, checkpoints, experiment tracking, and rebuilding a model from a run
+directory (runload)."""

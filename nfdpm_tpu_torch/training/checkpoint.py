@@ -10,7 +10,9 @@ lists, a module saved as the dict of its parameters by name, goes to
 written under a temporary name and renamed, so an interrupted write never
 leaves a truncated checkpoint. `architecture.json` beside it holds the
 hyperparameters a later run needs to rebuild the flow. Writes are
-synchronous.
+synchronous. `checkpoints/mid_epoch.json` marks a checkpoint that an
+interrupt wrote in the middle of an epoch, with the JAX package's keys and
+values, so that a resume continues from the exact batch.
 """
 
 from __future__ import annotations
@@ -102,9 +104,49 @@ def restore_params(run_dir: str, prefix: str, epoch: int, device=None,
     return _place(params, device)
 
 
-def latest_epoch(run_dir: str, prefix: str) -> Optional[int]:
-    pat = re.compile(rf"model_{prefix}_(\d+)\.pt$")
+def _marker_path(run_dir: str) -> str:
+    return os.path.join(run_dir, "checkpoints", "mid_epoch.json")
+
+
+def save_mid_epoch_marker(run_dir: str, prefix: str, epoch: int,
+                          batch_in_epoch: int) -> None:
+    """Record that the checkpoint of `epoch` was written after
+    `batch_in_epoch` train batches of that epoch (the trainers' interrupt
+    path), so that a resume re-enters the epoch at that batch
+    (`resume_batch`)."""
+    os.makedirs(os.path.dirname(_marker_path(run_dir)), exist_ok=True)
+    with open(_marker_path(run_dir), "w") as f:
+        json.dump({"prefix": prefix, "epoch": epoch, "batch_in_epoch": batch_in_epoch}, f)
+
+
+def load_mid_epoch_marker(run_dir: str) -> Optional[Dict[str, Any]]:
+    if not os.path.exists(_marker_path(run_dir)):
+        return None
+    with open(_marker_path(run_dir)) as f:
+        return json.load(f)
+
+
+def clear_mid_epoch_marker(run_dir: str) -> None:
+    """Remove the marker: a run that completes leaves none behind."""
+    if os.path.exists(_marker_path(run_dir)):
+        os.remove(_marker_path(run_dir))
+
+
+def _epochs(run_dir: str, prefix: str, orbax: bool = False) -> list:
+    """Epochs of the port's checkpoint files model_{prefix}_NNN.pt, or with
+    `orbax=True` of the JAX package's checkpoint directories model_{prefix}_NNN."""
+    pat = re.compile(rf"model_{prefix}_(\d+)" + ("" if orbax else r"\.pt") + "$")
     d = os.path.join(run_dir, "checkpoints")
     names = os.listdir(d) if os.path.isdir(d) else []
-    epochs = [int(m.group(1)) for f in names if (m := pat.match(f))]
-    return max(epochs) if epochs else None
+    return [int(m.group(1)) for f in names if (m := pat.match(f))
+            and os.path.isdir(os.path.join(d, f)) == orbax]
+
+
+def latest_epoch(run_dir: str, prefix: str) -> Optional[int]:
+    return max(_epochs(run_dir, prefix), default=None)
+
+
+def orbax_epochs(run_dir: str, prefix: str) -> list:
+    """Epochs of the orbax checkpoints a JAX run directory holds, which the
+    port does not read (tools/jax_run_to_torch.py converts them)."""
+    return _epochs(run_dir, prefix, orbax=True)

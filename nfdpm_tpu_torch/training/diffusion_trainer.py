@@ -22,14 +22,18 @@ Counterpart of nfdpm_tpu/training/diffusion_trainer.py, in eager PyTorch:
     `ema_eval_params`.
   * Checkpoints every `save_checkpoint_freq` epochs and at the end (a
     UNet saved as the dict of its parameters by name); resume at an epoch
-    boundary, the EMA kept, dropped or seeded as the run asks.
+    boundary or in the middle of one (`resume_batch`), the EMA kept,
+    dropped or seeded as the run asks.
+  * An interrupt (Ctrl-C, or the hung-step watchdog of
+    `watchdog_timeout_s`) writes an emergency checkpoint of the steps taken,
+    EMA included, and the mid-epoch marker; `profile_epoch` traces
+    `profile_steps` steps of that epoch into <run_dir>/tb/profile/; each
+    epoch logs its step time's p50 and p95, as in nf_trainer.
   * `calculate_bpd_with_diff_prior`: the variational bound in bits/dim over
     a loader, with its standard error; `fit_latent_stats` for latent
     standardization.
 
-Not here yet: mid-epoch interrupt checkpoints, the hung-step watchdog and
-the profiler hook (`watchdog_timeout_s` and `profile_epoch` raise when
-set), sample metrics and training across several devices.
+Not here yet: training across several devices.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import math
+import os
 import time
 from typing import Any, Dict, Optional
 
@@ -51,7 +56,10 @@ from ..models.diffusion_prior import DiffusionPrior
 from ..models.formaters import fit_formater_stats
 from ..models.nf_backbone import NFBackbone
 from ..ops import quantize as q
-from .checkpoint import restore_state, save_state
+from ..utils.profiling import EpochProfiler, StepTimer
+from ..utils.watchdog import StepWatchdog, interrupt_after_block
+from .checkpoint import (clear_mid_epoch_marker, restore_state, save_mid_epoch_marker,
+                         save_state)
 from .optim import Optimizer, make_lr_schedule
 from .tracking import Tracker
 
@@ -82,21 +90,11 @@ class DiffusionTrainConfig:
     compat_three_channel_bpd: bool = True  # count 3 channels per pixel even
     # for 1-channel images, as the published bits/dim do
     ema_decay: Optional[float] = None  # e.g. 0.9995: EMA of the trainable params
-    profile_epoch: Optional[int] = None  # not ported: raises when set
-    profile_steps: int = 50
-    watchdog_timeout_s: Optional[float] = None  # not ported: raises when set
+    profile_epoch: Optional[int] = None  # trace that epoch's first
+    profile_steps: int = 50               # profile_steps steps
+    watchdog_timeout_s: Optional[float] = None  # hung-step detection
     ema_update_every: int = 10  # 1: the EMA update inside the step; k > 1:
     # every k-th step, its warm-up counting updates (n = step // k)
-
-    def __post_init__(self):
-        if self.watchdog_timeout_s is not None:
-            raise NotImplementedError(
-                "watchdog_timeout_s is not ported (ROADMAP §1.12: run-dir tooling, "
-                "resume, watchdog)")
-        if self.profile_epoch is not None:
-            raise NotImplementedError(
-                "profile_epoch is not ported (ROADMAP §1.12); profile a step with "
-                "nfdpm_tpu_torch.profiling.profile_call")
 
 
 def make_two_group_optimizer(tcfg: DiffusionTrainConfig, frozen: bool) -> Optimizer:
@@ -372,16 +370,18 @@ def restore_train_state(run_dir: str, epoch: int, backbone: NFBackbone, dp: Diff
 def train(*, backbone: NFBackbone, flow_params, dp: DiffusionPrior,
           tcfg: DiffusionTrainConfig, loaders: DatasetLoaders, run_dir: str, logger,
           seed: int = 42, resume_dir: Optional[str] = None,
-          resume_epoch: Optional[int] = None, evaluate_fn=None,
-          device=None) -> Dict[str, Any]:
+          resume_epoch: Optional[int] = None, resume_batch: Optional[int] = None,
+          evaluate_fn=None, device=None) -> Dict[str, Any]:
     """The whole stage-2 training run, on `device` (CUDA unless named).
     `evaluate_fn(sample_fn, params, epoch)` is an optional hook for sample
     metrics at checkpoint epochs and, with `full=True`, at the end.
 
-    Resume: `resume_epoch=E` means E epochs are complete in `resume_dir`;
-    training continues at epoch E+1 and, each epoch's data order being a
-    pure function of (seed, epoch) and each step's draws one of (seed,
-    step), repeats what the uninterrupted run would have done."""
+    Resume as in nf_trainer.train: `resume_epoch=E` continues after the
+    complete epoch E; `resume_batch=k` re-enters the interrupted epoch E at
+    batch k. Each epoch's data order being a pure function of (seed, epoch)
+    and each step's draws one of (seed, step), either repeats what the
+    uninterrupted run would have done. An interrupt saves the steps taken
+    (EMA included) and the mid-epoch marker, then is raised again."""
     device = resolve_device(device)
     disable_tf32()
     tx = make_two_group_optimizer(tcfg, backbone.frozen)
@@ -392,8 +392,9 @@ def train(*, backbone: NFBackbone, flow_params, dp: DiffusionPrior,
     start_epoch = 0
     if resume_dir is not None and resume_epoch is not None:
         state = restore_train_state(resume_dir, resume_epoch, backbone, dp, want_ema, device)
-        start_epoch = resume_epoch
-        logger.info(f"Resumed from {resume_dir} @ epoch {resume_epoch}")
+        start_epoch = resume_epoch - 1 if resume_batch is not None else resume_epoch
+        logger.info(f"Resumed from {resume_dir} @ epoch {resume_epoch}"
+                    + (f" batch {resume_batch}" if resume_batch is not None else ""))
     else:
         state = init_train_state(seed, backbone, flow_params, dp, tx, ema=want_ema,
                                  device=device)
@@ -404,49 +405,83 @@ def train(*, backbone: NFBackbone, flow_params, dp: DiffusionPrior,
               if want_ema and tcfg.ema_update_every > 1 else None)
     sample_fn = make_sample_fn(backbone, dp, tcfg, seed, device)
 
+    wd = StepWatchdog(tcfg.watchdog_timeout_s, run_dir=run_dir, logger=logger)
+    profiler = EpochProfiler(os.path.join(run_dir, "tb"), tcfg.profile_epoch,
+                             tcfg.profile_steps, device, logger)
     log_count = 0
-    for epoch in range(start_epoch + 1, start_epoch + tcfg.epochs + 1):
-        t0 = time.time()
-        pending = []  # device scalars; fetched only at print_freq
-        for batch, _labels in prefetch_to_device(loaders.train.iter_epoch(epoch - 1), device):
-            state, metrics = train_step(state, batch, seed)
-            current_iter += 1
-            if ema_fn is not None and current_iter % tcfg.ema_update_every == 0:
-                state = ema_fn(state)
-            pending.append(metrics["loss"])
+    epoch, iters_this_epoch = start_epoch, 0
+    try:
+        for epoch in range(start_epoch + 1, start_epoch + tcfg.epochs + 1):
+            t0 = time.time()
+            timer = StepTimer()
+            pending = []  # device scalars; fetched only at print_freq
+            skip = resume_batch if resume_batch is not None and epoch == resume_epoch else 0
+            iters_this_epoch = skip
+            wd.start()  # the step loop only (nf_trainer.train)
+            profiler.start_epoch(epoch)
+            for batch, _labels in prefetch_to_device(
+                    loaders.train.iter_epoch(epoch - 1, start_batch=skip), device):
+                with interrupt_after_block():
+                    with timer.step():
+                        state, metrics = train_step(state, batch, seed)
+                    current_iter += 1
+                    iters_this_epoch += 1
+                    if ema_fn is not None and current_iter % tcfg.ema_update_every == 0:
+                        state = ema_fn(state)
+                wd.beat()
+                profiler.step()
+                pending.append(metrics["loss"])
 
-            if current_iter % tcfg.print_freq == 0:
-                avg = float(torch.stack(pending).mean())
-                pending = []
-                tracker.track(avg, loss_name, step=current_iter, epoch=epoch,
-                              context={"subset": "train"})
-                logger.info(f"epoch {epoch} iter {current_iter}: {loss_name} {avg:.4f}")
-                log_count += 1
-                if log_count % tcfg.log_gen_images_per_iter == 0:
-                    samples = sample_fn(ema_eval_params(state), tcfg.n_samples_log,
-                                        tcfg.temperature, 2 * current_iter + 1)
-                    tracker.track_images(samples.cpu().numpy(), "generated",
-                                         step=current_iter, epoch=epoch)
+                if current_iter % tcfg.print_freq == 0:
+                    avg = float(torch.stack(pending).mean())
+                    wd.beat_sync()  # the fetch waited for the steps
+                    pending = []
+                    tracker.track(avg, loss_name, step=current_iter, epoch=epoch,
+                                  context={"subset": "train"})
+                    logger.info(f"epoch {epoch} iter {current_iter}: {loss_name} {avg:.4f}")
+                    log_count += 1
+                    if log_count % tcfg.log_gen_images_per_iter == 0:
+                        samples = sample_fn(ema_eval_params(state), tcfg.n_samples_log,
+                                            tcfg.temperature, 2 * current_iter + 1)
+                        tracker.track_images(samples.cpu().numpy(), "generated",
+                                             step=current_iter, epoch=epoch)
 
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        dt = time.time() - t0
-        logger.info(f"epoch {epoch} done in {dt:.1f}s "
-                    f"({len(loaders.train) / max(dt, 1e-9):.2f} it/s)")
-        if tcfg.log_param_distribution:
-            tracker.track_param_distributions(state["params"], step=current_iter,
-                                              epoch=epoch)
+            wd.stop()
+            profiler.end_epoch()
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            dt = time.time() - t0
+            ts = timer.summary()
+            logger.info(f"epoch {epoch} done in {dt:.1f}s "
+                        f"({len(loaders.train) / max(dt, 1e-9):.2f} it/s, "
+                        f"step p50 {ts.get('p50_ms', 0):.1f}ms p95 {ts.get('p95_ms', 0):.1f}ms)")
+            if tcfg.log_param_distribution:
+                tracker.track_param_distributions(state["params"], step=current_iter,
+                                                  epoch=epoch)
 
-        if epoch % tcfg.save_checkpoint_freq == 0:
-            if evaluate_fn is not None:
-                evaluate_fn(sample_fn, ema_eval_params(state), epoch)
-            save_state(run_dir, "diffusion", epoch, state)
-            samples = sample_fn(ema_eval_params(state), 64, tcfg.temperature, 2 * epoch)
-            tracker.track_images(samples.cpu().numpy(), "checkpoint_samples",
-                                 step=current_iter, epoch=epoch)
+            if epoch % tcfg.save_checkpoint_freq == 0:
+                if evaluate_fn is not None:
+                    evaluate_fn(sample_fn, ema_eval_params(state), epoch)
+                save_state(run_dir, "diffusion", epoch, state)
+                samples = sample_fn(ema_eval_params(state), 64, tcfg.temperature, 2 * epoch)
+                tracker.track_images(samples.cpu().numpy(), "checkpoint_samples",
+                                     step=current_iter, epoch=epoch)
+    except KeyboardInterrupt:
+        wd.stop()
+        save_state(run_dir, "diffusion", epoch, state)
+        save_mid_epoch_marker(run_dir, "diffusion", epoch, iters_this_epoch)
+        logger.warning(("Watchdog stall: " if wd.fired else "Interrupted: ")
+                       + f"emergency checkpoint at epoch {epoch} batch {iters_this_epoch}; "
+                       f"resume bit for bit with load.load_epoch={epoch} "
+                       f"load.load_batch={iters_this_epoch}")
+        raise
+    finally:  # whatever ends the loop, no watchdog or trace outlives it
+        wd.stop()
+        profiler.end_epoch()
 
     final_epoch = start_epoch + tcfg.epochs
     save_state(run_dir, "diffusion", final_epoch, state)
+    clear_mid_epoch_marker(run_dir)  # the run completed
     results = {}
     if evaluate_fn is not None:
         results["metrics"] = evaluate_fn(sample_fn, ema_eval_params(state), final_epoch,

@@ -16,18 +16,23 @@ Counterpart of nfdpm_tpu/training/nf_trainer.py, in eager PyTorch:
     preprocessed and dequantized batch.
   * Checkpoints (training/checkpoint.py) every `save_checkpoint_freq`
     epochs and at the end; resume restores parameters, optimizer state and
-    step at an epoch boundary.
+    step at an epoch boundary or, after an interrupt, in the middle of an
+    epoch (`resume_batch`, from checkpoints/mid_epoch.json).
+  * An interrupt (Ctrl-C, or the hung-step watchdog of
+    `watchdog_timeout_s`, utils/watchdog.py) writes an emergency checkpoint
+    of the steps taken and the mid-epoch marker; `profile_epoch` traces
+    `profile_steps` steps of that epoch into <run_dir>/tb/profile/
+    (utils/profiling.py); each epoch logs its step time's p50 and p95.
   * `calculate_bpd` scores a loader with one or several dequantization
     draws per image, averaged or importance-weighted (IWAE).
 
-Not here yet: mid-epoch interrupt checkpoints, the hung-step watchdog and
-the profiler hook (`watchdog_timeout_s` and `profile_epoch` raise when
-set), and training across several devices.
+Not here yet: training across several devices.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Any, Dict, Optional
 
@@ -40,7 +45,10 @@ from ..data.pipeline import DatasetLoaders, Loader, prefetch_to_device
 from ..models import glow as glow_m
 from ..models import prior as prior_m
 from ..ops import quantize as q
-from .checkpoint import restore_state, save_architecture, save_state
+from ..utils.profiling import EpochProfiler, StepTimer
+from ..utils.watchdog import StepWatchdog, interrupt_after_block
+from .checkpoint import (clear_mid_epoch_marker, restore_state, save_architecture,
+                         save_mid_epoch_marker, save_state)
 from .optim import Optimizer, grads_of, make_lr_schedule, make_optimizer
 from .tracking import Tracker
 
@@ -70,21 +78,11 @@ class NFTrainConfig:
     # for 1-channel images, as the published bits/dim do
     compat_fixed_prior: bool = True  # optimize and clip the flow's leaves
     # only: the final Gaussian prior stays standard normal. False trains it.
-    profile_epoch: Optional[int] = None  # not ported: raises when set
-    profile_steps: int = 50
-    watchdog_timeout_s: Optional[float] = None  # not ported: raises when set
+    profile_epoch: Optional[int] = None  # trace that epoch's first
+    profile_steps: int = 50               # profile_steps steps
+    watchdog_timeout_s: Optional[float] = None  # hung-step detection
     grad_accum: int = 1  # microbatches per optimizer step: the batch is
     # split into `grad_accum` slices, gradients averaged, one update
-
-    def __post_init__(self):
-        if self.watchdog_timeout_s is not None:
-            raise NotImplementedError(
-                "watchdog_timeout_s is not ported (ROADMAP §1.12: run-dir tooling, "
-                "resume, watchdog)")
-        if self.profile_epoch is not None:
-            raise NotImplementedError(
-                "profile_epoch is not ported (ROADMAP §1.12); profile a step with "
-                "nfdpm_tpu_torch.profiling.profile_call")
 
 
 def optimizer_of(tcfg: NFTrainConfig) -> Optimizer:
@@ -255,15 +253,24 @@ def final_bpd(eval_step, params, loaders: DatasetLoaders, seed: int,
 def train(*, cfg: glow_m.GlowConfig, tcfg: NFTrainConfig, loaders: DatasetLoaders,
           run_dir: str, logger, seed: int = 42, img_size: int = 32,
           resume_dir: Optional[str] = None, resume_epoch: Optional[int] = None,
-          evaluate_fn=None, device=None) -> Dict[str, Any]:
+          resume_batch: Optional[int] = None, evaluate_fn=None,
+          device=None) -> Dict[str, Any]:
     """The whole training run, on `device` (CUDA unless named).
     `evaluate_fn(sample_fn, params, epoch)` is an optional hook for sample
     metrics at checkpoint epochs and, with `full=True`, at the end.
 
-    Resume: `resume_epoch=E` means E epochs are complete in `resume_dir`:
-    training continues at epoch E+1 and, because each epoch's data order is
-    a pure function of (seed, epoch) and each step's noise one of (seed,
-    step), repeats exactly what the uninterrupted run would have done."""
+    Resume: `resume_epoch=E` (with `resume_batch=None`) means E epochs are
+    complete in `resume_dir`: training continues at epoch E+1 and, because
+    each epoch's data order is a pure function of (seed, epoch) and each
+    step's noise one of (seed, step), repeats exactly what the uninterrupted
+    run would have done. `resume_batch=k` means the checkpoint was written
+    in the middle of epoch E after k batches (the interrupt path records it
+    in checkpoints/mid_epoch.json): epoch E is re-entered at batch k and
+    counts as the first of `tcfg.epochs`. Both continue bit for bit.
+
+    An interrupt (KeyboardInterrupt, also the watchdog's) saves the state of
+    the steps taken as epoch E's checkpoint, writes the marker and is raised
+    again; a run that completes removes the marker."""
     device = resolve_device(device)
     disable_tf32()
     tx = optimizer_of(tcfg)
@@ -272,8 +279,9 @@ def train(*, cfg: glow_m.GlowConfig, tcfg: NFTrainConfig, loaders: DatasetLoader
 
     if resume_dir is not None and resume_epoch is not None:
         state = restore_state(resume_dir, "gaussian", resume_epoch, device)
-        start_epoch = resume_epoch
-        logger.info(f"Resumed from {resume_dir} @ epoch {resume_epoch}")
+        start_epoch = resume_epoch - 1 if resume_batch is not None else resume_epoch
+        logger.info(f"Resumed from {resume_dir} @ epoch {resume_epoch}"
+                    + (f" batch {resume_batch}" if resume_batch is not None else ""))
     else:
         state = init_train_state(seed, cfg, tcfg, tx, device)
         # data-dependent actnorm init on one preprocessed batch
@@ -295,47 +303,82 @@ def train(*, cfg: glow_m.GlowConfig, tcfg: NFTrainConfig, loaders: DatasetLoader
     eval_step = make_eval_step(cfg, tcfg, device)
     sample_fn = make_sample_fn(cfg, tcfg, img_size, seed, device)
 
+    wd = StepWatchdog(tcfg.watchdog_timeout_s, run_dir=run_dir, logger=logger)
+    profiler = EpochProfiler(os.path.join(run_dir, "tb"), tcfg.profile_epoch,
+                             tcfg.profile_steps, device, logger)
     log_count = 0
-    for epoch in range(start_epoch + 1, start_epoch + tcfg.epochs + 1):
-        t0 = time.time()
-        pending = []  # device scalars; fetched only at print_freq
-        for batch, _labels in prefetch_to_device(loaders.train.iter_epoch(epoch - 1), device):
-            state, metrics = train_step(state, batch, seed)
-            current_iter += 1
-            pending.append(metrics["bpd"])
+    epoch, iters_this_epoch = start_epoch, 0
+    try:
+        for epoch in range(start_epoch + 1, start_epoch + tcfg.epochs + 1):
+            t0 = time.time()
+            timer = StepTimer()
+            pending = []  # device scalars; fetched only at print_freq
+            skip = resume_batch if resume_batch is not None and epoch == resume_epoch else 0
+            iters_this_epoch = skip
+            wd.start()  # watches the step loop only: the checkpoint epoch's
+            # evaluation and save below may take longer than a step timeout
+            profiler.start_epoch(epoch)
+            for batch, _labels in prefetch_to_device(
+                    loaders.train.iter_epoch(epoch - 1, start_batch=skip), device):
+                with interrupt_after_block():
+                    with timer.step():
+                        state, metrics = train_step(state, batch, seed)
+                    current_iter += 1
+                    iters_this_epoch += 1
+                wd.beat()
+                profiler.step()
+                pending.append(metrics["bpd"])
 
-            if current_iter % tcfg.print_freq == 0:
-                avg = float(torch.stack(pending).mean())
-                pending = []
-                tracker.track(avg, "bpd", step=current_iter, epoch=epoch,
-                              context={"subset": "train"})
-                logger.info(f"epoch {epoch} iter {current_iter}: bpd {avg:.4f}")
-                log_count += 1
-                if (log_count % tcfg.log_gen_images_per_iter == 0) and epoch % 5 == 0:
-                    samples = sample_fn(state["params"], tcfg.n_samples_log,
-                                        tcfg.temperature, 2 * current_iter + 1)
-                    tracker.track_images(samples.cpu().numpy(), "generated",
-                                         step=current_iter, epoch=epoch)
+                if current_iter % tcfg.print_freq == 0:
+                    avg = float(torch.stack(pending).mean())
+                    wd.beat_sync()  # the fetch waited for the steps
+                    pending = []
+                    tracker.track(avg, "bpd", step=current_iter, epoch=epoch,
+                                  context={"subset": "train"})
+                    logger.info(f"epoch {epoch} iter {current_iter}: bpd {avg:.4f}")
+                    log_count += 1
+                    if (log_count % tcfg.log_gen_images_per_iter == 0) and epoch % 5 == 0:
+                        samples = sample_fn(state["params"], tcfg.n_samples_log,
+                                            tcfg.temperature, 2 * current_iter + 1)
+                        tracker.track_images(samples.cpu().numpy(), "generated",
+                                             step=current_iter, epoch=epoch)
 
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        dt = time.time() - t0
-        logger.info(f"epoch {epoch} done in {dt:.1f}s "
-                    f"({len(loaders.train) / max(dt, 1e-9):.2f} it/s)")
-        if tcfg.log_param_distribution:
-            tracker.track_param_distributions(state["params"], step=current_iter,
-                                              epoch=epoch)
+            wd.stop()
+            profiler.end_epoch()
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            dt = time.time() - t0
+            ts = timer.summary()
+            logger.info(f"epoch {epoch} done in {dt:.1f}s "
+                        f"({len(loaders.train) / max(dt, 1e-9):.2f} it/s, "
+                        f"step p50 {ts.get('p50_ms', 0):.1f}ms p95 {ts.get('p95_ms', 0):.1f}ms)")
+            if tcfg.log_param_distribution:
+                tracker.track_param_distributions(state["params"], step=current_iter,
+                                                  epoch=epoch)
 
-        if epoch % tcfg.save_checkpoint_freq == 0:
-            if evaluate_fn is not None:
-                evaluate_fn(sample_fn, state["params"], epoch)
-            save_state(run_dir, "gaussian", epoch, state)
-            samples = sample_fn(state["params"], 64, tcfg.temperature, 2 * epoch)
-            tracker.track_images(samples.cpu().numpy(), "checkpoint_samples",
-                                 step=current_iter, epoch=epoch)
+            if epoch % tcfg.save_checkpoint_freq == 0:
+                if evaluate_fn is not None:
+                    evaluate_fn(sample_fn, state["params"], epoch)
+                save_state(run_dir, "gaussian", epoch, state)
+                samples = sample_fn(state["params"], 64, tcfg.temperature, 2 * epoch)
+                tracker.track_images(samples.cpu().numpy(), "checkpoint_samples",
+                                     step=current_iter, epoch=epoch)
+    except KeyboardInterrupt:
+        wd.stop()
+        save_state(run_dir, "gaussian", epoch, state)
+        save_mid_epoch_marker(run_dir, "gaussian", epoch, iters_this_epoch)
+        logger.warning(("Watchdog stall: " if wd.fired else "Interrupted: ")
+                       + f"emergency checkpoint at epoch {epoch} batch {iters_this_epoch}; "
+                       f"resume bit for bit with load.load_epoch={epoch} "
+                       f"load.load_batch={iters_this_epoch}")
+        raise
+    finally:  # whatever ends the loop, no watchdog or trace outlives it
+        wd.stop()
+        profiler.end_epoch()
 
     final_epoch = start_epoch + tcfg.epochs
     save_state(run_dir, "gaussian", final_epoch, state)
+    clear_mid_epoch_marker(run_dir)  # the run completed
 
     results = final_bpd(eval_step, state["params"], loaders, seed)
     for name, bpd in results.items():

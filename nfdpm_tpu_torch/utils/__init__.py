@@ -1,2 +1,3 @@
-"""Configuration (YAML roots with dotted overrides, run directories) and
-environment helpers (logging, seeding)."""
+"""Configuration (YAML roots with dotted overrides, run directories),
+environment helpers (logging, seeding), the hung-step watchdog and the
+trainers' profiler hook."""

@@ -188,3 +188,151 @@ def precompute_stats(monkeypatch, stats_dir, img_size):
     for mode in ("legacy_tensorflow", "clean"):
         tcompute.precompute_statistics(None, "", "synthetic", "train", img_size, mode,
                                        "inception_v3", limit=64, device="cpu")
+
+
+# -- run directories of the JAX package, written on the CPU (orbax) ------------
+
+REPO_ROOT = __import__("pathlib").Path(__file__).resolve().parents[1]
+RUN_GLOW = dict(in_channels=3, levels=2, steps=2, coupling_width=16)
+RUN_IMG = 8
+RUN_DATA = ["data.name=synthetic", "data.synthetic_fallback=true", "data.batch_size=8",
+            f"data.img_size={RUN_IMG}", "data.synthetic_n=32"]
+RUN_UNET = dict(dim=8, dim_mults=(1, 2), resnet_block_groups=2)
+RUN_DIFF = dict(timesteps=6, sampling_timesteps=3, loss_type="l1", beta_schedule="cosine",
+                ddim_sampling_eta=1.0, scan_unroll=1, sampling_method="auto",
+                vlb_time_chunk=4)
+
+
+def _write_config(run_dir, root_yaml, overrides):
+    from nfdpm_tpu.utils.config import load_config
+
+    cfg = load_config(str(REPO_ROOT / "configs" / root_yaml), overrides)
+    (run_dir / "config.yaml").write_text(cfg.to_yaml())
+
+
+def write_jax_glow_run(run_dir, epochs=(1,), temperature=0.7):
+    """A stage-1 run directory as the JAX package writes it: architecture.json,
+    config.yaml and orbax checkpoints model_gaussian_<e> of seeded weights
+    ({"params", "opt_state", "step"}). Returns {epoch: numpy params}."""
+    from nfdpm_tpu.models import glow as jglow
+    from nfdpm_tpu.models import prior as jprior
+    from nfdpm_tpu.training import checkpoint as jckpt
+    from nfdpm_tpu.training import nf_trainer as jnft
+    from nfdpm_tpu_torch.models.glow import final_channels
+
+    run_dir.mkdir(parents=True, exist_ok=True)
+    cfg = jglow.GlowConfig(**RUN_GLOW)
+    jckpt.save_architecture(str(run_dir), {
+        "L": cfg.levels, "K": cfg.steps, "in_channels": cfg.in_channels, "img_size": RUN_IMG,
+        "coupling_width": cfg.coupling_width, "learn_prior": cfg.learn_prior, "n_bits": 5,
+        "fixed_prior": True, "temperature": temperature, "optimizer": "adam",
+        "invconv_param": cfg.invconv_param})
+    _write_config(run_dir, "nf_base.yaml", RUN_DATA + [
+        f"model.architecture.L={cfg.levels}", f"model.architecture.K={cfg.steps}",
+        f"model.architecture.coupling_width={cfg.coupling_width}",
+        f"model.training.temperature={temperature}"])
+    tx = jnft.make_optimizer("adam", 1e-3)
+    out = {}
+    for epoch in epochs:
+        tree = randomize(to_numpy_tree({
+            "flow": jglow.init_glow(0, cfg),
+            "prior": jprior.init_gaussian_prior(final_channels(cfg), True)}),
+            seed=epoch)
+        params = jax.tree.map(jax.numpy.asarray, tree)
+        jckpt.save_state(str(run_dir), "gaussian", epoch, {
+            "params": params, "opt_state": tx.init(params), "step": np.int32(4 * epoch)})
+        out[epoch] = tree
+    return out
+
+
+def write_jax_diffusion_run(run_dir, formater="IdentityFormater", ema=True):
+    """A stage-2 run directory as the JAX package's entry point writes it:
+    diffusion_architecture.json, config.yaml and one orbax checkpoint
+    model_diffusion_001 of seeded weights, with an EMA shadow of the UNets
+    that differs from them. The UNet trees come from the port's seeded init
+    through convert.unet_to_flax (flax's init compiles for seconds).
+    Returns (numpy params, numpy EMA tree or None, the architecture dict)."""
+    from nfdpm_tpu.models import glow as jglow
+    from nfdpm_tpu.training import checkpoint as jckpt
+    from nfdpm_tpu_torch import convert
+    from nfdpm_tpu_torch.models import formaters as tfmt
+    from nfdpm_tpu_torch.models.diffusion_prior import DiffusionPrior as TDiffusionPrior
+
+    run_dir.mkdir(parents=True, exist_ok=True)
+    arch = {"kind": "diffusion_prior",
+            "flow": dict(L=RUN_GLOW["levels"], K=RUN_GLOW["steps"], in_channels=3,
+                         coupling_width=RUN_GLOW["coupling_width"], learn_prior=True,
+                         invconv_param="plu", img_size=RUN_IMG),
+            "formater": formater, "formater_stats": None,
+            "unet_kwargs": dict(RUN_UNET, dim_mults=list(RUN_UNET["dim_mults"]),
+                                learned_sinusoidal_cond=False, random_fourier_features=False,
+                                learned_sinusoidal_dim=16, learned_variance=False,
+                                dtype="float32"),
+            "diffusion_kwargs": dict(RUN_DIFF), "frozen": True, "n_bits": 5,
+            "temperature": 1.0}
+    jckpt.save_architecture(str(run_dir), arch, filename="diffusion_architecture.json")
+    _write_config(run_dir, "nf_diffusion.yaml", RUN_DATA + [
+        "model.normalizing_flow.init_nf.mode=scratch",
+        f"model.normalizing_flow.init_nf.scratch.L={RUN_GLOW['levels']}",
+        f"model.normalizing_flow.init_nf.scratch.K={RUN_GLOW['steps']}",
+        f"model.normalizing_flow.init_nf.scratch.coupling_width={RUN_GLOW['coupling_width']}",
+        f"model.normalizing_flow.latent_formater={formater}",
+        f"model.unet.dim={RUN_UNET['dim']}", "model.unet.dim_mults=[1,2]",
+        f"model.unet.resnet_block_groups={RUN_UNET['resnet_block_groups']}",
+        f"model.diffusion.timesteps={RUN_DIFF['timesteps']}",
+        f"model.diffusion.sampling_timesteps={RUN_DIFF['sampling_timesteps']}"])
+    tformater = tfmt.get_formater(formater)(L=RUN_GLOW["levels"], in_channels=3, size=RUN_IMG)
+    tdp = TDiffusionPrior(tformater, dict(RUN_UNET), dict(RUN_DIFF))
+    unets = {"parts": tuple(convert.unet_to_flax(u)
+                            for u in tdp.init_params(2, "cpu")["parts"])}
+    tree = randomize(to_numpy_tree({"flow": jglow.init_glow(0, jglow.GlowConfig(**RUN_GLOW)),
+                                    "diffusion": unets}), seed=3, scale=0.02)
+    state = {"params": jax.tree.map(jax.numpy.asarray, tree), "step": np.int32(9)}
+    shadow = None
+    if ema:
+        shadow = randomize({"diffusion": tree["diffusion"]}, seed=4, scale=0.01)
+        state["ema"] = jax.tree.map(jax.numpy.asarray, shadow)
+    jckpt.save_state(str(run_dir), "diffusion", 1, state)
+    return tree, shadow, arch
+
+
+# -- interrupts -------------------------------------------------------------------
+
+class InterruptAfter:
+    """Loader proxy raising KeyboardInterrupt before yielding batch n of any
+    epoch (Ctrl-C in the middle of an epoch), as tests/test_resume.py's."""
+
+    def __init__(self, loader, n):
+        self._loader, self._n = loader, n
+
+    def __getattr__(self, name):
+        return getattr(self._loader, name)
+
+    def __len__(self):
+        return len(self._loader)
+
+    def __iter__(self):
+        return iter(self._loader)
+
+    def iter_epoch(self, epoch, start_batch=0):
+        for i, item in enumerate(self._loader.iter_epoch(epoch, start_batch=start_batch)):
+            if start_batch + i >= self._n:
+                raise KeyboardInterrupt
+            yield item
+
+
+def interrupt_train_loader(loaders, n):
+    """The same loaders, the train loader interrupted before batch n."""
+    return type(loaders)(train=InterruptAfter(loaders.train, n), val=loaders.val,
+                         test=loaders.test, eval=loaders.eval)
+
+
+def interrupt_loaders_after(monkeypatch, n):
+    """Make the port's read_dataset, which the entry points call, interrupt
+    its train loader before batch n; returns the function that undoes it."""
+    from nfdpm_tpu_torch.data import pipeline
+
+    read = pipeline.read_dataset
+    monkeypatch.setattr(pipeline, "read_dataset",
+                        lambda *a, **kw: interrupt_train_loader(read(*a, **kw), n))
+    return lambda: monkeypatch.setattr(pipeline, "read_dataset", read)

@@ -23,6 +23,7 @@ and co-trained.
 
 import json
 import math
+import re
 
 import jax
 import jax.numpy as jnp
@@ -30,8 +31,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import (close, metric_overrides, one_torch_thread, precompute_stats,
-                         randomize, to_numpy_tree)
+from _torch_port import (close, interrupt_loaders_after, metric_overrides, one_torch_thread,
+                         precompute_stats, randomize, to_numpy_tree)
 from nfdpm_tpu.models import formaters as jfmt
 from nfdpm_tpu.models import glow as jglow
 from nfdpm_tpu.models.diffusion_prior import DiffusionPrior as JDiffusionPrior
@@ -216,13 +217,6 @@ def test_two_group_optimizer_learning_rates():
         tdt.make_two_group_optimizer(tdt.DiffusionTrainConfig(optimizer="sgd"), True)
 
 
-def test_unported_train_options_raise():
-    with pytest.raises(NotImplementedError, match="§1.12"):
-        tdt.DiffusionTrainConfig(watchdog_timeout_s=10.0)
-    with pytest.raises(NotImplementedError, match="§1.12"):
-        tdt.DiffusionTrainConfig(profile_epoch=1)
-
-
 # ---------------------------------------------------------------------------
 # The entry point on the CPU, from a stage-1 run of the port
 # ---------------------------------------------------------------------------
@@ -402,17 +396,58 @@ def test_cotrained_eval_reads_the_trained_flow(cotrained):
 
 
 @pytest.mark.parametrize("override,match", [
-    ("parallel.part_parallel=true", "§1.13"),
-    ("parallel.fsdp=true", "§1.13"),
-    ("model.unet.dtype=bfloat16", "§1.3"),
-    ("model.normalizing_flow.coupling_dtype=bfloat16", "§1.3"),
-    ("load.load_batch=3", "§1.12"),
-    ("model.training.watchdog_timeout_s=5", "§1.12"),
-    ("model.training.profile_epoch=1", "§1.12"),
+    ("parallel.part_parallel=true", "multi-GPU"),
+    ("parallel.fsdp=true", "multi-GPU"),
+    ("model.unet.dtype=bfloat16", "bf16"),
+    ("model.normalizing_flow.coupling_dtype=bfloat16", "bf16"),
 ])
 def test_refused_options_raise(workdir, override, match):
     with pytest.raises(NotImplementedError, match=match):
         _stage2(workdir, "experiment_name=refused", *override.split())
+
+
+@pytest.mark.parametrize("option", ["load.load_batch", "model.training.watchdog_timeout_s",
+                                    "model.training.profile_epoch"])
+def test_accepted_options_do_their_job(workdir, two_epochs, monkeypatch, caplog, option):
+    """The options the port once refused: `load.load_batch` resumes an
+    interrupted epoch to the uninterrupted one-epoch run's checkpoint, bit
+    for bit, and its VLB; the watchdog trains without firing;
+    `profile_epoch` writes the epoch's trace, and the epoch's line its step
+    times."""
+    cwd, _ = workdir
+    first = two_epochs[1]  # one epoch, uninterrupted
+    one = ["model.training.epochs=1"]
+    if option == "load.load_batch":
+        restore = interrupt_loaders_after(monkeypatch, 2)
+        with pytest.raises(KeyboardInterrupt):
+            _stage2(workdir, "experiment_name=cut", *one)
+        restore()
+        (cut,) = (cwd / "outputs").glob("cut_*")
+        assert tckpt.load_mid_epoch_marker(str(cut)) == {
+            "prefix": "diffusion", "epoch": 1, "batch_in_epoch": 2}
+        out = _stage2(workdir, "experiment_name=resumed_mid", *one,
+                      f"load.load_exp_dir={cut.name}", "load.load_epoch=1",
+                      "load.load_batch=2")
+        assert out["vlb_bpd"] == first["vlb_bpd"]
+        a = torch.load(cwd / first["run_dir"] / "checkpoints" / "model_diffusion_001.pt")
+        b = torch.load(cwd / out["run_dir"] / "checkpoints" / "model_diffusion_001.pt")
+        leaves_a, leaves_b = dict(convert.named_leaves(a)), dict(convert.named_leaves(b))
+        assert leaves_a.keys() == leaves_b.keys() and b["step"] == 4
+        for k in leaves_a:
+            if isinstance(leaves_a[k], torch.Tensor):
+                assert torch.equal(leaves_a[k], leaves_b[k]), k
+    elif option == "model.training.watchdog_timeout_s":
+        out = _stage2(workdir, "experiment_name=wd", *one, f"{option}=300")
+        assert out["vlb_bpd"] == first["vlb_bpd"]
+        assert not (cwd / out["run_dir"] / "watchdog_stall.txt").exists()
+    else:
+        with caplog.at_level("INFO", logger="base"):
+            out = _stage2(workdir, "experiment_name=prof", *one, f"{option}=1",
+                          "model.training.profile_steps=2")
+        trace = cwd / out["run_dir"] / "tb" / "profile" / "epoch_001.pt.trace.json"
+        assert out["vlb_bpd"] == first["vlb_bpd"] and trace.stat().st_size > 0
+        assert "profiler: 2 steps of epoch 1" in caplog.text
+        assert re.search(r"step p50 [0-9.]+ms p95 [0-9.]+ms", caplog.text)
 
 
 def test_configured_metrics_run(workdir, tmp_path, monkeypatch, caplog):
@@ -440,7 +475,7 @@ def test_configured_metrics_run(workdir, tmp_path, monkeypatch, caplog):
 
 def test_orbax_run_directory_is_refused(tmp_path):
     (tmp_path / "checkpoints" / "model_gaussian_001").mkdir(parents=True)
-    with pytest.raises(NotImplementedError, match="§1.1"):
+    with pytest.raises(NotImplementedError, match="tools/jax_run_to_torch.py"):
         load_pretrained_flow(str(tmp_path), 1, device="cpu")
 
 

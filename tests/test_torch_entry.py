@@ -19,7 +19,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from _torch_port import metric_overrides, one_torch_thread, precompute_stats
+from _torch_port import (interrupt_loaders_after, metric_overrides, one_torch_thread,
+                         precompute_stats)
 from nfdpm_tpu.data import datasets as jdata
 from nfdpm_tpu.data import pipeline as jpipe
 from nfdpm_tpu_torch import run_baseline
@@ -109,11 +110,8 @@ def test_without_cuda_the_entry_point_refuses_to_start(tmp_path):
 
 @pytest.mark.parametrize("override,match", [
     ("model.evaluation.metrics.FID.mode=[clean]", None),  # needs a model name too: no metric
-    ("parallel.n_model=2", "§1.13"),
-    ("parallel.fsdp=true", "§1.13"),
-    ("load.load_batch=3", "§1.12"),
-    ("model.training.watchdog_timeout_s=300", "§1.12"),
-    ("model.training.profile_epoch=1", "§1.12"),
+    ("parallel.n_model=2", "multi-GPU"),
+    ("parallel.fsdp=true", "multi-GPU"),
     ("model.architecture.coupling_dtype=bfloat16", "bfloat16"),
     ("phase=bogus", "phase must be"),
 ])
@@ -125,6 +123,42 @@ def test_refused_options_raise(tmp_path, monkeypatch, override, match):
         return
     with pytest.raises((NotImplementedError, ValueError), match=match):
         run_baseline.main(argv)
+
+
+@pytest.mark.parametrize("option", ["load.load_batch", "model.training.watchdog_timeout_s",
+                                    "model.training.profile_epoch"])
+def test_accepted_options_do_their_job(tmp_path, monkeypatch, option):
+    """The options the port once refused: `load.load_batch` resumes an
+    interrupted epoch (to the uninterrupted run's final bits/dim exactly),
+    the watchdog trains without firing, `profile_epoch` writes the epoch's
+    trace."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("NFDPM_NO_TENSORBOARD", "1")
+    argv = ["device=cpu", *SMALL]
+    full = run_baseline.main(argv + ["experiment_name=full"])
+    if option == "load.load_batch":
+        restore = interrupt_loaders_after(monkeypatch, 5)
+        with pytest.raises(KeyboardInterrupt):
+            run_baseline.main(argv + ["experiment_name=cut"])
+        restore()
+        (cut,) = (tmp_path / "outputs").glob("cut_*")
+        assert json.loads((cut / "checkpoints" / "mid_epoch.json").read_text()) == {
+            "prefix": "gaussian", "epoch": 1, "batch_in_epoch": 5}
+        out = run_baseline.main(argv + ["experiment_name=resumed",
+                                        f"load.load_exp_dir={cut.name}", "load.load_epoch=1",
+                                        "load.load_batch=5"])
+        assert out["results"] == full["results"]
+        assert (Path(out["run_dir"]) / "checkpoints" / "model_gaussian_001.pt").exists()
+        assert not (Path(out["run_dir"]) / "checkpoints" / "mid_epoch.json").exists()
+    elif option == "model.training.watchdog_timeout_s":
+        out = run_baseline.main(argv + ["experiment_name=wd", f"{option}=300"])
+        assert out["results"] == full["results"]
+        assert not (Path(out["run_dir"]) / "watchdog_stall.txt").exists()
+    else:
+        out = run_baseline.main(argv + ["experiment_name=prof", f"{option}=1",
+                                        "model.training.profile_steps=2"])
+        trace = Path(out["run_dir"]) / "tb" / "profile" / "epoch_001.pt.trace.json"
+        assert out["results"] == full["results"] and trace.stat().st_size > 0
 
 
 @pytest.mark.parametrize("metric", ["FID", "KID"])

@@ -4,7 +4,8 @@
 - Entry points run on CUDA unless the caller names the CPU; without CUDA
   they raise instead of running on the CPU.
 - nfdpm_tpu_torch.serve answers /health and /generate, for a Glow and for a
-  Glow with a diffusion prior.
+  Glow with a diffusion prior (--weights; --run-dir in
+  test_torch_run_dir_tools.py).
 """
 
 import ast
@@ -95,7 +96,10 @@ def test_fresh_interpreter_loads_no_jax_or_reference_modules():
                "nfdpm_tpu_torch.utils.env", "nfdpm_tpu_torch.metrics.compute",
                "nfdpm_tpu_torch.metrics.fid", "nfdpm_tpu_torch.metrics.image_quality",
                "nfdpm_tpu_torch.metrics.inception", "nfdpm_tpu_torch.metrics.clip_features",
-               "nfdpm_tpu_torch.metrics.precompute_stats")
+               "nfdpm_tpu_torch.metrics.precompute_stats",
+               "nfdpm_tpu_torch.training.runload", "nfdpm_tpu_torch.utils.watchdog",
+               "nfdpm_tpu_torch.utils.profiling", "nfdpm_tpu_torch.generate_samples",
+               "nfdpm_tpu_torch.interpolate")
     loaded = _modules_after("import " + ", ".join(modules))
     assert set(modules) <= loaded and "torch" in loaded
     new_bad = sorted(m for m in loaded - bare if _forbidden(m))
@@ -159,6 +163,21 @@ def test_stage2_entry_points_never_fall_back_to_cpu(monkeypatch, tmp_path):
                   lambda: run_diffusion_prior.main(["data.name=synthetic"]),
                   lambda: serve.make_server(["--weights", str(tmp_path / "none.npz"),
                                              "--arch", str(tmp_path / "none.json")])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            entry()
+
+
+def test_run_dir_tools_never_fall_back_to_cpu(monkeypatch, tmp_path):
+    from nfdpm_tpu_torch import generate_samples, interpolate
+    from nfdpm_tpu_torch.training import runload
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    (tmp_path / "checkpoints").mkdir()
+    for entry in (lambda: runload.load_glow_run(str(tmp_path)),
+                  lambda: runload.load_diffusion_run(str(tmp_path)),
+                  lambda: generate_samples.main(["--run-dir", str(tmp_path)]),
+                  lambda: interpolate.main(["--run-dir", str(tmp_path)]),
+                  lambda: serve.make_server(["--run-dir", str(tmp_path)])):
         with pytest.raises(RuntimeError, match="CUDA"):
             entry()
 

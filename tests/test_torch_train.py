@@ -310,13 +310,6 @@ def test_fixed_prior_never_updates(fixed):
     assert torch.equal(state["params"]["flow"]["final_steps"][0]["invconv"]["p_mat"], p_mat)
 
 
-def test_unported_train_options_raise():
-    with pytest.raises(NotImplementedError, match="§1.12"):
-        tnft.NFTrainConfig(watchdog_timeout_s=300.0)
-    with pytest.raises(NotImplementedError, match="§1.12"):
-        tnft.NFTrainConfig(profile_epoch=2)
-
-
 # ---------------------------------------------------------------------------
 # Evaluation, checkpoints, the training loop
 # ---------------------------------------------------------------------------
