@@ -5,6 +5,7 @@
     python3 chip_smoke.py --stage1-training    # phases 1, 2, 12 and 13 only
     python3 chip_smoke.py --attention-backward # phases 1, 2 and 16 only
     python3 chip_smoke.py --run-dir-tools      # phases 1, 2, 12, 13, 17 and 23-25
+    python3 chip_smoke.py --reference-checkpoints  # phases 1, 2, 12, 13, 17 and 26
 
 Runs nfdpm_tpu_torch (never JAX, never nfdpm_tpu) with seeded random
 weights at the width of the repo's models: the Glow of configs/nf_base.yaml
@@ -211,10 +212,31 @@ line each:
      strip (10, 32, 32, 3) uint8, the Glow's lambda 0 and 1 columns within
      one 5-bit level of the endpoints' codes; each command's JSON line.
 
+  checkpoint interchange with the original PyTorch repository (launch
+  counters zeroed before 26, read after it):
+ 26. reference_checkpoints: python -m nfdpm_tpu_torch.export_reference_checkpoint
+     on phase 12's run, twice (the same bytes; keys {flow, prior_dist,
+     optimizer, current_iter}; every flow tensor in the reference's layout:
+     conv OIHW, actnorm [C, 1, 1], logs [1, C, 1, 1], invconv2d.weight
+     [C, C, 1, 1]), then python -m nfdpm_tpu_torch.convert_reference_checkpoint
+     of that .pt into a new run directory, both in this process: one seeded
+     batch of 64 scored on both runs (bits/dim within 1e-4, 12 channel_mix
+     and 12 coupling_tail launches a forward); a 64-image chunk of each
+     through runload.load_run and sample_fn_of, serve --run-dir's route,
+     from one seed (within one 5-bit level on at most 1e-3 of values, 12 +
+     12 inverse launches); run_baseline.main resumes the imported run for 8
+     steps (finite bits/dim, stage1_run_launches exactly, Adam count 8 in
+     its checkpoint); phase 17's three UNets written under the reference's
+     names (an inverse name table kept in this script), read back through
+     utils/unet_import.import_unet_state_dict and load_state_dict(strict=
+     True): a DDIM-100 chunk of 64 from one generator seed bitwise equal to
+     the run's own UNets', 1200 fused_linear_attention launches.
+
 Then come the kernel summary line (seven kernels), the nvidia-smi line and, last,
 {"ok": true, "device": {...}}. With --run-dir-tools the script runs the
 environment, the build, phases 12, 13 and 17 (whose run directories the
-tooling reads) and 23-25, and prints neither. With --stage1-training the script runs only
+tooling reads) and 23-25, and prints neither; --reference-checkpoints the same
+with phase 26 in place of 23-25. With --stage1-training the script runs only
 the environment, the build and phases 12 and 13 and prints neither: copied
 into another checkout, it times that checkout's stage-1 training with the
 same measuring code; --attention-backward the same for phase 16 alone
@@ -3310,6 +3332,256 @@ def phase_cli(np, smi, stage1_dir, stage2_dir, served):
     emit(record)
 
 
+# The port Unet's parameters under the original PyTorch repository's names
+# (its lucidrains-style Unet): the inverse of the table of
+# nfdpm_tpu_torch/utils/unet_import.py, kept here as test code.
+_UNET_TOP = {"init_conv": "init_conv", "time_pos": "time_mlp.0", "time_dense0": "time_mlp.1",
+             "time_dense1": "time_mlp.3", "final_conv": "final_conv"}
+_UNET_BLOCKS = {"res1": "0", "res2": "1", "mid_res1": "mid_block1", "mid_res2": "mid_block2",
+                "final_res": "final_res_block"}
+_UNET_BLOCK_PARTS = {"time_dense": "mlp.1", "block0.conv": "block1.proj",
+                     "block0.norm": "block1.norm", "block1.conv": "block2.proj",
+                     "block1.norm": "block2.norm", "res_conv": "res_conv"}
+
+
+def reference_unet_state_dict(unet) -> dict:
+    """A port Unet's parameters as the reference's Unet.state_dict(): host
+    tensors, conv weights OIHW as they are, w_qkv [C, 3h] as to_qkv
+    [3h, C, 1, 1], w_out [h, C] as to_out [C, h, 1, 1], the norms' gains
+    [C] as [1, C, 1, 1]."""
+    out = {}
+    for name, p in unet.named_parameters():
+        a = p.detach().cpu().contiguous()
+        prefix, leaf = name.rsplit(".", 1)
+        parts = prefix.split(".")
+        level = ".".join(parts[:2]) if parts[0] in ("downs", "ups") else None
+        head, rest = (parts[2], parts[3:]) if level else (parts[0], parts[1:])
+        if head in _UNET_BLOCKS:
+            block = f"{level}.{_UNET_BLOCKS[head]}" if level else _UNET_BLOCKS[head]
+            out[f"{block}.{_UNET_BLOCK_PARTS['.'.join(rest)]}.{leaf}"] = a
+        elif head in ("attn", "mid_attn"):
+            base = f"{level}.2" if level else "mid_attn"
+            to_out = "to_out.0" if level else "to_out"  # the mid attention's is a plain conv
+            if rest == ["norm"]:
+                out[f"{base}.fn.norm.g"] = a.reshape(1, -1, 1, 1)
+            elif leaf == "w_qkv":
+                out[f"{base}.fn.fn.to_qkv.weight"] = a.t().contiguous()[:, :, None, None]
+            elif leaf == "w_out":
+                out[f"{base}.fn.fn.{to_out}.weight"] = a.t().contiguous()[:, :, None, None]
+            elif leaf == "b_out":
+                out[f"{base}.fn.fn.{to_out}.bias"] = a
+            else:  # the linear attention's output LayerNorm
+                out[f"{base}.fn.fn.to_out.1.g"] = a.reshape(1, -1, 1, 1)
+        elif head in ("down", "up"):  # Downsample / Upsample, the last level a plain conv
+            out[f"{level}.3{'.1' if rest else ''}.{leaf}"] = a
+        else:
+            out[f"{_UNET_TOP[head]}.{leaf}"] = a
+    return out
+
+
+def reference_layout_errors(flow_sd: dict) -> list:
+    """Keys of an exported Glow state dict whose shape or dtype is not the
+    reference's: conv weights OIHW (3x3 in the coupling CNN's first conv,
+    the zeroconvs and the split priors, 1x1 in its second), actnorm
+    [C, 1, 1], ZeroConv2d logs [1, C, 1, 1], invconv2d.weight [C, C, 1, 1],
+    is_initialized uint8 1; the Glow L3/K4/w512 of 32x32x3."""
+    import torch
+
+    channels = {f"blocks.{b}": 3 * 4 * 2 ** b for b in range(LEVELS - 1)}
+    channels["final_flows"] = 3 * 4 * 2 ** (LEVELS - 1)
+    bad = []
+    for key, v in flow_sd.items():
+        c = next(n for prefix, n in channels.items() if key.startswith(prefix))
+        if key.endswith("is_initialized"):
+            ok = v.dtype == torch.uint8 and v.dim() == 0 and int(v) == 1
+        elif key.endswith("invconv2d.weight"):
+            ok = tuple(v.shape) == (c, c, 1, 1)
+        elif key.endswith(("scale", "bias")) and "actnorm" in key:
+            ok = tuple(v.shape) == ((WIDTH if "__actnorm" in key else c), 1, 1)
+        elif key.endswith(".logs"):
+            ok = tuple(v.shape) == (1, c, 1, 1)
+        elif key.endswith("net.0._Conv2dActNorm__conv.weight"):
+            ok = tuple(v.shape) == (WIDTH, c // 2, 3, 3)
+        elif key.endswith("net.2._Conv2dActNorm__conv.weight"):
+            ok = tuple(v.shape) == (WIDTH, WIDTH, 1, 1)
+        elif key.endswith("net.4.weight"):
+            ok = tuple(v.shape) == (c, WIDTH, 3, 3)
+        elif key.endswith("split.conv.weight"):
+            ok = tuple(v.shape) == (c, c // 2, 3, 3)
+        else:  # the zeroconvs' biases
+            ok = tuple(v.shape) == (c,)
+        if not ok or (v.dtype != torch.float32 and not key.endswith("is_initialized")):
+            bad.append(f"{key} {tuple(v.shape)} {v.dtype}")
+    return bad
+
+
+def phase_reference_checkpoints(torch, np, counters, smi, stage1_dir, stage2_dir):
+    """Phase 26: checkpoints of the original PyTorch repository into and out
+    of the port, on the card. (1) export phase 12's run twice (the same
+    bytes), the reference's keys and layout; (2) import that .pt into a new
+    run directory; (3) score one seeded batch on both runs; (4) sample a
+    chunk on both through the route of serve --run-dir; (5) resume the
+    imported run for RESUME_STEPS steps through run_baseline.main; (6) phase
+    17's UNets through the reference's names and import_unet_state_dict, a
+    DDIM-100 chunk bitwise equal to the run's own. Every launch is counted
+    and held to its exact number. Returns the launches of the phase."""
+    from nfdpm_tpu_torch import (convert_reference_checkpoint, export_reference_checkpoint,
+                                 inference, run_baseline)
+    from nfdpm_tpu_torch.ops.bijectors import invconv_weight
+    from nfdpm_tpu_torch.training import runload
+    from nfdpm_tpu_torch.utils.unet_import import import_unet_state_dict
+
+    root = ROOT / "build" / "chip_smoke" / "reference"
+    shutil.rmtree(root, ignore_errors=True)
+    (root / "outputs").mkdir(parents=True)
+    device = torch.device("cuda")
+    per_pass = LEVELS * STEPS
+    none = {name: 0 for name in counts(counters)}
+    t0 = time.perf_counter()
+    for fn in counters:
+        fn.launches = 0
+    record = {"phase": "reference_checkpoints", "nvidia_smi": smi}
+
+    def delta_of(fn):
+        before = counts(counters)
+        out = fn()
+        torch.cuda.synchronize()
+        after = counts(counters)
+        return out, {k: after[k] - before[k] for k in before}
+
+    # 1. export, twice
+    exports = [run_in(root, export_reference_checkpoint.main,
+                      ["--run-dir", str(stage1_dir), "--out", str(root / name)])
+               for name in ("export_a", "export_b")]
+    pt = Path(exports[0]["written"][0])
+    check(pt.read_bytes() == (root / "export_b" / pt.name).read_bytes(),
+          "two exports of one run gave different bytes")
+    ref = torch.load(pt, map_location="cpu", weights_only=True)
+    check(set(ref) == {"flow", "prior_dist", "optimizer", "current_iter"}
+          and ref["current_iter"] == 0, f"the export holds {sorted(ref)}")
+    bad = reference_layout_errors(ref["flow"])
+    check(not bad, f"exported tensors out of the reference's layout: {bad[:8]}")
+    check((root / "export_a" / "model_001.pt").exists(), "no resume alias model_001.pt")
+    record["export"] = {"keys": len(ref["flow"]), "flow_elements": exports[0]["flow_elements"],
+                        "same_bytes_twice": True, "reference_layout": True}
+
+    # 2. import into a new run directory
+    imported = root / "outputs" / "imported"
+    run_in(root, convert_reference_checkpoint.main, [
+        "--checkpoint", str(pt), "--L", str(LEVELS), "--K", str(STEPS), "--in_channels", "3",
+        "--img_size", str(IMG), "--coupling_width", str(WIDTH), "--n_bits", str(N_BITS),
+        "--out", str(imported), "--epoch", "1"])
+
+    # 3. score one seeded batch on both runs
+    runs = {"trained": runload.load_glow_run(str(stage1_dir), device=device),
+            "imported": runload.load_glow_run(str(imported), device=device)}
+    imgs = np.random.default_rng(26).integers(0, 256, (BATCH, IMG, IMG, 3), dtype=np.uint8)
+    batch = torch.from_numpy(imgs.astype(np.float32) / 255.0).to(device)
+    noise = torch.rand(batch.shape, generator=torch.Generator(device="cuda").manual_seed(27),
+                       device=device)
+    forward = dict(none, channel_mix=per_pass, coupling_tail=per_pass)
+    bpd = {}
+    for name, run in runs.items():
+        step = inference.make_eval_step(run.gcfg, N_BITS, device=device)
+        bpd[name], launched = delta_of(lambda: step(run.params, batch, noise=noise))
+        check(launched == forward, f"scoring the {name} run launched {launched}")
+    gap = float((bpd["trained"] - bpd["imported"]).abs().max())
+    check(bool(torch.isfinite(bpd["imported"]).all()) and gap <= 1e-4,
+          f"the imported run scores {gap} bits/dim from the trained one")
+    # what the W -> PLU -> W round trip did to the 1x1 convolutions
+    def invconvs(flow):
+        for block in flow["blocks"]:
+            yield from (s["invconv"] for s in block["steps"])
+        yield from (s["invconv"] for s in flow["final_steps"])
+
+    pairs = list(zip(invconvs(runs["trained"].params["flow"]),
+                     invconvs(runs["imported"].params["flow"])))
+    record["score"] = {
+        "bpd_mean": float(bpd["imported"].mean()), "max_bpd_gap": gap, "tolerance": 1e-4,
+        "launches_per_forward": forward,
+        "max_invconv_weight_gap": max(float((invconv_weight(a) - invconv_weight(b)).abs().max())
+                                      for a, b in pairs),
+        "permutations_changed": sum(not torch.equal(a["p_mat"], b["p_mat"]) for a, b in pairs)}
+
+    # 4. a chunk on both runs, through serve --run-dir's route, one seed
+    temperature = runs["trained"].temperature
+    chunk = dict(none, channel_mix=per_pass, coupling_tail_inverse=per_pass)
+    samples = {}
+    for name, run_dir in (("trained", stage1_dir), ("imported", imported)):
+        kind, run = runload.load_run(str(run_dir), device=device)
+        fn = runload.sample_fn_of(kind, run, device)
+        samples[name], launched = delta_of(
+            lambda: inference.generate_batched(fn, run.params, BATCH, BATCH, temperature, 7))
+        check(kind == "gaussian" and launched == chunk,
+              f"a chunk of the {name} run launched {launched}")
+    diff = np.abs(samples["trained"].astype(int) - samples["imported"].astype(int))
+    share = float((diff > 0).mean())
+    check(int(diff.max()) <= 8 and share <= 1e-3,
+          f"the imported run's samples are {int(diff.max())} levels apart on {share} of values")
+    record["sample"] = {"max_level_gap": int(diff.max()), "differing_share": share,
+                        "temperature": temperature, "launches_per_chunk": chunk}
+    del runs
+
+    # 5. resume the imported run through the entry point
+    os.environ["NFDPM_NO_TENSORBOARD"] = "1"
+    evals = len(train_loaders(RESUME_STEPS).test) + len(train_loaders(RESUME_STEPS).eval)
+    expected = stage1_run_launches(RESUME_STEPS, evals)
+    t1 = time.perf_counter()
+    result, launched = delta_of(lambda: run_in(root, run_baseline.main, [
+        "data.name=synthetic", f"data.batch_size={BATCH}", f"data.img_size={IMG}",
+        f"data.synthetic_n={BATCH * RESUME_STEPS}", f"seed={TRAIN_SEED}",
+        f"model.architecture.L={LEVELS}", f"model.architecture.K={STEPS}",
+        f"model.architecture.coupling_width={WIDTH}", "model.training.epochs=1",
+        "model.training.print_freq=1", "model.training.save_checkpoint_freq=50",
+        "experiment_name=resumed", "load.load_exp_dir=imported", "load.load_epoch=1"]))
+    resume_seconds = time.perf_counter() - t1
+    check(launched == expected, f"resuming the imported run launched {launched}, "
+                                f"expected {expected}")
+    final = result["results"]
+    check(all(math.isfinite(v) for v in final.values()), f"the resumed run ended at {final}")
+    state = torch.load(root / result["run_dir"] / "checkpoints" / "model_gaussian_002.pt",
+                       map_location="cpu", weights_only=True)
+    check(state["opt_state"]["count"] == RESUME_STEPS and state["step"] == RESUME_STEPS,
+          f"the resumed run's checkpoint has Adam count {state['opt_state']['count']}, "
+          f"step {state['step']}")
+    record["resume"] = {"steps": RESUME_STEPS, "final_bpd": final, "adam_count": RESUME_STEPS,
+                        "seconds": resume_seconds, "launches": launched}
+    del state
+
+    # 6. phase 17's UNets through the reference's names
+    run = runload.load_diffusion_run(str(stage2_dir), device=device)
+    dp = run.dp
+    unets = []
+    for i, unet in enumerate(run.params["diffusion"]["parts"]):
+        path = root / f"unet_{i}.pt"
+        torch.save(reference_unet_state_dict(unet), path)
+        rebuilt = dp.build_unet(i)
+        rebuilt.load_state_dict(import_unet_state_dict(
+            torch.load(path, map_location="cpu", weights_only=True),
+            len(UNET_KWARGS["dim_mults"])), strict=True)
+        unets.append(dp.place(rebuilt, device))
+    latents = {}
+    for name, parts in (("run", run.params["diffusion"]["parts"]), ("imported", unets)):
+        gen = torch.Generator(device="cuda").manual_seed(2026)
+        with torch.no_grad():
+            latents[name], launched = delta_of(
+                lambda: dp.sample_latents({"parts": parts}, BATCH, generator=gen))
+        ddim = dict(none, fused_linear_attention=LEVELS * DIFFUSION_KWARGS["sampling_timesteps"]
+                    * 2 * len(UNET_KWARGS["dim_mults"]))
+        check(launched == ddim, f"the {name} UNets' DDIM chunk launched {launched}")
+    equal = all(torch.equal(a, b) for a, b in zip(latents["run"], latents["imported"]))
+    check(equal, "the imported UNets' latents differ from the run's own")
+    record["unet_import"] = {"parts": len(unets), "ddim_steps":
+                             DIFFUSION_KWARGS["sampling_timesteps"], "batch": BATCH,
+                             "latents_bitwise_equal": True, "launches_per_chunk": ddim}
+
+    launches = counts(counters)
+    record["launches"] = launches
+    record["seconds"] = time.perf_counter() - t0
+    emit(record)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3351,6 +3623,12 @@ def main() -> int:
         _, served = phase_run_dir_serving(torch, np, counters, smi, stage1_run, stage2_run,
                                           ema_run)
         phase_cli(np, smi, stage1_run, stage2_run, served)
+        return 0
+    if sys.argv[1:] == ["--reference-checkpoints"]:
+        _, stage1_run, _, _ = phase_training(torch, counters)
+        _, stage2_run, _ = phase_stage2_training(torch, counters, stage1_run)
+        torch.cuda.empty_cache()
+        phase_reference_checkpoints(torch, np, counters, smi, stage1_run, stage2_run)
         return 0
     if sys.argv[1:] == ["--attention-backward"]:
         totals = {}
@@ -3400,6 +3678,8 @@ def main() -> int:
     launches["run_dir_serving"], served = phase_run_dir_serving(
         torch, np, counters, smi, stage1_run, stage2_run, ema_run)
     phase_cli(np, smi, stage1_run, stage2_run, served)
+    launches["reference_checkpoints"] = phase_reference_checkpoints(
+        torch, np, counters, smi, stage1_run, stage2_run)
 
     per = {"fused_linear_attention": "one UNet evaluation of each of the three parts at "
                                      "batch 64 (one DDIM step or one stage-2 train "

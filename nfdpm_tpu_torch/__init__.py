@@ -22,13 +22,18 @@ training   : both stages' training: optimizer (value and norm clips,
              model from a run directory.
 data       : dataset readers and the batch pipeline (numpy on the host).
 utils      : YAML configuration with dotted overrides, logging, seeding;
-             the hung-step watchdog and the trainers' profiler hook.
+             the hung-step watchdog and the trainers' profiler hook; the
+             original PyTorch repository's Glow and UNet state dicts into
+             the port's trees, and the Glow's back out.
 run_baseline, run_diffusion_prior : the entry points over
              configs/nf_base.yaml and configs/nf_diffusion.yaml.
 serve      : HTTP generation server for a Glow model or a Glow with a
              diffusion prior, from weights or a run directory.
 generate_samples, interpolate : sample and interpolation commands over a
              run directory.
+convert_reference_checkpoint, export_reference_checkpoint : a checkpoint of
+             the original PyTorch repository into a run directory, and a
+             stage-1 run directory back into one.
 profiling  : device time by kernel of a call, through torch.profiler.
 """
 

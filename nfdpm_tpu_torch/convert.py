@@ -282,8 +282,22 @@ def load_npz(path) -> Dict[str, Any]:
 # ---------------------------------------------------------------------------
 
 def _unet_layout(unet) -> Dict[str, tuple]:
+    """`unet_layout` of the structure of `unet` (models/unet.py)."""
+    blocks = {"mid_res1": unet.mid_res1, "mid_res2": unet.mid_res2, "final_res": unet.final_res}
+    for side, levels in (("down", unet.downs), ("up", unet.ups)):
+        for i, level in enumerate(levels):
+            for r in ("res1", "res2"):
+                blocks[f"{side}_{i}_{r}"] = level[r]
+    return unet_layout(len(unet.downs), {k for k, b in blocks.items() if b.res_conv is not None},
+                       hasattr(unet.time_pos, "weights"))
+
+
+def unet_layout(n_levels: int, res_convs, learned_time: bool) -> Dict[str, tuple]:
     """flax path -> (the port's parameter name, kind) for every leaf of the
-    JAX package's Unet (nfdpm_tpu/models/unet.py) with `unet`'s structure.
+    JAX package's Unet (nfdpm_tpu/models/unet.py) of `n_levels` levels whose
+    residual blocks named (by flax name: "down_0_res1", "mid_res1",
+    "final_res", ...) in `res_convs` have a 1x1 residual conv, with a learned
+    or random Fourier time embedding when `learned_time`.
 
     flax names submodules by class and call order within the scope that
     calls them. `PreNormResidual(LinearAttention(...))` is built in the Unet
@@ -304,13 +318,13 @@ def _unet_layout(unet) -> Dict[str, tuple]:
         layout[f"{flax}/kernel"] = (f"{name}.weight", "dense")
         layout[f"{flax}/bias"] = (f"{name}.bias", "vec")
 
-    def res(flax, name, block):
+    def res(flax, name):
         dense(f"{flax}/Dense_0", f"{name}.time_dense")
         for j in (0, 1):
             conv(f"{flax}/Block_{j}/WeightStandardizedConv_0", f"{name}.block{j}.conv")
             layout[f"{flax}/Block_{j}/GroupNorm_0/scale"] = (f"{name}.block{j}.norm.weight", "vec")
             layout[f"{flax}/Block_{j}/GroupNorm_0/bias"] = (f"{name}.block{j}.norm.bias", "vec")
-        if block.res_conv is not None:
+        if flax in res_convs:
             conv(f"{flax}/Conv_0", f"{name}.res_conv")
 
     def attention(flax, name, linear):
@@ -320,7 +334,7 @@ def _unet_layout(unet) -> Dict[str, tuple]:
         if linear:
             layout[f"{flax}/ChannelLayerNorm_0/g"] = (f"{name}.g", "vec")
 
-    prenorms, linears = iter(range(2 * len(unet.downs) + 1)), iter(range(2 * len(unet.downs)))
+    prenorms, linears = iter(range(2 * n_levels + 1)), iter(range(2 * n_levels))
 
     def prenorm_attention(name, linear):
         layout[f"PreNormResidual_{next(prenorms)}/ChannelLayerNorm_0/g"] = (f"{name}.norm.g", "vec")
@@ -328,25 +342,25 @@ def _unet_layout(unet) -> Dict[str, tuple]:
                   f"{name}.fn", linear)
 
     conv(f"Conv_{next(convs)}", "init_conv")
-    if hasattr(unet.time_pos, "weights"):
+    if learned_time:
         layout["RandomOrLearnedSinusoidalPosEmb_0/weights"] = ("time_pos.weights", "vec")
     dense("Dense_0", "time_dense0")
     dense("Dense_1", "time_dense1")
-    for sides, side in ((unet.downs, "down"), (unet.ups, "up")):
-        for i, level in enumerate(sides):
+    for side in ("down", "up"):
+        for i in range(n_levels):
             if side == "up" and i == 0:  # the middle comes between the two paths
-                res("mid_res1", "mid_res1", unet.mid_res1)
+                res("mid_res1", "mid_res1")
                 prenorm_attention("mid_attn", linear=False)
-                res("mid_res2", "mid_res2", unet.mid_res2)
+                res("mid_res2", "mid_res2")
             for r in ("res1", "res2"):
-                res(f"{side}_{i}_{r}", f"{side}s.{i}.{r}", level[r])
+                res(f"{side}_{i}_{r}", f"{side}s.{i}.{r}")
             prenorm_attention(f"{side}s.{i}.attn", linear=True)
-            if i == len(sides) - 1:
+            if i == n_levels - 1:
                 conv(f"Conv_{next(convs)}", f"{side}s.{i}.{side}")
             else:
                 sampler = "Downsample" if side == "down" else "Upsample"
                 conv(f"{sampler}_{i}/Conv_0", f"{side}s.{i}.{side}.conv")
-    res("final_res", "final_res", unet.final_res)
+    res("final_res", "final_res")
     conv(f"Conv_{next(convs)}", "final_conv")
     return layout
 

@@ -101,6 +101,93 @@ def adam_moments(opt_state, params):
     return fill(state.mu, params), fill(state.nu, params), int(state.count)
 
 
+def reference_unet_state_dict(tree, n_levels):
+    """A flax Unet tree of the JAX package (numpy) under the names and
+    layouts of the original PyTorch repository's Unet: the inverse of the
+    table of nfdpm_tpu/utils/unet_import.py (conv kernels HWIO -> OIHW,
+    dense kernels [in, out] -> [out, in], norm gains [C] -> [1, C, 1, 1])."""
+    sd = {}
+
+    def conv(prefix, node):
+        sd[f"{prefix}.weight"] = np.asarray(node["kernel"]).transpose(3, 2, 0, 1)
+        if "bias" in node:
+            sd[f"{prefix}.bias"] = np.asarray(node["bias"])
+
+    def dense(prefix, node):
+        sd[f"{prefix}.weight"] = np.asarray(node["kernel"]).T
+        sd[f"{prefix}.bias"] = np.asarray(node["bias"])
+
+    def gain(key, node):
+        sd[key] = np.asarray(node["ChannelLayerNorm_0"]["g"]).reshape(1, -1, 1, 1)
+
+    def res(prefix, node):
+        dense(f"{prefix}.mlp.1", node["Dense_0"])
+        for j in (0, 1):
+            block = node[f"Block_{j}"]
+            conv(f"{prefix}.block{j + 1}.proj", block["WeightStandardizedConv_0"])
+            sd[f"{prefix}.block{j + 1}.norm.weight"] = np.asarray(block["GroupNorm_0"]["scale"])
+            sd[f"{prefix}.block{j + 1}.norm.bias"] = np.asarray(block["GroupNorm_0"]["bias"])
+        if "Conv_0" in node:
+            conv(f"{prefix}.res_conv", node["Conv_0"])
+
+    def attention(prefix, node, linear):
+        conv(f"{prefix}.to_qkv", node["Conv_0"])
+        if linear:
+            conv(f"{prefix}.to_out.0", node["Conv_1"])
+            gain(f"{prefix}.to_out.1.g", node)
+        else:
+            conv(f"{prefix}.to_out", node["Conv_1"])
+
+    convs = iter(range(1, 4))
+    conv("init_conv", tree["Conv_0"])
+    if "RandomOrLearnedSinusoidalPosEmb_0" in tree:
+        sd["time_mlp.0.weights"] = np.asarray(tree["RandomOrLearnedSinusoidalPosEmb_0"]["weights"])
+    dense("time_mlp.1", tree["Dense_0"])
+    dense("time_mlp.3", tree["Dense_1"])
+    for i in range(n_levels):
+        res(f"downs.{i}.0", tree[f"down_{i}_res1"])
+        res(f"downs.{i}.1", tree[f"down_{i}_res2"])
+        gain(f"downs.{i}.2.fn.norm.g", tree[f"PreNormResidual_{i}"])
+        attention(f"downs.{i}.2.fn.fn", tree[f"LinearAttention_{i}"], True)
+        if f"Downsample_{i}" in tree:
+            conv(f"downs.{i}.3.1", tree[f"Downsample_{i}"]["Conv_0"])
+        else:
+            conv(f"downs.{i}.3", tree[f"Conv_{next(convs)}"])
+    res("mid_block1", tree["mid_res1"])
+    gain("mid_attn.fn.norm.g", tree[f"PreNormResidual_{n_levels}"])
+    attention("mid_attn.fn.fn", tree["Attention_0"], False)
+    res("mid_block2", tree["mid_res2"])
+    for i in range(n_levels):
+        res(f"ups.{i}.0", tree[f"up_{i}_res1"])
+        res(f"ups.{i}.1", tree[f"up_{i}_res2"])
+        gain(f"ups.{i}.2.fn.norm.g", tree[f"PreNormResidual_{n_levels + 1 + i}"])
+        attention(f"ups.{i}.2.fn.fn", tree[f"LinearAttention_{n_levels + i}"], True)
+        if f"Upsample_{i}" in tree:
+            conv(f"ups.{i}.3.1", tree[f"Upsample_{i}"]["Conv_0"])
+        else:
+            conv(f"ups.{i}.3", tree[f"Conv_{next(convs)}"])
+    res("final_res_block", tree["final_res"])
+    conv("final_conv", tree[f"Conv_{next(convs)}"])
+    return sd
+
+
+def jax_diffusion_draws(key, step, jdp, shapes, image_shape):
+    """The draws of the JAX package's stage-2 train step `step` from `key`
+    (diffusion_trainer.make_train_step, DiffusionPrior.losses,
+    GaussianDiffusion.loss and p_losses) for a batch of `image_shape`
+    [B, H, W, C] and latent parts of `shapes`, as the port's injected
+    draws."""
+    k_dq, k_diff = jax.random.split(jax.random.fold_in(key, step))
+    parts = []
+    for i, (shape, gd) in enumerate(zip(shapes, jdp.parts)):
+        k_t, k_p = jax.random.split(jax.random.fold_in(k_diff, i))
+        t = jax.random.randint(k_t, (image_shape[0],), 0, gd.num_timesteps)
+        k_noise, _, k_scdrop = jax.random.split(k_p, 3)
+        parts.append({"t": np.asarray(t), "noise": np.asarray(jax.random.normal(k_noise, shape)),
+                      "self_cond": bool(jax.random.bernoulli(k_scdrop))})
+    return {"dequant": np.asarray(jax.random.uniform(k_dq, image_shape)), "parts": parts}
+
+
 # -- a small analytic model in place of the UNet, written in both frameworks,
 # so that a diffusion process compiles in a second --------------------------
 
@@ -213,7 +300,8 @@ def _write_config(run_dir, root_yaml, overrides):
 def write_jax_glow_run(run_dir, epochs=(1,), temperature=0.7):
     """A stage-1 run directory as the JAX package writes it: architecture.json,
     config.yaml and orbax checkpoints model_gaussian_<e> of seeded weights
-    ({"params", "opt_state", "step"}). Returns {epoch: numpy params}."""
+    ({"params", "opt_state", "step"}, the state of the entry point's
+    optimizer: Adam, fixed prior). Returns {epoch: numpy params}."""
     from nfdpm_tpu.models import glow as jglow
     from nfdpm_tpu.models import prior as jprior
     from nfdpm_tpu.training import checkpoint as jckpt
@@ -231,7 +319,7 @@ def write_jax_glow_run(run_dir, epochs=(1,), temperature=0.7):
         f"model.architecture.L={cfg.levels}", f"model.architecture.K={cfg.steps}",
         f"model.architecture.coupling_width={cfg.coupling_width}",
         f"model.training.temperature={temperature}"])
-    tx = jnft.make_optimizer("adam", 1e-3)
+    tx = jnft.make_optimizer("adam", 1e-3, fixed_prior=True)
     out = {}
     for epoch in epochs:
         tree = randomize(to_numpy_tree({
@@ -248,12 +336,15 @@ def write_jax_glow_run(run_dir, epochs=(1,), temperature=0.7):
 def write_jax_diffusion_run(run_dir, formater="IdentityFormater", ema=True):
     """A stage-2 run directory as the JAX package's entry point writes it:
     diffusion_architecture.json, config.yaml and one orbax checkpoint
-    model_diffusion_001 of seeded weights, with an EMA shadow of the UNets
-    that differs from them. The UNet trees come from the port's seeded init
-    through convert.unet_to_flax (flax's init compiles for seconds).
+    model_diffusion_001 of seeded weights and the fresh state of the entry
+    point's optimizer (two groups, the flow frozen), with an EMA shadow of
+    the UNets that differs from them. The UNet trees come from the port's
+    seeded init through convert.unet_to_flax (flax's init compiles for
+    seconds).
     Returns (numpy params, numpy EMA tree or None, the architecture dict)."""
     from nfdpm_tpu.models import glow as jglow
     from nfdpm_tpu.training import checkpoint as jckpt
+    from nfdpm_tpu.training import diffusion_trainer as jdt
     from nfdpm_tpu_torch import convert
     from nfdpm_tpu_torch.models import formaters as tfmt
     from nfdpm_tpu_torch.models.diffusion_prior import DiffusionPrior as TDiffusionPrior
@@ -287,7 +378,9 @@ def write_jax_diffusion_run(run_dir, formater="IdentityFormater", ema=True):
                             for u in tdp.init_params(2, "cpu")["parts"])}
     tree = randomize(to_numpy_tree({"flow": jglow.init_glow(0, jglow.GlowConfig(**RUN_GLOW)),
                                     "diffusion": unets}), seed=3, scale=0.02)
-    state = {"params": jax.tree.map(jax.numpy.asarray, tree), "step": np.int32(9)}
+    params = jax.tree.map(jax.numpy.asarray, tree)
+    tx = jdt.make_two_group_optimizer(jdt.DiffusionTrainConfig(), frozen=True)
+    state = {"params": params, "opt_state": tx.init(params), "step": np.int32(9)}
     shadow = None
     if ema:
         shadow = randomize({"diffusion": tree["diffusion"]}, seed=4, scale=0.01)

@@ -31,8 +31,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import (close, interrupt_loaders_after, metric_overrides, one_torch_thread,
-                         precompute_stats, randomize, to_numpy_tree)
+from _torch_port import (close, interrupt_loaders_after, jax_diffusion_draws, metric_overrides,
+                         one_torch_thread, precompute_stats, randomize, to_numpy_tree)
 from nfdpm_tpu.models import formaters as jfmt
 from nfdpm_tpu.models import glow as jglow
 from nfdpm_tpu.models.diffusion_prior import DiffusionPrior as JDiffusionPrior
@@ -62,22 +62,6 @@ CONFIGS = {
 def _one_thread():
     with one_torch_thread():
         yield
-
-
-def _jax_draws(key, step, jdp, shapes):
-    """The draws of JAX's train step `step` from `key` (make_train_step,
-    DiffusionPrior.losses, GaussianDiffusion.loss and p_losses), as the
-    port's injected draws."""
-    k_dq, k_diff = jax.random.split(jax.random.fold_in(key, step))
-    parts = []
-    for i, (shape, gd) in enumerate(zip(shapes, jdp.parts)):
-        k_t, k_p = jax.random.split(jax.random.fold_in(k_diff, i))
-        t = jax.random.randint(k_t, (BATCH,), 0, gd.num_timesteps)
-        k_noise, _, k_scdrop = jax.random.split(k_p, 3)
-        parts.append({"t": np.asarray(t), "noise": np.asarray(jax.random.normal(k_noise, shape)),
-                      "self_cond": bool(jax.random.bernoulli(k_scdrop))})
-    return {"dequant": np.asarray(jax.random.uniform(k_dq, (BATCH, IMG, IMG, 3))),
-            "parts": parts}
 
 
 def _zeros_like(tree):
@@ -116,7 +100,7 @@ def trajectory(request):
     shapes = [(BATCH, *s) for s in jformater.input_shapes]
     losses, draws = [], []
     for i in range(STEPS):
-        draws.append(_jax_draws(key, i, jdp, shapes))
+        draws.append(jax_diffusion_draws(key, i, jdp, shapes, (BATCH, IMG, IMG, 3)))
         jstate, metrics = jstep(jstate, jnp.asarray(imgs[i]), key)
         if jema is not None and (i + 1) % conf["ema_update_every"] == 0:
             jstate = jema(jstate)

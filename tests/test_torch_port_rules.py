@@ -99,7 +99,10 @@ def test_fresh_interpreter_loads_no_jax_or_reference_modules():
                "nfdpm_tpu_torch.metrics.precompute_stats",
                "nfdpm_tpu_torch.training.runload", "nfdpm_tpu_torch.utils.watchdog",
                "nfdpm_tpu_torch.utils.profiling", "nfdpm_tpu_torch.generate_samples",
-               "nfdpm_tpu_torch.interpolate")
+               "nfdpm_tpu_torch.interpolate", "nfdpm_tpu_torch.utils.reference_import",
+               "nfdpm_tpu_torch.utils.reference_export", "nfdpm_tpu_torch.utils.unet_import",
+               "nfdpm_tpu_torch.convert_reference_checkpoint",
+               "nfdpm_tpu_torch.export_reference_checkpoint")
     loaded = _modules_after("import " + ", ".join(modules))
     assert set(modules) <= loaded and "torch" in loaded
     new_bad = sorted(m for m in loaded - bare if _forbidden(m))

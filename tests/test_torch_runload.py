@@ -83,19 +83,23 @@ def _uint8_close(a, b):
 
 # -- the converted files ---------------------------------------------------------
 
-def test_tool_writes_port_checkpoints_without_optimizer_state(runs):
+def test_tool_writes_port_checkpoints_with_optimizer_state(runs):
     jax_dir, pt_dir, _ = runs["glow"]
     for name in ("architecture.json", "config.yaml"):
         assert open(os.path.join(jax_dir, name)).read() == open(os.path.join(pt_dir, name)).read()
     for epoch in (1, 2):
         ckpt = torch.load(os.path.join(pt_dir, "checkpoints", f"model_gaussian_{epoch:03d}.pt"),
                           weights_only=True)
-        assert set(ckpt) == {"params", "step"} and ckpt["step"] == 4 * epoch
+        assert set(ckpt) == {"params", "opt_state", "step"} and ckpt["step"] == 4 * epoch
+        assert set(ckpt["opt_state"]) == {"mu", "nu", "count"}
+        assert ckpt["opt_state"]["count"] == 0
     jax_dir, pt_dir, _ = runs["diffusion"]
     ckpt = torch.load(os.path.join(pt_dir, "checkpoints", "model_diffusion_001.pt"),
                       weights_only=True)
-    assert set(ckpt) == {"params", "step", "ema"} and ckpt["step"] == 9
+    assert set(ckpt) == {"params", "opt_state", "step", "ema"} and ckpt["step"] == 9
     assert set(ckpt["params"]) == {"flow", "diffusion"} and set(ckpt["ema"]) == {"diffusion"}
+    assert set(ckpt["opt_state"]["mu"]) == {"flow", "diffusion"}
+    assert ckpt["opt_state"]["count"] == 0
     assert json.load(open(os.path.join(pt_dir, "diffusion_architecture.json"))) == json.load(
         open(os.path.join(jax_dir, "diffusion_architecture.json")))
 
