@@ -6,6 +6,7 @@
     python3 chip_smoke.py --attention-backward # phases 1, 2 and 16 only
     python3 chip_smoke.py --run-dir-tools      # phases 1, 2, 12, 13, 17 and 23-25
     python3 chip_smoke.py --reference-checkpoints  # phases 1, 2, 12, 13, 17 and 26
+    python3 chip_smoke.py --mixed-precision    # phases 1, 2, 12, 13, 17 and 27
 
 Runs nfdpm_tpu_torch (never JAX, never nfdpm_tpu) with seeded random
 weights at the width of the repo's models: the Glow of configs/nf_base.yaml
@@ -232,12 +233,48 @@ line each:
      True): a DDIM-100 chunk of 64 from one generator seed bitwise equal to
      the run's own UNets', 1200 fused_linear_attention launches.
 
+  bf16 mixed precision (launch counters zeroed before 27, read after it):
+ 27. mixed_precision: GlowConfig.coupling_dtype="bfloat16" and bf16 UNets
+     beside fp32. (a) Glow scoring of phase 4's weights, batch and draw:
+     bf16 bits/dim of the kernel route within 1e-3 of the plain route's and
+     within 1% (relative) of fp32's, exactly 12
+     channel_mix and 12 coupling_tail launches a forward and 12 + 12 an
+     inverse, the convolutions counted by dtype (a TorchDispatchMode on
+     aten.convolution): 24 bf16 (conv1 and conv2 of 12 steps) and 14 fp32
+     (the 12 zeroconvs and 2 split priors) a forward, 24 and 12 an
+     inverse; one step's round trip within 2e-3 and the whole flow's within
+     1e-2 (see MP_RT_TOL); device ms (CUDA graph), wall ms, cuDNN device ms
+     by dtype and the operators with the most host time, of each dtype. (b) run_baseline.main with
+     model.architecture.coupling_dtype=bfloat16 and again with float32, 8
+     steps of batch 64 each on the same batches and noise: bits/dim finite
+     and falling, each step's within 1% of fp32's, exact launches; the
+     gradients of a first step from the bf16 run's state finite, fp32 and
+     nonzero on every trained leaf (the fixed prior is not trained); 16
+     synchronised bf16 steps (median and spread, exact launches a step),
+     peak memory, a profile of one step and the operators with the most
+     host time in each dtype, beside phase 13's fp32 figures. (c) run_diffusion_prior.main with
+     model.diffusion.unet_dtype=bfloat16 and
+     model.normalizing_flow.coupling_dtype=bfloat16 from phase 12's run,
+     frozen, one epoch of 11 steps: exact launches, the l1 loss finite and
+     falling, "dtype": "bfloat16" in diffusion_architecture.json and no
+     coupling dtype in its flow entry, phase=eval in-process prints the
+     same VLB; runload rebuilds bf16 UNets; one UNet's bf16 output within
+     5% of its largest entry from fp32's on the same weights; then on the
+     trained weights in each dtype: a DDIM-100 chunk of 64 (exactly 1200
+     attention launches), a VLB batch at phase 10's T = 40 (30 UNet calls;
+     the full T = 1000 takes 15 s a dtype), 16 synchronised train steps and a
+     profile of one (device ms by kernel group, cuDNN by dtype, busy share,
+     peak memory), beside phases 7, 8 and 17's fp32 figures. (d) serve
+     --run-dir on (c)'s run answers {"n": 128, "seed": 7} with the same
+     bytes as --arch/--weights of the same parameters, exact launches.
+
 Then come the kernel summary line (seven kernels), the nvidia-smi line and, last,
 {"ok": true, "device": {...}}. With --run-dir-tools the script runs the
 environment, the build, phases 12, 13 and 17 (whose run directories the
 tooling reads) and 23-25, and prints neither; --reference-checkpoints the same
-with phase 26 in place of 23-25. With --stage1-training the script runs only
-the environment, the build and phases 12 and 13 and prints neither: copied
+with phase 26 in place of 23-25, --mixed-precision with phase 27. With
+--stage1-training the script runs only the environment, the build and
+phases 12 and 13 and prints neither: copied
 into another checkout, it times that checkout's stage-1 training with the
 same measuring code; --attention-backward the same for phase 16 alone
 (in a checkout whose wrapper has no `bwd_plan`, the lines carry no plan).
@@ -249,8 +286,10 @@ those of a failed run too.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import http.client
 import io
+import itertools
 import json
 import logging
 import math
@@ -3582,6 +3621,489 @@ def phase_reference_checkpoints(torch, np, counters, smi, stage1_dir, stage2_dir
     return launches
 
 
+# -- bf16 mixed precision ------------------------------------------------------
+
+MP_TRAIN_STEPS = 8     # (b): one epoch of run_baseline.main a dtype, batch 64
+MP_STAGE2_STEPS = 11   # (c): one epoch of run_diffusion_prior.main, batch 64; under
+# STAGE2_GRIDS, so that the run's one sample grid is its checkpoint's
+MP_TIMED = 16          # synchronised steps timed after two more
+MP_ROUTE_TOL = 1e-3    # bf16 bits/dim, kernel route against plain route
+MP_BPD_REL_TOL = 1e-2  # bf16 against fp32 on the same weights: scoring, each train step
+MP_UNET_TOL = 5e-2     # a UNet's bf16 output against fp32, of its largest entry
+MP_STEP_RT_TOL = 2e-3  # one step's inverse(forward(y)) - y in bf16: the inverse's CNN
+# sees the forward's input bit for bit, so both directions evaluate one function
+MP_RT_TOL = 1e-2       # the whole flow's: down the chain, a step's inverse gets its
+# forward's input only to fp32 roundoff, and the bf16 cast can turn that into
+# one bf16 ulp (2^-8 relative) of a CNN input; measured 2.96e-3 on an H100 (PERF.md §6)
+
+
+def conv_dtype_counter(torch):
+    """A TorchDispatchMode that counts convolutions by the dtype of their
+    input: what runs in bf16 and what in fp32. Under inference_mode the
+    mode sees aten.conv2d, which is not yet decomposed into
+    aten.convolution there."""
+    import collections
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class ConvDtypes(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.counts = collections.Counter()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.overloadpacket.__name__ in ("conv2d", "convolution"):
+                self.counts[str(args[0].dtype).replace("torch.", "")] += 1
+            return func(*args, **(kwargs or {}))
+
+    return ConvDtypes()
+
+
+def conv_device_ms(events) -> dict:
+    """Device ms of one call's cuDNN kernels (profiling.group_of's two
+    convolution groups) by dtype, from kernel_events, and their names: a
+    kernel whose name says bf16 is bf16, any other fp32."""
+    from nfdpm_tpu_torch.profiling import group_of
+
+    out = {"bfloat16_ms": 0.0, "float32_ms": 0.0, "kernels": {}}
+    for name, us in events:
+        if "convolution" not in group_of(name):
+            continue
+        dtype = "bfloat16" if re.search("bf16|bfloat16", name, re.I) else "float32"
+        out[f"{dtype}_ms"] += us / 1e3
+        short = name[:110]
+        out["kernels"][short] = out["kernels"].get(short, 0.0) + us / 1e3
+    return out
+
+
+def host_ops(torch, fn, top: int = 10) -> list:
+    """[op, calls, host ms] of the aten operators with the most host (self
+    CPU) time in one call of `fn`, from torch.profiler over the CPU alone
+    (recording slows the host, so read the shares, not the sum)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:top]
+    return [[e.key, e.count, e.self_cpu_time_total / 1e3] for e in rows]
+
+
+def record_of(phase: str):
+    return next((r for r in RECORDS if r.get("phase") == phase), None)
+
+
+def step_walls(torch, step, n: int, counters, per_step: dict, what: str) -> list:
+    """Wall ms of n synchronised calls of `step()` (which returns the new
+    state's holder), each call's launches checked to be `per_step`."""
+    walls = []
+    for i in range(n):
+        before = counts(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        after = counts(counters)
+        delta = {k: after[k] - before[k] for k in before}
+        check(delta == per_step, f"{what} {i} launched {delta}, expected {per_step}")
+    return walls
+
+
+def spread(walls: list) -> dict:
+    timed = sorted(walls[-MP_TIMED:])
+    return {"median_ms": (timed[7] + timed[8]) / 2, "min_ms": timed[0], "max_ms": timed[-1],
+            "quartiles_ms": [timed[3], timed[11]]}
+
+
+def mp_glow(torch, np, counters, none):
+    """(a) Glow scoring in bf16 beside fp32 on one set of weights."""
+    from nfdpm_tpu_torch import inference
+    from nfdpm_tpu_torch.models import glow as glow_m
+    from nfdpm_tpu_torch.models import prior as prior_m
+    from nfdpm_tpu_torch.ops import bijectors as bj
+    from nfdpm_tpu_torch.ops import quantize as q
+
+    device = torch.device("cuda")
+    cfg32 = glow_m.GlowConfig(levels=LEVELS, steps=STEPS, coupling_width=WIDTH)
+    cfg16 = dataclasses.replace(cfg32, coupling_dtype="bfloat16")
+    params = {"flow": glow_m.init_glow(0, cfg32, device),
+              "prior": prior_m.init_gaussian_prior(glow_m.final_channels(cfg32), True, device)}
+    randomize_zero_leaves(torch, params, seed=1)
+    imgs = np.random.default_rng(2).integers(0, 256, (BATCH, IMG, IMG, 3), dtype=np.uint8)
+    batch = torch.from_numpy(imgs.astype(np.float32) / 255.0).to(device)
+    noise = torch.rand(batch.shape, generator=torch.Generator(device="cuda").manual_seed(3),
+                       device=device)
+    per_pass = LEVELS * STEPS
+    evals = {name: inference.make_eval_step(c, N_BITS, device=device) for name, c in (
+        ("bf16", cfg16), ("bf16_plain", dataclasses.replace(cfg16, use_kernels=False)),
+        ("fp32", cfg32))}
+
+    before = counts(counters)
+    counter = conv_dtype_counter(torch)
+    with counter:
+        bpd16 = evals["bf16"](params, batch, noise=noise)
+    torch.cuda.synchronize()
+    after = counts(counters)
+    fwd = {k: after[k] - before[k] for k in before}
+    check(fwd == dict(none, channel_mix=per_pass, coupling_tail=per_pass),
+          f"one bf16 forward launched {fwd}")
+    splits = LEVELS - 1
+    fwd_convs = dict(counter.counts)
+    check(fwd_convs == {"bfloat16": 2 * per_pass, "float32": per_pass + splits},
+          f"one bf16 forward ran convolutions {fwd_convs}")
+    bpd_plain = evals["bf16_plain"](params, batch, noise=noise)
+    bpd32 = evals["fp32"](params, batch, noise=noise)
+    check(bool(torch.isfinite(bpd16).all()) and tuple(bpd16.shape) == (BATCH,),
+          "bf16 bits/dim not finite or of the wrong shape")
+    route_gap = float((bpd16 - bpd_plain).abs().max())
+    check(route_gap <= MP_ROUTE_TOL, f"bf16 kernel and plain bits/dim differ by {route_gap}")
+    rel = float(((bpd16 - bpd32).abs() / bpd32.abs()).max())
+    check(rel <= MP_BPD_REL_TOL, f"bf16 bits/dim {rel} (relative) from fp32's")
+    check(not torch.equal(bpd16, bpd32), "bf16 gave fp32's bits/dim: bf16 did not run")
+
+    x = q.dequantize(None, q.preprocess(batch, N_BITS), N_BITS, noise)
+    with torch.inference_mode():
+        latents, _, _ = glow_m.forward(params["flow"], cfg16, x)
+        before = counts(counters)
+        counter = conv_dtype_counter(torch)
+        with counter:
+            back = glow_m.inverse(params["flow"], cfg16, latents)
+        torch.cuda.synchronize()
+        after = counts(counters)
+    inv = {k: after[k] - before[k] for k in before}
+    check(inv == dict(none, channel_mix=per_pass, coupling_tail_inverse=per_pass),
+          f"one bf16 inverse launched {inv}")
+    inv_convs = dict(counter.counts)
+    check(inv_convs == {"bfloat16": 2 * per_pass, "float32": per_pass},
+          f"one bf16 inverse ran convolutions {inv_convs}")
+    rt = float((back - x).abs().max())
+    check(rt <= MP_RT_TOL, f"bf16 inverse(forward(x)) is off by {rt}")
+    step = params["flow"]["blocks"][0]["steps"][0]
+    with torch.inference_mode():
+        y0 = bj.squeeze_forward(x)
+        y1, _ = bj.step_forward(step, y0, torch.zeros((BATCH,), device=device), True,
+                                torch.bfloat16)
+        step_rt = float((bj.step_inverse(step, y1, True, torch.bfloat16) - y0).abs().max())
+    check(step_rt <= MP_STEP_RT_TOL, f"one bf16 step's inverse(forward(y)) is off by {step_rt}")
+
+    times = {}
+    for name, c in (("bf16", cfg16), ("fp32", cfg32)):
+        def fwd_only(c=c):
+            with torch.inference_mode():
+                return glow_m.forward(params["flow"], c, x)
+        times[name] = {"device_ms": graph_ms(fwd_only, calls=3, replays=5),
+                       "wall_ms": host_ms(torch, lambda: evals[name](params, batch,
+                                                                     noise=noise)),
+                       "cudnn": conv_device_ms(kernel_events(torch, fwd_only)),
+                       "activities": len(kernel_events(torch, fwd_only)),
+                       "host_ops": host_ops(torch, fwd_only)}
+    return {"bpd_mean": float(bpd16.mean()), "fp32_bpd_mean": float(bpd32.mean()),
+            "max_rel_bpd_gap_to_fp32": rel, "rel_tolerance": MP_BPD_REL_TOL,
+            "max_route_bpd_gap": route_gap, "route_tolerance": MP_ROUTE_TOL,
+            "round_trip_max_abs_err": rt, "round_trip_tolerance": MP_RT_TOL,
+            "step_round_trip_max_abs_err": step_rt, "step_round_trip_tolerance": MP_STEP_RT_TOL,
+            "launches_one_forward": fwd, "launches_one_inverse": inv,
+            "convolutions_one_forward": fwd_convs, "convolutions_one_inverse": inv_convs,
+            "timing": times}
+
+
+def mp_stage1(torch, counters, none):
+    """(b) Stage-1 training through run_baseline.main, bf16 and fp32 on the
+    same batches and noise; then bf16 steps one by one."""
+    from nfdpm_tpu_torch import run_baseline
+    from nfdpm_tpu_torch.convert import named_leaves
+    from nfdpm_tpu_torch.profiling import profile_call
+    from nfdpm_tpu_torch.training import nf_trainer as nft
+    from nfdpm_tpu_torch.training.checkpoint import restore_state
+
+    root = ROOT / "build" / "chip_smoke" / "mixed_precision"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    os.environ["NFDPM_NO_TENSORBOARD"] = "1"
+    per_pass = LEVELS * STEPS
+    loaders = train_loaders(MP_TRAIN_STEPS)
+    expected = stage1_run_launches(MP_TRAIN_STEPS, len(loaders.test) + len(loaders.eval))
+    runs = {}
+    for name, dtype in (("bf16", "bfloat16"), ("fp32", "float32")):
+        before = counts(counters)
+        t0 = time.perf_counter()
+        result = run_in(root, run_baseline.main, [
+            "data.name=synthetic", f"data.batch_size={BATCH}", f"data.img_size={IMG}",
+            f"data.synthetic_n={BATCH * MP_TRAIN_STEPS}", f"seed={TRAIN_SEED}",
+            f"model.architecture.L={LEVELS}", f"model.architecture.K={STEPS}",
+            f"model.architecture.coupling_width={WIDTH}",
+            f"model.architecture.coupling_dtype={dtype}", "model.training.epochs=1",
+            "model.training.print_freq=1", "model.training.save_checkpoint_freq=50",
+            f"experiment_name=stage1_{name}"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        after = counts(counters)
+        launched = {k: after[k] - before[k] for k in before}
+        check(launched == expected, f"the {name} stage-1 run launched {launched}, "
+                                    f"expected {expected}")
+        run_dir = root / result["run_dir"]
+        records = [json.loads(line) for line in
+                   (run_dir / "metrics.jsonl").read_text().splitlines()]
+        bpds = [r["value"] for r in records
+                if r["name"] == "bpd" and r["context"] == {"subset": "train"}]
+        check(len(bpds) == MP_TRAIN_STEPS and all(map(math.isfinite, bpds)),
+              f"the {name} run logged bits/dim {bpds}")
+        runs[name] = {"run_dir": run_dir, "bpd_per_step": bpds, "seconds": seconds,
+                      "final": result["results"]}
+    b16, b32 = runs["bf16"]["bpd_per_step"], runs["fp32"]["bpd_per_step"]
+    check(sum(b16[-4:]) < sum(b16[:4]), f"bf16 bits/dim did not fall: {b16}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(b16, b32))
+    check(rel <= MP_BPD_REL_TOL, f"bf16 training bits/dim {rel} (relative) from fp32's")
+    check(b16 != b32, "the bf16 run gave the fp32 run's bits/dim")
+
+    # the gradients of the first step from the bf16 run's state (its
+    # zeroconvs have moved from zero, so every trained leaf gets one; the
+    # fixed prior's leaves are not trained), then steps one by one
+    device = torch.device("cuda")
+    cfg, tcfg = train_configs()
+    cfg = dataclasses.replace(cfg, coupling_dtype="bfloat16")
+    tx = nft.optimizer_of(tcfg)
+    state = restore_state(str(runs["bf16"]["run_dir"]), "gaussian", 1, device)
+    batches = [torch.from_numpy(imgs).to(device) for imgs, _ in loaders.train.iter_epoch(1)]
+    noise = torch.rand(batches[0].shape, generator=torch.Generator(device="cuda").manual_seed(5),
+                       device=device)
+    bpd, _ = nft.make_loss_fn(cfg, tcfg)(state["params"], batches[0], noise=noise)
+    bpd.backward()
+    leaves = [(k, p) for k, p in named_leaves(state["params"])
+              if p.requires_grad and not k.startswith("prior/")]
+    bad = [k for k, p in leaves if p.grad is None or p.grad.dtype != torch.float32
+           or not bool(torch.isfinite(p.grad).all()) or float(p.grad.abs().max()) == 0.0]
+    check(not bad and len(leaves) > 100, f"bf16 gradients missing, not fp32, not finite "
+                                         f"or zero: {bad}")
+    for _, leaf in named_leaves(state["params"]):
+        leaf.grad = None
+    step = nft.make_train_step(cfg, tcfg, tx, device=device)
+    per_step = dict(none, channel_mix=2 * per_pass - 1, coupling_tail=per_pass,
+                    coupling_tail_bwd=per_pass)
+    cycle = itertools.cycle(batches)
+
+    def one():
+        nonlocal state
+        state, _ = step(state, next(cycle), TRAIN_SEED)
+
+    torch.cuda.reset_peak_memory_stats()
+    walls = step_walls(torch, one, MP_TIMED + 2, counters, per_step, "bf16 stage-1 step")
+    peak = torch.cuda.max_memory_allocated()
+    prof = profile_call(one, iters=1, warmup=1, top=12)
+    events = kernel_events(torch, one)
+    ops = {"bf16": host_ops(torch, one)}
+    step32 = nft.make_train_step(dataclasses.replace(cfg, coupling_dtype="float32"), tcfg, tx,
+                                 device=device)
+
+    def one32():
+        nonlocal state
+        state, _ = step32(state, batches[0], TRAIN_SEED)
+
+    ops["fp32"] = host_ops(torch, one32)
+    fp32 = record_of("training_steps")
+    return {"steps": MP_TRAIN_STEPS, "bpd_per_step": b16, "fp32_bpd_per_step": b32,
+            "max_rel_bpd_gap_to_fp32": rel, "rel_tolerance": MP_BPD_REL_TOL,
+            "run_seconds": {k: v["seconds"] for k, v in runs.items()},
+            "final": {k: v["final"] for k, v in runs.items()}, "run_launches": expected,
+            "gradient_leaves_checked": len(leaves), "launches_per_step": per_step,
+            "step_wall_ms": walls, "step_wall": spread(walls),
+            "images_per_s": BATCH / spread(walls)["median_ms"] * 1e3,
+            "max_memory_allocated_bytes": peak, "profile_one_step": prof,
+            "cudnn_one_step": conv_device_ms(events), "activities_one_step": len(events),
+            "host_ops_one_step": ops,
+            "fp32_phase13": None if fp32 is None else {
+                "step_wall_ms_median_last16": fp32["step_wall_ms_median_last16"],
+                "step_wall_ms_min_last16": fp32["step_wall_ms_min_last16"],
+                "step_wall_ms_max_last16": fp32["step_wall_ms_max_last16"],
+                "max_memory_allocated_bytes": fp32["max_memory_allocated_bytes"],
+                "device_ms": fp32["profile_one_step"].get("device_ms"),
+                "device_busy_share": fp32["profile_one_step"].get("device_busy_share")}}
+
+
+def mp_stage2(torch, counters, none, stage1_dir):
+    """(c) Stage 2 through run_diffusion_prior.main with bf16 UNets and a
+    bf16 frozen flow; its phase=eval; then bf16 beside fp32 on the trained
+    weights: one UNet, a DDIM-100 chunk, a VLB batch, train steps."""
+    import numpy as np
+
+    from nfdpm_tpu_torch import inference, run_diffusion_prior
+    from nfdpm_tpu_torch.profiling import profile_call
+    from nfdpm_tpu_torch.training import diffusion_trainer as dt
+    from nfdpm_tpu_torch.training import runload
+
+    root = ROOT / "build" / "chip_smoke" / "mixed_precision"
+    (root / "outputs").mkdir(parents=True, exist_ok=True)
+    link = root / "outputs" / "stage1"
+    if not link.exists():
+        link.symlink_to(stage1_dir)
+    overrides = stage2_overrides("stage1", MP_STAGE2_STEPS) + [
+        "model.diffusion.unet_dtype=bfloat16",
+        "model.normalizing_flow.coupling_dtype=bfloat16"]
+    per_step = stage2_per_step(frozen=True)
+    expected = stage2_run_launches(per_step, MP_STAGE2_STEPS)
+    before = counts(counters)
+    t0 = time.perf_counter()
+    result = run_in(root, run_diffusion_prior.main, overrides + ["experiment_name=stage2_bf16"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    after = counts(counters)
+    launched = {k: after[k] - before[k] for k in before}
+    check(launched == expected, f"the bf16 stage-2 run launched {launched}, "
+                                f"expected {expected}")
+    run_dir = root / result["run_dir"]
+    records = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    losses = [r["value"] for r in records
+              if r["name"] == "l1" and r["context"] == {"subset": "train"}]
+    check(len(losses) == MP_STAGE2_STEPS and all(map(math.isfinite, losses)),
+          f"the bf16 stage-2 run logged losses {losses}")
+    check(sum(losses[-4:]) < sum(losses[:4]), f"the bf16 stage-2 loss did not fall: {losses}")
+    arch = json.loads((run_dir / "diffusion_architecture.json").read_text())
+    check(arch["unet_kwargs"]["dtype"] == "bfloat16" and "coupling_dtype" not in arch["flow"],
+          f"diffusion_architecture.json: {arch['unet_kwargs']}, {arch['flow']}")
+    vlb_line = f"{result['vlb_bpd']:.4f}"
+    evaluated = run_in(root, run_diffusion_prior.main, overrides + [
+        "experiment_name=stage2_bf16_eval", "phase=eval", f"load.load_exp_dir={run_dir.name}",
+        "load.load_epoch=1"])
+    check(f"{evaluated['vlb_bpd']:.4f}" == vlb_line,
+          f"phase=eval gave VLB {evaluated['vlb_bpd']}, training logged {vlb_line}")
+
+    # bf16 beside fp32 on the trained weights
+    device = torch.device("cuda")
+    run = runload.load_diffusion_run(str(run_dir), use_ema=False, device=device)
+    backbone16 = dataclasses.replace(run.backbone, cfg=dataclasses.replace(
+        run.backbone.cfg, coupling_dtype="bfloat16"))
+    dp16, dp32 = run.dp, stage2_prior()
+    unets32 = []
+    for i, unet in enumerate(run.params["diffusion"]["parts"]):
+        check(unet.dtype == torch.bfloat16, f"runload rebuilt a {unet.dtype} UNet")
+        u32 = dp32.build_unet(i)
+        u32.load_state_dict(unet.state_dict())
+        unets32.append(dp32.place(u32, device))
+    models = {"bf16": (backbone16, dp16, run.params),
+              "fp32": (run.backbone, dp32, dict(run.params, diffusion={"parts": unets32}))}
+    h, w, c = dp16.formater.input_shapes[0]
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    xu = torch.randn((BATCH, h, w, c), generator=gen, device=device)
+    tu = torch.randint(0, DIFFUSION_KWARGS["timesteps"], (BATCH,), generator=gen, device=device)
+    with torch.no_grad():
+        out16 = run.params["diffusion"]["parts"][0](xu, tu)
+        out32 = unets32[0](xu, tu)
+    unet_gap = float((out16 - out32).abs().max()) / float(out32.abs().max())
+    check(out16.dtype == torch.float32 and unet_gap <= MP_UNET_TOL and unet_gap > 0,
+          f"a bf16 UNet's output is {unet_gap} of the largest entry from fp32's")
+
+    imgs = np.random.default_rng(8).integers(0, 256, (VLB_BATCH, IMG, IMG, 3), dtype=np.uint8)
+    vlb_batch = torch.from_numpy(imgs.astype(np.float32) / 255.0).to(device)
+    blocks = 2 * len(UNET_KWARGS["dim_mults"])
+    chunk = sampling_chunk(DIFFUSION_KWARGS["sampling_timesteps"])
+    # the VLB batch at phase 10's cut T (30 UNet calls, not the full 750,
+    # which take 15 s a dtype): the prior of T = 40 over the same UNets
+    vlb_prior = stage2_prior(timesteps=PROFILE_TIMESTEPS, sampling_timesteps=PROFILE_TIMESTEPS)
+    vlb_launches = dict(none, channel_mix=3 * STEPS, coupling_tail=3 * STEPS,
+                        fused_linear_attention=LEVELS * blocks * -(
+                            -PROFILE_TIMESTEPS // DIFFUSION_KWARGS["vlb_time_chunk"]))
+    train_batches = [torch.from_numpy(i).to(device) for i, _ in
+                     list(train_loaders(MP_STAGE2_STEPS).train.iter_epoch(1))[:4]]
+    compared = {}
+    for name, (backbone, dp, params) in models.items():
+        sample = inference.make_diffusion_sample_fn(backbone, dp, N_BITS, device)
+        vlb = inference.make_vlb_eval_step(backbone, vlb_prior, N_BITS, device=device)
+        ms = {}
+        for key, fn, want in (
+                ("chunk", lambda: sample(params, BATCH, generator=torch.Generator(
+                    device="cuda").manual_seed(10)), chunk),
+                ("vlb", lambda: vlb(params, vlb_batch, generator=torch.Generator(
+                    device="cuda").manual_seed(9)), vlb_launches)):
+            walls = step_walls(torch, fn, 1, counters, want, f"the {name} {key}")
+            ms[f"{key}_ms"] = walls[0]
+        ms["vlb_timesteps"] = PROFILE_TIMESTEPS
+        # the checkpoint's state, its UNets built by this prior in its dtype
+        state = dt.restore_train_state(str(run_dir), 1, backbone, dp, False, device)
+        tcfg = dt.DiffusionTrainConfig(lr_diffusion=1e-3, n_bits=N_BITS)
+        tx = dt.make_two_group_optimizer(tcfg, True)
+        step = dt.make_train_step(backbone, dp, tcfg, tx, device=device)
+        cycle = itertools.cycle(train_batches)
+
+        def one():
+            nonlocal state
+            state, _ = step(state, next(cycle), TRAIN_SEED)
+
+        torch.cuda.reset_peak_memory_stats()
+        walls = step_walls(torch, one, MP_TIMED + 2, counters, per_step,
+                           f"the {name} stage-2 step")
+        peak = torch.cuda.max_memory_allocated()
+        prof = profile_call(one, iters=1, warmup=1, top=12)
+        events = kernel_events(torch, one)
+        compared[name] = {**ms, "step_wall_ms": walls, "step_wall": spread(walls),
+                          "images_per_s": BATCH / spread(walls)["median_ms"] * 1e3,
+                          "max_memory_allocated_bytes": peak, "profile_one_step": prof,
+                          "cudnn_one_step": conv_device_ms(events),
+                          "activities_one_step": len(events)}
+        del state, step
+    scored = next((r for r in RECORDS if r.get("phase") == "profile_routes"
+                   and r.get("path") == "score"), None)
+    earlier = {key: (None if (r := record_of(phase)) is None else r.get(field)) for
+               key, phase, field in (("vlb_ms_phase7_full_t", "stage2_scoring", "ms_per_batch"),
+                                     ("chunk_ms_phase8", "stage2_sampling", "ms_per_chunk"),
+                                     ("step_wall_ms_median_phase17", "stage2_training",
+                                      "step_wall_ms_median_last16"))}
+    earlier["vlb_ms_phase10_t40"] = None if scored is None else scored["kernels_median_ms"]
+    return {"steps": MP_STAGE2_STEPS, "seconds": seconds, "loss_per_step": losses,
+            "vlb_bpd": result["vlb_bpd"], "eval_vlb_bpd": evaluated["vlb_bpd"],
+            "eval_reproduced": True, "run_launches": expected,
+            "unet_rel_gap_to_fp32": unet_gap, "unet_tolerance": MP_UNET_TOL,
+            "compared": compared, "fp32_earlier_phases": earlier}, run_dir
+
+
+def mp_serving(torch, np, counters, run_dir):
+    """(d) serve --run-dir on (c)'s run against --arch/--weights of the same
+    parameters: the same bytes for RUN_DIR_REQUEST."""
+    from nfdpm_tpu_torch import convert, serve
+    from nfdpm_tpu_torch.training import runload
+
+    run = runload.load_diffusion_run(str(run_dir), device="cuda")
+    weights = Path(run_dir) / "diffusion.npz"
+    convert.save_npz(weights, convert.diffusion_to_jax_params(run.params))
+    del run
+    per_chunk = sampling_chunk(DIFFUSION_KWARGS["sampling_timesteps"])
+    got = {}
+    for source, argv in (("run_dir", ["--run-dir", str(run_dir)]),
+                         ("weights", ["--weights", str(weights), "--arch",
+                                      str(Path(run_dir) / "diffusion_architecture.json")])):
+        with serving(serve, argv) as (port_no, health):
+            got[source] = generate(port_no, RUN_DIR_REQUEST, counters, per_chunk)
+    check(np.array_equal(got["run_dir"][0], got["weights"][0]),
+          "bf16 stage 2: --run-dir and --weights gave different samples")
+    return {"request": RUN_DIR_REQUEST, "same_bytes_as_weights": True,
+            **{source: rec for source, (_, rec) in got.items()}}
+
+
+def phase_mixed_precision(torch, np, counters, smi, stage1_dir):
+    """Phase 27: bf16 mixed precision (GlowConfig.coupling_dtype and the
+    UNets' dtype) on the card beside fp32: (a) Glow scoring, (b) stage-1
+    training, (c) stage-2 training, evaluation and sampling, (d) serving.
+    Returns the launches of the path."""
+    none = {fn.__name__: 0 for fn in counters}
+    t0 = time.perf_counter()
+    for fn in counters:
+        fn.launches = 0
+    record = {"phase": "mixed_precision", "nvidia_smi": smi}
+    record["glow_scoring"] = mp_glow(torch, np, counters, none)
+    record["stage1_training"] = mp_stage1(torch, counters, none)
+    torch.cuda.empty_cache()
+    record["stage2"], run_dir = mp_stage2(torch, counters, none, stage1_dir)
+    torch.cuda.empty_cache()
+    record["serving"] = mp_serving(torch, np, counters, run_dir)
+    launches = counts(counters)
+    record["launches"] = launches
+    record["seconds"] = time.perf_counter() - t0
+    emit(record)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3629,6 +4151,12 @@ def main() -> int:
         _, stage2_run, _ = phase_stage2_training(torch, counters, stage1_run)
         torch.cuda.empty_cache()
         phase_reference_checkpoints(torch, np, counters, smi, stage1_run, stage2_run)
+        return 0
+    if sys.argv[1:] == ["--mixed-precision"]:
+        _, stage1_run, _, _ = phase_training(torch, counters)
+        phase_stage2_training(torch, counters, stage1_run)
+        torch.cuda.empty_cache()
+        phase_mixed_precision(torch, np, counters, smi, stage1_run)
         return 0
     if sys.argv[1:] == ["--attention-backward"]:
         totals = {}
@@ -3680,6 +4208,8 @@ def main() -> int:
     phase_cli(np, smi, stage1_run, stage2_run, served)
     launches["reference_checkpoints"] = phase_reference_checkpoints(
         torch, np, counters, smi, stage1_run, stage2_run)
+    torch.cuda.empty_cache()
+    launches["mixed_precision"] = phase_mixed_precision(torch, np, counters, smi, stage1_run)
 
     per = {"fused_linear_attention": "one UNet evaluation of each of the three parts at "
                                      "batch 64 (one DDIM step or one stage-2 train "

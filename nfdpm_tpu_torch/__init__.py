@@ -39,6 +39,8 @@ profiling  : device time by kernel of a call, through torch.profiler.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 __version__ = "0.1.0"
@@ -64,3 +66,50 @@ def disable_tf32() -> None:
     and breaks fp32 parity with the JAX package."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+
+
+# model.training.matmul_precision of the running entry point (the JAX
+# package's jax_default_matmul_precision): None, "default" and "highest"
+# keep cuDNN and cuBLAS in full fp32, the port's parity setting (the JAX
+# package's CPU reference computes fp32 for all three); "high" lets them
+# run fp32 work in TF32. The hand-written kernels take no part: their
+# tensor-core products stay 3xTF32 whatever it is.
+MATMUL_PRECISIONS = {None: False, "default": False, "highest": False, "high": True}
+_matmul_precision = None
+
+
+def set_matmul_precision(value=None) -> None:
+    """Set the process's matmul precision and apply it; ValueError for a
+    value other than those of MATMUL_PRECISIONS."""
+    global _matmul_precision
+    if value not in MATMUL_PRECISIONS:
+        raise ValueError(f"model.training.matmul_precision must be one of 'default', "
+                         f"'high', 'highest' or unset, got {value!r}")
+    _matmul_precision = value
+    apply_matmul_precision()
+
+
+def matmul_precision():
+    return _matmul_precision
+
+
+def apply_matmul_precision() -> None:
+    """TF32 in cuDNN and cuBLAS as the process's matmul precision says
+    (off unless it is "high"): what the model paths call where they start."""
+    tf32 = MATMUL_PRECISIONS[_matmul_precision]
+    torch.backends.cudnn.allow_tf32 = tf32
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def in_full_fp32(fn):
+    """fn with TF32 off (disable_tf32), the switches restored after it."""
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        before = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+        disable_tf32()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = before
+
+    return wrapper

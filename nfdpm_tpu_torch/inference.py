@@ -15,8 +15,11 @@ tools/generate_samples.py:generate_batched.
             -> glow.inverse with every part given -> postprocess to uint8
 
 Every make_* function resolves its device (CUDA unless the caller names
-another) and turns TF32 off, so that the cuDNN convolutions (the coupling
-CNN, the UNet) run in full fp32 as the JAX reference does.
+another) and applies the process's matmul precision
+(nfdpm_tpu_torch.apply_matmul_precision): TF32 off unless an entry point
+was given model.training.matmul_precision=high, so that the cuDNN
+convolutions (the coupling CNN, the UNet) run in full fp32 as the JAX
+reference does.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from . import disable_tf32, resolve_device
+from . import apply_matmul_precision, resolve_device
 from .models import glow as glow_m
 from .models import prior as prior_m
 from .models.diffusion_prior import DiffusionPrior
@@ -51,7 +54,7 @@ def make_eval_step(cfg: glow_m.GlowConfig, n_bits: int = 5,
     behind it is `eval_step.ll` (same arguments), for combining several
     draws (training/nf_trainer.py:calculate_bpd)."""
     device = resolve_device(device)
-    disable_tf32()
+    apply_matmul_precision()
     n_bins = q.n_bins_of(n_bits)
 
     @torch.inference_mode()
@@ -86,7 +89,7 @@ def make_sample_fn(cfg: glow_m.GlowConfig, img_size: int, n_bits: int = 5,
     one N(0, 1) tensor per latent part, [z_1..z_{L-1}, z_final] in
     latent_shapes_nhwc order; otherwise every draw comes from `generator`."""
     device = resolve_device(device)
-    disable_tf32()
+    apply_matmul_precision()
     h, w, c = glow_m.latent_shapes_nhwc(cfg, img_size)[-1]
 
     @torch.inference_mode()
@@ -117,7 +120,7 @@ def make_diffusion_sample_fn(backbone: NFBackbone, dp: DiffusionPrior, n_bits: i
     from `generator`. The flow inverse gets every latent part, so
     `temperature` changes nothing, as in the JAX package."""
     device = resolve_device(device)
-    disable_tf32()
+    apply_matmul_precision()
 
     @torch.inference_mode()
     def sample(params, n: int, temperature: float = 1.0,
@@ -148,7 +151,7 @@ def make_vlb_eval_step(backbone: NFBackbone, dp: DiffusionPrior, n_bits: int = 5
     i's N(0, 1) draw at timestep t; what is not given comes from
     `generator`."""
     device = resolve_device(device)
-    disable_tf32()
+    apply_matmul_precision()
     n_bins = q.n_bins_of(n_bits)
     n_pixel = prior_m.n_pixels(backbone.img_size, backbone.cfg.in_channels,
                                compat_three_channel_bpd)

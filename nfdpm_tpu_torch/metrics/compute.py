@@ -28,7 +28,7 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from .. import disable_tf32, resolve_device
+from .. import in_full_fp32, resolve_device
 from ..data.datasets import DATASET_SIZE
 from . import clip_features, inception
 from . import fid as fid_m
@@ -219,6 +219,7 @@ def metric_key(score_type: str, mode: str, model_name: str) -> str:
 # evaluate_model
 # ---------------------------------------------------------------------------
 
+@in_full_fp32
 def evaluate_model(*, sample_images: Callable[[int], np.ndarray], data_name: str,
                    dataset_res: int, batch_size: int, num_gen: int, dataset_split: str,
                    fid_kwargs: Optional[List[Dict]] = None,
@@ -227,9 +228,10 @@ def evaluate_model(*, sample_images: Callable[[int], np.ndarray], data_name: str
                    logger=None, gen_batch_size: Optional[int] = None,
                    device=None) -> Dict[str, Any]:
     """One generation pass (uint8 numpy images from `sample_images(n)`)
-    serves every requested metric through Storage."""
+    serves every requested metric through Storage, with TF32 off (the
+    switches restored after it, so a run at matmul_precision="high" trains
+    on in TF32)."""
     device = resolve_device(device)
-    disable_tf32()
     metrics: Dict[str, Any] = {}
     if data_name == "celeba":
         # CelebA generations are resized to 224 before caching, so CLIP and

@@ -34,7 +34,8 @@ class GlowConfig:
     steps: int = 4            # K: step-flows per block
     coupling_width: int = 512
     learn_prior: bool = True  # learned (mean, log_sd) for the split priors
-    coupling_dtype: str = "float32"  # only float32 is ported
+    coupling_dtype: str = "float32"  # "bfloat16": the coupling CNN's two
+    # inner convolutions in bf16 (ops/coupling.py); any other string is fp32
     use_kernels: bool = True  # route the channel mix and the coupling tail
     # through ops/kernels (CUDA kernels on CUDA tensors, their plain versions
     # on CPU tensors); False takes the plain PyTorch step.
@@ -46,13 +47,15 @@ class GlowConfig:
     # ignored: a block's steps are a Python loop here, there is no scan
 
     def __post_init__(self):
-        if self.coupling_dtype != "float32":
-            raise NotImplementedError(
-                f"coupling_dtype={self.coupling_dtype!r} is not ported; "
-                "the port runs the coupling CNN in float32 only")
         if self.invconv_param not in ("plu", "full"):
             raise ValueError(f"invconv_param must be 'plu' or 'full', "
                              f"got {self.invconv_param!r}")
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        """The coupling CNN's convolution dtype: bf16 for "bfloat16", fp32
+        for any other string (the JAX package's _coupling_jnp_dtype)."""
+        return torch.bfloat16 if self.coupling_dtype == "bfloat16" else torch.float32
 
 
 def latent_shapes_nhwc(cfg: GlowConfig, size: int) -> List[Tuple[int, int, int]]:
@@ -110,11 +113,13 @@ def forward(params: Params, cfg: GlowConfig, x: torch.Tensor,
     elif logp is None:
         logp = torch.zeros((b,), dtype=torch.float32, device=x.device)
 
+    dtype = cfg.compute_dtype
+
     def step(sp, y, ldj):
         if cfg.remat and torch.is_grad_enabled():
-            return checkpoint(bj.step_forward, sp, y, ldj, cfg.use_kernels,
+            return checkpoint(bj.step_forward, sp, y, ldj, cfg.use_kernels, dtype,
                               use_reentrant=False)
-        return bj.step_forward(sp, y, ldj, cfg.use_kernels)
+        return bj.step_forward(sp, y, ldj, cfg.use_kernels, dtype)
 
     latents = []
     y = x
@@ -164,9 +169,10 @@ def inverse(params: Params, cfg: GlowConfig, latents: Sequence[torch.Tensor],
     per-level part is sampled from its split prior at `temperature`, from
     `noise[i]` ~ N(0, 1) when given (aligned with the latent parts), else
     from `generator`."""
+    dtype = cfg.compute_dtype
     y = latents[-1]
     for sp in reversed(params["final_steps"]):
-        y = bj.step_inverse(sp, y, cfg.use_kernels)
+        y = bj.step_inverse(sp, y, cfg.use_kernels, dtype)
     y = bj.squeeze_inverse(y)
 
     for i, block in enumerate(reversed(params["blocks"])):
@@ -178,6 +184,6 @@ def inverse(params: Params, cfg: GlowConfig, latents: Sequence[torch.Tensor],
                              "missing latent parts")
         y = bj.split_inverse(block["split"], y, z, generator, temperature, eps)
         for sp in reversed(block["steps"]):
-            y = bj.step_inverse(sp, y, cfg.use_kernels)
+            y = bj.step_inverse(sp, y, cfg.use_kernels, dtype)
         y = bj.squeeze_inverse(y)
     return y

@@ -20,7 +20,17 @@ The linear-attention blocks go through ops/kernels/fused_linear_attention
 `use_kernels=False` is passed to the forward, which takes the plain
 version everywhere. Their gradient is the kernel's hand-written backward
 (FusedLinearAttentionFunction). The mid-block attention is plain PyTorch,
-as it was XLA outside Pallas in the JAX package. Float32 only.
+as it was XLA outside Pallas in the JAX package.
+
+`dtype` (bf16) runs the convolutions in it where the JAX package does, with
+its two rounding kinds: a weight-standardized conv (Block) standardizes the
+kernel in fp32, casts it and x, upcasts the conv's output and adds the fp32
+bias; every other conv but the last (the 7x7 init conv, the residual 1x1
+convs, Downsample, Upsample and the last level's 3x3 convs) is flax's
+nn.Conv(dtype=bf16), which casts the bias too and adds it in bf16 before
+the upcast. The final 1x1 conv, the norms, the time MLP and FiLM, both
+attentions (the kernel's operands are fp32) and the residual adds stay
+fp32. The parameters are fp32 whatever the dtype.
 """
 
 from __future__ import annotations
@@ -39,6 +49,16 @@ from ..ops.kernels.fused_linear_attention import (fused_linear_attention,
 EPS = 1e-5
 
 
+def torch_dtype(dtype) -> torch.dtype:
+    """A UNet's compute dtype from a torch dtype or its name ("float32",
+    "bfloat16", "float16"): a floating type, else TypeError, as
+    jnp.dtype(...) refuses a name it does not know."""
+    dt = dtype if isinstance(dtype, torch.dtype) else getattr(torch, str(dtype), None)
+    if not isinstance(dt, torch.dtype) or not dt.is_floating_point:
+        raise TypeError(f"data type {dtype!r} not understood")
+    return dt
+
+
 def _conv_nhwc(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
                padding: int) -> torch.Tensor:
     y = F.conv2d(x.permute(0, 3, 1, 2), weight, bias, padding=padding)
@@ -46,29 +66,43 @@ def _conv_nhwc(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tenso
 
 
 class Conv(nn.Module):
-    """flax nn.Conv counterpart: stride 1, symmetric padding, OIHW weight."""
+    """flax nn.Conv counterpart: stride 1, symmetric padding, OIHW weight.
+    Another `dtype` casts x, the weight and the bias to it, adds the bias
+    in it and upcasts the sum (flax's promote_dtype, then the JAX UNet's
+    .astype(float32))."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 padding: int = 0):
+                 padding: int = 0, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(out_channels, in_channels,
                                                kernel_size, kernel_size))
         self.bias = nn.Parameter(torch.zeros(out_channels))
         self.padding = padding
+        self.dtype = dtype
 
     def forward(self, x):
-        return _conv_nhwc(x, self.weight, self.bias, self.padding)
+        if self.dtype == torch.float32:
+            return _conv_nhwc(x, self.weight, self.bias, self.padding)
+        dt = self.dtype
+        y = _conv_nhwc(x.to(dt), self.weight.to(dt), None, self.padding)
+        return (y + self.bias.to(dt)).float()
 
 
 class WeightStandardizedConv(Conv):
     """Conv whose kernel is standardized per output channel over
-    (kh, kw, in), biased variance, eps 1e-5."""
+    (kh, kw, in), biased variance, eps 1e-5. Another `dtype` runs the conv
+    alone in it: the standardized kernel and x cast, the output upcast,
+    then the fp32 bias added."""
 
     def forward(self, x):
         w = self.weight
         mean = w.mean(dim=(1, 2, 3), keepdim=True)
         var = ((w - mean) ** 2).mean(dim=(1, 2, 3), keepdim=True)
-        return _conv_nhwc(x, (w - mean) * torch.rsqrt(var + EPS), self.bias, self.padding)
+        w = (w - mean) * torch.rsqrt(var + EPS)
+        if self.dtype == torch.float32:
+            return _conv_nhwc(x, w, self.bias, self.padding)
+        dt = self.dtype
+        return _conv_nhwc(x.to(dt), w.to(dt), None, self.padding).float() + self.bias
 
 
 class ChannelLayerNorm(nn.Module):
@@ -116,9 +150,10 @@ class RandomOrLearnedSinusoidalPosEmb(nn.Module):
 class Block(nn.Module):
     """WSConv 3x3 -> GroupNorm -> (FiLM) -> SiLU."""
 
-    def __init__(self, dim_in: int, dim_out: int, groups: int = 8):
+    def __init__(self, dim_in: int, dim_out: int, groups: int = 8,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv = WeightStandardizedConv(dim_in, dim_out, 3, padding=1)
+        self.conv = WeightStandardizedConv(dim_in, dim_out, 3, padding=1, dtype=dtype)
         self.norm = nn.GroupNorm(groups, dim_out, eps=EPS)
 
     def forward(self, x, scale_shift=None):
@@ -134,12 +169,13 @@ class ResnetBlock(nn.Module):
     """Two Blocks with FiLM from the time embedding, plus a (1x1-conv)
     residual."""
 
-    def __init__(self, dim_in: int, dim_out: int, time_emb_dim: int, groups: int = 8):
+    def __init__(self, dim_in: int, dim_out: int, time_emb_dim: int, groups: int = 8,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.time_dense = nn.Linear(time_emb_dim, dim_out * 2)
-        self.block0 = Block(dim_in, dim_out, groups)
-        self.block1 = Block(dim_out, dim_out, groups)
-        self.res_conv = Conv(dim_in, dim_out, 1) if dim_in != dim_out else None
+        self.block0 = Block(dim_in, dim_out, groups, dtype)
+        self.block1 = Block(dim_out, dim_out, groups, dtype)
+        self.res_conv = Conv(dim_in, dim_out, 1, dtype=dtype) if dim_in != dim_out else None
 
     def forward(self, x, time_emb):
         h_t = self.time_dense(F.silu(time_emb))[:, None, None, :]
@@ -208,9 +244,9 @@ class Downsample(nn.Module):
     """Space-to-depth (the flow's squeeze, channel order (c, h2, w2)) and a
     1x1 conv."""
 
-    def __init__(self, dim_in: int, dim_out: int):
+    def __init__(self, dim_in: int, dim_out: int, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv = Conv(dim_in * 4, dim_out, 1)
+        self.conv = Conv(dim_in * 4, dim_out, 1, dtype=dtype)
 
     def forward(self, x):
         return self.conv(squeeze_forward(x))
@@ -219,9 +255,9 @@ class Downsample(nn.Module):
 class Upsample(nn.Module):
     """Nearest 2x and a 3x3 conv."""
 
-    def __init__(self, dim_in: int, dim_out: int):
+    def __init__(self, dim_in: int, dim_out: int, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv = Conv(dim_in, dim_out, 3, padding=1)
+        self.conv = Conv(dim_in, dim_out, 3, padding=1, dtype=dtype)
 
     def forward(self, x):
         x = F.interpolate(x.permute(0, 3, 1, 2), scale_factor=2, mode="nearest")
@@ -230,7 +266,9 @@ class Upsample(nn.Module):
 
 class Unet(nn.Module):
     """Input and output [B, H, W, C]; `time` is [B] or a length-1 vector
-    that broadcasts over the batch (the samplers' batch-uniform t)."""
+    that broadcasts over the batch (the samplers' batch-uniform t).
+    `dtype` is the convolutions' compute dtype (torch_dtype: a torch dtype
+    or its name), fp32 by default."""
 
     def __init__(self, dim: int, init_dim: Optional[int] = None,
                  out_dim: Optional[int] = None, dim_mults: Sequence[int] = (1, 2, 4, 8),
@@ -240,16 +278,14 @@ class Unet(nn.Module):
                  random_fourier_features: bool = False,
                  learned_sinusoidal_dim: int = 16, dtype="float32"):
         super().__init__()
-        if str(dtype) != "float32":
-            raise NotImplementedError(
-                f"Unet dtype={dtype!r} is not ported; the port runs the UNet in "
-                "float32 only")
+        self.dtype = dt = torch_dtype(dtype)
         self.self_condition = self_condition
         init_dim = init_dim or dim
         self.out_dim = out_dim or channels * (2 if learned_variance else 1)
         groups = resnet_block_groups
 
-        self.init_conv = Conv(channels * (2 if self_condition else 1), init_dim, 7, padding=3)
+        self.init_conv = Conv(channels * (2 if self_condition else 1), init_dim, 7, padding=3,
+                              dtype=dt)
         time_dim = dim * 4
         if learned_sinusoidal_cond or random_fourier_features:
             self.time_pos = RandomOrLearnedSinusoidalPosEmb(learned_sinusoidal_dim)
@@ -266,25 +302,27 @@ class Unet(nn.Module):
         for ind, (d_in, d_out) in enumerate(in_out):
             is_last = ind == len(in_out) - 1
             self.downs.append(nn.ModuleDict({
-                "res1": ResnetBlock(d_in, d_in, time_dim, groups),
-                "res2": ResnetBlock(d_in, d_in, time_dim, groups),
+                "res1": ResnetBlock(d_in, d_in, time_dim, groups, dt),
+                "res2": ResnetBlock(d_in, d_in, time_dim, groups, dt),
                 "attn": PreNormResidual(d_in, LinearAttention(d_in)),
-                "down": Conv(d_in, d_out, 3, padding=1) if is_last else Downsample(d_in, d_out),
+                "down": (Conv(d_in, d_out, 3, padding=1, dtype=dt) if is_last
+                         else Downsample(d_in, d_out, dt)),
             }))
         mid_dim = dims[-1]
-        self.mid_res1 = ResnetBlock(mid_dim, mid_dim, time_dim, groups)
+        self.mid_res1 = ResnetBlock(mid_dim, mid_dim, time_dim, groups, dt)
         self.mid_attn = PreNormResidual(mid_dim, Attention(mid_dim))
-        self.mid_res2 = ResnetBlock(mid_dim, mid_dim, time_dim, groups)
+        self.mid_res2 = ResnetBlock(mid_dim, mid_dim, time_dim, groups, dt)
         self.ups = nn.ModuleList()
         for ind, (d_in, d_out) in enumerate(reversed(in_out)):
             is_last = ind == len(in_out) - 1
             self.ups.append(nn.ModuleDict({
-                "res1": ResnetBlock(d_out + d_in, d_out, time_dim, groups),
-                "res2": ResnetBlock(d_out + d_in, d_out, time_dim, groups),
+                "res1": ResnetBlock(d_out + d_in, d_out, time_dim, groups, dt),
+                "res2": ResnetBlock(d_out + d_in, d_out, time_dim, groups, dt),
                 "attn": PreNormResidual(d_out, LinearAttention(d_out)),
-                "up": Conv(d_out, d_in, 3, padding=1) if is_last else Upsample(d_out, d_in),
+                "up": (Conv(d_out, d_in, 3, padding=1, dtype=dt) if is_last
+                       else Upsample(d_out, d_in, dt)),
             }))
-        self.final_res = ResnetBlock(init_dim * 2, dim, time_dim, groups)
+        self.final_res = ResnetBlock(init_dim * 2, dim, time_dim, groups, dt)
         self.final_conv = Conv(dim, self.out_dim, 1)
 
     def forward(self, x, time, x_self_cond=None, use_kernels: bool = True):

@@ -23,6 +23,11 @@ forward's tail also takes in the zeroconv's epilogue, the concatenation of
 the halves and the logdet add (coupling_step_tail).
 `step_forward_megakernel` runs a whole forward step in one kernel, as the
 JAX package's experiment does; no config selects it.
+
+The coupling functions and both step routes take the coupling CNN's
+`dtype` (GlowConfig.coupling_dtype: bf16 runs its two inner convolutions
+in bf16, ops/coupling.py); the data-dependent init and the megakernel are
+fp32 whatever it is, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -155,22 +160,23 @@ def _halves(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return t[..., : c // 2], t[..., c // 2:]
 
 
-def coupling_forward(params: Params, x: torch.Tensor,
-                     ldj: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def coupling_forward(params: Params, x: torch.Tensor, ldj: torch.Tensor,
+                     dtype: torch.dtype = torch.float32) -> Tuple[torch.Tensor, torch.Tensor]:
     """scale = sigmoid(log_scale + 2); y_b = (x_b + bias) * scale;
     ldj += sum log(scale + 1e-6)."""
     x_a, x_b = _halves(x)
-    log_scale, bias = _halves(coupling_net_apply(params["net"], x_a))
+    log_scale, bias = _halves(coupling_net_apply(params["net"], x_a, dtype))
     scale = torch.sigmoid(log_scale + 2.0)
     y_b = (x_b + bias) * scale
     ldj = ldj + torch.sum(torch.log(scale + _EPS_COUPLING).reshape(x.shape[0], -1), dim=1)
     return torch.cat([x_a, y_b], dim=-1), ldj
 
 
-def coupling_inverse(params: Params, y: torch.Tensor) -> torch.Tensor:
+def coupling_inverse(params: Params, y: torch.Tensor,
+                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """x_b = y_b / (scale + 1e-6) - bias."""
     y_a, y_b = _halves(y)
-    log_scale, bias = _halves(coupling_net_apply(params["net"], y_a))
+    log_scale, bias = _halves(coupling_net_apply(params["net"], y_a, dtype))
     scale = torch.sigmoid(log_scale + 2.0)
     return torch.cat([y_a, y_b / (scale + _EPS_COUPLING) - bias], dim=-1)
 
@@ -313,15 +319,16 @@ def fused_invconv_actnorm_inverse(an: Params, ic: Params, y: torch.Tensor) -> to
 
 
 def step_forward(params: Params, x: torch.Tensor, ldj: torch.Tensor,
-                 use_kernels: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+                 use_kernels: bool = False,
+                 dtype: torch.dtype = torch.float32) -> Tuple[torch.Tensor, torch.Tensor]:
     if use_kernels:
-        return step_forward_kernels(params, x, ldj)
+        return step_forward_kernels(params, x, ldj, dtype)
     y, ldj = fused_actnorm_invconv_forward(params["actnorm"], params["invconv"], x, ldj)
-    return coupling_forward(params["coupling"], y, ldj)
+    return coupling_forward(params["coupling"], y, ldj, dtype)
 
 
-def step_forward_kernels(params: Params, x: torch.Tensor,
-                         ldj: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def step_forward_kernels(params: Params, x: torch.Tensor, ldj: torch.Tensor,
+                         dtype: torch.dtype = torch.float32) -> Tuple[torch.Tensor, torch.Tensor]:
     """Glow step through the kernels: the folded channel mix, the coupling
     CNN up to its zeroconv's convolution (cuDNN), then the step tail in one
     launch: the zeroconv's bias and scale, the coupling tail on the second
@@ -333,7 +340,7 @@ def step_forward_kernels(params: Params, x: torch.Tensor,
     y = channel_mix(x.contiguous(), w_fold, b_fold)
     ldj = ldj + (h * w) * ld
     net = params["coupling"]["net"]
-    r = coupling_net_conv(net, _halves(y)[0])
+    r = coupling_net_conv(net, _halves(y)[0], dtype)
     return coupling_step_tail(y, r, net["zconv"]["b"], net["zconv"]["logs"], ldj)
 
 
@@ -362,15 +369,16 @@ def step_ddinit(params: Params, x: torch.Tensor) -> Tuple[Params, torch.Tensor]:
     return {"actnorm": an, "invconv": params["invconv"], "coupling": cp}, y
 
 
-def step_inverse(params: Params, y: torch.Tensor,
-                 use_kernels: bool = False) -> torch.Tensor:
+def step_inverse(params: Params, y: torch.Tensor, use_kernels: bool = False,
+                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
     if use_kernels:
-        return step_inverse_kernels(params, y)
-    x = coupling_inverse(params["coupling"], y)
+        return step_inverse_kernels(params, y, dtype)
+    x = coupling_inverse(params["coupling"], y, dtype)
     return fused_invconv_actnorm_inverse(params["actnorm"], params["invconv"], x)
 
 
-def step_inverse_kernels(params: Params, y: torch.Tensor) -> torch.Tensor:
+def step_inverse_kernels(params: Params, y: torch.Tensor,
+                         dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Inverse step through the kernels: the coupling CNN up to its
     zeroconv's convolution (cuDNN), then the inverse step tail in one
     launch (the zeroconv's bias and scale, the inverse tail on the second
@@ -384,6 +392,6 @@ def step_inverse_kernels(params: Params, y: torch.Tensor) -> torch.Tensor:
     w_inv, b_inv = _inverse_fold(an, params["invconv"]).contiguous(), -an["bias"]
     y = y.contiguous()
     net = params["coupling"]["net"]
-    r = coupling_net_conv(net, _halves(y)[0])
+    r = coupling_net_conv(net, _halves(y)[0], dtype)
     x = coupling_step_tail_inverse(y, r, net["zconv"]["b"], net["zconv"]["logs"])
     return channel_mix(x, w_inv, b_inv)

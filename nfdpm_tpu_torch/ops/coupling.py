@@ -1,10 +1,14 @@
 """The affine-coupling CNN: Conv3x3+ActNorm -> ReLU -> Conv1x1+ActNorm ->
 ReLU -> ZeroConv3x3.
 
-Counterpart of nfdpm_tpu/ops/coupling.py, fp32 only. The
-convolutions are library calls (cuDNN), as the JAX package left them to
-XLA outside any Pallas kernel; the entry points turn TF32 off
-(nfdpm_tpu_torch.disable_tf32) to keep fp32 parity.
+Counterpart of nfdpm_tpu/ops/coupling.py. The convolutions are library
+calls (cuDNN), as the JAX package left them to XLA outside any Pallas
+kernel; the entry points turn TF32 off (nfdpm_tpu_torch.disable_tf32) to
+keep fp32 parity. A `dtype` of bf16 runs the two inner convolutions in bf16
+where the JAX package does: their operands cast, their outputs upcast, the
+actnorm epilogue, the ReLUs and the zeroconv in fp32, so the zeroconv's
+output, which the step tails take, stays fp32. The data-dependent init is
+fp32 whatever the dtype, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -40,30 +44,33 @@ def init_coupling_net(rng: np.random.Generator, in_channels: int, width: int,
     }
 
 
-def _conv_actnorm_relu(x: torch.Tensor, conv: Params, an: Params,
-                       padding: int) -> torch.Tensor:
-    h = conv2d_nhwc(x, conv["w"], padding=padding)
+def _conv_actnorm_relu(x: torch.Tensor, conv: Params, an: Params, padding: int,
+                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    h = conv2d_nhwc(x, conv["w"], padding=padding, dtype=dtype)
     return torch.relu(torch.exp(an["scale"]) * (h + an["bias"]))
 
 
-def _trunk(params: Params, x: torch.Tensor) -> torch.Tensor:
+def _trunk(params: Params, x: torch.Tensor,
+           dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Conv3x3+ActNorm -> ReLU -> Conv1x1+ActNorm -> ReLU: the zeroconv's input."""
-    h = _conv_actnorm_relu(x, params["conv1"], params["an1"], padding=1)
-    return _conv_actnorm_relu(h, params["conv2"], params["an2"], padding=0)
+    h = _conv_actnorm_relu(x, params["conv1"], params["an1"], 1, dtype)
+    return _conv_actnorm_relu(h, params["conv2"], params["an2"], 0, dtype)
 
 
-def coupling_net_apply(params: Params, x: torch.Tensor) -> torch.Tensor:
-    return zeroconv_apply(params["zconv"], _trunk(params, x))
+def coupling_net_apply(params: Params, x: torch.Tensor,
+                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    return zeroconv_apply(params["zconv"], _trunk(params, x, dtype))
 
 
-def coupling_net_conv(params: Params, x: torch.Tensor) -> torch.Tensor:
+def coupling_net_conv(params: Params, x: torch.Tensor,
+                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """The coupling CNN up to the zeroconv's convolution, before its bias and
     scale: coupling_net_apply(params, x) == (r + b) * exp(3 logs) with
     r = coupling_net_conv(params, x) and the zeroconv's b and logs. The
     Glow step's kernel route hands r to the step tail, which applies that
     epilogue itself (ops/kernels/coupling_tail.py: coupling_step_tail)."""
     w = params["zconv"]["w"]
-    return conv2d_nhwc(_trunk(params, x), w, padding=(w.shape[-1] - 1) // 2)
+    return conv2d_nhwc(_trunk(params, x, dtype), w, padding=(w.shape[-1] - 1) // 2)
 
 
 def actnorm_stats_init(h: torch.Tensor, eps: float = 1e-6) -> Params:

@@ -22,8 +22,16 @@ Params = Dict[str, Any]
 LOGSCALE_FACTOR = 3.0
 
 
-def conv2d_nhwc(x: torch.Tensor, w: torch.Tensor, padding: int = 0) -> torch.Tensor:
-    """Stride-1 conv of NHWC `x` with OIHW `w` and symmetric padding -> NHWC."""
+def conv2d_nhwc(x: torch.Tensor, w: torch.Tensor, padding: int = 0,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Stride-1 conv of NHWC `x` with OIHW `w` and symmetric padding -> NHWC.
+
+    Another `dtype` (bf16) casts x and w, runs the conv in it (its sum
+    rounded once to that dtype) and upcasts the output to fp32: the JAX
+    package's rounding points (ops/coupling.py:_conv_actnorm). x is cast in
+    NHWC, before the NCHW view, so that cuDNN gets channels-last operands."""
+    if dtype != torch.float32:
+        return conv2d_nhwc(x.to(dtype), w.to(dtype), padding).float()
     y = F.conv2d(x.permute(0, 3, 1, 2), w, padding=padding)
     return y.permute(0, 2, 3, 1)
 

@@ -24,9 +24,14 @@ the same device, against stats that
 
 `model.architecture.use_pallas` chooses the kernel route (the hand-written
 CUDA kernels on the card). It is true here unless an override names it: the
-file's own `false` is the JAX package's default, not the port's. What is
-not ported raises NotImplementedError instead of being skipped:
-`parallel.*` other than the defaults and coupling_dtype=bfloat16.
+file's own `false` is the JAX package's default, not the port's.
+`model.architecture.coupling_dtype=bfloat16` runs the coupling CNN's two
+inner convolutions in bf16 (fp32 master weights, Adam and logdet; see
+ops/coupling.py). `model.training.matmul_precision` unset, "default" or
+"highest" keeps cuDNN and cuBLAS in full fp32, "high" lets them use TF32
+(nfdpm_tpu_torch.set_matmul_precision). What is not ported raises
+NotImplementedError instead of being skipped: `parallel.*` other than the
+defaults (multi-GPU).
 """
 
 from __future__ import annotations
@@ -99,7 +104,7 @@ def main(argv) -> dict:
         o.lstrip("+").startswith("model.architecture.use_pallas=") for o in overrides)
         else True)
     device = port.resolve_device(cfg.select("device"))
-    port.disable_tf32()
+    port.set_matmul_precision(cfg.select("model.training.matmul_precision"))
     train_phase = parse_train_eval_mode(cfg.phase)
     refuse_unported(cfg)
 

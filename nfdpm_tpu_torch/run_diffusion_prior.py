@@ -27,15 +27,22 @@ them, at checkpoint epochs and at the end of `train` and in `eval`.
 `model.normalizing_flow.use_pallas` chooses the kernel route for the flow
 and the UNets (the hand-written CUDA kernels on the card); true here unless
 an override names it. `load.load_batch=k` resumes in the middle of epoch
-`load.load_epoch` at batch k. What is not ported raises
+`load.load_epoch` at batch k. Mixed precision, as in the JAX package:
+`model.normalizing_flow.coupling_dtype=bfloat16` runs the flow's coupling
+CNN in bf16 for this run (a pretrained flow or one from scratch; unset
+keeps float32), and `model.diffusion.unet_dtype` (else `model.unet.dtype`)
+the UNets' convolutions; the dtype travels as a string in
+diffusion_architecture.json's unet_kwargs, and the file's "flow" entry
+carries no coupling dtype. `model.training.matmul_precision` as in
+nfdpm_tpu_torch.run_baseline. What is not ported raises
 NotImplementedError: `parallel.*` other than the defaults (part-parallel
-included), a bf16 UNet and `coupling_dtype`, and an orbax run directory of
-the JAX package as the pretrained flow (tools/jax_run_to_torch.py converts
-one).
+included; multi-GPU), and an orbax run directory of the JAX package as the
+pretrained flow (tools/jax_run_to_torch.py converts one).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import sys
 import time
@@ -57,16 +64,6 @@ def refuse_unported(cfg) -> None:
                 f"parallel.{key}={value!r} is not ported (ROADMAP: multi-GPU); "
                 "the port trains on one device")
     refuse_stage1(cfg)
-    if cfg.select("model.normalizing_flow.coupling_dtype"):
-        raise NotImplementedError(
-            "model.normalizing_flow.coupling_dtype is not ported (ROADMAP: bf16); "
-            "the port runs the coupling CNN in float32 only")
-    unet_dtype = cfg.select("model.diffusion.unet_dtype", cfg.select("model.unet.dtype",
-                                                                     "float32"))
-    if str(unet_dtype) != "float32":
-        raise NotImplementedError(
-            f"a {unet_dtype} UNet is not ported (ROADMAP: bf16); the port runs "
-            "the UNet in float32 only")
 
 
 def main(argv) -> dict:
@@ -92,7 +89,7 @@ def main(argv) -> dict:
         o.lstrip("+").startswith("model.normalizing_flow.use_pallas=") for o in overrides)
         else True)
     device = port.resolve_device(cfg.select("device"))
-    port.disable_tf32()
+    port.set_matmul_precision(cfg.select("model.training.matmul_precision"))
     train_phase = parse_train_eval_mode(cfg.phase)
     refuse_unported(cfg)
 
@@ -105,15 +102,22 @@ def main(argv) -> dict:
     img_size = int(cfg.data.img_size)
     in_channels = 1 if cfg.data.name == "MNIST" else 3
     frozen = bool(nf_cfg.freeze)
+    # this run's coupling-CNN dtype, whatever the stage-1 run used; unset
+    # keeps the pretrained flow's float32
+    coupling_dtype = nf_cfg.get("coupling_dtype", None)
     if nf_cfg.init_nf.mode == "pretrain":
         pretrain_dir = os.path.join("outputs", str(nf_cfg.init_nf.pretrain.dir))
         backbone, flow_params = load_pretrained_flow(
             pretrain_dir, int(nf_cfg.init_nf.pretrain.epoch), frozen, device, use_kernels)
+        if coupling_dtype:
+            backbone = dataclasses.replace(backbone, cfg=dataclasses.replace(
+                backbone.cfg, coupling_dtype=str(coupling_dtype)))
         logger.info(f"Loaded pretrained flow from {pretrain_dir}")
     elif nf_cfg.init_nf.mode == "scratch":
         sc = nf_cfg.init_nf.scratch
         gcfg = glow_m.GlowConfig(in_channels=in_channels, levels=int(sc.L), steps=int(sc.K),
                                  coupling_width=int(sc.get("coupling_width", 512)),
+                                 coupling_dtype=str(coupling_dtype or "float32"),
                                  use_kernels=use_kernels)
         backbone = NFBackbone(cfg=gcfg, img_size=img_size, frozen=frozen)
         flow_params = glow_m.init_glow(int(cfg.seed), gcfg, device)
@@ -131,7 +135,10 @@ def main(argv) -> dict:
         learned_sinusoidal_cond=bool(cfg.model.unet.learned_sinusoidal_cond),
         random_fourier_features=bool(cfg.model.unet.random_fourier_features),
         learned_sinusoidal_dim=int(cfg.model.unet.learned_sinusoidal_dim),
-        learned_variance=learned_variance, dtype="float32")
+        learned_variance=learned_variance,
+        # a string, so that diffusion_architecture.json carries it
+        dtype=str(cfg.select("model.diffusion.unet_dtype",
+                             cfg.select("model.unet.dtype", "float32"))))
     diffusion_kwargs = dict(
         timesteps=int(cfg.model.diffusion.timesteps),
         sampling_timesteps=int(cfg.model.diffusion.sampling_timesteps),

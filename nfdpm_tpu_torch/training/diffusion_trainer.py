@@ -48,7 +48,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from .. import disable_tf32, inference, resolve_device
+from .. import apply_matmul_precision, inference, resolve_device
 from ..convert import map_tree, named_leaves, trainable
 from ..data.pipeline import DatasetLoaders, Loader, prefetch_to_device
 from ..models import prior as prior_m
@@ -235,7 +235,7 @@ def make_train_step(backbone: NFBackbone, dp: DiffusionPrior, tcfg: DiffusionTra
     step and the JAX package's the same numbers. `metrics` = {"loss",
     "part_losses"} are device tensors: reading them waits for the step."""
     device = resolve_device(device)
-    disable_tf32()
+    apply_matmul_precision()
     loss_fn = make_loss_fn(backbone, dp, tcfg)
     generator = torch.Generator(device=device)
     in_step_ema = tcfg.ema_decay is not None and tcfg.ema_update_every <= 1
@@ -383,7 +383,7 @@ def train(*, backbone: NFBackbone, flow_params, dp: DiffusionPrior,
     uninterrupted run would have done. An interrupt saves the steps taken
     (EMA included) and the mid-epoch marker, then is raised again."""
     device = resolve_device(device)
-    disable_tf32()
+    apply_matmul_precision()
     tx = make_two_group_optimizer(tcfg, backbone.frozen)
     tracker = Tracker(run_dir)
     loss_name = dp.parts[0].cfg.loss_type + ("" if backbone.frozen else "_plus_bpd")

@@ -39,7 +39,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from .. import disable_tf32, inference, resolve_device
+from .. import apply_matmul_precision, inference, resolve_device
 from ..convert import named_leaves, trainable
 from ..data.pipeline import DatasetLoaders, Loader, prefetch_to_device
 from ..models import glow as glow_m
@@ -152,7 +152,7 @@ def make_train_step(cfg: glow_m.GlowConfig, tcfg: NFTrainConfig, tx: Optimizer,
     third argument instead of the seed, so that a test can give this step
     and the JAX package's the same noise; it needs grad_accum = 1."""
     device = resolve_device(device)
-    disable_tf32()
+    apply_matmul_precision()
     accum = max(1, int(tcfg.grad_accum))
     if accum > 1 and inject_noise:
         raise ValueError("grad_accum > 1 draws its noise per microbatch; "
@@ -272,7 +272,7 @@ def train(*, cfg: glow_m.GlowConfig, tcfg: NFTrainConfig, loaders: DatasetLoader
     the steps taken as epoch E's checkpoint, writes the marker and is raised
     again; a run that completes removes the marker."""
     device = resolve_device(device)
-    disable_tf32()
+    apply_matmul_precision()
     tx = optimizer_of(tcfg)
     tracker = Tracker(run_dir)
     start_epoch = 0

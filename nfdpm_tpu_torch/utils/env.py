@@ -41,7 +41,10 @@ def log_environment(logger: logging.Logger, device: torch.device) -> None:
                     f"{torch.cuda.device_count()} visible")
     else:
         logger.info(f"Device: {device}")
-    logger.info(f"TF32: cudnn {torch.backends.cudnn.allow_tf32}, "
+    from .. import matmul_precision
+
+    logger.info(f"matmul_precision: {matmul_precision() or 'unset'}; "
+                f"TF32: cudnn {torch.backends.cudnn.allow_tf32}, "
                 f"matmul {torch.backends.cuda.matmul.allow_tf32}")
 
 

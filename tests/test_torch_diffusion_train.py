@@ -47,6 +47,7 @@ from nfdpm_tpu_torch.models.nf_backbone import NFBackbone as TBackbone
 from nfdpm_tpu_torch.models.nf_backbone import load_pretrained_flow
 from nfdpm_tpu_torch.training import checkpoint as tckpt
 from nfdpm_tpu_torch.training import diffusion_trainer as tdt
+from nfdpm_tpu_torch.training import runload as trl
 
 IMG, BATCH, STEPS = 16, 4, 5
 GLOW = dict(in_channels=3, levels=2, steps=1, coupling_width=16)
@@ -382,8 +383,6 @@ def test_cotrained_eval_reads_the_trained_flow(cotrained):
 @pytest.mark.parametrize("override,match", [
     ("parallel.part_parallel=true", "multi-GPU"),
     ("parallel.fsdp=true", "multi-GPU"),
-    ("model.unet.dtype=bfloat16", "bf16"),
-    ("model.normalizing_flow.coupling_dtype=bfloat16", "bf16"),
 ])
 def test_refused_options_raise(workdir, override, match):
     with pytest.raises(NotImplementedError, match=match):
@@ -391,13 +390,21 @@ def test_refused_options_raise(workdir, override, match):
 
 
 @pytest.mark.parametrize("option", ["load.load_batch", "model.training.watchdog_timeout_s",
-                                    "model.training.profile_epoch"])
+                                    "model.training.profile_epoch", "model.unet.dtype",
+                                    "model.normalizing_flow.coupling_dtype"])
 def test_accepted_options_do_their_job(workdir, two_epochs, monkeypatch, caplog, option):
     """The options the port once refused: `load.load_batch` resumes an
     interrupted epoch to the uninterrupted one-epoch run's checkpoint, bit
     for bit, and its VLB; the watchdog trains without firing;
     `profile_epoch` writes the epoch's trace, and the epoch's line its step
-    times."""
+    times. The bf16 UNet (tests/test_entry_points.py:test_standardized_bf16_stage2):
+    `model.diffusion.unet_dtype=bfloat16` with standardized latents trains,
+    diffusion_architecture.json holds the dtype and the stats, `phase=eval`
+    (with `model.unet.dtype`, the other key) reproduces the VLB and runload
+    rebuilds bf16 UNets; the bf16 flow: `coupling_dtype=bfloat16` over the
+    pretrained flow, co-trained, runs every flow forward in bf16, moves the
+    flow, keeps the "flow" entry without a dtype, and `phase=eval` with it
+    reproduces the VLB."""
     cwd, _ = workdir
     first = two_epochs[1]  # one epoch, uninterrupted
     one = ["model.training.epochs=1"]
@@ -420,6 +427,48 @@ def test_accepted_options_do_their_job(workdir, two_epochs, monkeypatch, caplog,
         for k in leaves_a:
             if isinstance(leaves_a[k], torch.Tensor):
                 assert torch.equal(leaves_a[k], leaves_b[k]), k
+    elif option == "model.unet.dtype":
+        std = ["model.normalizing_flow.standardize_latents=true",
+               "model.normalizing_flow.standardize_batches=2"]
+        out = _stage2(workdir, "experiment_name=unet_bf16", *one, *std,
+                      "model.diffusion.unet_dtype=bfloat16")
+        run = cwd / out["run_dir"]
+        arch = json.loads((run / "diffusion_architecture.json").read_text())
+        assert arch["unet_kwargs"]["dtype"] == "bfloat16"
+        stats = arch["formater_stats"]
+        assert stats and all(len(m) == len(s) and all(v > 0 for v in s) for m, s in stats)
+        assert math.isfinite(out["vlb_bpd"])
+        evaluated = _stage2(workdir, "experiment_name=unet_bf16_eval", "phase=eval", *std,
+                            f"load.load_exp_dir={run.name}", "load.load_epoch=1",
+                            f"{option}=bfloat16")
+        assert evaluated["vlb_bpd"] == out["vlb_bpd"]
+        loaded = trl.load_diffusion_run(str(run), device="cpu")
+        assert [[list(m), list(s)] for m, s in loaded.dp.formater.stats] == stats
+        for unet in loaded.params["diffusion"]["parts"]:
+            assert unet.dtype == unet.init_conv.dtype == torch.bfloat16
+    elif option == "model.normalizing_flow.coupling_dtype":
+        seen = []
+        forward = tglow.forward
+        monkeypatch.setattr(tglow, "forward",
+                            lambda p, cfg, *a, **k: seen.append(cfg.compute_dtype)
+                            or forward(p, cfg, *a, **k))
+        cotrain = ["model.normalizing_flow.freeze=false", "model.normalizing_flow.lr=1e-4",
+                   f"{option}=bfloat16"]
+        out = _stage2(workdir, "experiment_name=flow_bf16", *one, *cotrain)
+        assert seen and set(seen) == {torch.bfloat16}
+        run = cwd / out["run_dir"]
+        arch = json.loads((run / "diffusion_architecture.json").read_text())
+        assert "coupling_dtype" not in arch["flow"] and arch["frozen"] is False
+        assert math.isfinite(out["vlb_bpd"])
+        start = tckpt.restore_params(str(cwd / "outputs" / workdir[1]), "gaussian", 1, "cpu")
+        trained = torch.load(run / "checkpoints" / "model_diffusion_001.pt")
+        moved = [k for k, v in convert.named_leaves(trained["params"]["flow"])
+                 if isinstance(v, torch.Tensor) and not torch.equal(
+                     v, dict(convert.named_leaves(start["flow"]))[k])]
+        assert moved
+        evaluated = _stage2(workdir, "experiment_name=flow_bf16_eval", "phase=eval", *cotrain,
+                            f"load.load_exp_dir={run.name}", "load.load_epoch=1")
+        assert evaluated["vlb_bpd"] == out["vlb_bpd"]
     elif option == "model.training.watchdog_timeout_s":
         out = _stage2(workdir, "experiment_name=wd", *one, f"{option}=300")
         assert out["vlb_bpd"] == first["vlb_bpd"]

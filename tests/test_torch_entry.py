@@ -18,6 +18,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from _torch_port import (interrupt_loaders_after, metric_overrides, one_torch_thread,
                          precompute_stats)
@@ -26,6 +27,7 @@ from nfdpm_tpu.data import pipeline as jpipe
 from nfdpm_tpu_torch import run_baseline
 from nfdpm_tpu_torch.data import datasets as tdata
 from nfdpm_tpu_torch.data import pipeline as tpipe
+from nfdpm_tpu_torch.models import glow as tglow
 from nfdpm_tpu_torch.utils import config as tconfig
 from nfdpm_tpu_torch.utils import env as tenv
 
@@ -112,7 +114,6 @@ def test_without_cuda_the_entry_point_refuses_to_start(tmp_path):
     ("model.evaluation.metrics.FID.mode=[clean]", None),  # needs a model name too: no metric
     ("parallel.n_model=2", "multi-GPU"),
     ("parallel.fsdp=true", "multi-GPU"),
-    ("model.architecture.coupling_dtype=bfloat16", "bfloat16"),
     ("phase=bogus", "phase must be"),
 ])
 def test_refused_options_raise(tmp_path, monkeypatch, override, match):
@@ -126,12 +127,15 @@ def test_refused_options_raise(tmp_path, monkeypatch, override, match):
 
 
 @pytest.mark.parametrize("option", ["load.load_batch", "model.training.watchdog_timeout_s",
-                                    "model.training.profile_epoch"])
+                                    "model.training.profile_epoch",
+                                    "model.architecture.coupling_dtype"])
 def test_accepted_options_do_their_job(tmp_path, monkeypatch, option):
     """The options the port once refused: `load.load_batch` resumes an
     interrupted epoch (to the uninterrupted run's final bits/dim exactly),
     the watchdog trains without firing, `profile_epoch` writes the epoch's
-    trace."""
+    trace, `coupling_dtype=bfloat16` trains the flow with bf16 coupling CNNs
+    (other bits/dim than fp32's, finite) and `phase=eval` with it gives the
+    run's final bits/dim again."""
     monkeypatch.chdir(tmp_path)
     monkeypatch.setenv("NFDPM_NO_TENSORBOARD", "1")
     argv = ["device=cpu", *SMALL]
@@ -154,6 +158,20 @@ def test_accepted_options_do_their_job(tmp_path, monkeypatch, option):
         out = run_baseline.main(argv + ["experiment_name=wd", f"{option}=300"])
         assert out["results"] == full["results"]
         assert not (Path(out["run_dir"]) / "watchdog_stall.txt").exists()
+    elif option == "model.architecture.coupling_dtype":
+        seen = []
+        forward = tglow.forward
+        monkeypatch.setattr(tglow, "forward",
+                            lambda p, cfg, *a, **k: seen.append(cfg.compute_dtype)
+                            or forward(p, cfg, *a, **k))
+        out = run_baseline.main(argv + ["experiment_name=bf16", f"{option}=bfloat16"])
+        assert seen and set(seen) == {torch.bfloat16}
+        assert all(np.isfinite(v) for v in out["results"].values())
+        assert out["results"] != full["results"]
+        evaluated = run_baseline.main(argv + [
+            "experiment_name=bf16_eval", "phase=eval", "load.load_epoch=1",
+            f"load.load_exp_dir={Path(out['run_dir']).name}", f"{option}=bfloat16"])
+        assert evaluated["results"] == out["results"]
     else:
         out = run_baseline.main(argv + ["experiment_name=prof", f"{option}=1",
                                         "model.training.profile_steps=2"])

@@ -220,7 +220,7 @@ def test_bits_per_dim_of_kernel_and_plain_routes_agree():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        tglow.GlowConfig(coupling_dtype="bfloat16")
+    # bf16 coupling CNNs are accepted (tests/test_torch_mixed_precision.py)
+    assert tglow.GlowConfig(coupling_dtype="bfloat16").compute_dtype == torch.bfloat16
     with pytest.raises(ValueError):
         tglow.GlowConfig(invconv_param="lu")

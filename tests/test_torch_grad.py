@@ -278,7 +278,9 @@ def test_remat_equals_no_remat_bit_for_bit(use_kernels):
 
 
 def test_glow_config_accepts_scan_unroll_and_refuses_bf16():
+    """scan_unroll is accepted and ignored; bf16, once refused, is accepted
+    now (its tests: tests/test_torch_mixed_precision.py)."""
     assert tglow.GlowConfig(scan_unroll=4) == dataclasses.replace(
         tglow.GlowConfig(), scan_unroll=4)
-    with pytest.raises(NotImplementedError):
-        tglow.GlowConfig(coupling_dtype="bfloat16")
+    bf16 = tglow.GlowConfig(coupling_dtype="bfloat16", remat=True)
+    assert bf16.compute_dtype == torch.bfloat16 and bf16.remat

@@ -302,5 +302,9 @@ def test_converter_refuses_missing_extra_and_misshapen_leaves():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        tunet.Unet(dim=8, dim_mults=(1, 2), resnet_block_groups=2, dtype="bfloat16")
+    # a bf16 UNet is accepted (tests/test_torch_mixed_precision.py); a name
+    # jnp.dtype would not read is refused as it refuses it
+    unet = tunet.Unet(dim=8, dim_mults=(1, 2), resnet_block_groups=2, dtype="bfloat16")
+    assert unet.dtype == torch.bfloat16 and unet.final_conv.dtype == torch.float32
+    with pytest.raises(TypeError):
+        tunet.Unet(dim=8, dim_mults=(1, 2), resnet_block_groups=2, dtype="bf")

@@ -8,7 +8,8 @@ port (nfdpm_tpu_torch) imports no JAX, so this tool, which imports both
 packages, rewrites the run once:
 
   * architecture.json (stage 1) or diffusion_architecture.json (stage 2)
-    and config.yaml are copied unchanged;
+    and config.yaml are copied unchanged (a bf16 UNet's "dtype" with them:
+    the port rebuilds bf16 UNets from the same parameter trees);
   * each orbax checkpoint checkpoints/model_{prefix}_{epoch:03d}/ (or only
     --epoch) becomes checkpoints/model_{prefix}_{epoch:03d}.pt holding
     {"params", "opt_state", "step"}, and "ema" where the checkpoint has one,
