@@ -7,6 +7,7 @@
     python3 chip_smoke.py --run-dir-tools      # phases 1, 2, 12, 13, 17 and 23-25
     python3 chip_smoke.py --reference-checkpoints  # phases 1, 2, 12, 13, 17 and 26
     python3 chip_smoke.py --mixed-precision    # phases 1, 2, 12, 13, 17 and 27
+    python3 chip_smoke.py --multi-gpu          # phases 1, 2, 12, 13, 17 and 28
 
 Runs nfdpm_tpu_torch (never JAX, never nfdpm_tpu) with seeded random
 weights at the width of the repo's models: the Glow of configs/nf_base.yaml
@@ -268,11 +269,40 @@ line each:
      --run-dir on (c)'s run answers {"n": 128, "seed": 7} with the same
      bytes as --arch/--weights of the same parameters, exact launches.
 
+  data parallelism (launch counters zeroed before 28 and read after it, its
+  children's own counters added):
+ 28. multi_gpu: child processes that join process groups through the
+     port's own parallel.distributed.initialize, in deterministic mode
+     (phase 23's settings). (a) A world of one over NCCL:
+     run_baseline.main, MG_STEPS steps at full width, without a launch and
+     then as rank 0 of the world of one with parallel.fsdp false and true:
+     the checkpoints' parameters bitwise equal, each run's launches exact;
+     the step loop under that mesh bitwise the one without a group (the
+     reference of (b)). (b) Two ranks sharing this card over gloo (named
+     by NFDPM_DIST_BACKEND), batch 64 global, fsdp false and true: bits/dim
+     within MG_BPD_TOL of world 1's at every step, parameters within rtol
+     MG_RTOL / atol MG_ATOL after MG_STEPS, the ranks' parameters bitwise
+     equal, each rank's launches exactly 23 + 12 + 12 a step, under fsdp
+     each rank's Adam-moment bytes equal to what _add_fsdp predicts. (c)
+     Stage 2 on the two ranks: three UNets over phase 12's frozen flow,
+     MG_STAGE2_STEPS steps: the loss within MG_LOSS_RTOL (relative) of
+     world 1's at every step, 12 + 12 attention launches a step a rank.
+     (d) Part-parallel on this card: three groups in turn against the joint
+     trainer on MG_PART_BATCHES batches, losses, parameters and EMA bitwise;
+     run_diffusion_prior.main with parallel.part_parallel=true, whose
+     merged checkpoint serve --run-dir serves. (e) serve --data-parallel
+     and precompute_stats --data-parallel: the bytes and statistics of the
+     runs without the flag, "devices": 1. (f) Step wall ms at world 1 and
+     2, the gradient all-reduce's ms, with the card's name and power limit
+     (gloo on one card moves the gradients through the host). Budget
+     MG_BUDGET_S.
+
 Then come the kernel summary line (seven kernels), the nvidia-smi line and, last,
 {"ok": true, "device": {...}}. With --run-dir-tools the script runs the
 environment, the build, phases 12, 13 and 17 (whose run directories the
 tooling reads) and 23-25, and prints neither; --reference-checkpoints the same
-with phase 26 in place of 23-25, --mixed-precision with phase 27. With
+with phase 26 in place of 23-25, --mixed-precision with phase 27, --multi-gpu
+with phase 28. With
 --stage1-training the script runs only the environment, the build and
 phases 12 and 13 and prints neither: copied
 into another checkout, it times that checkout's stage-1 training with the
@@ -4104,6 +4134,551 @@ def phase_mixed_precision(torch, np, counters, smi, stage1_dir):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 28: data parallelism
+# ---------------------------------------------------------------------------
+
+MG_STEPS = 8            # (a), (b): stage-1 steps of batch 64
+MG_STAGE2_STEPS = 4     # (c): stage-2 steps of batch 64
+MG_PART_BATCHES = 6     # (d): batches of the part-parallel comparison
+MG_BUDGET_S = 120       # the phase's budget (PERF.md §2)
+# (b), world 2 against world 1. Step 1: bits/dim within MG_BPD_TOL and the
+# mean gradient (fsdp off) within GRAD_RTOL / GRAD_ATOL leaf by leaf, phase
+# 14's bound for a sum-order difference; steps 1-MG_STEPS: bits/dim within
+# TRAIN_TRAJ_TOL, the repository's trajectory gate; after MG_STEPS every
+# parameter within MG_FINAL_ATOL, two Adam updates of lr 1e-3. The share of
+# parameters within tests/test_parallel.py's bound (rtol MG_RTOL / atol
+# MG_ATOL) is recorded after steps 1 and MG_STEPS: Adam's update
+# lr g / (|g| + eps) turns the sum-order difference of a gradient near eps
+# into a different update (3 of 5.5M values past that bound after step 1,
+# 7175 after 8, at most 9.3e-4 apart), and configs/nf_base.yaml's first
+# steps swing (bits/dim 4.3 -> 18.3 -> 3.9), where 1e-5 relative is 1.9e-4
+# (my chip runs, PR 14, calls 3 and 4).
+MG_BPD_TOL = 1e-5
+MG_RTOL, MG_ATOL = 3e-4, 1e-5
+MG_FINAL_ATOL = 2e-3
+MG_LOSS_RTOL = 1e-4     # (c): the stage-2 loss of each step, relative
+MG_STATS_LIMIT = 256    # (e): images of the stats precompute
+# the card; tools/rehearse_multi_gpu.py sets "cpu", gloo, device=cpu and
+# --device cpu to rehearse the phase on the CPU
+MG_DEVICE, MG_BACKEND, MG_ENTRY_ARGS, MG_TOOL_ARGS = "cuda", "nccl", [], []
+# the command a child of phase 28 runs (its role and directory appended)
+MG_CHILD = [sys.executable, str(ROOT / "chip_smoke.py"), "--multi-gpu-child"]
+MG_STEP_LAUNCHES = {"channel_mix": 2 * LEVELS * STEPS - 1, "coupling_tail": LEVELS * STEPS,
+                    "coupling_tail_bwd": LEVELS * STEPS, "coupling_tail_inverse": 0,
+                    "fused_linear_attention": 0, "fused_linear_attention_bwd": 0,
+                    "step_megakernel_forward": 0}
+
+
+def kernel_counters():
+    from nfdpm_tpu_torch.ops.kernels import channel_mix as cm
+    from nfdpm_tpu_torch.ops.kernels import coupling_tail as ct
+    from nfdpm_tpu_torch.ops.kernels import fused_linear_attention as fla
+    from nfdpm_tpu_torch.ops.kernels import step_megakernel as sm
+
+    return (cm.channel_mix, ct.coupling_tail, ct.coupling_tail_bwd, ct.coupling_tail_inverse,
+            fla.fused_linear_attention, fla.fused_linear_attention_bwd,
+            sm.step_megakernel_forward)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def host_tree(tree) -> dict:
+    """{path: numpy copy} of a tree's tensors."""
+    from nfdpm_tpu_torch.convert import named_leaves
+
+    return {k: v.detach().cpu().numpy().copy() for k, v in named_leaves(tree)}
+
+
+def allreduce_ms(torch, mesh, numel: int, reps: int = 5) -> float:
+    """Median wall ms of one all-reduce of a flat fp32 buffer of `numel` on
+    the card over the mesh's group: the gradient mean of a step."""
+    import torch.distributed as dist
+
+    buf = torch.ones(numel, device=MG_DEVICE)
+    times = []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.all_reduce(buf, group=mesh.group)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return median_of(times[1:])
+
+
+def mg_stage1_steps(torch, counters, mesh, fsdp: bool, batches) -> dict:
+    """MG_STEPS stage-1 steps at configs/nf_base.yaml's width from one
+    ddinit'ed state (ddinit on the whole first global batch), each rank its
+    rows, the step's own draws: bits/dim of each step, each step's launches,
+    synchronised wall ms, the final parameters, the moments' bytes."""
+    from nfdpm_tpu_torch.convert import named_leaves
+    from nfdpm_tpu_torch.parallel import mesh as mesh_m
+    from nfdpm_tpu_torch.parallel import sharding_rules as rules
+    from nfdpm_tpu_torch.training import nf_trainer as nft
+    from nfdpm_tpu_torch.utils.profiling import StepTimer
+
+    cfg, tcfg = train_configs()
+    tx = nft.optimizer_of(tcfg)
+    state = nft.init_train_state(TRAIN_SEED, cfg, tcfg, tx, MG_DEVICE)
+    state = nft.ddinit_train_state(state, cfg, tcfg, tx, batches[0],
+                                   torch.Generator(device=MG_DEVICE).manual_seed(1))
+    state = nft.shard_nf_state(mesh, tx, state, fsdp)
+    step = nft.make_train_step(cfg, tcfg, tx, device=MG_DEVICE, mesh=mesh, fsdp=fsdp)
+    timer = StepTimer(synchronize=MG_DEVICE)
+    bpds, launches, params_step1 = [], [], None
+    for batch in batches[:MG_STEPS]:
+        rows = batch if mesh is None else mesh_m.shard_batch(mesh, batch)
+        before = counts(counters)
+        with timer.step():
+            state, metrics = step(state, rows, TRAIN_SEED)
+        after = counts(counters)
+        launches.append({k: after[k] - before[k] for k in before})
+        bpds.append(float(metrics["bpd"]))
+        if params_step1 is None:
+            params_step1 = host_tree(state["params"])
+            if not fsdp:  # the mean gradient the update read (ZeRO keeps only its slab)
+                params_step1.update({f"grad/{k}": v for k, v in host_tree(
+                    {k: p.grad for k, p in named_leaves(state["params"])
+                     if p.grad is not None and tx.updates(k)}).items()})
+    placements = nft.nf_placements(mesh, tx, state["params"], fsdp)
+    return {"bpd": bpds, "launches": launches, "step_wall_ms": [d * 1e3 for d in timer.durations],
+            "params": host_tree(state["params"]), "params_step1": params_step1,
+            "moment_bytes": rules.moment_bytes(state["opt_state"]),
+            "predicted_moment_bytes": rules.predicted_moment_bytes(
+                state["params"], placements, 0 if mesh is None else mesh.rank),
+            "sharded_leaves": len(placements),
+            "grad_numel": sum(p.numel() for _, p in named_leaves(state["params"])
+                              if p.requires_grad)}
+
+
+def mg_stage2_steps(torch, counters, mesh, fsdp: bool, stage1_dir: Path, batches) -> dict:
+    """MG_STAGE2_STEPS stage-2 steps (configs/nf_diffusion.yaml's three UNets
+    over phase 12's frozen flow, batch 64, each rank its rows, the step's
+    own draws): each step's loss and launches."""
+    from nfdpm_tpu_torch.models.nf_backbone import load_pretrained_flow
+    from nfdpm_tpu_torch.parallel import mesh as mesh_m
+    from nfdpm_tpu_torch.training import diffusion_trainer as dt
+
+    backbone, flow = load_pretrained_flow(str(stage1_dir), 1, True, MG_DEVICE, True)
+    dp = stage2_prior()
+    tcfg = dt.DiffusionTrainConfig(lr_diffusion=1e-3)
+    tx = dt.make_two_group_optimizer(tcfg, True)
+    state = dt.init_train_state(TRAIN_SEED, backbone, flow, dp, tx, device=MG_DEVICE)
+    state = dt.shard_diffusion_state(mesh, tx, state, fsdp)
+    step = dt.make_train_step(backbone, dp, tcfg, tx, device=MG_DEVICE, mesh=mesh, fsdp=fsdp)
+    losses, launches = [], []
+    for batch in batches[:MG_STAGE2_STEPS]:
+        rows = batch if mesh is None else mesh_m.shard_batch(mesh, batch)
+        before = counts(counters)
+        state, metrics = step(state, rows, TRAIN_SEED)
+        losses.append(float(metrics["loss"]))
+        after = counts(counters)
+        launches.append({k: after[k] - before[k] for k in before})
+    return {"loss": losses, "launches": launches}
+
+
+def mg_batches(torch, steps: int):
+    return [torch.from_numpy(imgs).to(MG_DEVICE)
+            for imgs, _ in train_loaders(steps).train.iter_epoch(0)]
+
+
+def mg_part_parallel(torch, counters, stage1_dir: Path, root: Path, mesh) -> dict:
+    """(d) The part-parallel plan on this one card (three groups run in
+    turn) against the joint trainer on the same MG_PART_BATCHES batches and
+    draws, bitwise; then run_diffusion_prior.main with
+    parallel.part_parallel=true, whose merged view the parent serves."""
+    from nfdpm_tpu_torch import run_diffusion_prior
+    from nfdpm_tpu_torch.models.nf_backbone import load_pretrained_flow
+    from nfdpm_tpu_torch.parallel import part_parallel as pp
+    from nfdpm_tpu_torch.training import diffusion_trainer as dt
+
+    backbone, flow = load_pretrained_flow(str(stage1_dir), 1, True, MG_DEVICE, True)
+    dp = stage2_prior()
+    tcfg = dt.DiffusionTrainConfig(lr_diffusion=1e-3, ema_decay=0.9, ema_update_every=1)
+    tx = dt.make_two_group_optimizer(tcfg, True)
+    joint = dt.init_train_state(TRAIN_SEED, backbone, flow, dp, tx, ema=True,
+                                device=MG_DEVICE)
+    jstep = dt.make_train_step(backbone, dp, tcfg, tx, device=MG_DEVICE)
+    plan = pp.PartParallelPlan.build(TRAIN_SEED, backbone, flow, dp, tcfg, mesh)
+    check([g.ranks for g in plan.groups] == [(0,)] * dp.num_parts,
+          f"part groups on one card: {[g.ranks for g in plan.groups]}")
+    losses_equal = True
+    for batch in mg_batches(torch, MG_PART_BATCHES):
+        joint, metrics = jstep(joint, batch, TRAIN_SEED)
+        part = plan.step_all([batch] * dp.num_parts, TRAIN_SEED)
+        losses_equal = losses_equal and torch.equal(metrics["part_losses"], torch.stack(part))
+    check(losses_equal, "(d) the part-parallel losses are not the joint trainer's bitwise")
+    params_equal = True
+    for prefer_ema, tree in ((False, joint["params"]), (True, joint["ema"])):
+        merged = plan.joint_params(prefer_ema)
+        for a, b in zip(merged["diffusion"]["parts"], tree["diffusion"]["parts"]):
+            params_equal = params_equal and all(
+                torch.equal(pa, pb) for pa, pb in zip(a.parameters(), b.parameters()))
+    check(params_equal, "(d) the part-parallel parameters are not the joint trainer's bitwise")
+    del joint, plan
+    torch.cuda.empty_cache()
+    # the entry point, three groups in turn, MG_PART_BATCHES batches
+    (root / "outputs").mkdir(exist_ok=True)
+    link = root / "outputs" / "stage1"
+    if not link.exists():
+        link.symlink_to(stage1_dir)
+    t0 = time.perf_counter()
+    result = run_in(root, run_diffusion_prior.main, stage2_overrides("stage1", MG_PART_BATCHES)
+                    + ["experiment_name=part_parallel", "parallel.part_parallel=true",
+                       f"model.logging.log_gen_images_per_iter={10 ** 6}",
+                       # the VLB's terms 25 timesteps a UNet call, the same terms
+                       "model.diffusion.vlb_time_chunk=25"] + MG_ENTRY_ARGS)
+    run_dir = root / result["run_dir"]
+    for name in ("model_diffusion_parts_001.pt", "model_diffusion_001.pt"):
+        check((run_dir / "checkpoints" / name).exists(), f"(d) no checkpoints/{name}")
+    return {"losses_bitwise_equal": True, "params_and_ema_bitwise_equal": True,
+            "batches": MG_PART_BATCHES, "entry_point_s": time.perf_counter() - t0,
+            "vlb_bpd": result["vlb_bpd"], "run_dir": str(run_dir)}
+
+
+def mg_world1(torch, root: Path, stage1_dir: Path) -> None:
+    """The world-1 child (deterministic mode): the references of (b) and (c)
+    without a process group; (a) run_baseline.main without a launch, then as
+    rank 0 of a world of one over NCCL with fsdp off and on, bitwise; the
+    step loop under that mesh, bitwise too; (d); prints its record."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from nfdpm_tpu_torch import run_baseline
+    from nfdpm_tpu_torch.parallel import mesh as mesh_m
+    from nfdpm_tpu_torch.training.checkpoint import restore_params
+
+    counters = kernel_counters()
+    set_deterministic(torch, True)
+    os.environ["NFDPM_NO_TENSORBOARD"] = "1"
+    out = {"phase": "multi_gpu_world1", "cublas_workspace_config":
+           os.environ.get("CUBLAS_WORKSPACE_CONFIG")}
+    batches = mg_batches(torch, MG_STEPS)
+    seconds, start = {}, time.perf_counter()
+    ref = mg_stage1_steps(torch, counters, None, False, batches)
+    np.savez(root / "ref_stage1.npz", **ref.pop("params"))
+    np.savez(root / "ref_stage1_step1.npz", **ref.pop("params_step1"))
+    ref2 = mg_stage2_steps(torch, counters, None, False, stage1_dir, batches)
+    out["reference"] = {"stage1": ref, "stage2": ref2}
+    seconds["references"] = time.perf_counter() - start
+    (root / "reference.json").write_text(json.dumps(out["reference"]))
+
+    # (a) run_baseline.main: no launch, then a world of one over NCCL
+    loaders = train_loaders(MG_STEPS)
+    expected = stage1_run_launches(MG_STEPS, len(loaders.test) + len(loaders.eval))
+    argv = ["data.name=synthetic", f"data.batch_size={BATCH}", f"data.img_size={IMG}",
+            f"data.synthetic_n={BATCH * MG_STEPS}", f"seed={TRAIN_SEED}",
+            f"model.architecture.L={LEVELS}", f"model.architecture.K={STEPS}",
+            f"model.architecture.coupling_width={WIDTH}", "model.training.epochs=1",
+            "model.training.print_freq=1", "model.training.save_checkpoint_freq=50"]
+    runs = {}
+    for name, extra in (("no_launch", []), ("nccl_fsdp_false", ["parallel.fsdp=false"]),
+                        ("nccl_fsdp_true", ["parallel.fsdp=true"])):
+        if name == "nccl_fsdp_false":  # rank 0 of a world of one, as torchrun starts it
+            os.environ.update(RANK="0", LOCAL_RANK="0", WORLD_SIZE="1",
+                              MASTER_ADDR="localhost", MASTER_PORT=os.environ["MG_PORT"])
+        before = counts(counters)
+        t0 = time.perf_counter()
+        result = run_in(root, run_baseline.main,
+                        argv + extra + [f"experiment_name={name}"] + MG_ENTRY_ARGS)
+        torch.cuda.synchronize()
+        launched = {k: v - before[k] for k, v in counts(counters).items()}
+        check(launched == expected, f"(a) {name} launched {launched}, expected {expected}")
+        params = restore_params(str(root / result["run_dir"]), "gaussian", 1, MG_DEVICE)
+        runs[name] = {"params": params, "results": result["results"],
+                      "seconds": time.perf_counter() - t0}
+    check(dist.is_initialized() and dist.get_backend() == MG_BACKEND
+          and dist.get_world_size() == 1, f"(a) no {MG_BACKEND} world of one")
+    for name in ("nccl_fsdp_false", "nccl_fsdp_true"):
+        gap, equal = state_gap(torch, {"params": runs[name]["params"], "step": 0},
+                               {"params": runs["no_launch"]["params"], "step": 0},
+                               keys=("params",))
+        check(equal, f"(a) {name} is {gap} from the run without a launch, not bitwise")
+        check(runs[name]["results"] == runs["no_launch"]["results"],
+              f"(a) {name}'s final bits/dim differ")
+    out["a"] = {name: {"final": r["results"], "seconds": r["seconds"]}
+                for name, r in runs.items()}
+    out["a"]["bitwise_equal"] = True
+    seconds["a"] = time.perf_counter() - start - sum(seconds.values())
+    del runs
+
+    # the step loop under the world-of-one mesh: the reference's bits
+    mesh = mesh_m.make_mesh(device=MG_DEVICE)
+    nccl = mg_stage1_steps(torch, counters, mesh, True, batches)
+    nccl.pop("params_step1")
+    saved = np.load(root / "ref_stage1.npz")
+    check(nccl["bpd"] == ref["bpd"] and all(np.array_equal(saved[k], v)
+                                            for k, v in nccl["params"].items()),
+          "(a) the NCCL world of one's step loop is not the reference bitwise")
+    out["a"]["step_loop_bitwise_equal"] = True
+    out["f_world1"] = {"step_wall_ms": nccl["step_wall_ms"],
+                       "step_wall_ms_median": median_of(nccl["step_wall_ms"][1:]),
+                       "reference_step_wall_ms_median": median_of(ref["step_wall_ms"][1:]),
+                       "allreduce_ms": allreduce_ms(torch, mesh, nccl["grad_numel"]),
+                       "grad_numel": nccl["grad_numel"]}
+    del nccl
+    torch.cuda.empty_cache()
+    seconds["step_loop"] = time.perf_counter() - start - sum(seconds.values())
+    out["d"] = mg_part_parallel(torch, counters, stage1_dir, root, mesh)
+    seconds["d"] = time.perf_counter() - start - sum(seconds.values())
+    out["seconds"] = seconds
+    out["launches"] = counts(counters)
+    emit(out)
+
+
+def mg_world2(torch, root: Path, stage1_dir: Path) -> None:
+    """A rank of the two-rank child (gloo, both on this card, deterministic
+    mode): (b) the stage-1 steps with fsdp off and on, (c) the stage-2 steps;
+    writes its parameters and prints its record; the parent compares."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from nfdpm_tpu_torch.parallel import distributed
+    from nfdpm_tpu_torch.parallel import mesh as mesh_m
+
+    counters = kernel_counters()
+    set_deterministic(torch, True)
+    check(distributed.initialize(device=MG_DEVICE), "the two-rank child found no launch")
+    mesh = mesh_m.make_mesh(device=MG_DEVICE)
+    out = {"phase": "multi_gpu_world2", "rank": mesh.rank, "world": mesh.world,
+           "backend": dist.get_backend()}
+    batches = mg_batches(torch, MG_STEPS)
+    t0 = time.perf_counter()
+    for fsdp in (False, True):
+        res = mg_stage1_steps(torch, counters, mesh, fsdp, batches)
+        np.savez(root / f"world2_fsdp{int(fsdp)}_rank{mesh.rank}.npz", **res.pop("params"))
+        np.savez(root / f"world2_fsdp{int(fsdp)}_rank{mesh.rank}_step1.npz",
+                 **res.pop("params_step1"))
+        out[f"b_fsdp_{str(fsdp).lower()}"] = res
+    out["allreduce_ms"] = allreduce_ms(torch, mesh, res["grad_numel"])
+    t1 = time.perf_counter()
+    out["c"] = mg_stage2_steps(torch, counters, mesh, False, stage1_dir, batches)
+    out["seconds"] = {"b": t1 - t0, "c": time.perf_counter() - t1}
+    out["launches"] = counts(counters)
+    emit(out)
+    distributed.shutdown()
+
+
+def mg_children(cmd_role: str, root: Path, stage1_dir: Path, env: dict, ranks: int,
+                timeout: float = 400):
+    """Start `ranks` children of `cmd_role` together, wait for all (killing
+    every one if one fails or the time runs out); their JSON records."""
+    procs = []
+    for rank in range(ranks):
+        rank_env = dict(env, RANK=str(rank)) if ranks > 1 else env
+        procs.append(subprocess.Popen(MG_CHILD + [cmd_role, str(root), str(stage1_dir)],
+                                      env=rank_env, stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True))
+    outs, deadline = [], time.monotonic() + timeout
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=max(1.0, deadline - time.monotonic())))
+    except subprocess.TimeoutExpired:
+        outs.append(("", "timed out"))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, (stdout, stderr) in zip(procs, outs + [("", "")] * (len(procs) - len(outs))):
+        check(p.returncode == 0, f"the {cmd_role} child failed ({p.returncode}):\n"
+                                 f"{stdout[-2000:]}\n{stderr[-4000:]}")
+    phase = f"multi_gpu_{cmd_role}"
+    records = []
+    for stdout, _ in outs:
+        mine = [json.loads(line) for line in stdout.splitlines()
+                if line.startswith("{") and f'"phase": "{phase}"' in line]
+        check(len(mine) == 1, f"a {cmd_role} child printed {len(mine)} records")
+        records.append(mine[0])
+    return records
+
+
+def phase_multi_gpu(torch, np, counters, smi, stage1_dir: Path) -> dict:
+    """Phase 28 (see the module docstring); returns the launches of its
+    path: this process's (e) and its children's, summed."""
+    from nfdpm_tpu_torch import serve
+    from nfdpm_tpu_torch.metrics import precompute_stats
+
+    root = ROOT / "build" / "chip_smoke" / "multi_gpu"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    base = {k: v for k, v in os.environ.items()
+            if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    base.update(PYTHONPATH=str(ROOT), NFDPM_NO_TENSORBOARD="1", **DETERMINISTIC_ENV)
+    (w1,) = mg_children("world1", root, stage1_dir, dict(base, MG_PORT=str(free_port())), 1)
+    w1_s = time.perf_counter() - t0
+    env2 = dict(base, WORLD_SIZE="2", LOCAL_RANK="0", MASTER_ADDR="localhost",
+                MASTER_PORT=str(free_port()), NFDPM_DIST_BACKEND="gloo")
+    w2 = mg_children("world2", root, stage1_dir, env2, 2)
+    w2_s = time.perf_counter() - t0 - w1_s
+    for child in [w1] + w2:  # the children's records, before any gate reads them
+        RECORDS.append(child)
+    emit({"phase": "multi_gpu_children", "world1_child_s": w1_s, "world2_children_s": w2_s,
+          "world1_parts_s": w1["seconds"], "world2_parts_s": [r["seconds"] for r in w2]})
+    ref = w1["reference"]
+    record = {"phase": "multi_gpu", "card": smi, "a": w1["a"], "d": w1["d"]}
+
+    # (b): each rank against world 1, the ranks against each other
+    refp = np.load(root / "ref_stage1.npz")
+    ref1 = np.load(root / "ref_stage1_step1.npz")
+
+    def param_gaps(got, want, prefix=""):
+        """(largest gap, values past the data-parallel bound, their count) of
+        two parameter (or, with prefix "grad/", gradient) sets."""
+        gap, beyond, total = 0.0, 0, 0
+        for k in want.files:
+            if not k.startswith(prefix) or (not prefix and k.startswith("grad/")):
+                continue
+            if not want[k].size:
+                continue
+            diff = np.abs(got[k] - want[k])
+            gap = max(gap, float(diff.max()))
+            beyond += int((diff > MG_ATOL + MG_RTOL * np.abs(want[k])).sum())
+            total += want[k].size
+        return gap, beyond, total
+
+    def grads_close(got, want) -> bool:
+        """Each gradient leaf within GRAD_RTOL of its largest entry plus
+        GRAD_ATOL, as phase 14 holds two routes' gradients."""
+        return all(float(np.abs(got[k] - want[k]).max())
+                   <= GRAD_RTOL * float(np.abs(want[k]).max()) + GRAD_ATOL
+                   for k in want.files if k.startswith("grad/") and want[k].size)
+
+    b = {}
+    for fsdp in ("false", "true"):
+        ranks = [r[f"b_fsdp_{fsdp}"] for r in w2]
+        tag = f"world2_fsdp{int(fsdp == 'true')}"
+        params = [np.load(root / f"{tag}_rank{r}.npz") for r in range(2)]
+        step1 = np.load(root / f"{tag}_rank0_step1.npz")
+        bpd_gaps = [max(abs(r["bpd"][i] - ref["stage1"]["bpd"][i]) for r in ranks)
+                    for i in range(len(ranks[0]["bpd"]))]
+        gap1, beyond1, total = param_gaps(step1, ref1)
+        gap, beyond, _ = param_gaps(params[0], refp)
+        m = {
+            "bpd_rank0": ranks[0]["bpd"], "bpd_world1": ref["stage1"]["bpd"],
+            "bpd_gap_by_step": bpd_gaps, "max_bpd_gap": max(bpd_gaps),
+            "step1_max_param_gap": gap1, "step1_param_values_beyond_dp_bound": beyond1,
+            "max_param_gap": gap, "param_values_beyond_dp_bound": beyond,
+            "param_values": total,
+            "ranks_bitwise_equal": all(np.array_equal(params[0][k], params[1][k])
+                                       for k in refp.files),
+            "moment_bytes_by_rank": [r["moment_bytes"] for r in ranks],
+            "predicted_moment_bytes_by_rank": [r["predicted_moment_bytes"] for r in ranks],
+            "world1_moment_bytes": ref["stage1"]["moment_bytes"],
+            "partitioned_leaves": ranks[0]["sharded_leaves"],
+            "launches_by_step": [r["launches"] for r in ranks],
+            "step_wall_ms_median_by_rank": [median_of(r["step_wall_ms"][1:]) for r in ranks]}
+        if fsdp == "false":
+            m["step1_max_grad_gap"], m["step1_grad_values_beyond_dp_bound"], _ = param_gaps(
+                step1, ref1, "grad/")
+            m["step1_grads_within_route_bound"] = grads_close(step1, ref1)
+        b[f"fsdp_{fsdp}"] = m
+    record["b"] = b
+    emit({"phase": "multi_gpu_b", **b})
+    for fsdp, m in b.items():
+        check(m["ranks_bitwise_equal"], f"(b) {fsdp}: the ranks' parameters differ")
+        check(m["bpd_gap_by_step"][0] <= MG_BPD_TOL,
+              f"(b) {fsdp}: step 1's bits/dim {m['bpd_gap_by_step'][0]} from world 1's")
+        check(m.get("step1_grads_within_route_bound", True),
+              f"(b) {fsdp}: step 1's mean gradient {m.get('step1_max_grad_gap')} from "
+              f"world 1's, past rtol {GRAD_RTOL} of a leaf's largest entry")
+        check(m["max_bpd_gap"] <= TRAIN_TRAJ_TOL,
+              f"(b) {fsdp}: bits/dim {m['bpd_gap_by_step']} from world 1's by step")
+        check(m["max_param_gap"] <= MG_FINAL_ATOL,
+              f"(b) {fsdp}: parameters {m['max_param_gap']} from world 1's after {MG_STEPS}")
+        check(all(step == MG_STEP_LAUNCHES for r in m["launches_by_step"] for step in r),
+              f"(b) {fsdp}: the ranks' step launches {m['launches_by_step']}")
+        check(m["moment_bytes_by_rank"] == m["predicted_moment_bytes_by_rank"],
+              f"(b) {fsdp}: moments {m['moment_bytes_by_rank']} B, _add_fsdp predicts "
+              f"{m['predicted_moment_bytes_by_rank']} B")
+        check((m["partitioned_leaves"] > 0) == (fsdp == "fsdp_true"),
+              f"(b) {fsdp}: {m['partitioned_leaves']} partitioned leaves")
+
+    # (c): the stage-2 loss of each step, each rank, and the attention launches
+    per_step2 = stage2_per_step(True)
+    loss_gaps = [max(abs(r["c"]["loss"][i] - c) / abs(c) for r in w2)
+                 for i, c in enumerate(ref["stage2"]["loss"])]
+    record["c"] = {"loss_rank0": w2[0]["c"]["loss"], "loss_world1": ref["stage2"]["loss"],
+                   "rel_gap_by_step": loss_gaps, "max_rel_gap": max(loss_gaps),
+                   "launches_per_step": per_step2}
+    emit({"phase": "multi_gpu_c", **record["c"]})
+    check(max(loss_gaps) <= MG_LOSS_RTOL,
+          f"(c) the stage-2 loss {loss_gaps} (relative, by step) from world 1's")
+    for r in w2:
+        check(all(l == per_step2 for l in r["c"]["launches"]),
+              f"(c) a rank's stage-2 step launches {r['c']['launches']}, expected {per_step2}")
+
+    # (e) and the part-parallel run's merged view, in this process
+    e_t0 = time.perf_counter()
+    for fn in counters:
+        fn.launches = 0
+    got = {}
+    for flag in ([], ["--data-parallel"]):
+        with serving(serve, ["--run-dir", str(stage1_dir)] + flag + MG_TOOL_ARGS) as (
+                port_no, health):
+            samples, rec = generate(port_no, RUN_DIR_REQUEST, counters, sampling_chunk())
+            got[bool(flag)] = (samples, health, rec)
+    check(np.array_equal(got[False][0], got[True][0]),
+          "(e) serve --data-parallel gave other bytes than without the flag")
+    check(got[True][1]["devices"] == 1 == got[False][1]["devices"],
+          f"(e) /health devices {got[True][1]['devices']}")
+    stats = {}
+    for flag in ([], ["--data-parallel"]):
+        out_dir = root / f"stats{'_dp' if flag else ''}"
+        precompute_stats.main(["--action", "precompute", "--datasets", "synthetic", "--models",
+                               "inception_v3", "--modes", "legacy_tensorflow", "--limit",
+                               str(MG_STATS_LIMIT), "--stats_dir", str(out_dir)]
+                              + flag + MG_TOOL_ARGS)
+        (f,) = out_dir.iterdir()
+        with np.load(f) as data:
+            stats[bool(flag)] = {k: data[k] for k in ("mu", "sigma", "feats")}
+    check(all(np.array_equal(stats[False][k], stats[True][k]) for k in stats[False]),
+          "(e) precompute_stats --data-parallel gave other statistics")
+    pp_run = Path(w1["d"]["run_dir"])
+    with serving(serve, ["--run-dir", str(pp_run)] + MG_TOOL_ARGS) as (port_no, health):
+        check(health["kind"] == "diffusion" and health["epoch"] == 1,
+              f"(d) serve --run-dir on the part-parallel run: {health}")
+        pp_samples, pp_rec = generate(
+            port_no, {"n": BATCH, "seed": 3}, counters,
+            sampling_chunk(DIFFUSION_KWARGS["sampling_timesteps"]))
+    record["e"] = {"serve_bytes_equal": True, "devices": got[True][1]["devices"],
+                   "serve_wall_s": {"single": got[False][2]["wall_s"],
+                                    "data_parallel": got[True][2]["wall_s"]},
+                   "precompute_stats_equal": True, "seconds": time.perf_counter() - e_t0}
+    record["d"]["served_merged_view"] = {"kind": health["kind"], "request": pp_rec["request"],
+                                         "wall_s": pp_rec["wall_s"]}
+    here = counts(counters)
+
+    # (f) timing
+    record["f"] = {"card": smi,
+                   "step_wall_ms_world1_nccl": w1["f_world1"]["step_wall_ms_median"],
+                   "step_wall_ms_world1_no_group": w1["f_world1"][
+                       "reference_step_wall_ms_median"],
+                   "step_wall_ms_world2_gloo": b["fsdp_false"]["step_wall_ms_median_by_rank"],
+                   "step_wall_ms_world2_gloo_fsdp": b["fsdp_true"]["step_wall_ms_median_by_rank"],
+                   "allreduce_ms_world1_nccl": w1["f_world1"]["allreduce_ms"],
+                   "allreduce_ms_world2_gloo": [r["allreduce_ms"] for r in w2],
+                   "allreduce_numel": w1["f_world1"]["grad_numel"],
+                   "note": "gloo on one card moves the gradients through the host"}
+    seconds = time.perf_counter() - t0
+    record.update({"seconds": seconds, "world1_child_s": w1_s, "world2_children_s": w2_s,
+                   "budget_s": MG_BUDGET_S, "within_budget": seconds <= MG_BUDGET_S})
+    launches = {k: here[k] + w1["launches"][k] + sum(r["launches"][k] for r in w2)
+                for k in here}
+    record["launches"] = {"this_process": here, "world1_child": w1["launches"],
+                          "world2_ranks": [r["launches"] for r in w2], "total": launches}
+    emit(record)
+    return launches
+
 def main() -> int:
     import torch
 
@@ -4127,6 +4702,12 @@ def main() -> int:
     counters = (cm.channel_mix, ct.coupling_tail, ct.coupling_tail_bwd,
                 ct.coupling_tail_inverse, fla.fused_linear_attention,
                 fla.fused_linear_attention_bwd, sm.step_megakernel_forward)
+    if sys.argv[1:2] == ["--multi-gpu-child"] and len(sys.argv) == 5:
+        # a child of phase 28, started by this script with its environment
+        port.disable_tf32()
+        role, root, stage1_dir = sys.argv[2], Path(sys.argv[3]), Path(sys.argv[4])
+        (mg_world1 if role == "world1" else mg_world2)(torch, root, stage1_dir)
+        return 0
     if sys.argv[1:2] == ["--deterministic-resume"] and len(sys.argv) == 3:
         # phase 23's subprocess, started by this script with its environment
         port.disable_tf32()
@@ -4157,6 +4738,12 @@ def main() -> int:
         phase_stage2_training(torch, counters, stage1_run)
         torch.cuda.empty_cache()
         phase_mixed_precision(torch, np, counters, smi, stage1_run)
+        return 0
+    if sys.argv[1:] == ["--multi-gpu"]:
+        _, stage1_run, _, _ = phase_training(torch, counters)
+        phase_stage2_training(torch, counters, stage1_run)
+        torch.cuda.empty_cache()
+        phase_multi_gpu(torch, np, counters, smi, stage1_run)
         return 0
     if sys.argv[1:] == ["--attention-backward"]:
         totals = {}
@@ -4210,6 +4797,8 @@ def main() -> int:
         torch, np, counters, smi, stage1_run, stage2_run)
     torch.cuda.empty_cache()
     launches["mixed_precision"] = phase_mixed_precision(torch, np, counters, smi, stage1_run)
+    torch.cuda.empty_cache()
+    launches["multi_gpu"] = phase_multi_gpu(torch, np, counters, smi, stage1_run)
 
     per = {"fused_linear_attention": "one UNet evaluation of each of the three parts at "
                                      "batch 64 (one DDIM step or one stage-2 train "

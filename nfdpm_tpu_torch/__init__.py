@@ -35,6 +35,8 @@ convert_reference_checkpoint, export_reference_checkpoint : a checkpoint of
              the original PyTorch repository into a run directory, and a
              stage-1 run directory back into one.
 profiling  : device time by kernel of a call, through torch.profiler.
+parallel   : data parallelism across processes and GPUs (torchrun), ZeRO
+             partitioning of the Adam moments, part-parallel stage 2.
 """
 
 from __future__ import annotations
@@ -48,15 +50,19 @@ __version__ = "0.1.0"
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: CUDA unless the caller names
-    another. Raises when CUDA is wanted but absent; never falls back."""
+    another. Raises when CUDA is wanted but absent; never falls back. CUDA
+    without an index is the current device, cuda:LOCAL_RANK in a
+    data-parallel launch (parallel/distributed.py sets it first)."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError("no CUDA device is available; pass device='cpu' "
                                "to run on the CPU")
-        return torch.device("cuda")
+        return torch.device("cuda", torch.cuda.current_device())
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} requested but CUDA is not available")
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
     return dev
 
 

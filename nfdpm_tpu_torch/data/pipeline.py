@@ -11,6 +11,7 @@ The port's own copy of nfdpm_tpu/data/pipeline.py (numpy on the host):
   * Transforms (ToTensor semantics, MNIST pad-to-32 else resize, optional
     RandomHorizontalFlip) are whole-batch array ops; the flip draws from a
     seeded numpy Generator.
+  * `host_shard` is a data-parallel rank's slice of a global batch.
   * `prefetch_to_device` copies each batch to the device one batch ahead of
     the step that uses it (pinned host memory, non-blocking copies).
 """
@@ -239,6 +240,17 @@ def read_dataset(
         test=Loader(test_ds, batch_size, shuffle=False, seed=seed),
         eval=Loader(eval_raw, batch_size, shuffle=True, seed=seed + 1),
     )
+
+
+# ---------------------------------------------------------------------------
+# Data-parallel host sharding
+# ---------------------------------------------------------------------------
+
+def host_shard(batch, host_id: int, n_hosts: int):
+    """Deterministic per-host slice of the global batch (the JAX package's
+    host_shard: equal contiguous slices, the remainder dropped)."""
+    per = len(batch) // n_hosts
+    return batch[host_id * per: (host_id + 1) * per]
 
 
 # ---------------------------------------------------------------------------

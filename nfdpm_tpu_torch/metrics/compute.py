@@ -144,15 +144,27 @@ def load_dataset_images(data_name: str, data_root: str, split: str, res: int,
 # Stats precompute
 # ---------------------------------------------------------------------------
 
+def feature_extractor_for(model_name: str, device, mesh=None):
+    """The feature net on `device`; for a one-process mesh over several
+    devices, one replica a device (fid.extract_features' `feature_fn`)."""
+    if mesh is not None and len(mesh.devices) > 1:
+        return [get_feature_extractor(model_name, d) for d in mesh.devices]
+    return get_feature_extractor(model_name, device)
+
+
 def make_custom_stats(logger, data_root: str, data_name: str, split: str, res: int,
                       mode: str, model_name: str, batch_size: int = 64,
                       stats_dir: Optional[str] = None, limit: Optional[int] = None,
-                      device=None) -> str:
+                      device=None, mesh=None) -> str:
+    """The stats file of a dataset split; with a `mesh`, the feature net
+    runs data-parallel (fid.extract_features) and rank 0 writes."""
     device = resolve_device(device)
-    feature_fn = get_feature_extractor(model_name, device)
+    feature_fn = feature_extractor_for(model_name, device, mesh)
     images = load_dataset_images(data_name, data_root, split, res, limit)
     feats = fid_m.extract_features(images, feature_fn, FEATURE_RES[model_name], mode,
-                                   batch_size, device)
+                                   batch_size, device, mesh)
+    if mesh is not None and mesh.rank != 0:
+        return fid_m._stats_path(data_name, mode, model_name, split, res, stats_dir)
     path = fid_m.save_stats(feats, data_name, mode, model_name, split, res, stats_dir)
     if logger:
         logger.info(f"Saved stats ({len(feats)} samples) to {path}")
@@ -162,14 +174,15 @@ def make_custom_stats(logger, data_root: str, data_name: str, split: str, res: i
 def precompute_statistics(logger, data_root: str, data_name: str, dataset_split: str,
                           dataset_res: int, mode: str, model_name: str,
                           stats_dir: Optional[str] = None, limit: Optional[int] = None,
-                          device=None) -> None:
-    """Computes and stores the stats unless the file exists."""
+                          device=None, mesh=None) -> None:
+    """Computes and stores the stats unless the file exists (the feature net
+    data-parallel over `mesh`, when given)."""
     if fid_m.stats_exist(data_name, mode, model_name, dataset_split, dataset_res, stats_dir):
         if logger:
             logger.info("Precomputed stats already exist for the dataset.")
         return
     make_custom_stats(logger, data_root, data_name, dataset_split, dataset_res, mode,
-                      model_name, stats_dir=stats_dir, limit=limit, device=device)
+                      model_name, stats_dir=stats_dir, limit=limit, device=device, mesh=mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -180,9 +193,9 @@ def calculate_fid_kid(gen: Callable[[int], np.ndarray], data_name: str, dataset_
                       num_gen: int, dataset_split: str, batch_size: int, score_type: str,
                       mode: str, model_name: str = "inception_v3",
                       stats_dir: Optional[str] = None, gen_batch_size: Optional[int] = None,
-                      device=None) -> float:
+                      device=None, mesh=None) -> float:
     """`gen_batch_size` (default batch_size) images per sampler call;
-    `batch_size` images per feature-net call."""
+    `batch_size` images per feature-net call (data-parallel over `mesh`)."""
     device = resolve_device(device)
     gen_batch_size = gen_batch_size or batch_size
     dataset_res = 224 if data_name == "celeba" else dataset_res
@@ -192,13 +205,13 @@ def calculate_fid_kid(gen: Callable[[int], np.ndarray], data_name: str, dataset_
         raise FileNotFoundError(
             f"No precomputed stats for {data_name}/{mode}/{model_name}/"
             f"{dataset_split}/{dataset_res}; run precompute_statistics first.")
-    feature_fn = get_feature_extractor(model_name, device)
+    feature_fn = feature_extractor_for(model_name, device, mesh)
     feats = []
     remaining = num_gen
     while remaining > 0:
         n = min(gen_batch_size, remaining)
         feats.append(fid_m.extract_features(gen(n), feature_fn, FEATURE_RES[model_name], mode,
-                                            batch_size, device))
+                                            batch_size, device, mesh))
         remaining -= n
     gen_feats = np.concatenate(feats)
 
@@ -226,7 +239,7 @@ def evaluate_model(*, sample_images: Callable[[int], np.ndarray], data_name: str
                    kid_kwargs: Optional[List[Dict]] = None,
                    ssim_psnr_kwargs: Optional[Dict] = None, stats_dir: Optional[str] = None,
                    logger=None, gen_batch_size: Optional[int] = None,
-                   device=None) -> Dict[str, Any]:
+                   device=None, mesh=None) -> Dict[str, Any]:
     """One generation pass (uint8 numpy images from `sample_images(n)`)
     serves every requested metric through Storage, with TF32 off (the
     switches restored after it, so a run at matmul_precision="high" trains
@@ -249,7 +262,7 @@ def evaluate_model(*, sample_images: Callable[[int], np.ndarray], data_name: str
             key = metric_key(score_type, mode, model_name)
             metrics[key] = calculate_fid_kid(
                 gen, data_name, dataset_res, num_gen, dataset_split, batch_size, score_type,
-                mode, model_name, stats_dir, gen_batch_size, device)
+                mode, model_name, stats_dir, gen_batch_size, device, mesh)
             gen.storage.set_ready_for_usage()
             if logger:
                 logger.info(f"{key}: {metrics[key]:.4f}")
@@ -305,12 +318,14 @@ def make_nf_evaluate_fn(*, data_name: str, loaders, fid_configs: List[Dict],
                         kid_configs: List[Dict], img_size: int, temperature: float, logger,
                         stats_dir: Optional[str] = None, quick_num_gen: int = 64,
                         ssim_psnr: Optional[Dict] = None, dataset_split: str = "train",
-                        gen_batch_size: int = 256, device=None):
+                        gen_batch_size: int = 256, device=None, mesh=None):
     """evaluate_fn(sample_fn, params, epoch, full=False) for both trainers,
     with sample_fn(params, n, temperature, salt) -> uint8 [n, H, W, C] on
     the device: `quick_num_gen` images at checkpoint epochs, the dataset's
     DATASET_SIZE count with `full=True` (the final evaluation and
-    phase=eval). A missing stats file gives a warning and {}."""
+    phase=eval). A missing stats file gives a warning and {}. Under a
+    data-parallel `mesh` the sampler gathers every rank's rows and the
+    feature nets run on each rank's rows of the images."""
     device = resolve_device(device)
     split = dataset_split
     if data_name == "imagenet32" and split == "test":
@@ -337,7 +352,8 @@ def make_nf_evaluate_fn(*, data_name: str, loaders, fid_configs: List[Dict],
                 sample_images=sample_images, data_name=data_name, dataset_res=img_size,
                 batch_size=32, num_gen=num_gen, dataset_split=split, fid_kwargs=fid_configs,
                 kid_kwargs=kid_configs, ssim_psnr_kwargs=ssim_kwargs, stats_dir=stats_dir,
-                logger=logger, gen_batch_size=max(gen_batch_size, 32), device=device)
+                logger=logger, gen_batch_size=max(gen_batch_size, 32), device=device,
+                mesh=mesh)
             logger.info(f"epoch {epoch} metrics: {metrics}")
             return metrics
         except FileNotFoundError as e:

@@ -91,14 +91,33 @@ def _to_rgb(images: np.ndarray) -> np.ndarray:
 
 
 def extract_features(images: np.ndarray, feature_fn: Callable, size: int, mode: str,
-                     batch_size: int = 64, device=None) -> np.ndarray:
+                     batch_size: int = 64, device=None, mesh=None) -> np.ndarray:
     """uint8 [N, H, W, C] on the host -> float32 [N, D] numpy features:
-    resize (float, [0, 255]) then `feature_fn` on `device`, batch by batch."""
+    resize (float, [0, 255]) then `feature_fn` on `device`, batch by batch.
+
+    With a multi-process `mesh` (parallel/mesh.py) every rank resizes and
+    runs the net on its rows of each batch and the features are
+    all-gathered. With a one-process mesh over several devices
+    (`mesh.local_mesh`), `feature_fn` is one net a device and each batch is
+    split across them. Either way the features are those of one device, in
+    order."""
+    from ..parallel import mesh as mesh_m
+
     feats = []
     for i in range(0, len(images), batch_size):
-        resized = resize_batch(_to_rgb(images[i: i + batch_size]), size, mode, device)
+        chunk = _to_rgb(images[i: i + batch_size])
         with torch.inference_mode():
-            feats.append(feature_fn(resized).float().cpu().numpy())
+            if mesh is not None and len(mesh.devices) > 1:
+                per = -(-len(chunk) // len(mesh.devices))
+                for j, (fn, dev) in enumerate(zip(feature_fn, mesh.devices)):
+                    if j * per < len(chunk):
+                        part = resize_batch(chunk[j * per:(j + 1) * per], size, mode, dev)
+                        feats.append(fn(part).float().cpu().numpy())
+                continue
+            start, stop = mesh_m.split_rows(mesh, len(chunk))
+            resized = resize_batch(chunk[start:stop], size, mode, device)
+            out = mesh_m.gather_split_rows(mesh, len(chunk), feature_fn(resized).float())
+            feats.append(out.cpu().numpy())
     return np.concatenate(feats, axis=0)
 
 

@@ -9,7 +9,10 @@ removes every stats file of the directory.
         --data_root ./datasets --datasets celeba imagenet32 [--device cpu]
     python -m nfdpm_tpu_torch.metrics.precompute_stats --action clean
 
-The feature nets run on the CUDA card unless `--device cpu` is given.
+The feature nets run on the CUDA card unless `--device cpu` is given;
+`--data-parallel` runs a replica on every visible CUDA device (or the one
+--device names) and splits each feature batch across them, in one process
+(the same statistics as one device).
 """
 
 from __future__ import annotations
@@ -45,13 +48,14 @@ def main(argv=None):
                    help="cap the number of source images (smoke runs)")
     p.add_argument("--device", default=None, help="cpu to run off the card")
     p.add_argument("--data-parallel", action="store_true",
-                   help="not ported: the port runs the feature nets on one device")
+                   help="a feature net on every visible CUDA device, each batch split "
+                        "across them")
     args = p.parse_args(argv)
+    mesh = None
+    if args.data_parallel and args.action == "precompute":
+        from ..parallel.mesh import local_mesh, visible_devices
 
-    if args.data_parallel:
-        raise NotImplementedError(
-            "--data-parallel is not ported (ROADMAP: multi-GPU); the port runs the "
-            "feature nets on one device")
+        mesh = local_mesh(visible_devices(args.device))
 
     logging.basicConfig(level=logging.INFO)
     logger = logging.getLogger("precompute_stats")
@@ -68,7 +72,7 @@ def main(argv=None):
                     logger.info(f"precompute {name} {split}@{res} {mode} {model}")
                     precompute_statistics(logger, args.data_root, name, split, res, mode,
                                           model, stats_dir=args.stats_dir, limit=args.limit,
-                                          device=args.device)
+                                          device=args.device, mesh=mesh)
 
 
 if __name__ == "__main__":

@@ -39,6 +39,8 @@ from typing import Callable, Dict, NamedTuple, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from ..ops import draws
+
 Time = Union[int, torch.Tensor]
 
 
@@ -337,13 +339,13 @@ class GaussianDiffusion:
             return noise[0]
         if generator is None:
             raise ValueError("a sampler needs a generator or injected noise")
-        return torch.randn(shape, generator=generator, device=generator.device)
+        return draws.randn(shape, generator, generator.device)
 
     @staticmethod
     def _step_noise(shape, generator, noise, j: int, device, first: int = 1):
         if noise is not None:
             return noise[first + j]
-        return torch.randn(shape, generator=generator, device=device)
+        return draws.randn(shape, generator, device)
 
     def _ancestral(self, params, img, t_start: int, generator, noise, first: int = 1):
         """Ancestral steps t = t_start .. 0 from img; step j draws
@@ -386,7 +388,7 @@ class GaussianDiffusion:
         t = self.num_timesteps - 1 if t is None else int(t)
         shape = tuple(x1.shape)
         draw = (lambda i: noise[i]) if noise is not None else (
-            lambda i: torch.randn(shape, generator=generator, device=x1.device))
+            lambda i: draws.randn(shape, generator, x1.device))
         xt1 = self.q_sample(x1, t, draw(0))
         xt2 = self.q_sample(x2, t, draw(1))
         img = (1 - lam) * xt1 + lam * xt2
@@ -477,14 +479,14 @@ class GaussianDiffusion:
         VLB term trains only the variance half (the prediction detached),
         weighted vlb_loss_weight * T / 1000."""
         if noise is None:
-            noise = torch.randn(x_start.shape, generator=generator, device=x_start.device)
+            noise = draws.randn(x_start.shape, generator, x_start.device)
         x = self.q_sample(x_start, t, noise)
 
         x_self_cond = None
         if self.cfg.self_condition:
             if self_cond is None:
-                self_cond = bool(torch.rand((), generator=generator,
-                                            device=generator.device) < 0.5)
+                self_cond = bool(draws.rand((), generator, generator.device,
+                                            batch_dim=None) < 0.5)
             if self_cond:
                 with torch.no_grad():  # the JAX package's stop_gradient
                     _, x_self_cond = self.model_predictions(params, x, t)
@@ -522,9 +524,18 @@ class GaussianDiffusion:
              self_cond: Optional[bool] = None) -> torch.Tensor:
         """t ~ U{0, ..., T-1} per sample (or given), normalize, p_losses."""
         if t is None:
-            t = torch.randint(0, self.num_timesteps, (img.shape[0],), generator=generator,
-                              device=img.device)
+            t = draws.randint(self.num_timesteps, (img.shape[0],), generator, img.device)
         return self.p_losses(params, self.normalize(img), t, noise, generator, self_cond)
+
+    def skip_loss_draws(self, shape, generator, device) -> None:
+        """Draw what `loss` of a batch of `shape` draws (t, the noise, the
+        coin) and drop it: a part trained on its own (parallel/part_parallel.py)
+        passes over the draws of the parts before it, so its own are the
+        joint step's."""
+        draws.randint(self.num_timesteps, (shape[0],), generator, device)
+        draws.randn(shape, generator, device)
+        if self.cfg.self_condition:
+            draws.rand((), generator, device, batch_dim=None)
 
     # -- VLB / NLL -----------------------------------------------------------
     def _vb_terms_bpd(self, params, x_start, x_t, t: torch.Tensor, x_self_cond=None,
@@ -581,8 +592,8 @@ class GaussianDiffusion:
             ts_vec = ts[start:start + chunk]
             c = len(ts_vec)
             if noise is None:
-                eps = torch.randn((c, *x_start.shape), generator=generator,
-                                  device=x_start.device)
+                eps = draws.randn((c, *x_start.shape), generator, x_start.device,
+                                  batch_dim=1)
             else:
                 eps = torch.stack([noise[t] for t in ts_vec])
             tb = torch.as_tensor(ts_vec if c == 1 else np.repeat(ts_vec, b),

@@ -163,7 +163,8 @@ def stats_from_json(obj) -> Optional[StatsT]:
                  for mean, std in obj)
 
 
-def fit_formater_stats(formater: BaseFormater, latent_batches, eps: float = 1e-6) -> StatsT:
+def fit_formater_stats(formater: BaseFormater, latent_batches, eps: float = 1e-6,
+                       all_reduce=None) -> StatsT:
     """Channelwise mean and std of the formater's PROCESSED parts.
 
     `latent_batches` iterates over lists of raw flow-latent parts (one list
@@ -171,7 +172,9 @@ def fit_formater_stats(formater: BaseFormater, latent_batches, eps: float = 1e-6
     is applied without any existing standardization, then the first and
     second moments accumulate per channel in float64 on the host; the std
     is floored at `eps`. Returns the plain-float stats for
-    `formater.with_stats(...)`."""
+    `formater.with_stats(...)`. `all_reduce(sums, sumsqs, counts)` (data
+    parallelism: each rank saw its rows) returns the three summed over the
+    ranks before the moments are taken."""
     base = dataclasses.replace(formater, stats=None)
     sums = sumsqs = counts = None
     for latents in latent_batches:
@@ -189,6 +192,8 @@ def fit_formater_stats(formater: BaseFormater, latent_batches, eps: float = 1e-6
             counts[i] += float(np.prod(z.shape[:-1]))
     if sums is None:
         raise ValueError("fit_formater_stats: empty latent_batches")
+    if all_reduce is not None:
+        sums, sumsqs, counts = all_reduce(sums, sumsqs, counts)
     stats = []
     for s, ss, c in zip(sums, sumsqs, counts):
         mean = s / c

@@ -37,6 +37,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from . import draws
 from .coupling import (actnorm_stats_init, coupling_net_apply, coupling_net_conv,
                        coupling_net_ddinit, init_coupling_net)
 from .kernels.channel_mix import channel_mix
@@ -268,8 +269,7 @@ def gaussian_sample(generator: Optional[torch.Generator], mean: torch.Tensor,
     """mean + (e^{logsd} * temperature) * eps, eps ~ N(0, 1) from
     `generator` unless given."""
     if eps is None:
-        eps = torch.randn(mean.shape, generator=generator, dtype=mean.dtype,
-                          device=mean.device)
+        eps = draws.randn(mean.shape, generator, mean.device, mean.dtype)
     return mean + (torch.exp(logsd) * temperature) * eps
 
 

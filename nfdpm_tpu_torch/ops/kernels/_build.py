@@ -6,13 +6,20 @@ first use, `nvcc` compiles it for Hopper (`sm_90a`) into
 loads it. A library is rebuilt when it is missing or older than its source
 or than a header the sources share (csrc/*.cuh).
 `build()` starts one `nvcc` per stale source, all at once, and waits for
-them together. Nothing here runs at import time: the CPU tests import every
-module, and the CPU has no `nvcc`.
+them together. It holds an `fcntl` lock on `build/kernels/.build.lock`
+around the staleness check, the build and the rename, so that processes
+that start together (the ranks of a data-parallel launch) run one compile:
+the others wait, find the library current and load it; nvcc writes to a
+temporary name that `os.replace` renames, so no process loads a
+half-written file. Nothing here runs at import time: the CPU tests import
+every module, and the CPU has no `nvcc`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import os
 import shutil
 import subprocess
@@ -91,14 +98,32 @@ def _stale(name: str) -> bool:
     return not lib.exists() or lib.stat().st_mtime < newest
 
 
+@contextlib.contextmanager
+def _build_lock():
+    """An exclusive lock on BUILD_DIR/.build.lock, across processes; held
+    until the block ends (released by the kernel if the process dies)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".build.lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build(names: Optional[Iterable[str]] = None) -> float:
     """Compile the named libraries (default: all) that are missing or stale,
     one nvcc process per source, started together; returns the seconds
-    spent compiling (0.0 when every library was current)."""
+    spent compiling (0.0 when every library was current). Under the build
+    lock: a process that waited for another's build finds it current."""
+    with _build_lock():
+        return _build_stale(names)
+
+
+def _build_stale(names: Optional[Iterable[str]]) -> float:
     stale = [n for n in (SOURCES if names is None else names) if _stale(n)]
     if not stale:
         return 0.0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     t0 = time.perf_counter()
     procs = {}

@@ -13,6 +13,8 @@ from typing import Optional
 
 import torch
 
+from . import draws
+
 
 def n_bins_of(n_bits: int) -> float:
     return float(2 ** n_bits)
@@ -40,6 +42,5 @@ def dequantize(generator: Optional[torch.Generator], batch: torch.Tensor,
     is the U(0, 1) draw itself (tests feed the JAX side the same numbers)."""
     n_bins = 2.0 ** n_bits
     if noise is None:
-        noise = torch.rand(batch.shape, generator=generator, dtype=batch.dtype,
-                           device=batch.device)
+        noise = draws.rand(batch.shape, generator, batch.device, batch.dtype)
     return batch + noise / n_bins

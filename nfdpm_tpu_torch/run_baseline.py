@@ -29,9 +29,20 @@ file's own `false` is the JAX package's default, not the port's.
 inner convolutions in bf16 (fp32 master weights, Adam and logdet; see
 ops/coupling.py). `model.training.matmul_precision` unset, "default" or
 "highest" keeps cuDNN and cuBLAS in full fp32, "high" lets them use TF32
-(nfdpm_tpu_torch.set_matmul_precision). What is not ported raises
-NotImplementedError instead of being skipped: `parallel.*` other than the
-defaults (multi-GPU).
+(nfdpm_tpu_torch.set_matmul_precision).
+
+Data parallelism: one process per GPU, launched by torchrun,
+
+    torchrun --nproc-per-node=N -m nfdpm_tpu_torch.run_baseline ...
+
+(parallel/distributed.py; NCCL, or gloo with NFDPM_DIST_BACKEND=gloo). The
+configured `data.batch_size` is the global batch, split over the ranks;
+the numbers do not change with the world size. `parallel.fsdp=true`
+partitions Adam's moments over the ranks (ZeRO), `parallel.n_slices` lays
+the ranks out slice-major. Rank 0 writes the run directory's files. What
+is not ported raises NotImplementedError instead of being skipped:
+`parallel.n_model` > 1, `parallel.spatial`, `parallel.pipeline` and
+`parallel.pipeline_microbatches` (the model axis).
 """
 
 from __future__ import annotations
@@ -42,18 +53,52 @@ import time
 
 CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                       "configs", "nf_base.yaml")
-PARALLEL_DEFAULTS = {"n_model": 1, "n_slices": 1, "fsdp": False, "pipeline": False,
-                     "pipeline_microbatches": 0, "spatial": False}
+# the model axis: its options keep their defaults in the port
+UNPORTED_PARALLEL = {"n_model": 1, "pipeline": False, "pipeline_microbatches": 0,
+                     "spatial": False}
 
 
 def refuse_unported(cfg) -> None:
     """Raise for every configured option the port does not have yet."""
-    for key, default in PARALLEL_DEFAULTS.items():
+    for key, default in UNPORTED_PARALLEL.items():
         value = cfg.select(f"parallel.{key}", default)
         if value != default:
             raise NotImplementedError(
-                f"parallel.{key}={value!r} is not ported (ROADMAP: multi-GPU); "
-                "the port trains on one device")
+                f"parallel.{key}={value!r} is not ported "
+                "(ROADMAP: tensor, pipeline and spatial parallelism)")
+
+
+def start_parallel(cfg):
+    """Join the launch's process group (parallel/distributed.py: torchrun's
+    environment, or none) and return its data-axis mesh, None for one
+    process. Call before any CUDA use."""
+    from .parallel import distributed
+    from .parallel import mesh as mesh_m
+
+    if not distributed.initialize(device=cfg.select("device")):
+        return None
+    return mesh_m.make_mesh(n_model=int(cfg.select("parallel.n_model", 1)),
+                            n_slices=int(cfg.select("parallel.n_slices", 1)),
+                            device=cfg.select("device"))
+
+
+def shared_run_dir(cfg, mesh) -> str:
+    """The run directory, made by rank 0 and named to every rank."""
+    from .utils.config import make_run_dir
+
+    if mesh is None or mesh.group is None:
+        return make_run_dir(cfg)
+    import torch.distributed as dist
+
+    name = [make_run_dir(cfg) if mesh.rank == 0 else None]
+    dist.broadcast_object_list(name, src=0, group=mesh.group)
+    return name[0]
+
+
+def log_file(run_dir: str, mesh) -> str:
+    """train.log, or train_rank<r>.log on a rank other than 0."""
+    return os.path.join(run_dir, "train.log" if mesh is None or mesh.rank == 0
+                        else f"train_rank{mesh.rank}.log")
 
 
 def load_batch(cfg):
@@ -63,7 +108,7 @@ def load_batch(cfg):
     return int(batch) if cfg.load.load_exp_dir and batch is not None else None
 
 
-def make_evaluate_fn(cfg, loaders, logger, device, quick_num_gen: int):
+def make_evaluate_fn(cfg, loaders, logger, device, quick_num_gen: int, mesh=None):
     """The trainers' `evaluate_fn` for the configured FID/KID/SSIM_and_PSNR
     metrics, or None when none is configured."""
     from .utils.config import parse_metric
@@ -83,7 +128,7 @@ def make_evaluate_fn(cfg, loaders, logger, device, quick_num_gen: int):
         quick_num_gen=int(cfg.select("model.evaluation.quick_num_gen", quick_num_gen)),
         dataset_split=str(cfg.select("model.evaluation.dataset_split", "train")),
         gen_batch_size=int(cfg.select("model.evaluation.gen_batch_size", 256)),
-        device=device)
+        device=device, mesh=mesh)
 
 
 def main(argv) -> dict:
@@ -95,18 +140,20 @@ def main(argv) -> dict:
     from .models import glow as glow_m
     from .training import nf_trainer as nft
     from .training.checkpoint import restore_params
-    from .utils.config import load_config, make_run_dir
+    from .utils.config import load_config
     from .utils.env import log_environment, parse_train_eval_mode, set_seeds, setup_logger
 
     overrides = [a for a in argv if "=" in a]
     cfg = load_config(CONFIG, overrides)
+    refuse_unported(cfg)
+    mesh = start_parallel(cfg)
     use_kernels = (bool(cfg.model.architecture.use_pallas) if any(
         o.lstrip("+").startswith("model.architecture.use_pallas=") for o in overrides)
         else True)
     device = port.resolve_device(cfg.select("device"))
     port.set_matmul_precision(cfg.select("model.training.matmul_precision"))
     train_phase = parse_train_eval_mode(cfg.phase)
-    refuse_unported(cfg)
+    fsdp = bool(cfg.select("parallel.fsdp", False))
 
     arch = cfg.model.architecture
     gcfg = glow_m.GlowConfig(
@@ -146,8 +193,8 @@ def main(argv) -> dict:
         lr_end_factor=float(cfg.select("model.optimizer.end_lr_factor", 0.0)),
     )
 
-    run_dir = make_run_dir(cfg)
-    logger = setup_logger("base", os.path.join(run_dir, "train.log"))
+    run_dir = shared_run_dir(cfg, mesh)
+    logger = setup_logger("base", log_file(run_dir, mesh))
     logger.info("Configuration:\n" + cfg.to_yaml())
     log_environment(logger, device)
     set_seeds(int(cfg.seed))
@@ -164,7 +211,7 @@ def main(argv) -> dict:
         synthetic_n=int(cfg.data.get("synthetic_n", 512)),
     )
 
-    evaluate_fn = make_evaluate_fn(cfg, loaders, logger, device, quick_num_gen=15)
+    evaluate_fn = make_evaluate_fn(cfg, loaders, logger, device, quick_num_gen=15, mesh=mesh)
     resume_dir = cfg.load.load_exp_dir
     resume_epoch = int(cfg.load.load_epoch) if resume_dir else None
     resume_batch = load_batch(cfg)
@@ -176,7 +223,7 @@ def main(argv) -> dict:
             cfg=gcfg, tcfg=tcfg, loaders=loaders, run_dir=run_dir, logger=logger,
             seed=int(cfg.seed), img_size=int(cfg.data.img_size),
             resume_dir=resume_dir, resume_epoch=resume_epoch, resume_batch=resume_batch,
-            evaluate_fn=evaluate_fn, device=device)
+            evaluate_fn=evaluate_fn, device=device, mesh=mesh, fsdp=fsdp)
         logger.info(f"Training done: {out['results']}")
         return {"run_dir": run_dir, "results": out["results"]}
     else:
@@ -188,18 +235,23 @@ def main(argv) -> dict:
         k_deq = int(cfg.select("model.evaluation.bpd_dequant_samples", 1))
         iwae = bool(cfg.select("model.evaluation.bpd_iwae", False))
         results = nft.final_bpd(nft.make_eval_step(gcfg, tcfg, device), params, loaders,
-                                int(cfg.seed), n_dequant_samples=k_deq, iwae=iwae)
+                                int(cfg.seed), n_dequant_samples=k_deq, iwae=iwae, mesh=mesh)
         tag = f" (K={k_deq}{', iwae' if iwae else ''})" if k_deq > 1 else ""
         for name, bpd in results.items():
             logger.info(f"{name.split('_', 1)[1]} bpd{tag}: {bpd:.4f}")
         if evaluate_fn is not None:
             sample_fn = nft.make_sample_fn(gcfg, tcfg, int(cfg.data.img_size), int(cfg.seed),
-                                           device)
+                                           device, mesh)
             results["metrics"] = evaluate_fn(sample_fn, params, resume_epoch, full=True)
         return {"run_dir": run_dir, "results": results}
 
 
 if __name__ == "__main__":
+    from .parallel.distributed import shutdown
+
     t0 = time.time()
-    main(sys.argv[1:])
+    try:
+        main(sys.argv[1:])
+    finally:
+        shutdown()
     print(f"Experiment duration: {time.time() - t0:.1f}s")

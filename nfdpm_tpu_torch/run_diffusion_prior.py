@@ -34,9 +34,16 @@ keeps float32), and `model.diffusion.unet_dtype` (else `model.unet.dtype`)
 the UNets' convolutions; the dtype travels as a string in
 diffusion_architecture.json's unet_kwargs, and the file's "flow" entry
 carries no coupling dtype. `model.training.matmul_precision` as in
-nfdpm_tpu_torch.run_baseline. What is not ported raises
-NotImplementedError: `parallel.*` other than the defaults (part-parallel
-included; multi-GPU), and an orbax run directory of the JAX package as the
+nfdpm_tpu_torch.run_baseline.
+
+Data parallelism as in nfdpm_tpu_torch.run_baseline (torchrun, one process
+a GPU; `parallel.fsdp`, `parallel.n_slices`). `parallel.part_parallel=true`
+trains each diffusion part on its own group of ranks
+(parallel/part_parallel.py; a frozen flow, no fsdp, no load.load_batch, as
+in the JAX package); it writes the merged model_diffusion_* checkpoints
+that phase=eval, runload and `serve --run-dir` read. What is not ported
+raises NotImplementedError: `parallel.n_model` > 1 and `parallel.spatial`
+(the model axis), and an orbax run directory of the JAX package as the
 pretrained flow (tools/jax_run_to_torch.py converts one).
 """
 
@@ -49,20 +56,11 @@ import time
 
 CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                       "configs", "nf_diffusion.yaml")
-PARALLEL_DEFAULTS = {"n_model": 1, "n_slices": 1, "part_parallel": False, "fsdp": False,
-                     "spatial": False}
-
-
 def refuse_unported(cfg) -> None:
-    """Raise for every configured option the port does not have yet."""
+    """Raise for every configured option the port does not have yet (the
+    model axis, as for stage 1)."""
     from .run_baseline import refuse_unported as refuse_stage1
 
-    for key, default in PARALLEL_DEFAULTS.items():
-        value = cfg.select(f"parallel.{key}", default)
-        if value != default:
-            raise NotImplementedError(
-                f"parallel.{key}={value!r} is not ported (ROADMAP: multi-GPU); "
-                "the port trains on one device")
     refuse_stage1(cfg)
 
 
@@ -76,25 +74,41 @@ def main(argv) -> dict:
     from .models.diffusion_prior import DiffusionPrior
     from .models.formaters import get_formater, stats_from_json
     from .models.nf_backbone import NFBackbone, load_pretrained_flow
-    from .run_baseline import load_batch, make_evaluate_fn
+    from .parallel import mesh as mesh_m
+    from .run_baseline import (load_batch, log_file, make_evaluate_fn, shared_run_dir,
+                               start_parallel)
     from .training import diffusion_trainer as dt
     from .training.checkpoint import load_architecture, restore_params, save_architecture
-    from .utils.config import load_config, make_run_dir
+    from .utils.config import load_config
     from .utils.env import log_environment, parse_train_eval_mode, set_seeds, setup_logger
 
     overrides = [a for a in argv if "=" in a]
     cfg = load_config(CONFIG, overrides)
+    refuse_unported(cfg)
     nf_cfg = cfg.model.normalizing_flow
+    fsdp = bool(cfg.select("parallel.fsdp", False))
+    part_parallel = bool(cfg.select("parallel.part_parallel", False))
+    if part_parallel:  # the JAX package's refusals (run_diffusion_prior_experiment.py)
+        if not bool(nf_cfg.freeze):
+            raise ValueError("parallel.part_parallel requires a frozen flow (unfrozen "
+                             "gradients couple the parts)")
+        if fsdp:
+            raise ValueError("parallel.part_parallel composes with n_model (in-group TP) "
+                             "only — disable parallel.fsdp/parallel.spatial")
+        if load_batch(cfg) is not None:
+            raise ValueError("load.load_batch (mid-epoch resume) is not supported with "
+                             "parallel.part_parallel — its checkpoints are epoch-level "
+                             "(per-group states); resume with load.load_epoch only")
+    mesh = start_parallel(cfg)
     use_kernels = (bool(nf_cfg.get("use_pallas", False)) if any(
         o.lstrip("+").startswith("model.normalizing_flow.use_pallas=") for o in overrides)
         else True)
     device = port.resolve_device(cfg.select("device"))
     port.set_matmul_precision(cfg.select("model.training.matmul_precision"))
     train_phase = parse_train_eval_mode(cfg.phase)
-    refuse_unported(cfg)
 
-    run_dir = make_run_dir(cfg)
-    logger = setup_logger("base", os.path.join(run_dir, "train.log"))
+    run_dir = shared_run_dir(cfg, mesh)
+    logger = setup_logger("base", log_file(run_dir, mesh))
     logger.info("Configuration:\n" + cfg.to_yaml())
     log_environment(logger, device)
     set_seeds(int(cfg.seed))
@@ -212,7 +226,7 @@ def main(argv) -> dict:
         formater_stats = dt.fit_latent_stats(
             backbone, flow_params, formater, tcfg, loaders.train,
             n_batches=int(cfg.select("model.normalizing_flow.standardize_batches", 8)),
-            seed=int(cfg.seed), device=device)
+            seed=int(cfg.seed), device=device, mesh=mesh)
     if formater_stats is not None:
         formater = formater.with_stats(formater_stats)
         logger.info("Latent standardization ON: sum(log std) over dims = "
@@ -221,39 +235,49 @@ def main(argv) -> dict:
 
     dp = DiffusionPrior(formater=formater, unet_kwargs=unet_kwargs,
                         diffusion_kwargs=diffusion_kwargs, use_kernels=use_kernels)
-    save_architecture(run_dir, {
-        "kind": "diffusion_prior",
-        "flow": {"L": backbone.cfg.levels, "K": backbone.cfg.steps,
-                 "in_channels": backbone.cfg.in_channels,
-                 "coupling_width": backbone.cfg.coupling_width,
-                 "learn_prior": backbone.cfg.learn_prior,
-                 "invconv_param": backbone.cfg.invconv_param, "img_size": img_size},
-        "formater": str(nf_cfg.latent_formater),
-        "formater_stats": formater_stats,
-        "unet_kwargs": {k: (list(v) if isinstance(v, tuple) else v)
-                        for k, v in unet_kwargs.items()},
-        "diffusion_kwargs": diffusion_kwargs,
-        "frozen": frozen,
-        "n_bits": int(tr.n_bits),
-        "temperature": float(tr.temperature),
-    }, filename="diffusion_architecture.json")
+    if mesh_m.is_writer(mesh):
+        save_architecture(run_dir, {
+            "kind": "diffusion_prior",
+            "flow": {"L": backbone.cfg.levels, "K": backbone.cfg.steps,
+                     "in_channels": backbone.cfg.in_channels,
+                     "coupling_width": backbone.cfg.coupling_width,
+                     "learn_prior": backbone.cfg.learn_prior,
+                     "invconv_param": backbone.cfg.invconv_param, "img_size": img_size},
+            "formater": str(nf_cfg.latent_formater),
+            "formater_stats": formater_stats,
+            "unet_kwargs": {k: (list(v) if isinstance(v, tuple) else v)
+                            for k, v in unet_kwargs.items()},
+            "diffusion_kwargs": diffusion_kwargs,
+            "frozen": frozen,
+            "n_bits": int(tr.n_bits),
+            "temperature": float(tr.temperature),
+        }, filename="diffusion_architecture.json")
 
-    evaluate_fn = make_evaluate_fn(cfg, loaders, logger, device, quick_num_gen=2000)
+    evaluate_fn = make_evaluate_fn(cfg, loaders, logger, device, quick_num_gen=2000, mesh=mesh)
     vlb_batches = cfg.select("model.evaluation.vlb_batches", "full")
     vlb_batches = None if str(vlb_batches) == "full" else int(vlb_batches)
 
     def report_vlb(params):
         bpd, n, stderr = dt.calculate_bpd_with_diff_prior(
             backbone, dp, tcfg, params, loaders.test, int(cfg.seed),
-            max_batches=vlb_batches, with_stats=True, device=device)
+            max_batches=vlb_batches, with_stats=True, device=device, mesh=mesh)
         logger.info(f"VLB test bpd (diffusion prior): {bpd:.4f} (N={n}, stderr={stderr:.4f})")
         return {"run_dir": run_dir, "vlb_bpd": bpd, "vlb_n": n, "vlb_stderr": stderr}
 
+    if train_phase and part_parallel:
+        from .parallel import part_parallel as pp
+
+        out = pp.train_part_parallel(
+            backbone=backbone, flow_params=flow_params, dp=dp, tcfg=tcfg, loaders=loaders,
+            run_dir=run_dir, logger=logger, seed=int(cfg.seed), resume_dir=resume_dir,
+            resume_epoch=resume_epoch, evaluate_fn=evaluate_fn, mesh=mesh, device=device)
+        return {**report_vlb(dt.ema_eval_params(out["state"])), **out["results"]}
     if train_phase:
         out = dt.train(backbone=backbone, flow_params=flow_params, dp=dp, tcfg=tcfg,
                        loaders=loaders, run_dir=run_dir, logger=logger, seed=int(cfg.seed),
                        resume_dir=resume_dir, resume_epoch=resume_epoch,
-                       resume_batch=resume_batch, evaluate_fn=evaluate_fn, device=device)
+                       resume_batch=resume_batch, evaluate_fn=evaluate_fn, device=device,
+                       mesh=mesh, fsdp=fsdp)
         return {**report_vlb(dt.ema_eval_params(out["state"])), **out["results"]}
     else:
         if not resume_dir:
@@ -264,12 +288,17 @@ def main(argv) -> dict:
                                                             device)}
         result = report_vlb(params)
         if evaluate_fn is not None:
-            sample_fn = dt.make_sample_fn(backbone, dp, tcfg, int(cfg.seed), device)
+            sample_fn = dt.make_sample_fn(backbone, dp, tcfg, int(cfg.seed), device, mesh)
             result["metrics"] = evaluate_fn(sample_fn, params, resume_epoch, full=True)
         return result
 
 
 if __name__ == "__main__":
+    from .parallel.distributed import shutdown
+
     t0 = time.time()
-    main(sys.argv[1:])
+    try:
+        main(sys.argv[1:])
+    finally:
+        shutdown()
     print(f"Experiment duration: {time.time() - t0:.1f}s")

@@ -34,6 +34,11 @@ names one; for a stage-2 run its EMA weights where it kept them, unless
 --no-ema), as tools/serve.py does for the JAX package's; /health then also
 reports "run_dir", "kind" and "epoch". A run directory of the JAX package
 is converted first with tools/jax_run_to_torch.py.
+
+--data-parallel replicates the model on every visible CUDA device (or the
+one --device names) and splits each chunk's rows across them, in one
+process; the chunk's generator still draws the whole chunk (ops/draws.py),
+so the bytes equal the single-device answer. /health reports "devices".
 """
 
 from __future__ import annotations
@@ -46,11 +51,14 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
+import torch
 
 from . import resolve_device
 from .convert import diffusion_from_jax_params, from_jax_params, load_npz
 from .inference import generate_batched, make_diffusion_sample_fn, make_sample_fn
 from .models import glow as glow_m
+from .ops.draws import RowGenerator
+from .parallel import mesh as mesh_m
 from .training import runload
 
 
@@ -138,12 +146,37 @@ def _run_dir_model(args, device):
     return runload.sample_fn_of(kind, run, device), run.params, info
 
 
+def data_parallel_sampler(replicas, devices):
+    """One sampler over a model replica a device: sample(params, n,
+    temperature, generator) splits the n rows into contiguous blocks, one a
+    device; each draws its rows of the whole chunk's draws from `generator`
+    (on the first device) and samples them; the blocks are joined on the
+    first device. `params` is ignored: each replica holds its own."""
+    def sample(_params, n: int, temperature: float = 1.0, generator=None):
+        per = -(-n // len(devices))
+        blocks = []
+        for j, ((fn, params), dev) in enumerate(zip(replicas, devices)):
+            start, stop = j * per, min(n, (j + 1) * per)
+            if start < stop:
+                g = RowGenerator(generator, start, stop, n, to_device=dev)
+                blocks.append(fn(params, stop - start, temperature, generator=g))
+        return torch.cat([b.to(devices[0]) for b in blocks])
+
+    sample.device = replicas[0][0].device
+    return sample
+
+
 def build_sampler(args):
     """(sample_images(n, temperature, seed) -> uint8 NHWC numpy, info dict)."""
-    device = resolve_device(args.device)
+    devices = (mesh_m.visible_devices(args.device) if args.data_parallel
+               else [resolve_device(args.device)])
+    device = devices[0]
     model = (_run_dir_model if args.run_dir else _diffusion_model if args.arch
              else _glow_model)
     sample_fn, params, kind_info = model(args, device)
+    if args.data_parallel:
+        replicas = [(sample_fn, params)] + [model(args, d)[:2] for d in devices[1:]]
+        sample_fn = data_parallel_sampler(replicas, devices)
 
     batch = args.batch
     lock = threading.Lock()
@@ -153,7 +186,8 @@ def build_sampler(args):
             return generate_batched(sample_fn, params, n, batch, temperature, seed)
 
     source = {"weights": str(args.weights)} if args.weights else {}
-    info = {**source, "batch": batch, "device": str(device), **kind_info}
+    info = {**source, "batch": batch, "device": str(device), "devices": len(devices),
+            **kind_info}
     t0 = time.perf_counter()
     sample_images(min(2, batch), info["temperature"], 0)  # build kernels + warm
     info["warmup_seconds"] = round(time.perf_counter() - t0, 2)
@@ -233,7 +267,8 @@ def parse_args(argv=None):
                     help="--run-dir, diffusion kind: serve the live weights instead of "
                          "the EMA shadow")
     ap.add_argument("--data-parallel", action="store_true",
-                    help="not ported: the port serves from one device")
+                    help="replicate the model on every visible CUDA device and split "
+                         "each chunk across them")
     ap.add_argument("--levels", type=int, default=3, help="Glow kind (also --steps "
                     "... --invconv-param); the diffusion kind reads them from --arch")
     ap.add_argument("--steps", type=int, default=4)
@@ -257,11 +292,7 @@ def parse_args(argv=None):
                     help="torch device (default: CUDA, and fail without it)")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8400)
-    args = ap.parse_args(argv)
-    if args.data_parallel:
-        raise NotImplementedError("--data-parallel is not ported (ROADMAP: multi-GPU); "
-                                  "the port serves from one device")
-    return args
+    return ap.parse_args(argv)
 
 
 def make_server(argv=None) -> ThreadingHTTPServer:

@@ -10,7 +10,8 @@ lists, a module saved as the dict of its parameters by name, goes to
 written under a temporary name and renamed, so an interrupted write never
 leaves a truncated checkpoint. `architecture.json` beside it holds the
 hyperparameters a later run needs to rebuild the flow. Writes are
-synchronous. `checkpoints/mid_epoch.json` marks a checkpoint that an
+synchronous; under data parallelism rank 0 writes and the ranks meet at a
+barrier after each save. `checkpoints/mid_epoch.json` marks a checkpoint that an
 interrupt wrote in the middle of an epoch, with the JAX package's keys and
 values, so that a resume continues from the exact batch.
 """
@@ -55,18 +56,26 @@ def _place(tree: Any, device: torch.device) -> Any:
     return map_tree(tree, place)
 
 
-def save_state(run_dir: str, prefix: str, epoch: int, state: Any) -> str:
-    """Write the state's checkpoint for `epoch`; returns its path."""
+def save_state(run_dir: str, prefix: str, epoch: int, state: Any, mesh=None,
+               timeout_s: Optional[float] = None) -> str:
+    """Write the state's checkpoint for `epoch`; returns its path. Under a
+    data-parallel `mesh` only rank 0 writes, and every rank waits at a
+    barrier after the write (at most `timeout_s` seconds: the emergency
+    checkpoint after an interrupt must not hang on a rank that is gone)."""
+    from ..parallel.mesh import barrier, is_writer
+
     path = checkpoint_path(run_dir, prefix, epoch)
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    host = map_tree(state, lambda t: t.detach().cpu())
-    tmp = f"{path}.{os.getpid()}.tmp"
-    try:
-        torch.save(host, tmp)
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    if is_writer(mesh):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        host = map_tree(state, lambda t: t.detach().cpu())
+        tmp = f"{path}.{os.getpid()}.tmp"
+        try:
+            torch.save(host, tmp)
+            os.replace(tmp, path)
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    barrier(mesh, timeout_s, f"the barrier after writing {os.path.basename(path)}")
     return path
 
 

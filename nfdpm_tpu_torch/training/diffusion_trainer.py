@@ -32,8 +32,14 @@ Counterpart of nfdpm_tpu/training/diffusion_trainer.py, in eager PyTorch:
   * `calculate_bpd_with_diff_prior`: the variational bound in bits/dim over
     a loader, with its standard error; `fit_latent_stats` for latent
     standardization.
-
-Not here yet: training across several devices.
+  * Data parallelism (`mesh=`, as in nf_trainer): each rank keeps its rows
+    of the global batch; the step's draws (dequantization, each part's t
+    and noise) are the global batch's, cut to the rank's rows; the
+    self-conditioning coin is shared. `fsdp=True` partitions the Adam
+    moments of the UNets and of a co-trained flow (`shard_diffusion_state`);
+    a frozen flow has none. The EMA shadow stays whole and equal on every
+    rank. Sampling, the VLB and the latent stats gather or sum what the
+    ranks computed on their rows.
 """
 
 from __future__ import annotations
@@ -56,12 +62,16 @@ from ..models.diffusion_prior import DiffusionPrior
 from ..models.formaters import fit_formater_stats
 from ..models.nf_backbone import NFBackbone
 from ..ops import quantize as q
+from ..parallel import mesh as mesh_m
+from ..parallel.distributed import distribute_batch
+from ..parallel import sharding_rules as rules
+from ..parallel import zero
 from ..utils.profiling import EpochProfiler, StepTimer
 from ..utils.watchdog import StepWatchdog, interrupt_after_block
 from .checkpoint import (clear_mid_epoch_marker, restore_state, save_mid_epoch_marker,
                          save_state)
 from .optim import Optimizer, make_lr_schedule
-from .tracking import Tracker
+from .tracking import tracker_for
 
 # First words of the seeds of the trainer's generators (inference.reseed):
 # the train steps, the evaluations, the sample grids, the latent stats. They
@@ -223,8 +233,41 @@ def init_train_state(seed: int, backbone: NFBackbone, flow_params, dp: Diffusion
     return state
 
 
+def diffusion_placements(mesh, tx: Optimizer, params, fsdp: bool
+                         ) -> Dict[str, rules.Placement]:
+    """ZeRO placements of the updated leaves ({} without `fsdp` or at one
+    rank): each UNet by the JAX package's unet_param_specs, a co-trained
+    flow by glow_param_specs; a frozen flow is not optimized and keeps no
+    moments to partition (shard_diffusion_state)."""
+    if not fsdp or mesh is None or mesh.n_data == 1:
+        return {}
+    n = mesh.n_data
+    out = rules.glow_placements(params["flow"], n, "flow")
+    for i, unet in enumerate(params["diffusion"]["parts"]):
+        out.update(rules.unet_placements(unet, n, f"diffusion/parts/{i}"))
+    return rules.trained_placements(out, tx)
+
+
+def shard_diffusion_state(mesh, tx: Optimizer, state, fsdp: bool = False) -> Dict[str, Any]:
+    """The state made rank 0's on every rank (parameters and EMA shadow
+    broadcast) and, with `fsdp`, the partitioned leaves' moments cut to
+    this rank's slab."""
+    mesh_m.replicate(mesh, state["params"])
+    if "ema" in state:
+        mesh_m.replicate(mesh, state["ema"])
+    return zero.shard_state(mesh, state, diffusion_placements(mesh, tx, state["params"], fsdp))
+
+
+def _draw_rows(draws: Dict[str, Any], rows: slice) -> Dict[str, Any]:
+    """The rank's rows of injected global draws (the coin is shared)."""
+    return {"dequant": draws["dequant"][rows],
+            "parts": [{**part, "t": part["t"][rows], "noise": part["noise"][rows]}
+                      for part in draws["parts"]]}
+
+
 def make_train_step(backbone: NFBackbone, dp: DiffusionPrior, tcfg: DiffusionTrainConfig,
-                    tx: Optimizer, inject_noise: bool = False, device=None):
+                    tx: Optimizer, inject_noise: bool = False, device=None, mesh=None,
+                    fsdp: bool = False):
     """Build train_step(state, batch, seed) -> (state, metrics).
 
     The parameters, moments and EMA shadow are updated in place; the
@@ -233,53 +276,70 @@ def make_train_step(backbone: NFBackbone, dp: DiffusionPrior, tcfg: DiffusionTra
     state["step"]). `inject_noise=True` takes the draws themselves as the
     third argument (make_loss_fn's `draws`), so that a test can give this
     step and the JAX package's the same numbers. `metrics` = {"loss",
-    "part_losses"} are device tensors: reading them waits for the step."""
+    "part_losses"} are device tensors: reading them waits for the step.
+
+    With a data-parallel `mesh`, `batch` is this rank's rows; the draws are
+    the global batch's (injected ones too) cut to them, and the gradients
+    and the metrics are averaged over the ranks; `fsdp=True` takes the ZeRO
+    path (the state from shard_diffusion_state)."""
     device = resolve_device(device)
     apply_matmul_precision()
     loss_fn = make_loss_fn(backbone, dp, tcfg)
     generator = torch.Generator(device=device)
     in_step_ema = tcfg.ema_decay is not None and tcfg.ema_update_every <= 1
+    placements = None  # computed at the first step, from the parameters' shapes
 
     def train_step(state, batch, seed_or_draws):
+        nonlocal placements
         params = state["params"]
+        if placements is None:
+            placements = diffusion_placements(mesh, tx, params, fsdp)
         for _, p in named_leaves(params):
             p.grad = None
         batch = inference._on(device, batch)
         if inject_noise:
-            loss, parts = loss_fn(params, batch, draws=_draws_on(device, seed_or_draws))
+            draws = seed_or_draws
+            if mesh is not None:
+                draws = _draw_rows(draws, mesh_m.data_sharding(mesh, len(draws["dequant"])))
+            loss, parts = loss_fn(params, batch, draws=_draws_on(device, draws))
         else:
-            loss, parts = loss_fn(params, batch, inference.reseed(
-                generator, _STEP, seed_or_draws, state["step"]))
+            loss, parts = loss_fn(params, batch, mesh_m.row_generator(mesh, inference.reseed(
+                generator, _STEP, seed_or_draws, state["step"]), batch.shape[0]))
         loss.backward()
         # a trained leaf the loss does not reach (a co-trained flow's split
         # priors) has no .grad: a zero gradient, as jax.grad gives it
         grads = map_tree(params, lambda p: p.grad if p.grad is not None or not p.requires_grad
                          else torch.zeros_like(p))
-        opt_state = tx.apply(params, grads, state["opt_state"])
+        loss = loss.detach()
+        opt_state = tx.apply(params, grads, state["opt_state"], mesh, placements,
+                             extras=[loss, parts])
         out = {"params": params, "opt_state": opt_state, "step": state["step"] + 1}
         if "ema" in state:
             if in_step_ema:
                 _ema_lerp_(state["ema"], params, backbone.frozen, tcfg.ema_decay,
                            state["step"])
             out["ema"] = state["ema"]
-        return out, {"loss": loss.detach(), "part_losses": parts}
+        return out, {"loss": loss, "part_losses": parts}
 
     return train_step
 
 
 def make_sample_fn(backbone: NFBackbone, dp: DiffusionPrior, tcfg: DiffusionTrainConfig,
-                   seed: int, device=None):
+                   seed: int, device=None, mesh=None):
     """sample_fn(params, n, temperature, salt) -> uint8 [n, H, W, C] on the
     device: diffusion latents, then the flow inverse; a pure function of
     (seed, salt). The sampler of training's sample grids and of the
-    metrics' `evaluate_fn`, in `train` and in phase=eval."""
+    metrics' `evaluate_fn`, in `train` and in phase=eval. With a
+    data-parallel `mesh` each rank draws the whole chunk's noise, runs the
+    chains and the inverse on its rows, and the rows are all-gathered."""
     device = resolve_device(device)
     sample = inference.make_diffusion_sample_fn(backbone, dp, tcfg.n_bits, device)
     generator = torch.Generator(device=device)
 
     def sample_fn(params, n: int, temperature: float, salt: int) -> torch.Tensor:
-        return sample(params, n, temperature,
-                      generator=inference.reseed(generator, _SAMPLES, seed, salt))
+        return mesh_m.sample_rows(
+            mesh, n, inference.reseed(generator, _SAMPLES, seed, salt),
+            lambda rows, g: sample(params, rows, temperature, generator=g))
 
     return sample_fn
 
@@ -287,11 +347,13 @@ def make_sample_fn(backbone: NFBackbone, dp: DiffusionPrior, tcfg: DiffusionTrai
 def calculate_bpd_with_diff_prior(backbone: NFBackbone, dp: DiffusionPrior,
                                   tcfg: DiffusionTrainConfig, params, loader: Loader,
                                   seed: int, max_batches: Optional[int] = None,
-                                  with_stats: bool = False, device=None):
+                                  with_stats: bool = False, device=None, mesh=None):
     """Variational-bound bits/dim of flow + diffusion prior over a loader
     (all of it, or its first `max_batches` batches), padded batches with the
     pad masked out; batch i draws from a generator seeded from (seed, i).
-    `with_stats=True` returns (mean, images, standard error of the mean)."""
+    `with_stats=True` returns (mean, images, standard error of the mean).
+    With a data-parallel `mesh` each rank scores its rows of each batch with
+    the global batch's draws and the per-image values are all-gathered."""
     device = resolve_device(device)
     eval_step = inference.make_vlb_eval_step(backbone, dp, tcfg.n_bits,
                                              tcfg.compat_three_channel_bpd, device)
@@ -300,8 +362,10 @@ def calculate_bpd_with_diff_prior(backbone: NFBackbone, dp: DiffusionPrior,
     for i, (imgs, _labels, n_valid) in enumerate(loader.padded_batches()):
         if max_batches is not None and i >= max_batches:
             break
-        bpds = eval_step(params, imgs, inference.reseed(generator, _EVAL, seed, i))
-        valid = bpds[:n_valid].double().cpu().numpy()
+        rows = imgs if mesh is None else imgs[mesh_m.data_sharding(mesh, len(imgs))]
+        bpds = eval_step(params, rows, mesh_m.row_generator(
+            mesh, inference.reseed(generator, _EVAL, seed, i), len(rows)))
+        valid = mesh_m.all_gather_rows(mesh, bpds)[:n_valid].double().cpu().numpy()
         total += float(valid.sum())
         total_sq += float((valid * valid).sum())
         count += n_valid
@@ -313,10 +377,13 @@ def calculate_bpd_with_diff_prior(backbone: NFBackbone, dp: DiffusionPrior,
 
 
 def fit_latent_stats(backbone: NFBackbone, flow_params, formater, tcfg: DiffusionTrainConfig,
-                     loader: Loader, *, n_batches: int = 8, seed: int = 0, device=None):
+                     loader: Loader, *, n_batches: int = 8, seed: int = 0, device=None,
+                     mesh=None):
     """Channelwise latent-standardization stats of the formater's processed
     parts, from `n_batches` batches pushed through the flow (preprocessed
-    and dequantized as in training; batch i draws from (seed, i))."""
+    and dequantized as in training; batch i draws from (seed, i)). With a
+    data-parallel `mesh` each rank pushes its rows of each batch (the
+    global batch's draw, cut) and the sums are all-reduced."""
     device = resolve_device(device)
     generator = torch.Generator(device=device)
 
@@ -324,14 +391,31 @@ def fit_latent_stats(backbone: NFBackbone, flow_params, formater, tcfg: Diffusio
         for i, (imgs, _labels, n_valid) in enumerate(loader.padded_batches()):
             if i >= n_batches:
                 break
+            rows = slice(0, len(imgs)) if mesh is None else mesh_m.data_sharding(mesh, len(imgs))
             with torch.inference_mode():
-                x = q.dequantize(inference.reseed(generator, _STATS, seed, i),
-                                 q.preprocess(inference._on(device, imgs), tcfg.n_bits),
+                x = q.dequantize(mesh_m.row_generator(
+                                     mesh, inference.reseed(generator, _STATS, seed, i),
+                                     rows.stop - rows.start),
+                                 q.preprocess(inference._on(device, imgs[rows]), tcfg.n_bits),
                                  tcfg.n_bits)
                 latents, _ = backbone.transform(flow_params, x)
-            yield [z[:n_valid] for z in latents]
+            keep = max(0, min(n_valid, rows.stop) - rows.start)
+            yield [z[:keep] for z in latents]
 
-    return fit_formater_stats(formater, batches())
+    def all_reduce(sums, sumsqs, counts):
+        lists = (sums, sumsqs, [np.float64(c) for c in counts])
+        flat = torch.from_numpy(np.concatenate([np.ravel(a) for xs in lists for a in xs]))
+        flat = mesh_m.all_reduce_sum_(mesh, flat.to(device)).cpu().numpy()
+        out, offset = [], 0
+        for xs in lists:
+            out.append([flat[offset + sum(np.size(b) for b in xs[:k]):][:np.size(a)]
+                        .reshape(np.shape(a)) for k, a in enumerate(xs)])
+            offset += sum(np.size(a) for a in xs)
+        sums, sumsqs, counts = out
+        return sums, sumsqs, [float(c) for c in counts]
+
+    return fit_formater_stats(formater, batches(),
+                              all_reduce=None if mesh is None else all_reduce)
 
 
 # -- checkpoints ----------------------------------------------------------------
@@ -371,7 +455,7 @@ def train(*, backbone: NFBackbone, flow_params, dp: DiffusionPrior,
           tcfg: DiffusionTrainConfig, loaders: DatasetLoaders, run_dir: str, logger,
           seed: int = 42, resume_dir: Optional[str] = None,
           resume_epoch: Optional[int] = None, resume_batch: Optional[int] = None,
-          evaluate_fn=None, device=None) -> Dict[str, Any]:
+          evaluate_fn=None, device=None, mesh=None, fsdp: bool = False) -> Dict[str, Any]:
     """The whole stage-2 training run, on `device` (CUDA unless named).
     `evaluate_fn(sample_fn, params, epoch)` is an optional hook for sample
     metrics at checkpoint epochs and, with `full=True`, at the end.
@@ -381,11 +465,14 @@ def train(*, backbone: NFBackbone, flow_params, dp: DiffusionPrior,
     batch k. Each epoch's data order being a pure function of (seed, epoch)
     and each step's draws one of (seed, step), either repeats what the
     uninterrupted run would have done. An interrupt saves the steps taken
-    (EMA included) and the mid-epoch marker, then is raised again."""
+    (EMA included) and the mid-epoch marker, then is raised again.
+    `mesh` and `fsdp` as in nf_trainer.train (rank 0 writes; the interrupt's
+    save meets the other ranks within `watchdog_timeout_s`)."""
     device = resolve_device(device)
     apply_matmul_precision()
     tx = make_two_group_optimizer(tcfg, backbone.frozen)
-    tracker = Tracker(run_dir)
+    tracker = tracker_for(run_dir, mesh)
+    writer = mesh_m.is_writer(mesh)
     loss_name = dp.parts[0].cfg.loss_type + ("" if backbone.frozen else "_plus_bpd")
     want_ema = tcfg.ema_decay is not None
 
@@ -398,14 +485,27 @@ def train(*, backbone: NFBackbone, flow_params, dp: DiffusionPrior,
     else:
         state = init_train_state(seed, backbone, flow_params, dp, tx, ema=want_ema,
                                  device=device)
+    state = shard_diffusion_state(mesh, tx, state, fsdp)
+    placements = diffusion_placements(mesh, tx, state["params"], fsdp)
+    if mesh is not None:
+        logger.info(f"Data parallel: {mesh}" + (", ZeRO moments" if placements else ""))
     current_iter = state["step"]
 
-    train_step = make_train_step(backbone, dp, tcfg, tx, device=device)
+    train_step = make_train_step(backbone, dp, tcfg, tx, device=device, mesh=mesh, fsdp=fsdp)
     ema_fn = (make_ema_update(backbone, tcfg)
               if want_ema and tcfg.ema_update_every > 1 else None)
-    sample_fn = make_sample_fn(backbone, dp, tcfg, seed, device)
+    sample_fn = make_sample_fn(backbone, dp, tcfg, seed, device, mesh)
 
-    wd = StepWatchdog(tcfg.watchdog_timeout_s, run_dir=run_dir, logger=logger)
+    def save(epoch: int, timeout_s: Optional[float] = None) -> None:
+        save_state(run_dir, "diffusion", epoch,
+                   zero.whole_state(mesh, state, placements, timeout_s), mesh, timeout_s)
+
+    def rows_of(batches):
+        for imgs, labels in batches:
+            yield distribute_batch(mesh, imgs), labels
+
+    wd = StepWatchdog(tcfg.watchdog_timeout_s, run_dir=run_dir, logger=logger,
+                      rank=None if mesh is None else mesh.rank)
     profiler = EpochProfiler(os.path.join(run_dir, "tb"), tcfg.profile_epoch,
                              tcfg.profile_steps, device, logger)
     log_count = 0
@@ -419,8 +519,8 @@ def train(*, backbone: NFBackbone, flow_params, dp: DiffusionPrior,
             iters_this_epoch = skip
             wd.start()  # the step loop only (nf_trainer.train)
             profiler.start_epoch(epoch)
-            for batch, _labels in prefetch_to_device(
-                    loaders.train.iter_epoch(epoch - 1, start_batch=skip), device):
+            for batch, _labels in prefetch_to_device(rows_of(
+                    loaders.train.iter_epoch(epoch - 1, start_batch=skip)), device):
                 with interrupt_after_block():
                     with timer.step():
                         state, metrics = train_step(state, batch, seed)
@@ -462,14 +562,15 @@ def train(*, backbone: NFBackbone, flow_params, dp: DiffusionPrior,
             if epoch % tcfg.save_checkpoint_freq == 0:
                 if evaluate_fn is not None:
                     evaluate_fn(sample_fn, ema_eval_params(state), epoch)
-                save_state(run_dir, "diffusion", epoch, state)
+                save(epoch)
                 samples = sample_fn(ema_eval_params(state), 64, tcfg.temperature, 2 * epoch)
                 tracker.track_images(samples.cpu().numpy(), "checkpoint_samples",
                                      step=current_iter, epoch=epoch)
     except KeyboardInterrupt:
         wd.stop()
-        save_state(run_dir, "diffusion", epoch, state)
-        save_mid_epoch_marker(run_dir, "diffusion", epoch, iters_this_epoch)
+        save(epoch, tcfg.watchdog_timeout_s if mesh is not None else None)
+        if writer:
+            save_mid_epoch_marker(run_dir, "diffusion", epoch, iters_this_epoch)
         logger.warning(("Watchdog stall: " if wd.fired else "Interrupted: ")
                        + f"emergency checkpoint at epoch {epoch} batch {iters_this_epoch}; "
                        f"resume bit for bit with load.load_epoch={epoch} "
@@ -480,8 +581,9 @@ def train(*, backbone: NFBackbone, flow_params, dp: DiffusionPrior,
         profiler.end_epoch()
 
     final_epoch = start_epoch + tcfg.epochs
-    save_state(run_dir, "diffusion", final_epoch, state)
-    clear_mid_epoch_marker(run_dir)  # the run completed
+    save(final_epoch)
+    if writer:
+        clear_mid_epoch_marker(run_dir)  # the run completed
     results = {}
     if evaluate_fn is not None:
         results["metrics"] = evaluate_fn(sample_fn, ema_eval_params(state), final_epoch,

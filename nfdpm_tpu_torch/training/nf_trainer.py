@@ -25,8 +25,15 @@ Counterpart of nfdpm_tpu/training/nf_trainer.py, in eager PyTorch:
     (utils/profiling.py); each epoch logs its step time's p50 and p95.
   * `calculate_bpd` scores a loader with one or several dequantization
     draws per image, averaged or importance-weighted (IWAE).
-
-Not here yet: training across several devices.
+  * Data parallelism (`mesh=`, parallel/mesh.py): every rank loads the
+    same global batch and keeps its rows; the step's dequantization draw is
+    the global batch's, of which each rank keeps its rows, so the numbers
+    do not change with the world size. The gradient mean is one all-reduce
+    (training/optim.py). `fsdp=True` partitions Adam's moments over the
+    ranks (ZeRO, `shard_nf_state`). ddinit runs on every rank on the whole
+    first global batch. Rank 0 writes the checkpoints (with whole moments),
+    architecture.json, the mid-epoch marker and the tracker's files; the
+    samples and the scores are gathered from every rank's rows.
 """
 
 from __future__ import annotations
@@ -45,12 +52,16 @@ from ..data.pipeline import DatasetLoaders, Loader, prefetch_to_device
 from ..models import glow as glow_m
 from ..models import prior as prior_m
 from ..ops import quantize as q
+from ..parallel import mesh as mesh_m
+from ..parallel.distributed import distribute_batch
+from ..parallel import sharding_rules as rules
+from ..parallel import zero
 from ..utils.profiling import EpochProfiler, StepTimer
 from ..utils.watchdog import StepWatchdog, interrupt_after_block
 from .checkpoint import (clear_mid_epoch_marker, restore_state, save_architecture,
                          save_mid_epoch_marker, save_state)
 from .optim import Optimizer, grads_of, make_lr_schedule, make_optimizer
-from .tracking import Tracker
+from .tracking import tracker_for
 
 # First words of the seeds of the trainer's generators, so that the streams
 # of the train steps, ddinit, the evaluations and the sample grids never
@@ -137,8 +148,29 @@ def make_loss_fn(cfg: glow_m.GlowConfig, tcfg: NFTrainConfig):
     return loss_fn
 
 
+def nf_placements(mesh, tx: Optimizer, params, fsdp: bool) -> Dict[str, rules.Placement]:
+    """ZeRO placements of the train state's updated leaves over the mesh's
+    data axis ({} without `fsdp` or at one rank): the JAX package's
+    glow_param_specs and generic_param_specs (shard_nf_state)."""
+    if not fsdp or mesh is None or mesh.n_data == 1:
+        return {}
+    n = mesh.n_data
+    return rules.trained_placements({**rules.glow_placements(params["flow"], n, "flow"),
+                                     **rules.generic_placements(params["prior"], n, "prior")},
+                                    tx)
+
+
+def shard_nf_state(mesh, tx: Optimizer, state, fsdp: bool = False) -> Dict[str, Any]:
+    """The state made rank 0's on every rank (parameters broadcast) and,
+    with `fsdp`, each partitioned leaf's moments cut to this rank's slab
+    (ZeRO, parallel/sharding_rules.py). Works on fresh and restored states:
+    the moments are sliced, never re-initialized."""
+    mesh_m.replicate(mesh, state["params"])
+    return zero.shard_state(mesh, state, nf_placements(mesh, tx, state["params"], fsdp))
+
+
 def make_train_step(cfg: glow_m.GlowConfig, tcfg: NFTrainConfig, tx: Optimizer,
-                    inject_noise: bool = False, device=None):
+                    inject_noise: bool = False, device=None, mesh=None, fsdp: bool = False):
     """Build train_step(state, batch, seed) -> (state, metrics).
 
     The state's parameters and moments are updated in place; the returned
@@ -150,7 +182,15 @@ def make_train_step(cfg: glow_m.GlowConfig, tcfg: NFTrainConfig, tx: Optimizer,
 
     `inject_noise=True` takes the U(0, 1) dequantization draw itself as the
     third argument instead of the seed, so that a test can give this step
-    and the JAX package's the same noise; it needs grad_accum = 1."""
+    and the JAX package's the same noise; it needs grad_accum = 1.
+
+    With a data-parallel `mesh`, `batch` is this rank's rows
+    (mesh.shard_batch of the global batch, microbatch by microbatch); the
+    noise is drawn for the global batch (an injected draw is the global
+    batch's too) and cut to the rank's rows; the gradients and the metrics
+    are averaged over the ranks. `fsdp=True` takes the ZeRO path for the
+    leaves nf_placements partitions; the state must come from
+    shard_nf_state."""
     device = resolve_device(device)
     apply_matmul_precision()
     accum = max(1, int(tcfg.grad_accum))
@@ -159,9 +199,13 @@ def make_train_step(cfg: glow_m.GlowConfig, tcfg: NFTrainConfig, tx: Optimizer,
                          "injected-noise runs must keep grad_accum=1")
     loss_fn = make_loss_fn(cfg, tcfg)
     generator = torch.Generator(device=device)
+    placements = None  # computed at the first step, from the parameters' shapes
 
     def train_step(state, batch, seed_or_noise):
+        nonlocal placements
         params = state["params"]
+        if placements is None:
+            placements = nf_placements(mesh, tx, params, fsdp)
         leaves = [p for _, p in named_leaves(params) if p.requires_grad]
         for p in leaves:
             p.grad = None
@@ -172,17 +216,22 @@ def make_train_step(cfg: glow_m.GlowConfig, tcfg: NFTrainConfig, tx: Optimizer,
         bpds, lls = [], []
         for i, micro in enumerate(batch.chunk(accum)):
             if inject_noise:
-                bpd, ll = loss_fn(params, micro, noise=inference._on(device, seed_or_noise))
+                noise = seed_or_noise
+                if mesh is not None:
+                    noise = noise[mesh_m.data_sharding(mesh, len(noise))]
+                bpd, ll = loss_fn(params, micro, noise=inference._on(device, noise))
             else:
                 words = (_STEP, seed_or_noise, state["step"]) + ((i,) if accum > 1 else ())
-                bpd, ll = loss_fn(params, micro, inference.reseed(generator, *words))
+                bpd, ll = loss_fn(params, micro, mesh_m.row_generator(
+                    mesh, inference.reseed(generator, *words), micro.shape[0]))
             bpd.backward()  # the microbatches' gradients add up in .grad
             bpds.append(bpd.detach())
             lls.append(ll.detach().mean())
         if accum > 1:
             torch._foreach_div_([p.grad for p in leaves if p.grad is not None], accum)
-        opt_state = tx.apply(params, grads_of(params), state["opt_state"])
         metrics = {"bpd": torch.stack(bpds).mean(), "ll_mean": torch.stack(lls).mean()}
+        opt_state = tx.apply(params, grads_of(params), state["opt_state"], mesh, placements,
+                             extras=list(metrics.values()))
         return {"params": params, "opt_state": opt_state, "step": state["step"] + 1}, metrics
 
     return train_step
@@ -195,57 +244,67 @@ def make_eval_step(cfg: glow_m.GlowConfig, tcfg: NFTrainConfig, device=None):
 
 
 def make_sample_fn(cfg: glow_m.GlowConfig, tcfg: NFTrainConfig, img_size: int, seed: int,
-                   device=None):
+                   device=None, mesh=None):
     """sample_fn(params, n, temperature, salt) -> uint8 [n, H, W, C] on the
     device, a pure function of (seed, salt): the sampler of training's
     sample grids and of the metrics' `evaluate_fn`, in `train` and in
-    phase=eval."""
+    phase=eval. With a data-parallel `mesh` each rank draws the whole
+    chunk's noise, inverts its rows, and the rows are all-gathered: every
+    rank returns the samples one device draws."""
     sample = inference.make_sample_fn(cfg, img_size, tcfg.n_bits, device)
     generator = torch.Generator(device=sample.device)
 
     def sample_fn(params, n: int, temperature: float, salt: int) -> torch.Tensor:
-        return sample(params, n, temperature,
-                      generator=inference.reseed(generator, _SAMPLES, seed, salt))
+        return mesh_m.sample_rows(
+            mesh, n, inference.reseed(generator, _SAMPLES, seed, salt),
+            lambda rows, g: sample(params, rows, temperature, generator=g))
 
     return sample_fn
 
 
 def calculate_bpd(eval_step, params, loader: Loader, seed: int,
-                  n_dequant_samples: int = 1, iwae: bool = False) -> float:
+                  n_dequant_samples: int = 1, iwae: bool = False, mesh=None) -> float:
     """Mean bits/dim over a loader, padded batches with the pad masked out.
     Draw r of batch i comes from a generator seeded from (seed, 131 i + r).
 
     `n_dequant_samples > 1` tightens the dequantization bound with several
     uniform draws: `iwae=False` averages the per-draw bounds; `iwae=True`
     takes the importance-weighted log (1/K) sum_k p(x + u_k) =
-    logsumexp(ll_k) - log K, the tighter bound."""
+    logsumexp(ll_k) - log K, the tighter bound.
+
+    With a data-parallel `mesh` each rank scores its rows of every batch
+    with the global batch's draws, and the per-image values are
+    all-gathered before the sums: every rank returns the same mean."""
     device = eval_step.device
     total, count = 0.0, 0
     for i, (imgs, _labels, n_valid) in enumerate(loader.padded_batches()):
-        batch = inference._on(device, imgs)
-        draws = [inference.reseed(torch.Generator(device=device), _EVAL, seed, i * 131 + r)
+        rows = imgs if mesh is None else imgs[mesh_m.data_sharding(mesh, len(imgs))]
+        batch = inference._on(device, rows)
+        draws = [mesh_m.row_generator(mesh, inference.reseed(
+                     torch.Generator(device=device), _EVAL, seed, i * 131 + r), len(rows))
                  for r in range(n_dequant_samples)]
         if iwae and n_dequant_samples > 1:
             n_pixel = prior_m.n_pixels(batch.shape[1], batch.shape[-1], eval_step.compat)
             lls = torch.stack([eval_step.ll(params, batch, g) for g in draws])
             ll = torch.logsumexp(lls, dim=0) - np.log(n_dequant_samples)
             bpds = (np.log(eval_step.n_bins) * n_pixel - ll) * (np.log2(np.e) / n_pixel)
-            total += float(bpds[:n_valid].sum())
+            total += float(mesh_m.all_gather_rows(mesh, bpds)[:n_valid].sum())
         else:
-            acc = sum(eval_step(params, batch, g)[:n_valid].sum() for g in draws)
+            acc = sum(mesh_m.all_gather_rows(mesh, eval_step(params, batch, g))[:n_valid].sum()
+                      for g in draws)
             total += float(acc) / n_dequant_samples
         count += n_valid
     return total / max(count, 1)
 
 
 def final_bpd(eval_step, params, loaders: DatasetLoaders, seed: int,
-              n_dequant_samples: int = 1, iwae: bool = False) -> Dict[str, float]:
+              n_dequant_samples: int = 1, iwae: bool = False, mesh=None) -> Dict[str, float]:
     """{"bpd_test", "bpd_train"}: `calculate_bpd` of the test loader and of
     the eval loader (train data under the test transforms), each with its
     own seed. Training's last evaluation and `phase=eval` both call this, so
     the second reproduces the first from the same seed and weights."""
     return {f"bpd_{split}": calculate_bpd(eval_step, params, loader, seed * 2 + fold,
-                                          n_dequant_samples, iwae)
+                                          n_dequant_samples, iwae, mesh)
             for fold, (split, loader) in enumerate((("test", loaders.test),
                                                     ("train", loaders.eval)))}
 
@@ -254,7 +313,7 @@ def train(*, cfg: glow_m.GlowConfig, tcfg: NFTrainConfig, loaders: DatasetLoader
           run_dir: str, logger, seed: int = 42, img_size: int = 32,
           resume_dir: Optional[str] = None, resume_epoch: Optional[int] = None,
           resume_batch: Optional[int] = None, evaluate_fn=None,
-          device=None) -> Dict[str, Any]:
+          device=None, mesh=None, fsdp: bool = False) -> Dict[str, Any]:
     """The whole training run, on `device` (CUDA unless named).
     `evaluate_fn(sample_fn, params, epoch)` is an optional hook for sample
     metrics at checkpoint epochs and, with `full=True`, at the end.
@@ -270,11 +329,18 @@ def train(*, cfg: glow_m.GlowConfig, tcfg: NFTrainConfig, loaders: DatasetLoader
 
     An interrupt (KeyboardInterrupt, also the watchdog's) saves the state of
     the steps taken as epoch E's checkpoint, writes the marker and is raised
-    again; a run that completes removes the marker."""
+    again; a run that completes removes the marker. Under a data-parallel
+    `mesh` that save gathers the moments and meets the other ranks within
+    `watchdog_timeout_s` (else raises with the rank's name): a rank that is
+    gone does not hang it.
+
+    `mesh` (parallel/mesh.py) trains data-parallel, `fsdp=True` with ZeRO
+    moments (make_train_step); a checkpoint resumes at any world size."""
     device = resolve_device(device)
     apply_matmul_precision()
     tx = optimizer_of(tcfg)
-    tracker = Tracker(run_dir)
+    tracker = tracker_for(run_dir, mesh)
+    writer = mesh_m.is_writer(mesh)
     start_epoch = 0
 
     if resume_dir is not None and resume_epoch is not None:
@@ -290,20 +356,35 @@ def train(*, cfg: glow_m.GlowConfig, tcfg: NFTrainConfig, loaders: DatasetLoader
             state, cfg, tcfg, tx, inference._on(device, init_imgs),
             inference.reseed(torch.Generator(device=device), _DDINIT, seed))
         logger.info("Data-dependent actnorm initialization done")
+    state = shard_nf_state(mesh, tx, state, fsdp)
+    placements = nf_placements(mesh, tx, state["params"], fsdp)
+    if mesh is not None:
+        logger.info(f"Data parallel: {mesh}" + (", ZeRO moments" if placements else ""))
     current_iter = state["step"]
 
-    save_architecture(run_dir, {
-        "L": cfg.levels, "K": cfg.steps, "in_channels": cfg.in_channels,
-        "img_size": img_size, "coupling_width": cfg.coupling_width,
-        "learn_prior": cfg.learn_prior, "n_bits": tcfg.n_bits,
-        "fixed_prior": tcfg.compat_fixed_prior, "temperature": tcfg.temperature,
-        "optimizer": tcfg.optimizer, "invconv_param": cfg.invconv_param})
+    if writer:
+        save_architecture(run_dir, {
+            "L": cfg.levels, "K": cfg.steps, "in_channels": cfg.in_channels,
+            "img_size": img_size, "coupling_width": cfg.coupling_width,
+            "learn_prior": cfg.learn_prior, "n_bits": tcfg.n_bits,
+            "fixed_prior": tcfg.compat_fixed_prior, "temperature": tcfg.temperature,
+            "optimizer": tcfg.optimizer, "invconv_param": cfg.invconv_param})
 
-    train_step = make_train_step(cfg, tcfg, tx, device=device)
+    train_step = make_train_step(cfg, tcfg, tx, device=device, mesh=mesh, fsdp=fsdp)
     eval_step = make_eval_step(cfg, tcfg, device)
-    sample_fn = make_sample_fn(cfg, tcfg, img_size, seed, device)
+    sample_fn = make_sample_fn(cfg, tcfg, img_size, seed, device, mesh)
+    accum = max(1, int(tcfg.grad_accum))
 
-    wd = StepWatchdog(tcfg.watchdog_timeout_s, run_dir=run_dir, logger=logger)
+    def save(epoch: int, timeout_s: Optional[float] = None) -> None:
+        save_state(run_dir, "gaussian", epoch,
+                   zero.whole_state(mesh, state, placements, timeout_s), mesh, timeout_s)
+
+    def rows_of(batches):
+        for imgs, labels in batches:
+            yield distribute_batch(mesh, imgs, accum), labels
+
+    wd = StepWatchdog(tcfg.watchdog_timeout_s, run_dir=run_dir, logger=logger,
+                      rank=None if mesh is None else mesh.rank)
     profiler = EpochProfiler(os.path.join(run_dir, "tb"), tcfg.profile_epoch,
                              tcfg.profile_steps, device, logger)
     log_count = 0
@@ -318,8 +399,8 @@ def train(*, cfg: glow_m.GlowConfig, tcfg: NFTrainConfig, loaders: DatasetLoader
             wd.start()  # watches the step loop only: the checkpoint epoch's
             # evaluation and save below may take longer than a step timeout
             profiler.start_epoch(epoch)
-            for batch, _labels in prefetch_to_device(
-                    loaders.train.iter_epoch(epoch - 1, start_batch=skip), device):
+            for batch, _labels in prefetch_to_device(rows_of(
+                    loaders.train.iter_epoch(epoch - 1, start_batch=skip)), device):
                 with interrupt_after_block():
                     with timer.step():
                         state, metrics = train_step(state, batch, seed)
@@ -359,14 +440,15 @@ def train(*, cfg: glow_m.GlowConfig, tcfg: NFTrainConfig, loaders: DatasetLoader
             if epoch % tcfg.save_checkpoint_freq == 0:
                 if evaluate_fn is not None:
                     evaluate_fn(sample_fn, state["params"], epoch)
-                save_state(run_dir, "gaussian", epoch, state)
+                save(epoch)
                 samples = sample_fn(state["params"], 64, tcfg.temperature, 2 * epoch)
                 tracker.track_images(samples.cpu().numpy(), "checkpoint_samples",
                                      step=current_iter, epoch=epoch)
     except KeyboardInterrupt:
         wd.stop()
-        save_state(run_dir, "gaussian", epoch, state)
-        save_mid_epoch_marker(run_dir, "gaussian", epoch, iters_this_epoch)
+        save(epoch, tcfg.watchdog_timeout_s if mesh is not None else None)
+        if writer:
+            save_mid_epoch_marker(run_dir, "gaussian", epoch, iters_this_epoch)
         logger.warning(("Watchdog stall: " if wd.fired else "Interrupted: ")
                        + f"emergency checkpoint at epoch {epoch} batch {iters_this_epoch}; "
                        f"resume bit for bit with load.load_epoch={epoch} "
@@ -377,10 +459,11 @@ def train(*, cfg: glow_m.GlowConfig, tcfg: NFTrainConfig, loaders: DatasetLoader
         profiler.end_epoch()
 
     final_epoch = start_epoch + tcfg.epochs
-    save_state(run_dir, "gaussian", final_epoch, state)
-    clear_mid_epoch_marker(run_dir)  # the run completed
+    save(final_epoch)
+    if writer:
+        clear_mid_epoch_marker(run_dir)  # the run completed
 
-    results = final_bpd(eval_step, state["params"], loaders, seed)
+    results = final_bpd(eval_step, state["params"], loaders, seed, mesh=mesh)
     for name, bpd in results.items():
         split = name.split("_", 1)[1]
         tracker.track(bpd, "bpd", epoch=final_epoch, context={"subset": split, "final": True})

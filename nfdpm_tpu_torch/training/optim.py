@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 
@@ -103,24 +103,56 @@ class Optimizer:
         return {"mu": map_tree(params, torch.zeros_like),
                 "nu": map_tree(params, torch.zeros_like), "count": 0}
 
-    def clipped(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
-        """The gradients after both clips, as new tensors."""
+    def clipped(self, grads: List[torch.Tensor], n_shards: int = 0,
+                mesh=None) -> List[torch.Tensor]:
+        """The gradients after both clips, as new tensors. Under ZeRO the
+        first `n_shards` are this rank's slabs of partitioned leaves and the
+        rest replicated leaves (equal on every rank): the global norm sums
+        the slabs' squares over the ranks with ONE all-reduce and adds each
+        replicated leaf once."""
         if self.clip_value is not None:
             grads = torch._foreach_clamp_min(grads, -self.clip_value)
             grads = torch._foreach_clamp_max(grads, self.clip_value)
         if self.clip_norm is not None:
-            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+            if n_shards:
+                from ..parallel.mesh import all_reduce_sum_
+
+                def sum_sq(ts):
+                    return (torch.stack(torch._foreach_norm(ts)).square().sum() if ts
+                            else grads[0].new_zeros(()))
+
+                norm = torch.sqrt(all_reduce_sum_(mesh, sum_sq(grads[:n_shards]))
+                                  + sum_sq(grads[n_shards:]))
+            else:
+                norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
             denom = torch.where(norm < self.clip_norm, torch.ones_like(norm),
                                 norm / self.clip_norm)
             grads = torch._foreach_div(grads, denom)
         return grads
 
     @torch.no_grad()
-    def apply(self, params: Tree, grads: Tree, state: Dict[str, Any]) -> Dict[str, Any]:
+    def apply(self, params: Tree, grads: Tree, state: Dict[str, Any], mesh=None,
+              placements: Optional[Dict[str, Any]] = None,
+              extras: Sequence[torch.Tensor] = ()) -> Dict[str, Any]:
         """One update, in place: `params`' leaves and the moments in `state`
         change, and the returned state is `state` with its count raised.
         `grads` has `params`' structure; a leaf that is updated needs its
-        gradient."""
+        gradient.
+
+        With a data-parallel `mesh` (parallel/mesh.py) the gradients are each
+        rank's; they are averaged over the ranks first. A replicated leaf's
+        gradient, with the scalars `extras` (a step's metrics, averaged in
+        place), goes through ONE all-reduce over a flat buffer. A leaf that
+        `placements` (parallel/sharding_rules.py) partitions is ZeRO's: its
+        moments in `state` are this rank's slab; its gradient is
+        reduce-scattered into that slab, clipped, Adam updates the slab of
+        the parameter, and an all-gather makes the parameter whole on every
+        rank again (one reduce-scatter and one all-gather for all such
+        leaves)."""
+        from ..parallel import mesh as mesh_m
+        from ..parallel import zero
+
+        placements = placements or {}
         rows = []
         for (path, p), (_, g), (_, m), (_, v) in zip(
                 *(named_leaves(t, keep_none=True)
@@ -129,11 +161,24 @@ class Optimizer:
             if schedule is not None:
                 if g is None:
                     raise ValueError(f"no gradient for the trainable leaf {path}")
-                rows.append((p, g, m, v, schedule))
+                rows.append((p, g, m, v, schedule, placements.get(path)))
+        distributed = mesh is not None and mesh.group is not None
+        if distributed:
+            mesh_m.all_reduce_mean_(mesh, [r[1] for r in rows if r[5] is None] + list(extras))
         if not rows:
             return dict(state, count=state["count"] + 1)
-        ps, gs, mus, nus, schedules = (list(col) for col in zip(*rows))
-        gs = self.clipped(gs)
+        # the sharded leaves first: their slabs of the parameter and the mean
+        # gradient, beside the moments' slabs
+        sharded = [r for r in rows if r[5] is not None] if distributed else []
+        whole = [r for r in rows if r[5] is None or not distributed]
+        leaves, pls = [r[0] for r in sharded], [r[5] for r in sharded]
+        if sharded:
+            g_slabs = zero.reduce_scatter_mean(mesh, [r[1] for r in sharded], pls)
+            sharded = [(pl.slab(p, mesh.rank), g, m, v, schedule, pl)
+                       for (p, _, m, v, schedule, pl), g in zip(sharded, g_slabs)]
+        rows = sharded + whole
+        ps, gs, mus, nus, schedules, _ = (list(col) for col in zip(*rows))
+        gs = self.clipped(gs, len(sharded), mesh)
 
         count = state["count"] + 1
         torch._foreach_mul_(mus, self.b1)
@@ -153,6 +198,8 @@ class Optimizer:
             group = [i for i, s in enumerate(schedules) if s is schedule]
             torch._foreach_add_([ps[i] for i in group], [step[i] for i in group],
                                 alpha=-schedule(count - 1))
+        if sharded:
+            zero.all_gather_params_(mesh, leaves, pls)
         return dict(state, count=count)
 
 

@@ -4,7 +4,8 @@ Counterpart of nfdpm_tpu/training/tracking.py: an append-only JSONL metric
 stream (`<run_dir>/metrics.jsonl`) plus PNG image grids under
 `<run_dir>/results/`, mirrored to a TensorBoard event stream
 (`<run_dir>/tb/`) when tensorboardX is importable (disable with
-`NFDPM_NO_TENSORBOARD=1`) and to Aim when `aim` is. The PNG encoder is
+`NFDPM_NO_TENSORBOARD=1`) and to Aim when `aim` is. Under data
+parallelism only rank 0 tracks (`tracker_for`). The PNG encoder is
 written out over zlib, so training needs no imaging library.
 """
 
@@ -142,3 +143,20 @@ def save_image_grid(images: np.ndarray, path: str, nrow: int = 8,
     with open(path, "wb") as f:
         f.write(png_bytes(grid))
     return grid
+
+
+class NullTracker:
+    """What a data-parallel rank other than 0 tracks: nothing (rank 0
+    writes the run's metrics and images)."""
+
+    def __init__(self, *args, **kwargs) -> None:
+        pass
+
+    def __getattr__(self, name):
+        return lambda *args, **kwargs: None
+
+
+def tracker_for(run_dir: str, mesh=None) -> Any:
+    """The run's Tracker on rank 0 (or without a mesh), a NullTracker on
+    the other ranks."""
+    return Tracker(run_dir) if mesh is None or mesh.rank == 0 else NullTracker()

@@ -32,6 +32,11 @@ Usage (both trainers, `model.training.watchdog_timeout_s`):
 `timeout_s` must exceed the longest gap between synchronisations in steady
 state, about print_freq x the step time; until the first `beat_sync` the
 allowance is 10x, for the kernels' build and the first steps.
+
+Under data parallelism every rank runs its own watchdog (`rank` names its
+stall file and messages), and the trainers bound the emergency
+checkpoint's collectives by the same `timeout_s`: a rank whose peer is
+gone raises with its rank's name instead of hanging.
 """
 
 from __future__ import annotations
@@ -55,13 +60,14 @@ class StepWatchdog:
 
     def __init__(self, timeout_s: Optional[float], run_dir: Optional[str] = None,
                  logger=None, action: str = "interrupt",
-                 poll_s: Optional[float] = None) -> None:
+                 poll_s: Optional[float] = None, rank: Optional[int] = None) -> None:
         if action not in ("interrupt", "log"):
             raise ValueError(f"unknown watchdog action: {action!r}")
         self.timeout_s = timeout_s
         self.run_dir = run_dir
         self.logger = logger
         self.action = action
+        self.rank = rank
         # a quarter of the timeout keeps detection within 1.25 timeouts;
         # fine enough for the tests' sub-second timeouts
         self.poll_s = poll_s if poll_s is not None else (
@@ -125,10 +131,13 @@ class StepWatchdog:
 
     def _on_stall(self, age: float) -> None:
         self.fired = True
-        msg = f"watchdog: no step heartbeat for {age:.1f}s (timeout {self.timeout_s}s)"
+        who = "" if self.rank is None else f" on rank {self.rank}"
+        msg = f"watchdog: no step heartbeat for {age:.1f}s{who} (timeout {self.timeout_s}s)"
         try:
             if self.run_dir is not None:
-                self.stall_path = os.path.join(self.run_dir, "watchdog_stall.txt")
+                name = ("watchdog_stall.txt" if not self.rank
+                        else f"watchdog_stall_rank{self.rank}.txt")
+                self.stall_path = os.path.join(self.run_dir, name)
                 os.makedirs(self.run_dir, exist_ok=True)
                 with open(self.stall_path, "w") as f:
                     f.write(msg + "\n\n")

@@ -6,6 +6,7 @@ packages; JAX runs on the CPU, PyTorch on the CPU (device="cpu")."""
 from __future__ import annotations
 
 import contextlib
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -429,3 +430,53 @@ def interrupt_loaders_after(monkeypatch, n):
     monkeypatch.setattr(pipeline, "read_dataset",
                         lambda *a, **kw: interrupt_train_loader(read(*a, **kw), n))
     return lambda: monkeypatch.setattr(pipeline, "read_dataset", read)
+
+
+# -- data-parallel ranks on the CPU ------------------------------------------
+
+PARALLEL_WORKER = Path(__file__).resolve().parent / "_torch_parallel_worker.py"
+
+
+def run_ranks(job: dict, world: int, directory, timeout_s: float = 120.0):
+    """Run tests/_torch_parallel_worker.py as `world` gloo ranks on the job
+    (written to <directory>/job.json beside its inputs), each with its own
+    time limit; on a failure or a timeout every rank is killed and the test
+    fails with their output. Returns, per rank, {scenario: npz dict}."""
+    import json
+    import os
+    import subprocess
+    import sys
+    import time
+
+    directory = Path(directory)
+    (directory / "job.json").write_text(json.dumps(job))
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT",
+                        "NFDPM_NUM_PROCESSES", "NFDPM_PROCESS_ID", "NFDPM_COORDINATOR")}
+    env.update(OMP_NUM_THREADS="1", NFDPM_NO_TENSORBOARD="1")
+    procs = [subprocess.Popen([sys.executable, str(PARALLEL_WORKER), str(directory / "job.json"),
+                               str(r), str(world)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True, env=env)
+             for r in range(world)]
+    deadline = time.monotonic() + timeout_s
+    outs = [None] * world
+    try:
+        for r, p in enumerate(procs):
+            outs[r], _ = p.communicate(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if failed:
+        import pytest
+
+        tails = "\n".join(f"--- rank {r} (rc {procs[r].returncode}):\n{(outs[r] or '')[-3000:]}"
+                          for r in range(world))
+        pytest.fail(f"ranks {failed} of {world} failed or timed out after {timeout_s} s\n{tails}")
+    return [{name: dict(np.load(directory / f"{name}_r{r}.npz"))
+             for name in job["scenarios"] if (directory / f"{name}_r{r}.npz").exists()}
+            for r in range(world)]

@@ -381,11 +381,18 @@ def test_cotrained_eval_reads_the_trained_flow(cotrained):
 
 
 @pytest.mark.parametrize("override,match", [
-    ("parallel.part_parallel=true", "multi-GPU"),
-    ("parallel.fsdp=true", "multi-GPU"),
+    # the ids are the cases' names from before the data axis was ported, when
+    # both options were refused with "multi-GPU"; part_parallel is now refused
+    # with a co-trained flow (the JAX package's rule), and the model axis
+    # stays refused
+    pytest.param("parallel.part_parallel=true model.normalizing_flow.freeze=false",
+                 "requires a frozen flow", id="parallel.part_parallel=true-multi-GPU"),
+    pytest.param("parallel.n_model=2", "tensor, pipeline and spatial",
+                 id="parallel.fsdp=true-multi-GPU"),
+    ("parallel.spatial=true", "tensor, pipeline and spatial"),
 ])
 def test_refused_options_raise(workdir, override, match):
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises((NotImplementedError, ValueError), match=match):
         _stage2(workdir, "experiment_name=refused", *override.split())
 
 

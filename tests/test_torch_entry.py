@@ -112,8 +112,13 @@ def test_without_cuda_the_entry_point_refuses_to_start(tmp_path):
 
 @pytest.mark.parametrize("override,match", [
     ("model.evaluation.metrics.FID.mode=[clean]", None),  # needs a model name too: no metric
-    ("parallel.n_model=2", "multi-GPU"),
-    ("parallel.fsdp=true", "multi-GPU"),
+    # the model axis stays refused (the id is the case's name from before the
+    # data axis was ported, when the message named "multi-GPU")
+    pytest.param("parallel.n_model=2", "tensor, pipeline and spatial",
+                 id="parallel.n_model=2-multi-GPU"),
+    ("parallel.spatial=true", "tensor, pipeline and spatial"),
+    ("parallel.pipeline=true", "tensor, pipeline and spatial"),
+    ("parallel.pipeline_microbatches=4", "tensor, pipeline and spatial"),
     ("phase=bogus", "phase must be"),
 ])
 def test_refused_options_raise(tmp_path, monkeypatch, override, match):
@@ -128,14 +133,17 @@ def test_refused_options_raise(tmp_path, monkeypatch, override, match):
 
 @pytest.mark.parametrize("option", ["load.load_batch", "model.training.watchdog_timeout_s",
                                     "model.training.profile_epoch",
-                                    "model.architecture.coupling_dtype"])
+                                    "model.architecture.coupling_dtype", "parallel.fsdp"])
 def test_accepted_options_do_their_job(tmp_path, monkeypatch, option):
     """The options the port once refused: `load.load_batch` resumes an
     interrupted epoch (to the uninterrupted run's final bits/dim exactly),
     the watchdog trains without firing, `profile_epoch` writes the epoch's
     trace, `coupling_dtype=bfloat16` trains the flow with bf16 coupling CNNs
     (other bits/dim than fp32's, finite) and `phase=eval` with it gives the
-    run's final bits/dim again."""
+    run's final bits/dim again; `parallel.fsdp=true` with
+    `parallel.n_slices=1` in one process (no launch: one rank, nothing to
+    partition) trains exactly as without (two ranks:
+    tests/test_torch_parallel_cli.py)."""
     monkeypatch.chdir(tmp_path)
     monkeypatch.setenv("NFDPM_NO_TENSORBOARD", "1")
     argv = ["device=cpu", *SMALL]
@@ -172,6 +180,10 @@ def test_accepted_options_do_their_job(tmp_path, monkeypatch, option):
             "experiment_name=bf16_eval", "phase=eval", "load.load_epoch=1",
             f"load.load_exp_dir={Path(out['run_dir']).name}", f"{option}=bfloat16"])
         assert evaluated["results"] == out["results"]
+    elif option == "parallel.fsdp":
+        out = run_baseline.main(argv + ["experiment_name=fsdp", f"{option}=true",
+                                        "parallel.n_slices=1"])
+        assert out["results"] == full["results"]
     else:
         out = run_baseline.main(argv + ["experiment_name=prof", f"{option}=1",
                                         "model.training.profile_steps=2"])

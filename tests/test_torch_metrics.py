@@ -351,9 +351,16 @@ def test_precompute_stats_command_line(tmp_path, monkeypatch, injected):
         m.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="CUDA"):
             precompute_stats.main(argv)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        precompute_stats.main(argv + ["--data-parallel", "--device", "cpu"])
     precompute_stats.main(argv + ["--device", "cpu"])
+    # --data-parallel over the one device --device names: the same statistics
+    dp_dir = tmp_path.with_name(tmp_path.name + "_data_parallel")
+    dp_argv = [a if a != str(tmp_path) else str(dp_dir) for a in argv]
+    precompute_stats.main(dp_argv + ["--data-parallel", "--device", "cpu"])
+    assert len(list(dp_dir.iterdir())) == 2
+    for f in dp_dir.iterdir():
+        with np.load(f) as a, np.load(tmp_path / f.name) as b:
+            for key in ("mu", "sigma", "feats"):
+                np.testing.assert_array_equal(a[key], b[key])
     assert sorted(p.name for p in tmp_path.iterdir()) == [
         "synthetic_clean_train_32.npz", "synthetic_legacy_tensorflow_train_32.npz"]
     ref = jcompute.load_dataset_images("synthetic", "", "train", 32, 20)

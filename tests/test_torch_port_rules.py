@@ -2,7 +2,9 @@
 
 - nfdpm_tpu_torch/ and chip_smoke.py import neither JAX nor nfdpm_tpu.
 - Entry points run on CUDA unless the caller names the CPU; without CUDA
-  they raise instead of running on the CPU.
+  they raise instead of running on the CPU. A data-parallel launch that
+  wants NCCL without CUDA raises instead of dropping to one process or to
+  gloo on the CPU.
 - nfdpm_tpu_torch.serve answers /health and /generate, for a Glow and for a
   Glow with a diffusion prior (--weights; --run-dir in
   test_torch_run_dir_tools.py).
@@ -102,11 +104,48 @@ def test_fresh_interpreter_loads_no_jax_or_reference_modules():
                "nfdpm_tpu_torch.interpolate", "nfdpm_tpu_torch.utils.reference_import",
                "nfdpm_tpu_torch.utils.reference_export", "nfdpm_tpu_torch.utils.unet_import",
                "nfdpm_tpu_torch.convert_reference_checkpoint",
-               "nfdpm_tpu_torch.export_reference_checkpoint")
+               "nfdpm_tpu_torch.export_reference_checkpoint",
+               "nfdpm_tpu_torch.parallel.distributed", "nfdpm_tpu_torch.parallel.mesh",
+               "nfdpm_tpu_torch.parallel.sharding_rules", "nfdpm_tpu_torch.parallel.zero",
+               "nfdpm_tpu_torch.parallel.part_parallel", "nfdpm_tpu_torch.ops.draws")
     loaded = _modules_after("import " + ", ".join(modules))
     assert set(modules) <= loaded and "torch" in loaded
     new_bad = sorted(m for m in loaded - bare if _forbidden(m))
     assert not new_bad, new_bad
+
+
+def test_data_parallel_never_falls_back_to_one_process_or_the_cpu(monkeypatch, tmp_path):
+    """NCCL (the default backend) wanted without CUDA raises, under a launch
+    named by torchrun's variables or by the arguments, and so does NCCL
+    with device=cpu; no process group is left behind. Without a launch
+    nothing starts. `serve --data-parallel` without --device and without
+    CUDA raises."""
+    import torch.distributed as dist
+
+    from nfdpm_tpu_torch.parallel import distributed
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for var in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT",
+                "NFDPM_NUM_PROCESSES", distributed.BACKEND_ENV):
+        monkeypatch.delenv(var, raising=False)
+    assert distributed.initialize() is False  # no launch, one process
+    init = f"file://{tmp_path / 'rendezvous'}"
+    with pytest.raises(RuntimeError, match="NCCL backend needs CUDA"):
+        distributed.initialize(world_size=2, rank=0, init_method=init)
+    with pytest.raises(RuntimeError, match="NCCL backend needs CUDA"):
+        distributed.initialize(world_size=2, rank=0, init_method=init, device="cpu")
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    monkeypatch.setenv("RANK", "1")
+    monkeypatch.setenv("MASTER_ADDR", "localhost")
+    monkeypatch.setenv("MASTER_PORT", "1")
+    with pytest.raises(RuntimeError, match="NCCL backend needs CUDA"):
+        distributed.initialize()
+    monkeypatch.setenv(distributed.BACKEND_ENV, "gloo")
+    with pytest.raises(RuntimeError, match="rank 1: no CUDA device"):
+        distributed.initialize()  # gloo named, but the device is CUDA's
+    assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.build_sampler(serve.parse_args(["--weights", "unused.npz", "--data-parallel"]))
 
 
 def test_resolve_device_never_falls_back_to_cpu(monkeypatch):

@@ -164,8 +164,8 @@ def test_serve_refuses_two_sources_and_data_parallel(runs, tmp_path):
         serve.parse_args(["--run-dir", pt_dir, "--weights", "x.npz"])
     with pytest.raises(SystemExit):
         serve.parse_args(["--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        serve.parse_args(["--run-dir", pt_dir, "--data-parallel"])
+    # --data-parallel is accepted now (its bytes: tests/test_torch_parallel_cli.py)
+    assert serve.parse_args(["--run-dir", pt_dir, "--data-parallel"]).data_parallel
 
 
 @pytest.mark.parametrize("kind", ["glow", "diffusion"])
