@@ -8,6 +8,8 @@
     python3 chip_smoke.py --reference-checkpoints  # phases 1, 2, 12, 13, 17 and 26
     python3 chip_smoke.py --mixed-precision    # phases 1, 2, 12, 13, 17 and 27
     python3 chip_smoke.py --multi-gpu          # phases 1, 2, 12, 13, 17 and 28
+    python3 chip_smoke.py --model-axis         # phases 1, 2, 12, 13, 17 and 29
+    python3 chip_smoke.py --model-axis-nccl    # phases 1, 2 and 29 (a) on two cards
 
 Runs nfdpm_tpu_torch (never JAX, never nfdpm_tpu) with seeded random
 weights at the width of the repo's models: the Glow of configs/nf_base.yaml
@@ -297,12 +299,37 @@ line each:
      (gloo on one card moves the gradients through the host). Budget
      MG_BUDGET_S.
 
+  the model axis (launch counters zeroed before 29 and read after it, its
+  children's own counters added):
+ 29. model_axis: child processes in deterministic mode, the ranks sharing
+     this card over gloo (named by NFDPM_DIST_BACKEND: NCCL cannot put two
+     ranks on one GPU). A world-1 child makes the references. (a) Two
+     ranks at (data 1, model 2): run_baseline.main with parallel.n_model=2
+     at full width, MT_STEPS steps: step 1's bits/dim within MG_BPD_TOL
+     of world 1's, every step within TRAIN_TRAJ_TOL, the parameters within
+     MG_FINAL_ATOL after the last; each rank's launches exactly 23 + 12 +
+     12 a step and the run's as world 1's; each rank's flow parameter and
+     Adam-moment bytes equal to the placements' prediction; the run's
+     checkpoint (whole tensors) scored by phase=eval in this process, a
+     world of one, within MG_BPD_TOL of the run's final bits/dim. (b) Four
+     ranks at (data 2, model 2) with parallel.fsdp=true, MT_MESH4_STEPS
+     steps: step 1 within MG_BPD_TOL, the ranks' coordinates and groups
+     (also over two slices), ZeRO's moment bytes as predicted, exact
+     launches. (c) Two ranks at (1, 2): stage 2 over phase 12's frozen flow
+     (three UNets), MG_STAGE2_STEPS steps, the loss within MG_LOSS_RTOL of
+     world 1's, 12 + 12 attention launches a step a rank; a DDIM chunk of
+     MT_DDIM_STEPS steps and MT_DDIM_N images on the seeded UNets, its
+     latents within LATENT_TOL of world 1's. (d) The record: step wall ms at world 1 and
+     model 2, the model group's all-reduce and all-gather bytes a step and
+     their ms, the bytes a rank, the card's name and power limit. Budget
+     MT_BUDGET_S.
+
 Then come the kernel summary line (seven kernels), the nvidia-smi line and, last,
 {"ok": true, "device": {...}}. With --run-dir-tools the script runs the
 environment, the build, phases 12, 13 and 17 (whose run directories the
 tooling reads) and 23-25, and prints neither; --reference-checkpoints the same
 with phase 26 in place of 23-25, --mixed-precision with phase 27, --multi-gpu
-with phase 28. With
+with phase 28, --model-axis with phase 29. With
 --stage1-training the script runs only the environment, the build and
 phases 12 and 13 and prints neither: copied
 into another checkout, it times that checkout's stage-1 training with the
@@ -4251,7 +4278,7 @@ def mg_stage1_steps(torch, counters, mesh, fsdp: bool, batches) -> dict:
             "params": host_tree(state["params"]), "params_step1": params_step1,
             "moment_bytes": rules.moment_bytes(state["opt_state"]),
             "predicted_moment_bytes": rules.predicted_moment_bytes(
-                state["params"], placements, 0 if mesh is None else mesh.rank),
+                state["params"], placements, 0 if mesh is None else mesh.data_rank),
             "sharded_leaves": len(placements),
             "grad_numel": sum(p.numel() for _, p in named_leaves(state["params"])
                               if p.requires_grad)}
@@ -4466,12 +4493,15 @@ def mg_world2(torch, root: Path, stage1_dir: Path) -> None:
 
 
 def mg_children(cmd_role: str, root: Path, stage1_dir: Path, env: dict, ranks: int,
-                timeout: float = 400):
+                timeout: float = 400, phase: str = ""):
     """Start `ranks` children of `cmd_role` together, wait for all (killing
-    every one if one fails or the time runs out); their JSON records."""
+    every one if one fails or the time runs out); their JSON records (those
+    of `phase`, by default multi_gpu_<role>)."""
     procs = []
     for rank in range(ranks):
         rank_env = dict(env, RANK=str(rank)) if ranks > 1 else env
+        if env.get("NFDPM_DIST_BACKEND") == "nccl":  # one card a rank
+            rank_env["LOCAL_RANK"] = str(rank)
         procs.append(subprocess.Popen(MG_CHILD + [cmd_role, str(root), str(stage1_dir)],
                                       env=rank_env, stdout=subprocess.PIPE,
                                       stderr=subprocess.PIPE, text=True))
@@ -4489,7 +4519,7 @@ def mg_children(cmd_role: str, root: Path, stage1_dir: Path, env: dict, ranks: i
     for p, (stdout, stderr) in zip(procs, outs + [("", "")] * (len(procs) - len(outs))):
         check(p.returncode == 0, f"the {cmd_role} child failed ({p.returncode}):\n"
                                  f"{stdout[-2000:]}\n{stderr[-4000:]}")
-    phase = f"multi_gpu_{cmd_role}"
+    phase = phase or f"multi_gpu_{cmd_role}"
     records = []
     for stdout, _ in outs:
         mine = [json.loads(line) for line in stdout.splitlines()
@@ -4679,6 +4709,539 @@ def phase_multi_gpu(torch, np, counters, smi, stage1_dir: Path) -> dict:
     emit(record)
     return launches
 
+# -- phase 29: the model axis --------------------------------------------------
+
+MT_STEPS = 4            # (a): stage-1 steps of batch 64 through run_baseline.main
+MT_MESH4_STEPS = 2      # (b): the same at (data 2, model 2)
+MT_BUDGET_S = 120       # the phase's budget (PERF.md §2)
+MT_DDIM_N = 16          # (c): images of the DDIM chunk
+MT_DDIM_STEPS = 25      # (c): its steps, DDIM-100 cut to fit the budget: a model-2
+# chain step waits on about 90 collectives through the host (26.5 s for
+# DDIM-100 at model 2 against 4.3 s at world 1 on an NVIDIA H100 80GB HBM3,
+# 700 W; PERF.md §6)
+# (c): the DDIM chunk's latents against world 1's. The sum-order difference
+# of the row-parallel convolutions goes through the chain as the kernel
+# route's does against the plain route, so the gate is LATENT_TOL; the count
+# past the sampler's CPU bound (tests/test_torch_diffusion.py CHAIN_TOL, atol
+# 1e-4 / rtol 1e-5) is recorded beside it: the x0 prediction divides the
+# noise estimate's rounding by sqrt(alpha_bar), and the CPU rehearsal at
+# T = 8 already puts latents 4.4e-4 apart.
+MT_CHAIN_ATOL, MT_CHAIN_RTOL = 1e-4, 1e-5
+
+
+class ModelAxisSpy:
+    """Instruments a child of phase 29: each train step's launches and
+    synchronised wall ms (nf_trainer's and diffusion_trainer's
+    make_train_step wrapped), the model group's all-reduce and all-gather
+    bytes and calls a step (parallel/tensor_parallel.py's two collectives
+    counted) and, on a step marked `timed`, their synchronised wall ms; the
+    state and the mesh nf_trainer.train ran with."""
+
+    def __init__(self, torch, counters):
+        from nfdpm_tpu_torch.parallel import tensor_parallel as tp
+        from nfdpm_tpu_torch.training import diffusion_trainer as dt
+        from nfdpm_tpu_torch.training import nf_trainer as nft
+
+        self.torch, self.counters = torch, counters
+        self.steps, self.collective = [], None
+        self.timed_step, self.trained = None, {}
+        self.originals = [(tp, "_all_reduce", tp._all_reduce),
+                          (tp, "all_gather_dim", tp.all_gather_dim),
+                          (nft, "make_train_step", nft.make_train_step),
+                          (dt, "make_train_step", dt.make_train_step),
+                          (nft, "train", nft.train)]
+        reduce, gather = tp._all_reduce, tp.all_gather_dim
+        tp._all_reduce = lambda axis, t: self._collective("all_reduce", t, reduce, axis, t)
+        tp.all_gather_dim = lambda axis, t, dim, timeout_s=None: self._collective(
+            "all_gather", t, gather, axis, t, dim, timeout_s)
+        for module in (nft, dt):
+            module.make_train_step = self._wrap_maker(module.make_train_step)
+        train = nft.train
+
+        def spy_train(**kwargs):
+            out = train(**kwargs)
+            self.trained = {"state": out["state"], "mesh": kwargs.get("mesh")}
+            return out
+
+        nft.train = spy_train
+
+    def restore(self):
+        for module, name, fn in self.originals:
+            setattr(module, name, fn)
+
+    def _collective(self, kind, t, fn, *args):
+        c = self.collective
+        if c is None:
+            return fn(*args)
+        timed = len(self.steps) == self.timed_step
+        if timed:
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        out = fn(*args)
+        if timed:
+            self.torch.cuda.synchronize()
+            c["ms"] += (time.perf_counter() - t0) * 1e3
+        c[f"{kind}_bytes"] += t.numel() * t.element_size()
+        c[f"{kind}_calls"] += 1
+        return out
+
+    def _wrap_maker(self, make):
+        def maker(*args, **kwargs):
+            step = make(*args, **kwargs)
+
+            def spied(state, batch, seed):
+                torch = self.torch
+                torch.cuda.synchronize()
+                before = counts(self.counters)
+                self.collective = {"all_reduce_bytes": 0, "all_reduce_calls": 0,
+                                   "all_gather_bytes": 0, "all_gather_calls": 0, "ms": 0.0}
+                t0 = time.perf_counter()
+                out = step(state, batch, seed)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+                after = counts(self.counters)
+                rec = {"wall_ms": wall, "launches": {k: after[k] - before[k] for k in before},
+                       **self.collective}
+                if len(self.steps) != self.timed_step:
+                    rec.pop("ms")
+                self.steps.append(rec)
+                self.collective = None
+                return out
+
+            return spied
+
+        return maker
+
+
+def mt_argv(steps: int):
+    """run_baseline.main's overrides: configs/nf_base.yaml at full width, one
+    epoch of `steps` steps of batch 64, each step's bits/dim logged."""
+    return ["data.name=synthetic", f"data.batch_size={BATCH}", f"data.img_size={IMG}",
+            f"data.synthetic_n={BATCH * steps}", f"seed={TRAIN_SEED}",
+            f"model.architecture.L={LEVELS}", f"model.architecture.K={STEPS}",
+            f"model.architecture.coupling_width={WIDTH}", "model.training.epochs=1",
+            "model.training.print_freq=1", "model.training.save_checkpoint_freq=50",
+            ] + MG_ENTRY_ARGS
+
+
+def mt_step_bpds(run_dir: Path) -> list:
+    """Each train step's bits/dim, from the run's metrics.jsonl."""
+    rows = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    train = [r for r in rows if r["name"] == "bpd" and r["step"] is not None
+             and (r.get("context") or {}).get("subset") == "train"]
+    return [r["value"] for r in sorted(train, key=lambda r: r["step"])]
+
+
+def mt_stage1(torch, spy, root: Path, name: str, steps: int, extra=()) -> dict:
+    """run_baseline.main at full width for `steps` steps (with `extra`
+    overrides), instrumented: each step's bits/dim (rank 0's log), launches,
+    wall ms and collectives, the final bits/dim, the run's launches, the
+    rank's parameter and moment bytes beside the placements' prediction."""
+    from nfdpm_tpu_torch import run_baseline
+    from nfdpm_tpu_torch.parallel import mesh as mesh_m
+    from nfdpm_tpu_torch.parallel import sharding_rules as rules
+    from nfdpm_tpu_torch.training import nf_trainer as nft
+    from nfdpm_tpu_torch.training.checkpoint import restore_params
+
+    spy.steps, spy.timed_step = [], steps - 1
+    before = counts(spy.counters)
+    t0 = time.perf_counter()
+    result = run_in(root, run_baseline.main, mt_argv(steps) + list(extra)
+                    + [f"experiment_name={name}"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launched = {k: v - before[k] for k, v in counts(spy.counters).items()}
+    run_dir = root / result["run_dir"]
+    state, mesh = spy.trained["state"], spy.trained["mesh"]
+    mesh_m.barrier(mesh)  # rank 0's checkpoint is on disk
+    whole = restore_params(str(run_dir), "gaussian", 1, "cpu")
+    n_model = mesh_m.n_model_of(mesh)
+    model_pl = rules.model_placements(whole, n_model)
+    model_rank = 0 if mesh is None else mesh.model_rank
+    _, tcfg = train_configs()
+    zero_pl = nft.nf_placements(mesh, nft.optimizer_of(tcfg), state["params"],
+                                "parallel.fsdp=true" in extra)
+    out = {"run_dir": result["run_dir"], "results": result["results"], "seconds": seconds,
+           "steps": spy.steps, "launches": launched,
+           "flow_param_bytes": rules.param_bytes({"flow": state["params"]["flow"]}),
+           "predicted_flow_param_bytes": rules.predicted_param_bytes(
+               {"flow": whole["flow"]}, model_pl, model_rank),
+           "moment_bytes": rules.moment_bytes(state["opt_state"]),
+           "predicted_moment_bytes": (
+               rules.predicted_moment_bytes(state["params"], zero_pl, mesh.data_rank)
+               if zero_pl else 2 * rules.predicted_param_bytes(whole, model_pl, model_rank)),
+           "zero_leaves": len(zero_pl), "model_leaves": len(model_pl)}
+    if mesh is None or mesh.rank == 0:
+        out["bpd_by_step"] = mt_step_bpds(run_dir)
+    if mesh is not None:
+        out["coords"] = [mesh.data_rank, mesh.model_rank, mesh.n_data, mesh.n_model]
+    del state, whole
+    spy.trained = {}
+    torch.cuda.empty_cache()
+    return out
+
+
+def mt_stage2(torch, spy, mesh, stage1_dir: Path, root: Path) -> dict:
+    """MG_STAGE2_STEPS stage-2 steps over phase 12's frozen flow (three
+    UNets, batch 64, the step's own draws) on `mesh` (None: one rank), then
+    one DDIM chunk (MT_DDIM_STEPS steps) of MT_DDIM_N images on the seeded
+    UNets, its latents written to <root>/ddim_<tag>.npz."""
+    import numpy as np
+
+    from nfdpm_tpu_torch import convert, inference
+    from nfdpm_tpu_torch.models.nf_backbone import load_pretrained_flow
+    from nfdpm_tpu_torch.parallel import mesh as mesh_m
+    from nfdpm_tpu_torch.training import diffusion_trainer as dt
+
+    backbone, flow = load_pretrained_flow(str(stage1_dir), 1, True, MG_DEVICE, True)
+    dp = stage2_prior()
+    tcfg = dt.DiffusionTrainConfig(lr_diffusion=1e-3)
+    tx = dt.make_two_group_optimizer(tcfg, True)
+    state = dt.init_train_state(TRAIN_SEED, backbone, flow, dp, tx, device=MG_DEVICE)
+    state = dt.shard_diffusion_state(mesh, tx, state, False)
+    spy.steps, spy.timed_step = [], MG_STAGE2_STEPS - 1
+    step = dt.make_train_step(backbone, dp, tcfg, tx, device=MG_DEVICE, mesh=mesh)
+    losses = []
+    for batch in mg_batches(torch, MG_STAGE2_STEPS):
+        rows = batch if mesh is None else mesh_m.shard_batch(mesh, batch)
+        state, metrics = step(state, rows, TRAIN_SEED)
+        losses.append(float(metrics["loss"]))
+    out = {"loss": losses, "steps": spy.steps}
+    del state
+    torch.cuda.empty_cache()
+    params = convert.params_for_rank({"flow": flow, "diffusion": dp.init_params(5, MG_DEVICE)},
+                                     mesh)
+    chain = stage2_prior(sampling_timesteps=min(MT_DDIM_STEPS,
+                                                DIFFUSION_KWARGS["sampling_timesteps"]))
+    sample = inference.make_diffusion_sample_fn(dt.on_mesh(mesh, backbone), chain, N_BITS,
+                                                MG_DEVICE)
+    t0 = time.perf_counter()
+    _, latents = sample(params, MT_DDIM_N, generator=inference.reseed(
+        torch.Generator(device=MG_DEVICE), 9, 1), return_latents=True)
+    torch.cuda.synchronize()
+    out["ddim_s"] = time.perf_counter() - t0
+    tag = "world1" if mesh is None else f"rank{mesh.rank}"
+    np.savez(root / f"ddim_{tag}.npz", **{f"z{i}": z.cpu().numpy() for i, z in enumerate(latents)})
+    return out
+
+
+def mt_world1(torch, root: Path, stage1_dir: Path) -> None:
+    """Phase 29's world-1 child (no launch, deterministic mode): the
+    references of (a), (b) and (c); prints its record."""
+    counters = kernel_counters()
+    set_deterministic(torch, True)
+    spy = ModelAxisSpy(torch, counters)
+    os.environ["NFDPM_NO_TENSORBOARD"] = "1"
+    t0 = time.perf_counter()
+    parts = os.environ.get("MT_PARTS", "abc")
+    out = {"phase": "model_axis_world1",
+           "a": mt_stage1(torch, spy, root, "world1_a", MT_STEPS)}
+    if "b" in parts:
+        out["b"] = mt_stage1(torch, spy, root, "world1_b", MT_MESH4_STEPS)
+    if "c" in parts:
+        out["c"] = mt_stage2(torch, spy, None, stage1_dir, root)
+    out["seconds"] = time.perf_counter() - t0
+    out["launches"] = counts(counters)
+    spy.restore()
+    emit(out)
+
+
+def mt_model2(torch, root: Path, stage1_dir: Path) -> None:
+    """A rank of phase 29's (data 1, model 2) children (gloo, both on this
+    card, deterministic mode): (a) run_baseline.main with
+    parallel.n_model=2, (c) the stage-2 steps and the DDIM chunk."""
+    import torch.distributed as dist
+
+    from nfdpm_tpu_torch.parallel import distributed
+    from nfdpm_tpu_torch.parallel import mesh as mesh_m
+
+    counters = kernel_counters()
+    set_deterministic(torch, True)
+    spy = ModelAxisSpy(torch, counters)
+    os.environ["NFDPM_NO_TENSORBOARD"] = "1"
+    t0 = time.perf_counter()
+    a = mt_stage1(torch, spy, root, "model2_a", MT_STEPS, ["parallel.n_model=2"])
+    out = {"phase": "model_axis_model2", "rank": dist.get_rank(),
+           "backend": dist.get_backend(), "a": a}
+    if "c" in os.environ.get("MT_PARTS", "abc"):
+        mesh = mesh_m.make_mesh(n_model=2, device=MG_DEVICE)
+        out["c"] = mt_stage2(torch, spy, mesh, stage1_dir, root)
+    out["seconds"] = time.perf_counter() - t0
+    out["launches"] = counts(counters)
+    spy.restore()
+    emit(out)
+    distributed.shutdown()
+
+
+def mt_mesh4(torch, root: Path, stage1_dir: Path) -> None:
+    """A rank of phase 29's (data 2, model 2) children: (b)
+    run_baseline.main with parallel.n_model=2 and parallel.fsdp=true, then
+    the coordinates of the mesh over 2 slices."""
+    import torch.distributed as dist
+
+    from nfdpm_tpu_torch.parallel import distributed
+    from nfdpm_tpu_torch.parallel import mesh as mesh_m
+
+    counters = kernel_counters()
+    set_deterministic(torch, True)
+    spy = ModelAxisSpy(torch, counters)
+    os.environ["NFDPM_NO_TENSORBOARD"] = "1"
+    t0 = time.perf_counter()
+    b = mt_stage1(torch, spy, root, "mesh4_b", MT_MESH4_STEPS,
+                  ["parallel.n_model=2", "parallel.fsdp=true"])
+    sliced = mesh_m.make_mesh(n_model=2, n_slices=2, device=MG_DEVICE)
+    out = {"phase": "model_axis_mesh4", "rank": dist.get_rank(), "b": b,
+           "coords_two_slices": [sliced.data_rank, sliced.model_rank, sliced.n_data,
+                                 sliced.n_model],
+           "groups_two_slices": [dist.get_process_group_ranks(sliced.model_group),
+                                 dist.get_process_group_ranks(sliced.data_group)],
+           "seconds": time.perf_counter() - t0}
+    out["launches"] = counts(counters)
+    spy.restore()
+    emit(out)
+    distributed.shutdown()
+
+
+def mt_check_a(counters, root: Path, w1: dict, m2: list):
+    """(a)'s gates: the model-2 run against world 1's, the launches, the
+    bytes, and its checkpoint scored by phase=eval in this process (a world
+    of one); returns (its record, this process's launches)."""
+    from nfdpm_tpu_torch import run_baseline
+    from nfdpm_tpu_torch.convert import named_leaves
+    from nfdpm_tpu_torch.training.checkpoint import restore_params
+
+    ref = w1["a"]
+    ranks = [r["a"] for r in m2]
+    bpd_gaps = [abs(g - w) for g, w in zip(ranks[0]["bpd_by_step"], ref["bpd_by_step"])]
+    got = dict(named_leaves(restore_params(str(root / ranks[0]["run_dir"]), "gaussian", 1,
+                                           "cpu")))
+    want = dict(named_leaves(restore_params(str(root / ref["run_dir"]), "gaussian", 1, "cpu")))
+    check(got.keys() == want.keys(), "(a) the model-2 checkpoint's leaves differ from world 1's")
+    param_gap = max(float((got[k] - want[k]).abs().max()) for k in want if want[k].numel())
+    expected = stage1_run_launches(MT_STEPS, len(train_loaders(MT_STEPS).test)
+                                   + len(train_loaders(MT_STEPS).eval))
+    a = {"bpd_model2": ranks[0]["bpd_by_step"], "bpd_world1": ref["bpd_by_step"],
+         "bpd_gap_by_step": bpd_gaps, "final_param_gap": param_gap,
+         "final_bpd_model2": ranks[0]["results"], "final_bpd_world1": ref["results"],
+         "launches_by_step": [[s["launches"] for s in r["steps"]] for r in ranks],
+         "run_launches": [r["launches"] for r in ranks], "expected_run_launches": expected,
+         "flow_param_bytes_by_rank": [r["flow_param_bytes"] for r in ranks],
+         "predicted_flow_param_bytes_by_rank": [r["predicted_flow_param_bytes"] for r in ranks],
+         "world1_flow_param_bytes": ref["flow_param_bytes"],
+         "moment_bytes_by_rank": [r["moment_bytes"] for r in ranks],
+         "predicted_moment_bytes_by_rank": [r["predicted_moment_bytes"] for r in ranks],
+         "world1_moment_bytes": ref["moment_bytes"], "model_leaves": ranks[0]["model_leaves"]}
+    # the checkpoint in a world of one: phase=eval in this process
+    before = counts(counters)
+    evaluated = run_in(root, run_baseline.main, mt_argv(MT_STEPS) + [
+        "experiment_name=model2_eval", "phase=eval",
+        f"load.load_exp_dir={Path(ranks[0]['run_dir']).name}", "load.load_epoch=1"])
+    here = {k: v - before[k] for k, v in counts(counters).items()}
+    a["eval_world1"] = evaluated["results"]
+    a["eval_gap"] = max(abs(evaluated["results"][k] - ranks[0]["results"][k])
+                        for k in ("bpd_test", "bpd_train"))
+    a["bytes"] = {k: a[k] for k in ("flow_param_bytes_by_rank", "moment_bytes_by_rank")}
+    emit({"phase": "model_axis_a", **a})
+    check(len(bpd_gaps) == MT_STEPS and bpd_gaps[0] <= MG_BPD_TOL,
+          f"(a) step 1's bits/dim {bpd_gaps[:1]} from world 1's")
+    check(max(bpd_gaps) <= TRAIN_TRAJ_TOL, f"(a) bits/dim {bpd_gaps} from world 1's by step")
+    check(param_gap <= MG_FINAL_ATOL, f"(a) parameters {param_gap} from world 1's after "
+                                      f"{MT_STEPS} steps")
+    check(all(step == MG_STEP_LAUNCHES for r in a["launches_by_step"] for step in r)
+          and all(len(r) == MT_STEPS for r in a["launches_by_step"]),
+          f"(a) the ranks' step launches {a['launches_by_step']}")
+    check(all(r == expected for r in a["run_launches"]),
+          f"(a) the ranks' run launches {a['run_launches']}, expected {expected}")
+    check(a["flow_param_bytes_by_rank"] == a["predicted_flow_param_bytes_by_rank"]
+          and a["moment_bytes_by_rank"] == a["predicted_moment_bytes_by_rank"],
+          f"(a) bytes {a['flow_param_bytes_by_rank']}, {a['moment_bytes_by_rank']} against "
+          f"the placements' {a['predicted_flow_param_bytes_by_rank']}, "
+          f"{a['predicted_moment_bytes_by_rank']}")
+    check(a["eval_gap"] <= MG_BPD_TOL, f"(a) phase=eval in a world of one {a['eval_gap']} "
+                                       "from the model-2 run's final bits/dim")
+    return a, here
+
+
+def mt_check_b(w1: dict, m4: list) -> dict:
+    """(b)'s gates: the (2, 2) run with fsdp against world 1's."""
+    ranks4 = [r["b"] for r in m4]
+    coords = [r["coords"] for r in ranks4]
+    b_gap = abs(ranks4[0]["bpd_by_step"][0] - w1["b"]["bpd_by_step"][0])
+    b = {"coords_by_rank": coords, "coords_two_slices": [r["coords_two_slices"] for r in m4],
+         "groups_two_slices": [r["groups_two_slices"] for r in m4],
+         "bpd_mesh4": ranks4[0]["bpd_by_step"], "bpd_world1": w1["b"]["bpd_by_step"],
+         "step1_bpd_gap": b_gap, "zero_leaves": ranks4[0]["zero_leaves"],
+         "moment_bytes_by_rank": [r["moment_bytes"] for r in ranks4],
+         "predicted_moment_bytes_by_rank": [r["predicted_moment_bytes"] for r in ranks4],
+         "flow_param_bytes_by_rank": [r["flow_param_bytes"] for r in ranks4],
+         "launches_by_step": [[s["launches"] for s in r["steps"]] for r in ranks4],
+         "step_wall_ms_by_rank": [[s["wall_ms"] for s in r["steps"]] for r in ranks4]}
+    emit({"phase": "model_axis_b", **b})
+    want_coords = [[r // 2, r % 2, 2, 2] for r in range(4)]
+    check(coords == want_coords and b["coords_two_slices"] == want_coords,
+          f"(b) coordinates {coords}, over two slices {b['coords_two_slices']}")
+    check(all(g == [[2 * (r // 2), 2 * (r // 2) + 1], [r % 2, r % 2 + 2]]
+              for r, g in enumerate(b["groups_two_slices"])),
+          f"(b) the groups over two slices {b['groups_two_slices']}")
+    check(b_gap <= MG_BPD_TOL, f"(b) step 1's bits/dim {b_gap} from world 1's")
+    check(b["zero_leaves"] > 0 and b["moment_bytes_by_rank"]
+          == b["predicted_moment_bytes_by_rank"],
+          f"(b) ZeRO moments {b['moment_bytes_by_rank']} against "
+          f"{b['predicted_moment_bytes_by_rank']} ({b['zero_leaves']} leaves)")
+    check(all(step == MG_STEP_LAUNCHES for r in b["launches_by_step"] for step in r),
+          f"(b) the ranks' step launches {b['launches_by_step']}")
+    return b
+
+
+def mt_check_c(np, root: Path, w1: dict, m2: list) -> dict:
+    """(c)'s gates: stage 2 at (1, 2) against world 1, the DDIM chunk."""
+    per_step2 = stage2_per_step(True)
+    loss_gaps = [max(abs(r["c"]["loss"][i] - w) / abs(w) for r in m2)
+                 for i, w in enumerate(w1["c"]["loss"])]
+    with np.load(root / "ddim_world1.npz") as data:
+        want_z = dict(data)
+    z_gaps, z_beyond = [], 0
+    for r in m2:
+        with np.load(root / f"ddim_rank{r['rank']}.npz") as z:
+            for k, want in want_z.items():
+                diff = np.abs(z[k] - want)
+                z_gaps.append(float(diff.max()))
+                z_beyond += int((diff > MT_CHAIN_ATOL + MT_CHAIN_RTOL * np.abs(want)).sum())
+    c = {"loss_model2": m2[0]["c"]["loss"], "loss_world1": w1["c"]["loss"],
+         "rel_gap_by_step": loss_gaps, "launches_per_step": per_step2,
+         "launches_by_step": [[s["launches"] for s in r["c"]["steps"]] for r in m2],
+         "ddim_images": MT_DDIM_N, "ddim_steps": MT_DDIM_STEPS,
+         "ddim_max_latent_gap": max(z_gaps),
+         "ddim_latent_gate": LATENT_TOL, "ddim_latents_beyond_cpu_bound": z_beyond,
+         "ddim_s": {"world1": w1["c"]["ddim_s"], "model2": [r["c"]["ddim_s"] for r in m2]}}
+    emit({"phase": "model_axis_c", **c})
+    check(max(loss_gaps) <= MG_LOSS_RTOL,
+          f"(c) the stage-2 loss {loss_gaps} (relative, by step) from world 1's")
+    check(all(step == per_step2 for r in c["launches_by_step"] for step in r),
+          f"(c) the ranks' stage-2 step launches {c['launches_by_step']}, expected {per_step2}")
+    check(max(z_gaps) <= LATENT_TOL, f"(c) the DDIM latents {max(z_gaps)} from world 1's "
+                                     f"({z_beyond} past the CPU bound)")
+    return c
+
+
+def mt_timed(steps: list) -> dict:
+    """The step whose collectives were timed (ModelAxisSpy.timed_step)."""
+    return next(s for s in steps if "ms" in s)
+
+
+def mt_stage1_timing(smi, ref: dict, ranks: list) -> dict:
+    """(d)'s stage-1 part: step wall ms at world 1 and on each model rank
+    (the median of the steps between the first and the timed last), the
+    model group's collective bytes and calls a step and, on the timed step,
+    their ms."""
+    return {
+        "card": smi,
+        "stage1_step_wall_ms_world1": median_of([s["wall_ms"] for s in ref["steps"][1:-1]]),
+        "stage1_step_wall_ms_model2_by_rank": [
+            median_of([s["wall_ms"] for s in r["steps"][1:-1]]) for r in ranks],
+        "stage1_model_group_bytes_per_step": {
+            k: ranks[0]["steps"][1][k] for k in ("all_reduce_bytes", "all_reduce_calls",
+                                                 "all_gather_bytes", "all_gather_calls")},
+        "stage1_collective_ms_timed_step_by_rank": [mt_timed(r["steps"])["ms"] for r in ranks],
+        "stage1_timed_step_wall_ms_by_rank": [mt_timed(r["steps"])["wall_ms"] for r in ranks]}
+
+
+def mt_env() -> dict:
+    """The children's environment: this one without a launch's variables,
+    deterministic mode."""
+    base = {k: v for k, v in os.environ.items()
+            if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    base.update(PYTHONPATH=str(ROOT), NFDPM_NO_TENSORBOARD="1", **DETERMINISTIC_ENV)
+    return base
+
+
+def mt_launch(base: dict, n: int, backend: str) -> dict:
+    return dict(base, WORLD_SIZE=str(n), LOCAL_RANK="0", MASTER_ADDR="localhost",
+                MASTER_PORT=str(free_port()), NFDPM_DIST_BACKEND=backend)
+
+
+def phase_model_axis_nccl(torch, np, counters, smi) -> dict:
+    """Phase 29's (a) over NCCL, its two ranks on two cards (--model-axis-nccl,
+    a call with several cards): the same gates, the same record."""
+    check(torch.cuda.device_count() >= 2,
+          f"--model-axis-nccl needs two cards, {torch.cuda.device_count()} visible")
+    root = ROOT / "build" / "chip_smoke" / "model_axis_nccl"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    t0 = time.perf_counter()
+    base = dict(mt_env(), MT_PARTS="a")
+    (w1,) = mg_children("mt_world1", root, root, base, 1, phase="model_axis_world1")
+    m2 = mg_children("mt_model2", root, root, mt_launch(base, 2, "nccl"), 2,
+                     phase="model_axis_model2")
+    for child in [w1] + m2:
+        RECORDS.append(child)
+    check(all(r["backend"] == "nccl" for r in m2), "the two-card children are not on NCCL")
+    a, here = mt_check_a(counters, root, w1, m2)
+    record = {"phase": "model_axis_nccl", "card": smi, "cards": torch.cuda.device_count(),
+              "a": a, "d": {**mt_stage1_timing(smi, w1["a"], [r["a"] for r in m2]),
+                            **a["bytes"]},
+              "seconds": time.perf_counter() - t0}
+    emit(record)
+    return here
+
+
+def phase_model_axis(torch, np, counters, smi, stage1_dir: Path) -> dict:
+    """Phase 29 (see the module docstring); returns the launches of its
+    path: its children's and this process's phase=eval, summed."""
+    root = ROOT / "build" / "chip_smoke" / "model_axis"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    base = mt_env()
+    (w1,) = mg_children("mt_world1", root, stage1_dir, base, 1, phase="model_axis_world1")
+    times = {"world1_child_s": time.perf_counter() - t0}
+    m2 = mg_children("mt_model2", root, stage1_dir, mt_launch(base, 2, "gloo"), 2,
+                     phase="model_axis_model2")
+    times["model2_children_s"] = time.perf_counter() - t0 - sum(times.values())
+    m4 = mg_children("mt_mesh4", root, stage1_dir, mt_launch(base, 4, "gloo"), 4,
+                     phase="model_axis_mesh4")
+    times["mesh4_children_s"] = time.perf_counter() - t0 - sum(times.values())
+    for child in [w1] + m2 + m4:
+        RECORDS.append(child)
+    record = {"phase": "model_axis", "card": smi, "times": times}
+    record["a"], here = mt_check_a(counters, root, w1, m2)
+    ranks, ref = [r["a"] for r in m2], w1["a"]
+    record["b"] = mt_check_b(w1, m4)
+    record["c"] = mt_check_c(np, root, w1, m2)
+
+    # (d) the record
+    record["d"] = {
+        **mt_stage1_timing(smi, ref, ranks), **record["a"]["bytes"],
+        "stage2_step_wall_ms_world1": median_of([s["wall_ms"] for s in w1["c"]["steps"][1:]]),
+        "stage2_step_wall_ms_model2_by_rank": [
+            median_of([s["wall_ms"] for s in r["c"]["steps"][1:]]) for r in m2],
+        "stage2_model_group_bytes_per_step": {
+            k: m2[0]["c"]["steps"][1][k] for k in ("all_reduce_bytes", "all_reduce_calls",
+                                                   "all_gather_bytes", "all_gather_calls")},
+        "stage2_collective_ms_timed_step_by_rank": [mt_timed(r["c"]["steps"])["ms"]
+                                                    for r in m2],
+        "note": "gloo on one card moves every all-reduce through the host: no time here is "
+                "a scaling figure"}
+    emit({"phase": "model_axis_d", **record["d"]})
+    seconds = time.perf_counter() - t0
+    record.update({"seconds": seconds, "budget_s": MT_BUDGET_S,
+                   "within_budget": seconds <= MT_BUDGET_S})
+    launches = {k: here[k] + w1["launches"][k] + sum(r["launches"][k] for r in m2 + m4)
+                for k in here}
+    record["launches"] = {"this_process": here, "world1_child": w1["launches"],
+                          "model2_ranks": [r["launches"] for r in m2],
+                          "mesh4_ranks": [r["launches"] for r in m4], "total": launches}
+    emit(record)
+    return launches
+
+
+# the children of phases 28 and 29, by role (--multi-gpu-child <role> ...)
+CHILD_ROLES = {"world1": mg_world1, "world2": mg_world2, "mt_world1": mt_world1,
+               "mt_model2": mt_model2, "mt_mesh4": mt_mesh4}
+
+
 def main() -> int:
     import torch
 
@@ -4706,7 +5269,7 @@ def main() -> int:
         # a child of phase 28, started by this script with its environment
         port.disable_tf32()
         role, root, stage1_dir = sys.argv[2], Path(sys.argv[3]), Path(sys.argv[4])
-        (mg_world1 if role == "world1" else mg_world2)(torch, root, stage1_dir)
+        CHILD_ROLES[role](torch, root, stage1_dir)
         return 0
     if sys.argv[1:2] == ["--deterministic-resume"] and len(sys.argv) == 3:
         # phase 23's subprocess, started by this script with its environment
@@ -4744,6 +5307,15 @@ def main() -> int:
         phase_stage2_training(torch, counters, stage1_run)
         torch.cuda.empty_cache()
         phase_multi_gpu(torch, np, counters, smi, stage1_run)
+        return 0
+    if sys.argv[1:] == ["--model-axis"]:
+        _, stage1_run, _, _ = phase_training(torch, counters)
+        phase_stage2_training(torch, counters, stage1_run)
+        torch.cuda.empty_cache()
+        phase_model_axis(torch, np, counters, smi, stage1_run)
+        return 0
+    if sys.argv[1:] == ["--model-axis-nccl"]:
+        phase_model_axis_nccl(torch, np, counters, smi)
         return 0
     if sys.argv[1:] == ["--attention-backward"]:
         totals = {}
@@ -4799,6 +5371,8 @@ def main() -> int:
     launches["mixed_precision"] = phase_mixed_precision(torch, np, counters, smi, stage1_run)
     torch.cuda.empty_cache()
     launches["multi_gpu"] = phase_multi_gpu(torch, np, counters, smi, stage1_run)
+    torch.cuda.empty_cache()
+    launches["model_axis"] = phase_model_axis(torch, np, counters, smi, stage1_run)
 
     per = {"fused_linear_attention": "one UNet evaluation of each of the three parts at "
                                      "batch 64 (one DDIM step or one stage-2 train "

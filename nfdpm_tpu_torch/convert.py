@@ -443,6 +443,22 @@ def diffusion_from_jax_params(tree: Dict[str, Any], dp, device=None,
     return params
 
 
+def params_for_rank(params: Dict[str, Any], mesh) -> Dict[str, Any]:
+    """A whole parameter tree in the port's layout ({"flow", "prior"} or
+    {"flow", "diffusion": {"parts": [Unet, ...]}}: from_jax_params or
+    diffusion_from_jax_params of the JAX package's arrays, or a
+    checkpoint's restore_params) -> this rank's slabs on the model axis of
+    `mesh` (parallel/mesh.py): the coupling CNNs' leaves by the Glow rules,
+    each UNet narrowed in place by the UNet rules
+    (parallel/sharding_rules.py). Without a model axis, the tree itself."""
+    from .parallel import tensor_parallel as tp
+    from .parallel.sharding_rules import model_placements
+
+    if mesh is None or mesh.n_model == 1:
+        return params
+    return tp.shard_tree(mesh.model, params, model_placements(params, mesh.n_model))
+
+
 def diffusion_to_jax_params(params: Dict[str, Any]) -> Dict[str, Any]:
     """The inverse of `diffusion_from_jax_params`: numpy, JAX layout, ready
     for `save_npz`."""

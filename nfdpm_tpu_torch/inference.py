@@ -45,14 +45,15 @@ def _on(device: torch.device, a) -> torch.Tensor:
 
 
 def make_eval_step(cfg: glow_m.GlowConfig, n_bits: int = 5,
-                   compat_three_channel_bpd: bool = True, device=None):
+                   compat_three_channel_bpd: bool = True, device=None, model=None):
     """Per-example bits/dim of a batch, single-sample dequantization.
 
     Returns eval_step(params, batch, generator=None, noise=None) -> bpd [B],
     for images `batch` in [0, 1], [B, H, W, C]. `noise` is the U(0, 1)
     dequantization draw, else it comes from `generator`. The log-likelihood
     behind it is `eval_step.ll` (same arguments), for combining several
-    draws (training/nf_trainer.py:calculate_bpd)."""
+    draws (training/nf_trainer.py:calculate_bpd). `model`: the model axis
+    when the parameters are a rank's slabs (parallel/tensor_parallel.py)."""
     device = resolve_device(device)
     apply_matmul_precision()
     n_bins = q.n_bins_of(n_bits)
@@ -66,7 +67,7 @@ def make_eval_step(cfg: glow_m.GlowConfig, n_bits: int = 5,
             raise ValueError("eval_step needs a generator or noise")
         x = q.preprocess(batch, n_bits)
         x = q.dequantize(generator, x, n_bits, noise)
-        latents, ldj, logp = glow_m.forward(params["flow"], cfg, x)
+        latents, ldj, logp = glow_m.forward(params["flow"], cfg, x, model=model)
         return ldj + logp + prior_m.gaussian_prior_logp(params["prior"], latents[-1])
 
     def eval_step(params, batch, generator=None, noise=None):
@@ -83,11 +84,12 @@ def make_eval_step(cfg: glow_m.GlowConfig, n_bits: int = 5,
 
 
 def make_sample_fn(cfg: glow_m.GlowConfig, img_size: int, n_bits: int = 5,
-                   device=None):
+                   device=None, model=None):
     """Sampler: returns sample(params, n, temperature=1.0, generator=None,
     noise=None) -> uint8 [n, H, W, C] on the device. `noise`, if given, is
     one N(0, 1) tensor per latent part, [z_1..z_{L-1}, z_final] in
-    latent_shapes_nhwc order; otherwise every draw comes from `generator`."""
+    latent_shapes_nhwc order; otherwise every draw comes from `generator`.
+    `model` as in make_eval_step."""
     device = resolve_device(device)
     apply_matmul_precision()
     h, w, c = glow_m.latent_shapes_nhwc(cfg, img_size)[-1]
@@ -103,7 +105,8 @@ def make_sample_fn(cfg: glow_m.GlowConfig, img_size: int, n_bits: int = 5,
         z_last = prior_m.gaussian_prior_sample(
             params["prior"], generator, (n, h, w, c), temperature,
             None if noise is None else noise[-1])
-        x = glow_m.inverse(params["flow"], cfg, [z_last], generator, temperature, noise)
+        x = glow_m.inverse(params["flow"], cfg, [z_last], generator, temperature, noise,
+                           model)
         return q.postprocess(x, n_bits)
 
     sample.device = device

@@ -101,8 +101,10 @@ def init_glow(seed, cfg: GlowConfig, device=None) -> Params:
 
 def forward(params: Params, cfg: GlowConfig, x: torch.Tensor,
             ldj: Optional[torch.Tensor] = None, logp: Optional[torch.Tensor] = None,
-            with_logp: bool = True):
-    """x: [B, H, W, C] preprocessed (and dequantized) images.
+            with_logp: bool = True, model=None):
+    """x: [B, H, W, C] preprocessed (and dequantized) images. `model`: the
+    model axis (parallel/tensor_parallel.ModelAxis) when `params` holds a
+    rank's slabs of the coupling CNNs; None on one rank.
 
     Returns (latent parts [z_1..z_{L-1}, y_final], ldj [B], logp [B] or None)."""
     b = x.shape[0]
@@ -117,9 +119,9 @@ def forward(params: Params, cfg: GlowConfig, x: torch.Tensor,
 
     def step(sp, y, ldj):
         if cfg.remat and torch.is_grad_enabled():
-            return checkpoint(bj.step_forward, sp, y, ldj, cfg.use_kernels, dtype,
+            return checkpoint(bj.step_forward, sp, y, ldj, cfg.use_kernels, dtype, model,
                               use_reentrant=False)
-        return bj.step_forward(sp, y, ldj, cfg.use_kernels, dtype)
+        return bj.step_forward(sp, y, ldj, cfg.use_kernels, dtype, model)
 
     latents = []
     y = x
@@ -138,7 +140,7 @@ def forward(params: Params, cfg: GlowConfig, x: torch.Tensor,
 
 
 @torch.no_grad()
-def ddinit(params: Params, cfg: GlowConfig, x: torch.Tensor) -> Params:
+def ddinit(params: Params, cfg: GlowConfig, x: torch.Tensor, model=None) -> Params:
     """One-batch data-dependent initialization of every actnorm in the flow
     (the steps' and the coupling CNNs'), level by level on the batch as the
     flow transforms it. Returns a new tree; `params` is not changed, and
@@ -148,7 +150,7 @@ def ddinit(params: Params, cfg: GlowConfig, x: torch.Tensor) -> Params:
     def init_steps(steps, y):
         new_steps = []
         for sp in steps:
-            new_sp, y = bj.step_ddinit(sp, y)
+            new_sp, y = bj.step_ddinit(sp, y, model)
             new_steps.append(new_sp)
         return new_steps, y
 
@@ -164,15 +166,16 @@ def ddinit(params: Params, cfg: GlowConfig, x: torch.Tensor) -> Params:
 
 def inverse(params: Params, cfg: GlowConfig, latents: Sequence[torch.Tensor],
             generator: Optional[torch.Generator] = None, temperature: float = 1.0,
-            noise: Optional[Sequence[Optional[torch.Tensor]]] = None) -> torch.Tensor:
-    """Exact inverse. `latents` may hold only the final part: a missing
+            noise: Optional[Sequence[Optional[torch.Tensor]]] = None,
+            model=None) -> torch.Tensor:
+    """Exact inverse (`model` as in `forward`). `latents` may hold only the final part: a missing
     per-level part is sampled from its split prior at `temperature`, from
     `noise[i]` ~ N(0, 1) when given (aligned with the latent parts), else
     from `generator`."""
     dtype = cfg.compute_dtype
     y = latents[-1]
     for sp in reversed(params["final_steps"]):
-        y = bj.step_inverse(sp, y, cfg.use_kernels, dtype)
+        y = bj.step_inverse(sp, y, cfg.use_kernels, dtype, model)
     y = bj.squeeze_inverse(y)
 
     for i, block in enumerate(reversed(params["blocks"])):
@@ -184,6 +187,6 @@ def inverse(params: Params, cfg: GlowConfig, latents: Sequence[torch.Tensor],
                              "missing latent parts")
         y = bj.split_inverse(block["split"], y, z, generator, temperature, eps)
         for sp in reversed(block["steps"]):
-            y = bj.step_inverse(sp, y, cfg.use_kernels, dtype)
+            y = bj.step_inverse(sp, y, cfg.use_kernels, dtype, model)
         y = bj.squeeze_inverse(y)
     return y

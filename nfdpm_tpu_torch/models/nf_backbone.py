@@ -6,7 +6,10 @@ without the split priors' log-densities, `invert` the exact inverse,
 (`frozen=True`, the default) runs `transform` under torch.no_grad(), the
 JAX package's stop_gradient on its parameters: no graph is kept and no
 gradient of the flow is formed. `load_pretrained_flow` rebuilds the flow of
-one of the port's own stage-1 run directories.
+one of the port's own stage-1 run directories. `model` is the model axis
+(parallel/tensor_parallel.ModelAxis) when the flow's parameters are a
+rank's slabs of the coupling CNNs (the trainers set it from their mesh),
+None on one rank.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ class NFBackbone:
     cfg: glow_m.GlowConfig
     img_size: int
     frozen: bool = True
+    model: Optional[Any] = dataclasses.field(default=None, compare=False)
 
     def maybe_freeze(self, flow_params):
         """The parameters cut from the graph when the flow is frozen."""
@@ -35,13 +39,14 @@ class NFBackbone:
         """x [B, H, W, C] -> (latent parts, ldj [B])."""
         with torch.no_grad() if self.frozen else contextlib.nullcontext():
             latents, ldj, _ = glow_m.forward(flow_params, self.cfg, x, ldj=ldj,
-                                             with_logp=False)
+                                             with_logp=False, model=self.model)
         return latents, ldj
 
     def invert(self, flow_params, latents: Sequence[torch.Tensor],
                generator: Optional[torch.Generator] = None, temperature: float = 1.0,
                noise=None) -> torch.Tensor:
-        return glow_m.inverse(flow_params, self.cfg, latents, generator, temperature, noise)
+        return glow_m.inverse(flow_params, self.cfg, latents, generator, temperature, noise,
+                              self.model)
 
     def sample(self, flow_params, latents: Sequence[torch.Tensor],
                generator: Optional[torch.Generator] = None, temperature: float = 1.0,

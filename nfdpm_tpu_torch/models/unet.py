@@ -31,6 +31,22 @@ nn.Conv(dtype=bf16), which casts the bias too and adds it in bf16 before
 the upcast. The final 1x1 conv, the norms, the time MLP and FiLM, both
 attentions (the kernel's operands are fp32) and the residual adds stay
 fp32. The parameters are fp32 whatever the dtype.
+
+Tensor parallelism (`shard_unet_`): under a model axis each rank holds the
+slabs of the JAX package's UNet rules (parallel/sharding_rules.py
+_unet_spec_for) and the blocks call the model axis's collectives
+(parallel/tensor_parallel.py). Every ResnetBlock's Block_0 is
+column-parallel: its WSConv kernel, bias and GroupNorm on the output
+channels (the kernel's standardization is per output channel, so local;
+GroupNorm's groups must split whole over the ranks), the FiLM scale and
+shift cut to the rank's columns. Block_1 is row-parallel: its kernel on
+the input channels, whose standardization statistics are summed over the
+model group, then the partial output all-reduced and the bias added once.
+The attention blocks the rules name (LinearAttention_0's and the mid
+Attention_0's qkv and out matrices) hold contiguous slabs that are not
+head groups, so they gather their weights and run whole on every rank:
+the fused kernel, its backward and its launch counts as on one device.
+Everything else is replicated.
 """
 
 from __future__ import annotations
@@ -43,6 +59,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.bijectors import squeeze_forward
+from ..parallel import tensor_parallel as tp
 from ..ops.kernels.fused_linear_attention import (fused_linear_attention,
                                                   fused_linear_attention_plain)
 
@@ -92,10 +109,15 @@ class WeightStandardizedConv(Conv):
     """Conv whose kernel is standardized per output channel over
     (kh, kw, in), biased variance, eps 1e-5. Another `dtype` runs the conv
     alone in it: the standardized kernel and x cast, the output upcast,
-    then the fp32 bias added."""
+    then the fp32 bias added. `row_axis` (a model axis) makes it
+    row-parallel: the kernel is the rank's slab of the input channels."""
+
+    row_axis = None
 
     def forward(self, x):
         w = self.weight
+        if self.row_axis is not None:
+            return self._row_parallel(x, self.row_axis)
         mean = w.mean(dim=(1, 2, 3), keepdim=True)
         var = ((w - mean) ** 2).mean(dim=(1, 2, 3), keepdim=True)
         w = (w - mean) * torch.rsqrt(var + EPS)
@@ -103,6 +125,18 @@ class WeightStandardizedConv(Conv):
             return _conv_nhwc(x, w, self.bias, self.padding)
         dt = self.dtype
         return _conv_nhwc(x.to(dt), w.to(dt), None, self.padding).float() + self.bias
+
+    def _row_parallel(self, x, axis):
+        """The statistics of each output channel summed over the model group's
+        slabs of its inputs, the partial conv all-reduced, the bias added."""
+        w = self.weight
+        count = w[0].numel() * axis.n
+        mean = tp.sum_over_model(axis, w.sum(dim=(1, 2, 3), keepdim=True)) / count
+        var = tp.sum_over_model(axis, ((w - mean) ** 2).sum(dim=(1, 2, 3), keepdim=True)) / count
+        w = (w - mean) * torch.rsqrt(var + EPS)
+        dt = self.dtype
+        y = _conv_nhwc(x.to(dt), w.to(dt), None, self.padding).float()
+        return tp.reduce_from_model(axis, y) + self.bias
 
 
 class ChannelLayerNorm(nn.Module):
@@ -148,7 +182,11 @@ class RandomOrLearnedSinusoidalPosEmb(nn.Module):
 
 
 class Block(nn.Module):
-    """WSConv 3x3 -> GroupNorm -> (FiLM) -> SiLU."""
+    """WSConv 3x3 -> GroupNorm -> (FiLM) -> SiLU. `column_axis` (a model
+    axis) makes it column-parallel: the rank's slab of the output channels,
+    its input replicated."""
+
+    column_axis = None
 
     def __init__(self, dim_in: int, dim_out: int, groups: int = 8,
                  dtype: torch.dtype = torch.float32):
@@ -157,7 +195,7 @@ class Block(nn.Module):
         self.norm = nn.GroupNorm(groups, dim_out, eps=EPS)
 
     def forward(self, x, scale_shift=None):
-        x = self.conv(x)
+        x = self.conv(tp.copy_to_model(self.column_axis, x))
         x = self.norm(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
         if scale_shift is not None:
             scale, shift = scale_shift
@@ -180,6 +218,8 @@ class ResnetBlock(nn.Module):
     def forward(self, x, time_emb):
         h_t = self.time_dense(F.silu(time_emb))[:, None, None, :]
         scale, shift = h_t.chunk(2, dim=-1)
+        axis = self.block0.column_axis
+        scale, shift = tp.scatter_to_model(axis, scale, -1), tp.scatter_to_model(axis, shift, -1)
         h = self.block0(x, (scale, shift))
         h = self.block1(h)
         return h + (x if self.res_conv is None else self.res_conv(x))
@@ -188,7 +228,10 @@ class ResnetBlock(nn.Module):
 class LinearAttention(nn.Module):
     """Softmax-kernel linear attention, post-normed: q softmax over each
     head's dims, k softmax over tokens, O(N d^2); one fused_linear_attention
-    call."""
+    call. `axis` (a model axis): the rank holds slabs of w_qkv and w_out and
+    gathers them whole."""
+
+    axis = None
 
     def __init__(self, dim: int, heads: int = 4, dim_head: int = 32):
         super().__init__()
@@ -201,12 +244,16 @@ class LinearAttention(nn.Module):
 
     def forward(self, x, use_kernels: bool = True):
         fn = fused_linear_attention if use_kernels else fused_linear_attention_plain
-        return fn(x.contiguous(), self.w_qkv, self.w_out, self.b_out, self.g,
+        return fn(x.contiguous(), tp.gather_from_model(self.axis, self.w_qkv, 1),
+                  tp.gather_from_model(self.axis, self.w_out, 0), self.b_out, self.g,
                   self.heads, self.dim_head)
 
 
 class Attention(nn.Module):
-    """Full softmax attention over the tokens, per head (mid block)."""
+    """Full softmax attention over the tokens, per head (mid block). `axis`
+    as LinearAttention's."""
+
+    axis = None
 
     def __init__(self, dim: int, heads: int = 4, dim_head: int = 32):
         super().__init__()
@@ -219,13 +266,15 @@ class Attention(nn.Module):
     def forward(self, x, use_kernels: bool = True):  # no kernel: the flag is unused
         b, h, w, c = x.shape
         n, hidden = h * w, self.heads * self.dim_head
-        q, k, v = torch.matmul(x.reshape(b, n, c), self.w_qkv).split(hidden, dim=-1)
+        w_qkv = tp.gather_from_model(self.axis, self.w_qkv, 1)
+        w_out = tp.gather_from_model(self.axis, self.w_out, 0)
+        q, k, v = torch.matmul(x.reshape(b, n, c), w_qkv).split(hidden, dim=-1)
         q, k, v = (u.reshape(b, n, self.heads, self.dim_head).transpose(1, 2)
                    for u in (q, k, v))
         sim = torch.matmul(q * (self.dim_head ** -0.5), k.transpose(-1, -2))
         out = torch.matmul(torch.softmax(sim, dim=-1), v)
         out = out.transpose(1, 2).reshape(b, n, hidden)
-        return (torch.matmul(out, self.w_out) + self.b_out).reshape(b, h, w, c)
+        return (torch.matmul(out, w_out) + self.b_out).reshape(b, h, w, c)
 
 
 class PreNormResidual(nn.Module):
@@ -381,6 +430,41 @@ def init_unet_(unet: Unet, seed: int) -> Unet:
         else:  # the Fourier frequencies
             std = 1.0
         p.copy_(torch.randn(p.shape, generator=gen) * std)
+    return unet
+
+
+@torch.no_grad()
+def shard_unet_(unet: Unet, axis) -> Unet:
+    """Narrow a whole UNet, in place, to this rank's slabs on the model
+    `axis` (parallel/tensor_parallel.ModelAxis; nothing at one rank) and
+    set its blocks to call the axis's collectives. A GroupNorm whose groups
+    do not split whole over the ranks raises ValueError (its statistics
+    would cross ranks); so does a width that does not divide."""
+    from ..parallel.sharding_rules import unet_model_placements
+
+    if not tp.active(axis):
+        return unet
+    for m in unet.modules():
+        if isinstance(m, ResnetBlock) and m.block0.norm.num_groups % axis.n:
+            raise ValueError(f"GroupNorm of {m.block0.norm.num_groups} groups over "
+                             f"{m.block0.norm.num_channels} channels does not split into "
+                             f"whole groups over the model axis of {axis.n}: "
+                             "resnet_block_groups must be a multiple of n_model")
+    placements = unet_model_placements(unet, axis.n)
+    modules = dict(unet.named_modules())
+    for name, p in list(unet.named_parameters()):
+        if name in placements:
+            owner, leaf = name.rsplit(".", 1)
+            slab = tp._copy_like(placements[name].slab(p, axis.index))
+            setattr(modules[owner], leaf, nn.Parameter(slab, requires_grad=p.requires_grad))
+    for name, m in modules.items():
+        if isinstance(m, ResnetBlock):
+            m.block0.column_axis = axis
+            m.block0.norm.num_groups //= axis.n
+            m.block0.norm.num_channels //= axis.n
+            m.block1.conv.row_axis = axis
+        elif isinstance(m, (LinearAttention, Attention)) and f"{name}.w_qkv" in placements:
+            m.axis = axis
     return unet
 
 

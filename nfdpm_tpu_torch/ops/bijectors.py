@@ -24,10 +24,12 @@ the halves and the logdet add (coupling_step_tail).
 `step_forward_megakernel` runs a whole forward step in one kernel, as the
 JAX package's experiment does; no config selects it.
 
-The coupling functions and both step routes take the coupling CNN's
-`dtype` (GlowConfig.coupling_dtype: bf16 runs its two inner convolutions
-in bf16, ops/coupling.py); the data-dependent init and the megakernel are
-fp32 whatever it is, as in the JAX package.
+The coupling functions and both step routes take the model axis
+(`model`, tensor parallelism of the coupling CNN, ops/coupling.py; None on
+one rank) and the coupling CNN's `dtype` (GlowConfig.coupling_dtype: bf16
+runs its two inner convolutions in bf16, ops/coupling.py); the
+data-dependent init and the megakernel are fp32 whatever it is, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -162,11 +164,12 @@ def _halves(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def coupling_forward(params: Params, x: torch.Tensor, ldj: torch.Tensor,
-                     dtype: torch.dtype = torch.float32) -> Tuple[torch.Tensor, torch.Tensor]:
+                     dtype: torch.dtype = torch.float32,
+                     model=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """scale = sigmoid(log_scale + 2); y_b = (x_b + bias) * scale;
     ldj += sum log(scale + 1e-6)."""
     x_a, x_b = _halves(x)
-    log_scale, bias = _halves(coupling_net_apply(params["net"], x_a, dtype))
+    log_scale, bias = _halves(coupling_net_apply(params["net"], x_a, dtype, model))
     scale = torch.sigmoid(log_scale + 2.0)
     y_b = (x_b + bias) * scale
     ldj = ldj + torch.sum(torch.log(scale + _EPS_COUPLING).reshape(x.shape[0], -1), dim=1)
@@ -174,21 +177,22 @@ def coupling_forward(params: Params, x: torch.Tensor, ldj: torch.Tensor,
 
 
 def coupling_inverse(params: Params, y: torch.Tensor,
-                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                     dtype: torch.dtype = torch.float32, model=None) -> torch.Tensor:
     """x_b = y_b / (scale + 1e-6) - bias."""
     y_a, y_b = _halves(y)
-    log_scale, bias = _halves(coupling_net_apply(params["net"], y_a, dtype))
+    log_scale, bias = _halves(coupling_net_apply(params["net"], y_a, dtype, model))
     scale = torch.sigmoid(log_scale + 2.0)
     return torch.cat([y_a, y_b / (scale + _EPS_COUPLING) - bias], dim=-1)
 
 
 @torch.no_grad()
-def coupling_ddinit(params: Params, x: torch.Tensor) -> Tuple[Params, torch.Tensor]:
+def coupling_ddinit(params: Params, x: torch.Tensor,
+                    model=None) -> Tuple[Params, torch.Tensor]:
     """Data-dependent init of the actnorms inside the coupling CNN, then a
     normal forward (the coupling output itself needs no init)."""
-    new = {"net": coupling_net_ddinit(params["net"], _halves(x)[0])[0]}
+    new = {"net": coupling_net_ddinit(params["net"], _halves(x)[0], model)[0]}
     zeros = torch.zeros((x.shape[0],), dtype=torch.float32, device=x.device)
-    return new, coupling_forward(new, x, zeros)[0]
+    return new, coupling_forward(new, x, zeros, model=model)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -319,16 +323,19 @@ def fused_invconv_actnorm_inverse(an: Params, ic: Params, y: torch.Tensor) -> to
 
 
 def step_forward(params: Params, x: torch.Tensor, ldj: torch.Tensor,
-                 use_kernels: bool = False,
-                 dtype: torch.dtype = torch.float32) -> Tuple[torch.Tensor, torch.Tensor]:
+                 use_kernels: bool = False, dtype: torch.dtype = torch.float32,
+                 model=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One Glow step; `model` (a parallel/tensor_parallel.ModelAxis) when
+    the step holds a rank's slabs of its coupling CNN (ops/coupling.py)."""
     if use_kernels:
-        return step_forward_kernels(params, x, ldj, dtype)
+        return step_forward_kernels(params, x, ldj, dtype, model)
     y, ldj = fused_actnorm_invconv_forward(params["actnorm"], params["invconv"], x, ldj)
-    return coupling_forward(params["coupling"], y, ldj, dtype)
+    return coupling_forward(params["coupling"], y, ldj, dtype, model)
 
 
 def step_forward_kernels(params: Params, x: torch.Tensor, ldj: torch.Tensor,
-                         dtype: torch.dtype = torch.float32) -> Tuple[torch.Tensor, torch.Tensor]:
+                         dtype: torch.dtype = torch.float32,
+                         model=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Glow step through the kernels: the folded channel mix, the coupling
     CNN up to its zeroconv's convolution (cuDNN), then the step tail in one
     launch: the zeroconv's bias and scale, the coupling tail on the second
@@ -340,7 +347,7 @@ def step_forward_kernels(params: Params, x: torch.Tensor, ldj: torch.Tensor,
     y = channel_mix(x.contiguous(), w_fold, b_fold)
     ldj = ldj + (h * w) * ld
     net = params["coupling"]["net"]
-    r = coupling_net_conv(net, _halves(y)[0], dtype)
+    r = coupling_net_conv(net, _halves(y)[0], dtype, model)
     return coupling_step_tail(y, r, net["zconv"]["b"], net["zconv"]["logs"], ldj)
 
 
@@ -359,26 +366,26 @@ def step_forward_megakernel(params: Params, x: torch.Tensor,
 
 
 @torch.no_grad()
-def step_ddinit(params: Params, x: torch.Tensor) -> Tuple[Params, torch.Tensor]:
+def step_ddinit(params: Params, x: torch.Tensor, model=None) -> Tuple[Params, torch.Tensor]:
     """Data-dependent init through one step: init the step's actnorm on its
     input, run the 1x1 conv, then init the coupling CNN's actnorms. Returns
     (new step, output); `params` is not changed."""
     an, y = actnorm_ddinit(x)
     y = torch.matmul(y, invconv_weight(params["invconv"]).T)
-    cp, y = coupling_ddinit(params["coupling"], y)
+    cp, y = coupling_ddinit(params["coupling"], y, model)
     return {"actnorm": an, "invconv": params["invconv"], "coupling": cp}, y
 
 
 def step_inverse(params: Params, y: torch.Tensor, use_kernels: bool = False,
-                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                 dtype: torch.dtype = torch.float32, model=None) -> torch.Tensor:
     if use_kernels:
-        return step_inverse_kernels(params, y, dtype)
-    x = coupling_inverse(params["coupling"], y, dtype)
+        return step_inverse_kernels(params, y, dtype, model)
+    x = coupling_inverse(params["coupling"], y, dtype, model)
     return fused_invconv_actnorm_inverse(params["actnorm"], params["invconv"], x)
 
 
 def step_inverse_kernels(params: Params, y: torch.Tensor,
-                         dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                         dtype: torch.dtype = torch.float32, model=None) -> torch.Tensor:
     """Inverse step through the kernels: the coupling CNN up to its
     zeroconv's convolution (cuDNN), then the inverse step tail in one
     launch (the zeroconv's bias and scale, the inverse tail on the second
@@ -392,6 +399,6 @@ def step_inverse_kernels(params: Params, y: torch.Tensor,
     w_inv, b_inv = _inverse_fold(an, params["invconv"]).contiguous(), -an["bias"]
     y = y.contiguous()
     net = params["coupling"]["net"]
-    r = coupling_net_conv(net, _halves(y)[0], dtype)
+    r = coupling_net_conv(net, _halves(y)[0], dtype, model)
     x = coupling_step_tail_inverse(y, r, net["zconv"]["b"], net["zconv"]["logs"])
     return channel_mix(x, w_inv, b_inv)

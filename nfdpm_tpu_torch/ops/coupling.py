@@ -9,6 +9,17 @@ where the JAX package does: their operands cast, their outputs upcast, the
 actnorm epilogue, the ReLUs and the zeroconv in fp32, so the zeroconv's
 output, which the step tails take, stays fp32. The data-dependent init is
 fp32 whatever the dtype, as in the JAX package.
+
+Tensor parallelism (`model`, a parallel/tensor_parallel.ModelAxis; the
+JAX package's sharding_rules._spec_for): the rank holds conv1's kernel and
+an1's scale and bias on its slab of the hidden width (column-parallel, its
+replicated input through "f"), conv2's kernel on its slab of the input
+width (row-parallel, its partial output summed by "g" before an2, which is
+replicated), and the zeroconv's kernel on its slab of the input width: the
+rank takes its slab of the replicated hidden activation, convolves it and
+"g" sums the partial outputs. Every model rank then holds the same whole
+zeroconv output r, which the Glow step's tails take as on one device. bf16
+casts each slab as it casts the whole.
 """
 
 from __future__ import annotations
@@ -18,7 +29,8 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
-from .zeroconv import conv2d_nhwc, init_zeroconv, zeroconv_apply
+from ..parallel import tensor_parallel as tp
+from .zeroconv import LOGSCALE_FACTOR, conv2d_nhwc, init_zeroconv
 
 Params = Dict[str, Any]
 
@@ -50,27 +62,47 @@ def _conv_actnorm_relu(x: torch.Tensor, conv: Params, an: Params, padding: int,
     return torch.relu(torch.exp(an["scale"]) * (h + an["bias"]))
 
 
-def _trunk(params: Params, x: torch.Tensor,
-           dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Conv3x3+ActNorm -> ReLU -> Conv1x1+ActNorm -> ReLU: the zeroconv's input."""
-    h = _conv_actnorm_relu(x, params["conv1"], params["an1"], 1, dtype)
-    return _conv_actnorm_relu(h, params["conv2"], params["an2"], 0, dtype)
+def _actnorm_relu(h: torch.Tensor, an: Params) -> torch.Tensor:
+    return torch.relu(torch.exp(an["scale"]) * (h + an["bias"]))
+
+
+def _trunk(params: Params, x: torch.Tensor, dtype: torch.dtype = torch.float32,
+           model=None) -> torch.Tensor:
+    """Conv3x3+ActNorm -> ReLU -> Conv1x1+ActNorm -> ReLU: the zeroconv's
+    input (whole on every model rank)."""
+    h = _conv_actnorm_relu(tp.copy_to_model(model, x), params["conv1"], params["an1"], 1, dtype)
+    h = tp.reduce_from_model(model, conv2d_nhwc(h, params["conv2"]["w"], padding=0, dtype=dtype))
+    return _actnorm_relu(h, params["an2"])
+
+
+def _zeroconv_conv(zconv: Params, h: torch.Tensor, model=None) -> torch.Tensor:
+    """The zeroconv's convolution of the whole hidden activation `h`: under
+    a model axis the rank's slab of its channels against the kernel's slab,
+    the partial outputs summed."""
+    w = zconv["w"]
+    r = conv2d_nhwc(tp.scatter_to_model(model, h, -1), w, padding=(w.shape[-1] - 1) // 2)
+    return tp.reduce_from_model(model, r)
+
+
+def _zeroconv_epilogue(zconv: Params, r: torch.Tensor) -> torch.Tensor:
+    return (r + zconv["b"]) * torch.exp(zconv["logs"] * LOGSCALE_FACTOR)
 
 
 def coupling_net_apply(params: Params, x: torch.Tensor,
-                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    return zeroconv_apply(params["zconv"], _trunk(params, x, dtype))
+                       dtype: torch.dtype = torch.float32, model=None) -> torch.Tensor:
+    r = _zeroconv_conv(params["zconv"], _trunk(params, x, dtype, model), model)
+    return _zeroconv_epilogue(params["zconv"], r)
 
 
 def coupling_net_conv(params: Params, x: torch.Tensor,
-                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                      dtype: torch.dtype = torch.float32, model=None) -> torch.Tensor:
     """The coupling CNN up to the zeroconv's convolution, before its bias and
     scale: coupling_net_apply(params, x) == (r + b) * exp(3 logs) with
     r = coupling_net_conv(params, x) and the zeroconv's b and logs. The
     Glow step's kernel route hands r to the step tail, which applies that
-    epilogue itself (ops/kernels/coupling_tail.py: coupling_step_tail)."""
-    w = params["zconv"]["w"]
-    return conv2d_nhwc(_trunk(params, x, dtype), w, padding=(w.shape[-1] - 1) // 2)
+    epilogue itself (ops/kernels/coupling_tail.py: coupling_step_tail).
+    Under a `model` axis r is the whole sum, the same on every rank."""
+    return _zeroconv_conv(params["zconv"], _trunk(params, x, dtype, model), model)
 
 
 def actnorm_stats_init(h: torch.Tensor, eps: float = 1e-6) -> Params:
@@ -83,16 +115,20 @@ def actnorm_stats_init(h: torch.Tensor, eps: float = 1e-6) -> Params:
 
 
 @torch.no_grad()
-def coupling_net_ddinit(params: Params, x: torch.Tensor) -> Tuple[Params, torch.Tensor]:
+def coupling_net_ddinit(params: Params, x: torch.Tensor,
+                        model=None) -> Tuple[Params, torch.Tensor]:
     """Initialize the two inner actnorms from the batch's statistics after
     each conv, then apply. Returns (new params, output); `params` is not
-    changed, and the new tree shares every other leaf with it."""
+    changed, and the new tree shares every other leaf with it. Under a
+    `model` axis an1's statistics are per channel of the rank's slab, and
+    an2's are taken after the partial outputs are summed: the same on every
+    rank."""
     h1 = conv2d_nhwc(x, params["conv1"]["w"], padding=1)
     an1 = actnorm_stats_init(h1)
-    y1 = torch.relu(torch.exp(an1["scale"]) * (h1 + an1["bias"]))
-    h2 = conv2d_nhwc(y1, params["conv2"]["w"], padding=0)
+    y1 = _actnorm_relu(h1, an1)
+    h2 = tp.reduce_from_model(model, conv2d_nhwc(y1, params["conv2"]["w"], padding=0))
     an2 = actnorm_stats_init(h2)
-    y2 = torch.relu(torch.exp(an2["scale"]) * (h2 + an2["bias"]))
+    y2 = _actnorm_relu(h2, an2)
     new = dict(params)
     new["an1"], new["an2"] = an1, an2
-    return new, zeroconv_apply(params["zconv"], y2)
+    return new, _zeroconv_epilogue(params["zconv"], _zeroconv_conv(params["zconv"], y2, model))

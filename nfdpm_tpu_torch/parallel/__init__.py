@@ -1,23 +1,30 @@
-"""Data parallelism across processes and devices.
+"""Data and tensor parallelism across processes and devices.
 
-Counterpart of nfdpm_tpu/parallel/ along its "data" axis. The JAX package
-runs one program over a device mesh and lets GSPMD place the collectives;
-the port runs one process per rank (launched by torchrun) and places them
-itself, over torch.distributed: NCCL between GPUs, gloo on the CPU or when
-asked for by name.
+Counterpart of nfdpm_tpu/parallel/ along its "data" axis and the tensor
+parallelism of its "model" axis. The JAX package runs one program over a
+device mesh and lets GSPMD place the collectives; the port runs one
+process per rank (launched by torchrun) and places them itself, over
+torch.distributed: NCCL between GPUs, gloo on the CPU or when asked for by
+name.
 
-distributed   : process-group start from torchrun's (or the JAX package's)
-                environment; the rank's rows of a global batch.
-mesh          : the data-axis mesh (world size, rank, process group, local
-                devices), row sharding, replication, the coalesced gradient
-                mean and the row all-gather.
-sharding_rules: the JAX package's PartitionSpec rules (tensor-parallel
-                "model" entries and ZeRO "data" entries) as plain tuples, and
-                the Adam moments' partition over the data axis (ZeRO).
-part_parallel : stage-2 training with each diffusion part on its own group
-                of ranks.
+distributed    : process-group start from torchrun's (or the JAX package's)
+                 environment; the rank's rows of a global batch.
+mesh           : the ("data", "model") mesh (world size, rank, each axis's
+                 index and process group, local devices), row sharding,
+                 replication, the coalesced gradient mean and the row
+                 all-gather over the data axis.
+tensor_parallel: the model axis's collectives as autograd functions
+                 (Megatron's "f" and "g", the slab scatter and gather), and
+                 whole states cut to a rank's slabs and gathered back.
+sharding_rules : the JAX package's PartitionSpec rules (tensor-parallel
+                 "model" entries and ZeRO "data" entries) as plain tuples,
+                 their placements on the port's leaves.
+zero           : the Adam moments' partition over the data axis (ZeRO).
+part_parallel  : stage-2 training with each diffusion part on its own group
+                 of ranks (tensor-parallel inside it under a model axis).
 
-The "model" axis (tensor parallelism of the coupling CNN and the UNet,
-pipelining, spatial partitioning) is not here: make_mesh(n_model > 1)
-raises NotImplementedError.
+Parameter partitioning with gather-on-use, the pipeline over K and
+spatial partitioning are not here (ROADMAP §1 item 5): the entry points
+refuse `parallel.spatial`, `parallel.pipeline` and
+`parallel.pipeline_microbatches`.
 """

@@ -1,7 +1,10 @@
 """Part-parallel stage-2 training: each diffusion part on its own ranks.
 
-Counterpart of nfdpm_tpu/parallel/part_parallel.py (its data axis; no
-model axis inside a group). With a FROZEN flow the per-part diffusion
+Counterpart of nfdpm_tpu/parallel/part_parallel.py. A part's group is a
+("data", "model") mesh of its own: with the launch's n_model > 1 the part's
+UNet is tensor-parallel inside its group (models/unet.shard_unet_) and the
+frozen flow is replicated there, as _place_group_state places them in the
+JAX package. With a FROZEN flow the per-part diffusion
 losses are independent (the joint step only sums them), so the parts train
 on disjoint groups of ranks with no communication between the groups:
 
@@ -43,6 +46,7 @@ from ..models.nf_backbone import NFBackbone
 from ..models.unet import init_unet_
 from ..ops import quantize as q
 from . import mesh as mesh_m
+from . import tensor_parallel as tp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,27 +62,44 @@ def part_group_meshes(n_parts: int, mesh: Optional[mesh_m.Mesh] = None,
                       device=None) -> List[PartGroup]:
     """One group per part over disjoint contiguous rank blocks (equal split;
     remainder ranks idle) or, with fewer ranks than parts, round-robin
-    sharing (group g on rank g % world). Every rank calls it (the blocks'
-    process groups are made collectively)."""
+    sharing (group g on rank g % world, no model axis). A block's mesh is
+    (len / n_model, n_model) with the launch mesh's n_model, which must
+    divide it. Every rank calls it (the blocks' process groups are made
+    collectively)."""
     world = 1 if mesh is None else mesh.world
     rank = 0 if mesh is None else mesh.rank
+    n_model = getattr(mesh, "n_model", 1)
     device = mesh.device if mesh is not None else resolve_device(device)
     per = world // n_parts
     if per >= 1:
+        if per % n_model:
+            raise ValueError(f"per-group rank count ({per}) not divisible by "
+                             f"n_model ({n_model})")
         blocks = [tuple(range(g * per, (g + 1) * per)) for g in range(n_parts)]
     else:
         blocks = [(g % world,) for g in range(n_parts)]
+        n_model = 1
     groups = []
     for g, ranks in enumerate(blocks):
         # new_group is collective over the world: every rank makes every block's
         pg = (dist.new_group(list(ranks)) if mesh is not None and mesh.group is not None
               and per >= 1 else None)
-        m = None
-        if rank in ranks:
-            m = mesh_m.Mesh(world=len(ranks), rank=ranks.index(rank), group=pg,
-                            devices=(device,))
+        if n_model > 1:
+            m = mesh_m.mesh_over(ranks, n_model, device=device, group=pg)
+        else:
+            m = None
+            if rank in ranks:
+                m = mesh_m.Mesh(world=len(ranks), rank=ranks.index(rank), group=pg,
+                                devices=(device,))
         groups.append(PartGroup(part=g, ranks=ranks, mesh=m))
     return groups
+
+
+def _unet_placements(group_mesh, unet, prefix: str = "diffusion/parts/0"):
+    """The model axis's placements of a group's UNet ({} without one)."""
+    from .sharding_rules import unet_model_placements
+
+    return unet_model_placements(unet, 1 if group_mesh is None else group_mesh.n_model, prefix)
 
 
 def make_part_optimizer(tcfg):
@@ -153,7 +174,8 @@ def make_part_train_step(backbone: NFBackbone, dp: DiffusionPrior, part_idx: int
         loss = loss.detach()
         trained = {"diffusion": params["diffusion"]}
         opt_state = tx.apply(trained, map_tree(trained, lambda p: p.grad), state["opt_state"],
-                             mesh, extras=[loss])
+                             mesh, extras=[loss],
+                             model_placements=_unet_placements(mesh, unet))
         out = {"params": params, "opt_state": opt_state, "step": state["step"] + 1}
         if "ema" in state:
             if in_step_ema:
@@ -192,7 +214,7 @@ class PartParallelPlan:
     states: List[Optional[Dict[str, Any]]]
     steps: List[Any]
     tx: Any
-    mesh: Optional[mesh_m.Mesh] = None  # the launch's, over every rank
+    mesh: Optional[mesh_m.Mesh] = None  # the launch's, every rank on its data axis
     device: Optional[torch.device] = None
     ema_fn: Optional[Any] = None
     n_steps: Optional[List[int]] = None
@@ -202,6 +224,7 @@ class PartParallelPlan:
               mesh: Optional[mesh_m.Mesh] = None, device=None) -> "PartParallelPlan":
         device = mesh.device if mesh is not None else resolve_device(device)
         groups = part_group_meshes(dp.num_parts, mesh, device)
+        mesh = mesh_m.flat(mesh)
         tx = make_part_optimizer(tcfg)
         ema = tcfg.ema_decay is not None
         states, steps = [], []
@@ -212,6 +235,8 @@ class PartParallelPlan:
                 continue
             state = init_part_state(seed, dp, g, flow_params, tx, ema=ema, device=device)
             mesh_m.replicate(group.mesh, state["params"]["diffusion"])
+            state = tp.shard_state(group.mesh.model, state, _unet_placements(
+                group.mesh, state["params"]["diffusion"]["parts"][0]))
             states.append(state)
             steps.append(make_part_train_step(backbone, dp, g, tcfg, tx, device, group.mesh))
         ema_fn = (make_part_ema_update(tcfg)
@@ -259,6 +284,17 @@ class PartParallelPlan:
     def _template(self, g: int) -> Dict[str, torch.Tensor]:
         return {n: p.detach() for n, p in self.dp.build_unet(g).named_parameters()}
 
+    def _whole(self, g: int, tree, prefix: str):
+        """Group g's `tree` (rooted at `prefix`) with its model slabs made
+        whole (a collective over the group's model group); a module comes
+        back as the dict of its parameters."""
+        mesh = self.groups[g].mesh
+        placements = _unet_placements(mesh, self._held_unet(g), f"{prefix}/parts/0")
+        return tp.gather_leaves(mesh.model, tree, placements, prefix)
+
+    def _held_unet(self, g: int):
+        return self.states[g]["params"]["diffusion"]["parts"][0]
+
     def _unet(self, g: int, named: Dict[str, torch.Tensor]):
         unet = self.dp.build_unet(g)
         with torch.no_grad():
@@ -275,7 +311,8 @@ class PartParallelPlan:
             if self.holds(g):
                 s = self.states[g]
                 src = s["ema"] if (prefer_ema and "ema" in s) else s["params"]
-                tree = dict(src["diffusion"]["parts"][0].named_parameters())
+                tree = dict(named_leaves(self._whole(g, src["diffusion"], "diffusion")
+                                         ["parts"][0]))
             parts.append(self._unet(g, self._part_from_leader(g, tree, self._template(g))))
         return {"flow": self.flow, "diffusion": {"parts": parts}}
 
@@ -286,9 +323,11 @@ class PartParallelPlan:
         for g in range(len(self.groups)):
             s = self.states[g]
             local = None if s is None else dict(named_leaves(
-                {"params": {"diffusion": s["params"]["diffusion"]},
-                 "opt_state": {"mu": s["opt_state"]["mu"], "nu": s["opt_state"]["nu"]},
-                 **({"ema": s["ema"]} if "ema" in s else {})}))
+                {"params": {"diffusion": self._whole(g, s["params"]["diffusion"], "diffusion")},
+                 "opt_state": {key: {"diffusion": self._whole(
+                     g, s["opt_state"][key]["diffusion"], "diffusion")} for key in ("mu", "nu")},
+                 **({"ema": {"diffusion": self._whole(g, s["ema"]["diffusion"], "diffusion")}}
+                    if "ema" in s else {})}))
             like = self._state_template(g)
             named = self._part_from_leader(g, local, like)
             step = torch.tensor([0 if s is None else s["step"],
@@ -317,16 +356,23 @@ class PartParallelPlan:
             return
         s = self.states[g]
         tensors = saved["tensors"]
+        mesh = self.groups[g].mesh
+        placements = _unet_placements(mesh, self._held_unet(g), "")
+
+        def mine(whole, name):  # this rank's model slab of a saved whole leaf
+            pl = placements.get(name)
+            return whole if pl is None else pl.slab(whole, mesh.model_rank)
+
         with torch.no_grad():
             for prefix, tree in (("params/diffusion", s["params"]["diffusion"]),
                                  ("ema/diffusion", s.get("ema", {}).get("diffusion"))):
                 if tree is None:
                     continue
                 for n, p in tree["parts"][0].named_parameters():
-                    p.copy_(tensors[f"{prefix}/parts/0/{n}"])
+                    p.copy_(mine(tensors[f"{prefix}/parts/0/{n}"], n))
             for key in ("mu", "nu"):
                 for path, t in named_leaves(s["opt_state"][key], f"opt_state/{key}"):
-                    t.copy_(tensors[path])
+                    t.copy_(mine(tensors[path], path.rsplit("/parts/0/", 1)[-1]))
         s["step"] = int(saved["step"])
         s["opt_state"]["count"] = int(saved["count"])
         self.n_steps[g] = s["step"]
@@ -355,6 +401,7 @@ def train_part_parallel(*, backbone: NFBackbone, flow_params, dp: DiffusionPrior
         raise ValueError("part-parallel training requires a frozen flow")
     device = mesh.device if mesh is not None else resolve_device(device)
     plan = PartParallelPlan.build(seed, backbone, flow_params, dp, tcfg, mesh, device)
+    mesh = plan.mesh  # the launch, every rank on the data axis
     n_parts = dp.num_parts
     logger.info(f"Part-parallel: {n_parts} groups over ranks "
                 f"{[list(g.ranks) for g in plan.groups]}")

@@ -6,8 +6,7 @@ in place of jax's PartitionSpec, one entry an axis, "model", "data" or None,
 trailing Nones left out as PartitionSpec leaves them.
 
   * `_spec_for` / `_unet_spec_for`: the Megatron-style "model" entries of
-    the coupling CNN and the UNet (computed, not yet used: the model axis is
-    not ported);
+    the coupling CNN and the UNet;
   * `_add_fsdp`: the ZeRO "data" entry on the largest still-unsharded axis
     that divides, for leaves of at least FSDP_MIN_SIZE elements;
   * `glow_param_specs`, `unet_param_specs`, `generic_param_specs` over a
@@ -15,14 +14,25 @@ trailing Nones left out as PartitionSpec leaves them.
     conv kernels (`glow_jax_shapes` gives it for the port's tree), a flax
     UNet tree (`unet_jax_shapes`, through convert.py's name table).
 
-`placements` maps the specs back onto the port's own leaves. A "data"
-entry on an axis of the leaf becomes a `Placement(dim=...)`: rank r keeps
-slab r of that axis of the port's leaf. A "data" entry on the K axis of a
-stacked step leaf, which the port keeps as K separate leaves, becomes
-`Placement(owner=r)`: step k's leaf lies whole with rank k // (K / n). The
-port's parameters stay whole on every rank (its eager forward reads each
-weight whole); what a placement partitions is the leaf's Adam moments
-(`shard_opt_state`, training/optim.py's ZeRO path).
+`placements` map the specs back onto the port's own leaves.
+
+The "model" entries (`glow_model_placements`, `unet_model_placements`):
+`Placement(dim=...)` over n_model, rank m holding slab m of that axis of
+the port's leaf (OIHW kernels, the K steps as separate leaves, the
+attention's [in, out] matrices). Under a model axis the rank's parameters
+ARE these slabs (parallel/tensor_parallel.py, ops/coupling.py,
+models/unet.py).
+
+The "data" entries (ZeRO): a "data" entry on an axis of the leaf becomes a
+`Placement(dim=...)`: data rank r keeps slab r of that axis of what the
+rank holds (the leaf, or its model slab: the spec is computed on the whole
+leaf's shape with its "model" entry, as the JAX spec composes them). A
+"data" entry on the K axis of a stacked step leaf, which the port keeps as
+K separate leaves, becomes `Placement(owner=r)`: step k's leaf lies whole
+with rank k // (K / n). Over the data axis the parameters stay whole on
+every rank (the port's eager forward reads each weight whole); what a data
+placement partitions is the leaf's Adam moments (`shard_opt_state`,
+training/optim.py's ZeRO path).
 """
 
 from __future__ import annotations
@@ -236,6 +246,9 @@ class Placement:
         """Rank `rank`'s part of `t` (a view; empty where it owns none)."""
         if self.dim is None:
             return t if rank == self.owner else t.narrow(0, 0, 0)
+        if t.shape[self.dim] % self.n:
+            raise ValueError(f"axis {self.dim} of a {tuple(t.shape)} leaf does not split "
+                             f"into {self.n} slabs")
         per = t.shape[self.dim] // self.n
         return t.narrow(self.dim, rank * per, per)
 
@@ -253,7 +266,7 @@ def _leaf_at(tree, names):
 def _axis_of(names, leaf: torch.Tensor, jax_axis: int) -> int:
     """The port's axis of a Glow leaf that holds JAX axis `jax_axis` (of the
     unstacked leaf): conv kernels are OIHW in the port, HWIO in JAX."""
-    if names[-1] == "w" and leaf.dim() == 4:
+    if names[-1] == "w" and len(leaf.shape) == 4:
         return _HWIO_TO_OIHW[jax_axis]
     return jax_axis
 
@@ -284,23 +297,41 @@ def _glow_placements(flow, specs, n: int, prefix: str) -> Dict[str, Placement]:
     return out
 
 
+def _whole_shapes(shapes, spec_for, n_model: int):
+    """A shapes tree of a rank's model slabs -> the whole leaves' shapes:
+    the axis each leaf's "model" entry names times n_model."""
+    def whole(names, leaf):
+        spec = spec_for(names)
+        if n_model == 1 or "model" not in spec:
+            return leaf
+        s = list(leaf.shape)
+        s[spec.index("model")] *= n_model
+        return Shape(tuple(s))
+
+    return _map_with_names(shapes, whole)
+
+
 def glow_placements(flow, n_data: int, prefix: str = "flow",
-                    fsdp_min_size: Optional[int] = None) -> Dict[str, Placement]:
+                    fsdp_min_size: Optional[int] = None,
+                    n_model: int = 1) -> Dict[str, Placement]:
     """Placements of the flow's leaves ("<prefix>/..." paths of
     convert.named_leaves) under ZeRO over `n_data` ranks; a leaf that is
     not named stays replicated. `fsdp_min_size` defaults to the module's
-    FSDP_MIN_SIZE at call time (tests lower it to shard small models)."""
+    FSDP_MIN_SIZE at call time (tests lower it to shard small models).
+    With `n_model` > 1, `flow` holds a rank's model slabs."""
     fsdp_min_size = FSDP_MIN_SIZE if fsdp_min_size is None else fsdp_min_size
-    specs = glow_param_specs(glow_jax_shapes(flow), fsdp_data=n_data,
-                             fsdp_min_size=fsdp_min_size)
+    shapes = _whole_shapes(glow_jax_shapes(flow), _spec_for, n_model)
+    specs = glow_param_specs(shapes, fsdp_data=n_data, fsdp_min_size=fsdp_min_size)
     return _glow_placements(flow, specs, n_data, prefix)
 
 
 def unet_placements(unet, n_data: int, prefix: str,
-                    fsdp_min_size: Optional[int] = None) -> Dict[str, Placement]:
-    """Placements of a UNet module's parameters ("<prefix>/<name>")."""
+                    fsdp_min_size: Optional[int] = None,
+                    n_model: int = 1) -> Dict[str, Placement]:
+    """Placements of a UNet module's parameters ("<prefix>/<name>"); with
+    `n_model` > 1 the module holds a rank's model slabs."""
     fsdp_min_size = FSDP_MIN_SIZE if fsdp_min_size is None else fsdp_min_size
-    shapes = unet_jax_shapes(unet)
+    shapes = _whole_shapes(unet_jax_shapes(unet), _unet_spec_for, n_model)
     specs = dict(_flatten_with_names(unet_param_specs(shapes, fsdp_data=n_data,
                                                       fsdp_min_size=fsdp_min_size)))
     out: Dict[str, Placement] = {}
@@ -308,6 +339,59 @@ def unet_placements(unet, n_data: int, prefix: str,
         d = _data_axis(specs[tuple(path.split("/"))])
         if d is not None:
             out[f"{prefix}/{name}"] = Placement(n_data, dim=_UNET_AXES.get(kind, {}).get(d, d))
+    return out
+
+
+def _model_dim(spec: Spec) -> Optional[int]:
+    return spec.index("model") if "model" in spec else None
+
+
+def glow_model_placements(flow, n_model: int, prefix: str = "flow") -> Dict[str, Placement]:
+    """The "model" placements of the flow's leaves ({} at one model rank):
+    each coupling net's conv1 kernel on its output width, an1's scale and
+    bias, conv2's and the net's zeroconv kernel on their input width (the
+    JAX package's _spec_for; the split priors' zeroconvs stay whole)."""
+    if n_model <= 1:
+        return {}
+    out: Dict[str, Placement] = {}
+    for path, leaf in named_leaves(flow, prefix):
+        names = tuple(path.split("/"))
+        spec = _spec_for(names)
+        if "steps" in names or "final_steps" in names:  # the K axis is not the port's
+            spec = Spec(*spec[1:])
+        m = _model_dim(spec)
+        if m is not None:
+            out[path] = Placement(n_model, dim=_axis_of(names, leaf, m))
+    return out
+
+
+def unet_model_placements(unet, n_model: int, prefix: str = "") -> Dict[str, Placement]:
+    """The "model" placements of a UNet module's parameters
+    ("<prefix>/<name>", or "<name>" without a prefix; {} at one model
+    rank): the JAX package's _unet_spec_for over flax's names."""
+    if n_model <= 1:
+        return {}
+    out: Dict[str, Placement] = {}
+    for path, (name, kind) in _unet_layout(unet).items():
+        m = _model_dim(_unet_spec_for(tuple(path.split("/"))))
+        if m is not None:
+            key = f"{prefix}/{name}" if prefix else name
+            out[key] = Placement(n_model, dim=_UNET_AXES.get(kind, {}).get(m, m))
+    return out
+
+
+def model_placements(params: Any, n_model: int) -> Dict[str, Placement]:
+    """The model axis's placements of a parameter tree of either stage
+    ({"flow", "prior"} or {"flow", "diffusion": {"parts": [Unet, ...]}},
+    the port's layout): the flow's by the Glow rules, each UNet's by the
+    UNet rules; {} at one model rank."""
+    if n_model <= 1:
+        return {}
+    out = {}
+    if params.get("flow") is not None:
+        out.update(glow_model_placements(params["flow"], n_model, "flow"))
+    for i, unet in enumerate((params.get("diffusion") or {}).get("parts", ())):
+        out.update(unet_model_placements(unet, n_model, f"diffusion/parts/{i}"))
     return out
 
 
@@ -367,13 +451,29 @@ def moment_bytes(opt_state: Dict[str, Any]) -> int:
                for _, t in named_leaves(opt_state[key]) if isinstance(t, torch.Tensor))
 
 
-def predicted_moment_bytes(params: Any, placements: Dict[str, Placement], rank: int) -> int:
-    """What the placements leave this rank: every leaf's two moments, whole
-    or its slab."""
+def _predicted_bytes(params: Any, placements: Dict[str, Placement], rank: int) -> int:
     total = 0
     for path, t in named_leaves(params):
         pl = placements.get(path)
         n = t.numel() if pl is None else pl.slab(t, rank).numel()
-        total += 2 * n * t.element_size()
+        total += n * t.element_size()
     return total
+
+
+def predicted_moment_bytes(params: Any, placements: Dict[str, Placement], rank: int) -> int:
+    """What the placements leave this rank: every leaf's two moments, whole
+    or its slab (`params`: what the rank holds, its model slabs under a
+    model axis; `placements`, `rank`: the data axis's)."""
+    return 2 * _predicted_bytes(params, placements, rank)
+
+
+def predicted_param_bytes(params: Any, placements: Dict[str, Placement], rank: int) -> int:
+    """The parameter bytes a rank holds under the model `placements` at
+    model index `rank`, from the whole tree `params`."""
+    return _predicted_bytes(params, placements, rank)
+
+
+def param_bytes(params: Any) -> int:
+    """Bytes of the parameters a rank holds."""
+    return sum(t.numel() * t.element_size() for _, t in named_leaves(params))
 

@@ -1,5 +1,7 @@
 """The collectives of ZeRO over the data axis: gradients reduce-scattered
-into each rank's slabs, updated parameters all-gathered back.
+into each rank's slabs, updated parameters all-gathered back. They run over
+the mesh's data group (mesh.data_group), on what the rank holds of a leaf:
+the whole leaf, or under a model axis its model slab.
 
 The sharded leaves are taken in one fixed order; rank r's segment is the
 concatenation of its slab of each (sharding_rules.Placement.slab). Every
@@ -31,7 +33,7 @@ def _flat(parts: Sequence[torch.Tensor]) -> torch.Tensor:
 
 def _check_equal(mesh, tensors, placements) -> int:
     sizes = {sum(s.numel() for s in _segment(tensors, placements, r))
-             for r in range(mesh.world)}
+             for r in range(mesh.data_world)}
     if len(sizes) != 1:
         raise ValueError(f"the ranks' ZeRO segments differ in length: {sorted(sizes)}")
     return sizes.pop()
@@ -42,12 +44,12 @@ def reduce_scatter_mean(mesh, grads: Sequence[torch.Tensor],
     """This rank's slab of the rank-mean of each gradient: ONE
     reduce-scatter over the flat buffer of every rank's segment."""
     seg = _check_equal(mesh, grads, placements)
-    inp = _flat([s for r in range(mesh.world) for s in _segment(grads, placements, r)])
+    inp = _flat([s for r in range(mesh.data_world) for s in _segment(grads, placements, r)])
     out = inp.new_empty(seg)
-    dist.reduce_scatter_tensor(out, inp, group=mesh.group)
-    out.div_(mesh.world)
+    dist.reduce_scatter_tensor(out, inp, group=mesh.data_group)
+    out.div_(mesh.data_world)
     slabs, offset = [], 0
-    for s in _segment(grads, placements, mesh.rank):
+    for s in _segment(grads, placements, mesh.data_rank):
         slabs.append(out[offset:offset + s.numel()].view(s.shape))
         offset += s.numel()
     return slabs
@@ -59,10 +61,10 @@ def gather_segments(mesh, mine: Sequence[torch.Tensor], targets: Sequence[torch.
     from `mine`, the others' from ONE all-gather of the segments (waited for
     at most `timeout_s` seconds, mesh.wait_within)."""
     seg = _check_equal(mesh, targets, placements)
-    out = targets[0].new_empty(mesh.world * seg)
-    work = dist.all_gather_into_tensor(out, _flat(mine), group=mesh.group, async_op=True)
+    out = targets[0].new_empty(mesh.data_world * seg)
+    work = dist.all_gather_into_tensor(out, _flat(mine), group=mesh.data_group, async_op=True)
     wait_within(mesh, work, timeout_s, "the all-gather of the Adam moments")
-    for r in range(mesh.world):
+    for r in range(mesh.data_world):
         offset = r * seg
         for dst in _segment(targets, placements, r):
             dst.copy_(out[offset:offset + dst.numel()].view(dst.shape))
@@ -73,7 +75,7 @@ def all_gather_params_(mesh, params: Sequence[torch.Tensor],
                        placements: Sequence[Placement]) -> None:
     """After each rank updated its slabs of `params` in place, give every
     rank the others' slabs: the parameters are whole and equal again."""
-    gather_segments(mesh, _segment(params, placements, mesh.rank), params, placements)
+    gather_segments(mesh, _segment(params, placements, mesh.data_rank), params, placements)
 
 
 def gather_moments(mesh, slabs: Sequence[torch.Tensor], like: Sequence[torch.Tensor],
@@ -90,7 +92,7 @@ def shard_state(mesh, state: Dict[str, Any], placements: Dict[str, Placement]) -
     """A train state with each placed leaf's moments cut to this rank's slab."""
     if not placements:
         return state
-    return {**state, "opt_state": shard_opt_state(state["opt_state"], placements, mesh.rank)}
+    return {**state, "opt_state": shard_opt_state(state["opt_state"], placements, mesh.data_rank)}
 
 
 def whole_state(mesh, state: Dict[str, Any], placements: Dict[str, Placement],

@@ -37,12 +37,16 @@ Data parallelism: one process per GPU, launched by torchrun,
 
 (parallel/distributed.py; NCCL, or gloo with NFDPM_DIST_BACKEND=gloo). The
 configured `data.batch_size` is the global batch, split over the ranks;
-the numbers do not change with the world size. `parallel.fsdp=true`
-partitions Adam's moments over the ranks (ZeRO), `parallel.n_slices` lays
-the ranks out slice-major. Rank 0 writes the run directory's files. What
-is not ported raises NotImplementedError instead of being skipped:
-`parallel.n_model` > 1, `parallel.spatial`, `parallel.pipeline` and
-`parallel.pipeline_microbatches` (the model axis).
+the numbers do not change with the world size. `parallel.n_model=M` makes
+the launch a (world / M, M) ("data", "model") mesh: the coupling CNNs
+tensor-parallel over each block of M consecutive ranks (parallel/mesh.py,
+ops/coupling.py); M must divide the world (one process without a launch
+cannot hold a model axis and raises). `parallel.fsdp=true` partitions
+Adam's moments over the data axis (ZeRO), `parallel.n_slices` lays the
+data axis out slice-major. Rank 0 writes the run directory's files, with
+whole tensors at any mesh shape. What is not ported raises
+NotImplementedError instead of being skipped: `parallel.spatial`,
+`parallel.pipeline` and `parallel.pipeline_microbatches`.
 """
 
 from __future__ import annotations
@@ -53,31 +57,34 @@ import time
 
 CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                       "configs", "nf_base.yaml")
-# the model axis: its options keep their defaults in the port
-UNPORTED_PARALLEL = {"n_model": 1, "pipeline": False, "pipeline_microbatches": 0,
-                     "spatial": False}
+# options of the model axis the port does not have: they keep their defaults
+UNPORTED_PARALLEL = {"pipeline": False, "pipeline_microbatches": 0, "spatial": False}
 
 
 def refuse_unported(cfg) -> None:
     """Raise for every configured option the port does not have yet."""
+    from .parallel.mesh import NOT_PORTED
+
     for key, default in UNPORTED_PARALLEL.items():
         value = cfg.select(f"parallel.{key}", default)
         if value != default:
-            raise NotImplementedError(
-                f"parallel.{key}={value!r} is not ported "
-                "(ROADMAP: tensor, pipeline and spatial parallelism)")
+            raise NotImplementedError(f"parallel.{key}={value!r} is not ported {NOT_PORTED}")
 
 
 def start_parallel(cfg):
     """Join the launch's process group (parallel/distributed.py: torchrun's
-    environment, or none) and return its data-axis mesh, None for one
-    process. Call before any CUDA use."""
+    environment, or none) and return its ("data", "model") mesh, None for
+    one process. `parallel.n_model` > 1 without a launch raises (the model
+    axis needs n_model processes). Call before any CUDA use."""
     from .parallel import distributed
     from .parallel import mesh as mesh_m
 
+    n_model = int(cfg.select("parallel.n_model", 1))
     if not distributed.initialize(device=cfg.select("device")):
+        if n_model != 1:
+            mesh_m.make_mesh(n_model=n_model, device="cpu")  # raises: one process
         return None
-    return mesh_m.make_mesh(n_model=int(cfg.select("parallel.n_model", 1)),
+    return mesh_m.make_mesh(n_model=n_model,
                             n_slices=int(cfg.select("parallel.n_slices", 1)),
                             device=cfg.select("device"))
 
@@ -136,6 +143,7 @@ def main(argv) -> dict:
     "results"}: the final bits/dim ("bpd_test", "bpd_train") and, with
     metrics configured, their values under "metrics"."""
     import nfdpm_tpu_torch as port
+    from .convert import params_for_rank
     from .data.pipeline import read_dataset
     from .models import glow as glow_m
     from .training import nf_trainer as nft
@@ -231,10 +239,12 @@ def main(argv) -> dict:
             raise ValueError("phase=eval requires load.load_exp_dir/load_epoch")
         # params-only restore: needs no optimizer, so runs trained with any
         # optimizer and schedule evaluate
-        params = restore_params(resume_dir, "gaussian", resume_epoch, device)
+        params = params_for_rank(restore_params(resume_dir, "gaussian", resume_epoch, device),
+                                 mesh)
         k_deq = int(cfg.select("model.evaluation.bpd_dequant_samples", 1))
         iwae = bool(cfg.select("model.evaluation.bpd_iwae", False))
-        results = nft.final_bpd(nft.make_eval_step(gcfg, tcfg, device), params, loaders,
+        eval_step = nft.make_eval_step(gcfg, tcfg, device, None if mesh is None else mesh.model)
+        results = nft.final_bpd(eval_step, params, loaders,
                                 int(cfg.seed), n_dequant_samples=k_deq, iwae=iwae, mesh=mesh)
         tag = f" (K={k_deq}{', iwae' if iwae else ''})" if k_deq > 1 else ""
         for name, bpd in results.items():

@@ -41,10 +41,13 @@ a GPU; `parallel.fsdp`, `parallel.n_slices`). `parallel.part_parallel=true`
 trains each diffusion part on its own group of ranks
 (parallel/part_parallel.py; a frozen flow, no fsdp, no load.load_batch, as
 in the JAX package); it writes the merged model_diffusion_* checkpoints
-that phase=eval, runload and `serve --run-dir` read. What is not ported
-raises NotImplementedError: `parallel.n_model` > 1 and `parallel.spatial`
-(the model axis), and an orbax run directory of the JAX package as the
-pretrained flow (tools/jax_run_to_torch.py converts one).
+that phase=eval, runload and `serve --run-dir` read. `parallel.n_model=M`
+makes the UNets and the flow tensor-parallel over blocks of M ranks, as in
+nfdpm_tpu_torch.run_baseline, and inside each part's group under
+part_parallel (a group's ranks must divide by M). What is not ported raises
+NotImplementedError: `parallel.spatial`, `parallel.pipeline` and
+`parallel.pipeline_microbatches`, and an orbax run directory of the JAX
+package as the pretrained flow (tools/jax_run_to_torch.py converts one).
 """
 
 from __future__ import annotations
@@ -57,8 +60,8 @@ import time
 CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                       "configs", "nf_diffusion.yaml")
 def refuse_unported(cfg) -> None:
-    """Raise for every configured option the port does not have yet (the
-    model axis, as for stage 1)."""
+    """Raise for every configured option the port does not have yet (as for
+    stage 1)."""
     from .run_baseline import refuse_unported as refuse_stage1
 
     refuse_stage1(cfg)
@@ -69,6 +72,7 @@ def main(argv) -> dict:
     "vlb_n", "vlb_stderr"} and, with metrics configured, "metrics": the
     values of the final evaluation."""
     import nfdpm_tpu_torch as port
+    from .convert import params_for_rank
     from .data.pipeline import read_dataset
     from .models import glow as glow_m
     from .models.diffusion_prior import DiffusionPrior
@@ -257,10 +261,10 @@ def main(argv) -> dict:
     vlb_batches = cfg.select("model.evaluation.vlb_batches", "full")
     vlb_batches = None if str(vlb_batches) == "full" else int(vlb_batches)
 
-    def report_vlb(params):
+    def report_vlb(params, on=mesh):
         bpd, n, stderr = dt.calculate_bpd_with_diff_prior(
             backbone, dp, tcfg, params, loaders.test, int(cfg.seed),
-            max_batches=vlb_batches, with_stats=True, device=device, mesh=mesh)
+            max_batches=vlb_batches, with_stats=True, device=device, mesh=on)
         logger.info(f"VLB test bpd (diffusion prior): {bpd:.4f} (N={n}, stderr={stderr:.4f})")
         return {"run_dir": run_dir, "vlb_bpd": bpd, "vlb_n": n, "vlb_stderr": stderr}
 
@@ -271,7 +275,9 @@ def main(argv) -> dict:
             backbone=backbone, flow_params=flow_params, dp=dp, tcfg=tcfg, loaders=loaders,
             run_dir=run_dir, logger=logger, seed=int(cfg.seed), resume_dir=resume_dir,
             resume_epoch=resume_epoch, evaluate_fn=evaluate_fn, mesh=mesh, device=device)
-        return {**report_vlb(dt.ema_eval_params(out["state"])), **out["results"]}
+        # the merged parts are whole: scored with every rank on the data axis
+        return {**report_vlb(dt.ema_eval_params(out["state"]), mesh_m.flat(mesh)),
+                **out["results"]}
     if train_phase:
         out = dt.train(backbone=backbone, flow_params=flow_params, dp=dp, tcfg=tcfg,
                        loaders=loaders, run_dir=run_dir, logger=logger, seed=int(cfg.seed),
@@ -286,6 +292,7 @@ def main(argv) -> dict:
         params = restore_params(resume_dir, "diffusion", resume_epoch, device, prefer_ema=True)
         params["diffusion"] = {"parts": dp.unets_from_named(params["diffusion"]["parts"],
                                                             device)}
+        params = params_for_rank(params, mesh)
         result = report_vlb(params)
         if evaluate_fn is not None:
             sample_fn = dt.make_sample_fn(backbone, dp, tcfg, int(cfg.seed), device, mesh)

@@ -11,7 +11,11 @@ written under a temporary name and renamed, so an interrupted write never
 leaves a truncated checkpoint. `architecture.json` beside it holds the
 hyperparameters a later run needs to rebuild the flow. Writes are
 synchronous; under data parallelism rank 0 writes and the ranks meet at a
-barrier after each save. `checkpoints/mid_epoch.json` marks a checkpoint that an
+barrier after each save. A checkpoint holds whole tensors at any mesh
+shape: the trainers gather ZeRO's moment slabs and the model axis's
+parameter slabs before they save (nf_trainer.whole_nf_state,
+diffusion_trainer.whole_diffusion_state), and cut a restored state to a
+rank's slabs after they load it. `checkpoints/mid_epoch.json` marks a checkpoint that an
 interrupt wrote in the middle of an epoch, with the JAX package's keys and
 values, so that a resume continues from the exact batch.
 """

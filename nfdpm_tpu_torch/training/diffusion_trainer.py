@@ -38,8 +38,16 @@ Counterpart of nfdpm_tpu/training/diffusion_trainer.py, in eager PyTorch:
     self-conditioning coin is shared. `fsdp=True` partitions the Adam
     moments of the UNets and of a co-trained flow (`shard_diffusion_state`);
     a frozen flow has none. The EMA shadow stays whole and equal on every
-    rank. Sampling, the VLB and the latent stats gather or sum what the
+    data rank. Sampling, the VLB and the latent stats gather or sum what the
     ranks computed on their rows.
+  * The model axis (n_model > 1): the UNets tensor-parallel
+    (models/unet.shard_unet_) and the flow, frozen or co-trained, under
+    the Glow rules (ops/coupling.py), as the JAX package's
+    shard_diffusion_state places them; the moments and the EMA shadow are
+    slabs like the parameters they mirror. The step, the samplers and the
+    VLB give the backbone the mesh's model axis (`on_mesh`) and take the
+    rank's slabs (convert.params_for_rank cuts a restored checkpoint's
+    parameters to them). `fit_latent_stats` takes the whole flow.
 """
 
 from __future__ import annotations
@@ -65,6 +73,7 @@ from ..ops import quantize as q
 from ..parallel import mesh as mesh_m
 from ..parallel.distributed import distribute_batch
 from ..parallel import sharding_rules as rules
+from ..parallel import tensor_parallel as tp
 from ..parallel import zero
 from ..utils.profiling import EpochProfiler, StepTimer
 from ..utils.watchdog import StepWatchdog, interrupt_after_block
@@ -241,21 +250,39 @@ def diffusion_placements(mesh, tx: Optimizer, params, fsdp: bool
     moments to partition (shard_diffusion_state)."""
     if not fsdp or mesh is None or mesh.n_data == 1:
         return {}
-    n = mesh.n_data
-    out = rules.glow_placements(params["flow"], n, "flow")
+    n, m = mesh.n_data, mesh.n_model
+    out = rules.glow_placements(params["flow"], n, "flow", n_model=m)
     for i, unet in enumerate(params["diffusion"]["parts"]):
-        out.update(rules.unet_placements(unet, n, f"diffusion/parts/{i}"))
+        out.update(rules.unet_placements(unet, n, f"diffusion/parts/{i}", n_model=m))
     return rules.trained_placements(out, tx)
 
 
 def shard_diffusion_state(mesh, tx: Optimizer, state, fsdp: bool = False) -> Dict[str, Any]:
-    """The state made rank 0's on every rank (parameters and EMA shadow
-    broadcast) and, with `fsdp`, the partitioned leaves' moments cut to
-    this rank's slab."""
+    """A whole state made rank 0's on every rank (parameters and EMA shadow
+    broadcast), cut to this rank's model slabs under a model axis
+    (parameters, moments and shadow alike) and, with `fsdp`, the
+    partitioned leaves' moments cut to this rank's data slab."""
     mesh_m.replicate(mesh, state["params"])
     if "ema" in state:
         mesh_m.replicate(mesh, state["ema"])
+    state = tp.shard_state(mesh_m.model_of(mesh), state,
+                           rules.model_placements(state["params"], mesh_m.n_model_of(mesh)))
     return zero.shard_state(mesh, state, diffusion_placements(mesh, tx, state["params"], fsdp))
+
+
+def on_mesh(mesh, backbone: NFBackbone) -> NFBackbone:
+    """The backbone with the mesh's model axis (None without one)."""
+    return dataclasses.replace(backbone, model=mesh_m.model_of(mesh))
+
+
+def whole_diffusion_state(mesh, state, placements: Dict[str, rules.Placement],
+                          timeout_s: Optional[float] = None) -> Dict[str, Any]:
+    """What a checkpoint holds: ZeRO's moment slabs gathered over the data
+    group, the model slabs over the model group (UNets as dicts of whole
+    tensors by name). A collective, each gather at most `timeout_s` s."""
+    state = zero.whole_state(mesh, state, placements, timeout_s)
+    placements = rules.model_placements(state["params"], mesh_m.n_model_of(mesh))
+    return tp.whole_state(mesh_m.model_of(mesh), state, placements, timeout_s)
 
 
 def _draw_rows(draws: Dict[str, Any], rows: slice) -> Dict[str, Any]:
@@ -284,16 +311,18 @@ def make_train_step(backbone: NFBackbone, dp: DiffusionPrior, tcfg: DiffusionTra
     path (the state from shard_diffusion_state)."""
     device = resolve_device(device)
     apply_matmul_precision()
+    backbone = on_mesh(mesh, backbone)
     loss_fn = make_loss_fn(backbone, dp, tcfg)
     generator = torch.Generator(device=device)
     in_step_ema = tcfg.ema_decay is not None and tcfg.ema_update_every <= 1
-    placements = None  # computed at the first step, from the parameters' shapes
+    placements = model_placements = None  # computed at the first step
 
     def train_step(state, batch, seed_or_draws):
-        nonlocal placements
+        nonlocal placements, model_placements
         params = state["params"]
         if placements is None:
             placements = diffusion_placements(mesh, tx, params, fsdp)
+            model_placements = rules.model_placements(params, mesh_m.n_model_of(mesh))
         for _, p in named_leaves(params):
             p.grad = None
         batch = inference._on(device, batch)
@@ -312,7 +341,7 @@ def make_train_step(backbone: NFBackbone, dp: DiffusionPrior, tcfg: DiffusionTra
                          else torch.zeros_like(p))
         loss = loss.detach()
         opt_state = tx.apply(params, grads, state["opt_state"], mesh, placements,
-                             extras=[loss, parts])
+                             extras=[loss, parts], model_placements=model_placements)
         out = {"params": params, "opt_state": opt_state, "step": state["step"] + 1}
         if "ema" in state:
             if in_step_ema:
@@ -331,9 +360,11 @@ def make_sample_fn(backbone: NFBackbone, dp: DiffusionPrior, tcfg: DiffusionTrai
     (seed, salt). The sampler of training's sample grids and of the
     metrics' `evaluate_fn`, in `train` and in phase=eval. With a
     data-parallel `mesh` each rank draws the whole chunk's noise, runs the
-    chains and the inverse on its rows, and the rows are all-gathered."""
+    chains and the inverse on its rows, and the rows are all-gathered.
+    Under a model axis the parameters are the rank's slabs."""
     device = resolve_device(device)
-    sample = inference.make_diffusion_sample_fn(backbone, dp, tcfg.n_bits, device)
+    sample = inference.make_diffusion_sample_fn(on_mesh(mesh, backbone), dp, tcfg.n_bits,
+                                                device)
     generator = torch.Generator(device=device)
 
     def sample_fn(params, n: int, temperature: float, salt: int) -> torch.Tensor:
@@ -353,9 +384,10 @@ def calculate_bpd_with_diff_prior(backbone: NFBackbone, dp: DiffusionPrior,
     pad masked out; batch i draws from a generator seeded from (seed, i).
     `with_stats=True` returns (mean, images, standard error of the mean).
     With a data-parallel `mesh` each rank scores its rows of each batch with
-    the global batch's draws and the per-image values are all-gathered."""
+    the global batch's draws and the per-image values are all-gathered.
+    Under a model axis the parameters are the rank's slabs."""
     device = resolve_device(device)
-    eval_step = inference.make_vlb_eval_step(backbone, dp, tcfg.n_bits,
+    eval_step = inference.make_vlb_eval_step(on_mesh(mesh, backbone), dp, tcfg.n_bits,
                                              tcfg.compat_three_channel_bpd, device)
     generator = torch.Generator(device=device)
     total, total_sq, count = 0.0, 0.0, 0
@@ -487,8 +519,12 @@ def train(*, backbone: NFBackbone, flow_params, dp: DiffusionPrior,
                                  device=device)
     state = shard_diffusion_state(mesh, tx, state, fsdp)
     placements = diffusion_placements(mesh, tx, state["params"], fsdp)
+    backbone = on_mesh(mesh, backbone)
     if mesh is not None:
         logger.info(f"Data parallel: {mesh}" + (", ZeRO moments" if placements else ""))
+        if mesh.n_model > 1 or fsdp:
+            logger.info(f"Param shardings applied: model axis={mesh.n_model}"
+                        f"{', FSDP over data axis' if fsdp else ''}")
     current_iter = state["step"]
 
     train_step = make_train_step(backbone, dp, tcfg, tx, device=device, mesh=mesh, fsdp=fsdp)
@@ -498,7 +534,7 @@ def train(*, backbone: NFBackbone, flow_params, dp: DiffusionPrior,
 
     def save(epoch: int, timeout_s: Optional[float] = None) -> None:
         save_state(run_dir, "diffusion", epoch,
-                   zero.whole_state(mesh, state, placements, timeout_s), mesh, timeout_s)
+                   whole_diffusion_state(mesh, state, placements, timeout_s), mesh, timeout_s)
 
     def rows_of(batches):
         for imgs, labels in batches:

@@ -34,6 +34,14 @@ Counterpart of nfdpm_tpu/training/nf_trainer.py, in eager PyTorch:
     first global batch. Rank 0 writes the checkpoints (with whole moments),
     architecture.json, the mid-epoch marker and the tracker's files; the
     samples and the scores are gathered from every rank's rows.
+  * The model axis (a mesh with n_model > 1: tensor parallelism of the
+    coupling CNNs, ops/coupling.py): each rank holds its slabs of the
+    coupling CNNs' parameters and moments (`shard_nf_state`,
+    parallel/sharding_rules.py glow_model_placements); the ranks of a
+    model group hold the same rows and draw the same noise. ddinit runs on
+    the slabs; the norm clip sums the slabs' squares over the model group;
+    a checkpoint gathers every slab, so it holds the one-device layout and
+    resumes at any (data, model) shape.
 """
 
 from __future__ import annotations
@@ -55,6 +63,7 @@ from ..ops import quantize as q
 from ..parallel import mesh as mesh_m
 from ..parallel.distributed import distribute_batch
 from ..parallel import sharding_rules as rules
+from ..parallel import tensor_parallel as tp
 from ..parallel import zero
 from ..utils.profiling import EpochProfiler, StepTimer
 from ..utils.watchdog import StepWatchdog, interrupt_after_block
@@ -119,27 +128,29 @@ def init_train_state(seed, cfg: glow_m.GlowConfig, tcfg: NFTrainConfig, tx: Opti
 def ddinit_train_state(state: Dict[str, Any], cfg: glow_m.GlowConfig, tcfg: NFTrainConfig,
                        tx: Optimizer, batch: torch.Tensor,
                        generator: Optional[torch.Generator] = None,
-                       noise: Optional[torch.Tensor] = None) -> Dict[str, Any]:
+                       noise: Optional[torch.Tensor] = None, model=None) -> Dict[str, Any]:
     """A train state whose flow has every actnorm initialized from the
     statistics of `batch` (images in [0, 1] on the parameters' device),
     preprocessed and dequantized with `generator` or the U(0, 1) draw
-    `noise`; fresh optimizer state, the step kept."""
+    `noise`; fresh optimizer state, the step kept. `model`: the model axis
+    when the state holds a rank's slabs."""
     x0 = q.dequantize(generator, q.preprocess(batch, tcfg.n_bits), tcfg.n_bits, noise)
-    params = trainable({"flow": glow_m.ddinit(state["params"]["flow"], cfg, x0),
+    params = trainable({"flow": glow_m.ddinit(state["params"]["flow"], cfg, x0, model),
                         "prior": state["params"]["prior"]})
     return {"params": params, "opt_state": tx.init(params), "step": state["step"]}
 
 
-def make_loss_fn(cfg: glow_m.GlowConfig, tcfg: NFTrainConfig):
+def make_loss_fn(cfg: glow_m.GlowConfig, tcfg: NFTrainConfig, model=None):
     """loss(params, batch, generator=None, noise=None) -> (bits/dim scalar,
     log-likelihood [B]) of images `batch` in [0, 1], [B, H, W, C] on the
     parameters' device. `noise` is the U(0, 1) dequantization draw, added as
-    noise / n_bins; else it comes from `generator`."""
+    noise / n_bins; else it comes from `generator`. `model`: the model axis
+    when the parameters are a rank's slabs."""
     n_bins = q.n_bins_of(tcfg.n_bits)
 
     def loss_fn(params, batch, generator=None, noise=None):
         x = q.dequantize(generator, q.preprocess(batch, tcfg.n_bits), tcfg.n_bits, noise)
-        latents, ldj, logp = glow_m.forward(params["flow"], cfg, x)
+        latents, ldj, logp = glow_m.forward(params["flow"], cfg, x, model=model)
         ll = ldj + logp + prior_m.gaussian_prior_logp(params["prior"], latents[-1])
         n_pixel = prior_m.n_pixels(batch.shape[1], batch.shape[-1],
                                    tcfg.compat_three_channel_bpd)
@@ -155,18 +166,38 @@ def nf_placements(mesh, tx: Optimizer, params, fsdp: bool) -> Dict[str, rules.Pl
     if not fsdp or mesh is None or mesh.n_data == 1:
         return {}
     n = mesh.n_data
-    return rules.trained_placements({**rules.glow_placements(params["flow"], n, "flow"),
-                                     **rules.generic_placements(params["prior"], n, "prior")},
-                                    tx)
+    return rules.trained_placements(
+        {**rules.glow_placements(params["flow"], n, "flow", n_model=mesh.n_model),
+         **rules.generic_placements(params["prior"], n, "prior")}, tx)
+
+
+def model_shard_nf_state(mesh, state) -> Dict[str, Any]:
+    """A whole state made rank 0's on every rank (parameters broadcast) and
+    cut to this rank's model slabs (parameters and moments)."""
+    mesh_m.replicate(mesh, state["params"])
+    return tp.shard_state(mesh_m.model_of(mesh), state,
+                          rules.model_placements(state["params"], mesh_m.n_model_of(mesh)))
 
 
 def shard_nf_state(mesh, tx: Optimizer, state, fsdp: bool = False) -> Dict[str, Any]:
-    """The state made rank 0's on every rank (parameters broadcast) and,
-    with `fsdp`, each partitioned leaf's moments cut to this rank's slab
-    (ZeRO, parallel/sharding_rules.py). Works on fresh and restored states:
-    the moments are sliced, never re-initialized."""
-    mesh_m.replicate(mesh, state["params"])
+    """A whole state made rank 0's on every rank, cut to this rank's model
+    slabs under a model axis and, with `fsdp`, each partitioned leaf's
+    moments cut to this rank's data slab (ZeRO, parallel/sharding_rules.py).
+    Works on fresh and restored states: the moments are sliced, never
+    re-initialized."""
+    state = model_shard_nf_state(mesh, state)
     return zero.shard_state(mesh, state, nf_placements(mesh, tx, state["params"], fsdp))
+
+
+def whole_nf_state(mesh, state, placements: Dict[str, rules.Placement],
+                   timeout_s: Optional[float] = None) -> Dict[str, Any]:
+    """The state with whole moments (ZeRO's slabs gathered over the data
+    group) and whole leaves (the model slabs gathered over the model
+    group): what a checkpoint holds, at any (data, model) shape. A
+    collective; each gather waits at most `timeout_s` seconds."""
+    state = zero.whole_state(mesh, state, placements, timeout_s)
+    placements = rules.model_placements(state["params"], mesh_m.n_model_of(mesh))
+    return tp.whole_state(mesh_m.model_of(mesh), state, placements, timeout_s)
 
 
 def make_train_step(cfg: glow_m.GlowConfig, tcfg: NFTrainConfig, tx: Optimizer,
@@ -190,22 +221,25 @@ def make_train_step(cfg: glow_m.GlowConfig, tcfg: NFTrainConfig, tx: Optimizer,
     batch's too) and cut to the rank's rows; the gradients and the metrics
     are averaged over the ranks. `fsdp=True` takes the ZeRO path for the
     leaves nf_placements partitions; the state must come from
-    shard_nf_state."""
+    shard_nf_state. Under a model axis the state holds the rank's model
+    slabs (shard_nf_state) and the ranks of a model group take the same
+    rows."""
     device = resolve_device(device)
     apply_matmul_precision()
     accum = max(1, int(tcfg.grad_accum))
     if accum > 1 and inject_noise:
         raise ValueError("grad_accum > 1 draws its noise per microbatch; "
                          "injected-noise runs must keep grad_accum=1")
-    loss_fn = make_loss_fn(cfg, tcfg)
+    loss_fn = make_loss_fn(cfg, tcfg, mesh_m.model_of(mesh))
     generator = torch.Generator(device=device)
-    placements = None  # computed at the first step, from the parameters' shapes
+    placements = model_placements = None  # computed at the first step
 
     def train_step(state, batch, seed_or_noise):
-        nonlocal placements
+        nonlocal placements, model_placements
         params = state["params"]
         if placements is None:
             placements = nf_placements(mesh, tx, params, fsdp)
+            model_placements = rules.model_placements(params, mesh_m.n_model_of(mesh))
         leaves = [p for _, p in named_leaves(params) if p.requires_grad]
         for p in leaves:
             p.grad = None
@@ -231,16 +265,18 @@ def make_train_step(cfg: glow_m.GlowConfig, tcfg: NFTrainConfig, tx: Optimizer,
             torch._foreach_div_([p.grad for p in leaves if p.grad is not None], accum)
         metrics = {"bpd": torch.stack(bpds).mean(), "ll_mean": torch.stack(lls).mean()}
         opt_state = tx.apply(params, grads_of(params), state["opt_state"], mesh, placements,
-                             extras=list(metrics.values()))
+                             extras=list(metrics.values()), model_placements=model_placements)
         return {"params": params, "opt_state": opt_state, "step": state["step"] + 1}, metrics
 
     return train_step
 
 
-def make_eval_step(cfg: glow_m.GlowConfig, tcfg: NFTrainConfig, device=None):
+def make_eval_step(cfg: glow_m.GlowConfig, tcfg: NFTrainConfig, device=None, model=None):
     """Per-example bits/dim of a batch (inference.make_eval_step: single
-    dequantization draw, the log-likelihood as `eval_step.ll`)."""
-    return inference.make_eval_step(cfg, tcfg.n_bits, tcfg.compat_three_channel_bpd, device)
+    dequantization draw, the log-likelihood as `eval_step.ll`); `model` the
+    model axis when the parameters are a rank's slabs."""
+    return inference.make_eval_step(cfg, tcfg.n_bits, tcfg.compat_three_channel_bpd, device,
+                                    model)
 
 
 def make_sample_fn(cfg: glow_m.GlowConfig, tcfg: NFTrainConfig, img_size: int, seed: int,
@@ -250,8 +286,11 @@ def make_sample_fn(cfg: glow_m.GlowConfig, tcfg: NFTrainConfig, img_size: int, s
     sample grids and of the metrics' `evaluate_fn`, in `train` and in
     phase=eval. With a data-parallel `mesh` each rank draws the whole
     chunk's noise, inverts its rows, and the rows are all-gathered: every
-    rank returns the samples one device draws."""
-    sample = inference.make_sample_fn(cfg, img_size, tcfg.n_bits, device)
+    rank returns the samples one device draws. Under a model axis the
+    parameters are the rank's slabs and the ranks of a model group invert
+    the same rows."""
+    sample = inference.make_sample_fn(cfg, img_size, tcfg.n_bits, device,
+                                      mesh_m.model_of(mesh))
     generator = torch.Generator(device=sample.device)
 
     def sample_fn(params, n: int, temperature: float, salt: int) -> torch.Tensor:
@@ -343,23 +382,29 @@ def train(*, cfg: glow_m.GlowConfig, tcfg: NFTrainConfig, loaders: DatasetLoader
     writer = mesh_m.is_writer(mesh)
     start_epoch = 0
 
+    model = mesh_m.model_of(mesh)
     if resume_dir is not None and resume_epoch is not None:
         state = restore_state(resume_dir, "gaussian", resume_epoch, device)
+        state = model_shard_nf_state(mesh, state)
         start_epoch = resume_epoch - 1 if resume_batch is not None else resume_epoch
         logger.info(f"Resumed from {resume_dir} @ epoch {resume_epoch}"
                     + (f" batch {resume_batch}" if resume_batch is not None else ""))
     else:
-        state = init_train_state(seed, cfg, tcfg, tx, device)
-        # data-dependent actnorm init on one preprocessed batch
+        state = model_shard_nf_state(mesh, init_train_state(seed, cfg, tcfg, tx, device))
+        # data-dependent actnorm init on one preprocessed batch (on the
+        # rank's slabs under a model axis)
         init_imgs, _ = next(loaders.train.iter_epoch(0))
         state = ddinit_train_state(
             state, cfg, tcfg, tx, inference._on(device, init_imgs),
-            inference.reseed(torch.Generator(device=device), _DDINIT, seed))
+            inference.reseed(torch.Generator(device=device), _DDINIT, seed), model=model)
         logger.info("Data-dependent actnorm initialization done")
-    state = shard_nf_state(mesh, tx, state, fsdp)
     placements = nf_placements(mesh, tx, state["params"], fsdp)
+    state = zero.shard_state(mesh, state, placements)
     if mesh is not None:
         logger.info(f"Data parallel: {mesh}" + (", ZeRO moments" if placements else ""))
+        if mesh.n_model > 1 or fsdp:
+            logger.info(f"Param shardings applied: model axis={mesh.n_model}"
+                        f"{', FSDP over data axis' if fsdp else ''}")
     current_iter = state["step"]
 
     if writer:
@@ -371,13 +416,13 @@ def train(*, cfg: glow_m.GlowConfig, tcfg: NFTrainConfig, loaders: DatasetLoader
             "optimizer": tcfg.optimizer, "invconv_param": cfg.invconv_param})
 
     train_step = make_train_step(cfg, tcfg, tx, device=device, mesh=mesh, fsdp=fsdp)
-    eval_step = make_eval_step(cfg, tcfg, device)
+    eval_step = make_eval_step(cfg, tcfg, device, model)
     sample_fn = make_sample_fn(cfg, tcfg, img_size, seed, device, mesh)
     accum = max(1, int(tcfg.grad_accum))
 
     def save(epoch: int, timeout_s: Optional[float] = None) -> None:
         save_state(run_dir, "gaussian", epoch,
-                   zero.whole_state(mesh, state, placements, timeout_s), mesh, timeout_s)
+                   whole_nf_state(mesh, state, placements, timeout_s), mesh, timeout_s)
 
     def rows_of(batches):
         for imgs, labels in batches:

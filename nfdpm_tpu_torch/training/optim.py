@@ -103,18 +103,23 @@ class Optimizer:
         return {"mu": map_tree(params, torch.zeros_like),
                 "nu": map_tree(params, torch.zeros_like), "count": 0}
 
-    def clipped(self, grads: List[torch.Tensor], n_shards: int = 0,
-                mesh=None) -> List[torch.Tensor]:
+    def clipped(self, grads: List[torch.Tensor], n_shards: int = 0, mesh=None,
+                model_sharded: Optional[Sequence[bool]] = None) -> List[torch.Tensor]:
         """The gradients after both clips, as new tensors. Under ZeRO the
         first `n_shards` are this rank's slabs of partitioned leaves and the
         rest replicated leaves (equal on every rank): the global norm sums
         the slabs' squares over the ranks with ONE all-reduce and adds each
-        replicated leaf once."""
+        replicated leaf once. Under a model axis `model_sharded[i]` says
+        whether grads[i] is a model slab: its squares are summed over the
+        model group too (ONE more all-reduce), a leaf replicated over the
+        model axis counted once."""
         if self.clip_value is not None:
             grads = torch._foreach_clamp_min(grads, -self.clip_value)
             grads = torch._foreach_clamp_max(grads, self.clip_value)
         if self.clip_norm is not None:
-            if n_shards:
+            if model_sharded is not None and any(model_sharded):
+                norm = _model_axis_norm(grads, n_shards, mesh, model_sharded)
+            elif n_shards:
                 from ..parallel.mesh import all_reduce_sum_
 
                 def sum_sq(ts):
@@ -133,7 +138,8 @@ class Optimizer:
     @torch.no_grad()
     def apply(self, params: Tree, grads: Tree, state: Dict[str, Any], mesh=None,
               placements: Optional[Dict[str, Any]] = None,
-              extras: Sequence[torch.Tensor] = ()) -> Dict[str, Any]:
+              extras: Sequence[torch.Tensor] = (),
+              model_placements: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
         """One update, in place: `params`' leaves and the moments in `state`
         change, and the returned state is `state` with its count raised.
         `grads` has `params`' structure; a leaf that is updated needs its
@@ -148,11 +154,16 @@ class Optimizer:
         reduce-scattered into that slab, clipped, Adam updates the slab of
         the parameter, and an all-gather makes the parameter whole on every
         rank again (one reduce-scatter and one all-gather for all such
-        leaves)."""
+        leaves). The mean, the reduce-scatter and the all-gather run over
+        the mesh's data group. Under a model axis the leaves that
+        `model_placements` names are the rank's slabs (moments alike): Adam
+        and the value clip are slab-local, the norm clip's squares summed
+        over the model group (clipped)."""
         from ..parallel import mesh as mesh_m
         from ..parallel import zero
 
         placements = placements or {}
+        model_placements = model_placements or {}
         rows = []
         for (path, p), (_, g), (_, m), (_, v) in zip(
                 *(named_leaves(t, keep_none=True)
@@ -161,8 +172,9 @@ class Optimizer:
             if schedule is not None:
                 if g is None:
                     raise ValueError(f"no gradient for the trainable leaf {path}")
-                rows.append((p, g, m, v, schedule, placements.get(path)))
-        distributed = mesh is not None and mesh.group is not None
+                rows.append((p, g, m, v, schedule, placements.get(path),
+                             path in model_placements))
+        distributed = mesh is not None and mesh.data_group is not None
         if distributed:
             mesh_m.all_reduce_mean_(mesh, [r[1] for r in rows if r[5] is None] + list(extras))
         if not rows:
@@ -174,11 +186,11 @@ class Optimizer:
         leaves, pls = [r[0] for r in sharded], [r[5] for r in sharded]
         if sharded:
             g_slabs = zero.reduce_scatter_mean(mesh, [r[1] for r in sharded], pls)
-            sharded = [(pl.slab(p, mesh.rank), g, m, v, schedule, pl)
-                       for (p, _, m, v, schedule, pl), g in zip(sharded, g_slabs)]
+            sharded = [(pl.slab(p, mesh.data_rank), g, m, v, schedule, pl, ms)
+                       for (p, _, m, v, schedule, pl, ms), g in zip(sharded, g_slabs)]
         rows = sharded + whole
-        ps, gs, mus, nus, schedules, _ = (list(col) for col in zip(*rows))
-        gs = self.clipped(gs, len(sharded), mesh)
+        ps, gs, mus, nus, schedules, _, model_sharded = (list(col) for col in zip(*rows))
+        gs = self.clipped(gs, len(sharded), mesh, model_sharded)
 
         count = state["count"] + 1
         torch._foreach_mul_(mus, self.b1)
@@ -201,6 +213,30 @@ class Optimizer:
         if sharded:
             zero.all_gather_params_(mesh, leaves, pls)
         return dict(state, count=count)
+
+
+def _model_axis_norm(grads: List[torch.Tensor], n_shards: int, mesh,
+                     model_sharded: Sequence[bool]) -> torch.Tensor:
+    """The global norm of gradients of which the first `n_shards` are ZeRO
+    slabs over the data axis and those `model_sharded` flags are slabs over
+    the model axis: each class's squares summed, the model slabs' over the
+    model group, then the data slabs' over the data group (two all-reduces
+    of a few scalars), each replicated leaf counted once."""
+    from ..parallel import tensor_parallel as tp
+    from ..parallel.mesh import all_reduce_sum_
+
+    def sum_sq(keep):
+        ts = [g for i, g in enumerate(grads) if keep(i < n_shards, model_sharded[i])]
+        return (torch.stack(torch._foreach_norm(ts)).square().sum() if ts
+                else grads[0].new_zeros(()))
+
+    both, model_only = sum_sq(lambda d, m: d and m), sum_sq(lambda d, m: m and not d)
+    data_only, neither = sum_sq(lambda d, m: d and not m), sum_sq(lambda d, m: not (d or m))
+    over_model = tp._all_reduce(mesh.model, torch.stack([both, model_only]))
+    over_data = torch.stack([over_model[0], data_only])
+    if n_shards:
+        all_reduce_sum_(mesh, over_data)
+    return torch.sqrt(over_data[0] + over_model[1] + over_data[1] + neither)
 
 
 def grads_of(params: Tree) -> Tree:

@@ -3,7 +3,9 @@
     python tests/_torch_parallel_worker.py <job.json> <rank> <world>
 
 Joins a gloo process group through a file:// rendezvous in the job's
-directory (no TCP port, so that test workers running side by side cannot
+directory, as a ("data", "model") mesh of the job's "n_model" and
+"n_slices" (default 1: data parallelism alone; the model axis's scenarios
+are tests/_torch_tp_scenarios.py) (no TCP port, so that test workers running side by side cannot
 collide), runs the job's scenarios in order on the CPU and writes what
 each records to <dir>/<scenario>_r<rank>.npz. Imports the port only (no
 JAX): the tests compare what it writes with the JAX package in their own
@@ -24,6 +26,8 @@ from nfdpm_tpu_torch import convert  # noqa: E402
 from nfdpm_tpu_torch.parallel import distributed  # noqa: E402
 from nfdpm_tpu_torch.parallel import mesh as mesh_m  # noqa: E402
 from nfdpm_tpu_torch.parallel import sharding_rules as rules  # noqa: E402
+
+import _torch_tp_scenarios  # noqa: E402
 
 
 def flat(tree, prefix):
@@ -270,6 +274,7 @@ def gone(job, mesh, d):
 SCENARIOS = {"stage1": stage1, "stage2": stage2, "resume": resume,
              "part_parallel": part_parallel, "entry": entry, "sampling": sampling,
              "features": features, "gone": gone}
+SCENARIOS.update(_torch_tp_scenarios.SCENARIOS)  # the model axis
 
 
 def main() -> int:
@@ -281,7 +286,8 @@ def main() -> int:
     rules.FSDP_MIN_SIZE = job.get("fsdp_min_size", rules.FSDP_MIN_SIZE)
     distributed.initialize(backend="gloo", device="cpu", world_size=world, rank=rank,
                            init_method=f"file://{os.path.join(d, 'rendezvous')}")
-    mesh = mesh_m.make_mesh(device="cpu")
+    mesh = mesh_m.make_mesh(n_model=job.get("n_model", 1), n_slices=job.get("n_slices", 1),
+                            device="cpu")
     for name in job["scenarios"]:
         out = SCENARIOS[name](job, mesh, d)
         np.savez(os.path.join(d, f"{name}_r{rank}.npz"), **out)

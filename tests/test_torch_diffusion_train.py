@@ -383,13 +383,15 @@ def test_cotrained_eval_reads_the_trained_flow(cotrained):
 @pytest.mark.parametrize("override,match", [
     # the ids are the cases' names from before the data axis was ported, when
     # both options were refused with "multi-GPU"; part_parallel is now refused
-    # with a co-trained flow (the JAX package's rule), and the model axis
-    # stays refused
+    # with a co-trained flow (the JAX package's rule), a model axis in one
+    # process without a launch cannot be built (as the JAX package cannot
+    # make a (0, 2) mesh of one device), and spatial partitioning stays
+    # refused
     pytest.param("parallel.part_parallel=true model.normalizing_flow.freeze=false",
                  "requires a frozen flow", id="parallel.part_parallel=true-multi-GPU"),
-    pytest.param("parallel.n_model=2", "tensor, pipeline and spatial",
+    pytest.param("parallel.n_model=2", "n_model=2 does not divide the 1 processes",
                  id="parallel.fsdp=true-multi-GPU"),
-    ("parallel.spatial=true", "tensor, pipeline and spatial"),
+    ("parallel.spatial=true", "parameter partitioning, pipeline and spatial"),
 ])
 def test_refused_options_raise(workdir, override, match):
     with pytest.raises((NotImplementedError, ValueError), match=match):

@@ -112,13 +112,14 @@ def test_without_cuda_the_entry_point_refuses_to_start(tmp_path):
 
 @pytest.mark.parametrize("override,match", [
     ("model.evaluation.metrics.FID.mode=[clean]", None),  # needs a model name too: no metric
-    # the model axis stays refused (the id is the case's name from before the
-    # data axis was ported, when the message named "multi-GPU")
-    pytest.param("parallel.n_model=2", "tensor, pipeline and spatial",
+    # a model axis in one process without a launch cannot be built (the id is
+    # the case's name from before the data axis was ported, when the message
+    # named "multi-GPU"); spatial partitioning and the pipeline stay refused
+    pytest.param("parallel.n_model=2", "n_model=2 does not divide the 1 processes",
                  id="parallel.n_model=2-multi-GPU"),
-    ("parallel.spatial=true", "tensor, pipeline and spatial"),
-    ("parallel.pipeline=true", "tensor, pipeline and spatial"),
-    ("parallel.pipeline_microbatches=4", "tensor, pipeline and spatial"),
+    ("parallel.spatial=true", "parameter partitioning, pipeline and spatial"),
+    ("parallel.pipeline=true", "parameter partitioning, pipeline and spatial"),
+    ("parallel.pipeline_microbatches=4", "parameter partitioning, pipeline and spatial"),
     ("phase=bogus", "phase must be"),
 ])
 def test_refused_options_raise(tmp_path, monkeypatch, override, match):

@@ -166,7 +166,9 @@ def test_host_shard_matches_jax(n_hosts):
 def test_mesh_checks_and_rows():
     mesh = tmesh.make_mesh(device="cpu")
     assert mesh.shape == {"data": 1, "model": 1} and mesh.group is None
-    with pytest.raises(NotImplementedError, match="tensor, pipeline and spatial"):
+    # a model axis needs n_model processes a data index (tests of the model
+    # axis: tests/test_torch_tensor_parallel.py)
+    with pytest.raises(ValueError, match="n_model=2 does not divide the 1 processes"):
         tmesh.make_mesh(n_model=2, device="cpu")
     with pytest.raises(ValueError, match="divisible by n_slices"):
         tmesh.make_mesh(n_slices=2, device="cpu")

@@ -13,7 +13,8 @@
     about 38 bits/dim at this size, float32 sums) within 1e-5 relative; the
     part-parallel run's merged checkpoint read by `phase=eval` (the same
     VLB) and by runload (`serve --run-dir`'s reader).
-  * What stays refused, by both entry points: the model axis.
+  * What stays refused, by both entry points: spatial partitioning, and a
+    model axis without a launch.
   * `serve --data-parallel --device cpu`: the same bytes as without the
     flag, and "devices": 1.
 Glow L2/K1/w16 at 8x8x3, batch 8, UNets of dim 8.
@@ -154,9 +155,18 @@ def test_torchrun_runs_the_readme_command(tmp_path, ranks):
 @pytest.mark.parametrize("override", ["parallel.n_model=2", "parallel.spatial=true"])
 @pytest.mark.parametrize("entry", [run_baseline, run_diffusion_prior])
 def test_the_model_axis_stays_refused(tmp_path, monkeypatch, entry, override):
+    """What of the model axis stays refused: spatial partitioning, and a
+    model axis in one process without a launch (n_model must divide the
+    launch's processes, as the JAX package cannot make a (0, 2) mesh of one
+    device)."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="tensor, pipeline and spatial"):
-        entry.main(["device=cpu", override])
+    if override == "parallel.n_model=2":
+        with pytest.raises(ValueError, match="n_model=2 does not divide the 1 processes"):
+            entry.main(["device=cpu", override])
+    else:
+        with pytest.raises(NotImplementedError,
+                           match="parameter partitioning, pipeline and spatial"):
+            entry.main(["device=cpu", override])
     assert not (tmp_path / "outputs").exists()
 
 

@@ -1,17 +1,19 @@
 #!/usr/bin/env python3
-"""Rehearse chip_smoke.py's phase 28 ("multi_gpu") on the CPU at a tiny size.
+"""Rehearse chip_smoke.py's phases 28 ("multi_gpu") and 29 ("model_axis")
+on the CPU at a tiny size.
 
-    python3 tools/rehearse_multi_gpu.py [--dir DIR]
+    python3 tools/rehearse_multi_gpu.py [--dir DIR] [--phases 28 29]
 
-Runs the phase's own code (its children too: a world of one, then two gloo
-ranks) with the Glow cut to L2/K1, width 16, 8x8x3, batch 8, the UNets to
-dim 8 and T = 8, on the CPU: gloo in place of NCCL, `device=cpu` and
-`--device cpu` on the entry points and tools, FSDP_MIN_SIZE 64 so that
-leaves are partitioned at all. The kernel launch counts are not checked
-(on the CPU the wrappers run their plain versions and launch nothing), and
-no time is a device's. It finds wrong paths, shapes and control flow before
-a card call; it prints the phase's records and "REHEARSAL OK". Imports no
-JAX.
+Runs the phases' own code (their children too: for 28 a world of one,
+then two gloo ranks; for 29 a world of one, two ranks at (data 1, model 2)
+and four at (data 2, model 2)) with the Glow cut to L2/K1, width 16,
+8x8x3, batch 8, the UNets to dim 8 (2 groups) and T = 8, on the CPU: gloo
+in place of NCCL, `device=cpu` and `--device cpu` on the entry points and
+tools, FSDP_MIN_SIZE 64 so that leaves are partitioned at all. The kernel
+launch counts are not checked (on the CPU the wrappers run their plain
+versions and launch nothing), and no time is a device's. It finds wrong
+paths, shapes and control flow before a card call; it prints the phases'
+records and "REHEARSAL OK". Imports no JAX.
 """
 
 from __future__ import annotations
@@ -62,11 +64,12 @@ def main() -> int:
     cut_to_size()
     if sys.argv[1:2] == ["--child"]:  # a child of the phase, started by it
         role, root, stage1 = sys.argv[2], Path(sys.argv[3]), Path(sys.argv[4])
-        (cs.mg_world1 if role == "world1" else cs.mg_world2)(torch, root, stage1)
+        cs.CHILD_ROLES[role](torch, root, stage1)
         return 0
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--dir", default=str(ROOT / "build" / "rehearse_multi_gpu"),
-                    help="where the stage-1 run and the phase's files go")
+                    help="where the stage-1 run and the phases' files go")
+    ap.add_argument("--phases", nargs="+", type=int, choices=(28, 29), default=[28, 29])
     args = ap.parse_args()
     from nfdpm_tpu_torch.training import nf_trainer as nft
 
@@ -77,8 +80,11 @@ def main() -> int:
         nft.train(cfg=cfg, tcfg=tcfg, loaders=cs.train_loaders(4), run_dir=str(stage1),
                   logger=logging.getLogger("rehearsal"), seed=cs.TRAIN_SEED,
                   img_size=cs.IMG, device="cpu")
-    launches = cs.phase_multi_gpu(torch, np, cs.kernel_counters(), "CPU rehearsal", stage1)
-    print("REHEARSAL OK", launches)
+    phases = {28: cs.phase_multi_gpu, 29: cs.phase_model_axis}
+    for phase in args.phases:
+        launches = phases[phase](torch, np, cs.kernel_counters(), "CPU rehearsal", stage1)
+        print(f"phase {phase} launches", launches)
+    print("REHEARSAL OK")
     return 0
 
 
