@@ -9,7 +9,8 @@
     python3 chip_smoke.py --mixed-precision    # phases 1, 2, 12, 13, 17 and 27
     python3 chip_smoke.py --multi-gpu          # phases 1, 2, 12, 13, 17 and 28
     python3 chip_smoke.py --model-axis         # phases 1, 2, 12, 13, 17 and 29
-    python3 chip_smoke.py --model-axis-nccl    # phases 1, 2 and 29 (a) on two cards
+    python3 chip_smoke.py --pipeline           # phases 1, 2, 12, 13, 17 and 30
+    python3 chip_smoke.py --model-axis-nccl    # phases 1, 2, 29 (a) and 30 on two cards
 
 Runs nfdpm_tpu_torch (never JAX, never nfdpm_tpu) with seeded random
 weights at the width of the repo's models: the Glow of configs/nf_base.yaml
@@ -285,7 +286,10 @@ line each:
      within MG_BPD_TOL of world 1's at every step, parameters within rtol
      MG_RTOL / atol MG_ATOL after MG_STEPS, the ranks' parameters bitwise
      equal, each rank's launches exactly 23 + 12 + 12 a step, under fsdp
-     each rank's Adam-moment bytes equal to what _add_fsdp predicts. (c)
+     (the parameters, moments partitioned, each Glow step gathered on use)
+     each rank's parameter and Adam-moment bytes between steps equal to
+     what _add_fsdp predicts, and each process's peak of allocated memory
+     over the steps beside world 1's. (c)
      Stage 2 on the two ranks: three UNets over phase 12's frozen flow,
      MG_STAGE2_STEPS steps: the loss within MG_LOSS_RTOL (relative) of
      world 1's at every step, 12 + 12 attention launches a step a rank.
@@ -314,8 +318,10 @@ line each:
      world of one, within MG_BPD_TOL of the run's final bits/dim. (b) Four
      ranks at (data 2, model 2) with parallel.fsdp=true, MT_MESH4_STEPS
      steps: step 1 within MG_BPD_TOL, the ranks' coordinates and groups
-     (also over two slices), ZeRO's moment bytes as predicted, exact
-     launches. (c) Two ranks at (1, 2): stage 2 over phase 12's frozen flow
+     (also over two slices), the flow parameter and moment bytes a rank as
+     the placements predict (data slabs of the model slabs), the peak of
+     allocated memory beside world 1's, exact launches. (c) Two ranks at
+     (1, 2): stage 2 over phase 12's frozen flow
      (three UNets), MG_STAGE2_STEPS steps, the loss within MG_LOSS_RTOL of
      world 1's, 12 + 12 attention launches a step a rank; a DDIM chunk of
      MT_DDIM_STEPS steps and MT_DDIM_N images on the seeded UNets, its
@@ -324,12 +330,29 @@ line each:
      their ms, the bytes a rank, the card's name and power limit. Budget
      MT_BUDGET_S.
 
+  the pipeline (launch counters zeroed before 30 and read after it, its
+  children's own counters added):
+ 30. pipeline: two gloo ranks sharing this card, deterministic mode,
+     against phase 29's world-1 run (a world-1 child of its own under
+     --pipeline): run_baseline.main with parallel.n_model=2
+     parallel.pipeline=true, PP_MICROBATCHES microbatches, at full width,
+     MT_STEPS steps. Step 1's bits/dim within MG_BPD_TOL of world 1's,
+     every step within TRAIN_TRAJ_TOL, the parameters within MG_FINAL_ATOL
+     after the last; each stage's launches a step exactly those of the
+     steps it holds (pp_step_launches: stage 0's first step of level 1
+     launches no dx) and the run's; each stage's flow parameter and moment
+     bytes as the placements predict; the run's checkpoint scored by
+     phase=eval in this process, a world of one, within MG_BPD_TOL. The
+     record: step wall ms at world 1 and at two stages, the hop and flush
+     bytes a step and their ms on the timed step, the peak of allocated
+     memory, the card's name and power limit. Budget PP_BUDGET_S.
+
 Then come the kernel summary line (seven kernels), the nvidia-smi line and, last,
 {"ok": true, "device": {...}}. With --run-dir-tools the script runs the
 environment, the build, phases 12, 13 and 17 (whose run directories the
 tooling reads) and 23-25, and prints neither; --reference-checkpoints the same
 with phase 26 in place of 23-25, --mixed-precision with phase 27, --multi-gpu
-with phase 28, --model-axis with phase 29. With
+with phase 28, --model-axis with phase 29, --pipeline with phase 30. With
 --stage1-training the script runs only the environment, the build and
 phases 12 and 13 and prints neither: copied
 into another checkout, it times that checkout's stage-1 training with the
@@ -4243,7 +4266,10 @@ def mg_stage1_steps(torch, counters, mesh, fsdp: bool, batches) -> dict:
     """MG_STEPS stage-1 steps at configs/nf_base.yaml's width from one
     ddinit'ed state (ddinit on the whole first global batch), each rank its
     rows, the step's own draws: bits/dim of each step, each step's launches,
-    synchronised wall ms, the final parameters, the moments' bytes."""
+    synchronised wall ms, the final parameters (gathered whole under fsdp),
+    the parameter and moment bytes the rank holds between steps beside the
+    placements' prediction, and the process's peak of allocated device
+    memory over the steps."""
     from nfdpm_tpu_torch.convert import named_leaves
     from nfdpm_tpu_torch.parallel import mesh as mesh_m
     from nfdpm_tpu_torch.parallel import sharding_rules as rules
@@ -4256,8 +4282,9 @@ def mg_stage1_steps(torch, counters, mesh, fsdp: bool, batches) -> dict:
     state = nft.ddinit_train_state(state, cfg, tcfg, tx, batches[0],
                                    torch.Generator(device=MG_DEVICE).manual_seed(1))
     state = nft.shard_nf_state(mesh, tx, state, fsdp)
-    step = nft.make_train_step(cfg, tcfg, tx, device=MG_DEVICE, mesh=mesh, fsdp=fsdp)
+    step = nft.make_train_step(cfg, tcfg, tx, device=MG_DEVICE, mesh=mesh)
     timer = StepTimer(synchronize=MG_DEVICE)
+    torch.cuda.reset_peak_memory_stats()
     bpds, launches, params_step1 = [], [], None
     for batch in batches[:MG_STEPS]:
         rows = batch if mesh is None else mesh_m.shard_batch(mesh, batch)
@@ -4268,17 +4295,22 @@ def mg_stage1_steps(torch, counters, mesh, fsdp: bool, batches) -> dict:
         launches.append({k: after[k] - before[k] for k in before})
         bpds.append(float(metrics["bpd"]))
         if params_step1 is None:
-            params_step1 = host_tree(state["params"])
-            if not fsdp:  # the mean gradient the update read (ZeRO keeps only its slab)
+            params_step1 = host_tree(nft.eval_params(state))
+            if not fsdp:  # the mean gradient the update read (fsdp keeps only its slab)
                 params_step1.update({f"grad/{k}": v for k, v in host_tree(
                     {k: p.grad for k, p in named_leaves(state["params"])
                      if p.grad is not None and tx.updates(k)}).items()})
-    placements = nft.nf_placements(mesh, tx, state["params"], fsdp)
+    peak = torch.cuda.max_memory_allocated()
+    placements = state["layout"].placements if "layout" in state else {}
+    whole = nft.eval_params(state)
+    rank = 0 if mesh is None else mesh.data_rank
     return {"bpd": bpds, "launches": launches, "step_wall_ms": [d * 1e3 for d in timer.durations],
-            "params": host_tree(state["params"]), "params_step1": params_step1,
+            "params": host_tree(whole), "params_step1": params_step1,
+            "param_bytes": rules.param_bytes(state["params"]),
+            "predicted_param_bytes": rules.predicted_param_bytes(whole, placements, rank),
             "moment_bytes": rules.moment_bytes(state["opt_state"]),
-            "predicted_moment_bytes": rules.predicted_moment_bytes(
-                state["params"], placements, 0 if mesh is None else mesh.data_rank),
+            "predicted_moment_bytes": rules.predicted_moment_bytes(whole, placements, rank),
+            "max_memory_allocated": peak,
             "sharded_leaves": len(placements),
             "grad_numel": sum(p.numel() for _, p in named_leaves(state["params"])
                               if p.requires_grad)}
@@ -4298,7 +4330,7 @@ def mg_stage2_steps(torch, counters, mesh, fsdp: bool, stage1_dir: Path, batches
     tx = dt.make_two_group_optimizer(tcfg, True)
     state = dt.init_train_state(TRAIN_SEED, backbone, flow, dp, tx, device=MG_DEVICE)
     state = dt.shard_diffusion_state(mesh, tx, state, fsdp)
-    step = dt.make_train_step(backbone, dp, tcfg, tx, device=MG_DEVICE, mesh=mesh, fsdp=fsdp)
+    step = dt.make_train_step(backbone, dp, tcfg, tx, device=MG_DEVICE, mesh=mesh)
     losses, launches = [], []
     for batch in batches[:MG_STAGE2_STEPS]:
         rows = batch if mesh is None else mesh_m.shard_batch(mesh, batch)
@@ -4601,9 +4633,14 @@ def phase_multi_gpu(torch, np, counters, smi, stage1_dir: Path) -> dict:
             "param_values": total,
             "ranks_bitwise_equal": all(np.array_equal(params[0][k], params[1][k])
                                        for k in refp.files),
+            "param_bytes_by_rank": [r["param_bytes"] for r in ranks],
+            "predicted_param_bytes_by_rank": [r["predicted_param_bytes"] for r in ranks],
+            "world1_param_bytes": ref["stage1"]["param_bytes"],
             "moment_bytes_by_rank": [r["moment_bytes"] for r in ranks],
             "predicted_moment_bytes_by_rank": [r["predicted_moment_bytes"] for r in ranks],
             "world1_moment_bytes": ref["stage1"]["moment_bytes"],
+            "max_memory_allocated_by_rank": [r["max_memory_allocated"] for r in ranks],
+            "world1_max_memory_allocated": ref["stage1"]["max_memory_allocated"],
             "partitioned_leaves": ranks[0]["sharded_leaves"],
             "launches_by_step": [r["launches"] for r in ranks],
             "step_wall_ms_median_by_rank": [median_of(r["step_wall_ms"][1:]) for r in ranks]}
@@ -4627,8 +4664,11 @@ def phase_multi_gpu(torch, np, counters, smi, stage1_dir: Path) -> dict:
               f"(b) {fsdp}: parameters {m['max_param_gap']} from world 1's after {MG_STEPS}")
         check(all(step == MG_STEP_LAUNCHES for r in m["launches_by_step"] for step in r),
               f"(b) {fsdp}: the ranks' step launches {m['launches_by_step']}")
-        check(m["moment_bytes_by_rank"] == m["predicted_moment_bytes_by_rank"],
-              f"(b) {fsdp}: moments {m['moment_bytes_by_rank']} B, _add_fsdp predicts "
+        check(m["moment_bytes_by_rank"] == m["predicted_moment_bytes_by_rank"]
+              and m["param_bytes_by_rank"] == m["predicted_param_bytes_by_rank"],
+              f"(b) {fsdp}: parameters {m['param_bytes_by_rank']} B and moments "
+              f"{m['moment_bytes_by_rank']} B, _add_fsdp predicts "
+              f"{m['predicted_param_bytes_by_rank']} B and "
               f"{m['predicted_moment_bytes_by_rank']} B")
         check((m["partitioned_leaves"] > 0) == (fsdp == "fsdp_true"),
               f"(b) {fsdp}: {m['partitioned_leaves']} partitioned leaves")
@@ -4729,15 +4769,21 @@ MT_DDIM_STEPS = 25      # (c): its steps, DDIM-100 cut to fit the budget: a mode
 MT_CHAIN_ATOL, MT_CHAIN_RTOL = 1e-4, 1e-5
 
 
+COLLECTIVE_KINDS = ("all_reduce", "all_gather", "hop", "flush")
+
+
 class ModelAxisSpy:
-    """Instruments a child of phase 29: each train step's launches and
-    synchronised wall ms (nf_trainer's and diffusion_trainer's
+    """Instruments a child of phases 29 and 30: each train step's launches
+    and synchronised wall ms (nf_trainer's and diffusion_trainer's
     make_train_step wrapped), the model group's all-reduce and all-gather
     bytes and calls a step (parallel/tensor_parallel.py's two collectives
-    counted) and, on a step marked `timed`, their synchronised wall ms; the
-    state and the mesh nf_trainer.train ran with."""
+    counted), the pipeline's hop bytes sent and flush bytes broadcast
+    (parallel/pipeline.py's _p2p and _bcast) and, on a step marked `timed`,
+    their synchronised wall ms; the state and the mesh nf_trainer.train ran
+    with."""
 
     def __init__(self, torch, counters):
+        from nfdpm_tpu_torch.parallel import pipeline as pl
         from nfdpm_tpu_torch.parallel import tensor_parallel as tp
         from nfdpm_tpu_torch.training import diffusion_trainer as dt
         from nfdpm_tpu_torch.training import nf_trainer as nft
@@ -4747,13 +4793,23 @@ class ModelAxisSpy:
         self.timed_step, self.trained = None, {}
         self.originals = [(tp, "_all_reduce", tp._all_reduce),
                           (tp, "all_gather_dim", tp.all_gather_dim),
+                          (pl, "_p2p", pl._p2p), (pl, "_bcast", pl._bcast),
                           (nft, "make_train_step", nft.make_train_step),
                           (dt, "make_train_step", dt.make_train_step),
                           (nft, "train", nft.train)]
-        reduce, gather = tp._all_reduce, tp.all_gather_dim
-        tp._all_reduce = lambda axis, t: self._collective("all_reduce", t, reduce, axis, t)
+        reduce, gather, p2p, bcast = tp._all_reduce, tp.all_gather_dim, pl._p2p, pl._bcast
+
+        def nbytes(t):
+            return t.numel() * t.element_size()
+
+        tp._all_reduce = lambda axis, t: self._collective("all_reduce", nbytes(t), reduce,
+                                                          axis, t)
         tp.all_gather_dim = lambda axis, t, dim, timeout_s=None: self._collective(
-            "all_gather", t, gather, axis, t, dim, timeout_s)
+            "all_gather", nbytes(t), gather, axis, t, dim, timeout_s)
+        pl._p2p = lambda axis, sends, recvs: self._collective(
+            "hop", sum(nbytes(t) for t, _ in sends), p2p, axis, sends, recvs)
+        pl._bcast = lambda axis, buf, stage: self._collective("flush", nbytes(buf), bcast,
+                                                              axis, buf, stage)
         for module in (nft, dt):
             module.make_train_step = self._wrap_maker(module.make_train_step)
         train = nft.train
@@ -4769,7 +4825,7 @@ class ModelAxisSpy:
         for module, name, fn in self.originals:
             setattr(module, name, fn)
 
-    def _collective(self, kind, t, fn, *args):
+    def _collective(self, kind, nbytes, fn, *args):
         c = self.collective
         if c is None:
             return fn(*args)
@@ -4781,7 +4837,7 @@ class ModelAxisSpy:
         if timed:
             self.torch.cuda.synchronize()
             c["ms"] += (time.perf_counter() - t0) * 1e3
-        c[f"{kind}_bytes"] += t.numel() * t.element_size()
+        c[f"{kind}_bytes"] += nbytes
         c[f"{kind}_calls"] += 1
         return out
 
@@ -4793,8 +4849,9 @@ class ModelAxisSpy:
                 torch = self.torch
                 torch.cuda.synchronize()
                 before = counts(self.counters)
-                self.collective = {"all_reduce_bytes": 0, "all_reduce_calls": 0,
-                                   "all_gather_bytes": 0, "all_gather_calls": 0, "ms": 0.0}
+                self.collective = {f"{kind}_{what}": 0 for kind in COLLECTIVE_KINDS
+                                   for what in ("bytes", "calls")}
+                self.collective["ms"] = 0.0
                 t0 = time.perf_counter()
                 out = step(state, batch, seed)
                 torch.cuda.synchronize()
@@ -4836,41 +4893,47 @@ def mt_stage1(torch, spy, root: Path, name: str, steps: int, extra=()) -> dict:
     """run_baseline.main at full width for `steps` steps (with `extra`
     overrides), instrumented: each step's bits/dim (rank 0's log), launches,
     wall ms and collectives, the final bits/dim, the run's launches, the
-    rank's parameter and moment bytes beside the placements' prediction."""
+    rank's parameter and moment bytes beside the placements' prediction (its
+    model slabs cut by the data placements of fsdp, or the whole flow by the
+    pipeline's stages), the process's peak of allocated device memory."""
     from nfdpm_tpu_torch import run_baseline
     from nfdpm_tpu_torch.parallel import mesh as mesh_m
     from nfdpm_tpu_torch.parallel import sharding_rules as rules
-    from nfdpm_tpu_torch.training import nf_trainer as nft
+    from nfdpm_tpu_torch.parallel import tensor_parallel as tp
     from nfdpm_tpu_torch.training.checkpoint import restore_params
 
     spy.steps, spy.timed_step = [], steps - 1
     before = counts(spy.counters)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     result = run_in(root, run_baseline.main, mt_argv(steps) + list(extra)
                     + [f"experiment_name={name}"])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
     launched = {k: v - before[k] for k, v in counts(spy.counters).items()}
     run_dir = root / result["run_dir"]
     state, mesh = spy.trained["state"], spy.trained["mesh"]
     mesh_m.barrier(mesh)  # rank 0's checkpoint is on disk
     whole = restore_params(str(run_dir), "gaussian", 1, "cpu")
-    n_model = mesh_m.n_model_of(mesh)
-    model_pl = rules.model_placements(whole, n_model)
-    model_rank = 0 if mesh is None else mesh.model_rank
-    _, tcfg = train_configs()
-    zero_pl = nft.nf_placements(mesh, nft.optimizer_of(tcfg), state["params"],
-                                "parallel.fsdp=true" in extra)
+    model_pl = rules.model_placements(whole, mesh_m.n_model_of(mesh))
+    layout = state.get("layout")
+    if layout is not None and layout.axis == "model":  # the pipeline's stages
+        before, placements, index = whole, layout.placements, mesh.model_rank
+    else:  # the model slabs, cut by fsdp's data placements
+        before = tp.shard_tree(mesh_m.model_of(mesh), whole, model_pl)
+        placements = {} if layout is None else layout.placements
+        index = 0 if mesh is None else mesh.data_rank
     out = {"run_dir": result["run_dir"], "results": result["results"], "seconds": seconds,
            "steps": spy.steps, "launches": launched,
            "flow_param_bytes": rules.param_bytes({"flow": state["params"]["flow"]}),
            "predicted_flow_param_bytes": rules.predicted_param_bytes(
-               {"flow": whole["flow"]}, model_pl, model_rank),
+               {"flow": before["flow"]}, placements, index),
            "moment_bytes": rules.moment_bytes(state["opt_state"]),
-           "predicted_moment_bytes": (
-               rules.predicted_moment_bytes(state["params"], zero_pl, mesh.data_rank)
-               if zero_pl else 2 * rules.predicted_param_bytes(whole, model_pl, model_rank)),
-           "zero_leaves": len(zero_pl), "model_leaves": len(model_pl)}
+           "predicted_moment_bytes": rules.predicted_moment_bytes(before, placements, index),
+           "max_memory_allocated": peak, "layout": None if layout is None else layout.axis,
+           "zero_leaves": len(placements) if layout is not None and layout.axis == "data"
+           else 0, "model_leaves": len(model_pl)}
     if mesh is None or mesh.rank == 0:
         out["bpd_by_step"] = mt_step_bpds(run_dir)
     if mesh is not None:
@@ -5074,6 +5137,11 @@ def mt_check_b(w1: dict, m4: list) -> dict:
          "moment_bytes_by_rank": [r["moment_bytes"] for r in ranks4],
          "predicted_moment_bytes_by_rank": [r["predicted_moment_bytes"] for r in ranks4],
          "flow_param_bytes_by_rank": [r["flow_param_bytes"] for r in ranks4],
+         "predicted_flow_param_bytes_by_rank": [r["predicted_flow_param_bytes"]
+                                                for r in ranks4],
+         "world1_flow_param_bytes": w1["b"]["flow_param_bytes"],
+         "max_memory_allocated_by_rank": [r["max_memory_allocated"] for r in ranks4],
+         "world1_max_memory_allocated": w1["b"]["max_memory_allocated"],
          "launches_by_step": [[s["launches"] for s in r["steps"]] for r in ranks4],
          "step_wall_ms_by_rank": [[s["wall_ms"] for s in r["steps"]] for r in ranks4]}
     emit({"phase": "model_axis_b", **b})
@@ -5085,8 +5153,10 @@ def mt_check_b(w1: dict, m4: list) -> dict:
           f"(b) the groups over two slices {b['groups_two_slices']}")
     check(b_gap <= MG_BPD_TOL, f"(b) step 1's bits/dim {b_gap} from world 1's")
     check(b["zero_leaves"] > 0 and b["moment_bytes_by_rank"]
-          == b["predicted_moment_bytes_by_rank"],
-          f"(b) ZeRO moments {b['moment_bytes_by_rank']} against "
+          == b["predicted_moment_bytes_by_rank"]
+          and b["flow_param_bytes_by_rank"] == b["predicted_flow_param_bytes_by_rank"],
+          f"(b) fsdp's flow parameters {b['flow_param_bytes_by_rank']} and moments "
+          f"{b['moment_bytes_by_rank']} against {b['predicted_flow_param_bytes_by_rank']} and "
           f"{b['predicted_moment_bytes_by_rank']} ({b['zero_leaves']} leaves)")
     check(all(step == MG_STEP_LAUNCHES for r in b["launches_by_step"] for step in r),
           f"(b) the ranks' step launches {b['launches_by_step']}")
@@ -5161,8 +5231,9 @@ def mt_launch(base: dict, n: int, backend: str) -> dict:
 
 
 def phase_model_axis_nccl(torch, np, counters, smi) -> dict:
-    """Phase 29's (a) over NCCL, its two ranks on two cards (--model-axis-nccl,
-    a call with several cards): the same gates, the same record."""
+    """Phase 29's (a) and phase 30 over NCCL, their two ranks on two cards
+    (--model-axis-nccl, a call with several cards): the same gates, the same
+    records."""
     check(torch.cuda.device_count() >= 2,
           f"--model-axis-nccl needs two cards, {torch.cuda.device_count()} visible")
     root = ROOT / "build" / "chip_smoke" / "model_axis_nccl"
@@ -5182,12 +5253,15 @@ def phase_model_axis_nccl(torch, np, counters, smi) -> dict:
                             **a["bytes"]},
               "seconds": time.perf_counter() - t0}
     emit(record)
-    return here
+    pipelined = phase_pipeline(torch, np, counters, smi, (w1, root), backend="nccl")
+    return {k: here[k] + pipelined[k] for k in here}
 
 
-def phase_model_axis(torch, np, counters, smi, stage1_dir: Path) -> dict:
+def phase_model_axis(torch, np, counters, smi, stage1_dir: Path):
     """Phase 29 (see the module docstring); returns the launches of its
-    path: its children's and this process's phase=eval, summed."""
+    path (its children's and this process's phase=eval, summed) and its
+    world-1 child's record with its directory, the reference phase 30
+    reuses."""
     root = ROOT / "build" / "chip_smoke" / "model_axis"
     shutil.rmtree(root, ignore_errors=True)
     root.mkdir(parents=True)
@@ -5234,12 +5308,169 @@ def phase_model_axis(torch, np, counters, smi, stage1_dir: Path) -> dict:
                           "model2_ranks": [r["launches"] for r in m2],
                           "mesh4_ranks": [r["launches"] for r in m4], "total": launches}
     emit(record)
+    return launches, (w1, root)
+
+
+# -- phase 30: the pipeline ----------------------------------------------------------
+
+PP_MICROBATCHES = 2     # M of the two stages: the JAX entry point's default, n_model
+PP_BUDGET_S = 120       # the phase's budget (PERF.md §2)
+PP_ARGS = ["parallel.n_model=2", "parallel.pipeline=true",
+           f"parallel.pipeline_microbatches={PP_MICROBATCHES}"]
+
+
+def pp_step_launches(stage: int, n_stages: int = 2) -> dict:
+    """A stage's launches a train step: its LEVELS * STEPS / n_stages steps
+    on each of the PP_MICROBATCHES microbatches, forward and backward; on
+    stage 0 the first step of level 1 takes the images, which need no
+    gradient, so it launches no channel_mix dx (world 1's 23 = 2 * 12 - 1)."""
+    held = PP_MICROBATCHES * LEVELS * STEPS // n_stages
+    dx = held - (PP_MICROBATCHES if stage == 0 else 0)
+    return {"channel_mix": held + dx, "coupling_tail": held, "coupling_tail_bwd": held,
+            "coupling_tail_inverse": 0, "fused_linear_attention": 0,
+            "fused_linear_attention_bwd": 0, "step_megakernel_forward": 0}
+
+
+def pp_stage(torch, root: Path, stage1_dir: Path) -> None:
+    """A rank of phase 30's two pipeline stages (gloo ranks sharing this card,
+    or NCCL ranks on two cards), deterministic mode: run_baseline.main with
+    the pipeline at full width, MT_STEPS steps, instrumented."""
+    import torch.distributed as dist
+
+    from nfdpm_tpu_torch.parallel import distributed
+
+    counters = kernel_counters()
+    set_deterministic(torch, True)
+    spy = ModelAxisSpy(torch, counters)
+    os.environ["NFDPM_NO_TENSORBOARD"] = "1"
+    t0 = time.perf_counter()
+    a = mt_stage1(torch, spy, root, "pipeline", MT_STEPS, PP_ARGS)
+    out = {"phase": "pipeline_stage", "rank": dist.get_rank(),
+           "backend": dist.get_backend(), "a": a, "seconds": time.perf_counter() - t0,
+           "launches": counts(counters)}
+    spy.restore()
+    emit(out)
+    distributed.shutdown()
+
+
+def pp_check(counters, w1_root: Path, root: Path, w1: dict, stages: list):
+    """Phase 30's gates: the pipelined run against world 1's, each stage's
+    launches and bytes, the checkpoint scored by phase=eval in this process
+    (a world of one); returns (its record, this process's launches)."""
+    from nfdpm_tpu_torch import run_baseline
+    from nfdpm_tpu_torch.convert import named_leaves
+    from nfdpm_tpu_torch.training.checkpoint import restore_params
+
+    ref = w1["a"]
+    ranks = [r["a"] for r in stages]
+    bpd_gaps = [abs(g - w) for g, w in zip(ranks[0]["bpd_by_step"], ref["bpd_by_step"])]
+    got = dict(named_leaves(restore_params(str(root / ranks[0]["run_dir"]), "gaussian", 1,
+                                           "cpu")))
+    want = dict(named_leaves(restore_params(str(w1_root / ref["run_dir"]), "gaussian", 1,
+                                            "cpu")))
+    check(got.keys() == want.keys(), "the pipeline's checkpoint leaves differ from world 1's")
+    param_gap = max(float((got[k] - want[k]).abs().max()) for k in want if want[k].numel())
+    evals = len(train_loaders(MT_STEPS).test) + len(train_loaders(MT_STEPS).eval)
+    per_step = [pp_step_launches(r["coords"][1]) for r in ranks]
+    eval_part = stage1_run_launches(0, evals)
+    expected = [{k: MT_STEPS * p[k] + eval_part[k] for k in p} for p in per_step]
+    timed = [mt_timed(r["steps"]) for r in ranks]
+    rec = {"bpd_pipeline": ranks[0]["bpd_by_step"], "bpd_world1": ref["bpd_by_step"],
+           "bpd_gap_by_step": bpd_gaps, "final_param_gap": param_gap,
+           "final_bpd_pipeline": ranks[0]["results"], "final_bpd_world1": ref["results"],
+           "stage_by_rank": [r["coords"][1] for r in ranks],
+           "launches_by_step": [[s["launches"] for s in r["steps"]] for r in ranks],
+           "expected_step_launches": per_step,
+           "run_launches": [r["launches"] for r in ranks], "expected_run_launches": expected,
+           "flow_param_bytes_by_rank": [r["flow_param_bytes"] for r in ranks],
+           "predicted_flow_param_bytes_by_rank": [r["predicted_flow_param_bytes"] for r in ranks],
+           "world1_flow_param_bytes": ref["flow_param_bytes"],
+           "moment_bytes_by_rank": [r["moment_bytes"] for r in ranks],
+           "predicted_moment_bytes_by_rank": [r["predicted_moment_bytes"] for r in ranks],
+           "world1_moment_bytes": ref["moment_bytes"],
+           "max_memory_allocated_by_rank": [r["max_memory_allocated"] for r in ranks],
+           "world1_max_memory_allocated": ref["max_memory_allocated"],
+           "step_wall_ms_world1": median_of([s["wall_ms"] for s in ref["steps"][1:-1]]),
+           "step_wall_ms_pipeline_by_rank": [median_of([s["wall_ms"] for s in r["steps"][1:-1]])
+                                             for r in ranks],
+           "hop_flush_per_step_by_rank": [{k: r["steps"][1][k] for k in (
+               "hop_bytes", "hop_calls", "flush_bytes", "flush_calls")} for r in ranks],
+           "hop_flush_ms_timed_step_by_rank": [t["ms"] for t in timed],
+           "timed_step_wall_ms_by_rank": [t["wall_ms"] for t in timed],
+           "note": "the timed step's ms are the hops' and flushes' synchronised wall time, "
+                   "forward and backward"}
+    before = counts(counters)
+    evaluated = run_in(root, run_baseline.main, mt_argv(MT_STEPS) + [
+        "experiment_name=pipeline_eval", "phase=eval",
+        f"load.load_exp_dir={Path(ranks[0]['run_dir']).name}", "load.load_epoch=1"])
+    here = {k: v - before[k] for k, v in counts(counters).items()}
+    rec["eval_world1"] = evaluated["results"]
+    rec["eval_gap"] = max(abs(evaluated["results"][k] - ranks[0]["results"][k])
+                          for k in ("bpd_test", "bpd_train"))
+    check(len(bpd_gaps) == MT_STEPS and bpd_gaps[0] <= MG_BPD_TOL,
+          f"(pipeline) step 1's bits/dim {bpd_gaps[:1]} from world 1's")
+    check(max(bpd_gaps) <= TRAIN_TRAJ_TOL,
+          f"(pipeline) bits/dim {bpd_gaps} from world 1's by step")
+    check(param_gap <= MG_FINAL_ATOL,
+          f"(pipeline) parameters {param_gap} from world 1's after {MT_STEPS} steps")
+    check(sorted(rec["stage_by_rank"]) == [0, 1], f"(pipeline) stages {rec['stage_by_rank']}")
+    check(all(len(steps) == MT_STEPS and all(s == want for s in steps)
+              for steps, want in zip(rec["launches_by_step"], per_step)),
+          f"(pipeline) the stages' step launches {rec['launches_by_step']}, expected {per_step}")
+    check(rec["run_launches"] == expected,
+          f"(pipeline) the stages' run launches {rec['run_launches']}, expected {expected}")
+    check(rec["flow_param_bytes_by_rank"] == rec["predicted_flow_param_bytes_by_rank"]
+          and rec["moment_bytes_by_rank"] == rec["predicted_moment_bytes_by_rank"],
+          f"(pipeline) bytes {rec['flow_param_bytes_by_rank']}, {rec['moment_bytes_by_rank']} "
+          f"against the placements' {rec['predicted_flow_param_bytes_by_rank']}, "
+          f"{rec['predicted_moment_bytes_by_rank']}")
+    check(rec["eval_gap"] <= MG_BPD_TOL, f"(pipeline) phase=eval in a world of one "
+                                         f"{rec['eval_gap']} from the run's final bits/dim")
+    return rec, here
+
+
+def phase_pipeline(torch, np, counters, smi, world1=None, backend: str = "gloo") -> dict:
+    """Phase 30 (see the module docstring): two pipeline stages over
+    `backend` ("gloo": sharing this card; "nccl": on two cards) against a
+    world-1 child's run, or phase 29's (`world1` = (its record, its
+    directory)); returns the launches of its path: the stages' and this
+    process's phase=eval, summed."""
+    root = ROOT / "build" / "chip_smoke" / f"pipeline_{backend}"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    base = dict(mt_env(), MT_PARTS="a")
+    times = {}
+    if world1 is None:
+        (w1,) = mg_children("mt_world1", root, root, base, 1, phase="model_axis_world1")
+        RECORDS.append(w1)
+        world1 = (w1, root)
+        times["world1_child_s"] = time.perf_counter() - t0
+    w1, w1_root = world1
+    stages = mg_children("pp_stage", root, root, mt_launch(base, 2, backend), 2,
+                         phase="pipeline_stage")
+    times["stage_children_s"] = time.perf_counter() - t0 - sum(times.values())
+    RECORDS.extend(stages)
+    check(all(r["backend"] == backend for r in stages),
+          f"the stages ran on {[r['backend'] for r in stages]}, not {backend}")
+    rec, here = pp_check(counters, w1_root, root, w1, stages)
+    seconds = time.perf_counter() - t0
+    record = {"phase": "pipeline", "card": smi, "backend": backend,
+              "cards": torch.cuda.device_count(), "microbatches": PP_MICROBATCHES,
+              "stages": 2, "steps": MT_STEPS, **rec, "times": times, "seconds": seconds,
+              "budget_s": PP_BUDGET_S, "within_budget": seconds <= PP_BUDGET_S}
+    launches = {k: here[k] + sum(r["launches"][k] for r in stages) for k in here}
+    record["launches"] = {"this_process": here, "stages": [r["launches"] for r in stages],
+                          "total": launches}
+    emit(record)
     return launches
 
 
-# the children of phases 28 and 29, by role (--multi-gpu-child <role> ...)
+# the children of phases 28, 29 and 30, by role (--multi-gpu-child <role> ...)
 CHILD_ROLES = {"world1": mg_world1, "world2": mg_world2, "mt_world1": mt_world1,
-               "mt_model2": mt_model2, "mt_mesh4": mt_mesh4}
+               "mt_model2": mt_model2, "mt_mesh4": mt_mesh4, "pp_stage": pp_stage}
 
 
 def main() -> int:
@@ -5314,6 +5545,12 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_model_axis(torch, np, counters, smi, stage1_run)
         return 0
+    if sys.argv[1:] == ["--pipeline"]:
+        _, stage1_run, _, _ = phase_training(torch, counters)
+        phase_stage2_training(torch, counters, stage1_run)
+        torch.cuda.empty_cache()
+        phase_pipeline(torch, np, counters, smi)
+        return 0
     if sys.argv[1:] == ["--model-axis-nccl"]:
         phase_model_axis_nccl(torch, np, counters, smi)
         return 0
@@ -5372,7 +5609,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches["multi_gpu"] = phase_multi_gpu(torch, np, counters, smi, stage1_run)
     torch.cuda.empty_cache()
-    launches["model_axis"] = phase_model_axis(torch, np, counters, smi, stage1_run)
+    launches["model_axis"], world1 = phase_model_axis(torch, np, counters, smi, stage1_run)
+    torch.cuda.empty_cache()
+    launches["pipeline"] = phase_pipeline(torch, np, counters, smi, world1)
 
     per = {"fused_linear_attention": "one UNet evaluation of each of the three parts at "
                                      "batch 64 (one DDIM step or one stage-2 train "

@@ -99,12 +99,32 @@ def init_glow(seed, cfg: GlowConfig, device=None) -> Params:
     return tree_to_device(params, resolve_device(device))
 
 
+def run_step(sp: Params, y: torch.Tensor, ldj: torch.Tensor, cfg: GlowConfig, model=None,
+             gather=None):
+    """One Glow step of the forward (bijectors.step_forward on the config's
+    route and dtype), recomputed in the backward under `cfg.remat`.
+    `gather(sp)`: the step's whole weights from its slabs (a partitioned
+    flow, parallel/zero.py), called inside the recomputed function so that
+    the backward gathers them again."""
+    def fn(sp, y, ldj):
+        if gather is not None:
+            sp = gather(sp)
+        return bj.step_forward(sp, y, ldj, cfg.use_kernels, cfg.compute_dtype, model)
+
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, sp, y, ldj, use_reentrant=False)
+    return fn(sp, y, ldj)
+
+
 def forward(params: Params, cfg: GlowConfig, x: torch.Tensor,
             ldj: Optional[torch.Tensor] = None, logp: Optional[torch.Tensor] = None,
-            with_logp: bool = True, model=None):
+            with_logp: bool = True, model=None, fsdp=None):
     """x: [B, H, W, C] preprocessed (and dequantized) images. `model`: the
     model axis (parallel/tensor_parallel.ModelAxis) when `params` holds a
-    rank's slabs of the coupling CNNs; None on one rank.
+    rank's slabs of the coupling CNNs; None on one rank. `fsdp`: the
+    layout of a flow partitioned over the data axis (parallel/zero.Layout,
+    rooted at the flow): each step, and each level's split prior, gathers
+    its weights just before it runs.
 
     Returns (latent parts [z_1..z_{L-1}, y_final], ldj [B], logp [B] or None)."""
     b = x.shape[0]
@@ -115,26 +135,26 @@ def forward(params: Params, cfg: GlowConfig, x: torch.Tensor,
     elif logp is None:
         logp = torch.zeros((b,), dtype=torch.float32, device=x.device)
 
-    dtype = cfg.compute_dtype
+    def unit(path):
+        return None if fsdp is None else (lambda tree: fsdp.gather(tree, path))
 
-    def step(sp, y, ldj):
-        if cfg.remat and torch.is_grad_enabled():
-            return checkpoint(bj.step_forward, sp, y, ldj, cfg.use_kernels, dtype, model,
-                              use_reentrant=False)
-        return bj.step_forward(sp, y, ldj, cfg.use_kernels, dtype, model)
+    def steps(stack, path, y, ldj):
+        for i, sp in enumerate(stack):
+            y, ldj = run_step(sp, y, ldj, cfg, model, unit(f"{path}/{i}"))
+        return y, ldj
 
     latents = []
     y = x
-    for block in params["blocks"]:
+    for i, block in enumerate(params["blocks"]):
         y = bj.squeeze_forward(y)
-        for sp in block["steps"]:
-            y, ldj = step(sp, y, ldj)
-        y, ldj, z, logp = bj.split_forward(block["split"], y, ldj, logp)
+        y, ldj = steps(block["steps"], f"blocks/{i}/steps", y, ldj)
+        split = block["split"] if fsdp is None else fsdp.gather(block["split"],
+                                                                f"blocks/{i}/split")
+        y, ldj, z, logp = bj.split_forward(split, y, ldj, logp)
         latents.append(z)
 
     y = bj.squeeze_forward(y)
-    for sp in params["final_steps"]:
-        y, ldj = step(sp, y, ldj)
+    y, ldj = steps(params["final_steps"], "final_steps", y, ldj)
     latents.append(y)
     return latents, ldj, logp
 

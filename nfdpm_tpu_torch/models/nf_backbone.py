@@ -9,7 +9,9 @@ gradient of the flow is formed. `load_pretrained_flow` rebuilds the flow of
 one of the port's own stage-1 run directories. `model` is the model axis
 (parallel/tensor_parallel.ModelAxis) when the flow's parameters are a
 rank's slabs of the coupling CNNs (the trainers set it from their mesh),
-None on one rank.
+None on one rank. `fsdp` is the layout of a flow partitioned over the data
+axis (parallel/zero.Layout, rooted at the flow): `transform` gathers each
+step's weights on use. The inverse runs on whole weights.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ class NFBackbone:
     img_size: int
     frozen: bool = True
     model: Optional[Any] = dataclasses.field(default=None, compare=False)
+    fsdp: Optional[Any] = dataclasses.field(default=None, compare=False)
 
     def maybe_freeze(self, flow_params):
         """The parameters cut from the graph when the flow is frozen."""
@@ -39,7 +42,8 @@ class NFBackbone:
         """x [B, H, W, C] -> (latent parts, ldj [B])."""
         with torch.no_grad() if self.frozen else contextlib.nullcontext():
             latents, ldj, _ = glow_m.forward(flow_params, self.cfg, x, ldj=ldj,
-                                             with_logp=False, model=self.model)
+                                             with_logp=False, model=self.model,
+                                             fsdp=self.fsdp)
         return latents, ldj
 
     def invert(self, flow_params, latents: Sequence[torch.Tensor],

@@ -47,6 +47,12 @@ Attention_0's qkv and out matrices) hold contiguous slabs that are not
 head groups, so they gather their weights and run whole on every rank:
 the fused kernel, its backward and its launch counts as on one device.
 Everything else is replicated.
+
+Parameter partitioning over the data axis (`gather_units`,
+parallel/zero.py): each rank holds slabs of the placed parameters, and
+each ResnetBlock, each attention with its norm, and the rest of the UNet
+as one unit gather their whole weights just before they run; the backward
+reduce-scatters their gradients.
 """
 
 from __future__ import annotations
@@ -374,7 +380,30 @@ class Unet(nn.Module):
         self.final_res = ResnetBlock(init_dim * 2, dim, time_dim, groups, dt)
         self.final_conv = Conv(dim, self.out_dim, 1)
 
+    fsdp = None  # the data axis's layout of a partitioned UNet (gather_units)
+
+    def gather_units(self, layout) -> None:
+        """Gather the parameters `layout` (parallel/zero.Layout, rooted at
+        this UNet) partitions on use, unit by unit."""
+        units = [n for n, m in self.named_modules()
+                 if isinstance(m, (ResnetBlock, PreNormResidual))]
+        self.fsdp = layout
+        self._rest = [n for n, _ in self.named_parameters()
+                      if not any(n.startswith(u + ".") for u in units)]
+
+    def _unit(self, name: str, module: nn.Module, *args):
+        if self.fsdp is None:
+            return module(*args)
+        with self.fsdp.swapped(module, name, [n for n, _ in module.named_parameters()]):
+            return module(*args)
+
     def forward(self, x, time, x_self_cond=None, use_kernels: bool = True):
+        if self.fsdp is None:
+            return self._forward(x, time, x_self_cond, use_kernels)
+        with self.fsdp.swapped(self, "", self._rest):
+            return self._forward(x, time, x_self_cond, use_kernels)
+
+    def _forward(self, x, time, x_self_cond, use_kernels):
         if self.self_condition:
             if x_self_cond is None:
                 x_self_cond = torch.zeros_like(x)
@@ -385,25 +414,25 @@ class Unet(nn.Module):
         t = self.time_dense1(F.gelu(t, approximate="tanh"))
 
         hs = []
-        for level in self.downs:
-            x = level["res1"](x, t)
+        for i, level in enumerate(self.downs):
+            x = self._unit(f"downs.{i}.res1", level["res1"], x, t)
             hs.append(x)
-            x = level["res2"](x, t)
-            x = level["attn"](x, use_kernels)
+            x = self._unit(f"downs.{i}.res2", level["res2"], x, t)
+            x = self._unit(f"downs.{i}.attn", level["attn"], x, use_kernels)
             hs.append(x)
             x = level["down"](x)
 
-        x = self.mid_res1(x, t)
-        x = self.mid_attn(x)
-        x = self.mid_res2(x, t)
+        x = self._unit("mid_res1", self.mid_res1, x, t)
+        x = self._unit("mid_attn", self.mid_attn, x)
+        x = self._unit("mid_res2", self.mid_res2, x, t)
 
-        for level in self.ups:
-            x = level["res1"](torch.cat([x, hs.pop()], dim=-1), t)
-            x = level["res2"](torch.cat([x, hs.pop()], dim=-1), t)
-            x = level["attn"](x, use_kernels)
+        for i, level in enumerate(self.ups):
+            x = self._unit(f"ups.{i}.res1", level["res1"], torch.cat([x, hs.pop()], dim=-1), t)
+            x = self._unit(f"ups.{i}.res2", level["res2"], torch.cat([x, hs.pop()], dim=-1), t)
+            x = self._unit(f"ups.{i}.attn", level["attn"], x, use_kernels)
             x = level["up"](x)
 
-        x = self.final_res(torch.cat([x, r], dim=-1), t)
+        x = self._unit("final_res", self.final_res, torch.cat([x, r], dim=-1), t)
         return self.final_conv(x)
 
 

@@ -1,7 +1,7 @@
-"""Data and tensor parallelism across processes and devices.
+"""Data, tensor and pipeline parallelism across processes and devices.
 
-Counterpart of nfdpm_tpu/parallel/ along its "data" axis and the tensor
-parallelism of its "model" axis. The JAX package runs one program over a
+Counterpart of nfdpm_tpu/parallel/ along its "data" axis (with parameter
+partitioning) and the tensor parallelism and pipeline of its "model" axis. The JAX package runs one program over a
 device mesh and lets GSPMD place the collectives; the port runs one
 process per rank (launched by torchrun) and places them itself, over
 torch.distributed: NCCL between GPUs, gloo on the CPU or when asked for by
@@ -19,12 +19,14 @@ tensor_parallel: the model axis's collectives as autograd functions
 sharding_rules : the JAX package's PartitionSpec rules (tensor-parallel
                  "model" entries and ZeRO "data" entries) as plain tuples,
                  their placements on the port's leaves.
-zero           : the Adam moments' partition over the data axis (ZeRO).
+zero           : a state partitioned over an axis: parameters, Adam moments
+                 and EMA shadow over the data axis (ZeRO stage 3, fsdp),
+                 gathered on use unit by unit, their gradients
+                 reduce-scattered; the pipeline's stages; whole states.
+pipeline       : GPipe over the K steps of stage 1 on the model axis.
 part_parallel  : stage-2 training with each diffusion part on its own group
                  of ranks (tensor-parallel inside it under a model axis).
 
-Parameter partitioning with gather-on-use, the pipeline over K and
-spatial partitioning are not here (ROADMAP §1 item 5): the entry points
-refuse `parallel.spatial`, `parallel.pipeline` and
-`parallel.pipeline_microbatches`.
+Spatial partitioning is not here (ROADMAP §1 item 5): the entry points
+refuse `parallel.spatial`.
 """

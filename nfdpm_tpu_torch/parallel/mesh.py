@@ -16,9 +16,10 @@ rows and draw the same noise; the model axis is tensor parallelism
 Conventions, as in the JAX package:
   * a global batch is split on its leading axis into `n_data` equal
     contiguous row blocks, block d to the ranks at data index d;
-  * parameters are replicated over the data axis; over the model axis a
-    rank holds the slabs its "model" placements name
-    (parallel/sharding_rules.py);
+  * parameters are replicated over the data axis, unless `parallel.fsdp`
+    partitions them (parallel/zero.py); over the model axis a rank holds
+    the slabs its "model" placements name (parallel/sharding_rules.py), or
+    under the pipeline its stage's steps (parallel/pipeline.py);
   * the draws of a step are the global batch's, made by every rank from
     the same generator, of which each keeps its rows (ops/draws.py).
 
@@ -47,7 +48,7 @@ from ..convert import named_leaves
 from ..ops.draws import RowGenerator
 from .tensor_parallel import ModelAxis
 
-NOT_PORTED = "(ROADMAP: parameter partitioning, pipeline and spatial parallelism)"
+NOT_PORTED = "(ROADMAP: spatial parallelism)"
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

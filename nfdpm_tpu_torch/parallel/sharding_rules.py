@@ -23,16 +23,17 @@ attention's [in, out] matrices). Under a model axis the rank's parameters
 ARE these slabs (parallel/tensor_parallel.py, ops/coupling.py,
 models/unet.py).
 
-The "data" entries (ZeRO): a "data" entry on an axis of the leaf becomes a
-`Placement(dim=...)`: data rank r keeps slab r of that axis of what the
-rank holds (the leaf, or its model slab: the spec is computed on the whole
-leaf's shape with its "model" entry, as the JAX spec composes them). A
-"data" entry on the K axis of a stacked step leaf, which the port keeps as
-K separate leaves, becomes `Placement(owner=r)`: step k's leaf lies whole
-with rank k // (K / n). Over the data axis the parameters stay whole on
-every rank (the port's eager forward reads each weight whole); what a data
-placement partitions is the leaf's Adam moments (`shard_opt_state`,
-training/optim.py's ZeRO path).
+The "data" entries (ZeRO stage 3, `parallel.fsdp`): a "data" entry on an
+axis of the leaf becomes a `Placement(dim=...)`: data rank r keeps slab r
+of that axis of what the rank holds (the leaf, or its model slab: the spec
+is computed on the whole leaf's shape with its "model" entry, as the JAX
+spec composes them). A "data" entry on the K axis of a stacked step leaf,
+which the port keeps as K separate leaves, becomes `Placement(owner=r)`:
+step k's leaf lies whole with rank k // (K / n) and empty elsewhere. A
+placement partitions the parameter, its Adam moments and its EMA shadow
+alike; the units of the model gather the slabs on use (parallel/zero.py).
+The pipeline's stages (parallel/pipeline.py) are owner placements over the
+model axis.
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from ..convert import _unet_layout, is_frozen_path, named_leaves
+from ..convert import _unet_layout, named_leaves
 
 # FSDP leaves smaller than this many elements stay replicated: all-gathering
 # a few-KB actnorm vector costs more latency than the memory it saves.
@@ -236,8 +237,8 @@ def unet_jax_shapes(unet) -> Dict[str, Any]:
 
 @dataclasses.dataclass(frozen=True)
 class Placement:
-    """Where a leaf's Adam moments live over the data axis: slab `rank` of
-    axis `dim` on each rank, or (dim None) the whole leaf on rank `owner`."""
+    """Where a leaf lives over an axis of `n` ranks: slab `rank` of axis
+    `dim` on each rank, or (dim None) the whole leaf on rank `owner`."""
     n: int
     dim: Optional[int] = None
     owner: Optional[int] = None
@@ -408,29 +409,6 @@ def generic_placements(tree, n_data: int, prefix: str,
     return out
 
 
-def trained_placements(placements: Dict[str, Placement], tx) -> Dict[str, Placement]:
-    """The placements of the leaves `tx` updates: a leaf that never updates
-    (p_mat and sign, a fixed prior, a frozen flow) keeps its moments whole,
-    as optax keeps none for it."""
-    return {p: pl for p, pl in placements.items() if not is_frozen_path(p) and tx.updates(p)}
-
-
-# -- the moments' partition ---------------------------------------------------
-
-def shard_opt_state(opt_state: Dict[str, Any], placements: Dict[str, Placement],
-                    rank: int) -> Dict[str, Any]:
-    """The state with each moment of a placed leaf cut to this rank's slab
-    (copies, so the whole moments can be freed); other leaves and the count
-    as they are. Works on restored states: the moments are sliced, never
-    re-initialized."""
-    def cut(tree):
-        flat = dict(named_leaves(tree))
-        return replace_leaves(tree, {p: placements[p].slab(t, rank).clone()
-                                      for p, t in flat.items() if p in placements})
-
-    return {**opt_state, "mu": cut(opt_state["mu"]), "nu": cut(opt_state["nu"])}
-
-
 def replace_leaves(tree: Any, new: Dict[str, torch.Tensor], prefix: str = "") -> Any:
     """`tree` with the leaves at the paths of `new` replaced (a module's
     parameters become a dict by name, as map_tree makes them)."""
@@ -468,8 +446,10 @@ def predicted_moment_bytes(params: Any, placements: Dict[str, Placement], rank: 
 
 
 def predicted_param_bytes(params: Any, placements: Dict[str, Placement], rank: int) -> int:
-    """The parameter bytes a rank holds under the model `placements` at
-    model index `rank`, from the whole tree `params`."""
+    """The parameter bytes a rank holds under `placements` at index `rank`
+    of their axis, from the tree `params` as it is before their cut: the
+    whole tree and the model placements, or a rank's model slabs (whole
+    without a model axis) and the data axis's."""
     return _predicted_bytes(params, placements, rank)
 
 

@@ -41,12 +41,20 @@ the numbers do not change with the world size. `parallel.n_model=M` makes
 the launch a (world / M, M) ("data", "model") mesh: the coupling CNNs
 tensor-parallel over each block of M consecutive ranks (parallel/mesh.py,
 ops/coupling.py); M must divide the world (one process without a launch
-cannot hold a model axis and raises). `parallel.fsdp=true` partitions
-Adam's moments over the data axis (ZeRO), `parallel.n_slices` lays the
-data axis out slice-major. Rank 0 writes the run directory's files, with
-whole tensors at any mesh shape. What is not ported raises
-NotImplementedError instead of being skipped: `parallel.spatial`,
-`parallel.pipeline` and `parallel.pipeline_microbatches`.
+cannot hold a model axis and raises). `parallel.fsdp=true` partitions the
+parameters and Adam's moments over the data axis (ZeRO stage 3: each Glow
+step gathers its weights on use, parallel/zero.py), `parallel.n_slices`
+lays the data axis out slice-major. `parallel.pipeline=true` makes the
+model axis a pipeline of M stages instead (parallel/pipeline.py): stage s
+holds the steps [s K/M, (s+1) K/M) of every level and the flow runs GPipe
+over `parallel.pipeline_microbatches` microbatches (0: M; a value set
+without `parallel.pipeline` turns the pipeline on, as in the JAX package);
+without a model axis it warns and trains the plain step. The pipeline
+refuses fsdp, spatial partitioning and an explicit
+`model.architecture.use_pallas=true`, with the JAX package's messages.
+Rank 0 writes the run directory's files, with whole tensors at any mesh
+shape. What is not ported raises NotImplementedError instead of being
+skipped: `parallel.spatial`.
 """
 
 from __future__ import annotations
@@ -58,7 +66,7 @@ import time
 CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                       "configs", "nf_base.yaml")
 # options of the model axis the port does not have: they keep their defaults
-UNPORTED_PARALLEL = {"pipeline": False, "pipeline_microbatches": 0, "spatial": False}
+UNPORTED_PARALLEL = {"spatial": False}
 
 
 def refuse_unported(cfg) -> None:
@@ -69,6 +77,33 @@ def refuse_unported(cfg) -> None:
         value = cfg.select(f"parallel.{key}", default)
         if value != default:
             raise NotImplementedError(f"parallel.{key}={value!r} is not ported {NOT_PORTED}")
+
+
+def pipeline_microbatches(cfg) -> int:
+    """The pipeline's microbatches the config asks for (0: no pipeline), as
+    run_baseline_experiment.py maps them: `parallel.pipeline_microbatches`,
+    or n_model when it is 0 and `parallel.pipeline` is set."""
+    return (int(cfg.select("parallel.pipeline_microbatches", 0))
+            or (int(cfg.select("parallel.n_model", 1))
+                if bool(cfg.select("parallel.pipeline", False)) else 0))
+
+
+def check_pipeline_options(cfg, overrides) -> int:
+    """The pipeline's microbatches (0: none), after the JAX package's
+    refusals of two layouts of the flow at once (checked before spatial's
+    refusal) and of an explicit `use_pallas=true` (the JAX package cannot
+    route its kernels inside the pipeline; the port's can, and takes them
+    unless an override says false)."""
+    from .parallel import pipeline as pl
+
+    microbatches = pipeline_microbatches(cfg)
+    if microbatches:
+        pl.check_exclusive(True, bool(cfg.select("parallel.fsdp", False)),
+                           bool(cfg.select("parallel.spatial", False)))
+        if any(o.lstrip("+") == "model.architecture.use_pallas=true" for o in overrides):
+            raise ValueError("use_pallas kernels are not routed inside the "
+                             "pipeline region — disable one of the two")
+    return microbatches
 
 
 def start_parallel(cfg):
@@ -146,6 +181,7 @@ def main(argv) -> dict:
     from .convert import params_for_rank
     from .data.pipeline import read_dataset
     from .models import glow as glow_m
+    from .parallel import mesh as mesh_m
     from .training import nf_trainer as nft
     from .training.checkpoint import restore_params
     from .utils.config import load_config
@@ -153,14 +189,11 @@ def main(argv) -> dict:
 
     overrides = [a for a in argv if "=" in a]
     cfg = load_config(CONFIG, overrides)
+    microbatches = check_pipeline_options(cfg, overrides)
     refuse_unported(cfg)
-    mesh = start_parallel(cfg)
     use_kernels = (bool(cfg.model.architecture.use_pallas) if any(
         o.lstrip("+").startswith("model.architecture.use_pallas=") for o in overrides)
         else True)
-    device = port.resolve_device(cfg.select("device"))
-    port.set_matmul_precision(cfg.select("model.training.matmul_precision"))
-    train_phase = parse_train_eval_mode(cfg.phase)
     fsdp = bool(cfg.select("parallel.fsdp", False))
 
     arch = cfg.model.architecture
@@ -175,6 +208,14 @@ def main(argv) -> dict:
         remat=bool(arch.get("remat", False)),
         use_kernels=use_kernels,
     )
+    if microbatches:  # the guards that need no launch
+        from .parallel.pipeline import check_pipeline_config
+
+        check_pipeline_config(gcfg, int(cfg.select("parallel.n_model", 1)), microbatches)
+    mesh = start_parallel(cfg)
+    device = port.resolve_device(cfg.select("device"))
+    port.set_matmul_precision(cfg.select("model.training.matmul_precision"))
+    train_phase = parse_train_eval_mode(cfg.phase)
     tr = cfg.model.training
     tcfg = nft.NFTrainConfig(
         epochs=int(tr.epochs),
@@ -231,7 +272,8 @@ def main(argv) -> dict:
             cfg=gcfg, tcfg=tcfg, loaders=loaders, run_dir=run_dir, logger=logger,
             seed=int(cfg.seed), img_size=int(cfg.data.img_size),
             resume_dir=resume_dir, resume_epoch=resume_epoch, resume_batch=resume_batch,
-            evaluate_fn=evaluate_fn, device=device, mesh=mesh, fsdp=fsdp)
+            evaluate_fn=evaluate_fn, device=device, mesh=mesh, fsdp=fsdp,
+            pipeline_microbatches=microbatches)
         logger.info(f"Training done: {out['results']}")
         return {"run_dir": run_dir, "results": out["results"]}
     else:
@@ -239,6 +281,8 @@ def main(argv) -> dict:
             raise ValueError("phase=eval requires load.load_exp_dir/load_epoch")
         # params-only restore: needs no optimizer, so runs trained with any
         # optimizer and schedule evaluate
+        if microbatches:  # the pipeline is a train-step layout: whole weights here
+            mesh = mesh_m.flat(mesh)
         params = params_for_rank(restore_params(resume_dir, "gaussian", resume_epoch, device),
                                  mesh)
         k_deq = int(cfg.select("model.evaluation.bpd_dequant_samples", 1))

@@ -37,17 +37,20 @@ carries no coupling dtype. `model.training.matmul_precision` as in
 nfdpm_tpu_torch.run_baseline.
 
 Data parallelism as in nfdpm_tpu_torch.run_baseline (torchrun, one process
-a GPU; `parallel.fsdp`, `parallel.n_slices`). `parallel.part_parallel=true`
+a GPU; `parallel.n_slices`; `parallel.fsdp` partitions the UNets' and the
+flow's parameters, frozen or co-trained, with their moments and the EMA
+shadow, each UNet block and Glow step gathering its weights on use). `parallel.part_parallel=true`
 trains each diffusion part on its own group of ranks
 (parallel/part_parallel.py; a frozen flow, no fsdp, no load.load_batch, as
 in the JAX package); it writes the merged model_diffusion_* checkpoints
 that phase=eval, runload and `serve --run-dir` read. `parallel.n_model=M`
 makes the UNets and the flow tensor-parallel over blocks of M ranks, as in
 nfdpm_tpu_torch.run_baseline, and inside each part's group under
-part_parallel (a group's ranks must divide by M). What is not ported raises
-NotImplementedError: `parallel.spatial`, `parallel.pipeline` and
-`parallel.pipeline_microbatches`, and an orbax run directory of the JAX
-package as the pretrained flow (tools/jax_run_to_torch.py converts one).
+part_parallel (a group's ranks must divide by M). `parallel.pipeline` and
+`parallel.pipeline_microbatches` are stage-1 options and raise ValueError
+here. What is not ported raises NotImplementedError: `parallel.spatial`,
+and an orbax run directory of the JAX package as the pretrained flow
+(tools/jax_run_to_torch.py converts one).
 """
 
 from __future__ import annotations
@@ -60,10 +63,14 @@ import time
 CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                       "configs", "nf_diffusion.yaml")
 def refuse_unported(cfg) -> None:
-    """Raise for every configured option the port does not have yet (as for
-    stage 1)."""
-    from .run_baseline import refuse_unported as refuse_stage1
+    """Raise for the pipeline, which only the stage-1 trainer has, and for
+    every configured option the port does not have yet (as for stage 1)."""
+    from .run_baseline import pipeline_microbatches, refuse_unported as refuse_stage1
 
+    if pipeline_microbatches(cfg):
+        raise ValueError("parallel.pipeline and parallel.pipeline_microbatches are "
+                         "stage-1 options (nfdpm_tpu_torch.run_baseline): the diffusion "
+                         "trainer has no pipeline")
     refuse_stage1(cfg)
 
 
@@ -284,7 +291,7 @@ def main(argv) -> dict:
                        resume_dir=resume_dir, resume_epoch=resume_epoch,
                        resume_batch=resume_batch, evaluate_fn=evaluate_fn, device=device,
                        mesh=mesh, fsdp=fsdp)
-        return {**report_vlb(dt.ema_eval_params(out["state"])), **out["results"]}
+        return {**report_vlb(dt.eval_params(out["state"])), **out["results"]}
     else:
         if not resume_dir:
             raise ValueError("phase=eval requires load.load_exp_dir/load_epoch")

@@ -35,11 +35,13 @@ Counterpart of nfdpm_tpu/training/diffusion_trainer.py, in eager PyTorch:
   * Data parallelism (`mesh=`, as in nf_trainer): each rank keeps its rows
     of the global batch; the step's draws (dequantization, each part's t
     and noise) are the global batch's, cut to the rank's rows; the
-    self-conditioning coin is shared. `fsdp=True` partitions the Adam
-    moments of the UNets and of a co-trained flow (`shard_diffusion_state`);
-    a frozen flow has none. The EMA shadow stays whole and equal on every
-    data rank. Sampling, the VLB and the latent stats gather or sum what the
-    ranks computed on their rows.
+    self-conditioning coin is shared. `fsdp=True` partitions the parameters
+    of the UNets and of the flow, frozen or co-trained, with their Adam
+    moments and the EMA shadow, over the data ranks (ZeRO stage 3,
+    `shard_diffusion_state`, parallel/zero.py): each Glow step and each UNet
+    block gathers its weights on use. Sampling and the VLB run on the
+    gathered weights (`eval_params`); they and the latent stats gather or
+    sum what the ranks computed on their rows.
   * The model axis (n_model > 1): the UNets tensor-parallel
     (models/unet.shard_unet_) and the flow, frozen or co-trained, under
     the Glow rules (ops/coupling.py), as the JAX package's
@@ -242,32 +244,34 @@ def init_train_state(seed: int, backbone: NFBackbone, flow_params, dp: Diffusion
     return state
 
 
-def diffusion_placements(mesh, tx: Optimizer, params, fsdp: bool
-                         ) -> Dict[str, rules.Placement]:
-    """ZeRO placements of the updated leaves ({} without `fsdp` or at one
-    rank): each UNet by the JAX package's unet_param_specs, a co-trained
-    flow by glow_param_specs; a frozen flow is not optimized and keeps no
-    moments to partition (shard_diffusion_state)."""
+def diffusion_placements(mesh, params, fsdp: bool) -> Dict[str, rules.Placement]:
+    """The placements of a stage-2 state's parameters over the mesh's data
+    axis ({} without `fsdp` or at one rank), on what the rank holds before
+    the cut: each UNet by the JAX package's unet_param_specs, the flow,
+    frozen or co-trained ("frozen weights still occupy HBM"), by
+    glow_param_specs (shard_diffusion_state)."""
     if not fsdp or mesh is None or mesh.n_data == 1:
         return {}
     n, m = mesh.n_data, mesh.n_model
     out = rules.glow_placements(params["flow"], n, "flow", n_model=m)
     for i, unet in enumerate(params["diffusion"]["parts"]):
         out.update(rules.unet_placements(unet, n, f"diffusion/parts/{i}", n_model=m))
-    return rules.trained_placements(out, tx)
+    return out
 
 
 def shard_diffusion_state(mesh, tx: Optimizer, state, fsdp: bool = False) -> Dict[str, Any]:
     """A whole state made rank 0's on every rank (parameters and EMA shadow
     broadcast), cut to this rank's model slabs under a model axis
-    (parameters, moments and shadow alike) and, with `fsdp`, the
-    partitioned leaves' moments cut to this rank's data slab."""
+    (parameters, moments and shadow alike) and, with `fsdp`, partitioned
+    over the data axis: each placed parameter, its moments and its shadow
+    cut to this rank's data slab (parallel/zero.py). `tx`, the state's
+    optimizer, completes the JAX package's signature."""
     mesh_m.replicate(mesh, state["params"])
     if "ema" in state:
         mesh_m.replicate(mesh, state["ema"])
     state = tp.shard_state(mesh_m.model_of(mesh), state,
                            rules.model_placements(state["params"], mesh_m.n_model_of(mesh)))
-    return zero.shard_state(mesh, state, diffusion_placements(mesh, tx, state["params"], fsdp))
+    return zero.shard_state(mesh, state, diffusion_placements(mesh, state["params"], fsdp))
 
 
 def on_mesh(mesh, backbone: NFBackbone) -> NFBackbone:
@@ -275,14 +279,21 @@ def on_mesh(mesh, backbone: NFBackbone) -> NFBackbone:
     return dataclasses.replace(backbone, model=mesh_m.model_of(mesh))
 
 
-def whole_diffusion_state(mesh, state, placements: Dict[str, rules.Placement],
-                          timeout_s: Optional[float] = None) -> Dict[str, Any]:
-    """What a checkpoint holds: ZeRO's moment slabs gathered over the data
-    group, the model slabs over the model group (UNets as dicts of whole
-    tensors by name). A collective, each gather at most `timeout_s` s."""
-    state = zero.whole_state(mesh, state, placements, timeout_s)
+def whole_diffusion_state(mesh, state, timeout_s: Optional[float] = None) -> Dict[str, Any]:
+    """What a checkpoint holds: the data slabs of a partitioned state
+    gathered over the data group, the model slabs over the model group
+    (UNets as dicts of whole tensors by name under a model axis). A
+    collective, each gather at most `timeout_s` s."""
+    state = zero.whole_state(state, timeout_s)
     placements = rules.model_placements(state["params"], mesh_m.n_model_of(mesh))
     return tp.whole_state(mesh_m.model_of(mesh), state, placements, timeout_s)
+
+
+def eval_params(state) -> Dict[str, Any]:
+    """What sampling and evaluation read (ema_eval_params) of a state whose
+    partitioned parameters and shadow are gathered whole first (a
+    collective over the data group); the UNets stay modules."""
+    return ema_eval_params(zero.whole_state(state, trees=("params", "ema")))
 
 
 def _draw_rows(draws: Dict[str, Any], rows: slice) -> Dict[str, Any]:
@@ -293,8 +304,7 @@ def _draw_rows(draws: Dict[str, Any], rows: slice) -> Dict[str, Any]:
 
 
 def make_train_step(backbone: NFBackbone, dp: DiffusionPrior, tcfg: DiffusionTrainConfig,
-                    tx: Optimizer, inject_noise: bool = False, device=None, mesh=None,
-                    fsdp: bool = False):
+                    tx: Optimizer, inject_noise: bool = False, device=None, mesh=None):
     """Build train_step(state, batch, seed) -> (state, metrics).
 
     The parameters, moments and EMA shadow are updated in place; the
@@ -307,21 +317,26 @@ def make_train_step(backbone: NFBackbone, dp: DiffusionPrior, tcfg: DiffusionTra
 
     With a data-parallel `mesh`, `batch` is this rank's rows; the draws are
     the global batch's (injected ones too) cut to them, and the gradients
-    and the metrics are averaged over the ranks; `fsdp=True` takes the ZeRO
-    path (the state from shard_diffusion_state)."""
+    and the metrics are averaged over the ranks. A state partitioned over
+    the data axis (shard_diffusion_state with fsdp) gathers each unit's
+    weights on use and updates its slabs."""
     device = resolve_device(device)
     apply_matmul_precision()
     backbone = on_mesh(mesh, backbone)
-    loss_fn = make_loss_fn(backbone, dp, tcfg)
     generator = torch.Generator(device=device)
     in_step_ema = tcfg.ema_decay is not None and tcfg.ema_update_every <= 1
-    placements = model_placements = None  # computed at the first step
+    model_placements = None  # computed at the first step
+    loss_fns = {}  # by layout: the backbone gathers the flow's steps on use
 
     def train_step(state, batch, seed_or_draws):
-        nonlocal placements, model_placements
+        nonlocal model_placements
         params = state["params"]
-        if placements is None:
-            placements = diffusion_placements(mesh, tx, params, fsdp)
+        layout = state.get("layout")
+        if layout not in loss_fns:
+            loss_fns[layout] = make_loss_fn(dataclasses.replace(
+                backbone, fsdp=None if layout is None else layout.at("flow")), dp, tcfg)
+        loss_fn = loss_fns[layout]
+        if model_placements is None:
             model_placements = rules.model_placements(params, mesh_m.n_model_of(mesh))
         for _, p in named_leaves(params):
             p.grad = None
@@ -340,9 +355,12 @@ def make_train_step(backbone: NFBackbone, dp: DiffusionPrior, tcfg: DiffusionTra
         grads = map_tree(params, lambda p: p.grad if p.grad is not None or not p.requires_grad
                          else torch.zeros_like(p))
         loss = loss.detach()
-        opt_state = tx.apply(params, grads, state["opt_state"], mesh, placements,
+        opt_state = tx.apply(params, grads, state["opt_state"], mesh,
+                             {} if layout is None else layout.placements,
                              extras=[loss, parts], model_placements=model_placements)
         out = {"params": params, "opt_state": opt_state, "step": state["step"] + 1}
+        if layout is not None:
+            out["layout"] = layout
         if "ema" in state:
             if in_step_ema:
                 _ema_lerp_(state["ema"], params, backbone.frozen, tcfg.ema_decay,
@@ -518,23 +536,22 @@ def train(*, backbone: NFBackbone, flow_params, dp: DiffusionPrior,
         state = init_train_state(seed, backbone, flow_params, dp, tx, ema=want_ema,
                                  device=device)
     state = shard_diffusion_state(mesh, tx, state, fsdp)
-    placements = diffusion_placements(mesh, tx, state["params"], fsdp)
     backbone = on_mesh(mesh, backbone)
     if mesh is not None:
-        logger.info(f"Data parallel: {mesh}" + (", ZeRO moments" if placements else ""))
+        logger.info(f"Data parallel: {mesh}" + (", FSDP" if "layout" in state else ""))
         if mesh.n_model > 1 or fsdp:
             logger.info(f"Param shardings applied: model axis={mesh.n_model}"
                         f"{', FSDP over data axis' if fsdp else ''}")
     current_iter = state["step"]
 
-    train_step = make_train_step(backbone, dp, tcfg, tx, device=device, mesh=mesh, fsdp=fsdp)
+    train_step = make_train_step(backbone, dp, tcfg, tx, device=device, mesh=mesh)
     ema_fn = (make_ema_update(backbone, tcfg)
               if want_ema and tcfg.ema_update_every > 1 else None)
     sample_fn = make_sample_fn(backbone, dp, tcfg, seed, device, mesh)
 
     def save(epoch: int, timeout_s: Optional[float] = None) -> None:
-        save_state(run_dir, "diffusion", epoch,
-                   whole_diffusion_state(mesh, state, placements, timeout_s), mesh, timeout_s)
+        save_state(run_dir, "diffusion", epoch, whole_diffusion_state(mesh, state, timeout_s),
+                   mesh, timeout_s)
 
     def rows_of(batches):
         for imgs, labels in batches:
@@ -577,7 +594,7 @@ def train(*, backbone: NFBackbone, flow_params, dp: DiffusionPrior,
                     logger.info(f"epoch {epoch} iter {current_iter}: {loss_name} {avg:.4f}")
                     log_count += 1
                     if log_count % tcfg.log_gen_images_per_iter == 0:
-                        samples = sample_fn(ema_eval_params(state), tcfg.n_samples_log,
+                        samples = sample_fn(eval_params(state), tcfg.n_samples_log,
                                             tcfg.temperature, 2 * current_iter + 1)
                         tracker.track_images(samples.cpu().numpy(), "generated",
                                              step=current_iter, epoch=epoch)
@@ -592,14 +609,15 @@ def train(*, backbone: NFBackbone, flow_params, dp: DiffusionPrior,
                         f"({len(loaders.train) / max(dt, 1e-9):.2f} it/s, "
                         f"step p50 {ts.get('p50_ms', 0):.1f}ms p95 {ts.get('p95_ms', 0):.1f}ms)")
             if tcfg.log_param_distribution:
-                tracker.track_param_distributions(state["params"], step=current_iter,
-                                                  epoch=epoch)
+                tracker.track_param_distributions(
+                    zero.whole_state(state, trees=("params",))["params"],
+                    step=current_iter, epoch=epoch)
 
             if epoch % tcfg.save_checkpoint_freq == 0:
                 if evaluate_fn is not None:
-                    evaluate_fn(sample_fn, ema_eval_params(state), epoch)
+                    evaluate_fn(sample_fn, eval_params(state), epoch)
                 save(epoch)
-                samples = sample_fn(ema_eval_params(state), 64, tcfg.temperature, 2 * epoch)
+                samples = sample_fn(eval_params(state), 64, tcfg.temperature, 2 * epoch)
                 tracker.track_images(samples.cpu().numpy(), "checkpoint_samples",
                                      step=current_iter, epoch=epoch)
     except KeyboardInterrupt:
@@ -622,7 +640,7 @@ def train(*, backbone: NFBackbone, flow_params, dp: DiffusionPrior,
         clear_mid_epoch_marker(run_dir)  # the run completed
     results = {}
     if evaluate_fn is not None:
-        results["metrics"] = evaluate_fn(sample_fn, ema_eval_params(state), final_epoch,
+        results["metrics"] = evaluate_fn(sample_fn, eval_params(state), final_epoch,
                                          full=True)
     tracker.close()
     return {"state": state, "results": results, "sample_fn": sample_fn}

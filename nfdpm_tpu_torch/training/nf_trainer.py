@@ -29,11 +29,15 @@ Counterpart of nfdpm_tpu/training/nf_trainer.py, in eager PyTorch:
     same global batch and keeps its rows; the step's dequantization draw is
     the global batch's, of which each rank keeps its rows, so the numbers
     do not change with the world size. The gradient mean is one all-reduce
-    (training/optim.py). `fsdp=True` partitions Adam's moments over the
-    ranks (ZeRO, `shard_nf_state`). ddinit runs on every rank on the whole
-    first global batch. Rank 0 writes the checkpoints (with whole moments),
-    architecture.json, the mid-epoch marker and the tracker's files; the
-    samples and the scores are gathered from every rank's rows.
+    (training/optim.py). `fsdp=True` partitions the parameters and Adam's
+    moments over the data ranks (ZeRO stage 3, `shard_nf_state`,
+    parallel/zero.py): each Glow step gathers its weights on use and its
+    gradient comes back reduce-scattered. ddinit runs on every rank on the
+    whole first global batch, before the cut. Rank 0 writes the checkpoints
+    (whole parameters and moments), architecture.json, the mid-epoch marker
+    and the tracker's files; evaluation and the samplers run on the
+    gathered weights, the samples and the scores gathered from every rank's
+    rows.
   * The model axis (a mesh with n_model > 1: tensor parallelism of the
     coupling CNNs, ops/coupling.py): each rank holds its slabs of the
     coupling CNNs' parameters and moments (`shard_nf_state`,
@@ -42,6 +46,11 @@ Counterpart of nfdpm_tpu/training/nf_trainer.py, in eager PyTorch:
     the slabs; the norm clip sums the slabs' squares over the model group;
     a checkpoint gathers every slab, so it holds the one-device layout and
     resumes at any (data, model) shape.
+  * The pipeline (`pipeline_microbatches` > 0 under a model axis,
+    parallel/pipeline.py): the model axis holds the stages, stage s the
+    steps [s K/S, (s+1) K/S) of every level, and the flow forward is GPipe
+    over the microbatches; no tensor parallelism. Evaluation, the samplers
+    and checkpoints read the whole flow gathered from the stages.
 """
 
 from __future__ import annotations
@@ -55,12 +64,13 @@ import numpy as np
 import torch
 
 from .. import apply_matmul_precision, inference, resolve_device
-from ..convert import named_leaves, trainable
+from ..convert import map_tree, named_leaves, trainable
 from ..data.pipeline import DatasetLoaders, Loader, prefetch_to_device
 from ..models import glow as glow_m
 from ..models import prior as prior_m
 from ..ops import quantize as q
 from ..parallel import mesh as mesh_m
+from ..parallel import pipeline as pl
 from ..parallel.distributed import distribute_batch
 from ..parallel import sharding_rules as rules
 from ..parallel import tensor_parallel as tp
@@ -140,18 +150,26 @@ def ddinit_train_state(state: Dict[str, Any], cfg: glow_m.GlowConfig, tcfg: NFTr
     return {"params": params, "opt_state": tx.init(params), "step": state["step"]}
 
 
-def make_loss_fn(cfg: glow_m.GlowConfig, tcfg: NFTrainConfig, model=None):
-    """loss(params, batch, generator=None, noise=None) -> (bits/dim scalar,
-    log-likelihood [B]) of images `batch` in [0, 1], [B, H, W, C] on the
-    parameters' device. `noise` is the U(0, 1) dequantization draw, added as
-    noise / n_bins; else it comes from `generator`. `model`: the model axis
-    when the parameters are a rank's slabs."""
+def make_loss_fn(cfg: glow_m.GlowConfig, tcfg: NFTrainConfig, model=None, pp=None):
+    """loss(params, batch, generator=None, noise=None, fsdp=None) -> (bits/dim
+    scalar, log-likelihood [B]) of images `batch` in [0, 1], [B, H, W, C] on
+    the parameters' device. `noise` is the U(0, 1) dequantization draw,
+    added as noise / n_bins; else it comes from `generator`. `model`: the
+    model axis when the parameters are a rank's slabs. `pp` = (mesh,
+    microbatches): the flow forward pipelined over the mesh's model axis
+    (the parameters a stage's). `fsdp`: the layout of parameters partitioned
+    over the data axis (parallel/zero.Layout), whose units gather on use."""
     n_bins = q.n_bins_of(tcfg.n_bits)
 
-    def loss_fn(params, batch, generator=None, noise=None):
+    def loss_fn(params, batch, generator=None, noise=None, fsdp=None):
         x = q.dequantize(generator, q.preprocess(batch, tcfg.n_bits), tcfg.n_bits, noise)
-        latents, ldj, logp = glow_m.forward(params["flow"], cfg, x, model=model)
-        ll = ldj + logp + prior_m.gaussian_prior_logp(params["prior"], latents[-1])
+        if pp is not None:
+            latents, ldj, logp = pl.pp_forward(params["flow"], cfg, x, pp[0], pp[1])
+        else:
+            latents, ldj, logp = glow_m.forward(params["flow"], cfg, x, model=model,
+                                                fsdp=None if fsdp is None else fsdp.at("flow"))
+        prior = params["prior"] if fsdp is None else fsdp.gather(params["prior"], "prior")
+        ll = ldj + logp + prior_m.gaussian_prior_logp(prior, latents[-1])
         n_pixel = prior_m.n_pixels(batch.shape[1], batch.shape[-1],
                                    tcfg.compat_three_channel_bpd)
         return prior_m.bits_per_dim(ll, n_bins, n_pixel), ll
@@ -159,16 +177,16 @@ def make_loss_fn(cfg: glow_m.GlowConfig, tcfg: NFTrainConfig, model=None):
     return loss_fn
 
 
-def nf_placements(mesh, tx: Optimizer, params, fsdp: bool) -> Dict[str, rules.Placement]:
-    """ZeRO placements of the train state's updated leaves over the mesh's
-    data axis ({} without `fsdp` or at one rank): the JAX package's
+def nf_placements(mesh, params, fsdp: bool) -> Dict[str, rules.Placement]:
+    """The placements of a stage-1 state's parameters over the mesh's data
+    axis ({} without `fsdp` or at one rank), computed on what the rank holds
+    before the cut (its model slabs under a model axis): the JAX package's
     glow_param_specs and generic_param_specs (shard_nf_state)."""
     if not fsdp or mesh is None or mesh.n_data == 1:
         return {}
     n = mesh.n_data
-    return rules.trained_placements(
-        {**rules.glow_placements(params["flow"], n, "flow", n_model=mesh.n_model),
-         **rules.generic_placements(params["prior"], n, "prior")}, tx)
+    return {**rules.glow_placements(params["flow"], n, "flow", n_model=mesh.n_model),
+            **rules.generic_placements(params["prior"], n, "prior")}
 
 
 def model_shard_nf_state(mesh, state) -> Dict[str, Any]:
@@ -179,29 +197,57 @@ def model_shard_nf_state(mesh, state) -> Dict[str, Any]:
                           rules.model_placements(state["params"], mesh_m.n_model_of(mesh)))
 
 
-def shard_nf_state(mesh, tx: Optimizer, state, fsdp: bool = False) -> Dict[str, Any]:
+def partition_nf_state(mesh, state, fsdp: bool = False, pipeline: bool = False
+                       ) -> Dict[str, Any]:
+    """A state as model_shard_nf_state leaves it (whole under the pipeline)
+    partitioned over an axis (parallel/zero.py keeps the layout): with
+    `fsdp` its parameters and moments over the data axis (nf_placements),
+    with `pipeline` the flow's steps over the stages of the model axis
+    (pipeline.glow_pp_placements); as it is with neither."""
+    pl.check_exclusive(pipeline, fsdp)
+    if pipeline:
+        return zero.shard_state(mesh, state, pl.glow_pp_placements(
+            state["params"]["flow"], mesh.n_model), axis="model")
+    return zero.shard_state(mesh, state, nf_placements(mesh, state["params"], fsdp))
+
+
+def shard_nf_state(mesh, tx: Optimizer, state, fsdp: bool = False,
+                   pipeline: bool = False) -> Dict[str, Any]:
     """A whole state made rank 0's on every rank, cut to this rank's model
     slabs under a model axis and, with `fsdp`, each partitioned leaf's
-    moments cut to this rank's data slab (ZeRO, parallel/sharding_rules.py).
-    Works on fresh and restored states: the moments are sliced, never
-    re-initialized."""
-    state = model_shard_nf_state(mesh, state)
-    return zero.shard_state(mesh, state, nf_placements(mesh, tx, state["params"], fsdp))
+    parameter and moments cut to this rank's data slab (ZeRO stage 3,
+    parallel/zero.py); with `pipeline`, the flow's steps placed on the
+    stages of the model axis instead (no tensor parallelism). Works on fresh
+    and restored states: nothing is re-initialized. `tx`, the state's
+    optimizer, completes the JAX package's signature."""
+    pl.check_exclusive(pipeline, fsdp)  # before any work, as the JAX package
+    state = model_shard_nf_state(mesh_m.flat(mesh) if pipeline else mesh, state)
+    return partition_nf_state(mesh, state, fsdp, pipeline)
 
 
-def whole_nf_state(mesh, state, placements: Dict[str, rules.Placement],
-                   timeout_s: Optional[float] = None) -> Dict[str, Any]:
-    """The state with whole moments (ZeRO's slabs gathered over the data
-    group) and whole leaves (the model slabs gathered over the model
-    group): what a checkpoint holds, at any (data, model) shape. A
-    collective; each gather waits at most `timeout_s` seconds."""
-    state = zero.whole_state(mesh, state, placements, timeout_s)
+def whole_nf_state(mesh, state, timeout_s: Optional[float] = None) -> Dict[str, Any]:
+    """The state with whole parameters and moments (a partitioned state's
+    parts gathered over its axis, then the model slabs over the model
+    group): what a checkpoint holds, at any (data, model) shape and under
+    the pipeline. A collective; each gather waits at most `timeout_s`
+    seconds."""
+    layout = state.get("layout")
+    state = zero.whole_state(state, timeout_s)
+    if layout is not None and layout.axis == "model":  # the pipeline's stages
+        return state
     placements = rules.model_placements(state["params"], mesh_m.n_model_of(mesh))
     return tp.whole_state(mesh_m.model_of(mesh), state, placements, timeout_s)
 
 
+def eval_params(state) -> Dict[str, Any]:
+    """The parameters evaluation and the samplers read: a partitioned
+    state's gathered whole over its axis (a collective), else the state's
+    own."""
+    return zero.whole_state(state, trees=("params",))["params"]
+
+
 def make_train_step(cfg: glow_m.GlowConfig, tcfg: NFTrainConfig, tx: Optimizer,
-                    inject_noise: bool = False, device=None, mesh=None, fsdp: bool = False):
+                    inject_noise: bool = False, device=None, mesh=None, pp=None):
     """Build train_step(state, batch, seed) -> (state, metrics).
 
     The state's parameters and moments are updated in place; the returned
@@ -219,27 +265,33 @@ def make_train_step(cfg: glow_m.GlowConfig, tcfg: NFTrainConfig, tx: Optimizer,
     (mesh.shard_batch of the global batch, microbatch by microbatch); the
     noise is drawn for the global batch (an injected draw is the global
     batch's too) and cut to the rank's rows; the gradients and the metrics
-    are averaged over the ranks. `fsdp=True` takes the ZeRO path for the
-    leaves nf_placements partitions; the state must come from
-    shard_nf_state. Under a model axis the state holds the rank's model
+    are averaged over the ranks. A state partitioned over the data axis
+    (shard_nf_state with fsdp) gathers each unit's weights on use and
+    updates its slabs. Under a model axis the state holds the rank's model
     slabs (shard_nf_state) and the ranks of a model group take the same
-    rows."""
+    rows. `pp` = (mesh, microbatches) pipelines the flow over the mesh's
+    model axis instead (the state from shard_nf_state with pipeline; no
+    tensor parallelism)."""
     device = resolve_device(device)
     apply_matmul_precision()
     accum = max(1, int(tcfg.grad_accum))
     if accum > 1 and inject_noise:
         raise ValueError("grad_accum > 1 draws its noise per microbatch; "
                          "injected-noise runs must keep grad_accum=1")
-    loss_fn = make_loss_fn(cfg, tcfg, mesh_m.model_of(mesh))
+    if pp is not None:
+        mesh = pp[0]
+    loss_fn = make_loss_fn(cfg, tcfg, None if pp is not None else mesh_m.model_of(mesh), pp)
     generator = torch.Generator(device=device)
-    placements = model_placements = None  # computed at the first step
+    model_placements = None  # computed at the first step
 
     def train_step(state, batch, seed_or_noise):
-        nonlocal placements, model_placements
+        nonlocal model_placements
         params = state["params"]
-        if placements is None:
-            placements = nf_placements(mesh, tx, params, fsdp)
-            model_placements = rules.model_placements(params, mesh_m.n_model_of(mesh))
+        layout = state.get("layout")
+        fsdp = layout if layout is not None and layout.axis == "data" else None
+        if model_placements is None:
+            model_placements = (layout.placements if pp is not None else
+                                rules.model_placements(params, mesh_m.n_model_of(mesh)))
         leaves = [p for _, p in named_leaves(params) if p.requires_grad]
         for p in leaves:
             p.grad = None
@@ -253,20 +305,28 @@ def make_train_step(cfg: glow_m.GlowConfig, tcfg: NFTrainConfig, tx: Optimizer,
                 noise = seed_or_noise
                 if mesh is not None:
                     noise = noise[mesh_m.data_sharding(mesh, len(noise))]
-                bpd, ll = loss_fn(params, micro, noise=inference._on(device, noise))
+                bpd, ll = loss_fn(params, micro, noise=inference._on(device, noise), fsdp=fsdp)
             else:
                 words = (_STEP, seed_or_noise, state["step"]) + ((i,) if accum > 1 else ())
                 bpd, ll = loss_fn(params, micro, mesh_m.row_generator(
-                    mesh, inference.reseed(generator, *words), micro.shape[0]))
+                    mesh, inference.reseed(generator, *words), micro.shape[0]), fsdp=fsdp)
             bpd.backward()  # the microbatches' gradients add up in .grad
             bpds.append(bpd.detach())
             lls.append(ll.detach().mean())
         if accum > 1:
             torch._foreach_div_([p.grad for p in leaves if p.grad is not None], accum)
         metrics = {"bpd": torch.stack(bpds).mean(), "ll_mean": torch.stack(lls).mean()}
-        opt_state = tx.apply(params, grads_of(params), state["opt_state"], mesh, placements,
+        # under the pipeline the other stages' steps are empty, with no gradient
+        grads = grads_of(params) if pp is None else map_tree(
+            params, lambda p: p.grad if p.grad is not None or not p.requires_grad
+            else torch.zeros_like(p))
+        opt_state = tx.apply(params, grads, state["opt_state"], mesh,
+                             {} if fsdp is None else fsdp.placements,
                              extras=list(metrics.values()), model_placements=model_placements)
-        return {"params": params, "opt_state": opt_state, "step": state["step"] + 1}, metrics
+        out = {"params": params, "opt_state": opt_state, "step": state["step"] + 1}
+        if layout is not None:
+            out["layout"] = layout
+        return out, metrics
 
     return train_step
 
@@ -352,7 +412,8 @@ def train(*, cfg: glow_m.GlowConfig, tcfg: NFTrainConfig, loaders: DatasetLoader
           run_dir: str, logger, seed: int = 42, img_size: int = 32,
           resume_dir: Optional[str] = None, resume_epoch: Optional[int] = None,
           resume_batch: Optional[int] = None, evaluate_fn=None,
-          device=None, mesh=None, fsdp: bool = False) -> Dict[str, Any]:
+          device=None, mesh=None, fsdp: bool = False,
+          pipeline_microbatches: int = 0) -> Dict[str, Any]:
     """The whole training run, on `device` (CUDA unless named).
     `evaluate_fn(sample_fn, params, epoch)` is an optional hook for sample
     metrics at checkpoint epochs and, with `full=True`, at the end.
@@ -369,12 +430,16 @@ def train(*, cfg: glow_m.GlowConfig, tcfg: NFTrainConfig, loaders: DatasetLoader
     An interrupt (KeyboardInterrupt, also the watchdog's) saves the state of
     the steps taken as epoch E's checkpoint, writes the marker and is raised
     again; a run that completes removes the marker. Under a data-parallel
-    `mesh` that save gathers the moments and meets the other ranks within
-    `watchdog_timeout_s` (else raises with the rank's name): a rank that is
-    gone does not hang it.
+    `mesh` that save gathers the partitioned tensors and meets the other
+    ranks within `watchdog_timeout_s` (else raises with the rank's name): a
+    rank that is gone does not hang it.
 
-    `mesh` (parallel/mesh.py) trains data-parallel, `fsdp=True` with ZeRO
-    moments (make_train_step); a checkpoint resumes at any world size."""
+    `mesh` (parallel/mesh.py) trains data-parallel, `fsdp=True` with the
+    parameters and moments partitioned over the data axis (make_train_step);
+    `pipeline_microbatches` > 0 pipelines the flow's steps over the model
+    axis in that many microbatches (parallel/pipeline.py; without a model
+    axis it warns and trains the plain step). A checkpoint holds whole
+    tensors and resumes at any mesh shape."""
     device = resolve_device(device)
     apply_matmul_precision()
     tx = optimizer_of(tcfg)
@@ -382,15 +447,31 @@ def train(*, cfg: glow_m.GlowConfig, tcfg: NFTrainConfig, loaders: DatasetLoader
     writer = mesh_m.is_writer(mesh)
     start_epoch = 0
 
-    model = mesh_m.model_of(mesh)
+    n_model = mesh_m.n_model_of(mesh)
+    pp = None
+    if pipeline_microbatches > 0:
+        if n_model > 1:
+            accum = max(1, int(tcfg.grad_accum))
+            pl.check_pipeline_config(cfg, n_model, pipeline_microbatches,
+                                     loaders.train.batch_size // mesh.n_data // accum)
+            pp = (mesh, pipeline_microbatches)
+            logger.info(f"Pipeline parallelism: K={cfg.steps} over {n_model} stages, "
+                        f"{pipeline_microbatches} microbatches")
+        else:
+            logger.warning("parallel.pipeline has no effect without a model axis "
+                           "— set parallel.n_model>1")
+    # the mesh of tensor parallelism, and of evaluation and sampling (whole
+    # weights on every stage under the pipeline)
+    tp_mesh = mesh_m.flat(mesh) if pp is not None else mesh
+    model = mesh_m.model_of(tp_mesh)
     if resume_dir is not None and resume_epoch is not None:
         state = restore_state(resume_dir, "gaussian", resume_epoch, device)
-        state = model_shard_nf_state(mesh, state)
+        state = model_shard_nf_state(tp_mesh, state)
         start_epoch = resume_epoch - 1 if resume_batch is not None else resume_epoch
         logger.info(f"Resumed from {resume_dir} @ epoch {resume_epoch}"
                     + (f" batch {resume_batch}" if resume_batch is not None else ""))
     else:
-        state = model_shard_nf_state(mesh, init_train_state(seed, cfg, tcfg, tx, device))
+        state = model_shard_nf_state(tp_mesh, init_train_state(seed, cfg, tcfg, tx, device))
         # data-dependent actnorm init on one preprocessed batch (on the
         # rank's slabs under a model axis)
         init_imgs, _ = next(loaders.train.iter_epoch(0))
@@ -398,13 +479,13 @@ def train(*, cfg: glow_m.GlowConfig, tcfg: NFTrainConfig, loaders: DatasetLoader
             state, cfg, tcfg, tx, inference._on(device, init_imgs),
             inference.reseed(torch.Generator(device=device), _DDINIT, seed), model=model)
         logger.info("Data-dependent actnorm initialization done")
-    placements = nf_placements(mesh, tx, state["params"], fsdp)
-    state = zero.shard_state(mesh, state, placements)
+    state = partition_nf_state(mesh, state, fsdp, pp is not None)
     if mesh is not None:
-        logger.info(f"Data parallel: {mesh}" + (", ZeRO moments" if placements else ""))
+        logger.info(f"Data parallel: {mesh}" + (", FSDP" if fsdp and "layout" in state else ""))
         if mesh.n_model > 1 or fsdp:
             logger.info(f"Param shardings applied: model axis={mesh.n_model}"
-                        f"{', FSDP over data axis' if fsdp else ''}")
+                        f"{', FSDP over data axis' if fsdp else ''}"
+                        f"{' (pipeline layout)' if pp is not None else ''}")
     current_iter = state["step"]
 
     if writer:
@@ -415,14 +496,14 @@ def train(*, cfg: glow_m.GlowConfig, tcfg: NFTrainConfig, loaders: DatasetLoader
             "fixed_prior": tcfg.compat_fixed_prior, "temperature": tcfg.temperature,
             "optimizer": tcfg.optimizer, "invconv_param": cfg.invconv_param})
 
-    train_step = make_train_step(cfg, tcfg, tx, device=device, mesh=mesh, fsdp=fsdp)
+    train_step = make_train_step(cfg, tcfg, tx, device=device, mesh=mesh, pp=pp)
     eval_step = make_eval_step(cfg, tcfg, device, model)
-    sample_fn = make_sample_fn(cfg, tcfg, img_size, seed, device, mesh)
+    sample_fn = make_sample_fn(cfg, tcfg, img_size, seed, device, tp_mesh)
     accum = max(1, int(tcfg.grad_accum))
 
     def save(epoch: int, timeout_s: Optional[float] = None) -> None:
-        save_state(run_dir, "gaussian", epoch,
-                   whole_nf_state(mesh, state, placements, timeout_s), mesh, timeout_s)
+        save_state(run_dir, "gaussian", epoch, whole_nf_state(mesh, state, timeout_s), mesh,
+                   timeout_s)
 
     def rows_of(batches):
         for imgs, labels in batches:
@@ -464,7 +545,7 @@ def train(*, cfg: glow_m.GlowConfig, tcfg: NFTrainConfig, loaders: DatasetLoader
                     logger.info(f"epoch {epoch} iter {current_iter}: bpd {avg:.4f}")
                     log_count += 1
                     if (log_count % tcfg.log_gen_images_per_iter == 0) and epoch % 5 == 0:
-                        samples = sample_fn(state["params"], tcfg.n_samples_log,
+                        samples = sample_fn(eval_params(state), tcfg.n_samples_log,
                                             tcfg.temperature, 2 * current_iter + 1)
                         tracker.track_images(samples.cpu().numpy(), "generated",
                                              step=current_iter, epoch=epoch)
@@ -479,14 +560,14 @@ def train(*, cfg: glow_m.GlowConfig, tcfg: NFTrainConfig, loaders: DatasetLoader
                         f"({len(loaders.train) / max(dt, 1e-9):.2f} it/s, "
                         f"step p50 {ts.get('p50_ms', 0):.1f}ms p95 {ts.get('p95_ms', 0):.1f}ms)")
             if tcfg.log_param_distribution:
-                tracker.track_param_distributions(state["params"], step=current_iter,
+                tracker.track_param_distributions(eval_params(state), step=current_iter,
                                                   epoch=epoch)
 
             if epoch % tcfg.save_checkpoint_freq == 0:
                 if evaluate_fn is not None:
-                    evaluate_fn(sample_fn, state["params"], epoch)
+                    evaluate_fn(sample_fn, eval_params(state), epoch)
                 save(epoch)
-                samples = sample_fn(state["params"], 64, tcfg.temperature, 2 * epoch)
+                samples = sample_fn(eval_params(state), 64, tcfg.temperature, 2 * epoch)
                 tracker.track_images(samples.cpu().numpy(), "checkpoint_samples",
                                      step=current_iter, epoch=epoch)
     except KeyboardInterrupt:
@@ -508,13 +589,14 @@ def train(*, cfg: glow_m.GlowConfig, tcfg: NFTrainConfig, loaders: DatasetLoader
     if writer:
         clear_mid_epoch_marker(run_dir)  # the run completed
 
-    results = final_bpd(eval_step, state["params"], loaders, seed, mesh=mesh)
+    params = eval_params(state)
+    results = final_bpd(eval_step, params, loaders, seed, mesh=tp_mesh)
     for name, bpd in results.items():
         split = name.split("_", 1)[1]
         tracker.track(bpd, "bpd", epoch=final_epoch, context={"subset": split, "final": True})
         logger.info(f"final {split} bpd: {bpd:.4f}")
     if evaluate_fn is not None:
-        results["metrics"] = evaluate_fn(sample_fn, state["params"], final_epoch, full=True)
+        results["metrics"] = evaluate_fn(sample_fn, params, final_epoch, full=True)
 
     tracker.close()
     return {"state": state, "results": results, "sample_fn": sample_fn}

@@ -146,21 +146,18 @@ class Optimizer:
         gradient.
 
         With a data-parallel `mesh` (parallel/mesh.py) the gradients are each
-        rank's; they are averaged over the ranks first. A replicated leaf's
-        gradient, with the scalars `extras` (a step's metrics, averaged in
-        place), goes through ONE all-reduce over a flat buffer. A leaf that
-        `placements` (parallel/sharding_rules.py) partitions is ZeRO's: its
-        moments in `state` are this rank's slab; its gradient is
-        reduce-scattered into that slab, clipped, Adam updates the slab of
-        the parameter, and an all-gather makes the parameter whole on every
-        rank again (one reduce-scatter and one all-gather for all such
-        leaves). The mean, the reduce-scatter and the all-gather run over
-        the mesh's data group. Under a model axis the leaves that
-        `model_placements` names are the rank's slabs (moments alike): Adam
-        and the value clip are slab-local, the norm clip's squares summed
-        over the model group (clipped)."""
+        rank's; those of the leaves held whole are averaged over the ranks
+        with the scalars `extras` (a step's metrics, averaged in place)
+        through ONE all-reduce over a flat buffer of the data group. A leaf
+        that `placements` (the data axis's, parallel/zero.py) partitions is
+        held as this rank's slab, parameter and moments alike, and its
+        gradient is already the slab of the data ranks' mean (the backward of
+        its gather on use): Adam updates the slab and nothing more moves.
+        Under a model axis the leaves that `model_placements` names are the
+        rank's slabs, or under the pipeline a stage's whole steps (moments
+        alike): Adam and the value clip are local, the norm clip's squares
+        summed over the model group (clipped)."""
         from ..parallel import mesh as mesh_m
-        from ..parallel import zero
 
         placements = placements or {}
         model_placements = model_placements or {}
@@ -172,25 +169,16 @@ class Optimizer:
             if schedule is not None:
                 if g is None:
                     raise ValueError(f"no gradient for the trainable leaf {path}")
-                rows.append((p, g, m, v, schedule, placements.get(path),
+                rows.append((p, g, m, v, schedule, path in placements,
                              path in model_placements))
-        distributed = mesh is not None and mesh.data_group is not None
-        if distributed:
-            mesh_m.all_reduce_mean_(mesh, [r[1] for r in rows if r[5] is None] + list(extras))
+        if mesh is not None and mesh.data_group is not None:
+            mesh_m.all_reduce_mean_(mesh, [r[1] for r in rows if not r[5]] + list(extras))
         if not rows:
             return dict(state, count=state["count"] + 1)
-        # the sharded leaves first: their slabs of the parameter and the mean
-        # gradient, beside the moments' slabs
-        sharded = [r for r in rows if r[5] is not None] if distributed else []
-        whole = [r for r in rows if r[5] is None or not distributed]
-        leaves, pls = [r[0] for r in sharded], [r[5] for r in sharded]
-        if sharded:
-            g_slabs = zero.reduce_scatter_mean(mesh, [r[1] for r in sharded], pls)
-            sharded = [(pl.slab(p, mesh.data_rank), g, m, v, schedule, pl, ms)
-                       for (p, _, m, v, schedule, pl, ms), g in zip(sharded, g_slabs)]
-        rows = sharded + whole
-        ps, gs, mus, nus, schedules, _, model_sharded = (list(col) for col in zip(*rows))
-        gs = self.clipped(gs, len(sharded), mesh, model_sharded)
+        # the slabs first: the norm clip sums their squares over the ranks
+        rows = [r for r in rows if r[5]] + [r for r in rows if not r[5]]
+        ps, gs, mus, nus, schedules, placed, model_sharded = (list(col) for col in zip(*rows))
+        gs = self.clipped(gs, sum(placed), mesh, model_sharded)
 
         count = state["count"] + 1
         torch._foreach_mul_(mus, self.b1)
@@ -210,8 +198,6 @@ class Optimizer:
             group = [i for i, s in enumerate(schedules) if s is schedule]
             torch._foreach_add_([ps[i] for i in group], [step[i] for i in group],
                                 alpha=-schedule(count - 1))
-        if sharded:
-            zero.all_gather_params_(mesh, leaves, pls)
         return dict(state, count=count)
 
 

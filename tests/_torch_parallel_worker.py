@@ -5,7 +5,9 @@
 Joins a gloo process group through a file:// rendezvous in the job's
 directory, as a ("data", "model") mesh of the job's "n_model" and
 "n_slices" (default 1: data parallelism alone; the model axis's scenarios
-are tests/_torch_tp_scenarios.py) (no TCP port, so that test workers running side by side cannot
+are tests/_torch_tp_scenarios.py, parameter partitioning's
+tests/_torch_fsdp_scenarios.py, the pipeline's
+tests/_torch_pipeline_scenarios.py) (no TCP port, so that test workers running side by side cannot
 collide), runs the job's scenarios in order on the CPU and writes what
 each records to <dir>/<scenario>_r<rank>.npz. Imports the port only (no
 JAX): the tests compare what it writes with the JAX package in their own
@@ -27,6 +29,8 @@ from nfdpm_tpu_torch.parallel import distributed  # noqa: E402
 from nfdpm_tpu_torch.parallel import mesh as mesh_m  # noqa: E402
 from nfdpm_tpu_torch.parallel import sharding_rules as rules  # noqa: E402
 
+import _torch_fsdp_scenarios  # noqa: E402
+import _torch_pipeline_scenarios  # noqa: E402
 import _torch_tp_scenarios  # noqa: E402
 
 
@@ -60,7 +64,7 @@ def stage1(job, mesh, d):
             state = tnft.shard_nf_state(mesh, tx, {"params": params, "opt_state": tx.init(params),
                                                    "step": 0}, fsdp)
             step = tnft.make_train_step(cfg, tcfg, tx, inject_noise=mode == "noise",
-                                        device="cpu", mesh=mesh, fsdp=fsdp)
+                                        device="cpu", mesh=mesh)
             tag = f"{mode}_fsdp{int(fsdp)}"
             bpds = []
             for i in range(3):
@@ -68,11 +72,13 @@ def stage1(job, mesh, d):
                 state, m = step(state, rows, inputs["noise"][i] if mode == "noise" else 5)
                 bpds.append(float(m["bpd"]))
                 if i == 0:
-                    out.update(flat(convert.to_jax_params(state["params"]), f"{tag}/step1"))
+                    out.update(flat(convert.to_jax_params(
+                        tnft.whole_nf_state(mesh, state)["params"]), f"{tag}/step1"))
             out[f"{tag}/bpd"] = np.asarray(bpds)
-            out.update(flat(convert.to_jax_params(state["params"]), f"{tag}/step3"))
-            placements = tnft.nf_placements(mesh, tx, state["params"], fsdp)
-            params_by_path = dict(convert.named_leaves(state["params"]))
+            whole = tnft.whole_nf_state(mesh, state)["params"]
+            out.update(flat(convert.to_jax_params(whole), f"{tag}/step3"))
+            placements = state["layout"].placements if "layout" in state else {}
+            params_by_path = dict(convert.named_leaves(whole))
             for path, t in convert.named_leaves(state["opt_state"]["mu"]):
                 if path in placements:
                     want = placements[path].slab(params_by_path[path], mesh.rank).shape
@@ -80,7 +86,7 @@ def stage1(job, mesh, d):
                         [list(t.shape), list(want)])
             out[f"{tag}/moment_bytes"] = np.asarray(
                 [rules.moment_bytes(state["opt_state"]),
-                 rules.predicted_moment_bytes(state["params"], placements, mesh.rank)])
+                 rules.predicted_moment_bytes(whole, placements, mesh.rank)])
     return out
 
 
@@ -109,7 +115,7 @@ def stage2(job, mesh, d):
             state = {"params": params, "opt_state": tx.init(params), "step": 0}
             state = tdt.shard_diffusion_state(mesh, tx, state, fsdp)
             step = tdt.make_train_step(bb, dp, tcfg, tx, inject_noise=True, device="cpu",
-                                       mesh=mesh, fsdp=fsdp)
+                                       mesh=mesh)
             losses = []
             for i in range(len(inputs["imgs"])):
                 draws = {"dequant": inputs[f"dequant_{i}"],
@@ -120,7 +126,8 @@ def stage2(job, mesh, d):
                 losses.append(float(m["loss"]))
             tag = f"{name}_fsdp{int(fsdp)}"
             out[f"{tag}/loss"] = np.asarray(losses)
-            out.update(flat(convert.diffusion_to_jax_params(state["params"]), f"{tag}/params"))
+            out.update(flat(convert.diffusion_to_jax_params(
+                tdt.whole_diffusion_state(mesh, state)["params"]), f"{tag}/params"))
     return out
 
 
@@ -145,7 +152,8 @@ def resume(job, mesh, d):
         res = tnft.train(cfg=cfg, tcfg=tcfg, loaders=loaders, run_dir=os.path.join(d, name),
                          logger=logger, seed=0, img_size=8, device="cpu", mesh=mesh, fsdp=True,
                          **kwargs)
-        out.update(flat(convert.to_jax_params(res["state"]["params"]), name))
+        out.update(flat(convert.to_jax_params(
+            tnft.whole_nf_state(mesh, res["state"])["params"]), name))
         out[f"{name}/bpd"] = np.asarray([res["results"]["bpd_test"],
                                          res["results"]["bpd_train"]])
     return out
@@ -250,13 +258,12 @@ def gone(job, mesh, d):
     tcfg = tnft.NFTrainConfig()
     tx = tnft.optimizer_of(tcfg)
     state = tnft.shard_nf_state(mesh, tx, tnft.init_train_state(0, cfg, tcfg, tx, "cpu"), True)
-    placements = tnft.nf_placements(mesh, tx, state["params"], True)
     mesh_m.barrier(mesh)
     if mesh.rank == 1:
         time.sleep(8.0)
         os._exit(0)
     out = {}
-    for name, fn in (("gather", lambda: zero.whole_state(mesh, state, placements, 3.0)),
+    for name, fn in (("gather", lambda: zero.whole_state(state, 3.0)),
                      ("barrier", lambda: tckpt.save_state(os.path.join(d, "gone"), "gaussian", 1,
                                                           {"step": 0}, mesh, 3.0))):
         t0 = time.monotonic()
@@ -275,6 +282,8 @@ SCENARIOS = {"stage1": stage1, "stage2": stage2, "resume": resume,
              "part_parallel": part_parallel, "entry": entry, "sampling": sampling,
              "features": features, "gone": gone}
 SCENARIOS.update(_torch_tp_scenarios.SCENARIOS)  # the model axis
+SCENARIOS.update(_torch_fsdp_scenarios.SCENARIOS)  # parameters over the data axis
+SCENARIOS.update(_torch_pipeline_scenarios.SCENARIOS)  # the pipeline
 
 
 def main() -> int:

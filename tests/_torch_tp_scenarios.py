@@ -156,8 +156,8 @@ def steps(job, mesh, d):
         tcfg = tnft.NFTrainConfig(lr=1e-3)
         tx, state = _stage1_state(job, d, tcfg, mesh, fsdp)
         step = tnft.make_train_step(cfg, tcfg, tx, inject_noise=mode == "noise", device="cpu",
-                                    mesh=mesh, fsdp=fsdp)
-        placements = tnft.nf_placements(mesh, tx, state["params"], fsdp)
+                                    mesh=mesh)
+        placements = state["layout"].placements if "layout" in state else {}
         tag = f"{mode}_fsdp{int(fsdp)}"
         bpds = []
         for i in range(len(inputs["imgs"])):
@@ -165,27 +165,30 @@ def steps(job, mesh, d):
             state, m = step(state, rows, inputs["noise"][i] if mode == "noise" else 5)
             bpds.append(float(m["bpd"]))
             if i == 0:
-                whole = tnft.whole_nf_state(mesh, state, placements)
+                whole = tnft.whole_nf_state(mesh, state)
                 out.update(flat(convert.to_jax_params(whole["params"]), f"{tag}/step1"))
         out[f"{tag}/bpd"] = np.asarray(bpds)
-        whole = tnft.whole_nf_state(mesh, state, placements)
+        whole = tnft.whole_nf_state(mesh, state)
         out.update(flat(convert.to_jax_params(whole["params"]), f"{tag}/step3"))
         # what this rank holds: its leaves as they are, their bytes
         out.update(flat(state["params"], f"{tag}/held"))
-        params_by_path = dict(convert.named_leaves(state["params"]))
+        # the rank's model slabs before the data cut (whole leaves without a
+        # model axis): what the data placements cut
+        whole_params = convert.from_jax_params(convert.load_npz(
+            os.path.join(d, "stage1_tree.npz")), "cpu")
+        model_pl = rules.model_placements(whole_params, mesh.n_model)
+        mine = tp.shard_tree(mesh.model, whole_params, model_pl)
+        params_by_path = dict(convert.named_leaves(mine))
         for path, t in convert.named_leaves(state["opt_state"]["mu"]):
             want = params_by_path[path].shape
             if path in placements:
                 want = placements[path].slab(params_by_path[path], mesh.data_rank).shape
             out[f"{tag}/moment_shape/{path}"] = np.asarray([list(t.shape), list(want)])
-        whole_params = convert.from_jax_params(convert.load_npz(
-            os.path.join(d, "stage1_tree.npz")), "cpu")
-        model_pl = rules.model_placements(whole_params, mesh.n_model)
         out[f"{tag}/bytes"] = np.asarray([
             rules.param_bytes(state["params"]),
-            rules.predicted_param_bytes(whole_params, model_pl, mesh.model_rank),
+            rules.predicted_param_bytes(mine, placements, mesh.data_rank),
             rules.moment_bytes(state["opt_state"]),
-            rules.predicted_moment_bytes(state["params"], placements, mesh.data_rank)])
+            rules.predicted_moment_bytes(mine, placements, mesh.data_rank)])
     if job.get("stage2"):
         out.update(_stage2_steps(job, mesh, d))
     return out
@@ -199,10 +202,10 @@ def _diffusion_prior(job, formater):
     return DiffusionPrior(f, dict(job["unet"]), dict(job["diff"]))
 
 
-def _whole_diffusion_params(mesh, state, dp, placements=None):
+def _whole_diffusion_params(mesh, state, dp):
     from nfdpm_tpu_torch.training import diffusion_trainer as tdt
 
-    whole = tdt.whole_diffusion_state(mesh, state, placements or {})["params"]
+    whole = tdt.whole_diffusion_state(mesh, state)["params"]
     params = {"flow": whole["flow"],
               "diffusion": {"parts": dp.unets_from_named(whole["diffusion"]["parts"], "cpu")}}
     tree = convert.diffusion_to_jax_params(params)
@@ -297,7 +300,7 @@ def evaluation(job, mesh, d):
 def checkpoints(job, mesh, d):
     """A checkpoint written at one rank resumed here for an epoch, and a
     first epoch trained here (its checkpoint resumed at one rank by the
-    test)."""
+    test), with the job's "fsdp" and "pipeline_microbatches"."""
     from nfdpm_tpu_torch.data import pipeline as tpipe
     from nfdpm_tpu_torch.training import nf_trainer as tnft
 
@@ -312,9 +315,9 @@ def checkpoints(job, mesh, d):
                                      synthetic_fallback=True, synthetic_n=32)
         res = tnft.train(cfg=cfg, tcfg=tcfg, loaders=loaders, run_dir=os.path.join(d, name),
                          logger=logging.getLogger("tp"), seed=0, img_size=8, device="cpu",
-                         mesh=mesh, fsdp=job.get("fsdp", False), **kwargs)
-        whole = tnft.whole_nf_state(mesh, res["state"], tnft.nf_placements(
-            mesh, tnft.optimizer_of(tcfg), res["state"]["params"], job.get("fsdp", False)))
+                         mesh=mesh, fsdp=job.get("fsdp", False),
+                         pipeline_microbatches=job.get("pipeline_microbatches", 0), **kwargs)
+        whole = tnft.whole_nf_state(mesh, res["state"])
         out.update(flat(convert.to_jax_params(whole["params"]), name))
         out[f"{name}/bpd"] = np.asarray([res["results"]["bpd_test"],
                                          res["results"]["bpd_train"]])

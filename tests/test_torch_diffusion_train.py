@@ -386,12 +386,14 @@ def test_cotrained_eval_reads_the_trained_flow(cotrained):
     # with a co-trained flow (the JAX package's rule), a model axis in one
     # process without a launch cannot be built (as the JAX package cannot
     # make a (0, 2) mesh of one device), and spatial partitioning stays
-    # refused
+    # refused (its ROADMAP item named); the pipeline is a stage-1 option
     pytest.param("parallel.part_parallel=true model.normalizing_flow.freeze=false",
                  "requires a frozen flow", id="parallel.part_parallel=true-multi-GPU"),
     pytest.param("parallel.n_model=2", "n_model=2 does not divide the 1 processes",
                  id="parallel.fsdp=true-multi-GPU"),
-    ("parallel.spatial=true", "parameter partitioning, pipeline and spatial"),
+    pytest.param("parallel.spatial=true", r"\(ROADMAP: spatial parallelism\)",
+                 id="parallel.spatial=true-parameter partitioning, pipeline and spatial"),
+    ("parallel.pipeline=true", "stage-1 options"),
 ])
 def test_refused_options_raise(workdir, override, match):
     with pytest.raises((NotImplementedError, ValueError), match=match):

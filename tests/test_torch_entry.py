@@ -114,17 +114,30 @@ def test_without_cuda_the_entry_point_refuses_to_start(tmp_path):
     ("model.evaluation.metrics.FID.mode=[clean]", None),  # needs a model name too: no metric
     # a model axis in one process without a launch cannot be built (the id is
     # the case's name from before the data axis was ported, when the message
-    # named "multi-GPU"); spatial partitioning and the pipeline stay refused
+    # named "multi-GPU"); spatial partitioning stays refused. The pipeline's
+    # cases keep their ids from before it was ported; they now hold its
+    # guards, with the JAX package's messages: K over the stages, the
+    # microbatches, fsdp, spatial, an explicit use_pallas=true
     pytest.param("parallel.n_model=2", "n_model=2 does not divide the 1 processes",
                  id="parallel.n_model=2-multi-GPU"),
-    ("parallel.spatial=true", "parameter partitioning, pipeline and spatial"),
-    ("parallel.pipeline=true", "parameter partitioning, pipeline and spatial"),
-    ("parallel.pipeline_microbatches=4", "parameter partitioning, pipeline and spatial"),
+    pytest.param("parallel.spatial=true", r"\(ROADMAP: spatial parallelism\)",
+                 id="parallel.spatial=true-parameter partitioning, pipeline and spatial"),
+    pytest.param("parallel.pipeline=true parallel.n_model=2", "needs K \\(1\\) divisible by the "
+                 "model-axis size \\(2\\)",
+                 id="parallel.pipeline=true-parameter partitioning, pipeline and spatial"),
+    pytest.param("parallel.pipeline_microbatches=4 parallel.fsdp=true",
+                 "pipeline \\+ fsdp both repartition the flow params — enable at most one",
+                 id="parallel.pipeline_microbatches=4-parameter partitioning, pipeline and spatial"),
+    ("parallel.pipeline=true parallel.spatial=true", "both use the \"model\" axis — enable at "
+     "most one"),
+    ("parallel.pipeline=true model.architecture.use_pallas=true", "pallas"),
+    ("parallel.pipeline_microbatches=-1 parallel.n_model=2 model.architecture.K=2",
+     "pipeline_microbatches must be >= 1, got -1"),
     ("phase=bogus", "phase must be"),
 ])
 def test_refused_options_raise(tmp_path, monkeypatch, override, match):
     monkeypatch.chdir(tmp_path)
-    argv = ["device=cpu", *SMALL, "model.training.epochs=0", override]
+    argv = ["device=cpu", *SMALL, "model.training.epochs=0", *override.split()]
     if match is None:
         run_baseline.main(argv)  # a mode without a model names no metric
         return

@@ -155,17 +155,16 @@ def test_torchrun_runs_the_readme_command(tmp_path, ranks):
 @pytest.mark.parametrize("override", ["parallel.n_model=2", "parallel.spatial=true"])
 @pytest.mark.parametrize("entry", [run_baseline, run_diffusion_prior])
 def test_the_model_axis_stays_refused(tmp_path, monkeypatch, entry, override):
-    """What of the model axis stays refused: spatial partitioning, and a
-    model axis in one process without a launch (n_model must divide the
-    launch's processes, as the JAX package cannot make a (0, 2) mesh of one
-    device)."""
+    """What of the model axis stays refused: spatial partitioning (its
+    ROADMAP item named), and a model axis in one process without a launch
+    (n_model must divide the launch's processes, as the JAX package cannot
+    make a (0, 2) mesh of one device)."""
     monkeypatch.chdir(tmp_path)
     if override == "parallel.n_model=2":
         with pytest.raises(ValueError, match="n_model=2 does not divide the 1 processes"):
             entry.main(["device=cpu", override])
     else:
-        with pytest.raises(NotImplementedError,
-                           match="parameter partitioning, pipeline and spatial"):
+        with pytest.raises(NotImplementedError, match=r"\(ROADMAP: spatial parallelism\)"):
             entry.main(["device=cpu", override])
     assert not (tmp_path / "outputs").exists()
 

@@ -27,6 +27,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from types import SimpleNamespace
+
 from jax.sharding import PartitionSpec
 
 from _torch_port import one_torch_thread, randomize, run_ranks, to_numpy_tree
@@ -225,13 +227,11 @@ def test_a_ranks_parameter_count_at_full_width():
 
     params = {"flow": flow, "prior": tprior.init_gaussian_prior(48, True, "cpu")}
     placements = trules.model_placements(params, 2)
-    tx = tnft.optimizer_of(tnft.NFTrainConfig())
+    mesh = SimpleNamespace(n_data=2, n_model=2)
     for model_rank in (0, 1):
         assert 2 * trules.predicted_param_bytes(params, placements, model_rank) == 22_354_560
         mine = tp.shard_tree(ModelAxis(n=2, index=model_rank, group=None), params, placements)
-        zero = trules.trained_placements(
-            {**trules.glow_placements(mine["flow"], 2, "flow", n_model=2),
-             **trules.generic_placements(mine["prior"], 2, "prior")}, tx)
+        zero = tnft.nf_placements(mesh, mine, True)
         assert len(zero) == 36
         assert [trules.predicted_moment_bytes(mine, zero, r) for r in (0, 1)] == [11_418_240] * 2
     unet = TUnet(channels=6, dim=64, dim_mults=(1, 2), resnet_block_groups=8)

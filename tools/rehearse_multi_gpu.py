@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Rehearse chip_smoke.py's phases 28 ("multi_gpu") and 29 ("model_axis")
-on the CPU at a tiny size.
+"""Rehearse chip_smoke.py's phases 28 ("multi_gpu"), 29 ("model_axis") and
+30 ("pipeline") on the CPU at a tiny size.
 
-    python3 tools/rehearse_multi_gpu.py [--dir DIR] [--phases 28 29]
+    python3 tools/rehearse_multi_gpu.py [--dir DIR] [--phases 28 29 30]
 
 Runs the phases' own code (their children too: for 28 a world of one,
 then two gloo ranks; for 29 a world of one, two ranks at (data 1, model 2)
-and four at (data 2, model 2)) with the Glow cut to L2/K1, width 16,
+and four at (data 2, model 2); for 30 a world of one and two pipeline
+stages) with the Glow cut to L2/K2, width 16,
 8x8x3, batch 8, the UNets to dim 8 (2 groups) and T = 8, on the CPU: gloo
 in place of NCCL, `device=cpu` and `--device cpu` on the entry points and
 tools, FSDP_MIN_SIZE 64 so that leaves are partitioned at all. The kernel
@@ -39,8 +40,9 @@ def cut_to_size() -> None:
     torch.set_num_threads(1)
     torch.cuda.synchronize = lambda *a, **k: None
     torch.cuda.reset_peak_memory_stats = lambda *a, **k: None
+    torch.cuda.max_memory_allocated = lambda *a, **k: 0
     no_launches = {k: 0 for k in cs.MG_STEP_LAUNCHES}
-    cs.LEVELS, cs.STEPS, cs.WIDTH, cs.IMG, cs.BATCH = 2, 1, 16, 8, 8
+    cs.LEVELS, cs.STEPS, cs.WIDTH, cs.IMG, cs.BATCH = 2, 2, 16, 8, 8
     cs.UNET_KWARGS = dict(cs.UNET_KWARGS, dim=8, resnet_block_groups=2)
     cs.DIFFUSION_KWARGS = dict(cs.DIFFUSION_KWARGS, timesteps=8, sampling_timesteps=4)
     cs.MG_DEVICE, cs.MG_BACKEND = "cpu", "gloo"
@@ -49,6 +51,7 @@ def cut_to_size() -> None:
     cs.MG_STEP_LAUNCHES = no_launches
     cs.stage2_per_step = lambda frozen: no_launches
     cs.stage1_run_launches = lambda steps, evals: no_launches
+    cs.pp_step_launches = lambda stage, n_stages=2: no_launches
     cs.sampling_chunk = lambda sampling_timesteps=0: no_launches
     stage2_overrides = cs.stage2_overrides
     cs.stage2_overrides = lambda name, steps=cs.STAGE2_STEPS: stage2_overrides(name, steps) + [
@@ -69,7 +72,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--dir", default=str(ROOT / "build" / "rehearse_multi_gpu"),
                     help="where the stage-1 run and the phases' files go")
-    ap.add_argument("--phases", nargs="+", type=int, choices=(28, 29), default=[28, 29])
+    ap.add_argument("--phases", nargs="+", type=int, choices=(28, 29, 30),
+                    default=[28, 29, 30])
     args = ap.parse_args()
     from nfdpm_tpu_torch.training import nf_trainer as nft
 
@@ -80,9 +84,11 @@ def main() -> int:
         nft.train(cfg=cfg, tcfg=tcfg, loaders=cs.train_loaders(4), run_dir=str(stage1),
                   logger=logging.getLogger("rehearsal"), seed=cs.TRAIN_SEED,
                   img_size=cs.IMG, device="cpu")
-    phases = {28: cs.phase_multi_gpu, 29: cs.phase_model_axis}
+    phases = {28: lambda *a: cs.phase_multi_gpu(*a, stage1),
+              29: lambda *a: cs.phase_model_axis(*a, stage1)[0],
+              30: cs.phase_pipeline}
     for phase in args.phases:
-        launches = phases[phase](torch, np, cs.kernel_counters(), "CPU rehearsal", stage1)
+        launches = phases[phase](torch, np, cs.kernel_counters(), "CPU rehearsal")
         print(f"phase {phase} launches", launches)
     print("REHEARSAL OK")
     return 0
