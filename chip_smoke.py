@@ -10,6 +10,7 @@
     python3 chip_smoke.py --multi-gpu          # phases 1, 2, 12, 13, 17 and 28
     python3 chip_smoke.py --model-axis         # phases 1, 2, 12, 13, 17 and 29
     python3 chip_smoke.py --pipeline           # phases 1, 2, 12, 13, 17 and 30
+    python3 chip_smoke.py --spatial            # phases 1, 2, 12, 13 and 31
     python3 chip_smoke.py --model-axis-nccl    # phases 1, 2, 29 (a) and 30 on two cards
 
 Runs nfdpm_tpu_torch (never JAX, never nfdpm_tpu) with seeded random
@@ -291,8 +292,13 @@ line each:
      what _add_fsdp predicts, and each process's peak of allocated memory
      over the steps beside world 1's. (c)
      Stage 2 on the two ranks: three UNets over phase 12's frozen flow,
-     MG_STAGE2_STEPS steps: the loss within MG_LOSS_RTOL (relative) of
-     world 1's at every step, 12 + 12 attention launches a step a rank.
+     MG_STAGE2_STEPS steps: step 1's loss within MG_LOSS_RTOL (relative)
+     of world 1's, every step's within MG_LOSS_RTOL of world 1's steps over
+     two row blocks (mg_block_step: the two ranks' arithmetic in one
+     process; the full-batch trajectory is recorded, not gated: Adam's
+     first update moves near-zero gradients by about lr, and on some
+     flows and draws the loss of two one-process routes parts by 5e-4 in
+     four steps, PERF.md), 12 + 12 attention launches a step a rank.
      (d) Part-parallel on this card: three groups in turn against the joint
      trainer on MG_PART_BATCHES batches, losses, parameters and EMA bitwise;
      run_diffusion_prior.main with parallel.part_parallel=true, whose
@@ -322,13 +328,15 @@ line each:
      the placements predict (data slabs of the model slabs), the peak of
      allocated memory beside world 1's, exact launches. (c) Two ranks at
      (1, 2): stage 2 over phase 12's frozen flow
-     (three UNets), MG_STAGE2_STEPS steps, the loss within MG_LOSS_RTOL of
-     world 1's, 12 + 12 attention launches a step a rank; a DDIM chunk of
+     (three UNets), MG_STAGE2_STEPS steps, step 1's loss within
+     MG_LOSS_RTOL of world 1's (the later steps recorded: the model axis
+     changes the UNet's sums, and no one-process reference repeats them,
+     see phase 28 (c)), 12 + 12 attention launches a step a rank; a DDIM chunk of
      MT_DDIM_STEPS steps and MT_DDIM_N images on the seeded UNets, its
      latents within LATENT_TOL of world 1's. (d) The record: step wall ms at world 1 and
      model 2, the model group's all-reduce and all-gather bytes a step and
      their ms, the bytes a rank, the card's name and power limit. Budget
-     MT_BUDGET_S.
+     MT_BUDGET_S. Its world-1 child also makes phase 31's (b) references.
 
   the pipeline (launch counters zeroed before 30 and read after it, its
   children's own counters added):
@@ -347,12 +355,44 @@ line each:
      bytes a step and their ms on the timed step, the peak of allocated
      memory, the card's name and power limit. Budget PP_BUDGET_S.
 
+  spatial partitioning (launch counters zeroed after 31's kernel checks and
+  read at its end, the spatial ranks' own counters added; the world-1
+  reference runs' launches apart, as "spatial_world1_reference"):
+ 31. spatial: first channel_mix (forward and dx), coupling_step_tail and
+     coupling_step_tail_bwd at the shapes a rank's row block gives them,
+     each level's (b, h/2, w, c) at batch 64 and SP_STAGE2_BATCH, against
+     their plain versions at phases 10's and 11's tolerances
+     (sp_row_kernels). Then a world-1 child and two gloo ranks at (data 1,
+     model 2) sharing this card, deterministic mode. (a) run_baseline.main with
+     parallel.n_model=2 parallel.spatial=true at full width, MT_STEPS
+     steps, against phase 29's world-1 run (a world-1 child's own under
+     --spatial): step 1's bits/dim within MG_BPD_TOL, every step within
+     TRAIN_TRAJ_TOL, the parameters within MG_FINAL_ATOL; each rank's
+     launches exactly 23 + 12 + 12 a step and the run's as world 1's; each
+     rank's flow parameter and moment bytes world 1's (no slabs); the halo
+     sent each way a step a rank exactly sp_halo_bytes() (15,024,128 B in
+     26 exchanges at batch 64); the checkpoint scored by phase=eval in this
+     process, a world of one, within MG_BPD_TOL. (b) run_diffusion_prior.main
+     with parallel.spatial=true over phase 12's frozen flow, UNets of the
+     config's width with SP_GROUPS group (every Block_0 norm one group split
+     over both ranks), T = SP_STAGE2_T, batch SP_STAGE2_BATCH: MG_STAGE2_STEPS
+     steps and one co-trained step, the first step's loss of each within
+     MG_LOSS_RTOL of the same runs at world 1 (the later steps recorded,
+     as in phase 29 (c); made by phase 29's world-1 child, or under
+     --spatial by a world-1 child of its own), the launches a step exactly
+     stage2_per_step's (12 + 12 attention). (c) The record: step wall ms
+     at world 1 and spatial, the halo, gradient-sum and latent-gather
+     bytes and calls a step and their ms on the timed step, the peak of
+     allocated memory a rank beside world 1's, the card's name and power
+     limit. Budget SP_BUDGET_S.
+
 Then come the kernel summary line (seven kernels), the nvidia-smi line and, last,
 {"ok": true, "device": {...}}. With --run-dir-tools the script runs the
 environment, the build, phases 12, 13 and 17 (whose run directories the
 tooling reads) and 23-25, and prints neither; --reference-checkpoints the same
 with phase 26 in place of 23-25, --mixed-precision with phase 27, --multi-gpu
-with phase 28, --model-axis with phase 29, --pipeline with phase 30. With
+with phase 28, --model-axis with phase 29, --pipeline with phase 30,
+--spatial with phases 12, 13 and 31 (no phase 17). With
 --stage1-training the script runs only the environment, the build and
 phases 12 and 13 and prints neither: copied
 into another checkout, it times that checkout's stage-1 training with the
@@ -4207,7 +4247,8 @@ MG_BUDGET_S = 120       # the phase's budget (PERF.md §2)
 MG_BPD_TOL = 1e-5
 MG_RTOL, MG_ATOL = 3e-4, 1e-5
 MG_FINAL_ATOL = 2e-3
-MG_LOSS_RTOL = 1e-4     # (c): the stage-2 loss of each step, relative
+MG_LOSS_RTOL = 1e-4     # the stage-2 loss, relative: step 1 against world 1's (phases
+                        # 28-31), each step over two row blocks (phase 28 (c))
 MG_STATS_LIMIT = 256    # (e): images of the stats precompute
 # the card; tools/rehearse_multi_gpu.py sets "cpu", gloo, device=cpu and
 # --device cpu to rehearse the phase on the CPU
@@ -4316,10 +4357,52 @@ def mg_stage1_steps(torch, counters, mesh, fsdp: bool, batches) -> dict:
                               if p.requires_grad)}
 
 
-def mg_stage2_steps(torch, counters, mesh, fsdp: bool, stage1_dir: Path, batches) -> dict:
+def mg_block_step(torch, backbone, dp, tcfg, tx, blocks: int):
+    """step(state, batch, seed) -> (state, {"loss"}): the arithmetic of a
+    data-parallel stage-2 step over `blocks` data ranks, in one process
+    without a process group: each row block's loss on its rows of the
+    step's global draw and its backward, the gradients and the losses
+    summed over the blocks and divided by their number (the all-reduce's
+    mean), then the update of diffusion_trainer.make_train_step."""
+    from nfdpm_tpu_torch import inference
+    from nfdpm_tpu_torch.convert import map_tree, named_leaves
+    from nfdpm_tpu_torch.ops.draws import RowGenerator
+    from nfdpm_tpu_torch.training import diffusion_trainer as dt
+
+    loss_fn = dt.make_loss_fn(backbone, dp, tcfg)
+    generator = torch.Generator(device=MG_DEVICE)
+
+    def step(state, batch, seed):
+        params = state["params"]
+        leaves = [p for _, p in named_leaves(params) if p.requires_grad]
+        n = batch.shape[0] // blocks
+        total = None
+        for i in range(blocks):
+            for p in leaves:
+                p.grad = None
+            draws = RowGenerator(inference.reseed(generator, dt._STEP, seed, state["step"]),
+                                 i * n, (i + 1) * n, batch.shape[0])
+            loss, _ = loss_fn(params, batch[i * n:(i + 1) * n], draws)
+            loss.backward()
+            got = [p.grad for p in leaves] + [loss.detach()]
+            total = got if total is None else [a + b for a, b in zip(total, got)]
+        for p, g in zip(leaves, total):
+            p.grad = g / blocks
+        grads = map_tree(params, lambda p: p.grad if p.grad is not None or not p.requires_grad
+                         else torch.zeros_like(p))
+        opt_state = tx.apply(params, grads, state["opt_state"])
+        return ({"params": params, "opt_state": opt_state, "step": state["step"] + 1},
+                {"loss": total[-1] / blocks})
+
+    return step
+
+
+def mg_stage2_steps(torch, counters, mesh, fsdp: bool, stage1_dir: Path, batches,
+                    blocks: int = 1) -> dict:
     """MG_STAGE2_STEPS stage-2 steps (configs/nf_diffusion.yaml's three UNets
     over phase 12's frozen flow, batch 64, each rank its rows, the step's
-    own draws): each step's loss and launches."""
+    own draws): each step's loss and launches. `blocks` > 1 (no mesh): the
+    steps of that many data ranks in this process (mg_block_step)."""
     from nfdpm_tpu_torch.models.nf_backbone import load_pretrained_flow
     from nfdpm_tpu_torch.parallel import mesh as mesh_m
     from nfdpm_tpu_torch.training import diffusion_trainer as dt
@@ -4330,7 +4413,8 @@ def mg_stage2_steps(torch, counters, mesh, fsdp: bool, stage1_dir: Path, batches
     tx = dt.make_two_group_optimizer(tcfg, True)
     state = dt.init_train_state(TRAIN_SEED, backbone, flow, dp, tx, device=MG_DEVICE)
     state = dt.shard_diffusion_state(mesh, tx, state, fsdp)
-    step = dt.make_train_step(backbone, dp, tcfg, tx, device=MG_DEVICE, mesh=mesh)
+    step = (dt.make_train_step(backbone, dp, tcfg, tx, device=MG_DEVICE, mesh=mesh)
+            if blocks == 1 else mg_block_step(torch, backbone, dp, tcfg, tx, blocks))
     losses, launches = [], []
     for batch in batches[:MG_STAGE2_STEPS]:
         rows = batch if mesh is None else mesh_m.shard_batch(mesh, batch)
@@ -4424,7 +4508,8 @@ def mg_world1(torch, root: Path, stage1_dir: Path) -> None:
     np.savez(root / "ref_stage1.npz", **ref.pop("params"))
     np.savez(root / "ref_stage1_step1.npz", **ref.pop("params_step1"))
     ref2 = mg_stage2_steps(torch, counters, None, False, stage1_dir, batches)
-    out["reference"] = {"stage1": ref, "stage2": ref2}
+    blocks2 = mg_stage2_steps(torch, counters, None, False, stage1_dir, batches, blocks=2)
+    out["reference"] = {"stage1": ref, "stage2": ref2, "stage2_blocks": blocks2}
     seconds["references"] = time.perf_counter() - start
     (root / "reference.json").write_text(json.dumps(out["reference"]))
 
@@ -4675,14 +4760,25 @@ def phase_multi_gpu(torch, np, counters, smi, stage1_dir: Path) -> dict:
 
     # (c): the stage-2 loss of each step, each rank, and the attention launches
     per_step2 = stage2_per_step(True)
-    loss_gaps = [max(abs(r["c"]["loss"][i] - c) / abs(c) for r in w2)
-                 for i, c in enumerate(ref["stage2"]["loss"])]
+
+    def rel_gaps(want):
+        return [max(abs(r["c"]["loss"][i] - c) / abs(c) for r in w2) for i, c in enumerate(want)]
+
+    loss_gaps, block_gaps = rel_gaps(ref["stage2"]["loss"]), rel_gaps(
+        ref["stage2_blocks"]["loss"])
     record["c"] = {"loss_rank0": w2[0]["c"]["loss"], "loss_world1": ref["stage2"]["loss"],
+                   "loss_world1_blocks": ref["stage2_blocks"]["loss"],
                    "rel_gap_by_step": loss_gaps, "max_rel_gap": max(loss_gaps),
+                   "blocks_rel_gap_by_step": block_gaps,
+                   "blocks_bitwise": all(r["c"]["loss"] == ref["stage2_blocks"]["loss"]
+                                         for r in w2),
                    "launches_per_step": per_step2}
     emit({"phase": "multi_gpu_c", **record["c"]})
-    check(max(loss_gaps) <= MG_LOSS_RTOL,
-          f"(c) the stage-2 loss {loss_gaps} (relative, by step) from world 1's")
+    check(loss_gaps[0] <= MG_LOSS_RTOL,
+          f"(c) step 1's stage-2 loss {loss_gaps[0]} (relative) from world 1's")
+    check(max(block_gaps) <= MG_LOSS_RTOL,
+          f"(c) the stage-2 loss {block_gaps} (relative, by step) from world 1's steps "
+          "over two row blocks")
     for r in w2:
         check(all(l == per_step2 for l in r["c"]["launches"]),
               f"(c) a rank's stage-2 step launches {r['c']['launches']}, expected {per_step2}")
@@ -4769,21 +4865,26 @@ MT_DDIM_STEPS = 25      # (c): its steps, DDIM-100 cut to fit the budget: a mode
 MT_CHAIN_ATOL, MT_CHAIN_RTOL = 1e-4, 1e-5
 
 
-COLLECTIVE_KINDS = ("all_reduce", "all_gather", "hop", "flush")
+COLLECTIVE_KINDS = ("all_reduce", "all_gather", "hop", "flush", "halo", "halo_back",
+                    "grad_sum", "row_gather")
 
 
 class ModelAxisSpy:
-    """Instruments a child of phases 29 and 30: each train step's launches
-    and synchronised wall ms (nf_trainer's and diffusion_trainer's
+    """Instruments a child of phases 29, 30 and 31: each train step's
+    launches and synchronised wall ms (nf_trainer's and diffusion_trainer's
     make_train_step wrapped), the model group's all-reduce and all-gather
     bytes and calls a step (parallel/tensor_parallel.py's two collectives
     counted), the pipeline's hop bytes sent and flush bytes broadcast
-    (parallel/pipeline.py's _p2p and _bcast) and, on a step marked `timed`,
-    their synchronised wall ms; the state and the mesh nf_trainer.train ran
-    with."""
+    (parallel/pipeline.py's _p2p and _bcast), spatial partitioning's halo
+    bytes sent forward and back, the gradients' sum over the model group
+    and the latents' row gather (parallel/spatial.py's halo,
+    halo_backward, all_reduce_sum_ and _gather) and, on a step marked `timed`, their
+    synchronised wall ms (all, and by kind); the state and the mesh
+    nf_trainer.train ran with."""
 
     def __init__(self, torch, counters):
         from nfdpm_tpu_torch.parallel import pipeline as pl
+        from nfdpm_tpu_torch.parallel import spatial as sp
         from nfdpm_tpu_torch.parallel import tensor_parallel as tp
         from nfdpm_tpu_torch.training import diffusion_trainer as dt
         from nfdpm_tpu_torch.training import nf_trainer as nft
@@ -4794,10 +4895,15 @@ class ModelAxisSpy:
         self.originals = [(tp, "_all_reduce", tp._all_reduce),
                           (tp, "all_gather_dim", tp.all_gather_dim),
                           (pl, "_p2p", pl._p2p), (pl, "_bcast", pl._bcast),
+                          (sp, "halo", sp.halo), (sp, "halo_backward", sp.halo_backward),
+                          (sp, "all_reduce_sum_", sp.all_reduce_sum_),
+                          (sp, "_gather", sp._gather),
                           (nft, "make_train_step", nft.make_train_step),
                           (dt, "make_train_step", dt.make_train_step),
                           (nft, "train", nft.train)]
         reduce, gather, p2p, bcast = tp._all_reduce, tp.all_gather_dim, pl._p2p, pl._bcast
+        halo, halo_back = sp.halo, sp.halo_backward
+        grad_sum, row_gather = sp.all_reduce_sum_, sp._gather
 
         def nbytes(t):
             return t.numel() * t.element_size()
@@ -4810,6 +4916,19 @@ class ModelAxisSpy:
             "hop", sum(nbytes(t) for t, _ in sends), p2p, axis, sends, recvs)
         pl._bcast = lambda axis, buf, stage: self._collective("flush", nbytes(buf), bcast,
                                                               axis, buf, stage)
+        def halo_bytes(t, axis, p):  # p rows to each neighbour
+            b, _, w, c = t.shape
+            neighbours = (axis.index > 0) + (axis.index < axis.n - 1)
+            return neighbours * b * p * w * c * t.element_size()
+
+        sp.halo = lambda x, axis, p: self._collective("halo", halo_bytes(x, axis, p), halo,
+                                                      x, axis, p)
+        sp.halo_backward = lambda g, axis, p: self._collective(
+            "halo_back", halo_bytes(g, axis, p), halo_back, g, axis, p)
+        sp.all_reduce_sum_ = lambda axis, ts: grad_sum(axis, ts) if axis is None else (
+            self._collective("grad_sum", sum(nbytes(t) for t in ts), grad_sum, axis, ts))
+        sp._gather = lambda axis, t: self._collective("row_gather", nbytes(t), row_gather,
+                                                      axis, t)
         for module in (nft, dt):
             module.make_train_step = self._wrap_maker(module.make_train_step)
         train = nft.train
@@ -4836,7 +4955,9 @@ class ModelAxisSpy:
         out = fn(*args)
         if timed:
             self.torch.cuda.synchronize()
-            c["ms"] += (time.perf_counter() - t0) * 1e3
+            ms = (time.perf_counter() - t0) * 1e3
+            c["ms"] += ms
+            c[f"{kind}_ms"] = c.get(f"{kind}_ms", 0.0) + ms
         c[f"{kind}_bytes"] += nbytes
         c[f"{kind}_calls"] += 1
         return out
@@ -4860,7 +4981,7 @@ class ModelAxisSpy:
                 rec = {"wall_ms": wall, "launches": {k: after[k] - before[k] for k in before},
                        **self.collective}
                 if len(self.steps) != self.timed_step:
-                    rec.pop("ms")
+                    rec = {k: v for k, v in rec.items() if not k.endswith("ms") or k == "wall_ms"}
                 self.steps.append(rec)
                 self.collective = None
                 return out
@@ -4916,7 +5037,7 @@ def mt_stage1(torch, spy, root: Path, name: str, steps: int, extra=()) -> dict:
     state, mesh = spy.trained["state"], spy.trained["mesh"]
     mesh_m.barrier(mesh)  # rank 0's checkpoint is on disk
     whole = restore_params(str(run_dir), "gaussian", 1, "cpu")
-    model_pl = rules.model_placements(whole, mesh_m.n_model_of(mesh))
+    model_pl = rules.model_placements(mesh, whole)  # none of the flow's under spatial
     layout = state.get("layout")
     if layout is not None and layout.axis == "model":  # the pipeline's stages
         before, placements, index = whole, layout.placements, mesh.model_rank
@@ -4990,7 +5111,8 @@ def mt_stage2(torch, spy, mesh, stage1_dir: Path, root: Path) -> dict:
 
 def mt_world1(torch, root: Path, stage1_dir: Path) -> None:
     """Phase 29's world-1 child (no launch, deterministic mode): the
-    references of (a), (b) and (c); prints its record."""
+    references of (a), (b) and (c) and, with "s" in MT_PARTS, phase 31's
+    of its (b) (`sp_b`, its launches apart); prints its record."""
     counters = kernel_counters()
     set_deterministic(torch, True)
     spy = ModelAxisSpy(torch, counters)
@@ -5005,6 +5127,9 @@ def mt_world1(torch, root: Path, stage1_dir: Path) -> None:
         out["c"] = mt_stage2(torch, spy, None, stage1_dir, root)
     out["seconds"] = time.perf_counter() - t0
     out["launches"] = counts(counters)
+    if "s" in parts:  # phase 31's world-1 stage-2 runs, in this child
+        out["sp_b"] = sp_stage2(torch, spy, root)
+        out["sp_b_launches"] = {k: v - out["launches"][k] for k, v in counts(counters).items()}
     spy.restore()
     emit(out)
 
@@ -5185,8 +5310,12 @@ def mt_check_c(np, root: Path, w1: dict, m2: list) -> dict:
          "ddim_latent_gate": LATENT_TOL, "ddim_latents_beyond_cpu_bound": z_beyond,
          "ddim_s": {"world1": w1["c"]["ddim_s"], "model2": [r["c"]["ddim_s"] for r in m2]}}
     emit({"phase": "model_axis_c", **c})
-    check(max(loss_gaps) <= MG_LOSS_RTOL,
-          f"(c) the stage-2 loss {loss_gaps} (relative, by step) from world 1's")
+    # step 1 only: from there on Adam's first update, about lr sign(g), turns
+    # the model axis's other sums into moves of up to 2 lr wherever the l1
+    # loss's kink flips a sign (PERF.md §6); the later steps are
+    # recorded above
+    check(loss_gaps[0] <= MG_LOSS_RTOL,
+          f"(c) step 1's stage-2 loss {loss_gaps[0]} (relative) from world 1's")
     check(all(step == per_step2 for r in c["launches_by_step"] for step in r),
           f"(c) the ranks' stage-2 step launches {c['launches_by_step']}, expected {per_step2}")
     check(max(z_gaps) <= LATENT_TOL, f"(c) the DDIM latents {max(z_gaps)} from world 1's "
@@ -5264,12 +5393,14 @@ def phase_model_axis(torch, np, counters, smi, stage1_dir: Path):
     reuses."""
     root = ROOT / "build" / "chip_smoke" / "model_axis"
     shutil.rmtree(root, ignore_errors=True)
-    root.mkdir(parents=True)
+    (root / "outputs").mkdir(parents=True)
+    (root / "outputs" / "stage1").symlink_to(stage1_dir)  # phase 31's stage-2 references
     for fn in counters:
         fn.launches = 0
     t0 = time.perf_counter()
     base = mt_env()
-    (w1,) = mg_children("mt_world1", root, stage1_dir, base, 1, phase="model_axis_world1")
+    (w1,) = mg_children("mt_world1", root, stage1_dir, dict(base, MT_PARTS="abcs"), 1,
+                        phase="model_axis_world1")
     times = {"world1_child_s": time.perf_counter() - t0}
     m2 = mg_children("mt_model2", root, stage1_dir, mt_launch(base, 2, "gloo"), 2,
                      phase="model_axis_model2")
@@ -5303,7 +5434,7 @@ def phase_model_axis(torch, np, counters, smi, stage1_dir: Path):
     record.update({"seconds": seconds, "budget_s": MT_BUDGET_S,
                    "within_budget": seconds <= MT_BUDGET_S})
     launches = {k: here[k] + w1["launches"][k] + sum(r["launches"][k] for r in m2 + m4)
-                for k in here}
+                for k in here}  # the world-1 child's phase-31 runs are phase 31's
     record["launches"] = {"this_process": here, "world1_child": w1["launches"],
                           "model2_ranks": [r["launches"] for r in m2],
                           "mesh4_ranks": [r["launches"] for r in m4], "total": launches}
@@ -5468,9 +5599,370 @@ def phase_pipeline(torch, np, counters, smi, world1=None, backend: str = "gloo")
     return launches
 
 
-# the children of phases 28, 29 and 30, by role (--multi-gpu-child <role> ...)
+# -- phase 31: spatial partitioning ---------------------------------------------------
+
+SP_BUDGET_S = 120       # the phase's budget (PERF.md §2)
+SP_ARGS = ["parallel.n_model=2", "parallel.spatial=true"]
+SP_GROUPS = 1           # (b): resnet_block_groups; one group a norm, split over both ranks
+SP_STAGE2_BATCH = 16    # (b): images a stage-2 step and in the run's VLB batch, and
+SP_STAGE2_T = 25        # the diffusion's T, cut from the config's 1000: the VLB batch
+# evaluates each UNet T times, and at model 2 every evaluation waits on about 100
+# all-reduces through the host (gloo): at T = 1000 one VLB batch of 16 took 85 s a run,
+# and at T = 100 the phase took 123.3 s on a slower host, on an NVIDIA H100 80GB HBM3,
+# 700 W (PERF.md §6)
+SP_COTRAINED = ["model.normalizing_flow.freeze=false", "model.normalizing_flow.lr=1e-4"]
+
+
+def sp_halo_bytes():
+    """(bytes, exchanges) one rank of two sends in a stage-1 forward at
+    (1, 2): one fp32 row of each 3x3 convolution's input to its one
+    neighbour, per Glow step conv1's (C/2 channels) and the zeroconv's
+    (WIDTH), per split prior the kept half's (C/2). At configs/nf_base.yaml,
+    batch 64: 15,024,128 B in 26 exchanges."""
+    total = calls = 0
+    c, size = 3, IMG
+    for level in range(LEVELS):
+        c, size = c * 4, size // 2
+        total += STEPS * BATCH * size * 4 * (c // 2 + WIDTH)
+        calls += 2 * STEPS
+        if level < LEVELS - 1:
+            c //= 2
+            total += BATCH * size * 4 * c
+            calls += 1
+    return total, calls
+
+
+def sp_row_kernels(torch) -> dict:
+    """The kernels of a spatial step against their plain versions at the
+    shapes a rank's row block gives them at (1, 2): each level's
+    (b, h/2, w, c) at (a)'s batch and at (b)'s (the deepest level 8
+    pixels an image at 32x32 where the whole image has 16). channel_mix
+    and its dx mode, coupling_step_tail and coupling_step_tail_bwd, at the
+    tolerances of phases 10 and 11, the same bits on a second call; the
+    tails' plans at these pixel counts. Its launches are comparisons, made
+    before phase 31 sets the counts to 0. Fails the phase on a miss."""
+    from nfdpm_tpu_torch.ops.kernels import channel_mix as cm
+    from nfdpm_tpu_torch.ops.kernels import coupling_tail as ct
+
+    dev = torch.device(MG_DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(3456)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    def gap(a, e):
+        return float((a - e).abs().max())
+
+    cases = []
+    for b in sorted({BATCH, SP_STAGE2_BATCH}, reverse=True):
+        for h, w, c in level_shapes():
+            h //= 2  # model 2: the rank's rows
+            x, wt, bias, g = randn(b, h, w, c), randn(c, c, scale=c ** -0.5), randn(c), \
+                randn(b, h, w, c)
+            r, zb, zlogs, ldj0 = randn(b, h, w, c, scale=0.5), randn(c, scale=0.2), \
+                randn(c, scale=0.2), randn(b, scale=10.0)
+            g_ldj = randn(b)
+            n = b * h * w
+            # (name, kernel outputs, plain outputs, a second call, (rtol, atol) an output)
+            rows = [
+                ("channel_mix", [cm.channel_mix(x, wt, bias)],
+                 [cm.channel_mix_plain(x, wt, bias)], [cm.channel_mix(x, wt, bias)],
+                 [(1e-5, 1e-5)]),
+                ("channel_mix_dx", [cm.channel_mix_dx(g, wt)], [cm.channel_mix_dx_plain(g, wt)],
+                 [cm.channel_mix_dx(g, wt)], [(1e-5, 1e-5)]),
+                ("coupling_tail", list(ct.coupling_step_tail(x, r, zb, zlogs, ldj0)),
+                 list(ct.coupling_step_tail_plain(x, r, zb, zlogs, ldj0)),
+                 list(ct.coupling_step_tail(x, r, zb, zlogs, ldj0)),
+                 [(1e-5, 1e-5), (1e-5, 1e-4)]),
+                ("coupling_tail_bwd", list(ct.coupling_step_tail_bwd(x, r, zb, zlogs, g, g_ldj)),
+                 list(ct.coupling_step_tail_bwd_plain(x, r, zb, zlogs, g, g_ldj)),
+                 list(ct.coupling_step_tail_bwd(x, r, zb, zlogs, g, g_ldj)),
+                 [(1e-5, 1e-5), (1e-5, 1e-5), (1e-4, 1e-4), (1e-4, 1e-4)])]
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            vw = ct.vector_width(c // 2, x.data_ptr(), r.data_ptr())
+            vw_bwd = ct.vector_width(c // 2, x.data_ptr(), r.data_ptr(), g.data_ptr())
+            case = {"x": [b, h, w, c], "pixels_per_image": h * w,
+                    "plans": {"channel_mix": cm.plan(n, c, c)._asdict(),
+                              "coupling_tail": ct.forward_plan(b, h * w, c // 2, vw)._asdict(),
+                              "coupling_tail_bwd": ct.backward_plan(
+                                  b, h * w, c // 2, vw_bwd)._asdict()},
+                    "max_abs_err": {}}
+            for name, got, want, again, tols in rows:
+                case["max_abs_err"][name] = max(gap(a, e) for a, e in zip(got, want))
+                check(len(got) == len(tols) and all(
+                    torch.allclose(a, e, rtol=rtol, atol=atol)
+                    for a, e, (rtol, atol) in zip(got, want, tols)),
+                      f"phase 31: {name} differs from its plain version at a rank's rows "
+                      f"{(b, h, w, c)}: {case['max_abs_err'][name]}")
+                check(all(torch.equal(a, e) for a, e in zip(got, again)),
+                      f"phase 31: {name} gave other bits on a second call at {(b, h, w, c)}")
+            cases.append(case)
+    record = {"phase": "spatial_row_kernels", "cases": cases}
+    emit(record)
+    return record
+
+
+def sp_step_losses(run_dir: Path) -> list:
+    """Each stage-2 train step's loss (l1, or l1_plus_bpd co-trained), from
+    the run's metrics.jsonl."""
+    rows = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    train = [r for r in rows if r["name"].startswith("l1") and r["step"] is not None
+             and (r.get("context") or {}).get("subset") == "train"]
+    return [r["value"] for r in sorted(train, key=lambda r: r["step"])]
+
+
+def sp_stage2(torch, spy, root: Path, extra=()) -> dict:
+    """(b): run_diffusion_prior.main over phase 12's frozen flow (linked as
+    <root>/outputs/stage1) at the config's UNet width with SP_GROUPS groups
+    and T = SP_STAGE2_T, MG_STAGE2_STEPS steps of SP_STAGE2_BATCH, then one
+    co-trained step, each
+    with `extra` overrides, instrumented: the losses (rank 0's log), each
+    step's launches, wall ms and collectives, the peak of allocated memory."""
+    import torch.distributed as dist
+
+    from nfdpm_tpu_torch import run_diffusion_prior
+
+    out = {}
+    for name, steps, more in (("frozen", MG_STAGE2_STEPS, []),
+                              ("cotrained", 1, SP_COTRAINED)):
+        spy.steps, spy.timed_step = [], steps - 1
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        result = run_in(root, run_diffusion_prior.main, stage2_overrides("stage1", steps) + [
+            f"data.batch_size={SP_STAGE2_BATCH}", f"data.synthetic_n={SP_STAGE2_BATCH * steps}",
+            f"model.unet.resnet_block_groups={SP_GROUPS}",
+            f"model.diffusion.timesteps={SP_STAGE2_T}",
+            f"model.diffusion.sampling_timesteps={SP_STAGE2_T}",  # at most T; no run samples
+            "model.logging.log_gen_images_per_iter=1000", "model.training.save_checkpoint_freq=50",
+            f"experiment_name=s2_{name}", *more, *extra] + MG_ENTRY_ARGS)
+        torch.cuda.synchronize()
+        rec = {"run_dir": result["run_dir"], "vlb_bpd": result["vlb_bpd"],
+               "seconds": time.perf_counter() - t0, "steps": spy.steps,
+               "max_memory_allocated": torch.cuda.max_memory_allocated()}
+        if not dist.is_initialized() or dist.get_rank() == 0:
+            rec["loss_by_step"] = sp_step_losses(root / result["run_dir"])
+        out[name] = rec
+    return out
+
+
+def sp_world1(torch, root: Path, stage1_dir: Path) -> None:
+    """Phase 31's world-1 child under --spatial (no launch, deterministic
+    mode): the references of (a) and (b), which phase 29's world-1 child
+    makes otherwise."""
+    counters = kernel_counters()
+    set_deterministic(torch, True)
+    spy = ModelAxisSpy(torch, counters)
+    os.environ["NFDPM_NO_TENSORBOARD"] = "1"
+    t0 = time.perf_counter()
+    out = {"phase": "spatial_world1", "a": mt_stage1(torch, spy, root, "world1_a", MT_STEPS),
+           "sp_b": sp_stage2(torch, spy, root)}
+    out["seconds"] = time.perf_counter() - t0
+    out["launches"] = counts(counters)
+    spy.restore()
+    emit(out)
+
+
+def sp_model2(torch, root: Path, stage1_dir: Path) -> None:
+    """A rank of phase 31's (data 1, model 2) children (gloo, both on this
+    card, deterministic mode): (a) run_baseline.main and (b)
+    run_diffusion_prior.main with parallel.spatial=true."""
+    import torch.distributed as dist
+
+    from nfdpm_tpu_torch.parallel import distributed
+
+    counters = kernel_counters()
+    set_deterministic(torch, True)
+    spy = ModelAxisSpy(torch, counters)
+    os.environ["NFDPM_NO_TENSORBOARD"] = "1"
+    t0 = time.perf_counter()
+    a = mt_stage1(torch, spy, root, "spatial_a", MT_STEPS, SP_ARGS)
+    out = {"phase": "spatial_model2", "rank": dist.get_rank(), "backend": dist.get_backend(),
+           "a": a, "b": sp_stage2(torch, spy, root, SP_ARGS),
+           "seconds": time.perf_counter() - t0, "launches": counts(counters)}
+    spy.restore()
+    emit(out)
+    distributed.shutdown()
+
+
+def sp_check_a(counters, w1_root: Path, root: Path, w1: dict, m2: list):
+    """(a)'s gates: the spatial run against world 1's, the launches, the
+    bytes held and exchanged, its checkpoint scored by phase=eval in this
+    process (a world of one); returns (its record, this process's
+    launches)."""
+    from nfdpm_tpu_torch import run_baseline
+    from nfdpm_tpu_torch.convert import named_leaves
+    from nfdpm_tpu_torch.training.checkpoint import restore_params
+
+    ref, ranks = w1["a"], [r["a"] for r in m2]
+    bpd_gaps = [abs(g - w) for g, w in zip(ranks[0]["bpd_by_step"], ref["bpd_by_step"])]
+    got = dict(named_leaves(restore_params(str(root / ranks[0]["run_dir"]), "gaussian", 1,
+                                           "cpu")))
+    want = dict(named_leaves(restore_params(str(w1_root / ref["run_dir"]), "gaussian", 1,
+                                            "cpu")))
+    check(got.keys() == want.keys(), "(a) the spatial checkpoint's leaves differ from world 1's")
+    param_gap = max(float((got[k] - want[k]).abs().max()) for k in want if want[k].numel())
+    expected = stage1_run_launches(MT_STEPS, len(train_loaders(MT_STEPS).test)
+                                   + len(train_loaders(MT_STEPS).eval))
+    halo, exchanges = sp_halo_bytes()
+    a = {"bpd_spatial": ranks[0]["bpd_by_step"], "bpd_world1": ref["bpd_by_step"],
+         "bpd_gap_by_step": bpd_gaps, "final_param_gap": param_gap,
+         "final_bpd_spatial": ranks[0]["results"], "final_bpd_world1": ref["results"],
+         "launches_by_step": [[s["launches"] for s in r["steps"]] for r in ranks],
+         "run_launches": [r["launches"] for r in ranks], "expected_run_launches": expected,
+         "flow_param_bytes_by_rank": [r["flow_param_bytes"] for r in ranks],
+         "world1_flow_param_bytes": ref["flow_param_bytes"],
+         "moment_bytes_by_rank": [r["moment_bytes"] for r in ranks],
+         "world1_moment_bytes": ref["moment_bytes"],
+         "halo_by_step": [[{k: s[k] for k in ("halo_bytes", "halo_calls", "halo_back_bytes",
+                                               "halo_back_calls")} for s in r["steps"]]
+                          for r in ranks],
+         "predicted_halo_bytes": halo, "predicted_halo_calls": exchanges,
+         "max_memory_allocated_by_rank": [r["max_memory_allocated"] for r in ranks],
+         "world1_max_memory_allocated": ref["max_memory_allocated"]}
+    before = counts(counters)
+    evaluated = run_in(root, run_baseline.main, mt_argv(MT_STEPS) + [
+        "experiment_name=spatial_eval", "phase=eval",
+        f"load.load_exp_dir={Path(ranks[0]['run_dir']).name}", "load.load_epoch=1"])
+    here = {k: v - before[k] for k, v in counts(counters).items()}
+    a["eval_world1"] = evaluated["results"]
+    a["eval_gap"] = max(abs(evaluated["results"][k] - ranks[0]["results"][k])
+                        for k in ("bpd_test", "bpd_train"))
+    emit({"phase": "spatial_a", **a})
+    check(len(bpd_gaps) == MT_STEPS and bpd_gaps[0] <= MG_BPD_TOL,
+          f"(a) step 1's bits/dim {bpd_gaps[:1]} from world 1's")
+    check(max(bpd_gaps) <= TRAIN_TRAJ_TOL, f"(a) bits/dim {bpd_gaps} from world 1's by step")
+    check(param_gap <= MG_FINAL_ATOL, f"(a) parameters {param_gap} from world 1's after "
+                                      f"{MT_STEPS} steps")
+    check(all(step == MG_STEP_LAUNCHES for r in a["launches_by_step"] for step in r)
+          and all(len(r) == MT_STEPS for r in a["launches_by_step"]),
+          f"(a) the ranks' step launches {a['launches_by_step']}")
+    check(all(r == expected for r in a["run_launches"]),
+          f"(a) the ranks' run launches {a['run_launches']}, expected {expected}")
+    check(all(b == ref["flow_param_bytes"] for b in a["flow_param_bytes_by_rank"])
+          and all(b == ref["moment_bytes"] for b in a["moment_bytes_by_rank"]),
+          f"(a) bytes {a['flow_param_bytes_by_rank']}, {a['moment_bytes_by_rank']} against world "
+          f"1's {ref['flow_param_bytes']}, {ref['moment_bytes']} (no slabs of the flow)")
+    check(all(s == {"halo_bytes": halo, "halo_calls": exchanges, "halo_back_bytes": halo,
+                    "halo_back_calls": exchanges} for r in a["halo_by_step"] for s in r),
+          f"(a) the halo a step {a['halo_by_step']}, predicted {halo} B in {exchanges} "
+          "exchanges each way")
+    check(a["eval_gap"] <= MG_BPD_TOL, f"(a) phase=eval in a world of one {a['eval_gap']} "
+                                       "from the spatial run's final bits/dim")
+    return a, here
+
+
+def sp_check_b(ref: dict, m2: list) -> dict:
+    """(b)'s gates: the spatial stage-2 runs, frozen and co-trained, against
+    world 1's of the same group count (`ref`, sp_stage2's record): the loss
+    of each step, the launches."""
+    b = {"groups": SP_GROUPS, "batch": SP_STAGE2_BATCH, "timesteps": SP_STAGE2_T}
+    for name, frozen in (("frozen", True), ("cotrained", False)):
+        want, got = ref[name], m2[0]["b"][name]
+        per_step = stage2_per_step(frozen)
+        gaps = [abs(g - w) / abs(w) for g, w in zip(got["loss_by_step"], want["loss_by_step"])]
+        b[name] = {"loss_spatial": got["loss_by_step"], "loss_world1": want["loss_by_step"],
+                   "rel_gap_by_step": gaps, "launches_per_step": per_step,
+                   "launches_by_step": [[s["launches"] for s in r["b"][name]["steps"]]
+                                        for r in m2],
+                   "vlb_spatial": got["vlb_bpd"], "vlb_world1": want["vlb_bpd"],
+                   "seconds_by_rank": [r["b"][name]["seconds"] for r in m2],
+                   "world1_seconds": want["seconds"]}
+        steps = MG_STAGE2_STEPS if frozen else 1
+        # step 1 only, as in phase 29 (c); the later steps are recorded
+        check(len(gaps) == steps and gaps[0] <= MG_LOSS_RTOL,
+              f"(b) {name}: step 1's stage-2 loss {gaps[0]} (relative) from world 1's")
+        check(all(len(r) == steps and all(s == per_step for s in r)
+                  for r in b[name]["launches_by_step"]),
+              f"(b) {name}: the ranks' step launches {b[name]['launches_by_step']}, expected "
+              f"{per_step}")
+    emit({"phase": "spatial_b", **b})
+    return b
+
+
+def phase_spatial(torch, np, counters, smi, stage1_dir: Path, world1=None) -> dict:
+    """Phase 31 (see the module docstring): two spatial gloo ranks sharing
+    this card against phase 29's world-1 child (`world1` = (its record, its
+    directory)), which also made (b)'s references, or, without it, against
+    a world-1 child of its own. First the kernels at the rank's row-block
+    shapes against their plain versions (sp_row_kernels). Returns the
+    launches of the spatial path (the two spatial ranks' and this process's
+    phase=eval, summed) and those of the world-1 reference runs it compares
+    with (phase 29's child's (b) runs, or its own child's (a) and (b)),
+    apart."""
+    t0 = time.perf_counter()
+    row_kernels = sp_row_kernels(torch)
+    root = ROOT / "build" / "chip_smoke" / "spatial"
+    shutil.rmtree(root, ignore_errors=True)
+    (root / "outputs").mkdir(parents=True)
+    (root / "outputs" / "stage1").symlink_to(stage1_dir)
+    for fn in counters:
+        fn.launches = 0
+    times = {"row_kernels_s": time.perf_counter() - t0}
+    base = mt_env()
+    if world1 is None:
+        (w1,) = mg_children("sp_world1", root, stage1_dir, base, 1, phase="spatial_world1")
+        RECORDS.append(w1)
+        world1, w1_launches = (w1, root), w1["launches"]
+        times["world1_child_s"] = time.perf_counter() - t0 - sum(times.values())
+    else:
+        w1_launches = world1[0]["sp_b_launches"]
+    (w1, w1_root) = world1
+    m2 = mg_children("sp_model2", root, stage1_dir, mt_launch(base, 2, "gloo"), 2,
+                     phase="spatial_model2")
+    times["spatial_children_s"] = time.perf_counter() - t0 - sum(times.values())
+    RECORDS.extend(m2)
+    check(all(r["backend"] == "gloo" for r in m2), "the spatial children are not on gloo")
+    record = {"phase": "spatial", "card": smi, "times": times,
+              "row_kernels": row_kernels["cases"]}
+    record["a"], here = sp_check_a(counters, w1_root, root, w1, m2)
+    record["b"] = sp_check_b(w1["sp_b"], m2)
+    ranks, ref = [r["a"] for r in m2], w1["a"]
+    timed = [mt_timed(r["steps"]) for r in ranks]
+    frozen = [r["b"]["frozen"] for r in m2]
+    record["c"] = {
+        "card": smi,
+        "stage1_step_wall_ms_world1": median_of([s["wall_ms"] for s in ref["steps"][1:-1]]),
+        "stage1_step_wall_ms_spatial_by_rank": [
+            median_of([s["wall_ms"] for s in r["steps"][1:-1]]) for r in ranks],
+        "stage1_per_step": {k: ranks[0]["steps"][1][k] for k in (
+            "halo_bytes", "halo_calls", "halo_back_bytes", "halo_back_calls", "grad_sum_bytes",
+            "grad_sum_calls", "all_reduce_bytes", "all_reduce_calls")},
+        "stage1_timed_step_ms_by_rank": [{k: t.get(k, 0.0) for k in (
+            "wall_ms", "ms", "halo_ms", "halo_back_ms", "grad_sum_ms", "all_reduce_ms")}
+            for t in timed],
+        "stage2_step_wall_ms_world1": median_of([s["wall_ms"]
+                                                 for s in w1["sp_b"]["frozen"]["steps"][1:]]),
+        "stage2_step_wall_ms_spatial_by_rank": [median_of([s["wall_ms"] for s in f["steps"][1:]])
+                                                for f in frozen],
+        "stage2_per_step": {k: frozen[0]["steps"][1][k] for k in (
+            "row_gather_bytes", "row_gather_calls", "halo_bytes", "halo_calls",
+            "all_reduce_bytes", "all_reduce_calls", "all_gather_bytes", "all_gather_calls")},
+        "stage2_timed_step_ms_by_rank": [{k: t.get(k, 0.0) for k in (
+            "wall_ms", "ms", "row_gather_ms", "halo_ms", "all_reduce_ms", "all_gather_ms")}
+            for t in (mt_timed(f["steps"]) for f in frozen)],
+        "max_memory_allocated": {
+            "stage1_world1": ref["max_memory_allocated"],
+            "stage1_spatial_by_rank": [r["max_memory_allocated"] for r in ranks],
+            "stage2_world1": w1["sp_b"]["frozen"]["max_memory_allocated"],
+            "stage2_spatial_by_rank": [f["max_memory_allocated"] for f in frozen]},
+        "note": "gloo on one card moves every exchange and all-reduce through the host: no "
+                "time here is a scaling figure"}
+    emit({"phase": "spatial_c", **record["c"]})
+    seconds = time.perf_counter() - t0
+    record.update({"seconds": seconds, "budget_s": SP_BUDGET_S,
+                   "within_budget": seconds <= SP_BUDGET_S})
+    launches = {k: here[k] + sum(r["launches"][k] for r in m2) for k in here}
+    record["launches"] = {"this_process": here, "spatial_ranks": [r["launches"] for r in m2],
+                          "total": launches, "world1_reference": w1_launches}
+    emit(record)
+    return launches, w1_launches
+
+
+# the children of phases 28-31, by role (--multi-gpu-child <role> ...)
 CHILD_ROLES = {"world1": mg_world1, "world2": mg_world2, "mt_world1": mt_world1,
-               "mt_model2": mt_model2, "mt_mesh4": mt_mesh4, "pp_stage": pp_stage}
+               "mt_model2": mt_model2, "mt_mesh4": mt_mesh4, "pp_stage": pp_stage,
+               "sp_world1": sp_world1, "sp_model2": sp_model2}
 
 
 def main() -> int:
@@ -5551,6 +6043,11 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_pipeline(torch, np, counters, smi)
         return 0
+    if sys.argv[1:] == ["--spatial"]:
+        _, stage1_run, _, _ = phase_training(torch, counters)
+        torch.cuda.empty_cache()
+        phase_spatial(torch, np, counters, smi, stage1_run)
+        return 0
     if sys.argv[1:] == ["--model-axis-nccl"]:
         phase_model_axis_nccl(torch, np, counters, smi)
         return 0
@@ -5612,6 +6109,10 @@ def main() -> int:
     launches["model_axis"], world1 = phase_model_axis(torch, np, counters, smi, stage1_run)
     torch.cuda.empty_cache()
     launches["pipeline"] = phase_pipeline(torch, np, counters, smi, world1)
+    torch.cuda.empty_cache()
+    # the world-1 references of phase 31's stage 2, run in phase 29's child
+    launches["spatial"], launches["spatial_world1_reference"] = phase_spatial(
+        torch, np, counters, smi, stage1_run, world1)
 
     per = {"fused_linear_attention": "one UNet evaluation of each of the three parts at "
                                      "batch 64 (one DDIM step or one stage-2 train "

@@ -450,13 +450,15 @@ def params_for_rank(params: Dict[str, Any], mesh) -> Dict[str, Any]:
     checkpoint's restore_params) -> this rank's slabs on the model axis of
     `mesh` (parallel/mesh.py): the coupling CNNs' leaves by the Glow rules,
     each UNet narrowed in place by the UNet rules
-    (parallel/sharding_rules.py). Without a model axis, the tree itself."""
+    (parallel/sharding_rules.py); under spatial partitioning the UNets'
+    slabs only (the flow stays whole). Without a model axis, the tree
+    itself."""
     from .parallel import tensor_parallel as tp
     from .parallel.sharding_rules import model_placements
 
     if mesh is None or mesh.n_model == 1:
         return params
-    return tp.shard_tree(mesh.model, params, model_placements(params, mesh.n_model))
+    return tp.shard_tree(mesh.model, params, model_placements(mesh, params))
 
 
 def diffusion_to_jax_params(params: Dict[str, Any]) -> Dict[str, Any]:

@@ -100,16 +100,17 @@ def init_glow(seed, cfg: GlowConfig, device=None) -> Params:
 
 
 def run_step(sp: Params, y: torch.Tensor, ldj: torch.Tensor, cfg: GlowConfig, model=None,
-             gather=None):
+             gather=None, rows=None):
     """One Glow step of the forward (bijectors.step_forward on the config's
     route and dtype), recomputed in the backward under `cfg.remat`.
     `gather(sp)`: the step's whole weights from its slabs (a partitioned
     flow, parallel/zero.py), called inside the recomputed function so that
-    the backward gathers them again."""
+    the backward gathers them again; the halo exchanges of a spatial step
+    (`rows`) are recomputed there too, in the same order on every rank."""
     def fn(sp, y, ldj):
         if gather is not None:
             sp = gather(sp)
-        return bj.step_forward(sp, y, ldj, cfg.use_kernels, cfg.compute_dtype, model)
+        return bj.step_forward(sp, y, ldj, cfg.use_kernels, cfg.compute_dtype, model, rows)
 
     if cfg.remat and torch.is_grad_enabled():
         return checkpoint(fn, sp, y, ldj, use_reentrant=False)
@@ -118,13 +119,16 @@ def run_step(sp: Params, y: torch.Tensor, ldj: torch.Tensor, cfg: GlowConfig, mo
 
 def forward(params: Params, cfg: GlowConfig, x: torch.Tensor,
             ldj: Optional[torch.Tensor] = None, logp: Optional[torch.Tensor] = None,
-            with_logp: bool = True, model=None, fsdp=None):
+            with_logp: bool = True, model=None, fsdp=None, rows=None):
     """x: [B, H, W, C] preprocessed (and dequantized) images. `model`: the
     model axis (parallel/tensor_parallel.ModelAxis) when `params` holds a
     rank's slabs of the coupling CNNs; None on one rank. `fsdp`: the
     layout of a flow partitioned over the data axis (parallel/zero.Layout,
     rooted at the flow): each step, and each level's split prior, gathers
-    its weights just before it runs.
+    its weights just before it runs. `rows`: the model axis when `x` is
+    this rank's row block of the images (spatial partitioning,
+    parallel/spatial.py): the latents are the rank's rows, and `ldj` and
+    `logp` the partial sums over its pixels.
 
     Returns (latent parts [z_1..z_{L-1}, y_final], ldj [B], logp [B] or None)."""
     b = x.shape[0]
@@ -140,7 +144,7 @@ def forward(params: Params, cfg: GlowConfig, x: torch.Tensor,
 
     def steps(stack, path, y, ldj):
         for i, sp in enumerate(stack):
-            y, ldj = run_step(sp, y, ldj, cfg, model, unit(f"{path}/{i}"))
+            y, ldj = run_step(sp, y, ldj, cfg, model, unit(f"{path}/{i}"), rows)
         return y, ldj
 
     latents = []
@@ -150,7 +154,7 @@ def forward(params: Params, cfg: GlowConfig, x: torch.Tensor,
         y, ldj = steps(block["steps"], f"blocks/{i}/steps", y, ldj)
         split = block["split"] if fsdp is None else fsdp.gather(block["split"],
                                                                 f"blocks/{i}/split")
-        y, ldj, z, logp = bj.split_forward(split, y, ldj, logp)
+        y, ldj, z, logp = bj.split_forward(split, y, ldj, logp, rows)
         latents.append(z)
 
     y = bj.squeeze_forward(y)

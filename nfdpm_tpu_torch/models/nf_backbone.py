@@ -11,7 +11,12 @@ one of the port's own stage-1 run directories. `model` is the model axis
 rank's slabs of the coupling CNNs (the trainers set it from their mesh),
 None on one rank. `fsdp` is the layout of a flow partitioned over the data
 axis (parallel/zero.Layout, rooted at the flow): `transform` gathers each
-step's weights on use. The inverse runs on whole weights.
+step's weights on use. The inverse runs on whole weights. `rows` is the
+model axis over which `transform` splits the images' rows (spatial
+partitioning, parallel/spatial.py; the flow whole on every rank): it cuts
+the images to the rank's row block, runs the flow on it, and gathers the
+latents back to whole images on every rank (their gradient: the rank's own
+block) and sums the logdet's partial sums over the model group.
 """
 
 from __future__ import annotations
@@ -23,6 +28,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from ..convert import map_tree
+from ..parallel import spatial as sp
+from ..parallel import tensor_parallel as tp
 from . import glow as glow_m
 
 
@@ -33,18 +40,21 @@ class NFBackbone:
     frozen: bool = True
     model: Optional[Any] = dataclasses.field(default=None, compare=False)
     fsdp: Optional[Any] = dataclasses.field(default=None, compare=False)
+    rows: Optional[Any] = dataclasses.field(default=None, compare=False)
 
     def maybe_freeze(self, flow_params):
         """The parameters cut from the graph when the flow is frozen."""
         return map_tree(flow_params, torch.Tensor.detach) if self.frozen else flow_params
 
     def transform(self, flow_params, x: torch.Tensor, ldj: Optional[torch.Tensor] = None):
-        """x [B, H, W, C] -> (latent parts, ldj [B])."""
+        """x [B, H, W, C] -> (latent parts, ldj [B]), whole on every rank."""
         with torch.no_grad() if self.frozen else contextlib.nullcontext():
-            latents, ldj, _ = glow_m.forward(flow_params, self.cfg, x, ldj=ldj,
-                                             with_logp=False, model=self.model,
-                                             fsdp=self.fsdp)
-        return latents, ldj
+            latents, part, _ = glow_m.forward(flow_params, self.cfg, sp.cut_rows(self.rows, x),
+                                              with_logp=False, model=self.model,
+                                              fsdp=self.fsdp, rows=self.rows)
+            latents = [sp.gather_rows(self.rows, z) for z in latents]
+            part = tp.reduce_from_model(self.rows, part)
+        return latents, part if ldj is None else ldj + part
 
     def invert(self, flow_params, latents: Sequence[torch.Tensor],
                generator: Optional[torch.Generator] = None, temperature: float = 1.0,

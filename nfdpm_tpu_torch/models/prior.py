@@ -39,7 +39,8 @@ def _moments(params: Params, channels: int,
 
 
 def gaussian_prior_logp(params: Params, x: torch.Tensor) -> torch.Tensor:
-    """[B] log-density of the final latent x: [B, H, W, C]."""
+    """[B] log-density of the final latent x: [B, H, W, C] (of a rank's row
+    block under spatial partitioning: the partial sum over its pixels)."""
     mean, logsd = _moments(params, x.shape[-1], x.device)
     return gaussian_logp(x, mean, logsd)
 

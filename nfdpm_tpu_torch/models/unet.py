@@ -38,15 +38,15 @@ _unet_spec_for) and the blocks call the model axis's collectives
 (parallel/tensor_parallel.py). Every ResnetBlock's Block_0 is
 column-parallel: its WSConv kernel, bias and GroupNorm on the output
 channels (the kernel's standardization is per output channel, so local;
-GroupNorm's groups must split whole over the ranks), the FiLM scale and
-shift cut to the rank's columns. Block_1 is row-parallel: its kernel on
-the input channels, whose standardization statistics are summed over the
-model group, then the partial output all-reduced and the bias added once.
-The attention blocks the rules name (LinearAttention_0's and the mid
-Attention_0's qkv and out matrices) hold contiguous slabs that are not
-head groups, so they gather their weights and run whole on every rank:
-the fused kernel, its backward and its launch counts as on one device.
-Everything else is replicated.
+a group split across ranks takes its statistics over the model group, see
+GroupNorm), the FiLM scale and shift cut to the rank's columns. Block_1
+is row-parallel: its kernel on the input channels, whose standardization
+statistics are summed over the model group, then the partial output
+all-reduced and the bias added once. The attention blocks the rules name
+(LinearAttention_0's and the mid Attention_0's qkv and out matrices) hold
+contiguous slabs that are not head groups, so they gather their weights
+and run whole on every rank: the fused kernel, its backward and its
+launch counts as on one device. Everything else is replicated.
 
 Parameter partitioning over the data axis (`gather_units`,
 parallel/zero.py): each rank holds slabs of the placed parameters, and
@@ -187,6 +187,41 @@ class RandomOrLearnedSinusoidalPosEmb(nn.Module):
         return torch.cat([t, torch.sin(freqs), torch.cos(freqs)], dim=-1)
 
 
+class GroupNorm(nn.GroupNorm):
+    """nn.GroupNorm over the NCHW view of an activation. `axis` (a model
+    axis) when the module holds the rank's contiguous slab of the channels
+    (its weight and bias too): groups that lie whole on every rank are
+    normalized locally; otherwise each group's statistics are taken over
+    all of its channels, wherever they live. The rank sums, per image, its
+    channels' part of each group (zero for a group it does not touch), the
+    sums go over the model group (sum_over_model: all-reduce forward and
+    backward, as every rank uses them), the mean is the whole group's sum
+    over (C/G) H W, and the variance is taken the same way from the centred
+    squares (two passes, as the weight standardization does)."""
+
+    axis = None
+
+    def forward(self, x):
+        axis = self.axis
+        if not tp.active(axis):
+            return super().forward(x)
+        if self.num_groups % axis.n == 0:
+            return F.group_norm(x, self.num_groups // axis.n, self.weight, self.bias, self.eps)
+        b, c, h, w = x.shape
+        size = self.num_channels // self.num_groups
+        channel = torch.arange(axis.index * c, (axis.index + 1) * c, device=x.device)
+        member = F.one_hot(channel // size, self.num_groups).to(x.dtype)  # [c, G]
+        count = size * h * w
+
+        def group_mean(t):  # [B, c, H, W] -> each channel's group mean, [B, c, 1, 1]
+            sums = tp.sum_over_model(axis, t.sum(dim=(2, 3)) @ member)
+            return ((sums / count) @ member.T)[:, :, None, None]
+
+        centred = x - group_mean(x)
+        y = centred * torch.rsqrt(group_mean(centred * centred) + self.eps)
+        return y * self.weight[:, None, None] + self.bias[:, None, None]
+
+
 class Block(nn.Module):
     """WSConv 3x3 -> GroupNorm -> (FiLM) -> SiLU. `column_axis` (a model
     axis) makes it column-parallel: the rank's slab of the output channels,
@@ -198,7 +233,7 @@ class Block(nn.Module):
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.conv = WeightStandardizedConv(dim_in, dim_out, 3, padding=1, dtype=dtype)
-        self.norm = nn.GroupNorm(groups, dim_out, eps=EPS)
+        self.norm = GroupNorm(groups, dim_out, eps=EPS)
 
     def forward(self, x, scale_shift=None):
         x = self.conv(tp.copy_to_model(self.column_axis, x))
@@ -466,19 +501,13 @@ def init_unet_(unet: Unet, seed: int) -> Unet:
 def shard_unet_(unet: Unet, axis) -> Unet:
     """Narrow a whole UNet, in place, to this rank's slabs on the model
     `axis` (parallel/tensor_parallel.ModelAxis; nothing at one rank) and
-    set its blocks to call the axis's collectives. A GroupNorm whose groups
-    do not split whole over the ranks raises ValueError (its statistics
-    would cross ranks); so does a width that does not divide."""
+    set its blocks to call the axis's collectives, any group count (a
+    group split across ranks takes its statistics over the model group,
+    GroupNorm). A width that does not divide raises ValueError."""
     from ..parallel.sharding_rules import unet_model_placements
 
     if not tp.active(axis):
         return unet
-    for m in unet.modules():
-        if isinstance(m, ResnetBlock) and m.block0.norm.num_groups % axis.n:
-            raise ValueError(f"GroupNorm of {m.block0.norm.num_groups} groups over "
-                             f"{m.block0.norm.num_channels} channels does not split into "
-                             f"whole groups over the model axis of {axis.n}: "
-                             "resnet_block_groups must be a multiple of n_model")
     placements = unet_model_placements(unet, axis.n)
     modules = dict(unet.named_modules())
     for name, p in list(unet.named_parameters()):
@@ -489,8 +518,7 @@ def shard_unet_(unet: Unet, axis) -> Unet:
     for name, m in modules.items():
         if isinstance(m, ResnetBlock):
             m.block0.column_axis = axis
-            m.block0.norm.num_groups //= axis.n
-            m.block0.norm.num_channels //= axis.n
+            m.block0.norm.axis = axis
             m.block1.conv.row_axis = axis
         elif isinstance(m, (LinearAttention, Attention)) and f"{name}.w_qkv" in placements:
             m.axis = axis

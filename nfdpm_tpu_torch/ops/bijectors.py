@@ -30,6 +30,14 @@ one rank) and the coupling CNN's `dtype` (GlowConfig.coupling_dtype: bf16
 runs its two inner convolutions in bf16, ops/coupling.py); the
 data-dependent init and the megakernel are fp32 whatever it is, as in the
 JAX package.
+
+Spatial partitioning (`rows`, the model axis carrying image rows,
+parallel/spatial.py) runs the forward of the train step on a rank's row
+block: the 3x3 convolutions of the coupling CNN and of the split prior
+exchange halo rows, and every logdet and log-density is the partial sum of
+the rank's pixels (the channel mix's h*w*ld with the rank's h), which the
+trainer sums over the model group once. The squeeze is exact per block
+(the guard keeps every block's row count even).
 """
 
 from __future__ import annotations
@@ -164,12 +172,12 @@ def _halves(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def coupling_forward(params: Params, x: torch.Tensor, ldj: torch.Tensor,
-                     dtype: torch.dtype = torch.float32,
-                     model=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                     dtype: torch.dtype = torch.float32, model=None,
+                     rows=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """scale = sigmoid(log_scale + 2); y_b = (x_b + bias) * scale;
     ldj += sum log(scale + 1e-6)."""
     x_a, x_b = _halves(x)
-    log_scale, bias = _halves(coupling_net_apply(params["net"], x_a, dtype, model))
+    log_scale, bias = _halves(coupling_net_apply(params["net"], x_a, dtype, model, rows))
     scale = torch.sigmoid(log_scale + 2.0)
     y_b = (x_b + bias) * scale
     ldj = ldj + torch.sum(torch.log(scale + _EPS_COUPLING).reshape(x.shape[0], -1), dim=1)
@@ -227,20 +235,21 @@ def init_split(channels: int, learn_prior: bool = True) -> Params:
     return {"conv": init_zeroconv(channels // 2, channels, filter_size=3)}
 
 
-def _split_prior_moments(params: Params, y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def _split_prior_moments(params: Params, y: torch.Tensor,
+                         rows=None) -> Tuple[torch.Tensor, torch.Tensor]:
     if params["conv"] is None:
         zeros = torch.zeros_like(y)
         return zeros, zeros
-    return _halves(zeroconv_apply(params["conv"], y))
+    return _halves(zeroconv_apply(params["conv"], y, rows))
 
 
 def split_forward(params: Params, x: torch.Tensor, ldj: torch.Tensor,
-                  logp: Optional[torch.Tensor]):
+                  logp: Optional[torch.Tensor], rows=None):
     """Channel-halve; add the factored half's prior log-density to `logp`
     when it is given. Returns (y, ldj, z, logp)."""
     y, z = _halves(x)
     if logp is not None:
-        mean, logsd = _split_prior_moments(params, y)
+        mean, logsd = _split_prior_moments(params, y, rows)
         logp = logp + gaussian_logp(z, mean, logsd)
     return y, ldj, z, logp
 
@@ -324,18 +333,19 @@ def fused_invconv_actnorm_inverse(an: Params, ic: Params, y: torch.Tensor) -> to
 
 def step_forward(params: Params, x: torch.Tensor, ldj: torch.Tensor,
                  use_kernels: bool = False, dtype: torch.dtype = torch.float32,
-                 model=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                 model=None, rows=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """One Glow step; `model` (a parallel/tensor_parallel.ModelAxis) when
-    the step holds a rank's slabs of its coupling CNN (ops/coupling.py)."""
+    the step holds a rank's slabs of its coupling CNN (ops/coupling.py),
+    `rows` when `x` is a rank's row block of the image."""
     if use_kernels:
-        return step_forward_kernels(params, x, ldj, dtype, model)
+        return step_forward_kernels(params, x, ldj, dtype, model, rows)
     y, ldj = fused_actnorm_invconv_forward(params["actnorm"], params["invconv"], x, ldj)
-    return coupling_forward(params["coupling"], y, ldj, dtype, model)
+    return coupling_forward(params["coupling"], y, ldj, dtype, model, rows)
 
 
 def step_forward_kernels(params: Params, x: torch.Tensor, ldj: torch.Tensor,
-                         dtype: torch.dtype = torch.float32,
-                         model=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                         dtype: torch.dtype = torch.float32, model=None,
+                         rows=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Glow step through the kernels: the folded channel mix, the coupling
     CNN up to its zeroconv's convolution (cuDNN), then the step tail in one
     launch: the zeroconv's bias and scale, the coupling tail on the second
@@ -347,7 +357,7 @@ def step_forward_kernels(params: Params, x: torch.Tensor, ldj: torch.Tensor,
     y = channel_mix(x.contiguous(), w_fold, b_fold)
     ldj = ldj + (h * w) * ld
     net = params["coupling"]["net"]
-    r = coupling_net_conv(net, _halves(y)[0], dtype, model)
+    r = coupling_net_conv(net, _halves(y)[0], dtype, model, rows)
     return coupling_step_tail(y, r, net["zconv"]["b"], net["zconv"]["logs"], ldj)
 
 

@@ -20,6 +20,14 @@ rank takes its slab of the replicated hidden activation, convolves it and
 "g" sums the partial outputs. Every model rank then holds the same whole
 zeroconv output r, which the Glow step's tails take as on one device. bf16
 casts each slab as it casts the whole.
+
+Spatial partitioning (`rows`, the model axis carrying image rows,
+parallel/spatial.py): the input is the rank's row block, the weights are
+whole, and the two 3x3 convolutions (conv1 and the zeroconv,
+zeroconv.conv2d_nhwc_rows) exchange their halo rows with the neighbouring
+ranks first; the 1x1 conv2 needs
+none. Under bf16 the halo rows move in fp32 and the cast stays where
+conv2d_nhwc puts it.
 """
 
 from __future__ import annotations
@@ -30,7 +38,7 @@ import numpy as np
 import torch
 
 from ..parallel import tensor_parallel as tp
-from .zeroconv import LOGSCALE_FACTOR, conv2d_nhwc, init_zeroconv
+from .zeroconv import LOGSCALE_FACTOR, conv2d_nhwc, conv2d_nhwc_rows, init_zeroconv
 
 Params = Dict[str, Any]
 
@@ -56,9 +64,9 @@ def init_coupling_net(rng: np.random.Generator, in_channels: int, width: int,
     }
 
 
-def _conv_actnorm_relu(x: torch.Tensor, conv: Params, an: Params, padding: int,
-                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    h = conv2d_nhwc(x, conv["w"], padding=padding, dtype=dtype)
+def _conv_actnorm_relu(x: torch.Tensor, conv: Params, an: Params,
+                       dtype: torch.dtype = torch.float32, rows=None) -> torch.Tensor:
+    h = conv2d_nhwc_rows(x, conv["w"], rows, dtype)
     return torch.relu(torch.exp(an["scale"]) * (h + an["bias"]))
 
 
@@ -67,20 +75,21 @@ def _actnorm_relu(h: torch.Tensor, an: Params) -> torch.Tensor:
 
 
 def _trunk(params: Params, x: torch.Tensor, dtype: torch.dtype = torch.float32,
-           model=None) -> torch.Tensor:
+           model=None, rows=None) -> torch.Tensor:
     """Conv3x3+ActNorm -> ReLU -> Conv1x1+ActNorm -> ReLU: the zeroconv's
-    input (whole on every model rank)."""
-    h = _conv_actnorm_relu(tp.copy_to_model(model, x), params["conv1"], params["an1"], 1, dtype)
+    input (whole on every model rank; the rank's rows under `rows`)."""
+    h = _conv_actnorm_relu(tp.copy_to_model(model, x), params["conv1"], params["an1"], dtype,
+                           rows)
     h = tp.reduce_from_model(model, conv2d_nhwc(h, params["conv2"]["w"], padding=0, dtype=dtype))
     return _actnorm_relu(h, params["an2"])
 
 
-def _zeroconv_conv(zconv: Params, h: torch.Tensor, model=None) -> torch.Tensor:
+def _zeroconv_conv(zconv: Params, h: torch.Tensor, model=None, rows=None) -> torch.Tensor:
     """The zeroconv's convolution of the whole hidden activation `h`: under
     a model axis the rank's slab of its channels against the kernel's slab,
-    the partial outputs summed."""
-    w = zconv["w"]
-    r = conv2d_nhwc(tp.scatter_to_model(model, h, -1), w, padding=(w.shape[-1] - 1) // 2)
+    the partial outputs summed; under `rows` the rank's rows, with their
+    halo."""
+    r = conv2d_nhwc_rows(tp.scatter_to_model(model, h, -1), zconv["w"], rows)
     return tp.reduce_from_model(model, r)
 
 
@@ -89,20 +98,23 @@ def _zeroconv_epilogue(zconv: Params, r: torch.Tensor) -> torch.Tensor:
 
 
 def coupling_net_apply(params: Params, x: torch.Tensor,
-                       dtype: torch.dtype = torch.float32, model=None) -> torch.Tensor:
-    r = _zeroconv_conv(params["zconv"], _trunk(params, x, dtype, model), model)
+                       dtype: torch.dtype = torch.float32, model=None,
+                       rows=None) -> torch.Tensor:
+    r = _zeroconv_conv(params["zconv"], _trunk(params, x, dtype, model, rows), model, rows)
     return _zeroconv_epilogue(params["zconv"], r)
 
 
 def coupling_net_conv(params: Params, x: torch.Tensor,
-                      dtype: torch.dtype = torch.float32, model=None) -> torch.Tensor:
+                      dtype: torch.dtype = torch.float32, model=None,
+                      rows=None) -> torch.Tensor:
     """The coupling CNN up to the zeroconv's convolution, before its bias and
     scale: coupling_net_apply(params, x) == (r + b) * exp(3 logs) with
     r = coupling_net_conv(params, x) and the zeroconv's b and logs. The
     Glow step's kernel route hands r to the step tail, which applies that
     epilogue itself (ops/kernels/coupling_tail.py: coupling_step_tail).
-    Under a `model` axis r is the whole sum, the same on every rank."""
-    return _zeroconv_conv(params["zconv"], _trunk(params, x, dtype, model), model)
+    Under a `model` axis r is the whole sum, the same on every rank; under
+    `rows` the rank's rows of it."""
+    return _zeroconv_conv(params["zconv"], _trunk(params, x, dtype, model, rows), model, rows)
 
 
 def actnorm_stats_init(h: torch.Tensor, eps: float = 1e-6) -> Params:

@@ -1,7 +1,8 @@
 """Data, tensor and pipeline parallelism across processes and devices.
 
 Counterpart of nfdpm_tpu/parallel/ along its "data" axis (with parameter
-partitioning) and the tensor parallelism and pipeline of its "model" axis. The JAX package runs one program over a
+partitioning) and the tensor parallelism, pipeline and spatial
+partitioning of its "model" axis. The JAX package runs one program over a
 device mesh and lets GSPMD place the collectives; the port runs one
 process per rank (launched by torchrun) and places them itself, over
 torch.distributed: NCCL between GPUs, gloo on the CPU or when asked for by
@@ -24,9 +25,9 @@ zero           : a state partitioned over an axis: parameters, Adam moments
                  gathered on use unit by unit, their gradients
                  reduce-scattered; the pipeline's stages; whole states.
 pipeline       : GPipe over the K steps of stage 1 on the model axis.
+spatial        : spatial partitioning: the flow's image rows over the model
+                 axis in the train step (halo exchange, partial sums, the
+                 latents' row gather).
 part_parallel  : stage-2 training with each diffusion part on its own group
                  of ranks (tensor-parallel inside it under a model axis).
-
-Spatial partitioning is not here (ROADMAP §1 item 5): the entry points
-refuse `parallel.spatial`.
 """

@@ -11,7 +11,11 @@ index r // n_model and model index r % n_model, so every model group is a
 contiguous block of ranks (inside one slice when `n_slices` > 1: the data
 axis is laid out slice-major). The ranks of one model group hold the same
 rows and draw the same noise; the model axis is tensor parallelism
-(parallel/tensor_parallel.py).
+(parallel/tensor_parallel.py), or under spatial partitioning
+(`checked_spatial`, parallel/spatial.py) it carries the flow's image rows
+instead: model rank m holds rows [m H/n, (m+1) H/n) of every flow
+activation and the whole flow (the UNets of stage 2 stay tensor-parallel
+over it).
 
 Conventions, as in the JAX package:
   * a global batch is split on its leading axis into `n_data` equal
@@ -48,8 +52,6 @@ from ..convert import named_leaves
 from ..ops.draws import RowGenerator
 from .tensor_parallel import ModelAxis
 
-NOT_PORTED = "(ROADMAP: spatial parallelism)"
-
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Mesh:
@@ -62,6 +64,8 @@ class Mesh:
     model_group: Optional[Any] = None  # this rank's model group (n_model > 1)
     data_subgroup: Optional[Any] = None  # its data group when n_model > 1
     # (None when the data axis has one process)
+    spatial: bool = False          # the model axis carries the flow's image
+    # rows, not slabs of its weights (checked_spatial)
 
     @property
     def data_rank(self) -> int:
@@ -105,7 +109,8 @@ class Mesh:
         return self.devices[0]
 
     def __repr__(self) -> str:
-        return (f"Mesh(data={self.n_data}, model={self.n_model}, rank={self.rank}/{self.world}"
+        return (f"Mesh(data={self.n_data}, model={self.n_model}"
+                f"{' (image rows)' if self.spatial else ''}, rank={self.rank}/{self.world}"
                 f" (data {self.data_rank}, model {self.model_rank}), "
                 f"devices={[str(d) for d in self.devices]})")
 
@@ -184,13 +189,64 @@ def model_of(mesh: Optional[Mesh]) -> Optional[ModelAxis]:
     return None if mesh is None else mesh.model
 
 
+def flow_model_of(mesh: Optional[Mesh]) -> Optional[ModelAxis]:
+    """The model axis over which the flow holds slabs of its coupling CNNs:
+    the mesh's, None without one or under spatial partitioning."""
+    return None if mesh is None or mesh.spatial else mesh.model
+
+
+def rows_of(mesh: Optional[Mesh]) -> Optional[ModelAxis]:
+    """The model axis over which a spatial train step splits the flow's
+    image rows (None without spatial partitioning)."""
+    return mesh.model if mesh is not None and mesh.spatial else None
+
+
 def flat(mesh: Optional[Mesh]) -> Optional[Mesh]:
     """The launch's ranks all on the data axis, no model axis: the view of
     part-parallel training's launch-wide steps (the merge, the sampling),
-    where the parts' meshes hold the model axis."""
+    where the parts' meshes hold the model axis, and of the steps that run
+    the whole flow on every rank (the pipeline's and spatial partitioning's
+    evaluation and sampling)."""
     if mesh is None or mesh.n_model == 1:
         return mesh
-    return dataclasses.replace(mesh, n_model=1, model_group=None, data_subgroup=None)
+    return dataclasses.replace(mesh, n_model=1, model_group=None, data_subgroup=None,
+                               spatial=False)
+
+
+def check_spatial(img_size: int, levels: int, n_model: int) -> None:
+    """The JAX package's guard of spatial partitioning
+    (checked_spatial_sharding): the deepest Glow level's img_size / 2^levels
+    rows must divide over the model axis and leave every rank at least 2.
+    The port's halo exchange is exact below that too; the guard is kept so
+    that both packages accept the same configurations. Raises ValueError
+    outside it."""
+    deepest = img_size >> levels
+    if deepest % n_model or deepest // n_model < 2:
+        raise ValueError(
+            f"parallel.spatial needs (img_size/2^L)/n_model >= 2 and "
+            f"divisible; got {img_size}/2^{levels}={deepest} over "
+            f"model={n_model}")
+
+
+def checked_spatial(mesh: Mesh, img_size: int, levels: int) -> Mesh:
+    """The mesh with its model axis carrying image rows (spatial
+    partitioning), after the guard (check_spatial)."""
+    check_spatial(img_size, levels, mesh.n_model)
+    return dataclasses.replace(mesh, spatial=True)
+
+
+def spatial_for_training(mesh: Optional[Mesh], img_size: int, levels: int,
+                         logger) -> Optional[Mesh]:
+    """The trainers' `spatial=True`, as the JAX package's: the checked
+    spatial mesh under a model axis (logged), else the mesh as it is with
+    a warning that the option has no effect."""
+    if n_model_of(mesh) > 1:
+        mesh = checked_spatial(mesh, img_size, levels)
+        logger.info(f"Spatial partitioning: H over model={mesh.n_model}")
+    else:
+        logger.warning("parallel.spatial=true has no effect without a model "
+                       "axis — set parallel.n_model>1")
+    return mesh
 
 
 def local_mesh(devices: Sequence) -> Mesh:

@@ -48,6 +48,7 @@ from ..models import glow as glow_m
 from ..ops import bijectors as bj
 from .mesh import _flat
 from .sharding_rules import Placement
+from .tensor_parallel import p2p
 
 Params = Any
 
@@ -104,22 +105,8 @@ def check_exclusive(pipeline: bool, fsdp: bool = False, spatial: bool = False) -
 def _p2p(axis, sends: Sequence[Tuple[torch.Tensor, int]],
          recvs: Sequence[Tuple[torch.Tensor, int]]) -> None:
     """Send and receive between stages of the model group (stage indices),
-    all posted together, then waited for. gloo moves CUDA tensors through
-    host copies (its send and recv take CPU tensors)."""
-    staged = (dist.get_backend(axis.group) == "gloo"
-              and any(t.is_cuda for t, _ in list(sends) + list(recvs)))
-    wire = [(t.cpu() if staged else t, peer) for t, peer in sends]
-    into = [(torch.empty_like(t, device="cpu") if staged else t, peer) for t, peer in recvs]
-    ops = [dist.P2POp(dist.isend, t, dist.get_global_rank(axis.group, peer), axis.group)
-           for t, peer in wire]
-    ops += [dist.P2POp(dist.irecv, t, dist.get_global_rank(axis.group, peer), axis.group)
-            for t, peer in into]
-    if ops:
-        for work in dist.batch_isend_irecv(ops):
-            work.wait()
-    if staged:
-        for (t, _), (buf, _) in zip(recvs, into):
-            t.copy_(buf)
+    all posted together, then waited for (tensor_parallel.p2p)."""
+    p2p(axis, sends, recvs)
 
 
 def _bcast(axis, buf: torch.Tensor, stage: int) -> None:

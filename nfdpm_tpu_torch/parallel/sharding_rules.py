@@ -381,15 +381,19 @@ def unet_model_placements(unet, n_model: int, prefix: str = "") -> Dict[str, Pla
     return out
 
 
-def model_placements(params: Any, n_model: int) -> Dict[str, Placement]:
-    """The model axis's placements of a parameter tree of either stage
-    ({"flow", "prior"} or {"flow", "diffusion": {"parts": [Unet, ...]}},
-    the port's layout): the flow's by the Glow rules, each UNet's by the
-    UNet rules; {} at one model rank."""
+def model_placements(mesh, params: Any) -> Dict[str, Placement]:
+    """The placements of a parameter tree of either stage ({"flow",
+    "prior"} or {"flow", "diffusion": {"parts": [Unet, ...]}}, the port's
+    layout) over the model axis of `mesh` (parallel/mesh.Mesh, or anything
+    with its n_model and spatial; {} for None or one model rank): the
+    flow's by the Glow rules, each UNet's by the UNet rules. Under spatial
+    partitioning (mesh.spatial) the model axis carries the flow's image
+    rows: the flow holds no slabs."""
+    n_model = 1 if mesh is None else mesh.n_model
     if n_model <= 1:
         return {}
     out = {}
-    if params.get("flow") is not None:
+    if params.get("flow") is not None and not mesh.spatial:
         out.update(glow_model_placements(params["flow"], n_model, "flow"))
     for i, unet in enumerate((params.get("diffusion") or {}).get("parts", ())):
         out.update(unet_model_placements(unet, n_model, f"diffusion/parts/{i}"))

@@ -24,7 +24,7 @@ that fails raises naming the rank (mesh.wait_within).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -84,6 +84,28 @@ def all_gather_dim(axis: ModelAxis, t: torch.Tensor, dim: int,
     _wait_within(axis, dist.all_gather_into_tensor(out, src, group=axis.group, async_op=True),
                  timeout_s, "an all-gather")
     return out.movedim(0, dim).contiguous()
+
+
+def p2p(axis: ModelAxis, sends: Sequence[Tuple[torch.Tensor, int]],
+        recvs: Sequence[Tuple[torch.Tensor, int]]) -> None:
+    """Send and receive between ranks of the model group (model indices),
+    all posted together, then waited for; a received tensor is filled in
+    place. gloo moves CUDA tensors through host copies (its send and recv
+    take CPU tensors)."""
+    staged = (dist.get_backend(axis.group) == "gloo"
+              and any(t.is_cuda for t, _ in list(sends) + list(recvs)))
+    wire = [(t.cpu() if staged else t, peer) for t, peer in sends]
+    into = [(torch.empty_like(t, device="cpu") if staged else t, peer) for t, peer in recvs]
+    ops = [dist.P2POp(dist.isend, t, dist.get_global_rank(axis.group, peer), axis.group)
+           for t, peer in wire]
+    ops += [dist.P2POp(dist.irecv, t, dist.get_global_rank(axis.group, peer), axis.group)
+            for t, peer in into]
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    if staged:
+        for (t, _), (buf, _) in zip(recvs, into):
+            t.copy_(buf)
 
 
 class _CopyToModel(torch.autograd.Function):

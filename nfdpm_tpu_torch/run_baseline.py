@@ -52,9 +52,12 @@ without `parallel.pipeline` turns the pipeline on, as in the JAX package);
 without a model axis it warns and trains the plain step. The pipeline
 refuses fsdp, spatial partitioning and an explicit
 `model.architecture.use_pallas=true`, with the JAX package's messages.
-Rank 0 writes the run directory's files, with whole tensors at any mesh
-shape. What is not ported raises NotImplementedError instead of being
-skipped: `parallel.spatial`.
+`parallel.spatial=true` makes the model axis carry the train step's image
+rows instead of slabs of the flow (parallel/spatial.py: halo exchanges,
+the flow whole on every rank), after the JAX package's guard
+((img_size/2^L)/n_model >= 2 and divisible); without a model axis it warns
+and trains the plain step; `phase=eval` runs the whole flow. Rank 0 writes
+the run directory's files, with whole tensors at any mesh shape.
 """
 
 from __future__ import annotations
@@ -65,18 +68,6 @@ import time
 
 CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                       "configs", "nf_base.yaml")
-# options of the model axis the port does not have: they keep their defaults
-UNPORTED_PARALLEL = {"spatial": False}
-
-
-def refuse_unported(cfg) -> None:
-    """Raise for every configured option the port does not have yet."""
-    from .parallel.mesh import NOT_PORTED
-
-    for key, default in UNPORTED_PARALLEL.items():
-        value = cfg.select(f"parallel.{key}", default)
-        if value != default:
-            raise NotImplementedError(f"parallel.{key}={value!r} is not ported {NOT_PORTED}")
 
 
 def pipeline_microbatches(cfg) -> int:
@@ -90,8 +81,8 @@ def pipeline_microbatches(cfg) -> int:
 
 def check_pipeline_options(cfg, overrides) -> int:
     """The pipeline's microbatches (0: none), after the JAX package's
-    refusals of two layouts of the flow at once (checked before spatial's
-    refusal) and of an explicit `use_pallas=true` (the JAX package cannot
+    refusals of two layouts of the flow at once and of an explicit
+    `use_pallas=true` (the JAX package cannot
     route its kernels inside the pipeline; the port's can, and takes them
     unless an override says false)."""
     from .parallel import pipeline as pl
@@ -190,11 +181,11 @@ def main(argv) -> dict:
     overrides = [a for a in argv if "=" in a]
     cfg = load_config(CONFIG, overrides)
     microbatches = check_pipeline_options(cfg, overrides)
-    refuse_unported(cfg)
     use_kernels = (bool(cfg.model.architecture.use_pallas) if any(
         o.lstrip("+").startswith("model.architecture.use_pallas=") for o in overrides)
         else True)
     fsdp = bool(cfg.select("parallel.fsdp", False))
+    spatial = bool(cfg.select("parallel.spatial", False))
 
     arch = cfg.model.architecture
     gcfg = glow_m.GlowConfig(
@@ -208,10 +199,13 @@ def main(argv) -> dict:
         remat=bool(arch.get("remat", False)),
         use_kernels=use_kernels,
     )
+    n_model = int(cfg.select("parallel.n_model", 1))
     if microbatches:  # the guards that need no launch
         from .parallel.pipeline import check_pipeline_config
 
-        check_pipeline_config(gcfg, int(cfg.select("parallel.n_model", 1)), microbatches)
+        check_pipeline_config(gcfg, n_model, microbatches)
+    if spatial and n_model > 1:
+        mesh_m.check_spatial(int(cfg.data.img_size), gcfg.levels, n_model)
     mesh = start_parallel(cfg)
     device = port.resolve_device(cfg.select("device"))
     port.set_matmul_precision(cfg.select("model.training.matmul_precision"))
@@ -268,6 +262,9 @@ def main(argv) -> dict:
         resume_dir = os.path.join("outputs", resume_dir)
 
     if train_phase:
+        if spatial:  # the model axis carries the train step's image rows, the flow whole
+            mesh = mesh_m.spatial_for_training(mesh, int(cfg.data.img_size), gcfg.levels,
+                                               logger)
         out = nft.train(
             cfg=gcfg, tcfg=tcfg, loaders=loaders, run_dir=run_dir, logger=logger,
             seed=int(cfg.seed), img_size=int(cfg.data.img_size),
@@ -281,7 +278,7 @@ def main(argv) -> dict:
             raise ValueError("phase=eval requires load.load_exp_dir/load_epoch")
         # params-only restore: needs no optimizer, so runs trained with any
         # optimizer and schedule evaluate
-        if microbatches:  # the pipeline is a train-step layout: whole weights here
+        if microbatches or spatial:  # train-step layouts: whole weights here
             mesh = mesh_m.flat(mesh)
         params = params_for_rank(restore_params(resume_dir, "gaussian", resume_epoch, device),
                                  mesh)

@@ -48,8 +48,12 @@ makes the UNets and the flow tensor-parallel over blocks of M ranks, as in
 nfdpm_tpu_torch.run_baseline, and inside each part's group under
 part_parallel (a group's ranks must divide by M). `parallel.pipeline` and
 `parallel.pipeline_microbatches` are stage-1 options and raise ValueError
-here. What is not ported raises NotImplementedError: `parallel.spatial`,
-and an orbax run directory of the JAX package as the pretrained flow
+here. `parallel.spatial=true` splits the flow transform's image rows over
+the model axis in the train step, the flow whole on every rank and the
+UNets tensor-parallel (nfdpm_tpu_torch.run_baseline's guard and warning;
+refused beside part_parallel, as in the JAX package); the VLB, the
+samplers and `phase=eval` run the whole flow. An orbax run directory of
+the JAX package as the pretrained flow raises NotImplementedError
 (tools/jax_run_to_torch.py converts one).
 """
 
@@ -62,16 +66,14 @@ import time
 
 CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                       "configs", "nf_diffusion.yaml")
-def refuse_unported(cfg) -> None:
-    """Raise for the pipeline, which only the stage-1 trainer has, and for
-    every configured option the port does not have yet (as for stage 1)."""
-    from .run_baseline import pipeline_microbatches, refuse_unported as refuse_stage1
+def refuse_pipeline(cfg) -> None:
+    """Raise for the pipeline, which only the stage-1 trainer has."""
+    from .run_baseline import pipeline_microbatches
 
     if pipeline_microbatches(cfg):
         raise ValueError("parallel.pipeline and parallel.pipeline_microbatches are "
                          "stage-1 options (nfdpm_tpu_torch.run_baseline): the diffusion "
                          "trainer has no pipeline")
-    refuse_stage1(cfg)
 
 
 def main(argv) -> dict:
@@ -95,15 +97,16 @@ def main(argv) -> dict:
 
     overrides = [a for a in argv if "=" in a]
     cfg = load_config(CONFIG, overrides)
-    refuse_unported(cfg)
+    refuse_pipeline(cfg)
     nf_cfg = cfg.model.normalizing_flow
     fsdp = bool(cfg.select("parallel.fsdp", False))
+    spatial = bool(cfg.select("parallel.spatial", False))
     part_parallel = bool(cfg.select("parallel.part_parallel", False))
     if part_parallel:  # the JAX package's refusals (run_diffusion_prior_experiment.py)
         if not bool(nf_cfg.freeze):
             raise ValueError("parallel.part_parallel requires a frozen flow (unfrozen "
                              "gradients couple the parts)")
-        if fsdp:
+        if fsdp or spatial:
             raise ValueError("parallel.part_parallel composes with n_model (in-group TP) "
                              "only — disable parallel.fsdp/parallel.spatial")
         if load_batch(cfg) is not None:
@@ -150,6 +153,9 @@ def main(argv) -> dict:
     else:
         raise ValueError(f"init_nf.mode must be 'pretrain' or 'scratch', "
                          f"got {nf_cfg.init_nf.mode!r}")
+    if spatial:  # the model axis carries the train step's image rows, the flow whole
+        mesh = mesh_m.spatial_for_training(mesh, backbone.img_size, backbone.cfg.levels,
+                                           logger)
 
     formater = get_formater(nf_cfg.latent_formater)(
         L=backbone.cfg.levels, in_channels=backbone.cfg.in_channels, size=backbone.img_size)

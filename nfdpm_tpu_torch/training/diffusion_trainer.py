@@ -50,6 +50,15 @@ Counterpart of nfdpm_tpu/training/diffusion_trainer.py, in eager PyTorch:
     VLB give the backbone the mesh's model axis (`on_mesh`) and take the
     rank's slabs (convert.params_for_rank cuts a restored checkpoint's
     parameters to them). `fit_latent_stats` takes the whole flow.
+  * Spatial partitioning (a spatial mesh, mesh.spatial_for_training;
+    parallel/spatial.py): the flow, frozen or co-trained, is whole on every
+    model rank, and the train step's flow transform runs on the rank's
+    image rows (NFBackbone `rows`); its latents are gathered to whole
+    images on every model rank before the UNets, which stay
+    tensor-parallel over the same axis. A co-trained flow's `nf_bpd` term
+    takes the logdet summed over the model group, and its gradients are
+    summed over the model group. The samplers, the VLB and the latent
+    stats run the whole flow.
 """
 
 from __future__ import annotations
@@ -75,6 +84,7 @@ from ..ops import quantize as q
 from ..parallel import mesh as mesh_m
 from ..parallel.distributed import distribute_batch
 from ..parallel import sharding_rules as rules
+from ..parallel import spatial as sp
 from ..parallel import tensor_parallel as tp
 from ..parallel import zero
 from ..utils.profiling import EpochProfiler, StepTimer
@@ -253,7 +263,7 @@ def diffusion_placements(mesh, params, fsdp: bool) -> Dict[str, rules.Placement]
     if not fsdp or mesh is None or mesh.n_data == 1:
         return {}
     n, m = mesh.n_data, mesh.n_model
-    out = rules.glow_placements(params["flow"], n, "flow", n_model=m)
+    out = rules.glow_placements(params["flow"], n, "flow", n_model=1 if mesh.spatial else m)
     for i, unet in enumerate(params["diffusion"]["parts"]):
         out.update(rules.unet_placements(unet, n, f"diffusion/parts/{i}", n_model=m))
     return out
@@ -270,13 +280,17 @@ def shard_diffusion_state(mesh, tx: Optimizer, state, fsdp: bool = False) -> Dic
     if "ema" in state:
         mesh_m.replicate(mesh, state["ema"])
     state = tp.shard_state(mesh_m.model_of(mesh), state,
-                           rules.model_placements(state["params"], mesh_m.n_model_of(mesh)))
+                           rules.model_placements(mesh, state["params"]))
     return zero.shard_state(mesh, state, diffusion_placements(mesh, state["params"], fsdp))
 
 
-def on_mesh(mesh, backbone: NFBackbone) -> NFBackbone:
-    """The backbone with the mesh's model axis (None without one)."""
-    return dataclasses.replace(backbone, model=mesh_m.model_of(mesh))
+def on_mesh(mesh, backbone: NFBackbone, step: bool = False) -> NFBackbone:
+    """The backbone with the mesh's model axis for its coupling CNNs' slabs
+    (None without one, and under spatial partitioning, where the flow is
+    whole); the train `step`'s backbone also splits the images' rows over a
+    spatial mesh's model axis."""
+    return dataclasses.replace(backbone, model=mesh_m.flow_model_of(mesh),
+                               rows=mesh_m.rows_of(mesh) if step else None)
 
 
 def whole_diffusion_state(mesh, state, timeout_s: Optional[float] = None) -> Dict[str, Any]:
@@ -285,7 +299,7 @@ def whole_diffusion_state(mesh, state, timeout_s: Optional[float] = None) -> Dic
     (UNets as dicts of whole tensors by name under a model axis). A
     collective, each gather at most `timeout_s` s."""
     state = zero.whole_state(state, timeout_s)
-    placements = rules.model_placements(state["params"], mesh_m.n_model_of(mesh))
+    placements = rules.model_placements(mesh, state["params"])
     return tp.whole_state(mesh_m.model_of(mesh), state, placements, timeout_s)
 
 
@@ -319,10 +333,13 @@ def make_train_step(backbone: NFBackbone, dp: DiffusionPrior, tcfg: DiffusionTra
     the global batch's (injected ones too) cut to them, and the gradients
     and the metrics are averaged over the ranks. A state partitioned over
     the data axis (shard_diffusion_state with fsdp) gathers each unit's
-    weights on use and updates its slabs."""
+    weights on use and updates its slabs. A spatial `mesh`
+    (mesh.checked_spatial) splits the flow transform's image rows over its
+    model axis (on_mesh) and sums a co-trained flow's gradients over the
+    model group."""
     device = resolve_device(device)
     apply_matmul_precision()
-    backbone = on_mesh(mesh, backbone)
+    backbone = on_mesh(mesh, backbone, step=True)
     generator = torch.Generator(device=device)
     in_step_ema = tcfg.ema_decay is not None and tcfg.ema_update_every <= 1
     model_placements = None  # computed at the first step
@@ -337,7 +354,7 @@ def make_train_step(backbone: NFBackbone, dp: DiffusionPrior, tcfg: DiffusionTra
                 backbone, fsdp=None if layout is None else layout.at("flow")), dp, tcfg)
         loss_fn = loss_fns[layout]
         if model_placements is None:
-            model_placements = rules.model_placements(params, mesh_m.n_model_of(mesh))
+            model_placements = rules.model_placements(mesh, params)
         for _, p in named_leaves(params):
             p.grad = None
         batch = inference._on(device, batch)
@@ -350,6 +367,9 @@ def make_train_step(backbone: NFBackbone, dp: DiffusionPrior, tcfg: DiffusionTra
             loss, parts = loss_fn(params, batch, mesh_m.row_generator(mesh, inference.reseed(
                 generator, _STEP, seed_or_draws, state["step"]), batch.shape[0]))
         loss.backward()
+        if backbone.rows is not None:  # each model rank's are its rows' part
+            sp.all_reduce_sum_(backbone.rows, [p.grad for _, p in named_leaves(params["flow"])
+                                               if p.grad is not None])
         # a trained leaf the loss does not reach (a co-trained flow's split
         # priors) has no .grad: a zero gradient, as jax.grad gives it
         grads = map_tree(params, lambda p: p.grad if p.grad is not None or not p.requires_grad
@@ -516,8 +536,9 @@ def train(*, backbone: NFBackbone, flow_params, dp: DiffusionPrior,
     and each step's draws one of (seed, step), either repeats what the
     uninterrupted run would have done. An interrupt saves the steps taken
     (EMA included) and the mid-epoch marker, then is raised again.
-    `mesh` and `fsdp` as in nf_trainer.train (rank 0 writes; the interrupt's
-    save meets the other ranks within `watchdog_timeout_s`)."""
+    `mesh` (a spatial one too) and `fsdp` as in nf_trainer.train (rank 0 writes;
+    the interrupt's save meets the other ranks within
+    `watchdog_timeout_s`)."""
     device = resolve_device(device)
     apply_matmul_precision()
     tx = make_two_group_optimizer(tcfg, backbone.frozen)

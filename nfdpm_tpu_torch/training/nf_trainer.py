@@ -51,6 +51,15 @@ Counterpart of nfdpm_tpu/training/nf_trainer.py, in eager PyTorch:
     steps [s K/S, (s+1) K/S) of every level, and the flow forward is GPipe
     over the microbatches; no tensor parallelism. Evaluation, the samplers
     and checkpoints read the whole flow gathered from the stages.
+  * Spatial partitioning (a spatial mesh, mesh.spatial_for_training;
+    parallel/spatial.py): the model axis carries image rows, not slabs.
+    Every model rank holds the whole flow and prior; the train step cuts
+    the rows of its data block (and of the global dequantization draw) to
+    its row block, runs the flow on them with halo exchanges, sums the
+    log-likelihood's partial sums over the model group once, before
+    bits/dim, and sums the gradients over the model group before the
+    data-axis mean and the clips. ddinit, evaluation and the samplers run
+    the whole flow, their rows split over every rank of the launch.
 """
 
 from __future__ import annotations
@@ -71,6 +80,7 @@ from ..models import prior as prior_m
 from ..ops import quantize as q
 from ..parallel import mesh as mesh_m
 from ..parallel import pipeline as pl
+from ..parallel import spatial as sp
 from ..parallel.distributed import distribute_batch
 from ..parallel import sharding_rules as rules
 from ..parallel import tensor_parallel as tp
@@ -150,7 +160,8 @@ def ddinit_train_state(state: Dict[str, Any], cfg: glow_m.GlowConfig, tcfg: NFTr
     return {"params": params, "opt_state": tx.init(params), "step": state["step"]}
 
 
-def make_loss_fn(cfg: glow_m.GlowConfig, tcfg: NFTrainConfig, model=None, pp=None):
+def make_loss_fn(cfg: glow_m.GlowConfig, tcfg: NFTrainConfig, model=None, pp=None,
+                 rows=None):
     """loss(params, batch, generator=None, noise=None, fsdp=None) -> (bits/dim
     scalar, log-likelihood [B]) of images `batch` in [0, 1], [B, H, W, C] on
     the parameters' device. `noise` is the U(0, 1) dequantization draw,
@@ -158,7 +169,11 @@ def make_loss_fn(cfg: glow_m.GlowConfig, tcfg: NFTrainConfig, model=None, pp=Non
     model axis when the parameters are a rank's slabs. `pp` = (mesh,
     microbatches): the flow forward pipelined over the mesh's model axis
     (the parameters a stage's). `fsdp`: the layout of parameters partitioned
-    over the data axis (parallel/zero.Layout), whose units gather on use."""
+    over the data axis (parallel/zero.Layout), whose units gather on use.
+    `rows`: the model axis over which the images' rows split (spatial
+    partitioning): the dequantized batch is cut to this rank's row block,
+    and the log-likelihood's partial sums are summed over the model group
+    (identity backward), so the loss is the whole images' on every rank."""
     n_bins = q.n_bins_of(tcfg.n_bits)
 
     def loss_fn(params, batch, generator=None, noise=None, fsdp=None):
@@ -166,10 +181,12 @@ def make_loss_fn(cfg: glow_m.GlowConfig, tcfg: NFTrainConfig, model=None, pp=Non
         if pp is not None:
             latents, ldj, logp = pl.pp_forward(params["flow"], cfg, x, pp[0], pp[1])
         else:
-            latents, ldj, logp = glow_m.forward(params["flow"], cfg, x, model=model,
+            latents, ldj, logp = glow_m.forward(params["flow"], cfg, sp.cut_rows(rows, x),
+                                                model=model, rows=rows,
                                                 fsdp=None if fsdp is None else fsdp.at("flow"))
         prior = params["prior"] if fsdp is None else fsdp.gather(params["prior"], "prior")
-        ll = ldj + logp + prior_m.gaussian_prior_logp(prior, latents[-1])
+        ll = tp.reduce_from_model(
+            rows, ldj + logp + prior_m.gaussian_prior_logp(prior, latents[-1]))
         n_pixel = prior_m.n_pixels(batch.shape[1], batch.shape[-1],
                                    tcfg.compat_three_channel_bpd)
         return prior_m.bits_per_dim(ll, n_bins, n_pixel), ll
@@ -180,12 +197,14 @@ def make_loss_fn(cfg: glow_m.GlowConfig, tcfg: NFTrainConfig, model=None, pp=Non
 def nf_placements(mesh, params, fsdp: bool) -> Dict[str, rules.Placement]:
     """The placements of a stage-1 state's parameters over the mesh's data
     axis ({} without `fsdp` or at one rank), computed on what the rank holds
-    before the cut (its model slabs under a model axis): the JAX package's
-    glow_param_specs and generic_param_specs (shard_nf_state)."""
+    before the cut (its model slabs under a model axis; the whole flow under
+    spatial partitioning): the JAX package's glow_param_specs and
+    generic_param_specs (shard_nf_state)."""
     if not fsdp or mesh is None or mesh.n_data == 1:
         return {}
     n = mesh.n_data
-    return {**rules.glow_placements(params["flow"], n, "flow", n_model=mesh.n_model),
+    return {**rules.glow_placements(params["flow"], n, "flow",
+                                    n_model=1 if mesh.spatial else mesh.n_model),
             **rules.generic_placements(params["prior"], n, "prior")}
 
 
@@ -194,7 +213,7 @@ def model_shard_nf_state(mesh, state) -> Dict[str, Any]:
     cut to this rank's model slabs (parameters and moments)."""
     mesh_m.replicate(mesh, state["params"])
     return tp.shard_state(mesh_m.model_of(mesh), state,
-                          rules.model_placements(state["params"], mesh_m.n_model_of(mesh)))
+                          rules.model_placements(mesh, state["params"]))
 
 
 def partition_nf_state(mesh, state, fsdp: bool = False, pipeline: bool = False
@@ -235,7 +254,7 @@ def whole_nf_state(mesh, state, timeout_s: Optional[float] = None) -> Dict[str, 
     state = zero.whole_state(state, timeout_s)
     if layout is not None and layout.axis == "model":  # the pipeline's stages
         return state
-    placements = rules.model_placements(state["params"], mesh_m.n_model_of(mesh))
+    placements = rules.model_placements(mesh, state["params"])
     return tp.whole_state(mesh_m.model_of(mesh), state, placements, timeout_s)
 
 
@@ -271,7 +290,10 @@ def make_train_step(cfg: glow_m.GlowConfig, tcfg: NFTrainConfig, tx: Optimizer,
     slabs (shard_nf_state) and the ranks of a model group take the same
     rows. `pp` = (mesh, microbatches) pipelines the flow over the mesh's
     model axis instead (the state from shard_nf_state with pipeline; no
-    tensor parallelism)."""
+    tensor parallelism). A spatial `mesh` (mesh.checked_spatial; the state
+    whole on every model rank) splits the images' rows over its model axis
+    (make_loss_fn's `rows`) and sums the gradients over the model group
+    before the data-axis mean."""
     device = resolve_device(device)
     apply_matmul_precision()
     accum = max(1, int(tcfg.grad_accum))
@@ -280,7 +302,9 @@ def make_train_step(cfg: glow_m.GlowConfig, tcfg: NFTrainConfig, tx: Optimizer,
                          "injected-noise runs must keep grad_accum=1")
     if pp is not None:
         mesh = pp[0]
-    loss_fn = make_loss_fn(cfg, tcfg, None if pp is not None else mesh_m.model_of(mesh), pp)
+    rows = mesh_m.rows_of(mesh)
+    loss_fn = make_loss_fn(cfg, tcfg, None if pp is not None else mesh_m.flow_model_of(mesh),
+                           pp, rows)
     generator = torch.Generator(device=device)
     model_placements = None  # computed at the first step
 
@@ -291,7 +315,7 @@ def make_train_step(cfg: glow_m.GlowConfig, tcfg: NFTrainConfig, tx: Optimizer,
         fsdp = layout if layout is not None and layout.axis == "data" else None
         if model_placements is None:
             model_placements = (layout.placements if pp is not None else
-                                rules.model_placements(params, mesh_m.n_model_of(mesh)))
+                                rules.model_placements(mesh, params))
         leaves = [p for _, p in named_leaves(params) if p.requires_grad]
         for p in leaves:
             p.grad = None
@@ -315,6 +339,8 @@ def make_train_step(cfg: glow_m.GlowConfig, tcfg: NFTrainConfig, tx: Optimizer,
             lls.append(ll.detach().mean())
         if accum > 1:
             torch._foreach_div_([p.grad for p in leaves if p.grad is not None], accum)
+        # each model rank's gradients are those of its rows' pixels
+        sp.all_reduce_sum_(rows, [p.grad for p in leaves if p.grad is not None])
         metrics = {"bpd": torch.stack(bpds).mean(), "ll_mean": torch.stack(lls).mean()}
         # under the pipeline the other stages' steps are empty, with no gradient
         grads = grads_of(params) if pp is None else map_tree(
@@ -438,8 +464,12 @@ def train(*, cfg: glow_m.GlowConfig, tcfg: NFTrainConfig, loaders: DatasetLoader
     parameters and moments partitioned over the data axis (make_train_step);
     `pipeline_microbatches` > 0 pipelines the flow's steps over the model
     axis in that many microbatches (parallel/pipeline.py; without a model
-    axis it warns and trains the plain step). A checkpoint holds whole
-    tensors and resumes at any mesh shape."""
+    axis it warns and trains the plain step). A spatial `mesh`
+    (mesh.spatial_for_training, which the entry point calls once: the JAX
+    package's guard, or its warning without a model axis) makes the model
+    axis carry the train step's image rows (parallel/spatial.py). A
+    checkpoint holds
+    whole tensors and resumes at any mesh shape."""
     device = resolve_device(device)
     apply_matmul_precision()
     tx = optimizer_of(tcfg)
@@ -448,6 +478,7 @@ def train(*, cfg: glow_m.GlowConfig, tcfg: NFTrainConfig, loaders: DatasetLoader
     start_epoch = 0
 
     n_model = mesh_m.n_model_of(mesh)
+    pl.check_exclusive(pipeline_microbatches > 0, spatial=mesh_m.rows_of(mesh) is not None)
     pp = None
     if pipeline_microbatches > 0:
         if n_model > 1:
@@ -461,8 +492,9 @@ def train(*, cfg: glow_m.GlowConfig, tcfg: NFTrainConfig, loaders: DatasetLoader
             logger.warning("parallel.pipeline has no effect without a model axis "
                            "— set parallel.n_model>1")
     # the mesh of tensor parallelism, and of evaluation and sampling (whole
-    # weights on every stage under the pipeline)
-    tp_mesh = mesh_m.flat(mesh) if pp is not None else mesh
+    # weights on every stage under the pipeline and on every model rank
+    # under spatial partitioning)
+    tp_mesh = mesh_m.flat(mesh) if pp is not None or mesh_m.rows_of(mesh) else mesh
     model = mesh_m.model_of(tp_mesh)
     if resume_dir is not None and resume_epoch is not None:
         state = restore_state(resume_dir, "gaussian", resume_epoch, device)

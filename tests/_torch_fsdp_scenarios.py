@@ -40,7 +40,7 @@ def fsdp_steps(job, mesh, d):
     state = tnft.shard_nf_state(mesh, tx, {"params": params, "opt_state": tx.init(params),
                                            "step": 0}, fsdp=True)
     placements = state["layout"].placements
-    mine = tp.shard_tree(mesh.model, whole, rules.model_placements(whole, mesh.n_model))
+    mine = tp.shard_tree(mesh.model, whole, rules.model_placements(mesh, whole))
     step = tnft.make_train_step(cfg, tcfg, tx, inject_noise=True, device="cpu", mesh=mesh)
     out = {"bytes": _held_bytes(state, mine, placements, mesh.data_rank),
            "placed": np.asarray(len(placements))}

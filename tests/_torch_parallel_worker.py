@@ -7,9 +7,11 @@ directory, as a ("data", "model") mesh of the job's "n_model" and
 "n_slices" (default 1: data parallelism alone; the model axis's scenarios
 are tests/_torch_tp_scenarios.py, parameter partitioning's
 tests/_torch_fsdp_scenarios.py, the pipeline's
-tests/_torch_pipeline_scenarios.py) (no TCP port, so that test workers running side by side cannot
-collide), runs the job's scenarios in order on the CPU and writes what
-each records to <dir>/<scenario>_r<rank>.npz. Imports the port only (no
+tests/_torch_pipeline_scenarios.py, spatial partitioning's and split
+GroupNorm's tests/_torch_spatial_scenarios.py) (no TCP port, so that test
+workers running side by side cannot collide), runs the job's scenarios in
+order on the CPU and writes what each records to
+<dir>/<scenario>_r<rank>.npz. Imports the port only (no
 JAX): the tests compare what it writes with the JAX package in their own
 process. Inputs (weights in the JAX layout, batches, injected draws) come
 from the job's directory, written by the test.
@@ -31,6 +33,7 @@ from nfdpm_tpu_torch.parallel import sharding_rules as rules  # noqa: E402
 
 import _torch_fsdp_scenarios  # noqa: E402
 import _torch_pipeline_scenarios  # noqa: E402
+import _torch_spatial_scenarios  # noqa: E402
 import _torch_tp_scenarios  # noqa: E402
 
 
@@ -284,6 +287,7 @@ SCENARIOS = {"stage1": stage1, "stage2": stage2, "resume": resume,
 SCENARIOS.update(_torch_tp_scenarios.SCENARIOS)  # the model axis
 SCENARIOS.update(_torch_fsdp_scenarios.SCENARIOS)  # parameters over the data axis
 SCENARIOS.update(_torch_pipeline_scenarios.SCENARIOS)  # the pipeline
+SCENARIOS.update(_torch_spatial_scenarios.SCENARIOS)  # image rows, split GroupNorm
 
 
 def main() -> int:

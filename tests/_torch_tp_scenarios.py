@@ -176,7 +176,7 @@ def steps(job, mesh, d):
         # model axis): what the data placements cut
         whole_params = convert.from_jax_params(convert.load_npz(
             os.path.join(d, "stage1_tree.npz")), "cpu")
-        model_pl = rules.model_placements(whole_params, mesh.n_model)
+        model_pl = rules.model_placements(mesh, whole_params)
         mine = tp.shard_tree(mesh.model, whole_params, model_pl)
         params_by_path = dict(convert.named_leaves(mine))
         for path, t in convert.named_leaves(state["opt_state"]["mu"]):
@@ -247,7 +247,7 @@ def _stage2_steps(job, mesh, d):
         out.update(flat(convert.map_tree(state["params"], lambda t: t), f"{name}/held"))
         if "ema" in state:
             ema = tp.gather_leaves(mesh.model, state["ema"],
-                                   rules.model_placements(state["params"], mesh.n_model))
+                                   rules.model_placements(mesh, state["params"]))
             out.update(flat(convert.map_tree(ema, lambda t: t), f"{name}/ema"))
     return out
 

@@ -385,13 +385,16 @@ def test_cotrained_eval_reads_the_trained_flow(cotrained):
     # both options were refused with "multi-GPU"; part_parallel is now refused
     # with a co-trained flow (the JAX package's rule), a model axis in one
     # process without a launch cannot be built (as the JAX package cannot
-    # make a (0, 2) mesh of one device), and spatial partitioning stays
-    # refused (its ROADMAP item named); the pipeline is a stage-1 option
+    # make a (0, 2) mesh of one device), and spatial partitioning's case (its
+    # id from before it was ported) now holds the JAX package's refusal of
+    # part_parallel beside spatial; the pipeline is a stage-1 option
     pytest.param("parallel.part_parallel=true model.normalizing_flow.freeze=false",
                  "requires a frozen flow", id="parallel.part_parallel=true-multi-GPU"),
     pytest.param("parallel.n_model=2", "n_model=2 does not divide the 1 processes",
                  id="parallel.fsdp=true-multi-GPU"),
-    pytest.param("parallel.spatial=true", r"\(ROADMAP: spatial parallelism\)",
+    pytest.param("parallel.spatial=true parallel.part_parallel=true",
+                 "parallel.part_parallel composes with n_model \\(in-group TP\\) only — "
+                 "disable parallel.fsdp/parallel.spatial",
                  id="parallel.spatial=true-parameter partitioning, pipeline and spatial"),
     ("parallel.pipeline=true", "stage-1 options"),
 ])

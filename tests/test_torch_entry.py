@@ -114,13 +114,18 @@ def test_without_cuda_the_entry_point_refuses_to_start(tmp_path):
     ("model.evaluation.metrics.FID.mode=[clean]", None),  # needs a model name too: no metric
     # a model axis in one process without a launch cannot be built (the id is
     # the case's name from before the data axis was ported, when the message
-    # named "multi-GPU"); spatial partitioning stays refused. The pipeline's
-    # cases keep their ids from before it was ported; they now hold its
-    # guards, with the JAX package's messages: K over the stages, the
-    # microbatches, fsdp, spatial, an explicit use_pallas=true
+    # named "multi-GPU"). Spatial partitioning's case keeps its id from
+    # before it was ported; it now holds its guard, which needs no launch,
+    # with the JAX package's message: at 8x8 over L=2 the deepest level has
+    # 2 rows, 1 a rank at model 2. The pipeline's cases keep their ids from
+    # before it was ported; they now hold its guards, with the JAX package's
+    # messages: K over the stages, the microbatches, fsdp, spatial, an
+    # explicit use_pallas=true
     pytest.param("parallel.n_model=2", "n_model=2 does not divide the 1 processes",
                  id="parallel.n_model=2-multi-GPU"),
-    pytest.param("parallel.spatial=true", r"\(ROADMAP: spatial parallelism\)",
+    pytest.param("parallel.spatial=true parallel.n_model=2",
+                 r"parallel.spatial needs \(img_size/2\^L\)/n_model >= 2 and divisible; "
+                 r"got 8/2\^2=2 over model=2",
                  id="parallel.spatial=true-parameter partitioning, pipeline and spatial"),
     pytest.param("parallel.pipeline=true parallel.n_model=2", "needs K \\(1\\) divisible by the "
                  "model-axis size \\(2\\)",
@@ -147,8 +152,9 @@ def test_refused_options_raise(tmp_path, monkeypatch, override, match):
 
 @pytest.mark.parametrize("option", ["load.load_batch", "model.training.watchdog_timeout_s",
                                     "model.training.profile_epoch",
-                                    "model.architecture.coupling_dtype", "parallel.fsdp"])
-def test_accepted_options_do_their_job(tmp_path, monkeypatch, option):
+                                    "model.architecture.coupling_dtype", "parallel.fsdp",
+                                    "parallel.spatial"])
+def test_accepted_options_do_their_job(tmp_path, monkeypatch, caplog, option):
     """The options the port once refused: `load.load_batch` resumes an
     interrupted epoch (to the uninterrupted run's final bits/dim exactly),
     the watchdog trains without firing, `profile_epoch` writes the epoch's
@@ -157,7 +163,9 @@ def test_accepted_options_do_their_job(tmp_path, monkeypatch, option):
     run's final bits/dim again; `parallel.fsdp=true` with
     `parallel.n_slices=1` in one process (no launch: one rank, nothing to
     partition) trains exactly as without (two ranks:
-    tests/test_torch_parallel_cli.py)."""
+    tests/test_torch_parallel_cli.py); `parallel.spatial=true` without a
+    model axis warns as the JAX package does and trains exactly as without
+    (two ranks: tests/test_torch_spatial.py)."""
     monkeypatch.chdir(tmp_path)
     monkeypatch.setenv("NFDPM_NO_TENSORBOARD", "1")
     argv = ["device=cpu", *SMALL]
@@ -194,6 +202,12 @@ def test_accepted_options_do_their_job(tmp_path, monkeypatch, option):
             "experiment_name=bf16_eval", "phase=eval", "load.load_epoch=1",
             f"load.load_exp_dir={Path(out['run_dir']).name}", f"{option}=bfloat16"])
         assert evaluated["results"] == out["results"]
+    elif option == "parallel.spatial":
+        with caplog.at_level("WARNING", logger="base"):
+            out = run_baseline.main(argv + ["experiment_name=spatial", f"{option}=true"])
+        assert out["results"] == full["results"]
+        assert ("parallel.spatial=true has no effect without a model axis — set "
+                "parallel.n_model>1") in caplog.text
     elif option == "parallel.fsdp":
         out = run_baseline.main(argv + ["experiment_name=fsdp", f"{option}=true",
                                         "parallel.n_slices=1"])

@@ -13,8 +13,9 @@
     about 38 bits/dim at this size, float32 sums) within 1e-5 relative; the
     part-parallel run's merged checkpoint read by `phase=eval` (the same
     VLB) and by runload (`serve --run-dir`'s reader).
-  * What stays refused, by both entry points: spatial partitioning, and a
-    model axis without a launch.
+  * What both entry points refuse of the model axis: a model axis without a
+    launch, and spatial partitioning where the JAX package refuses it (its
+    guard at an unsafe size, stage 1; beside part_parallel, stage 2).
   * `serve --data-parallel --device cpu`: the same bytes as without the
     flag, and "devices": 1.
 Glow L2/K1/w16 at 8x8x3, batch 8, UNets of dim 8.
@@ -152,20 +153,33 @@ def test_torchrun_runs_the_readme_command(tmp_path, ranks):
     assert "Data parallel: Mesh(data=2" in log
 
 
-@pytest.mark.parametrize("override", ["parallel.n_model=2", "parallel.spatial=true"])
+SPATIAL_REFUSED = "parallel.spatial=true parallel.n_model=4 parallel.part_parallel=true"
+
+
+@pytest.mark.parametrize("override", [
+    "parallel.n_model=2",
+    # the id from before spatial partitioning was ported
+    pytest.param(SPATIAL_REFUSED, id="parallel.spatial=true")])
 @pytest.mark.parametrize("entry", [run_baseline, run_diffusion_prior])
 def test_the_model_axis_stays_refused(tmp_path, monkeypatch, entry, override):
-    """What of the model axis stays refused: spatial partitioning (its
-    ROADMAP item named), and a model axis in one process without a launch
-    (n_model must divide the launch's processes, as the JAX package cannot
-    make a (0, 2) mesh of one device)."""
+    """What of the model axis is refused, before anything is written: a
+    model axis in one process without a launch (n_model must divide the
+    launch's processes, as the JAX package cannot make a (0, 2) mesh of one
+    device), and spatial partitioning where the JAX package refuses it:
+    stage 1 at the config's 32x32 over L=3 has 4 rows at the deepest level,
+    1 a rank at model 4 (the guard, which needs no launch); stage 2 beside
+    part_parallel."""
     monkeypatch.chdir(tmp_path)
     if override == "parallel.n_model=2":
-        with pytest.raises(ValueError, match="n_model=2 does not divide the 1 processes"):
-            entry.main(["device=cpu", override])
+        match = "n_model=2 does not divide the 1 processes"
+    elif entry is run_baseline:
+        match = (r"parallel.spatial needs \(img_size/2\^L\)/n_model >= 2 and divisible; "
+                 r"got 32/2\^3=4 over model=4")
     else:
-        with pytest.raises(NotImplementedError, match=r"\(ROADMAP: spatial parallelism\)"):
-            entry.main(["device=cpu", override])
+        match = ("parallel.part_parallel composes with n_model \\(in-group TP\\) only — "
+                 "disable parallel.fsdp/parallel.spatial")
+    with pytest.raises(ValueError, match=match):
+        entry.main(["device=cpu", *override.split()])
     assert not (tmp_path / "outputs").exists()
 
 

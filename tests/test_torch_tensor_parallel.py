@@ -42,6 +42,7 @@ from nfdpm_tpu.parallel import sharding_rules as jrules
 from nfdpm_tpu_torch import convert
 from nfdpm_tpu_torch.models import glow as tglow
 from nfdpm_tpu_torch.models.unet import Unet as TUnet
+from nfdpm_tpu_torch.models.unet import ResnetBlock as TResnetBlock
 from nfdpm_tpu_torch.models.unet import init_unet_, shard_unet_
 from nfdpm_tpu_torch.ops import coupling as tcoupling
 from nfdpm_tpu_torch.parallel import mesh as tmesh
@@ -226,8 +227,8 @@ def test_a_ranks_parameter_count_at_full_width():
     from nfdpm_tpu_torch.training import nf_trainer as tnft
 
     params = {"flow": flow, "prior": tprior.init_gaussian_prior(48, True, "cpu")}
-    placements = trules.model_placements(params, 2)
-    mesh = SimpleNamespace(n_data=2, n_model=2)
+    mesh = SimpleNamespace(n_data=2, n_model=2, spatial=False)
+    placements = trules.model_placements(mesh, params)
     for model_rank in (0, 1):
         assert 2 * trules.predicted_param_bytes(params, placements, model_rank) == 22_354_560
         mine = tp.shard_tree(ModelAxis(n=2, index=model_rank, group=None), params, placements)
@@ -242,9 +243,17 @@ def test_a_ranks_parameter_count_at_full_width():
 
 
 def test_groupnorm_that_does_not_split_into_whole_groups_raises():
+    """A GroupNorm whose groups do not split whole over the model axis is
+    accepted (each group's statistics are taken over the model group,
+    models/unet.GroupNorm; its values: tests/test_torch_split_groupnorm.py):
+    the norms hold the rank's channels, the whole group count, the axis.
+    A width that does not divide still raises."""
     unet = init_unet_(TUnet(channels=3, dim=8, dim_mults=(1, 2), resnet_block_groups=2), 0)
-    with pytest.raises(ValueError, match="whole groups"):
-        shard_unet_(unet, ModelAxis(n=4, index=0, group=None))
+    axis = ModelAxis(n=4, index=1, group=None)
+    shard_unet_(unet, axis)
+    norms = [m.block0.norm for m in unet.modules() if isinstance(m, TResnetBlock)]
+    assert norms and all(n.axis is axis and n.num_groups == 2 for n in norms)
+    assert all(n.weight.shape[0] * 4 == n.num_channels for n in norms)
     with pytest.raises(ValueError, match="does not split"):
         trules.Placement(3, dim=0).slab(torch.zeros(4), 0)
 
