@@ -9,8 +9,9 @@
     python3 chip_smoke.py --mixed-precision    # phases 1, 2, 12, 13, 17 and 27
     python3 chip_smoke.py --multi-gpu          # phases 1, 2, 12, 13, 17 and 28
     python3 chip_smoke.py --model-axis         # phases 1, 2, 12, 13, 17 and 29
-    python3 chip_smoke.py --pipeline           # phases 1, 2, 12, 13, 17 and 30
+    python3 chip_smoke.py --pipeline           # phases 1, 2, 12, 13 and 30
     python3 chip_smoke.py --spatial            # phases 1, 2, 12, 13 and 31
+    python3 chip_smoke.py --last-modules       # phases 1, 2, 12, 13 and 32
     python3 chip_smoke.py --model-axis-nccl    # phases 1, 2, 29 (a) and 30 on two cards
 
 Runs nfdpm_tpu_torch (never JAX, never nfdpm_tpu) with seeded random
@@ -68,7 +69,7 @@ line each:
      coupling_tail_inverse launches;
  10. profile: a stage-2 sampling chunk and a VLB batch, each cut to 30 UNet
      calls at the full chains' shapes, on each route: after a warm-up of
-     each, 5 synchronised calls of each route taken in turns, wall ms
+     each, 3 synchronised calls of each route taken in turns, wall ms
      median and spread, and whether the kernel route's median exceeds the
      plain route's by more than the spread ("profile_routes"); then
      torch.profiler over one call of each: device ms, busy share, device ms
@@ -118,12 +119,12 @@ line each:
      function `python -m nfdpm_tpu_torch.run_diffusion_prior` runs), in this
      process, at the full width of configs/nf_diffusion.yaml (three UNets
      of dim 64, cosine schedule, T = 1000, l1, Adam 1e-3, batch 64) from the
-     stage-1 run of 12, frozen, one epoch of 24 steps on synthetic data, two
-     sample grids, a checkpoint and the VLB of one test batch: the exact
+     stage-1 run of 12, frozen, one epoch of 24 steps on synthetic data, a
+     sample grid and the checkpoint's, the VLB of one test batch: the exact
      launch count of the run (per step 12 fused_linear_attention, 12 of its
      backward, 12 channel_mix, 12 coupling_tail, no coupling_tail_bwd), a
      finite and falling loss, the checkpoint and diffusion_architecture.json;
-     `phase=eval` through the command line reproduces the VLB; then 16 steps
+     `phase=eval` through the command line reproduces the VLB; then 8 steps
      timed one by one (median and spread, images/s, peak memory) and a
      torch.profiler breakdown of one;
  18. stage-2 routes: the kernel route against use_kernels=False from that
@@ -133,7 +134,8 @@ line each:
   stage-2 co-training path (launch counters zeroed before 19, read after it):
  19. stage-2 co-training: run_diffusion_prior's main again, in this process,
      with model.normalizing_flow.freeze=false and
-     model.normalizing_flow.lr=1e-4, one epoch of 4 steps: the exact launch
+     model.normalizing_flow.lr=1e-4 and T = 100 (STAGE2_COTRAIN_T), one
+     epoch of 4 steps: the exact launch
      count of the run (per step 23 channel_mix, 11 of them dx, and 12
      coupling_tail_bwd besides the attention's 12 and 12), the l1_plus_bpd
      loss, flow leaves of its checkpoint moved from the stage-1 run, p_mat
@@ -166,15 +168,17 @@ line each:
      (seeded random weights), TF1 bilinear resize and SSIM/PSNR on the card
      against the same on the CPU (rtol 1e-3 / atol 2e-3; atol 2e-4; rtol
      2e-5); (b) `python -m nfdpm_tpu_torch.metrics.precompute_stats` as a
-     subprocess over 2048 synthetic 32x32 images (both resize modes,
+     subprocess over 512 synthetic 32x32 images (both resize modes,
      inception_v3) and over a CelebA-format directory of 256 training
      images written by tools/make_synthetic_celeba.py (clip_vit_b_32,
-     clean, 224), into build/chip_smoke/metrics/stats; (c) run_baseline.main
+     clean, 224), into build/chip_smoke/metrics/stats, all three commands
+     started beside phase 2's build (StatsCommands); (c) run_baseline.main
      phase=eval on phase 12's run with FID and KID in both modes and
-     SSIM/PSNR over 2048 generated images: every metric present and finite,
-     the flow kernels' exact launches for 2048 samples (256 a call) and the
+     SSIM/PSNR over 512 generated images: every metric present and finite,
+     the flow kernels' exact launches for 512 samples (256 a call) and the
      bits/dim; (d) run_diffusion_prior.main phase=eval on phase 17's run
-     with FID (legacy_tensorflow) over 256 generated images: present,
+     with FID (legacy_tensorflow) over 128 generated images and no VLB
+     batch (phase 17's phase=eval scores the run's): present,
      finite, exact launches; both with the host seconds of their parts
      (sampler, resize by mode, feature net, FID and KID math); (e) the Glow
      sampler's images/s, resize host ms a image by mode, the feature nets'
@@ -254,30 +258,40 @@ line each:
      steps of batch 64 each on the same batches and noise: bits/dim finite
      and falling, each step's within 1% of fp32's, exact launches; the
      gradients of a first step from the bf16 run's state finite, fp32 and
-     nonzero on every trained leaf (the fixed prior is not trained); 16
+     nonzero on every trained leaf (the fixed prior is not trained); 8
      synchronised bf16 steps (median and spread, exact launches a step),
      peak memory, a profile of one step and the operators with the most
      host time in each dtype, beside phase 13's fp32 figures. (c) run_diffusion_prior.main with
      model.diffusion.unet_dtype=bfloat16 and
      model.normalizing_flow.coupling_dtype=bfloat16 from phase 12's run,
-     frozen, one epoch of 11 steps: exact launches, the l1 loss finite and
+     frozen, T = 100 (MP_STAGE2_T), one epoch of 11 steps: exact launches,
+     the l1 loss finite and
      falling, "dtype": "bfloat16" in diffusion_architecture.json and no
      coupling dtype in its flow entry, phase=eval in-process prints the
      same VLB; runload rebuilds bf16 UNets; one UNet's bf16 output within
      5% of its largest entry from fp32's on the same weights; then on the
      trained weights in each dtype: a DDIM-100 chunk of 64 (exactly 1200
      attention launches), a VLB batch at phase 10's T = 40 (30 UNet calls;
-     the full T = 1000 takes 15 s a dtype), 16 synchronised train steps and a
+     the full T = 1000 takes 15 s a dtype), 8 synchronised train steps and a
      profile of one (device ms by kernel group, cuDNN by dtype, busy share,
      peak memory), beside phases 7, 8 and 17's fp32 figures. (d) serve
-     --run-dir on (c)'s run answers {"n": 128, "seed": 7} with the same
+     --run-dir on (c)'s run answers {"n": 64, "seed": 7} with the same
      bytes as --arch/--weights of the same parameters, exact launches.
 
-  data parallelism (launch counters zeroed before 28 and read after it, its
-  children's own counters added):
- 28. multi_gpu: child processes that join process groups through the
-     port's own parallel.distributed.initialize, in deterministic mode
-     (phase 23's settings). (a) A world of one over NCCL:
+  the children of phases 28-32 (launch_children), started after 27 in
+  three launch groups, each child in deterministic mode (phase 23's
+  settings) and each part of a child counting its launches from 0: a
+  two-rank child (gloo ranks sharing this card, one process group) that
+  runs 28's data axis, 29's (data 1, model 2), 30's two stages and 31's
+  two spatial ranks in turn; a world-1 child with every reference of 28-31
+  and 32 (c)'s deterministic epochs; the four ranks of 29 (b). A "launch"
+  line each: the seconds from Popen to each child's first line and each
+  child's own work. Phases 28-32 then gate their parts of the records:
+
+  data parallelism (launch counters zeroed before 28's (e) and read after
+  it, its children's own counters added):
+ 28. multi_gpu: the children join process groups through the port's own
+     parallel.distributed.initialize. (a) A world of one over NCCL:
      run_baseline.main, MG_STEPS steps at full width, without a launch and
      then as rank 0 of the world of one with parallel.fsdp false and true:
      the checkpoints' parameters bitwise equal, each run's launches exact;
@@ -309,11 +323,11 @@ line each:
      (gloo on one card moves the gradients through the host). Budget
      MG_BUDGET_S.
 
-  the model axis (launch counters zeroed before 29 and read after it, its
-  children's own counters added):
- 29. model_axis: child processes in deterministic mode, the ranks sharing
-     this card over gloo (named by NFDPM_DIST_BACKEND: NCCL cannot put two
-     ranks on one GPU). A world-1 child makes the references. (a) Two
+  the model axis (launch counters zeroed before 29's phase=eval and read
+  after it, its children's own counters added):
+ 29. model_axis: the ranks share this card over gloo (named by
+     NFDPM_DIST_BACKEND: NCCL cannot put two ranks on one GPU); the world-1
+     child makes the references. (a) Two
      ranks at (data 1, model 2): run_baseline.main with parallel.n_model=2
      at full width, MT_STEPS steps: step 1's bits/dim within MG_BPD_TOL
      of world 1's, every step within TRAIN_TRAJ_TOL, the parameters within
@@ -328,21 +342,24 @@ line each:
      the placements predict (data slabs of the model slabs), the peak of
      allocated memory beside world 1's, exact launches. (c) Two ranks at
      (1, 2): stage 2 over phase 12's frozen flow
-     (three UNets), MG_STAGE2_STEPS steps, step 1's loss within
-     MG_LOSS_RTOL of world 1's (the later steps recorded: the model axis
-     changes the UNet's sums, and no one-process reference repeats them,
-     see phase 28 (c)), 12 + 12 attention launches a step a rank; a DDIM chunk of
+     (three UNets), MG_STAGE2_STEPS steps, every step's loss within
+     MG_LOSS_RTOL of world 1's step from the same state (the model-2 run
+     writes its whole state before each step after the first, and the
+     world-1 child runs one step from each with that step's batch and
+     draws, mt_same_state; world 1's own trajectory is recorded: the model
+     axis changes the UNet's sums, see phase 28 (c)), 12 + 12 attention
+     launches a step a rank and a same-state step; a DDIM chunk of
      MT_DDIM_STEPS steps and MT_DDIM_N images on the seeded UNets, its
      latents within LATENT_TOL of world 1's. (d) The record: step wall ms at world 1 and
      model 2, the model group's all-reduce and all-gather bytes a step and
      their ms, the bytes a rank, the card's name and power limit. Budget
      MT_BUDGET_S. Its world-1 child also makes phase 31's (b) references.
 
-  the pipeline (launch counters zeroed before 30 and read after it, its
-  children's own counters added):
- 30. pipeline: two gloo ranks sharing this card, deterministic mode,
-     against phase 29's world-1 run (a world-1 child of its own under
-     --pipeline): run_baseline.main with parallel.n_model=2
+  the pipeline (launch counters zeroed before 30's phase=eval and read
+  after it, its children's own counters added):
+ 30. pipeline: the two-rank child's gloo ranks sharing this card, against
+     the world-1 child's run of 29 (a): run_baseline.main with
+     parallel.n_model=2
      parallel.pipeline=true, PP_MICROBATCHES microbatches, at full width,
      MT_STEPS steps. Step 1's bits/dim within MG_BPD_TOL of world 1's,
      every step within TRAIN_TRAJ_TOL, the parameters within MG_FINAL_ATOL
@@ -362,11 +379,11 @@ line each:
      coupling_step_tail_bwd at the shapes a rank's row block gives them,
      each level's (b, h/2, w, c) at batch 64 and SP_STAGE2_BATCH, against
      their plain versions at phases 10's and 11's tolerances
-     (sp_row_kernels). Then a world-1 child and two gloo ranks at (data 1,
-     model 2) sharing this card, deterministic mode. (a) run_baseline.main with
+     (sp_row_kernels). Then the two-rank child's gloo ranks at (data 1,
+     model 2) sharing this card. (a) run_baseline.main with
      parallel.n_model=2 parallel.spatial=true at full width, MT_STEPS
-     steps, against phase 29's world-1 run (a world-1 child's own under
-     --spatial): step 1's bits/dim within MG_BPD_TOL, every step within
+     steps, against the world-1 child's run of 29 (a): step 1's bits/dim
+     within MG_BPD_TOL, every step within
      TRAIN_TRAJ_TOL, the parameters within MG_FINAL_ATOL; each rank's
      launches exactly 23 + 12 + 12 a step and the run's as world 1's; each
      rank's flow parameter and moment bytes world 1's (no slabs); the halo
@@ -377,22 +394,47 @@ line each:
      config's width with SP_GROUPS group (every Block_0 norm one group split
      over both ranks), T = SP_STAGE2_T, batch SP_STAGE2_BATCH: MG_STAGE2_STEPS
      steps and one co-trained step, the first step's loss of each within
-     MG_LOSS_RTOL of the same runs at world 1 (the later steps recorded,
-     as in phase 29 (c); made by phase 29's world-1 child, or under
-     --spatial by a world-1 child of its own), the launches a step exactly
+     MG_LOSS_RTOL of the same runs at world 1 (made by the world-1 child;
+     the later steps recorded: an entry-point run cannot be restarted from
+     the spatial run's states, see sp_check_b), the launches a step exactly
      stage2_per_step's (12 + 12 attention). (c) The record: step wall ms
      at world 1 and spatial, the halo, gradient-sum and latent-gather
      bytes and calls a step and their ms on the timed step, the peak of
      allocated memory a rank beside world 1's, the card's name and power
      limit. Budget SP_BUDGET_S.
 
-Then come the kernel summary line (seven kernels), the nvidia-smi line and, last,
+  the JAX package's last modules (launch counters zeroed before 32 and
+  read after it, the world-1 child's epochs added):
+ 32. last_modules: at the width of configs/nf_diffusion.yaml over phase
+     12's frozen flow. (a) LM_STEPS stage-2 train steps (batch 64) of the
+     default UNet, of Unet(remat=True) and of Unet(stacked_mid_attn=True),
+     each from the same seeded state and batches with the steps' own
+     draws: every loss within LM_LOSS_RTOL (relative) of the default's,
+     step 1's gradients within STAGE2_GRAD_TOL of each leaf's largest
+     entry, exactly 12 + 12 attention launches a step; each variant's peak
+     of allocated memory and step wall ms. (b)
+     DiffusionPrior.evaluate_neg_log_likelihood and
+     neg_log_likelihood_nats on one batch of VLB_BATCH at T = 1000 with the
+     same injected draws: the per-part values weighted by their processed
+     dims squared plus the formater's sum(log std) within LM_VLB_RTOL of
+     the total; exact attention launches a pass. (c) The batch assembly:
+     the native library (it must be the path taken) bitwise equal to the
+     numpy path on a batch of 64x32x32x3 with flips, the host ms a batch
+     of each; the stage-1 step's wall ms fed through the producer thread
+     and through the synchronous path; the world-1 child's epochs of
+     nf_trainer.train (TRAIN_STEPS steps, deterministic mode) through both
+     paths bitwise equal. Budget LM_BUDGET_S.
+
+Then come the phase_seconds line (every top-level phase's wall seconds and
+the total), the kernel summary line (seven kernels), the nvidia-smi line and, last,
 {"ok": true, "device": {...}}. With --run-dir-tools the script runs the
 environment, the build, phases 12, 13 and 17 (whose run directories the
 tooling reads) and 23-25, and prints neither; --reference-checkpoints the same
 with phase 26 in place of 23-25, --mixed-precision with phase 27, --multi-gpu
-with phase 28, --model-axis with phase 29, --pipeline with phase 30,
---spatial with phases 12, 13 and 31 (no phase 17). With
+with phase 28, --model-axis with phase 29, --pipeline with phases 12, 13
+and 30 (no phase 17), --spatial with phases 12, 13 and 31 and
+--last-modules with phases 12, 13 and 32; each of the last five starts
+only the children its phases need. With
 --stage1-training the script runs only the environment, the build and
 phases 12 and 13 and prints neither: copied
 into another checkout, it times that checkout's stage-1 training with the
@@ -443,6 +485,7 @@ STEP_TAIL_OPS, STEP_TAIL_BWD_OPS = TAIL_OPS + 4, TAIL_BWD_OPS + 4 + 8
 # the inverse's step mode: the same epilogue on top of the inverse's 7
 STEP_TAIL_INV_OPS = TAIL_INV_OPS + 4
 RECORDS = []
+PROCESSES = []  # processes started on threads, stopped at exit if still running
 # Design version of each kernel, beside its times in the "kernel" lines
 # (1: the first design; channel_mix 2: square kernels with rows in registers
 # and a dx mode; fused_linear_attention 2: a fused pass of one batch row a
@@ -488,9 +531,43 @@ TRAIN_TRAJ_TOL = 1e-3    # steps 1-8, the repository's gate for trajectories
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6  # step-1 gradients, leaf by leaf
 
 
+START = time.perf_counter()
+# the top-level phase running now and when it started (timed), and each
+# finished one's wall seconds, in order: the "phase_seconds" line
+PHASE = {"name": None, "t0": START}
+PHASE_SECONDS = {}
+
+
 def emit(record: dict) -> None:
+    """Print one JSON line and keep it for the records file written at exit;
+    stamped with the seconds since the script started and since its
+    top-level phase started (a phase's last line carries its wall seconds)."""
+    now = time.perf_counter()
+    record.update(elapsed_s=now - START, phase_wall_s=now - PHASE["t0"])
     RECORDS.append(record)
     print(json.dumps(record), flush=True)
+
+
+def timed(name: str, fn, *args, **kwargs):
+    """fn(*args, **kwargs) as the top-level phase `name`: its wall seconds
+    go into PHASE_SECONDS."""
+    PHASE.update(name=name, t0=time.perf_counter())
+    try:
+        return fn(*args, **kwargs)
+    finally:
+        PHASE_SECONDS[name] = time.perf_counter() - PHASE["t0"]
+
+
+def restart_clock() -> None:
+    global START
+    START = PHASE["t0"] = time.perf_counter()
+
+
+def emit_phase_seconds() -> None:
+    """The "phase_seconds" line: every top-level phase's wall seconds and
+    the script's."""
+    emit({"phase": "phase_seconds", "seconds": dict(PHASE_SECONDS),
+          "phases_s": sum(PHASE_SECONDS.values()), "total_s": time.perf_counter() - START})
 
 
 def check(cond: bool, what: str) -> None:
@@ -1043,7 +1120,7 @@ def randomize_zero_leaves(torch, params, seed: int):
 def randomize_unet_vectors(torch, unets, seed: int):
     """Move the UNets' biases and norm gains (init: zeros and ones) by small
     seeded amounts, so the attention kernel's b_out and g are not trivial."""
-    gen = torch.Generator(device="cuda").manual_seed(seed)
+    gen = torch.Generator(device=next(unets[0].parameters()).device).manual_seed(seed)
     with torch.no_grad():
         for unet in unets:
             for p in unet.parameters():
@@ -1438,12 +1515,12 @@ def phase_megakernel_glow(torch, np, params, counters):
     return launches
 
 
-def stage2_prior(use_kernels: bool = True, **diffusion_overrides):
+def stage2_prior(use_kernels: bool = True, unet_overrides=None, **diffusion_overrides):
     from nfdpm_tpu_torch.models import formaters
     from nfdpm_tpu_torch.models.diffusion_prior import DiffusionPrior
 
     formater = formaters.get_formater(FORMATER)(L=LEVELS, in_channels=3, size=IMG)
-    ukw = dict(UNET_KWARGS, dim_mults=tuple(UNET_KWARGS["dim_mults"]))
+    ukw = dict(UNET_KWARGS, dim_mults=tuple(UNET_KWARGS["dim_mults"]), **(unet_overrides or {}))
     return DiffusionPrior(formater, ukw, dict(DIFFUSION_KWARGS, **diffusion_overrides),
                           use_kernels=use_kernels)
 
@@ -1568,7 +1645,8 @@ def stage2_path(torch, np, flow, counters):
 
 PROFILE_SAMPLING_STEPS = 10  # DDIM-10 chunk: 30 UNet calls at batch 64
 PROFILE_TIMESTEPS = 40       # VLB at T = 40: 30 UNet calls at 4 * VLB_BATCH rows
-PROFILE_ROUNDS = 5           # timed calls of each route, taken in turns
+PROFILE_ROUNDS = 3           # timed calls of each route, taken in turns (a depth cut
+# that keeps the run within 800 s; PERF.md §7)
 
 
 def phase_profile(torch, model, fla, unet_shapes):
@@ -2245,10 +2323,15 @@ def phase_attention_backward(torch, fla, train_shapes, totals):
 
 
 STAGE2_STEPS = 24        # one epoch of the stage-2 run: synthetic_n = 64 * 24
-STAGE2_TIMED = 16        # steps timed one by one after it
-STAGE2_GRIDS = 12        # log_gen_images_per_iter: a sample grid every 12 steps
+STAGE2_TIMED = 8         # steps timed one by one after it (a depth cut; PERF.md §7)
+STAGE2_GRIDS = 24        # log_gen_images_per_iter: a sample grid every 24 steps (a
+# depth cut; PERF.md §7)
 STAGE2_ROUTE_STEPS = 8
 STAGE2_COTRAIN_STEPS = 4
+# the co-trained run's diffusion T, cut from the config's 1000 so that its VLB
+# batch and its phase=eval's (250 UNet calls a part at T = 1000, about 13 s
+# each on an H100) fit the proof run's 800 s; phase 17 keeps T = 1000
+STAGE2_COTRAIN_T = 100
 STAGE2_LOSS_TOL = 1e-5   # step 1, kernel route vs plain route, relative
 STAGE2_TRAJ_TOL = 1e-4   # steps 1-8, relative
 # step-1 gradients, kernel route vs plain route, leaf by leaf: within this
@@ -2281,17 +2364,16 @@ def stage2_per_step(frozen: bool) -> dict:
             "fused_linear_attention_bwd": blocks, "step_megakernel_forward": 0}
 
 
-def stage2_run_launches(per_step: dict, steps: int) -> dict:
+def stage2_run_launches(per_step: dict, steps: int, timesteps: int = 0) -> dict:
     """The launches of one run_diffusion_prior.main train phase of `steps`
     steps: the steps, the sample grids (one every STAGE2_GRIDS steps and the
-    checkpoint's) and one VLB batch."""
+    checkpoint's) and one VLB batch at T = `timesteps` (0: the config's)."""
+    timesteps = timesteps or DIFFUSION_KWARGS["timesteps"]
     parts, blocks = LEVELS, 2 * len(UNET_KWARGS["dim_mults"])
     grids = steps // STAGE2_GRIDS + 1
     grid = {"channel_mix": 3 * STEPS, "coupling_tail_inverse": 3 * STEPS,
             "fused_linear_attention": parts * DIFFUSION_KWARGS["sampling_timesteps"] * blocks}
-    vlb = {"channel_mix": 3 * STEPS, "coupling_tail": 3 * STEPS,
-           "fused_linear_attention": parts * blocks
-           * -(-DIFFUSION_KWARGS["timesteps"] // DIFFUSION_KWARGS["vlb_time_chunk"])}
+    vlb = dict(vlb_pass_launches(timesteps), channel_mix=3 * STEPS, coupling_tail=3 * STEPS)
     return {k: steps * v + grids * grid.get(k, 0) + vlb.get(k, 0) for k, v in per_step.items()}
 
 
@@ -2387,7 +2469,7 @@ def phase_stage2_training(torch, counters, stage1_dir):
         check(math.isfinite(float(metrics["loss"])), "stage-2 loss not finite")
     step_peak = torch.cuda.max_memory_allocated()
     timed = sorted(walls[-STAGE2_TIMED:])
-    median = (timed[7] + timed[8]) / 2
+    median = median_of(timed)
     prof = profile_call(lambda: step(state, batches[0], TRAIN_SEED), iters=1, warmup=1, top=25)
     emit({"phase": "stage2_training", "steps": STAGE2_STEPS, "batch": BATCH,
           "seconds": seconds, "loss_per_step": losses, "loss_first4": first,
@@ -2395,9 +2477,9 @@ def phase_stage2_training(torch, counters, stage1_dir):
           "vlb_stderr": result["vlb_stderr"], "eval_reproduced": True,
           "eval_seconds": eval_seconds, "launches": launches, "expected_launches": expected,
           "launches_per_step": per_step, "max_memory_allocated_bytes": peak,
-          "step_wall_ms": walls, "step_wall_ms_median_last16": median,
-          "step_wall_ms_min_last16": timed[0], "step_wall_ms_max_last16": timed[-1],
-          "step_wall_ms_quartiles_last16": [timed[3], timed[11]],
+          "step_wall_ms": walls, "step_wall_ms_median_timed": median,
+          "step_wall_ms_min_timed": timed[0], "step_wall_ms_max_timed": timed[-1],
+          "step_wall_ms_quartiles_timed": quartiles(timed), "timed_steps": STAGE2_TIMED,
           "images_per_s": BATCH / median * 1e3, "step_max_memory_allocated_bytes": step_peak,
           "profile_one_step": prof})
     return launches, run_dir, stage1_dir
@@ -2497,7 +2579,8 @@ def phase_stage2_cotraining(torch, counters, stage1_dir):
     (cwd / "outputs").mkdir(parents=True)
     (cwd / "outputs" / "stage1").symlink_to(stage1_dir)
     overrides = stage2_overrides("stage1", STAGE2_COTRAIN_STEPS) + [
-        "model.normalizing_flow.freeze=false", "model.normalizing_flow.lr=1e-4"]
+        "model.normalizing_flow.freeze=false", "model.normalizing_flow.lr=1e-4",
+        f"model.diffusion.timesteps={STAGE2_COTRAIN_T}"]
     here = os.getcwd()
     torch.cuda.synchronize()
     for fn in counters:
@@ -2513,7 +2596,7 @@ def phase_stage2_cotraining(torch, counters, stage1_dir):
     seconds = time.perf_counter() - t0
     launches, dx = counts(counters), counters[0].backward_launches
     per_step = stage2_per_step(frozen=False)
-    expected = stage2_run_launches(per_step, STAGE2_COTRAIN_STEPS)
+    expected = stage2_run_launches(per_step, STAGE2_COTRAIN_STEPS, STAGE2_COTRAIN_T)
     check(launches == expected and dx == STAGE2_COTRAIN_STEPS * (LEVELS * STEPS - 1),
           f"co-trained run_diffusion_prior launched {launches} ({dx} dx), expected {expected}")
     run_dir = cwd / result["run_dir"]
@@ -2551,6 +2634,7 @@ def phase_stage2_cotraining(torch, counters, stage1_dir):
           f"phase=eval of the co-trained run gave {again['vlb_bpd']}, training "
           f"{result['vlb_bpd']}")
     emit({"phase": "stage2_cotraining", "steps": STAGE2_COTRAIN_STEPS, "lr_nf": 1e-4,
+          "timesteps": STAGE2_COTRAIN_T,
           "seconds": seconds, "launches": launches, "expected_launches": expected,
           "channel_mix_dx": dx, "launches_per_step": per_step, "loss_per_step": losses,
           "flow_leaves_moved": moved, "p_mat_and_sign_unchanged": fixed,
@@ -2562,8 +2646,8 @@ def phase_stage2_cotraining(torch, counters, stage1_dir):
 # Sample-quality evaluation (phase 22): the counts of configs/nf_base.yaml's
 # FID/KID at a size that fits the run, and the CIFAR-10 train count that a
 # full=True evaluation generates (nfdpm_tpu_torch/data/datasets.py)
-METRIC_IMAGES = 2048          # stats images and generated images of stage 1
-STAGE2_METRIC_IMAGES = 256    # generated images of stage 2
+METRIC_IMAGES = 512           # stats images and generated images of stage 1
+STAGE2_METRIC_IMAGES = 128    # generated images of stage 2 (both depth cuts; PERF.md §7)
 CELEBA_TRAIN, CELEBA_TEST = 256, 32
 FULL_EVAL_IMAGES = 50_000
 METRIC_DEV_RTOL, METRIC_DEV_ATOL = 1e-3, 2e-3   # feature nets, card against CPU
@@ -2676,7 +2760,67 @@ def run_in(cwd: Path, main, argv):
         os.chdir(here)
 
 
-def phase_sample_metrics(torch, np, counters, smi, stage1_dir, stage2_run):
+class StatsCommands:
+    """Phase 22 (b)'s commands in their own processes, in turn, on a thread:
+    the stats command line over synthetic images (both modes,
+    inception_v3), tools/make_synthetic_celeba.py, and the stats command
+    line over that CelebA-format directory (clip_vit_b_32, clean, 224).
+    main() starts them while nvcc builds the kernels, when the card is idle
+    (their seconds are taken beside the build); `result()` waits for them
+    and raises what failed. The directory build/chip_smoke/metrics is
+    theirs and phase 22's."""
+
+    def __init__(self):
+        self.base = ROOT / "build" / "chip_smoke" / "metrics"
+        shutil.rmtree(self.base, ignore_errors=True)
+        self.base.mkdir(parents=True)
+        self.stats_dir, self.weights_dir = self.base / "stats", self.base / "weights"
+        self.env = dict(os.environ, PYTHONPATH=str(ROOT), NFDPM_TPU_STATS_DIR=str(self.stats_dir),
+                        NFDPM_TPU_WEIGHTS_DIR=str(self.weights_dir))
+        self.out, self.error = {}, None
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _command(self, *argv, timeout=600):
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, *argv], cwd=self.base, env=self.env,
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        PROCESSES.append(proc)
+        try:
+            out, err = proc.communicate(timeout=timeout)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        check(proc.returncode == 0, f"{argv[:2]} failed:\n{out[-1500:]}\n{err[-1500:]}")
+        return time.perf_counter() - t0, err
+
+    def _run(self):
+        try:
+            stats_cli = ["-m", "nfdpm_tpu_torch.metrics.precompute_stats", "--action",
+                         "precompute"]
+            self.out["synthetic"] = self._command(*stats_cli, "--datasets", "synthetic",
+                                                  "--models", "inception_v3", "--limit",
+                                                  str(METRIC_IMAGES))
+            self.out["celeba_write"] = self._command(
+                str(ROOT / "tools" / "make_synthetic_celeba.py"), "--root",
+                str(self.base / "celeba"), "--n-train", str(CELEBA_TRAIN), "--n-val", "8",
+                "--n-test", str(CELEBA_TEST))
+            self.out["celeba"] = self._command(*stats_cli, "--datasets", "celeba", "--models",
+                                               "clip_vit_b_32", "--modes", "clean",
+                                               "--data_root", str(self.base / "celeba"))
+        except BaseException as e:  # noqa: B036 -- raised again by result()
+            self.error = e
+
+    def result(self) -> dict:
+        self.thread.join()
+        if self.error is not None:
+            raise self.error
+        return self.out
+
+
+def phase_sample_metrics(torch, np, counters, smi, stage1_dir, stage2_run,
+                         stats_commands: StatsCommands = None):
     """Phase 22: sample-quality evaluation on the card. (a) the feature
     nets, TF1 resize and SSIM/PSNR on the card against the CPU; (b) the
     stats command line as a subprocess over synthetic images (both modes,
@@ -2686,8 +2830,9 @@ def phase_sample_metrics(torch, np, counters, smi, stage1_dir, stage2_run):
     (d) run_diffusion_prior.main phase=eval of phase 17's run with FID;
     (e) rates: the Glow sampler, resizing, the feature nets at batches of
     32, 64 and 256 (CUDA events) beside Inception's bound, peak memory, and
-    a projection of a full CIFAR-10 evaluation. Returns the launches of (c)
-    and of (d)."""
+    a projection of a full CIFAR-10 evaluation. (b) runs in
+    `stats_commands`, started by main() beside the build (else here).
+    Returns the launches of (c) and of (d)."""
     import copy
 
     from nfdpm_tpu_torch import run_baseline, run_diffusion_prior
@@ -2699,10 +2844,10 @@ def phase_sample_metrics(torch, np, counters, smi, stage1_dir, stage2_run):
     from nfdpm_tpu_torch.training import nf_trainer as nft
     from nfdpm_tpu_torch.training.checkpoint import restore_params
 
-    base = ROOT / "build" / "chip_smoke" / "metrics"
-    shutil.rmtree(base, ignore_errors=True)
-    base.mkdir(parents=True)
-    stats_dir, weights_dir = base / "stats", base / "weights"
+    if stats_commands is None:
+        stats_commands = StatsCommands()
+    base = stats_commands.base
+    stats_dir, weights_dir = stats_commands.stats_dir, stats_commands.weights_dir
     os.environ["NFDPM_TPU_STATS_DIR"] = str(stats_dir)
     os.environ["NFDPM_TPU_WEIGHTS_DIR"] = str(weights_dir)
     weights = {name: (weights_dir / net.WEIGHTS_FILE).exists()
@@ -2741,26 +2886,9 @@ def phase_sample_metrics(torch, np, counters, smi, stage1_dir, stage2_run):
           "resize_tolerance": RESIZE_DEV_ATOL, "ssim_psnr_rtol": SSIM_DEV_RTOL, **devices})
 
     # (b) the stats command line, in its own process, on the card
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
-
-    def command(*argv, timeout=600):
-        t0 = time.perf_counter()
-        done = subprocess.run([sys.executable, *argv], cwd=base, env=env, capture_output=True,
-                              text=True, timeout=timeout)
-        check(done.returncode == 0, f"{argv[:2]} failed:\n{done.stdout[-1500:]}\n"
-                                    f"{done.stderr[-1500:]}")
-        return time.perf_counter() - t0, done.stderr
-
-    stats_cli = ["-m", "nfdpm_tpu_torch.metrics.precompute_stats", "--action", "precompute"]
-    synth_s, synth_log = command(*stats_cli, "--datasets", "synthetic", "--models",
-                                 "inception_v3", "--limit", str(METRIC_IMAGES))
-    celeba_root = base / "celeba"
-    write_s, _ = command(str(ROOT / "tools" / "make_synthetic_celeba.py"), "--root",
-                         str(celeba_root), "--n-train", str(CELEBA_TRAIN), "--n-val", "8",
-                         "--n-test", str(CELEBA_TEST))
-    celeba_s, celeba_log = command(*stats_cli, "--datasets", "celeba", "--models",
-                                   "clip_vit_b_32", "--modes", "clean", "--data_root",
-                                   str(celeba_root))
+    done = stats_commands.result()
+    (synth_s, synth_log), (write_s, _), (celeba_s, celeba_log) = (
+        done["synthetic"], done["celeba_write"], done["celeba"])
     files = {}
     for key, n, dim in ((("synthetic", "legacy_tensorflow", "inception_v3", "train", IMG),
                          METRIC_IMAGES, 2048),
@@ -2779,7 +2907,8 @@ def phase_sample_metrics(torch, np, counters, smi, stage1_dir, stage2_run):
               f"the stats command line did not name the missing {name} weights file")
     emit({"phase": "sample_metrics_stats", "nvidia_smi": smi, "files": files,
           "synthetic_seconds": synth_s, "celeba_write_seconds": write_s,
-          "celeba_clip_seconds": celeba_s, "weights_files_present": weights})
+          "celeba_clip_seconds": celeba_s, "weights_files_present": weights,
+          "note": "the commands ran beside the kernels' build (nvcc on the host)"})
 
     # (c) stage-1 evaluation: phase=eval of phase 12's full-width run
     cwd = base / "stage1"
@@ -2829,8 +2958,10 @@ def phase_sample_metrics(torch, np, counters, smi, stage1_dir, stage2_run):
           "seconds": stage1_s, "host_seconds_by_part": timers.seconds,
           "images_by_part": timers.images, "launches": launches1})
 
-    # (d) stage-2 evaluation: phase=eval of phase 17's run, FID legacy_tensorflow
-    argv = stage2_overrides("stage1") + [
+    # (d) stage-2 evaluation: phase=eval of phase 17's run, FID legacy_tensorflow;
+    # no VLB batch, which phase 17's phase=eval scores on the same run (a
+    # depth cut; PERF.md §7)
+    argv = stage2_overrides("stage1") + ["model.evaluation.vlb_batches=0",
         "experiment_name=metrics_stage2", "phase=eval", f"load.load_exp_dir={stage2_run.name}",
         "load.load_epoch=1",
         *metric_config(("FID",), ("legacy_tensorflow",), STAGE2_METRIC_IMAGES)]
@@ -2850,11 +2981,10 @@ def phase_sample_metrics(torch, np, counters, smi, stage1_dir, stage2_run):
     check(set(result2["metrics"]) == {"FID_inception"} and fid2 is not None
           and math.isfinite(fid2), f"stage-2 evaluation gave {result2['metrics']}")
     blocks = 2 * len(UNET_KWARGS["dim_mults"])
-    vlb_calls = -(-DIFFUSION_KWARGS["timesteps"] // DIFFUSION_KWARGS["vlb_time_chunk"])
-    expected2 = {"channel_mix": 2 * per_pass, "coupling_tail": per_pass,
+    expected2 = {"channel_mix": per_pass, "coupling_tail": 0,
                  "coupling_tail_bwd": 0, "coupling_tail_inverse": per_pass,
-                 "fused_linear_attention": LEVELS * blocks * (
-                     vlb_calls + DIFFUSION_KWARGS["sampling_timesteps"]),
+                 "fused_linear_attention": LEVELS * blocks
+                 * DIFFUSION_KWARGS["sampling_timesteps"],
                  "fused_linear_attention_bwd": 0, "step_megakernel_forward": 0}
     check(launches2 == expected2, f"stage-2 evaluation launched {launches2}, expected "
                                   f"{expected2}")
@@ -3746,7 +3876,10 @@ def phase_reference_checkpoints(torch, np, counters, smi, stage1_dir, stage2_dir
 MP_TRAIN_STEPS = 8     # (b): one epoch of run_baseline.main a dtype, batch 64
 MP_STAGE2_STEPS = 11   # (c): one epoch of run_diffusion_prior.main, batch 64; under
 # STAGE2_GRIDS, so that the run's one sample grid is its checkpoint's
-MP_TIMED = 16          # synchronised steps timed after two more
+MP_TIMED = 8           # synchronised steps timed after two more (a depth cut; PERF.md §7)
+MP_STAGE2_T = 100      # (c): the run's diffusion T, cut from the config's 1000 so that
+# its VLB batch and its phase=eval's fit the proof run's 800 s
+MP_SERVE_REQUEST = {"n": BATCH, "seed": 7}  # (d): one chunk (phase 24 serves two)
 MP_ROUTE_TOL = 1e-3    # bf16 bits/dim, kernel route against plain route
 MP_BPD_REL_TOL = 1e-2  # bf16 against fp32 on the same weights: scoring, each train step
 MP_UNET_TOL = 5e-2     # a UNet's bf16 output against fp32, of its largest entry
@@ -3832,10 +3965,15 @@ def step_walls(torch, step, n: int, counters, per_step: dict, what: str) -> list
     return walls
 
 
+def quartiles(timed: list) -> list:
+    """The first and third quartiles of sorted values (the 4th and 12th of 16)."""
+    return [timed[len(timed) // 4 - 1], timed[3 * len(timed) // 4 - 1]]
+
+
 def spread(walls: list) -> dict:
     timed = sorted(walls[-MP_TIMED:])
-    return {"median_ms": (timed[7] + timed[8]) / 2, "min_ms": timed[0], "max_ms": timed[-1],
-            "quartiles_ms": [timed[3], timed[11]]}
+    return {"median_ms": median_of(timed), "min_ms": timed[0], "max_ms": timed[-1],
+            "quartiles_ms": quartiles(timed), "steps": MP_TIMED}
 
 
 def mp_glow(torch, np, counters, none):
@@ -4061,9 +4199,10 @@ def mp_stage2(torch, counters, none, stage1_dir):
         link.symlink_to(stage1_dir)
     overrides = stage2_overrides("stage1", MP_STAGE2_STEPS) + [
         "model.diffusion.unet_dtype=bfloat16",
-        "model.normalizing_flow.coupling_dtype=bfloat16"]
+        "model.normalizing_flow.coupling_dtype=bfloat16",
+        f"model.diffusion.timesteps={MP_STAGE2_T}"]
     per_step = stage2_per_step(frozen=True)
-    expected = stage2_run_launches(per_step, MP_STAGE2_STEPS)
+    expected = stage2_run_launches(per_step, MP_STAGE2_STEPS, MP_STAGE2_T)
     before = counts(counters)
     t0 = time.perf_counter()
     result = run_in(root, run_diffusion_prior.main, overrides + ["experiment_name=stage2_bf16"])
@@ -4095,7 +4234,7 @@ def mp_stage2(torch, counters, none, stage1_dir):
     run = runload.load_diffusion_run(str(run_dir), use_ema=False, device=device)
     backbone16 = dataclasses.replace(run.backbone, cfg=dataclasses.replace(
         run.backbone.cfg, coupling_dtype="bfloat16"))
-    dp16, dp32 = run.dp, stage2_prior()
+    dp16, dp32 = run.dp, stage2_prior(timesteps=MP_STAGE2_T)
     unets32 = []
     for i, unet in enumerate(run.params["diffusion"]["parts"]):
         check(unet.dtype == torch.bfloat16, f"runload rebuilt a {unet.dtype} UNet")
@@ -4107,7 +4246,7 @@ def mp_stage2(torch, counters, none, stage1_dir):
     h, w, c = dp16.formater.input_shapes[0]
     gen = torch.Generator(device="cuda").manual_seed(12)
     xu = torch.randn((BATCH, h, w, c), generator=gen, device=device)
-    tu = torch.randint(0, DIFFUSION_KWARGS["timesteps"], (BATCH,), generator=gen, device=device)
+    tu = torch.randint(0, MP_STAGE2_T, (BATCH,), generator=gen, device=device)
     with torch.no_grad():
         out16 = run.params["diffusion"]["parts"][0](xu, tu)
         out32 = unets32[0](xu, tu)
@@ -4169,9 +4308,10 @@ def mp_stage2(torch, counters, none, stage1_dir):
                key, phase, field in (("vlb_ms_phase7_full_t", "stage2_scoring", "ms_per_batch"),
                                      ("chunk_ms_phase8", "stage2_sampling", "ms_per_chunk"),
                                      ("step_wall_ms_median_phase17", "stage2_training",
-                                      "step_wall_ms_median_last16"))}
+                                      "step_wall_ms_median_timed"))}
     earlier["vlb_ms_phase10_t40"] = None if scored is None else scored["kernels_median_ms"]
-    return {"steps": MP_STAGE2_STEPS, "seconds": seconds, "loss_per_step": losses,
+    return {"steps": MP_STAGE2_STEPS, "timesteps": MP_STAGE2_T, "seconds": seconds,
+            "loss_per_step": losses,
             "vlb_bpd": result["vlb_bpd"], "eval_vlb_bpd": evaluated["vlb_bpd"],
             "eval_reproduced": True, "run_launches": expected,
             "unet_rel_gap_to_fp32": unet_gap, "unet_tolerance": MP_UNET_TOL,
@@ -4180,7 +4320,7 @@ def mp_stage2(torch, counters, none, stage1_dir):
 
 def mp_serving(torch, np, counters, run_dir):
     """(d) serve --run-dir on (c)'s run against --arch/--weights of the same
-    parameters: the same bytes for RUN_DIR_REQUEST."""
+    parameters: the same bytes for MP_SERVE_REQUEST."""
     from nfdpm_tpu_torch import convert, serve
     from nfdpm_tpu_torch.training import runload
 
@@ -4194,10 +4334,10 @@ def mp_serving(torch, np, counters, run_dir):
                          ("weights", ["--weights", str(weights), "--arch",
                                       str(Path(run_dir) / "diffusion_architecture.json")])):
         with serving(serve, argv) as (port_no, health):
-            got[source] = generate(port_no, RUN_DIR_REQUEST, counters, per_chunk)
+            got[source] = generate(port_no, MP_SERVE_REQUEST, counters, per_chunk)
     check(np.array_equal(got["run_dir"][0], got["weights"][0]),
           "bf16 stage 2: --run-dir and --weights gave different samples")
-    return {"request": RUN_DIR_REQUEST, "same_bytes_as_weights": True,
+    return {"request": MP_SERVE_REQUEST, "same_bytes_as_weights": True,
             **{source: rec for source, (_, rec) in got.items()}}
 
 
@@ -4231,6 +4371,8 @@ def phase_mixed_precision(torch, np, counters, smi, stage1_dir):
 MG_STEPS = 8            # (a), (b): stage-1 steps of batch 64
 MG_STAGE2_STEPS = 4     # (c): stage-2 steps of batch 64
 MG_PART_BATCHES = 6     # (d): batches of the part-parallel comparison
+MG_PART_T = 100         # (d): the entry point's diffusion T, cut from 1000 (its VLB
+# batch; PERF.md §7)
 MG_BUDGET_S = 120       # the phase's budget (PERF.md §2)
 # (b), world 2 against world 1. Step 1: bits/dim within MG_BPD_TOL and the
 # mean gradient (fsdp off) within GRAD_RTOL / GRAD_ATOL leaf by leaf, phase
@@ -4475,8 +4617,10 @@ def mg_part_parallel(torch, counters, stage1_dir: Path, root: Path, mesh) -> dic
     result = run_in(root, run_diffusion_prior.main, stage2_overrides("stage1", MG_PART_BATCHES)
                     + ["experiment_name=part_parallel", "parallel.part_parallel=true",
                        f"model.logging.log_gen_images_per_iter={10 ** 6}",
-                       # the VLB's terms 25 timesteps a UNet call, the same terms
-                       "model.diffusion.vlb_time_chunk=25"] + MG_ENTRY_ARGS)
+                       # the VLB's terms 25 timesteps a UNet call, the same terms,
+                       # at T = MG_PART_T
+                       "model.diffusion.vlb_time_chunk=25",
+                       f"model.diffusion.timesteps={MG_PART_T}"] + MG_ENTRY_ARGS)
     run_dir = root / result["run_dir"]
     for name in ("model_diffusion_parts_001.pt", "model_diffusion_001.pt"):
         check((run_dir / "checkpoints" / name).exists(), f"(d) no checkpoints/{name}")
@@ -4485,11 +4629,12 @@ def mg_part_parallel(torch, counters, stage1_dir: Path, root: Path, mesh) -> dic
             "vlb_bpd": result["vlb_bpd"], "run_dir": str(run_dir)}
 
 
-def mg_world1(torch, root: Path, stage1_dir: Path) -> None:
-    """The world-1 child (deterministic mode): the references of (b) and (c)
-    without a process group; (a) run_baseline.main without a launch, then as
-    rank 0 of a world of one over NCCL with fsdp off and on, bitwise; the
-    step loop under that mesh, bitwise too; (d); prints its record."""
+def w1_multi_gpu(torch, counters, root: Path, stage1_dir: Path) -> dict:
+    """Phase 28's part of the world-1 child (deterministic mode; last in it,
+    as it leaves a process group up): the references of (b) and (c) without
+    a process group; (a) run_baseline.main without a launch, then as rank 0
+    of a world of one over NCCL with fsdp off and on, bitwise; the step loop
+    under that mesh, bitwise too; (d); its record."""
     import numpy as np
     import torch.distributed as dist
 
@@ -4497,9 +4642,6 @@ def mg_world1(torch, root: Path, stage1_dir: Path) -> None:
     from nfdpm_tpu_torch.parallel import mesh as mesh_m
     from nfdpm_tpu_torch.training.checkpoint import restore_params
 
-    counters = kernel_counters()
-    set_deterministic(torch, True)
-    os.environ["NFDPM_NO_TENSORBOARD"] = "1"
     out = {"phase": "multi_gpu_world1", "cublas_workspace_config":
            os.environ.get("CUBLAS_WORKSPACE_CONFIG")}
     batches = mg_batches(torch, MG_STEPS)
@@ -4572,23 +4714,18 @@ def mg_world1(torch, root: Path, stage1_dir: Path) -> None:
     out["d"] = mg_part_parallel(torch, counters, stage1_dir, root, mesh)
     seconds["d"] = time.perf_counter() - start - sum(seconds.values())
     out["seconds"] = seconds
-    out["launches"] = counts(counters)
-    emit(out)
+    return out
 
 
-def mg_world2(torch, root: Path, stage1_dir: Path) -> None:
-    """A rank of the two-rank child (gloo, both on this card, deterministic
-    mode): (b) the stage-1 steps with fsdp off and on, (c) the stage-2 steps;
-    writes its parameters and prints its record; the parent compares."""
+def r2_multi_gpu(torch, counters, root: Path, stage1_dir: Path) -> dict:
+    """Phase 28's part of a rank of the two-rank child (a data axis of two):
+    (b) the stage-1 steps with fsdp off and on, (c) the stage-2 steps;
+    writes its parameters; its record (the parent compares)."""
     import numpy as np
     import torch.distributed as dist
 
-    from nfdpm_tpu_torch.parallel import distributed
     from nfdpm_tpu_torch.parallel import mesh as mesh_m
 
-    counters = kernel_counters()
-    set_deterministic(torch, True)
-    check(distributed.initialize(device=MG_DEVICE), "the two-rank child found no launch")
     mesh = mesh_m.make_mesh(device=MG_DEVICE)
     out = {"phase": "multi_gpu_world2", "rank": mesh.rank, "world": mesh.world,
            "backend": dist.get_backend()}
@@ -4604,17 +4741,15 @@ def mg_world2(torch, root: Path, stage1_dir: Path) -> None:
     t1 = time.perf_counter()
     out["c"] = mg_stage2_steps(torch, counters, mesh, False, stage1_dir, batches)
     out["seconds"] = {"b": t1 - t0, "c": time.perf_counter() - t1}
-    out["launches"] = counts(counters)
-    emit(out)
-    distributed.shutdown()
+    return out
 
 
 def mg_children(cmd_role: str, root: Path, stage1_dir: Path, env: dict, ranks: int,
-                timeout: float = 400, phase: str = ""):
+                phases, timeout: float = 600):
     """Start `ranks` children of `cmd_role` together, wait for all (killing
-    every one if one fails or the time runs out); their JSON records (those
-    of `phase`, by default multi_gpu_<role>)."""
-    procs = []
+    every one if one fails or the time runs out); each child's records of
+    `phases`, {phase: record}, one of each."""
+    procs, popen_at = [], time.time()
     for rank in range(ranks):
         rank_env = dict(env, RANK=str(rank)) if ranks > 1 else env
         if env.get("NFDPM_DIST_BACKEND") == "nccl":  # one card a rank
@@ -4636,41 +4771,42 @@ def mg_children(cmd_role: str, root: Path, stage1_dir: Path, env: dict, ranks: i
     for p, (stdout, stderr) in zip(procs, outs + [("", "")] * (len(procs) - len(outs))):
         check(p.returncode == 0, f"the {cmd_role} child failed ({p.returncode}):\n"
                                  f"{stdout[-2000:]}\n{stderr[-4000:]}")
-    phase = phase or f"multi_gpu_{cmd_role}"
-    records = []
+    records, ready = [], []
     for stdout, _ in outs:
-        mine = [json.loads(line) for line in stdout.splitlines()
-                if line.startswith("{") and f'"phase": "{phase}"' in line]
-        check(len(mine) == 1, f"a {cmd_role} child printed {len(mine)} records")
-        records.append(mine[0])
+        lines = [json.loads(line) for line in stdout.splitlines() if line.startswith("{")]
+        mine = {}
+        for rec in lines:
+            if rec.get("phase") in phases:
+                check(rec["phase"] not in mine, f"a {cmd_role} child printed two "
+                                                f"{rec['phase']} records")
+                mine[rec["phase"]] = rec
+            elif rec.get("phase") == "child_ready":
+                ready.append(rec["unix_time"])
+        check(set(mine) == set(phases), f"a {cmd_role} child printed {sorted(mine)}, "
+                                        f"not {sorted(phases)}")
+        records.append(mine)
+    # the launch's cost: Popen to each child's first record (Python, torch
+    # and the port imported), and each child's own work after it
+    emit({"phase": "launch", "role": cmd_role, "ranks": ranks, "phases": sorted(phases),
+          "wall_s": time.time() - popen_at, "start_s_by_rank": [t - popen_at for t in ready],
+          "work_s_by_rank": [max(r["elapsed_s"] for r in mine.values()) for mine in records]})
     return records
 
 
-def phase_multi_gpu(torch, np, counters, smi, stage1_dir: Path) -> dict:
-    """Phase 28 (see the module docstring); returns the launches of its
-    path: this process's (e) and its children's, summed."""
+def phase_multi_gpu(torch, np, counters, smi, stage1_dir: Path, children: dict) -> dict:
+    """Phase 28 (see the module docstring): the gates on its part of the
+    children's records (launch_children), then (e) in this process; returns
+    the launches of its path: this process's (e) and its children's part,
+    summed."""
     from nfdpm_tpu_torch import serve
     from nfdpm_tpu_torch.metrics import precompute_stats
 
-    root = ROOT / "build" / "chip_smoke" / "multi_gpu"
-    shutil.rmtree(root, ignore_errors=True)
-    root.mkdir(parents=True)
+    root = multi_dir(28)
     for fn in counters:
         fn.launches = 0
     t0 = time.perf_counter()
-    base = {k: v for k, v in os.environ.items()
-            if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
-    base.update(PYTHONPATH=str(ROOT), NFDPM_NO_TENSORBOARD="1", **DETERMINISTIC_ENV)
-    (w1,) = mg_children("world1", root, stage1_dir, dict(base, MG_PORT=str(free_port())), 1)
-    w1_s = time.perf_counter() - t0
-    env2 = dict(base, WORLD_SIZE="2", LOCAL_RANK="0", MASTER_ADDR="localhost",
-                MASTER_PORT=str(free_port()), NFDPM_DIST_BACKEND="gloo")
-    w2 = mg_children("world2", root, stage1_dir, env2, 2)
-    w2_s = time.perf_counter() - t0 - w1_s
-    for child in [w1] + w2:  # the children's records, before any gate reads them
-        RECORDS.append(child)
-    emit({"phase": "multi_gpu_children", "world1_child_s": w1_s, "world2_children_s": w2_s,
-          "world1_parts_s": w1["seconds"], "world2_parts_s": [r["seconds"] for r in w2]})
+    w1 = children["world1"]["multi_gpu_world1"]
+    w2 = [r["multi_gpu_world2"] for r in children["ranks2"]]
     ref = w1["reference"]
     record = {"phase": "multi_gpu", "card": smi, "a": w1["a"], "d": w1["d"]}
 
@@ -4836,8 +4972,9 @@ def phase_multi_gpu(torch, np, counters, smi, stage1_dir: Path) -> dict:
                    "allreduce_numel": w1["f_world1"]["grad_numel"],
                    "note": "gloo on one card moves the gradients through the host"}
     seconds = time.perf_counter() - t0
-    record.update({"seconds": seconds, "world1_child_s": w1_s, "world2_children_s": w2_s,
-                   "budget_s": MG_BUDGET_S, "within_budget": seconds <= MG_BUDGET_S})
+    record.update({"seconds": seconds, "children_work_s": {
+        "world1": w1["seconds"], "world2_ranks": [r["seconds"] for r in w2]},
+        "budget_s": MG_BUDGET_S, "within_budget": seconds <= MG_BUDGET_S})
     launches = {k: here[k] + w1["launches"][k] + sum(r["launches"][k] for r in w2)
                 for k in here}
     record["launches"] = {"this_process": here, "world1_child": w1["launches"],
@@ -4851,7 +4988,8 @@ MT_STEPS = 4            # (a): stage-1 steps of batch 64 through run_baseline.ma
 MT_MESH4_STEPS = 2      # (b): the same at (data 2, model 2)
 MT_BUDGET_S = 120       # the phase's budget (PERF.md §2)
 MT_DDIM_N = 16          # (c): images of the DDIM chunk
-MT_DDIM_STEPS = 25      # (c): its steps, DDIM-100 cut to fit the budget: a model-2
+MT_DDIM_STEPS = 10      # (c): its steps, DDIM-100 cut to fit the budget (PERF.md §7):
+# a model-2
 # chain step waits on about 90 collectives through the host (26.5 s for
 # DDIM-100 at model 2 against 4.3 s at world 1 on an NVIDIA H100 80GB HBM3,
 # 700 W; PERF.md §6)
@@ -5065,16 +5203,19 @@ def mt_stage1(torch, spy, root: Path, name: str, steps: int, extra=()) -> dict:
     return out
 
 
-def mt_stage2(torch, spy, mesh, stage1_dir: Path, root: Path) -> dict:
+def mt_stage2(torch, spy, mesh, stage1_dir: Path, root: Path, states: Path = None) -> dict:
     """MG_STAGE2_STEPS stage-2 steps over phase 12's frozen flow (three
     UNets, batch 64, the step's own draws) on `mesh` (None: one rank), then
     one DDIM chunk (MT_DDIM_STEPS steps) of MT_DDIM_N images on the seeded
-    UNets, its latents written to <root>/ddim_<tag>.npz."""
+    UNets, its latents written to <root>/ddim_<tag>.npz. `states`: the
+    whole state before each step but the first is written there as the
+    checkpoint of that step's number, which mt_same_state reads."""
     import numpy as np
 
     from nfdpm_tpu_torch import convert, inference
     from nfdpm_tpu_torch.models.nf_backbone import load_pretrained_flow
     from nfdpm_tpu_torch.parallel import mesh as mesh_m
+    from nfdpm_tpu_torch.training import checkpoint as ckpt
     from nfdpm_tpu_torch.training import diffusion_trainer as dt
 
     backbone, flow = load_pretrained_flow(str(stage1_dir), 1, True, MG_DEVICE, True)
@@ -5086,7 +5227,10 @@ def mt_stage2(torch, spy, mesh, stage1_dir: Path, root: Path) -> dict:
     spy.steps, spy.timed_step = [], MG_STAGE2_STEPS - 1
     step = dt.make_train_step(backbone, dp, tcfg, tx, device=MG_DEVICE, mesh=mesh)
     losses = []
-    for batch in mg_batches(torch, MG_STAGE2_STEPS):
+    for i, batch in enumerate(mg_batches(torch, MG_STAGE2_STEPS)):
+        if states is not None and i > 0:  # a collective; rank 0 writes
+            ckpt.save_state(str(states), "diffusion", i + 1, dt.whole_diffusion_state(mesh, state),
+                            mesh)
         rows = batch if mesh is None else mesh_m.shard_batch(mesh, batch)
         state, metrics = step(state, rows, TRAIN_SEED)
         losses.append(float(metrics["loss"]))
@@ -5109,56 +5253,81 @@ def mt_stage2(torch, spy, mesh, stage1_dir: Path, root: Path) -> dict:
     return out
 
 
-def mt_world1(torch, root: Path, stage1_dir: Path) -> None:
-    """Phase 29's world-1 child (no launch, deterministic mode): the
-    references of (a), (b) and (c) and, with "s" in MT_PARTS, phase 31's
-    of its (b) (`sp_b`, its launches apart); prints its record."""
-    counters = kernel_counters()
-    set_deterministic(torch, True)
+def mt_same_state(torch, counters, root: Path, stage1_dir: Path) -> dict:
+    """(c)'s same-state reference, in a world of one: from each state the
+    model-2 run wrote before its steps 2-MG_STAGE2_STEPS (<root>/c_states,
+    whole), one step with that step's batch and draws (the seed and the
+    state's step number): the losses and each step's launches."""
+    from nfdpm_tpu_torch.models.nf_backbone import load_pretrained_flow
+    from nfdpm_tpu_torch.training import diffusion_trainer as dt
+
+    backbone, _ = load_pretrained_flow(str(stage1_dir), 1, True, MG_DEVICE, True)
+    dp = stage2_prior()
+    tcfg = dt.DiffusionTrainConfig(lr_diffusion=1e-3)
+    tx = dt.make_two_group_optimizer(tcfg, True)
+    step = dt.make_train_step(backbone, dp, tcfg, tx, device=MG_DEVICE)
+    batches = mg_batches(torch, MG_STAGE2_STEPS)
+    losses, launches = [], []
+    for i in range(1, MG_STAGE2_STEPS):
+        state = dt.restore_train_state(str(root / "c_states"), i + 1, backbone, dp, False,
+                                       MG_DEVICE)
+        check(state["step"] == i, f"(c) the state before step {i + 1} is at step {state['step']}")
+        before = counts(counters)
+        state, metrics = step(state, batches[i], TRAIN_SEED)
+        losses.append(float(metrics["loss"]))
+        launches.append({k: v - before[k] for k, v in counts(counters).items()})
+        del state
+    torch.cuda.empty_cache()
+    return {"steps": list(range(2, MG_STAGE2_STEPS + 1)), "loss": losses, "launches": launches}
+
+
+def w1_model_axis(torch, counters, root: Path, stage1_dir: Path, parts) -> dict:
+    """The model axis's part of the world-1 child (no process group): the
+    stage-1 run that phases 29 (a), 30 and 31 (a) compare with; with "29"
+    in `parts` the references of 29 (b) and (c) and (c)'s same-state steps
+    (after the two-rank child wrote its states); with "31" phase 31 (b)'s
+    stage-2 runs (`sp_b`, their launches apart). Its record."""
     spy = ModelAxisSpy(torch, counters)
-    os.environ["NFDPM_NO_TENSORBOARD"] = "1"
+    d29 = multi_dir(29, root)
     t0 = time.perf_counter()
-    parts = os.environ.get("MT_PARTS", "abc")
-    out = {"phase": "model_axis_world1",
-           "a": mt_stage1(torch, spy, root, "world1_a", MT_STEPS)}
-    if "b" in parts:
-        out["b"] = mt_stage1(torch, spy, root, "world1_b", MT_MESH4_STEPS)
-    if "c" in parts:
-        out["c"] = mt_stage2(torch, spy, None, stage1_dir, root)
-    out["seconds"] = time.perf_counter() - t0
-    out["launches"] = counts(counters)
-    if "s" in parts:  # phase 31's world-1 stage-2 runs, in this child
-        out["sp_b"] = sp_stage2(torch, spy, root)
-        out["sp_b_launches"] = {k: v - out["launches"][k] for k, v in counts(counters).items()}
-    spy.restore()
-    emit(out)
+    try:
+        out = {"phase": "model_axis_world1",
+               "a": mt_stage1(torch, spy, d29, "world1_a", MT_STEPS)}
+        if "29" in parts:
+            out["b"] = mt_stage1(torch, spy, d29, "world1_b", MT_MESH4_STEPS)
+            out["c"] = mt_stage2(torch, spy, None, stage1_dir, d29)
+            out["c_same_state"] = mt_same_state(torch, counters, d29, stage1_dir)
+        out["seconds"] = time.perf_counter() - t0
+        out["launches"] = counts(counters)
+        if "31" in parts:  # phase 31's world-1 stage-2 runs
+            for fn in counters:
+                fn.launches = 0
+            out["sp_b"] = sp_stage2(torch, spy, d29)
+            out["sp_b_launches"] = counts(counters)
+    finally:
+        spy.restore()
+    return out
 
 
-def mt_model2(torch, root: Path, stage1_dir: Path) -> None:
-    """A rank of phase 29's (data 1, model 2) children (gloo, both on this
-    card, deterministic mode): (a) run_baseline.main with
-    parallel.n_model=2, (c) the stage-2 steps and the DDIM chunk."""
+def r2_model_axis(torch, spy, root: Path, stage1_dir: Path, parts) -> dict:
+    """Phase 29's part of a rank of the two-rank child: (a)
+    run_baseline.main with parallel.n_model=2 and, with "29" in `parts`,
+    (c) the stage-2 steps at (1, 2), the state before each step after the
+    first written for the same-state reference, and the DDIM chunk."""
     import torch.distributed as dist
 
-    from nfdpm_tpu_torch.parallel import distributed
     from nfdpm_tpu_torch.parallel import mesh as mesh_m
 
-    counters = kernel_counters()
-    set_deterministic(torch, True)
-    spy = ModelAxisSpy(torch, counters)
-    os.environ["NFDPM_NO_TENSORBOARD"] = "1"
+    d29 = multi_dir(29, root)
     t0 = time.perf_counter()
-    a = mt_stage1(torch, spy, root, "model2_a", MT_STEPS, ["parallel.n_model=2"])
     out = {"phase": "model_axis_model2", "rank": dist.get_rank(),
-           "backend": dist.get_backend(), "a": a}
-    if "c" in os.environ.get("MT_PARTS", "abc"):
+           "backend": dist.get_backend(),
+           "a": mt_stage1(torch, spy, d29, "model2_a", MT_STEPS, ["parallel.n_model=2"])}
+    if "29" in parts:
         mesh = mesh_m.make_mesh(n_model=2, device=MG_DEVICE)
-        out["c"] = mt_stage2(torch, spy, mesh, stage1_dir, root)
+        out["c"] = mt_stage2(torch, spy, mesh, stage1_dir, d29, states=d29 / "c_states")
     out["seconds"] = time.perf_counter() - t0
-    out["launches"] = counts(counters)
-    spy.restore()
-    emit(out)
-    distributed.shutdown()
+    return out
 
 
 def mt_mesh4(torch, root: Path, stage1_dir: Path) -> None:
@@ -5175,7 +5344,7 @@ def mt_mesh4(torch, root: Path, stage1_dir: Path) -> None:
     spy = ModelAxisSpy(torch, counters)
     os.environ["NFDPM_NO_TENSORBOARD"] = "1"
     t0 = time.perf_counter()
-    b = mt_stage1(torch, spy, root, "mesh4_b", MT_MESH4_STEPS,
+    b = mt_stage1(torch, spy, multi_dir(29, root), "mesh4_b", MT_MESH4_STEPS,
                   ["parallel.n_model=2", "parallel.fsdp=true"])
     sliced = mesh_m.make_mesh(n_model=2, n_slices=2, device=MG_DEVICE)
     out = {"phase": "model_axis_mesh4", "rank": dist.get_rank(), "b": b,
@@ -5289,10 +5458,15 @@ def mt_check_b(w1: dict, m4: list) -> dict:
 
 
 def mt_check_c(np, root: Path, w1: dict, m2: list) -> dict:
-    """(c)'s gates: stage 2 at (1, 2) against world 1, the DDIM chunk."""
+    """(c)'s gates: stage 2 at (1, 2) against world 1, step 1 from the same
+    initial state, every later step against world 1's step from the state
+    the model-2 run had before it (mt_same_state); the DDIM chunk."""
     per_step2 = stage2_per_step(True)
     loss_gaps = [max(abs(r["c"]["loss"][i] - w) / abs(w) for r in m2)
                  for i, w in enumerate(w1["c"]["loss"])]
+    same = w1["c_same_state"]
+    same_gaps = [loss_gaps[0]] + [max(abs(r["c"]["loss"][i + 1] - w) / abs(w) for r in m2)
+                                  for i, w in enumerate(same["loss"])]
     with np.load(root / "ddim_world1.npz") as data:
         want_z = dict(data)
     z_gaps, z_beyond = [], 0
@@ -5303,21 +5477,26 @@ def mt_check_c(np, root: Path, w1: dict, m2: list) -> dict:
                 z_gaps.append(float(diff.max()))
                 z_beyond += int((diff > MT_CHAIN_ATOL + MT_CHAIN_RTOL * np.abs(want)).sum())
     c = {"loss_model2": m2[0]["c"]["loss"], "loss_world1": w1["c"]["loss"],
-         "rel_gap_by_step": loss_gaps, "launches_per_step": per_step2,
+         "rel_gap_by_step": loss_gaps, "loss_world1_same_state": same["loss"],
+         "same_state_rel_gap_by_step": same_gaps, "launches_per_step": per_step2,
          "launches_by_step": [[s["launches"] for s in r["c"]["steps"]] for r in m2],
          "ddim_images": MT_DDIM_N, "ddim_steps": MT_DDIM_STEPS,
          "ddim_max_latent_gap": max(z_gaps),
          "ddim_latent_gate": LATENT_TOL, "ddim_latents_beyond_cpu_bound": z_beyond,
          "ddim_s": {"world1": w1["c"]["ddim_s"], "model2": [r["c"]["ddim_s"] for r in m2]}}
     emit({"phase": "model_axis_c", **c})
-    # step 1 only: from there on Adam's first update, about lr sign(g), turns
-    # the model axis's other sums into moves of up to 2 lr wherever the l1
-    # loss's kink flips a sign (PERF.md §6); the later steps are
-    # recorded above
-    check(loss_gaps[0] <= MG_LOSS_RTOL,
-          f"(c) step 1's stage-2 loss {loss_gaps[0]} (relative) from world 1's")
-    check(all(step == per_step2 for r in c["launches_by_step"] for step in r),
-          f"(c) the ranks' stage-2 step launches {c['launches_by_step']}, expected {per_step2}")
+    # every step from the state the model-2 run had before it: Adam's first
+    # update, about lr sign(g), turns the model axis's other sums into moves
+    # of up to 2 lr wherever the l1 loss's kink flips a sign (PERF.md §6), so
+    # world 1's own trajectory (rel_gap_by_step) parts from step 2 on and is
+    # recorded, not gated
+    check(len(same_gaps) == MG_STAGE2_STEPS and max(same_gaps) <= MG_LOSS_RTOL,
+          f"(c) the stage-2 loss {same_gaps} (relative, by step) from world 1's step from "
+          "the same state")
+    check(all(step == per_step2 for r in c["launches_by_step"] for step in r)
+          and all(step == per_step2 for step in same["launches"]),
+          f"(c) the ranks' stage-2 step launches {c['launches_by_step']}, the same-state "
+          f"steps' {same['launches']}, expected {per_step2}")
     check(max(z_gaps) <= LATENT_TOL, f"(c) the DDIM latents {max(z_gaps)} from world 1's "
                                      f"({z_beyond} past the CPU bound)")
     return c
@@ -5361,56 +5540,39 @@ def mt_launch(base: dict, n: int, backend: str) -> dict:
 
 def phase_model_axis_nccl(torch, np, counters, smi) -> dict:
     """Phase 29's (a) and phase 30 over NCCL, their two ranks on two cards
-    (--model-axis-nccl, a call with several cards): the same gates, the same
-    records."""
+    (--model-axis-nccl, a call with several cards): the same children (the
+    two-rank one over NCCL, the world-1 one), gates and records."""
     check(torch.cuda.device_count() >= 2,
           f"--model-axis-nccl needs two cards, {torch.cuda.device_count()} visible")
     root = ROOT / "build" / "chip_smoke" / "model_axis_nccl"
-    shutil.rmtree(root, ignore_errors=True)
-    root.mkdir(parents=True)
     t0 = time.perf_counter()
-    base = dict(mt_env(), MT_PARTS="a")
-    (w1,) = mg_children("mt_world1", root, root, base, 1, phase="model_axis_world1")
-    m2 = mg_children("mt_model2", root, root, mt_launch(base, 2, "nccl"), 2,
-                     phase="model_axis_model2")
-    for child in [w1] + m2:
-        RECORDS.append(child)
+    children = launch_children(None, root, {"29a", "30"}, backend="nccl")
+    w1 = children["world1"]["model_axis_world1"]
+    m2 = [r["model_axis_model2"] for r in children["ranks2"]]
     check(all(r["backend"] == "nccl" for r in m2), "the two-card children are not on NCCL")
-    a, here = mt_check_a(counters, root, w1, m2)
+    a, here = mt_check_a(counters, multi_dir(29, root), w1, m2)
     record = {"phase": "model_axis_nccl", "card": smi, "cards": torch.cuda.device_count(),
               "a": a, "d": {**mt_stage1_timing(smi, w1["a"], [r["a"] for r in m2]),
                             **a["bytes"]},
               "seconds": time.perf_counter() - t0}
     emit(record)
-    pipelined = phase_pipeline(torch, np, counters, smi, (w1, root), backend="nccl")
+    pipelined = phase_pipeline(torch, np, counters, smi, children, root, backend="nccl")
     return {k: here[k] + pipelined[k] for k in here}
 
 
-def phase_model_axis(torch, np, counters, smi, stage1_dir: Path):
-    """Phase 29 (see the module docstring); returns the launches of its
-    path (its children's and this process's phase=eval, summed) and its
-    world-1 child's record with its directory, the reference phase 30
-    reuses."""
-    root = ROOT / "build" / "chip_smoke" / "model_axis"
-    shutil.rmtree(root, ignore_errors=True)
-    (root / "outputs").mkdir(parents=True)
-    (root / "outputs" / "stage1").symlink_to(stage1_dir)  # phase 31's stage-2 references
+def phase_model_axis(torch, np, counters, smi, children: dict):
+    """Phase 29 (see the module docstring): the gates on its part of the
+    children's records (launch_children), (a)'s checkpoint scored in this
+    process; returns the launches of its path (its children's part and this
+    process's phase=eval, summed)."""
+    root = multi_dir(29)
     for fn in counters:
         fn.launches = 0
     t0 = time.perf_counter()
-    base = mt_env()
-    (w1,) = mg_children("mt_world1", root, stage1_dir, dict(base, MT_PARTS="abcs"), 1,
-                        phase="model_axis_world1")
-    times = {"world1_child_s": time.perf_counter() - t0}
-    m2 = mg_children("mt_model2", root, stage1_dir, mt_launch(base, 2, "gloo"), 2,
-                     phase="model_axis_model2")
-    times["model2_children_s"] = time.perf_counter() - t0 - sum(times.values())
-    m4 = mg_children("mt_mesh4", root, stage1_dir, mt_launch(base, 4, "gloo"), 4,
-                     phase="model_axis_mesh4")
-    times["mesh4_children_s"] = time.perf_counter() - t0 - sum(times.values())
-    for child in [w1] + m2 + m4:
-        RECORDS.append(child)
-    record = {"phase": "model_axis", "card": smi, "times": times}
+    w1 = children["world1"]["model_axis_world1"]
+    m2 = [r["model_axis_model2"] for r in children["ranks2"]]
+    m4 = children["mesh4"]
+    record = {"phase": "model_axis", "card": smi}
     record["a"], here = mt_check_a(counters, root, w1, m2)
     ranks, ref = [r["a"] for r in m2], w1["a"]
     record["b"] = mt_check_b(w1, m4)
@@ -5431,15 +5593,17 @@ def phase_model_axis(torch, np, counters, smi, stage1_dir: Path):
                 "a scaling figure"}
     emit({"phase": "model_axis_d", **record["d"]})
     seconds = time.perf_counter() - t0
-    record.update({"seconds": seconds, "budget_s": MT_BUDGET_S,
-                   "within_budget": seconds <= MT_BUDGET_S})
+    record.update({"seconds": seconds, "children_work_s": {
+        "world1": w1["seconds"], "model2_ranks": [r["seconds"] for r in m2],
+        "mesh4_ranks": [r["seconds"] for r in m4]},
+        "budget_s": MT_BUDGET_S, "within_budget": seconds <= MT_BUDGET_S})
     launches = {k: here[k] + w1["launches"][k] + sum(r["launches"][k] for r in m2 + m4)
                 for k in here}  # the world-1 child's phase-31 runs are phase 31's
     record["launches"] = {"this_process": here, "world1_child": w1["launches"],
                           "model2_ranks": [r["launches"] for r in m2],
                           "mesh4_ranks": [r["launches"] for r in m4], "total": launches}
     emit(record)
-    return launches, (w1, root)
+    return launches
 
 
 # -- phase 30: the pipeline ----------------------------------------------------------
@@ -5462,26 +5626,16 @@ def pp_step_launches(stage: int, n_stages: int = 2) -> dict:
             "fused_linear_attention_bwd": 0, "step_megakernel_forward": 0}
 
 
-def pp_stage(torch, root: Path, stage1_dir: Path) -> None:
-    """A rank of phase 30's two pipeline stages (gloo ranks sharing this card,
-    or NCCL ranks on two cards), deterministic mode: run_baseline.main with
-    the pipeline at full width, MT_STEPS steps, instrumented."""
+def r2_pipeline(torch, spy, root: Path) -> dict:
+    """Phase 30's part of a rank of the two-rank child (a pipeline stage):
+    run_baseline.main with the pipeline at full width, MT_STEPS steps,
+    instrumented."""
     import torch.distributed as dist
 
-    from nfdpm_tpu_torch.parallel import distributed
-
-    counters = kernel_counters()
-    set_deterministic(torch, True)
-    spy = ModelAxisSpy(torch, counters)
-    os.environ["NFDPM_NO_TENSORBOARD"] = "1"
     t0 = time.perf_counter()
-    a = mt_stage1(torch, spy, root, "pipeline", MT_STEPS, PP_ARGS)
-    out = {"phase": "pipeline_stage", "rank": dist.get_rank(),
-           "backend": dist.get_backend(), "a": a, "seconds": time.perf_counter() - t0,
-           "launches": counts(counters)}
-    spy.restore()
-    emit(out)
-    distributed.shutdown()
+    a = mt_stage1(torch, spy, multi_dir(30, root), "pipeline", MT_STEPS, PP_ARGS)
+    return {"phase": "pipeline_stage", "rank": dist.get_rank(),
+            "backend": dist.get_backend(), "a": a, "seconds": time.perf_counter() - t0}
 
 
 def pp_check(counters, w1_root: Path, root: Path, w1: dict, stages: list):
@@ -5560,37 +5714,28 @@ def pp_check(counters, w1_root: Path, root: Path, w1: dict, stages: list):
     return rec, here
 
 
-def phase_pipeline(torch, np, counters, smi, world1=None, backend: str = "gloo") -> dict:
+def phase_pipeline(torch, np, counters, smi, children: dict, root: Path = None,
+                   backend: str = "gloo") -> dict:
     """Phase 30 (see the module docstring): two pipeline stages over
-    `backend` ("gloo": sharing this card; "nccl": on two cards) against a
-    world-1 child's run, or phase 29's (`world1` = (its record, its
-    directory)); returns the launches of its path: the stages' and this
-    process's phase=eval, summed."""
-    root = ROOT / "build" / "chip_smoke" / f"pipeline_{backend}"
-    shutil.rmtree(root, ignore_errors=True)
-    root.mkdir(parents=True)
+    `backend` ("gloo": sharing this card; "nccl": on two cards), the
+    two-rank child's, against the world-1 child's run (launch_children, its
+    files under `root`); returns the launches of its path: the stages' and
+    this process's phase=eval, summed."""
+    root = MULTI_ROOT if root is None else root
     for fn in counters:
         fn.launches = 0
     t0 = time.perf_counter()
-    base = dict(mt_env(), MT_PARTS="a")
-    times = {}
-    if world1 is None:
-        (w1,) = mg_children("mt_world1", root, root, base, 1, phase="model_axis_world1")
-        RECORDS.append(w1)
-        world1 = (w1, root)
-        times["world1_child_s"] = time.perf_counter() - t0
-    w1, w1_root = world1
-    stages = mg_children("pp_stage", root, root, mt_launch(base, 2, backend), 2,
-                         phase="pipeline_stage")
-    times["stage_children_s"] = time.perf_counter() - t0 - sum(times.values())
-    RECORDS.extend(stages)
+    w1, w1_root = children["world1"]["model_axis_world1"], multi_dir(29, root)
+    stages = [r["pipeline_stage"] for r in children["ranks2"]]
+    root = multi_dir(30, root)
     check(all(r["backend"] == backend for r in stages),
           f"the stages ran on {[r['backend'] for r in stages]}, not {backend}")
     rec, here = pp_check(counters, w1_root, root, w1, stages)
     seconds = time.perf_counter() - t0
     record = {"phase": "pipeline", "card": smi, "backend": backend,
               "cards": torch.cuda.device_count(), "microbatches": PP_MICROBATCHES,
-              "stages": 2, "steps": MT_STEPS, **rec, "times": times, "seconds": seconds,
+              "stages": 2, "steps": MT_STEPS, **rec, "seconds": seconds,
+              "children_work_s": [r["seconds"] for r in stages],
               "budget_s": PP_BUDGET_S, "within_budget": seconds <= PP_BUDGET_S}
     launches = {k: here[k] + sum(r["launches"][k] for r in stages) for k in here}
     record["launches"] = {"this_process": here, "stages": [r["launches"] for r in stages],
@@ -5605,7 +5750,8 @@ SP_BUDGET_S = 120       # the phase's budget (PERF.md §2)
 SP_ARGS = ["parallel.n_model=2", "parallel.spatial=true"]
 SP_GROUPS = 1           # (b): resnet_block_groups; one group a norm, split over both ranks
 SP_STAGE2_BATCH = 16    # (b): images a stage-2 step and in the run's VLB batch, and
-SP_STAGE2_T = 25        # the diffusion's T, cut from the config's 1000: the VLB batch
+SP_STAGE2_T = 10        # the diffusion's T, cut from the config's 1000 (PERF.md §7): the
+# VLB batch
 # evaluates each UNet T times, and at model 2 every evaluation waits on about 100
 # all-reduces through the host (gloo): at T = 1000 one VLB batch of 16 took 85 s a run,
 # and at T = 100 the phase took 123.3 s on a slower host, on an NVIDIA H100 80GB HBM3,
@@ -5746,43 +5892,18 @@ def sp_stage2(torch, spy, root: Path, extra=()) -> dict:
     return out
 
 
-def sp_world1(torch, root: Path, stage1_dir: Path) -> None:
-    """Phase 31's world-1 child under --spatial (no launch, deterministic
-    mode): the references of (a) and (b), which phase 29's world-1 child
-    makes otherwise."""
-    counters = kernel_counters()
-    set_deterministic(torch, True)
-    spy = ModelAxisSpy(torch, counters)
-    os.environ["NFDPM_NO_TENSORBOARD"] = "1"
-    t0 = time.perf_counter()
-    out = {"phase": "spatial_world1", "a": mt_stage1(torch, spy, root, "world1_a", MT_STEPS),
-           "sp_b": sp_stage2(torch, spy, root)}
-    out["seconds"] = time.perf_counter() - t0
-    out["launches"] = counts(counters)
-    spy.restore()
-    emit(out)
-
-
-def sp_model2(torch, root: Path, stage1_dir: Path) -> None:
-    """A rank of phase 31's (data 1, model 2) children (gloo, both on this
-    card, deterministic mode): (a) run_baseline.main and (b)
-    run_diffusion_prior.main with parallel.spatial=true."""
+def r2_spatial(torch, spy, root: Path) -> dict:
+    """Phase 31's part of a rank of the two-rank child, at (data 1, model
+    2): (a) run_baseline.main and (b) run_diffusion_prior.main with
+    parallel.spatial=true."""
     import torch.distributed as dist
 
-    from nfdpm_tpu_torch.parallel import distributed
-
-    counters = kernel_counters()
-    set_deterministic(torch, True)
-    spy = ModelAxisSpy(torch, counters)
-    os.environ["NFDPM_NO_TENSORBOARD"] = "1"
+    d31 = multi_dir(31, root)
     t0 = time.perf_counter()
-    a = mt_stage1(torch, spy, root, "spatial_a", MT_STEPS, SP_ARGS)
-    out = {"phase": "spatial_model2", "rank": dist.get_rank(), "backend": dist.get_backend(),
-           "a": a, "b": sp_stage2(torch, spy, root, SP_ARGS),
-           "seconds": time.perf_counter() - t0, "launches": counts(counters)}
-    spy.restore()
-    emit(out)
-    distributed.shutdown()
+    a = mt_stage1(torch, spy, d31, "spatial_a", MT_STEPS, SP_ARGS)
+    return {"phase": "spatial_model2", "rank": dist.get_rank(), "backend": dist.get_backend(),
+            "a": a, "b": sp_stage2(torch, spy, d31, SP_ARGS),
+            "seconds": time.perf_counter() - t0}
 
 
 def sp_check_a(counters, w1_root: Path, root: Path, w1: dict, m2: list):
@@ -5869,7 +5990,12 @@ def sp_check_b(ref: dict, m2: list) -> dict:
                    "seconds_by_rank": [r["b"][name]["seconds"] for r in m2],
                    "world1_seconds": want["seconds"]}
         steps = MG_STAGE2_STEPS if frozen else 1
-        # step 1 only, as in phase 29 (c); the later steps are recorded
+        # step 1 only, the later steps recorded: these are entry-point runs
+        # (run_diffusion_prior.main, which owns its train state and writes
+        # only the final checkpoint), so no state before a later step reaches
+        # a world-1 reference, as phase 29 (c)'s step loop lets it
+        # (mt_same_state); from step 2 on Adam's first update turns the
+        # spatial sums' rounding into moves of up to 2 lr (PERF.md §6)
         check(len(gaps) == steps and gaps[0] <= MG_LOSS_RTOL,
               f"(b) {name}: step 1's stage-2 loss {gaps[0]} (relative) from world 1's")
         check(all(len(r) == steps and all(s == per_step for s in r)
@@ -5880,40 +6006,24 @@ def sp_check_b(ref: dict, m2: list) -> dict:
     return b
 
 
-def phase_spatial(torch, np, counters, smi, stage1_dir: Path, world1=None) -> dict:
-    """Phase 31 (see the module docstring): two spatial gloo ranks sharing
-    this card against phase 29's world-1 child (`world1` = (its record, its
-    directory)), which also made (b)'s references, or, without it, against
-    a world-1 child of its own. First the kernels at the rank's row-block
-    shapes against their plain versions (sp_row_kernels). Returns the
-    launches of the spatial path (the two spatial ranks' and this process's
-    phase=eval, summed) and those of the world-1 reference runs it compares
-    with (phase 29's child's (b) runs, or its own child's (a) and (b)),
-    apart."""
+def phase_spatial(torch, np, counters, smi, children: dict) -> dict:
+    """Phase 31 (see the module docstring): first the kernels at the rank's
+    row-block shapes against their plain versions (sp_row_kernels), then
+    the gates on the two-rank child's spatial runs against the world-1
+    child's, which also made (b)'s references (launch_children). Returns
+    the launches of the spatial path (the two spatial ranks' and this
+    process's phase=eval, summed) and those of the world-1 child's (b)
+    runs it compares with, apart."""
     t0 = time.perf_counter()
     row_kernels = sp_row_kernels(torch)
-    root = ROOT / "build" / "chip_smoke" / "spatial"
-    shutil.rmtree(root, ignore_errors=True)
-    (root / "outputs").mkdir(parents=True)
-    (root / "outputs" / "stage1").symlink_to(stage1_dir)
     for fn in counters:
         fn.launches = 0
-    times = {"row_kernels_s": time.perf_counter() - t0}
-    base = mt_env()
-    if world1 is None:
-        (w1,) = mg_children("sp_world1", root, stage1_dir, base, 1, phase="spatial_world1")
-        RECORDS.append(w1)
-        world1, w1_launches = (w1, root), w1["launches"]
-        times["world1_child_s"] = time.perf_counter() - t0 - sum(times.values())
-    else:
-        w1_launches = world1[0]["sp_b_launches"]
-    (w1, w1_root) = world1
-    m2 = mg_children("sp_model2", root, stage1_dir, mt_launch(base, 2, "gloo"), 2,
-                     phase="spatial_model2")
-    times["spatial_children_s"] = time.perf_counter() - t0 - sum(times.values())
-    RECORDS.extend(m2)
+    w1, w1_root = children["world1"]["model_axis_world1"], multi_dir(29)
+    w1_launches = w1["sp_b_launches"]
+    m2 = [r["spatial_model2"] for r in children["ranks2"]]
+    root = multi_dir(31)
     check(all(r["backend"] == "gloo" for r in m2), "the spatial children are not on gloo")
-    record = {"phase": "spatial", "card": smi, "times": times,
+    record = {"phase": "spatial", "card": smi, "row_kernels_s": time.perf_counter() - t0,
               "row_kernels": row_kernels["cases"]}
     record["a"], here = sp_check_a(counters, w1_root, root, w1, m2)
     record["b"] = sp_check_b(w1["sp_b"], m2)
@@ -5950,8 +6060,8 @@ def phase_spatial(torch, np, counters, smi, stage1_dir: Path, world1=None) -> di
                 "time here is a scaling figure"}
     emit({"phase": "spatial_c", **record["c"]})
     seconds = time.perf_counter() - t0
-    record.update({"seconds": seconds, "budget_s": SP_BUDGET_S,
-                   "within_budget": seconds <= SP_BUDGET_S})
+    record.update({"seconds": seconds, "children_work_s": [r["seconds"] for r in m2],
+                   "budget_s": SP_BUDGET_S, "within_budget": seconds <= SP_BUDGET_S})
     launches = {k: here[k] + sum(r["launches"][k] for r in m2) for k in here}
     record["launches"] = {"this_process": here, "spatial_ranks": [r["launches"] for r in m2],
                           "total": launches, "world1_reference": w1_launches}
@@ -5959,10 +6069,437 @@ def phase_spatial(torch, np, counters, smi, stage1_dir: Path, world1=None) -> di
     return launches, w1_launches
 
 
+# -- phase 32: the last modules of the JAX package ----------------------------------
+
+LM_STEPS = 4            # (a): stage-2 train steps of each UNet variant, batch 64
+LM_OPTIONS = {"default": {}, "remat": {"remat": True}, "stacked": {"stacked_mid_attn": True}}
+LM_LOSS_RTOL = 1e-5     # (a): a variant's loss each step against the default UNet's
+LM_VLB_RTOL = 1e-5      # (b): the per-part values, weighted, against the total nats
+LM_HOST_REPEATS = 50    # (c): batch assemblies timed on each path
+LM_LOADER_ROUNDS = 3    # (c): epochs of the stage-1 step fed by each path, in turns
+LM_BUDGET_S = 60        # the phase's budget (PERF.md §2)
+
+
+def vlb_pass_launches(timesteps: int) -> dict:
+    """The launches of one VLB pass of the three UNets over latents at T =
+    `timesteps`: the linear attention's, vlb_time_chunk timesteps a call."""
+    calls = -(-timesteps // DIFFUSION_KWARGS["vlb_time_chunk"])
+    return {"channel_mix": 0, "coupling_tail": 0, "coupling_tail_bwd": 0,
+            "coupling_tail_inverse": 0,
+            "fused_linear_attention": LEVELS * 2 * len(UNET_KWARGS["dim_mults"]) * calls,
+            "fused_linear_attention_bwd": 0, "step_megakernel_forward": 0}
+
+
+def lm_unet_options(torch, counters, backbone, flow) -> dict:
+    """(a) LM_STEPS stage-2 steps (configs/nf_diffusion.yaml's three UNets
+    over phase 12's frozen flow, batch 64, the steps' own draws) of the
+    default UNet, then with remat=True and with stacked_mid_attn=True, each
+    from the same seeded state on the same batches: the losses, each
+    step's launches and wall ms, step 1's gradients, the peak of allocated
+    memory over the steps."""
+    from nfdpm_tpu_torch.training import diffusion_trainer as dt
+
+    batches = mg_batches(torch, LM_STEPS)
+    out, grads = {}, {}
+    for name, unet_kwargs in LM_OPTIONS.items():
+        dp = stage2_prior(unet_overrides=unet_kwargs)
+        tcfg = dt.DiffusionTrainConfig(lr_diffusion=1e-3)
+        tx = dt.make_two_group_optimizer(tcfg, True)
+        state = dt.init_train_state(TRAIN_SEED, backbone, flow, dp, tx, device=MG_DEVICE)
+        step = dt.make_train_step(backbone, dp, tcfg, tx, device=MG_DEVICE)
+        torch.cuda.synchronize()
+        allocated = torch.cuda.memory_allocated() if MG_DEVICE == "cuda" else 0
+        torch.cuda.reset_peak_memory_stats()
+        losses, launches, walls = [], [], []
+        for i, batch in enumerate(batches):
+            before = counts(counters)
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch, TRAIN_SEED)
+            losses.append(float(metrics["loss"]))  # waits for the step
+            walls.append((time.perf_counter() - t0) * 1e3)
+            launches.append({k: v - before[k] for k, v in counts(counters).items()})
+            if i == 0:
+                grads[name] = [{n: q.grad.detach().clone() for n, q in u.named_parameters()}
+                               for u in state["params"]["diffusion"]["parts"]]
+        out[name] = {"unet_kwargs": unet_kwargs, "loss": losses, "launches_by_step": launches,
+                     "step_wall_ms": walls, "allocated_before_steps": allocated,
+                     "max_memory_allocated": torch.cuda.max_memory_allocated()}
+        del state, step
+        torch.cuda.empty_cache()
+    want = out["default"]["max_memory_allocated"] - out["default"]["allocated_before_steps"]
+    for name in ("remat", "stacked"):
+        rec = out[name]
+        rec["rel_gap_by_step"] = [abs(a - b) / abs(b) for a, b in
+                                  zip(rec["loss"], out["default"]["loss"])]
+        gaps = [max(float((a[n] - b[n]).abs().max()) / (float(b[n].abs().max()) or 1.0)
+                    for n in b) for a, b in zip(grads[name], grads["default"])]
+        rec["step1_max_grad_gap_share_by_part"] = gaps
+        rec["peak_over_state_vs_default"] = (
+            (rec["max_memory_allocated"] - rec["allocated_before_steps"]) / want
+            if want else None)
+    emit({"phase": "last_modules_unet_options", **out})
+    per_step = stage2_per_step(True)
+    for name, rec in out.items():
+        check(all(step == per_step for step in rec["launches_by_step"]),
+              f"(a) {name}: launches a step {rec['launches_by_step']}, expected {per_step}")
+    for name in ("remat", "stacked"):
+        rec = out[name]
+        check(max(rec["rel_gap_by_step"]) <= LM_LOSS_RTOL,
+              f"(a) {name}: the loss {rec['rel_gap_by_step']} (relative, by step) from the "
+              "default UNet's")
+        check(max(rec["step1_max_grad_gap_share_by_part"]) <= STAGE2_GRAD_TOL,
+              f"(a) {name}: step 1's gradients {rec['step1_max_grad_gap_share_by_part']} of "
+              f"a leaf's largest entry from the default UNet's")
+    return out
+
+
+def lm_per_part_vlb(torch, counters, backbone, flow) -> dict:
+    """(b) DiffusionPrior.evaluate_neg_log_likelihood and
+    neg_log_likelihood_nats on one seeded batch of VLB_BATCH images at the
+    config's T (phase 7's), the seeded UNets of phase 7, with the same
+    injected draws: each part's value weighted by its processed dims
+    squared (the value is the part's VLB, a sum of per-dim terms, over its
+    dims), plus the formater's sum(log std), against the total; the
+    attention's exact launches."""
+    import numpy as np
+
+    from nfdpm_tpu_torch.ops import quantize as q
+
+    dp = stage2_prior()
+    diffusion = dp.init_params(seed=5, device=MG_DEVICE)
+    randomize_unet_vectors(torch, diffusion["parts"], seed=6)
+    gen = torch.Generator(device=MG_DEVICE).manual_seed(32)
+    imgs = np.random.default_rng(32).integers(0, 256, (VLB_BATCH, IMG, IMG, 3), dtype=np.uint8)
+    timesteps = DIFFUSION_KWARGS["timesteps"]
+    with torch.inference_mode():
+        x = torch.from_numpy(imgs).to(MG_DEVICE).float() / 255.0
+        x = q.dequantize(gen, q.preprocess(x, N_BITS), N_BITS)
+        latents, _ = backbone.transform(flow, x)
+        noise = [[torch.randn((VLB_BATCH, h, w, c), generator=gen, device=MG_DEVICE)
+                  for _ in range(timesteps)] for (h, w, c) in dp.formater.input_shapes]
+        seconds, launches = {}, {}
+        for name, fn in (("per_part", dp.evaluate_neg_log_likelihood),
+                         ("nats", dp.neg_log_likelihood_nats)):
+            before = counts(counters)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = fn(diffusion, latents, noise=noise)
+            torch.cuda.synchronize()
+            seconds[name] = time.perf_counter() - t0
+            launches[name] = {k: v - before[k] for k, v in counts(counters).items()}
+            if name == "per_part":
+                per_part = got
+            else:
+                nats = got
+    dims = [float(np.prod(s)) for s in dp.formater.input_shapes]
+    total = sum(v * d * d for v, d in zip(per_part, dims)) + dp.formater.stats_log_sigma_total()
+    gap = float(((total - nats).abs() / nats.abs()).max())
+    want = vlb_pass_launches(timesteps)
+    rec = {"batch": VLB_BATCH, "timesteps": timesteps, "dims": dims,
+           "per_part_mean": [float(v.mean()) for v in per_part],
+           "nats_mean": float(nats.mean()), "weighted_rel_gap": gap, "tolerance": LM_VLB_RTOL,
+           "seconds": seconds, "launches": launches, "expected_launches_a_pass": want}
+    emit({"phase": "last_modules_vlb", **rec})
+    check(len(per_part) == dp.num_parts and all(bool(torch.isfinite(v).all()) for v in per_part),
+          "(b) evaluate_neg_log_likelihood gave other parts or a value not finite")
+    check(gap <= LM_VLB_RTOL, f"(b) the per-part values weighted are {gap} (relative) from "
+                              "neg_log_likelihood_nats")
+    check(launches["per_part"] == want == launches["nats"],
+          f"(b) launches {launches}, expected {want} a pass")
+    return rec
+
+
+def synchronous_batches(iterator, device):
+    """The loader's batches moved to `device` on the main thread, one at a
+    time: the path without the producer thread."""
+    import numpy as np
+    import torch
+
+    for item in iterator:
+        yield (torch.from_numpy(np.ascontiguousarray(item[0])).to(device),) + tuple(item[1:])
+
+
+@contextlib.contextmanager
+def synchronous_loader():
+    """nf_trainer.train and the loaders on the path without the producer
+    thread: batches assembled by the numpy path and moved on the main
+    thread."""
+    import functools
+
+    from nfdpm_tpu_torch.data import native
+    from nfdpm_tpu_torch.training import nf_trainer as nft
+
+    saved = nft.prefetch_to_device, native.batch_gather_normalize
+    nft.prefetch_to_device = synchronous_batches
+    native.batch_gather_normalize = functools.partial(saved[1], native=False)
+    try:
+        yield
+    finally:
+        nft.prefetch_to_device, native.batch_gather_normalize = saved
+
+
+def w1_loader_epochs(torch, counters, root: Path) -> dict:
+    """Phase 32 (c)'s deterministic part, in the world-1 child (deterministic
+    mode): nf_trainer.train at configs/nf_base.yaml's width, one epoch of
+    TRAIN_STEPS steps through the producer thread (native assembly), then
+    through the synchronous path, from the same seed: each step's bits/dim,
+    the final states' gap. Its record."""
+    from nfdpm_tpu_torch.data import native
+    from nfdpm_tpu_torch.training import nf_trainer as nft
+
+    cfg, tcfg = train_configs()
+    out = {"phase": "last_modules_loader", "native": native.available()}
+    states = {}
+    for path in ("producer", "synchronous"):
+        run_dir = root / f"loader_{path}"
+        run_dir.mkdir(parents=True)
+        with synchronous_loader() if path == "synchronous" else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            res = nft.train(cfg=cfg, tcfg=tcfg, loaders=train_loaders(), run_dir=str(run_dir),
+                            logger=logging.getLogger(f"chip_smoke.loader_{path}"),
+                            seed=TRAIN_SEED, img_size=IMG, device=MG_DEVICE)
+            torch.cuda.synchronize()
+        states[path] = res["state"]
+        out[path] = {"bpd_by_step": mt_step_bpds(run_dir), "results": res["results"],
+                     "seconds": time.perf_counter() - t0}
+    gap, equal = state_gap(torch, states["producer"], states["synchronous"])
+    out.update(state_max_gap=gap, state_bitwise_equal=equal)
+    return out
+
+
+def lm_loader(torch, counters, children: dict) -> dict:
+    """(c) The batch assembly on the card host: the native library (it must
+    be the path taken) against the numpy path bitwise on a CIFAR-shaped
+    batch of 64 with flips, and each one's host ms; step wall ms of
+    TRAIN_STEPS stage-1 steps fed through the synchronous path and through
+    the producer thread, in turns, LM_LOADER_ROUNDS times (default mode,
+    synchronised at the end of each epoch); the
+    world-1 child's deterministic epochs on both paths, bitwise."""
+    import numpy as np
+
+    from nfdpm_tpu_torch.data import native
+    from nfdpm_tpu_torch.data.pipeline import prefetch_to_device
+    from nfdpm_tpu_torch.training import nf_trainer as nft
+
+    check(native.available(), f"the card host took the numpy batch assembly: {native.failure()}")
+    rng = np.random.default_rng(32)
+    images = rng.integers(0, 256, (1024, IMG, IMG, 3), dtype=np.uint8)
+    idx = rng.choice(len(images), BATCH, replace=False)
+    flips = (rng.random(BATCH) < 0.5).astype(np.uint8)
+    host_ms = {}  # the loader's thread count, every hardware thread, numpy
+    for path, use, threads in (("native", True, None), ("native_every_hardware_thread", True, 0),
+                               ("numpy", False, None)):
+        walls = []
+        for _ in range(LM_HOST_REPEATS):
+            t0 = time.perf_counter()
+            native.batch_gather_normalize(images, idx, flips, threads, native=use)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        host_ms[path] = median_of(walls)
+    host_ms["native_threads"] = native.default_threads(BATCH * IMG * IMG * 3 * 4)
+    bitwise = np.array_equal(native.batch_gather_normalize(images, idx, flips, native=True),
+                             native.batch_gather_normalize(images, idx, flips, native=False))
+
+    # the step's wall ms fed by each path, from one ddinit'ed state
+    cfg, tcfg = train_configs()
+    tx = nft.optimizer_of(tcfg)
+    loaders = train_loaders()
+    state = nft.init_train_state(TRAIN_SEED, cfg, tcfg, tx, MG_DEVICE)
+    state = nft.ddinit_train_state(state, cfg, tcfg, tx, mg_batches(torch, 1)[0],
+                                   torch.Generator(device=MG_DEVICE).manual_seed(1))
+    step = nft.make_train_step(cfg, tcfg, tx, device=MG_DEVICE)
+    step_ms = {"synchronous": [], "producer": []}
+    for _ in range(LM_LOADER_ROUNDS):  # the two paths in turns
+        for path in step_ms:
+            sync = path == "synchronous"
+            with synchronous_loader() if sync else contextlib.nullcontext():
+                batches = (synchronous_batches if sync else prefetch_to_device)(
+                    loaders.train.iter_epoch(1), torch.device(MG_DEVICE))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for batch, _ in batches:
+                    state, _ = step(state, batch, TRAIN_SEED)
+                torch.cuda.synchronize()
+            step_ms[path].append((time.perf_counter() - t0) * 1e3 / len(loaders.train))
+    step_ms["median"] = {path: median_of(walls) for path, walls in step_ms.items()}
+    det = children["world1"]["last_modules_loader"]
+    rec = {"batch": [BATCH, IMG, IMG, 3], "host_ms_a_batch": host_ms,
+           "native_equals_numpy_bitwise": bitwise, "step_wall_ms": step_ms,
+           "steps": len(loaders.train), "deterministic_epochs": det}
+    emit({"phase": "last_modules_loader_check", **rec})
+    check(bitwise, "(c) the native batch assembly is not the numpy path's bitwise")
+    check(det["native"], "(c) the world-1 child took the numpy batch assembly")
+    check(len(det["producer"]["bpd_by_step"]) == TRAIN_STEPS
+          and det["producer"]["bpd_by_step"] == det["synchronous"]["bpd_by_step"]
+          and det["state_bitwise_equal"],
+          f"(c) the producer thread's epoch is not the synchronous path's bitwise: state gap "
+          f"{det['state_max_gap']}")
+    return rec
+
+
+def phase_last_modules(torch, np, counters, smi, stage1_dir: Path, children: dict) -> dict:
+    """Phase 32 (see the module docstring); returns the launches of its
+    path: (a)'s steps, (b)'s VLB passes, (c)'s timed steps and the world-1
+    child's epochs."""
+    from nfdpm_tpu_torch.models.nf_backbone import load_pretrained_flow
+
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    backbone, flow = load_pretrained_flow(str(stage1_dir), 1, True, MG_DEVICE, True)
+    record = {"phase": "last_modules", "card": smi,
+              "a": lm_unet_options(torch, counters, backbone, flow),
+              "b": lm_per_part_vlb(torch, counters, backbone, flow)}
+    record["c"] = lm_loader(torch, counters, children)
+    here = counts(counters)
+    child = children["world1"]["last_modules_loader"]["launches"]
+    launches = {k: here[k] + child[k] for k in here}
+    seconds = time.perf_counter() - t0
+    record.update({"seconds": seconds, "budget_s": LM_BUDGET_S,
+                   "within_budget": seconds <= LM_BUDGET_S,
+                   "launches": {"this_process": here, "world1_child": child,
+                                "total": launches}})
+    emit(record)
+    return launches
+
+
+# -- the children of phases 28-31 ----------------------------------------------------
+
+MULTI_ROOT = ROOT / "build" / "chip_smoke" / "multi"
+MULTI_DIRS = {28: "multi_gpu", 29: "model_axis", 30: "pipeline", 31: "spatial"}
+
+
+def multi_dir(phase: int, root: Path = None) -> Path:
+    """Phase `phase`'s directory of the children's files under `root`."""
+    return (MULTI_ROOT if root is None else root) / MULTI_DIRS[phase]
+
+
+def multi_parts() -> set:
+    """The parts a child runs (MULTI_PARTS: "28", "29", "29a" (29 (a)
+    alone), "30", "31", "32" (phase 32 (c)'s deterministic epochs),
+    comma-separated)."""
+    return set(os.environ.get("MULTI_PARTS", "28,29,30,31,32").split(","))
+
+
+def child_part(torch, counters, fn, *args) -> None:
+    """One part of a child of phases 28-31: its launch counts from 0 and
+    read at its end (unless the part keeps its own), the device memory
+    still allocated as it starts beside its record, which is printed."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    for f in counters:
+        f.launches = 0
+    allocated = torch.cuda.memory_allocated() if MG_DEVICE == "cuda" else 0
+    record = fn(*args)
+    record.setdefault("launches", counts(counters))
+    record["allocated_at_start"] = allocated
+    emit(record)
+
+
+def child_world1(torch, root: Path, stage1_dir: Path) -> None:
+    """The world-1 child of phases 28-31 (no launch, deterministic mode):
+    the model axis's references first, phase 32 (c)'s deterministic epochs,
+    then phase 28's part, whose world of one over NCCL stays up to the
+    end."""
+    counters = kernel_counters()
+    set_deterministic(torch, True)
+    os.environ["NFDPM_NO_TENSORBOARD"] = "1"
+    parts = multi_parts()
+    if parts & {"29", "29a", "30", "31"}:
+        child_part(torch, counters, w1_model_axis, torch, counters, root, stage1_dir, parts)
+    if "32" in parts:
+        child_part(torch, counters, w1_loader_epochs, torch, counters, root / "last_modules")
+    if "28" in parts:
+        child_part(torch, counters, w1_multi_gpu, torch, counters, multi_dir(28, root),
+                   stage1_dir)
+
+
+def child_ranks2(torch, root: Path, stage1_dir: Path) -> None:
+    """A rank of the two-rank child of phases 28-31 (gloo ranks sharing this
+    card, or NCCL ranks on two cards; deterministic mode): one process group
+    for its parts in turn, phase 28's data axis, then the model axis's
+    (phases 29, 30, 31) under one ModelAxisSpy; each part makes its own mesh
+    (run_baseline.main and run_diffusion_prior.main theirs) and counts its
+    own launches."""
+    from nfdpm_tpu_torch.parallel import distributed
+
+    counters = kernel_counters()
+    set_deterministic(torch, True)
+    os.environ["NFDPM_NO_TENSORBOARD"] = "1"
+    check(distributed.initialize(device=MG_DEVICE), "the two-rank child found no launch")
+    parts = multi_parts()
+    try:
+        if "28" in parts:
+            child_part(torch, counters, r2_multi_gpu, torch, counters, multi_dir(28, root),
+                       stage1_dir)
+        if parts & {"29", "29a", "30", "31"}:
+            spy = ModelAxisSpy(torch, counters)
+            try:
+                if parts & {"29", "29a"}:
+                    child_part(torch, counters, r2_model_axis, torch, spy, root, stage1_dir,
+                               parts)
+                if "30" in parts:
+                    child_part(torch, counters, r2_pipeline, torch, spy, root)
+                if "31" in parts:
+                    child_part(torch, counters, r2_spatial, torch, spy, root)
+            finally:
+                spy.restore()
+    finally:
+        distributed.shutdown()
+
+
 # the children of phases 28-31, by role (--multi-gpu-child <role> ...)
-CHILD_ROLES = {"world1": mg_world1, "world2": mg_world2, "mt_world1": mt_world1,
-               "mt_model2": mt_model2, "mt_mesh4": mt_mesh4, "pp_stage": pp_stage,
-               "sp_world1": sp_world1, "sp_model2": sp_model2}
+CHILD_ROLES = {"world1": child_world1, "ranks2": child_ranks2, "mt_mesh4": mt_mesh4}
+
+
+def launch_children(stage1_dir: Path = None, root: Path = None,
+                    parts=frozenset({"28", "29", "30", "31", "32"}),
+                    backend: str = "gloo") -> dict:
+    """The children of phases 28-32 (`parts`, multi_parts' names), their
+    files under `root`, in at most three launch groups, in turn: the
+    two-rank child over `backend` (its model-2 stage-2 run writes the
+    states the world-1 child's same-state steps read), the world-1 child
+    (also phase 32 (c)'s deterministic epochs), and with phase 29 the four
+    gloo ranks of its (b). `stage1_dir` (phase 12's run, linked as
+    outputs/stage1 in each phase's directory) may be None where no part
+    reads it (29 (a) and 30). Their records:
+    {"ranks2": [{phase: record} a rank], "world1": {phase: record},
+    "mesh4": [record a rank]}."""
+    root = MULTI_ROOT if root is None else root
+    shutil.rmtree(root, ignore_errors=True)
+    for phase in MULTI_DIRS:
+        (multi_dir(phase, root) / "outputs").mkdir(parents=True)
+        if stage1_dir is not None:
+            (multi_dir(phase, root) / "outputs" / "stage1").symlink_to(stage1_dir)
+    stage1_dir = root if stage1_dir is None else stage1_dir  # the children's argument
+    base = dict(mt_env(), MULTI_PARTS=",".join(sorted(parts)))
+    phases2 = [name for part, name in (("28", "multi_gpu_world2"), ("29", "model_axis_model2"),
+                                       ("30", "pipeline_stage"), ("31", "spatial_model2"))
+               if part in parts or (part == "29" and "29a" in parts)]
+    phases1 = (["model_axis_world1"] if parts & {"29", "29a", "30", "31"} else []) + (
+        ["last_modules_loader"] if "32" in parts else []) + (
+        ["multi_gpu_world1"] if "28" in parts else [])
+    ranks2 = (mg_children("ranks2", root, stage1_dir, mt_launch(base, 2, backend), 2, phases2)
+              if phases2 else [])
+    (world1,) = mg_children("world1", root, stage1_dir, dict(base, MG_PORT=str(free_port())), 1,
+                            phases1)
+    mesh4 = ([r["model_axis_mesh4"] for r in mg_children(
+        "mt_mesh4", root, stage1_dir, mt_launch(base, 4, "gloo"), 4, ["model_axis_mesh4"])]
+        if "29" in parts else [])
+    for child in ranks2 + [world1]:
+        RECORDS.extend(child.values())
+    RECORDS.extend(mesh4)
+    return {"ranks2": ranks2, "world1": world1, "mesh4": mesh4}
+
+
+def run_child(torch, role: str, root: Path, stage1_dir: Path) -> None:
+    """A child of phases 28-31: its first record says when it was ready to
+    work (mg_children reads it), then its role runs."""
+    print(json.dumps({"phase": "child_ready", "role": role, "unix_time": time.time()}),
+          flush=True)
+    restart_clock()  # a record's elapsed_s: the child's work so far
+    CHILD_ROLES[role](torch, root, stage1_dir)
 
 
 def main() -> int:
@@ -5991,75 +6528,89 @@ def main() -> int:
     if sys.argv[1:2] == ["--multi-gpu-child"] and len(sys.argv) == 5:
         # a child of phase 28, started by this script with its environment
         port.disable_tf32()
-        role, root, stage1_dir = sys.argv[2], Path(sys.argv[3]), Path(sys.argv[4])
-        CHILD_ROLES[role](torch, root, stage1_dir)
+        run_child(torch, sys.argv[2], Path(sys.argv[3]), Path(sys.argv[4]))
         return 0
     if sys.argv[1:2] == ["--deterministic-resume"] and len(sys.argv) == 3:
         # phase 23's subprocess, started by this script with its environment
         port.disable_tf32()
         deterministic_resume(torch, counters, Path(sys.argv[2]))
         return 0
-    smi = phase_environment(torch, port)
-    phase_build(build)
+    smi = timed("environment", phase_environment, torch, port)
+    # phase 22 (b)'s commands use the card while nvcc runs on the host
+    stats_commands = StatsCommands() if not sys.argv[1:] else None
+    timed("build", phase_build, build)
     if sys.argv[1:] == ["--stage1-training"]:
-        phase_training(torch, counters)
+        timed("training", phase_training, torch, counters)
+        emit_phase_seconds()
         return 0
     if sys.argv[1:] == ["--run-dir-tools"]:
-        _, stage1_run, _, _ = phase_training(torch, counters)
-        _, stage2_run, _ = phase_stage2_training(torch, counters, stage1_run)
+        _, stage1_run, _, _ = timed("training", phase_training, torch, counters)
+        _, stage2_run, _ = timed("stage2_training", phase_stage2_training, torch, counters,
+                                 stage1_run)
         torch.cuda.empty_cache()
-        _, ema_run = phase_mid_epoch_resume(torch, counters, smi)
-        _, served = phase_run_dir_serving(torch, np, counters, smi, stage1_run, stage2_run,
-                                          ema_run)
-        phase_cli(np, smi, stage1_run, stage2_run, served)
+        _, ema_run = timed("mid_epoch_resume", phase_mid_epoch_resume, torch, counters, smi)
+        _, served = timed("run_dir_serving", phase_run_dir_serving, torch, np, counters, smi,
+                          stage1_run, stage2_run, ema_run)
+        timed("cli", phase_cli, np, smi, stage1_run, stage2_run, served)
+        emit_phase_seconds()
         return 0
     if sys.argv[1:] == ["--reference-checkpoints"]:
-        _, stage1_run, _, _ = phase_training(torch, counters)
-        _, stage2_run, _ = phase_stage2_training(torch, counters, stage1_run)
+        _, stage1_run, _, _ = timed("training", phase_training, torch, counters)
+        _, stage2_run, _ = timed("stage2_training", phase_stage2_training, torch, counters,
+                                 stage1_run)
         torch.cuda.empty_cache()
-        phase_reference_checkpoints(torch, np, counters, smi, stage1_run, stage2_run)
+        timed("reference_checkpoints", phase_reference_checkpoints, torch, np, counters, smi,
+              stage1_run, stage2_run)
+        emit_phase_seconds()
         return 0
     if sys.argv[1:] == ["--mixed-precision"]:
-        _, stage1_run, _, _ = phase_training(torch, counters)
-        phase_stage2_training(torch, counters, stage1_run)
+        _, stage1_run, _, _ = timed("training", phase_training, torch, counters)
+        timed("stage2_training", phase_stage2_training, torch, counters, stage1_run)
         torch.cuda.empty_cache()
-        phase_mixed_precision(torch, np, counters, smi, stage1_run)
+        timed("mixed_precision", phase_mixed_precision, torch, np, counters, smi, stage1_run)
+        emit_phase_seconds()
         return 0
-    if sys.argv[1:] == ["--multi-gpu"]:
-        _, stage1_run, _, _ = phase_training(torch, counters)
-        phase_stage2_training(torch, counters, stage1_run)
+    flags = {"--multi-gpu": ({"28"}, True), "--model-axis": ({"29"}, True),
+             "--pipeline": ({"30"}, False), "--spatial": ({"31"}, False)}
+    if sys.argv[1:2] and sys.argv[1] in flags and len(sys.argv) == 2:
+        parts, stage2 = flags[sys.argv[1]]
+        _, stage1_run, _, _ = timed("training", phase_training, torch, counters)
+        if stage2:
+            timed("stage2_training", phase_stage2_training, torch, counters, stage1_run)
         torch.cuda.empty_cache()
-        phase_multi_gpu(torch, np, counters, smi, stage1_run)
+        children = timed("multi_children", launch_children, stage1_run, parts=parts)
+        if "28" in parts:
+            timed("multi_gpu", phase_multi_gpu, torch, np, counters, smi, stage1_run, children)
+        if "29" in parts:
+            timed("model_axis", phase_model_axis, torch, np, counters, smi, children)
+        if "30" in parts:
+            timed("pipeline", phase_pipeline, torch, np, counters, smi, children)
+        if "31" in parts:
+            timed("spatial", phase_spatial, torch, np, counters, smi, children)
+        emit_phase_seconds()
         return 0
-    if sys.argv[1:] == ["--model-axis"]:
-        _, stage1_run, _, _ = phase_training(torch, counters)
-        phase_stage2_training(torch, counters, stage1_run)
+    if sys.argv[1:] == ["--last-modules"]:
+        _, stage1_run, _, _ = timed("training", phase_training, torch, counters)
         torch.cuda.empty_cache()
-        phase_model_axis(torch, np, counters, smi, stage1_run)
-        return 0
-    if sys.argv[1:] == ["--pipeline"]:
-        _, stage1_run, _, _ = phase_training(torch, counters)
-        phase_stage2_training(torch, counters, stage1_run)
-        torch.cuda.empty_cache()
-        phase_pipeline(torch, np, counters, smi)
-        return 0
-    if sys.argv[1:] == ["--spatial"]:
-        _, stage1_run, _, _ = phase_training(torch, counters)
-        torch.cuda.empty_cache()
-        phase_spatial(torch, np, counters, smi, stage1_run)
+        children = timed("multi_children", launch_children, stage1_run, parts={"32"})
+        timed("last_modules", phase_last_modules, torch, np, counters, smi, stage1_run,
+              children)
+        emit_phase_seconds()
         return 0
     if sys.argv[1:] == ["--model-axis-nccl"]:
-        phase_model_axis_nccl(torch, np, counters, smi)
+        timed("model_axis_nccl", phase_model_axis_nccl, torch, np, counters, smi)
+        emit_phase_seconds()
         return 0
     if sys.argv[1:] == ["--attention-backward"]:
         totals = {}
-        phase_attention_backward(torch, fla, attention_shapes(torch, stage2_prior(),
-                                                              torch.device("cuda")), totals)
+        timed("attention_backward", phase_attention_backward, torch, fla,
+              attention_shapes(torch, stage2_prior(), torch.device("cuda")), totals)
+        emit_phase_seconds()
         return 0
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
-    totals = phase_kernels(torch, cm, ct)
+    totals = timed("kernels", phase_kernels, torch, cm, ct)
 
     device = torch.device("cuda")
     cfg = glow_m.GlowConfig(levels=LEVELS, steps=STEPS, coupling_width=WIDTH)
@@ -6067,52 +6618,68 @@ def main() -> int:
               "prior": prior_m.init_gaussian_prior(glow_m.final_channels(cfg), True, device)}
     randomize_zero_leaves(torch, params, seed=1)
     unet_shapes = attention_shapes(torch, stage2_prior(), device)
-    totals["fused_linear_attention"] = phase_attention_kernel(torch, fla, unet_shapes)
-    phase_wrapper_host_steps(torch, cm, ct, fla, build)
-    phase_tail_route(torch)
+    totals["fused_linear_attention"] = timed("attention_kernel", phase_attention_kernel,
+                                             torch, fla, unet_shapes)
+    timed("host_steps", phase_wrapper_host_steps, torch, cm, ct, fla, build)
+    timed("tail_route", phase_tail_route, torch)
 
-    launches = {"glow": glow_path(torch, np, params, counters)}
-    totals["step_megakernel"] = phase_megakernel(torch, sm, bj)
-    launches["megakernel_glow"] = phase_megakernel_glow(torch, np, params, counters)
-    launches["stage2"], model = stage2_path(torch, np, params["flow"], counters)
-    phase_profile(torch, model, fla, unet_shapes)
+    launches = {"glow": timed("glow", glow_path, torch, np, params, counters)}
+    totals["step_megakernel"] = timed("megakernel", phase_megakernel, torch, sm, bj)
+    launches["megakernel_glow"] = timed("megakernel_glow", phase_megakernel_glow, torch, np,
+                                        params, counters)
+    launches["stage2"], model = timed("stage2", stage2_path, torch, np, params["flow"],
+                                      counters)
+    timed("profile", phase_profile, torch, model, fla, unet_shapes)
     del model, params
     torch.cuda.empty_cache()
 
-    phase_backward_kernels(torch, cm, ct, totals)
-    phase_attention_backward(torch, fla, unet_shapes, totals)
-    launches["training"], run_dir, out, loaders = phase_training(torch, counters)
-    phase_training_routes(torch, loaders, counters)
-    phase_resume(torch, run_dir, out, loaders)
+    timed("backward_kernels", phase_backward_kernels, torch, cm, ct, totals)
+    timed("attention_backward", phase_attention_backward, torch, fla, unet_shapes, totals)
+    launches["training"], run_dir, out, loaders = timed("training", phase_training, torch,
+                                                        counters)
+    timed("training_routes", phase_training_routes, torch, loaders, counters)
+    timed("resume", phase_resume, torch, run_dir, out, loaders)
     del out, loaders
     torch.cuda.empty_cache()
 
-    launches["stage2_training"], stage2_run, stage1_run = phase_stage2_training(
-        torch, counters, run_dir)
-    phase_stage2_routes(torch, counters, stage2_run, stage1_run)
-    launches["stage2_cotraining"] = phase_stage2_cotraining(torch, counters, stage1_run)
+    launches["stage2_training"], stage2_run, stage1_run = timed(
+        "stage2_training", phase_stage2_training, torch, counters, run_dir)
+    timed("stage2_routes", phase_stage2_routes, torch, counters, stage2_run, stage1_run)
+    launches["stage2_cotraining"] = timed("stage2_cotraining", phase_stage2_cotraining, torch,
+                                          counters, stage1_run)
     torch.cuda.empty_cache()
-    launches["sample_metrics_stage1"], launches["sample_metrics_stage2"] = (
-        phase_sample_metrics(torch, np, counters, smi, stage1_run, stage2_run))
+    launches["sample_metrics_stage1"], launches["sample_metrics_stage2"] = timed(
+        "sample_metrics", phase_sample_metrics, torch, np, counters, smi, stage1_run,
+        stage2_run, stats_commands)
     torch.cuda.empty_cache()
-    launches["mid_epoch_resume"], ema_run = phase_mid_epoch_resume(torch, counters, smi)
-    launches["run_dir_serving"], served = phase_run_dir_serving(
-        torch, np, counters, smi, stage1_run, stage2_run, ema_run)
-    phase_cli(np, smi, stage1_run, stage2_run, served)
-    launches["reference_checkpoints"] = phase_reference_checkpoints(
-        torch, np, counters, smi, stage1_run, stage2_run)
+    launches["mid_epoch_resume"], ema_run = timed("mid_epoch_resume", phase_mid_epoch_resume,
+                                                  torch, counters, smi)
+    launches["run_dir_serving"], served = timed(
+        "run_dir_serving", phase_run_dir_serving, torch, np, counters, smi, stage1_run,
+        stage2_run, ema_run)
+    timed("cli", phase_cli, np, smi, stage1_run, stage2_run, served)
+    launches["reference_checkpoints"] = timed(
+        "reference_checkpoints", phase_reference_checkpoints, torch, np, counters, smi,
+        stage1_run, stage2_run)
     torch.cuda.empty_cache()
-    launches["mixed_precision"] = phase_mixed_precision(torch, np, counters, smi, stage1_run)
+    launches["mixed_precision"] = timed("mixed_precision", phase_mixed_precision, torch, np,
+                                        counters, smi, stage1_run)
     torch.cuda.empty_cache()
-    launches["multi_gpu"] = phase_multi_gpu(torch, np, counters, smi, stage1_run)
+    # phases 28-31: their children in three launch groups, then each phase's gates
+    children = timed("multi_children", launch_children, stage1_run)
+    launches["multi_gpu"] = timed("multi_gpu", phase_multi_gpu, torch, np, counters, smi,
+                                  stage1_run, children)
     torch.cuda.empty_cache()
-    launches["model_axis"], world1 = phase_model_axis(torch, np, counters, smi, stage1_run)
+    launches["model_axis"] = timed("model_axis", phase_model_axis, torch, np, counters, smi,
+                                   children)
+    launches["pipeline"] = timed("pipeline", phase_pipeline, torch, np, counters, smi, children)
+    launches["spatial"], launches["spatial_world1_reference"] = timed(
+        "spatial", phase_spatial, torch, np, counters, smi, children)
     torch.cuda.empty_cache()
-    launches["pipeline"] = phase_pipeline(torch, np, counters, smi, world1)
+    launches["last_modules"] = timed("last_modules", phase_last_modules, torch, np, counters,
+                                     smi, stage1_run, children)
+    del children
     torch.cuda.empty_cache()
-    # the world-1 references of phase 31's stage 2, run in phase 29's child
-    launches["spatial"], launches["spatial_world1_reference"] = phase_spatial(
-        torch, np, counters, smi, stage1_run, world1)
 
     per = {"fused_linear_attention": "one UNet evaluation of each of the three parts at "
                                      "batch 64 (one DDIM step or one stage-2 train "
@@ -6156,6 +6723,7 @@ def main() -> int:
              "fused_linear_attention", "fused_linear_attention_bwd", "step_megakernel"]
     kernels.sort(key=lambda k: order.index(k["name"]))
     summary = {"kernels": kernels}
+    emit_phase_seconds()
     RECORDS.append(summary)
     print(json.dumps(summary), flush=True)
     print(smi, flush=True)
@@ -6169,6 +6737,10 @@ if __name__ == "__main__":
     try:
         sys.exit(main())
     finally:  # what the phases recorded, also when one of them failed
+        for proc in PROCESSES:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
         if RECORDS:
             out = ROOT / "chiprun_out" / "chip_smoke.json"
             out.parent.mkdir(exist_ok=True)

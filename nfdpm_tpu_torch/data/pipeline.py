@@ -12,19 +12,24 @@ The port's own copy of nfdpm_tpu/data/pipeline.py (numpy on the host):
     RandomHorizontalFlip) are whole-batch array ops; the flip draws from a
     seeded numpy Generator.
   * `host_shard` is a data-parallel rank's slice of a global batch.
-  * `prefetch_to_device` copies each batch to the device one batch ahead of
-    the step that uses it (pinned host memory, non-blocking copies).
+  * A batch is assembled (gather, [0, 1], flip) in one multithreaded C++
+    pass, or its numpy path where no compiler is found (native.py).
+  * `prefetch_to_device` assembles the batches and copies them to the
+    device on a producer thread, two batches ahead of the step that uses
+    them (pinned host memory, non-blocking copies).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import math
 from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from . import native
 from .datasets import (
     ArrayDataset,
     read_celeba,
@@ -78,11 +83,6 @@ def apply_static_transform(ds: ArrayDataset, data_name: str, img_size: int,
     return ArrayDataset(images, ds.labels, ds.name)
 
 
-def to_unit_float(images: np.ndarray) -> np.ndarray:
-    """ToTensor's [0,1] mapping, kept NHWC."""
-    return images.astype(np.float32) / 255.0
-
-
 # ---------------------------------------------------------------------------
 # Loaders
 # ---------------------------------------------------------------------------
@@ -122,7 +122,9 @@ class Loader:
         `start_batch` skips the first N batches for mid-epoch resume —
         the skipped batches' hflip draws are still consumed so batch N
         onward is bit-identical to the full epoch, while the gather and
-        normalize work is skipped for them."""
+        normalize work is skipped for them. A batch is assembled in one
+        pass (gather, ToTensor's [0, 1] map, flip) by native.py, the C++
+        library or its numpy path, which give the same bits."""
         n = len(self.dataset)
         idx = np.arange(n)
         rng = np.random.default_rng(self.seed + epoch)
@@ -138,11 +140,8 @@ class Loader:
             )
             if b < start_batch:
                 continue
-            imgs = to_unit_float(self.dataset.images[sel])
-            if flips is not None:
-                mask = flips.astype(bool)
-                imgs[mask] = imgs[mask, :, ::-1, :]
-            yield imgs, self.dataset.labels[sel]
+            yield native.batch_gather_normalize(self.dataset.images, sel, flips), \
+                self.dataset.labels[sel]
 
     def padded_batches(self) -> Iterator[Tuple[np.ndarray, np.ndarray, int]]:
         """One-shape eval iteration: the final partial batch is zero-padded;
@@ -254,42 +253,93 @@ def host_shard(batch, host_id: int, n_hosts: int):
 
 
 # ---------------------------------------------------------------------------
-# Host -> device, one batch ahead
+# Host -> device on a producer thread
 # ---------------------------------------------------------------------------
 
-def prefetch_to_device(iterator, device: torch.device):
+class _Failure:
+    """What the producer raised, carried through the queue."""
+
+    def __init__(self, error: BaseException):
+        self.error = error
+
+
+_END = object()
+JOIN_TIMEOUT_S = 5.0  # prefetch_to_device's wait for its producer to stop
+
+
+def prefetch_to_device(iterator, device: torch.device, size: int = 2):
     """Yield (images on `device`, labels, ...) for each (images, labels, ...)
-    of `iterator`, with the copy of the next batch started before the
-    current one is handed out. For a CUDA device the batch goes through
-    pinned host memory and a non-blocking copy on the current stream, so the
-    copy overlaps the host work of the step before it; for the CPU it is a
-    plain conversion.
+    of `iterator`, made on a background producer thread that runs
+    `iterator` (the batch assembly, the host sharding) and the copy up to
+    `size` batches ahead of the consumer, as the JAX package's
+    prefetch_to_device does. For a CUDA device the thread works on the
+    consumer's device and copies through pinned host memory,
+    non-blocking, on the consumer's current stream, so the copy is ordered
+    before any work the consumer enqueues after taking the batch (the
+    caching host allocator keeps a pinned block until its copy has run);
+    for the CPU it is a plain conversion.
 
     An exception from `iterator` (a KeyboardInterrupt among them) is raised
-    only after the batch already fetched has been handed out, so the
-    consumer takes every batch the iterator gave before it failed, as the
-    JAX package's producer queue hands out every batch put before one."""
+    after every batch it gave before it has been handed out. When the
+    consumer stops (the generator is closed, or an exception leaves it) the
+    thread is stopped and joined. Only a thread stuck inside `iterator` (a
+    stalled loader, the watchdog's case) is not waited for past
+    JOIN_TIMEOUT_S: it stops, doing nothing more, when its iterator gives
+    the next batch."""
+    import queue
+    import threading
+
+    cuda = device.type == "cuda"
+    if cuda:
+        index = device.index if device.index is not None else torch.cuda.current_device()
+        stream = torch.cuda.current_stream(index)
+    q: "queue.Queue" = queue.Queue(maxsize=size)
+    stop = threading.Event()
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.05)
+                return True
+            except queue.Full:
+                continue
+        return False
+
     def to_device(item):
         imgs = torch.from_numpy(np.ascontiguousarray(item[0], np.float32))
-        if device.type == "cuda":
-            imgs = imgs.pin_memory().to(device, non_blocking=True)
+        if cuda:
+            with torch.cuda.stream(stream):
+                imgs = imgs.pin_memory().to(torch.device("cuda", index), non_blocking=True)
         return (imgs,) + tuple(item[1:])
 
-    ahead, failure = None, None
-    items = iter(iterator)
-    while True:
+    def producer():
         try:
-            item = next(items)
-        except StopIteration:
-            break
-        except BaseException as e:  # noqa: B036 -- raised again below
-            failure = e
-            break
-        nxt = to_device(item)
-        if ahead is not None:
-            yield ahead
-        ahead = nxt
-    if ahead is not None:
-        yield ahead
-    if failure is not None:
-        raise failure
+            if cuda:
+                torch.cuda.set_device(index)
+            for item in iterator:
+                if stop.is_set() or not put(to_device(item)):
+                    return
+            put(_END)
+        except BaseException as e:  # noqa: B036 -- handed to the consumer
+            put(_Failure(e))
+
+    thread = threading.Thread(target=producer, name="prefetch_to_device", daemon=True)
+    thread.start()
+    try:
+        while True:
+            try:  # a bounded wait, so that an interrupt (the watchdog's) lands
+                item = q.get(timeout=0.05)
+            except queue.Empty:
+                continue
+            if item is _END:
+                return
+            if isinstance(item, _Failure):
+                raise item.error
+            yield item
+    finally:
+        stop.set()
+        thread.join(JOIN_TIMEOUT_S)
+        if thread.is_alive():  # inside a stalled `iterator`: it ends at its next batch
+            logging.getLogger(__name__).warning(
+                f"prefetch_to_device: the producer is still inside its iterator after "
+                f"{JOIN_TIMEOUT_S} s; it stops at the iterator's next batch")

@@ -1,7 +1,8 @@
 """DiffusionPrior: one UNet + GaussianDiffusion per formater-defined latent part.
 
 Counterpart of nfdpm_tpu/models/diffusion_prior.py: training losses,
-sampling, sampling given a start, interpolation and scoring. As in the JAX package, a
+sampling, sampling given a start, interpolation and scoring (the total VLB
+nats and the per-part, per-dim values). As in the JAX package, a
 part's weights live in the params tree {"parts": (unet_0, ..., unet_{n-1})},
 here one models/unet.Unet module per part, and every method takes that tree
 first. `use_kernels=False` takes the plain PyTorch version of the
@@ -11,7 +12,7 @@ linear-attention blocks instead of the CUDA kernel, for comparison.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -129,6 +130,31 @@ class DiffusionPrior:
                 for i, diff in enumerate(self.parts)]
 
     # -- evaluation ----------------------------------------------------------
+    def _per_part_nll_nats(self, params, latents: Sequence[torch.Tensor],
+                           generator: Optional[torch.Generator] = None,
+                           noise: Optional[Sequence[Sequence[torch.Tensor]]] = None
+                           ) -> List[Tuple[torch.Tensor, torch.Size]]:
+        """[(part's VLB, processed part's shape), ...] over the
+        formater-processed parts: GaussianDiffusion.neg_log_likelihood, a
+        sum of per-dim terms, per batch element. `noise[i][t]` is part i's
+        draw at t; otherwise the parts draw from `generator` in turn."""
+        processed = self.formater.process_latents(latents)
+        return [(diff.neg_log_likelihood(params["parts"][i], z, generator,
+                                         None if noise is None else noise[i]), z.shape)
+                for i, (diff, z) in enumerate(zip(self.parts, processed))]
+
+    def evaluate_neg_log_likelihood(self, params, latents: Sequence[torch.Tensor],
+                                    generator: Optional[torch.Generator] = None,
+                                    noise: Optional[Sequence[Sequence[torch.Tensor]]] = None
+                                    ) -> List[torch.Tensor]:
+        """Each part's VLB divided by its processed part's dim count, as the
+        JAX package's evaluate_neg_log_likelihood (the reference's
+        per-latent-dim NLL). The VLB is already a sum of per-dim terms, so
+        neg_log_likelihood_nats is sum_i value_i * dims_i**2 plus the
+        formater's stats_log_sigma_total()."""
+        return [nll / float(np.prod(shape[1:]))
+                for nll, shape in self._per_part_nll_nats(params, latents, generator, noise)]
+
     def neg_log_likelihood_nats(self, params, latents: Sequence[torch.Tensor],
                                 generator: Optional[torch.Generator] = None,
                                 noise: Optional[Sequence[Sequence[torch.Tensor]]] = None):
@@ -136,9 +162,6 @@ class DiffusionPrior:
         parts: each part's per-dim VLB times its dim count, plus the
         formater's sum(log std) when it standardizes. `noise[i][t]` is part
         i's draw at t."""
-        processed = self.formater.process_latents(latents)
-        return sum(diff.neg_log_likelihood(params["parts"][i], z, generator,
-                                           None if noise is None else noise[i])
-                   * float(np.prod(z.shape[1:]))
-                   for i, (diff, z) in enumerate(zip(self.parts, processed))
+        return sum(nll * float(np.prod(shape[1:]))
+                   for nll, shape in self._per_part_nll_nats(params, latents, generator, noise)
                    ) + self.formater.stats_log_sigma_total()

@@ -63,6 +63,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.bijectors import squeeze_forward
 from ..parallel import tensor_parallel as tp
@@ -292,14 +293,18 @@ class LinearAttention(nn.Module):
 
 class Attention(nn.Module):
     """Full softmax attention over the tokens, per head (mid block). `axis`
-    as LinearAttention's."""
+    as LinearAttention's. `stacked` folds the heads into the token axis:
+    one [heads*N, heads*N] similarity a batch row, its entries across heads
+    set to -inf before the softmax, so each row normalizes over its own
+    head's tokens: the same math and parameters (the JAX package's
+    Attention(stacked=True))."""
 
     axis = None
 
-    def __init__(self, dim: int, heads: int = 4, dim_head: int = 32):
+    def __init__(self, dim: int, heads: int = 4, dim_head: int = 32, stacked: bool = False):
         super().__init__()
         hidden = heads * dim_head
-        self.heads, self.dim_head = heads, dim_head
+        self.heads, self.dim_head, self.stacked = heads, dim_head, stacked
         self.w_qkv = nn.Parameter(torch.empty(dim, hidden * 3))
         self.w_out = nn.Parameter(torch.empty(hidden, dim))
         self.b_out = nn.Parameter(torch.zeros(dim))
@@ -312,8 +317,18 @@ class Attention(nn.Module):
         q, k, v = torch.matmul(x.reshape(b, n, c), w_qkv).split(hidden, dim=-1)
         q, k, v = (u.reshape(b, n, self.heads, self.dim_head).transpose(1, 2)
                    for u in (q, k, v))
-        sim = torch.matmul(q * (self.dim_head ** -0.5), k.transpose(-1, -2))
-        out = torch.matmul(torch.softmax(sim, dim=-1), v)
+        q = q * (self.dim_head ** -0.5)
+        if self.stacked:
+            hn = self.heads * n
+            q, k, v = (u.reshape(b, hn, self.dim_head) for u in (q, k, v))
+            head = torch.arange(hn, device=x.device) // n
+            sim = torch.matmul(q, k.transpose(-1, -2)).masked_fill(
+                head[:, None] != head[None, :], float("-inf"))
+            out = torch.matmul(torch.softmax(sim, dim=-1), v)
+            out = out.reshape(b, self.heads, n, self.dim_head)
+        else:
+            sim = torch.matmul(q, k.transpose(-1, -2))
+            out = torch.matmul(torch.softmax(sim, dim=-1), v)
         out = out.transpose(1, 2).reshape(b, n, hidden)
         return (torch.matmul(out, w_out) + self.b_out).reshape(b, h, w, c)
 
@@ -358,7 +373,13 @@ class Unet(nn.Module):
     """Input and output [B, H, W, C]; `time` is [B] or a length-1 vector
     that broadcasts over the batch (the samplers' batch-uniform t).
     `dtype` is the convolutions' compute dtype (torch_dtype: a torch dtype
-    or its name), fp32 by default."""
+    or its name), fp32 by default. `stacked_mid_attn`: the mid attention
+    in its stacked form (Attention). `remat`: every ResnetBlock (down, mid,
+    up and final) runs under torch.utils.checkpoint where a gradient is
+    recorded, its activations recomputed in the backward instead of kept,
+    as the JAX package's nn.remat(ResnetBlock); inside the recomputed
+    function fsdp gathers the block's weights again and the model axis's
+    collectives run again, in the same order on every rank."""
 
     def __init__(self, dim: int, init_dim: Optional[int] = None,
                  out_dim: Optional[int] = None, dim_mults: Sequence[int] = (1, 2, 4, 8),
@@ -366,9 +387,11 @@ class Unet(nn.Module):
                  resnet_block_groups: int = 8, learned_variance: bool = False,
                  learned_sinusoidal_cond: bool = False,
                  random_fourier_features: bool = False,
-                 learned_sinusoidal_dim: int = 16, dtype="float32"):
+                 learned_sinusoidal_dim: int = 16, dtype="float32",
+                 stacked_mid_attn: bool = False, remat: bool = False):
         super().__init__()
         self.dtype = dt = torch_dtype(dtype)
+        self.remat = remat
         self.self_condition = self_condition
         init_dim = init_dim or dim
         self.out_dim = out_dim or channels * (2 if learned_variance else 1)
@@ -400,7 +423,7 @@ class Unet(nn.Module):
             }))
         mid_dim = dims[-1]
         self.mid_res1 = ResnetBlock(mid_dim, mid_dim, time_dim, groups, dt)
-        self.mid_attn = PreNormResidual(mid_dim, Attention(mid_dim))
+        self.mid_attn = PreNormResidual(mid_dim, Attention(mid_dim, stacked=stacked_mid_attn))
         self.mid_res2 = ResnetBlock(mid_dim, mid_dim, time_dim, groups, dt)
         self.ups = nn.ModuleList()
         for ind, (d_in, d_out) in enumerate(reversed(in_out)):
@@ -427,10 +450,15 @@ class Unet(nn.Module):
                       if not any(n.startswith(u + ".") for u in units)]
 
     def _unit(self, name: str, module: nn.Module, *args):
-        if self.fsdp is None:
-            return module(*args)
-        with self.fsdp.swapped(module, name, [n for n, _ in module.named_parameters()]):
-            return module(*args)
+        def run(*args):
+            if self.fsdp is None:
+                return module(*args)
+            with self.fsdp.swapped(module, name, [n for n, _ in module.named_parameters()]):
+                return module(*args)
+
+        if self.remat and isinstance(module, ResnetBlock) and torch.is_grad_enabled():
+            return checkpoint(run, *args, use_reentrant=False)
+        return run(*args)
 
     def forward(self, x, time, x_self_cond=None, use_kernels: bool = True):
         if self.fsdp is None:

@@ -9,6 +9,11 @@ functions over a parameter dict of tensors:
     <name>_ddinit(params, x)         -> (new params, y)   # data-dependent init
                                      # (actnorm_ddinit takes x alone)
 
+identity_forward/identity_inverse take no params. The Glow step runs the
+actnorm and the 1x1 conv folded into one channel mix
+(fused_actnorm_invconv_forward); actnorm_forward then invconv_forward is
+the same map, unfused.
+
 Parameter init is host-side numpy from the same generator calls as the JAX
 package, so one integer seed gives the same weights in both;
 convert.tree_to_device moves a tree onto its device in one pass.
@@ -70,6 +75,18 @@ def as_host_rng(seed_or_rng) -> np.random.Generator:
 
 
 # ---------------------------------------------------------------------------
+# Identity
+# ---------------------------------------------------------------------------
+
+def identity_forward(x: torch.Tensor, ldj: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    return x, ldj
+
+
+def identity_inverse(y: torch.Tensor) -> torch.Tensor:
+    return y
+
+
+# ---------------------------------------------------------------------------
 # ActNorm
 # ---------------------------------------------------------------------------
 
@@ -77,6 +94,21 @@ def init_actnorm(channels: int) -> Params:
     """Zero init (log-scale and bias); a trained or imported model fills them."""
     return {"scale": np.zeros((channels,), np.float32),
             "bias": np.zeros((channels,), np.float32)}
+
+
+def actnorm_forward(params: Params, x: torch.Tensor,
+                    ldj: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """y = exp(scale) * (x + bias); ldj += H*W*sum(scale). x: [B, H, W, C].
+    The Glow step runs it folded into the 1x1 conv
+    (fused_actnorm_invconv_forward)."""
+    h, w = x.shape[1], x.shape[2]
+    y = torch.exp(params["scale"]) * (x + params["bias"])
+    return y, ldj + (h * w) * torch.sum(params["scale"]).to(ldj.dtype)
+
+
+def actnorm_inverse(params: Params, y: torch.Tensor) -> torch.Tensor:
+    """x = y * exp(-scale) - bias."""
+    return y * torch.exp(-params["scale"]) - params["bias"]
 
 
 @torch.no_grad()
@@ -143,6 +175,23 @@ def invconv_weight(params: Params) -> torch.Tensor:
         return params["weight"]
     l, u = _plu_factors(params)
     return params["p_mat"] @ (l @ u)
+
+
+def invconv_forward(params: Params, x: torch.Tensor,
+                    ldj: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """y[..., o] = sum_c W[o, c] x[..., c]; ldj += H*W*log|det W|. As the
+    JAX package's invconv_weight does, W takes no gradient into the fixed
+    PLU factors p_mat and sign."""
+    h, w = x.shape[1], x.shape[2]
+    fixed = params if "weight" in params else dict(
+        params, p_mat=params["p_mat"].detach(), sign=params["sign"].detach())
+    y = torch.matmul(x, invconv_weight(fixed).T)
+    return y, ldj + (h * w) * invconv_logdet(params).to(ldj.dtype)
+
+
+def invconv_inverse(params: Params, y: torch.Tensor) -> torch.Tensor:
+    """x[..., c] = sum_o W^{-1}[c, o] y[..., o]."""
+    return torch.matmul(y, invconv_inverse_weight(params).T)
 
 
 def invconv_inverse_weight(params: Params) -> torch.Tensor:

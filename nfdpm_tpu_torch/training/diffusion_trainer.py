@@ -583,7 +583,7 @@ def train(*, backbone: NFBackbone, flow_params, dp: DiffusionPrior,
     profiler = EpochProfiler(os.path.join(run_dir, "tb"), tcfg.profile_epoch,
                              tcfg.profile_steps, device, logger)
     log_count = 0
-    epoch, iters_this_epoch = start_epoch, 0
+    epoch, iters_this_epoch, batches = start_epoch, 0, None
     try:
         for epoch in range(start_epoch + 1, start_epoch + tcfg.epochs + 1):
             t0 = time.time()
@@ -593,8 +593,9 @@ def train(*, backbone: NFBackbone, flow_params, dp: DiffusionPrior,
             iters_this_epoch = skip
             wd.start()  # the step loop only (nf_trainer.train)
             profiler.start_epoch(epoch)
-            for batch, _labels in prefetch_to_device(rows_of(
-                    loaders.train.iter_epoch(epoch - 1, start_batch=skip)), device):
+            batches = prefetch_to_device(rows_of(
+                loaders.train.iter_epoch(epoch - 1, start_batch=skip)), device)
+            for batch, _labels in batches:
                 with interrupt_after_block():
                     with timer.step():
                         state, metrics = train_step(state, batch, seed)
@@ -651,9 +652,11 @@ def train(*, backbone: NFBackbone, flow_params, dp: DiffusionPrior,
                        f"resume bit for bit with load.load_epoch={epoch} "
                        f"load.load_batch={iters_this_epoch}")
         raise
-    finally:  # whatever ends the loop, no watchdog or trace outlives it
+    finally:  # whatever ends the loop, no watchdog, trace or producer thread outlives it
         wd.stop()
         profiler.end_epoch()
+        if batches is not None:
+            batches.close()
 
     final_epoch = start_epoch + tcfg.epochs
     save(final_epoch)

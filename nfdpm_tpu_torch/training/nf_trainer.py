@@ -546,7 +546,7 @@ def train(*, cfg: glow_m.GlowConfig, tcfg: NFTrainConfig, loaders: DatasetLoader
     profiler = EpochProfiler(os.path.join(run_dir, "tb"), tcfg.profile_epoch,
                              tcfg.profile_steps, device, logger)
     log_count = 0
-    epoch, iters_this_epoch = start_epoch, 0
+    epoch, iters_this_epoch, batches = start_epoch, 0, None
     try:
         for epoch in range(start_epoch + 1, start_epoch + tcfg.epochs + 1):
             t0 = time.time()
@@ -557,8 +557,9 @@ def train(*, cfg: glow_m.GlowConfig, tcfg: NFTrainConfig, loaders: DatasetLoader
             wd.start()  # watches the step loop only: the checkpoint epoch's
             # evaluation and save below may take longer than a step timeout
             profiler.start_epoch(epoch)
-            for batch, _labels in prefetch_to_device(rows_of(
-                    loaders.train.iter_epoch(epoch - 1, start_batch=skip)), device):
+            batches = prefetch_to_device(rows_of(
+                loaders.train.iter_epoch(epoch - 1, start_batch=skip)), device)
+            for batch, _labels in batches:
                 with interrupt_after_block():
                     with timer.step():
                         state, metrics = train_step(state, batch, seed)
@@ -612,9 +613,11 @@ def train(*, cfg: glow_m.GlowConfig, tcfg: NFTrainConfig, loaders: DatasetLoader
                        f"resume bit for bit with load.load_epoch={epoch} "
                        f"load.load_batch={iters_this_epoch}")
         raise
-    finally:  # whatever ends the loop, no watchdog or trace outlives it
+    finally:  # whatever ends the loop, no watchdog, trace or producer thread outlives it
         wd.stop()
         profiler.end_epoch()
+        if batches is not None:
+            batches.close()
 
     final_epoch = start_epoch + tcfg.epochs
     save(final_epoch)

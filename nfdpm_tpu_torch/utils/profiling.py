@@ -1,7 +1,12 @@
-"""Profiling hooks of the training loops: an epoch's trace and step times.
+"""Profiling hooks: a traced code region, named regions in a trace, an
+epoch's trace and step times.
 
-Counterpart of nfdpm_tpu/utils/profiling.py (EpochProfiler, StepTimer),
-with torch.profiler in place of jax.profiler:
+Counterpart of nfdpm_tpu/utils/profiling.py (trace_window, annotate,
+EpochProfiler, StepTimer), with torch.profiler in place of jax.profiler:
+
+    with trace_window("/tmp/nfdpm_trace"):
+        with annotate("train_step"):
+            state, metrics = train_step(state, batch, seed)
 
     profiler = EpochProfiler(os.path.join(run_dir, "tb"), profile_epoch=2,
                              max_steps=50, device=device)
@@ -28,6 +33,37 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+
+
+@contextlib.contextmanager
+def trace_window(log_dir: str, enabled: bool = True):
+    """torch.profiler trace around a code region: CPU activities and, where
+    CUDA is available, CUDA ones, written on exit as a Chrome trace under
+    `log_dir` (`<host>_<pid>.<ms>.pt.trace.json`, torch.profiler's
+    TensorBoard layout: `tensorboard --logdir log_dir` with the PyTorch
+    profiler plugin, or chrome://tracing, Perfetto). Yields the profiler
+    (None when not `enabled`, which traces nothing)."""
+    if not enabled:
+        yield None
+        return
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with torch.profiler.profile(
+            activities=activities,
+            on_trace_ready=torch.profiler.tensorboard_trace_handler(log_dir)) as prof:
+        try:
+            yield prof
+        finally:
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+
+
+def annotate(name: str):
+    """A named region in a profiler trace (torch.profiler.record_function;
+    as a context manager or a decorator)."""
+    return torch.profiler.record_function(name)
 
 
 class EpochProfiler:

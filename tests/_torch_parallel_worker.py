@@ -8,7 +8,8 @@ directory, as a ("data", "model") mesh of the job's "n_model" and
 are tests/_torch_tp_scenarios.py, parameter partitioning's
 tests/_torch_fsdp_scenarios.py, the pipeline's
 tests/_torch_pipeline_scenarios.py, spatial partitioning's and split
-GroupNorm's tests/_torch_spatial_scenarios.py) (no TCP port, so that test
+GroupNorm's tests/_torch_spatial_scenarios.py, the UNet's remat
+tests/_torch_unet_option_scenarios.py) (no TCP port, so that test
 workers running side by side cannot collide), runs the job's scenarios in
 order on the CPU and writes what each records to
 <dir>/<scenario>_r<rank>.npz. Imports the port only (no
@@ -35,6 +36,7 @@ import _torch_fsdp_scenarios  # noqa: E402
 import _torch_pipeline_scenarios  # noqa: E402
 import _torch_spatial_scenarios  # noqa: E402
 import _torch_tp_scenarios  # noqa: E402
+import _torch_unet_option_scenarios  # noqa: E402
 
 
 def flat(tree, prefix):
@@ -288,6 +290,7 @@ SCENARIOS.update(_torch_tp_scenarios.SCENARIOS)  # the model axis
 SCENARIOS.update(_torch_fsdp_scenarios.SCENARIOS)  # parameters over the data axis
 SCENARIOS.update(_torch_pipeline_scenarios.SCENARIOS)  # the pipeline
 SCENARIOS.update(_torch_spatial_scenarios.SCENARIOS)  # image rows, split GroupNorm
+SCENARIOS.update(_torch_unet_option_scenarios.SCENARIOS)  # the UNet's remat
 
 
 def main() -> int:

@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Rehearse chip_smoke.py's phases 28 ("multi_gpu"), 29 ("model_axis"), 30
-("pipeline") and 31 ("spatial") on the CPU at a tiny size.
+("pipeline"), 31 ("spatial") and 32 ("last_modules") on the CPU at a tiny
+size.
 
-    python3 tools/rehearse_multi_gpu.py [--dir DIR] [--phases 28 29 30 31]
+    python3 tools/rehearse_multi_gpu.py [--dir DIR] [--phases 28 29 30 31 32]
 
-Runs the phases' own code (their children too: for 28 a world of one,
-then two gloo ranks; for 29 a world of one, two ranks at (data 1, model 2)
-and four at (data 2, model 2); for 30 a world of one and two pipeline
-stages; for 31 a world of one and two spatial ranks) with the Glow cut to
-L2/K2, width 16, 16x16x3 (the spatial guard's least size at L2 and model
+Runs the phases' own code (their children too, in chip_smoke.py's launch
+groups: one two-rank child that runs 28's data axis, 29's (data 1, model
+2), 30's two pipeline stages and 31's two spatial ranks in turn, one
+world-1 child with every reference and 32's deterministic epochs, and for
+29 four ranks at (data 2, model 2)) with the Glow cut to L2/K2, width 16,
+16x16x3 (the spatial guard's least size at L2 and model
 2), batch 8, the UNets to dim 8 (2 groups; phase 31's 1) and T = 8, on the
 CPU: gloo in place of NCCL, `device=cpu` and `--device cpu` on the entry
 points and tools, FSDP_MIN_SIZE 64 so that leaves are partitioned at all.
@@ -54,6 +56,8 @@ def cut_to_size() -> None:
     cs.stage2_per_step = lambda frozen: no_launches
     cs.stage1_run_launches = lambda steps, evals: no_launches
     cs.pp_step_launches = lambda stage, n_stages=2: no_launches
+    cs.vlb_pass_launches = lambda timesteps: no_launches
+    torch.cuda.memory_allocated = lambda *a, **k: 0
     cs.sampling_chunk = lambda sampling_timesteps=0: no_launches
     stage2_overrides = cs.stage2_overrides
     cs.stage2_overrides = lambda name, steps=cs.STAGE2_STEPS: stage2_overrides(name, steps) + [
@@ -68,37 +72,34 @@ def cut_to_size() -> None:
 def main() -> int:
     cut_to_size()
     if sys.argv[1:2] == ["--child"]:  # a child of the phase, started by it
-        role, root, stage1 = sys.argv[2], Path(sys.argv[3]), Path(sys.argv[4])
-        cs.CHILD_ROLES[role](torch, root, stage1)
+        cs.run_child(torch, sys.argv[2], Path(sys.argv[3]), Path(sys.argv[4]))
         return 0
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--dir", default=str(ROOT / "build" / "rehearse_multi_gpu"),
                     help="where the stage-1 run and the phases' files go")
-    ap.add_argument("--phases", nargs="+", type=int, choices=(28, 29, 30, 31),
-                    default=[28, 29, 30, 31])
+    ap.add_argument("--phases", nargs="+", type=int, choices=(28, 29, 30, 31, 32),
+                    default=[28, 29, 30, 31, 32])
     args = ap.parse_args()
     from nfdpm_tpu_torch.training import nf_trainer as nft
 
     cs.ROOT = Path(args.dir)
+    cs.MULTI_ROOT = cs.ROOT / "build" / "chip_smoke" / "multi"
     stage1 = cs.ROOT / "stage1"
     if not (stage1 / "checkpoints" / "model_gaussian_001.pt").exists():
         cfg, tcfg = cs.train_configs()
         nft.train(cfg=cfg, tcfg=tcfg, loaders=cs.train_loaders(4), run_dir=str(stage1),
                   logger=logging.getLogger("rehearsal"), seed=cs.TRAIN_SEED,
                   img_size=cs.IMG, device="cpu")
-    world1 = None  # phase 29's world-1 run, which 30 and 31 reuse as in chip_smoke.main
-
-    def model_axis(*a):
-        nonlocal world1
-        launches, world1 = cs.phase_model_axis(*a, stage1)
-        return launches
-
-    phases = {28: lambda *a: cs.phase_multi_gpu(*a, stage1), 29: model_axis,
-              30: lambda *a: cs.phase_pipeline(*a, world1),
-              31: lambda *a: cs.phase_spatial(*a, stage1, world1)}
-    for phase in args.phases:
-        launches = phases[phase](torch, np, cs.kernel_counters(), "CPU rehearsal")
-        print(f"phase {phase} launches", launches)
+    # the phases' children, as chip_smoke.main launches them
+    children = cs.launch_children(stage1, parts={str(p) for p in args.phases})
+    counters, card = cs.kernel_counters(), "CPU rehearsal"
+    phases = {28: lambda: cs.phase_multi_gpu(torch, np, counters, card, stage1, children),
+              29: lambda: cs.phase_model_axis(torch, np, counters, card, children),
+              30: lambda: cs.phase_pipeline(torch, np, counters, card, children),
+              31: lambda: cs.phase_spatial(torch, np, counters, card, children),
+              32: lambda: cs.phase_last_modules(torch, np, counters, card, stage1, children)}
+    for phase in sorted(args.phases):
+        print(f"phase {phase} launches", phases[phase]())
     print("REHEARSAL OK")
     return 0
 
