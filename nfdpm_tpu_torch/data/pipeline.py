@@ -29,6 +29,7 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils.profiling import annotate, count
 from . import native
 from .datasets import (
     ArrayDataset,
@@ -267,6 +268,18 @@ _END = object()
 JOIN_TIMEOUT_S = 5.0  # prefetch_to_device's wait for its producer to stop
 
 
+def _take(q):
+    """The next item of queue `q`, waited for in bounded waits, so that an
+    interrupt (the watchdog's) lands."""
+    import queue
+
+    while True:
+        try:
+            return q.get(timeout=0.05)
+        except queue.Empty:
+            continue
+
+
 def prefetch_to_device(iterator, device: torch.device, size: int = 2):
     """Yield (images on `device`, labels, ...) for each (images, labels, ...)
     of `iterator`, made on a background producer thread that runs
@@ -285,7 +298,12 @@ def prefetch_to_device(iterator, device: torch.device, size: int = 2):
     thread is stopped and joined. Only a thread stuck inside `iterator` (a
     stalled loader, the watchdog's case) is not waited for past
     JOIN_TIMEOUT_S: it stops, doing nothing more, when its iterator gives
-    the next batch."""
+    the next batch.
+
+    Spans: the producer's `loader.assemble` (the iterator's batch) and
+    `loader.copy` (pinned, non-blocking), the consumer's `loader.wait`
+    (blocked on an empty queue); counters `loader.batches` (handed to the
+    queue) and `loader.empty_takes` (takes that found it empty)."""
     import queue
     import threading
 
@@ -316,9 +334,17 @@ def prefetch_to_device(iterator, device: torch.device, size: int = 2):
         try:
             if cuda:
                 torch.cuda.set_device(index)
-            for item in iterator:
-                if stop.is_set() or not put(to_device(item)):
+            items = iter(iterator)
+            while True:
+                with annotate("loader.assemble"):
+                    item = next(items, _END)
+                if item is _END:
+                    break
+                with annotate("loader.copy"):
+                    item = to_device(item)
+                if stop.is_set() or not put(item):
                     return
+                count("loader.batches")
             put(_END)
         except BaseException as e:  # noqa: B036 -- handed to the consumer
             put(_Failure(e))
@@ -327,10 +353,12 @@ def prefetch_to_device(iterator, device: torch.device, size: int = 2):
     thread.start()
     try:
         while True:
-            try:  # a bounded wait, so that an interrupt (the watchdog's) lands
-                item = q.get(timeout=0.05)
+            try:
+                item = q.get_nowait()
             except queue.Empty:
-                continue
+                count("loader.empty_takes")
+                with annotate("loader.wait"):
+                    item = _take(q)
             if item is _END:
                 return
             if isinstance(item, _Failure):

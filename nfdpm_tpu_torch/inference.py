@@ -35,6 +35,7 @@ from .models import prior as prior_m
 from .models.diffusion_prior import DiffusionPrior
 from .models.nf_backbone import NFBackbone
 from .ops import quantize as q
+from .utils.profiling import annotate
 
 
 def _on(device: torch.device, a) -> torch.Tensor:
@@ -98,16 +99,18 @@ def make_sample_fn(cfg: glow_m.GlowConfig, img_size: int, n_bits: int = 5,
     def sample(params, n: int, temperature: float = 1.0,
                generator: Optional[torch.Generator] = None,
                noise: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
-        if noise is not None:
-            noise = [_on(device, e) for e in noise]
-        elif generator is None:
-            raise ValueError("sample needs a generator or noise")
-        z_last = prior_m.gaussian_prior_sample(
-            params["prior"], generator, (n, h, w, c), temperature,
-            None if noise is None else noise[-1])
-        x = glow_m.inverse(params["flow"], cfg, [z_last], generator, temperature, noise,
-                           model)
-        return q.postprocess(x, n_bits)
+        with annotate("glow.sample"):
+            if noise is not None:
+                noise = [_on(device, e) for e in noise]
+            elif generator is None:
+                raise ValueError("sample needs a generator or noise")
+            z_last = prior_m.gaussian_prior_sample(
+                params["prior"], generator, (n, h, w, c), temperature,
+                None if noise is None else noise[-1])
+            x = glow_m.inverse(params["flow"], cfg, [z_last], generator, temperature, noise,
+                               model)
+            with annotate("quantize.postprocess"):
+                return q.postprocess(x, n_bits)
 
     sample.device = device
     return sample
@@ -130,14 +133,16 @@ def make_diffusion_sample_fn(backbone: NFBackbone, dp: DiffusionPrior, n_bits: i
                generator: Optional[torch.Generator] = None,
                noise: Optional[Sequence[Sequence[torch.Tensor]]] = None,
                return_latents: bool = False):
-        if noise is not None:
-            noise = [[_on(device, e) for e in part] for part in noise]
-        elif generator is None:
-            raise ValueError("sample needs a generator or noise")
-        latents = dp.sample_latents(params["diffusion"], n, generator, noise)
-        x = backbone.invert(params["flow"], latents, temperature=temperature)
-        images = q.postprocess(x, n_bits)
-        return (images, latents) if return_latents else images
+        with annotate("nfdp.sample"):
+            if noise is not None:
+                noise = [[_on(device, e) for e in part] for part in noise]
+            elif generator is None:
+                raise ValueError("sample needs a generator or noise")
+            latents = dp.sample_latents(params["diffusion"], n, generator, noise)
+            x = backbone.invert(params["flow"], latents, temperature=temperature)
+            with annotate("quantize.postprocess"):
+                images = q.postprocess(x, n_bits)
+            return (images, latents) if return_latents else images
 
     sample.device = device
     return sample

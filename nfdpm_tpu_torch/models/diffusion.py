@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from ..ops import draws
+from ..utils.profiling import annotate
 
 Time = Union[int, torch.Tensor]
 
@@ -406,17 +407,18 @@ class GaussianDiffusion:
         x_sc = torch.zeros_like(img)
         zero = np.float32(0.0)
         for j, (t, t_next) in enumerate(zip(times[:-1], times[1:])):
-            sc = x_sc if self.cfg.self_condition else None
-            pred_noise, x_sc = self.model_predictions(params, img, t, sc, clip_x_start=True)
-            alpha = ac[t]
-            alpha_next = np.float32(1.0) if t_next < 0 else ac[t_next]
-            sigma = eta * np.sqrt(np.maximum(
-                (1 - alpha / alpha_next) * (1 - alpha_next) / (1 - alpha), zero))
-            c = np.sqrt(np.maximum(1 - alpha_next - sigma ** 2, zero))
-            img = x_sc * float(np.sqrt(alpha_next)) + float(c) * pred_noise
-            if sigma > 0:
-                img = img + float(sigma) * self._step_noise(shape, generator, noise, j,
-                                                            img.device)
+            with annotate("ddim.step"):
+                sc = x_sc if self.cfg.self_condition else None
+                pred_noise, x_sc = self.model_predictions(params, img, t, sc, clip_x_start=True)
+                alpha = ac[t]
+                alpha_next = np.float32(1.0) if t_next < 0 else ac[t_next]
+                sigma = eta * np.sqrt(np.maximum(
+                    (1 - alpha / alpha_next) * (1 - alpha_next) / (1 - alpha), zero))
+                c = np.sqrt(np.maximum(1 - alpha_next - sigma ** 2, zero))
+                img = x_sc * float(np.sqrt(alpha_next)) + float(c) * pred_noise
+                if sigma > 0:
+                    img = img + float(sigma) * self._step_noise(shape, generator, noise, j,
+                                                                img.device)
         return self.unnormalize(img)
 
     def dpmpp_sample(self, params, shape, generator: Optional[torch.Generator] = None,

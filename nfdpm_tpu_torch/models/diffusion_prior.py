@@ -21,6 +21,7 @@ from .. import resolve_device
 from .diffusion import DiffusionConfig, GaussianDiffusion
 from .formaters import BaseFormater
 from .unet import Unet, init_unet_, to_device
+from ..utils.profiling import annotate
 
 
 @dataclasses.dataclass
@@ -102,9 +103,11 @@ class DiffusionPrior:
         """Each part's chain, then formater.postprocess. `noise[i]` is part
         i's injected chain noise (see models/diffusion.py); otherwise the
         parts draw from `generator` one after the other."""
-        samples = [diff.sample(params["parts"][i], n, generator,
-                               None if noise is None else noise[i])
-                   for i, diff in enumerate(self.parts)]
+        samples = []
+        for i, diff in enumerate(self.parts):
+            with annotate("prior.part"):
+                samples.append(diff.sample(params["parts"][i], n, generator,
+                                           None if noise is None else noise[i]))
         return self.formater.postprocess(samples)
 
     def sample_latents_given_start(self, params, processed: Sequence[torch.Tensor],

@@ -23,6 +23,7 @@ from torch.utils.checkpoint import checkpoint
 from .. import resolve_device
 from ..convert import tree_to_device
 from ..ops import bijectors as bj
+from ..utils.profiling import annotate
 
 Params = dict
 
@@ -131,6 +132,11 @@ def forward(params: Params, cfg: GlowConfig, x: torch.Tensor,
     `logp` the partial sums over its pixels.
 
     Returns (latent parts [z_1..z_{L-1}, y_final], ldj [B], logp [B] or None)."""
+    with annotate("glow.forward"):
+        return _forward(params, cfg, x, ldj, logp, with_logp, model, fsdp, rows)
+
+
+def _forward(params, cfg, x, ldj, logp, with_logp, model, fsdp, rows):
     b = x.shape[0]
     if ldj is None:
         ldj = torch.zeros((b,), dtype=torch.float32, device=x.device)
@@ -152,9 +158,10 @@ def forward(params: Params, cfg: GlowConfig, x: torch.Tensor,
     for i, block in enumerate(params["blocks"]):
         y = bj.squeeze_forward(y)
         y, ldj = steps(block["steps"], f"blocks/{i}/steps", y, ldj)
-        split = block["split"] if fsdp is None else fsdp.gather(block["split"],
-                                                                f"blocks/{i}/split")
-        y, ldj, z, logp = bj.split_forward(split, y, ldj, logp, rows)
+        with annotate("glow.split"):
+            split = block["split"] if fsdp is None else fsdp.gather(block["split"],
+                                                                    f"blocks/{i}/split")
+            y, ldj, z, logp = bj.split_forward(split, y, ldj, logp, rows)
         latents.append(z)
 
     y = bj.squeeze_forward(y)
@@ -196,6 +203,11 @@ def inverse(params: Params, cfg: GlowConfig, latents: Sequence[torch.Tensor],
     per-level part is sampled from its split prior at `temperature`, from
     `noise[i]` ~ N(0, 1) when given (aligned with the latent parts), else
     from `generator`."""
+    with annotate("glow.inverse"):
+        return _inverse(params, cfg, latents, generator, temperature, noise, model)
+
+
+def _inverse(params, cfg, latents, generator, temperature, noise, model):
     dtype = cfg.compute_dtype
     y = latents[-1]
     for sp in reversed(params["final_steps"]):
@@ -209,7 +221,8 @@ def inverse(params: Params, cfg: GlowConfig, latents: Sequence[torch.Tensor],
         if z is None and eps is None and generator is None:
             raise ValueError("a generator or noise is needed to sample the "
                              "missing latent parts")
-        y = bj.split_inverse(block["split"], y, z, generator, temperature, eps)
+        with annotate("glow.split"):
+            y = bj.split_inverse(block["split"], y, z, generator, temperature, eps)
         for sp in reversed(block["steps"]):
             y = bj.step_inverse(sp, y, cfg.use_kernels, dtype, model)
         y = bj.squeeze_inverse(y)

@@ -69,6 +69,7 @@ from ..ops.bijectors import squeeze_forward
 from ..parallel import tensor_parallel as tp
 from ..ops.kernels.fused_linear_attention import (fused_linear_attention,
                                                   fused_linear_attention_plain)
+from ..utils.profiling import annotate
 
 EPS = 1e-5
 
@@ -257,6 +258,7 @@ class ResnetBlock(nn.Module):
         self.block1 = Block(dim_out, dim_out, groups, dtype)
         self.res_conv = Conv(dim_in, dim_out, 1, dtype=dtype) if dim_in != dim_out else None
 
+    @annotate("unet.resnet")
     def forward(self, x, time_emb):
         h_t = self.time_dense(F.silu(time_emb))[:, None, None, :]
         scale, shift = h_t.chunk(2, dim=-1)
@@ -286,9 +288,11 @@ class LinearAttention(nn.Module):
 
     def forward(self, x, use_kernels: bool = True):
         fn = fused_linear_attention if use_kernels else fused_linear_attention_plain
-        return fn(x.contiguous(), tp.gather_from_model(self.axis, self.w_qkv, 1),
-                  tp.gather_from_model(self.axis, self.w_out, 0), self.b_out, self.g,
-                  self.heads, self.dim_head)
+        x = x.contiguous()
+        w_qkv = tp.gather_from_model(self.axis, self.w_qkv, 1)
+        w_out = tp.gather_from_model(self.axis, self.w_out, 0)
+        with annotate("unet.linear_attention"):
+            return fn(x, w_qkv, w_out, self.b_out, self.g, self.heads, self.dim_head)
 
 
 class Attention(nn.Module):
@@ -309,6 +313,7 @@ class Attention(nn.Module):
         self.w_out = nn.Parameter(torch.empty(hidden, dim))
         self.b_out = nn.Parameter(torch.zeros(dim))
 
+    @annotate("unet.mid_attention")
     def forward(self, x, use_kernels: bool = True):  # no kernel: the flag is unused
         b, h, w, c = x.shape
         n, hidden = h * w, self.heads * self.dim_head
@@ -460,6 +465,7 @@ class Unet(nn.Module):
             return checkpoint(run, *args, use_reentrant=False)
         return run(*args)
 
+    @annotate("unet")
     def forward(self, x, time, x_self_cond=None, use_kernels: bool = True):
         if self.fsdp is None:
             return self._forward(x, time, x_self_cond, use_kernels)

@@ -59,6 +59,7 @@ from .kernels.channel_mix import channel_mix
 from .kernels.coupling_tail import coupling_step_tail, coupling_step_tail_inverse
 from .kernels.step_megakernel import step_megakernel_forward
 from .zeroconv import init_zeroconv, zeroconv_apply
+from ..utils.profiling import annotate
 
 Params = Dict[str, Any]
 
@@ -226,20 +227,24 @@ def coupling_forward(params: Params, x: torch.Tensor, ldj: torch.Tensor,
     """scale = sigmoid(log_scale + 2); y_b = (x_b + bias) * scale;
     ldj += sum log(scale + 1e-6)."""
     x_a, x_b = _halves(x)
-    log_scale, bias = _halves(coupling_net_apply(params["net"], x_a, dtype, model, rows))
-    scale = torch.sigmoid(log_scale + 2.0)
-    y_b = (x_b + bias) * scale
-    ldj = ldj + torch.sum(torch.log(scale + _EPS_COUPLING).reshape(x.shape[0], -1), dim=1)
-    return torch.cat([x_a, y_b], dim=-1), ldj
+    with annotate("coupling.cnn"):
+        log_scale, bias = _halves(coupling_net_apply(params["net"], x_a, dtype, model, rows))
+    with annotate("flow.tail"):
+        scale = torch.sigmoid(log_scale + 2.0)
+        y_b = (x_b + bias) * scale
+        ldj = ldj + torch.sum(torch.log(scale + _EPS_COUPLING).reshape(x.shape[0], -1), dim=1)
+        return torch.cat([x_a, y_b], dim=-1), ldj
 
 
 def coupling_inverse(params: Params, y: torch.Tensor,
                      dtype: torch.dtype = torch.float32, model=None) -> torch.Tensor:
     """x_b = y_b / (scale + 1e-6) - bias."""
     y_a, y_b = _halves(y)
-    log_scale, bias = _halves(coupling_net_apply(params["net"], y_a, dtype, model))
-    scale = torch.sigmoid(log_scale + 2.0)
-    return torch.cat([y_a, y_b / (scale + _EPS_COUPLING) - bias], dim=-1)
+    with annotate("coupling.cnn"):
+        log_scale, bias = _halves(coupling_net_apply(params["net"], y_a, dtype, model))
+    with annotate("flow.tail"):
+        scale = torch.sigmoid(log_scale + 2.0)
+        return torch.cat([y_a, y_b / (scale + _EPS_COUPLING) - bias], dim=-1)
 
 
 @torch.no_grad()
@@ -370,14 +375,19 @@ def fused_actnorm_invconv_forward(an: Params, ic: Params, x: torch.Tensor,
     """actnorm + 1x1 conv as one matmul plus bias;
     ldj += H*W*(sum(s) + log|det W|)."""
     h, w = x.shape[1], x.shape[2]
-    w_fold, b_fold, ld = fold_actnorm_invconv(an, ic)
-    y = torch.matmul(x, w_fold.T) + b_fold
-    return y, ldj + (h * w) * ld
+    with annotate("flow.fold"):
+        w_fold, b_fold, ld = fold_actnorm_invconv(an, ic)
+    with annotate("flow.mix"):
+        y = torch.matmul(x, w_fold.T) + b_fold
+        return y, ldj + (h * w) * ld
 
 
 def fused_invconv_actnorm_inverse(an: Params, ic: Params, y: torch.Tensor) -> torch.Tensor:
     """Inverse of the fused pair: x = y @ (diag(e^-s) W^{-1})^T - b."""
-    return torch.matmul(y, _inverse_fold(an, ic).T) - an["bias"]
+    with annotate("flow.fold"):
+        w_inv = _inverse_fold(an, ic)
+    with annotate("flow.mix"):
+        return torch.matmul(y, w_inv.T) - an["bias"]
 
 
 def step_forward(params: Params, x: torch.Tensor, ldj: torch.Tensor,
@@ -385,11 +395,14 @@ def step_forward(params: Params, x: torch.Tensor, ldj: torch.Tensor,
                  model=None, rows=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """One Glow step; `model` (a parallel/tensor_parallel.ModelAxis) when
     the step holds a rank's slabs of its coupling CNN (ops/coupling.py),
-    `rows` when `x` is a rank's row block of the image."""
-    if use_kernels:
-        return step_forward_kernels(params, x, ldj, dtype, model, rows)
-    y, ldj = fused_actnorm_invconv_forward(params["actnorm"], params["invconv"], x, ldj)
-    return coupling_forward(params["coupling"], y, ldj, dtype, model, rows)
+    `rows` when `x` is a rank's row block of the image. Either route runs
+    its parts in the spans flow.fold, flow.mix, coupling.cnn and flow.tail
+    inside flow.step."""
+    with annotate("flow.step"):
+        if use_kernels:
+            return step_forward_kernels(params, x, ldj, dtype, model, rows)
+        y, ldj = fused_actnorm_invconv_forward(params["actnorm"], params["invconv"], x, ldj)
+        return coupling_forward(params["coupling"], y, ldj, dtype, model, rows)
 
 
 def step_forward_kernels(params: Params, x: torch.Tensor, ldj: torch.Tensor,
@@ -402,12 +415,16 @@ def step_forward_kernels(params: Params, x: torch.Tensor, ldj: torch.Tensor,
     added to the running one. The input may be a view (a squeeze); the
     channel mix takes it contiguous."""
     h, w = x.shape[1], x.shape[2]
-    w_fold, b_fold, ld = fold_actnorm_invconv(params["actnorm"], params["invconv"])
-    y = channel_mix(x.contiguous(), w_fold, b_fold)
-    ldj = ldj + (h * w) * ld
+    with annotate("flow.fold"):
+        w_fold, b_fold, ld = fold_actnorm_invconv(params["actnorm"], params["invconv"])
+    with annotate("flow.mix"):
+        y = channel_mix(x.contiguous(), w_fold, b_fold)
+        ldj = ldj + (h * w) * ld
     net = params["coupling"]["net"]
-    r = coupling_net_conv(net, _halves(y)[0], dtype, model, rows)
-    return coupling_step_tail(y, r, net["zconv"]["b"], net["zconv"]["logs"], ldj)
+    with annotate("coupling.cnn"):
+        r = coupling_net_conv(net, _halves(y)[0], dtype, model, rows)
+    with annotate("flow.tail"):
+        return coupling_step_tail(y, r, net["zconv"]["b"], net["zconv"]["logs"], ldj)
 
 
 def step_forward_megakernel(params: Params, x: torch.Tensor,
@@ -437,10 +454,11 @@ def step_ddinit(params: Params, x: torch.Tensor, model=None) -> Tuple[Params, to
 
 def step_inverse(params: Params, y: torch.Tensor, use_kernels: bool = False,
                  dtype: torch.dtype = torch.float32, model=None) -> torch.Tensor:
-    if use_kernels:
-        return step_inverse_kernels(params, y, dtype, model)
-    x = coupling_inverse(params["coupling"], y, dtype, model)
-    return fused_invconv_actnorm_inverse(params["actnorm"], params["invconv"], x)
+    with annotate("flow.step"):
+        if use_kernels:
+            return step_inverse_kernels(params, y, dtype, model)
+        x = coupling_inverse(params["coupling"], y, dtype, model)
+        return fused_invconv_actnorm_inverse(params["actnorm"], params["invconv"], x)
 
 
 def step_inverse_kernels(params: Params, y: torch.Tensor,
@@ -455,9 +473,13 @@ def step_inverse_kernels(params: Params, y: torch.Tensor,
     convolution, the tail and the mix. The input may be a view; the tail
     takes it contiguous."""
     an = params["actnorm"]
-    w_inv, b_inv = _inverse_fold(an, params["invconv"]).contiguous(), -an["bias"]
+    with annotate("flow.fold"):
+        w_inv, b_inv = _inverse_fold(an, params["invconv"]).contiguous(), -an["bias"]
     y = y.contiguous()
     net = params["coupling"]["net"]
-    r = coupling_net_conv(net, _halves(y)[0], dtype, model)
-    x = coupling_step_tail_inverse(y, r, net["zconv"]["b"], net["zconv"]["logs"])
-    return channel_mix(x, w_inv, b_inv)
+    with annotate("coupling.cnn"):
+        r = coupling_net_conv(net, _halves(y)[0], dtype, model)
+    with annotate("flow.tail"):
+        x = coupling_step_tail_inverse(y, r, net["zconv"]["b"], net["zconv"]["logs"])
+    with annotate("flow.mix"):
+        return channel_mix(x, w_inv, b_inv)

@@ -12,7 +12,9 @@ that start together (the ranks of a data-parallel launch) run one compile:
 the others wait, find the library current and load it; nvcc writes to a
 temporary name that `os.replace` renames, so no process loads a
 half-written file. Nothing here runs at import time: the CPU tests import
-every module, and the CPU has no `nvcc`.
+every module, and the CPU has no `nvcc`. A recording (utils/profiling.py)
+counts the libraries built (`kernels.built`) and loaded (`kernels.loaded`)
+while it is on, so a build inside a timed window shows.
 """
 
 from __future__ import annotations
@@ -29,6 +31,8 @@ from pathlib import Path
 from typing import Any, Dict, Iterable, Optional, Tuple
 
 import torch
+
+from ...utils.profiling import count
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -141,6 +145,7 @@ def _build_stale(names: Optional[Iterable[str]]) -> float:
             failed.append(f"{SOURCES[name]} ({proc.returncode}):\n{err}")
         else:
             os.replace(tmp, library_path(name))
+            count("kernels.built")
     if failed:
         raise RuntimeError("nvcc failed: " + "\n".join(failed))
     return time.perf_counter() - t0
@@ -160,6 +165,7 @@ def library(name: str) -> ctypes.CDLL:
                 fn = getattr(lib, fn_name)
                 fn.argtypes, fn.restype = argtypes, restype
             _libraries[name] = lib
+            count("kernels.loaded")
     return _libraries[name]
 
 

@@ -23,6 +23,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from . import _build
+from ...utils.profiling import annotate
 
 SMS = 132                  # H100 SXM
 MAX_THREADS = 512          # csrc/flow_kernels.cu: CM_MAX_THREADS
@@ -127,6 +128,7 @@ class ChannelMixFunction(torch.autograd.Function):
         return _mix(x, w_fold, b_fold)
 
     @staticmethod
+    @annotate("flow.mix.bwd")
     def backward(ctx, g):
         x, w_fold = ctx.saved_tensors
         o, c = w_fold.shape

@@ -57,6 +57,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from . import _build
+from ...utils.profiling import annotate
 
 EPS = 1e-6
 SMS = 132                # H100 SXM
@@ -403,6 +404,7 @@ class CouplingTailFunction(torch.autograd.Function):
         return _tail(log_scale, bias, x_b)
 
     @staticmethod
+    @annotate("flow.tail.bwd")
     def backward(ctx, g_y, g_ldj):
         if g_y is None and g_ldj is None:
             return None, None, None
@@ -426,6 +428,7 @@ class CouplingStepTailFunction(torch.autograd.Function):
         return _step_tail(y, r, zb, zlogs, ldj)
 
     @staticmethod
+    @annotate("flow.tail.bwd")
     def backward(ctx, g_out, g_ldj):
         if g_out is None and g_ldj is None:
             return None, None, None, None, None

@@ -85,7 +85,7 @@ from ..parallel.distributed import distribute_batch
 from ..parallel import sharding_rules as rules
 from ..parallel import tensor_parallel as tp
 from ..parallel import zero
-from ..utils.profiling import EpochProfiler, StepTimer
+from ..utils.profiling import EpochProfiler, StepTimer, annotate
 from ..utils.watchdog import StepWatchdog, interrupt_after_block
 from .checkpoint import (clear_mid_epoch_marker, restore_state, save_architecture,
                          save_mid_epoch_marker, save_state)
@@ -308,6 +308,7 @@ def make_train_step(cfg: glow_m.GlowConfig, tcfg: NFTrainConfig, tx: Optimizer,
     generator = torch.Generator(device=device)
     model_placements = None  # computed at the first step
 
+    @annotate("nf.train_step")
     def train_step(state, batch, seed_or_noise):
         nonlocal model_placements
         params = state["params"]
@@ -334,7 +335,8 @@ def make_train_step(cfg: glow_m.GlowConfig, tcfg: NFTrainConfig, tx: Optimizer,
                 words = (_STEP, seed_or_noise, state["step"]) + ((i,) if accum > 1 else ())
                 bpd, ll = loss_fn(params, micro, mesh_m.row_generator(
                     mesh, inference.reseed(generator, *words), micro.shape[0]), fsdp=fsdp)
-            bpd.backward()  # the microbatches' gradients add up in .grad
+            with annotate("nf.backward"):
+                bpd.backward()  # the microbatches' gradients add up in .grad
             bpds.append(bpd.detach())
             lls.append(ll.detach().mean())
         if accum > 1:

@@ -37,6 +37,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import torch
 
 from ..convert import is_frozen_path, map_tree, named_leaves
+from ..utils.profiling import annotate
 
 Tree = Any
 Schedule = Callable[[int], float]
@@ -136,6 +137,7 @@ class Optimizer:
         return grads
 
     @torch.no_grad()
+    @annotate("optim.apply")
     def apply(self, params: Tree, grads: Tree, state: Dict[str, Any], mesh=None,
               placements: Optional[Dict[str, Any]] = None,
               extras: Sequence[torch.Tensor] = (),
@@ -156,7 +158,9 @@ class Optimizer:
         Under a model axis the leaves that `model_placements` names are the
         rank's slabs, or under the pipeline a stage's whole steps (moments
         alike): Adam and the value clip are local, the norm clip's squares
-        summed over the model group (clipped)."""
+        summed over the model group (clipped). The span optim.apply holds
+        the whole update, optim.grad_allreduce inside it the data group's
+        all-reduce."""
         from ..parallel import mesh as mesh_m
 
         placements = placements or {}
@@ -172,7 +176,8 @@ class Optimizer:
                 rows.append((p, g, m, v, schedule, path in placements,
                              path in model_placements))
         if mesh is not None and mesh.data_group is not None:
-            mesh_m.all_reduce_mean_(mesh, [r[1] for r in rows if not r[5]] + list(extras))
+            with annotate("optim.grad_allreduce"):
+                mesh_m.all_reduce_mean_(mesh, [r[1] for r in rows if not r[5]] + list(extras))
         if not rows:
             return dict(state, count=state["count"] + 1)
         # the slabs first: the norm clip sums their squares over the ranks
